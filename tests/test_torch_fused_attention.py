@@ -1,0 +1,170 @@
+"""The port's attention-sublayer functions against the JAX package's.
+
+Rows 1-2 of the TPU kernel table (deepl_project_tpu/ops/pallas/
+fused_attention_block.py): the plain PyTorch versions that the port's CPU
+wrappers run are held against the JAX plain references (``_reference``,
+``qkv_rope_reference``) and against the Pallas kernels in interpret mode, on
+the same numpy inputs. The CUDA kernels themselves run only on a card
+(tests/test_torch_cuda_kernels.py; ``python3 chip_smoke.py`` runs them at
+full size).
+
+Tolerances: fp32 end to end, 2e-4 abs/rel (different summation orders,
+fp32 exp); bf16, 2**-6 * max|ref| (two bf16 rounding steps at the largest
+magnitude: both packages round at the same places, but an fp32 sum in a
+different order can land on the other side of a bf16 rounding boundary).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from deepl_project_tpu.ops.pallas import fused_attention_block as jfab
+from deepl_project_tpu_torch.ops.hopper import fused_attention_block as fab
+from deepl_project_tpu_torch.ops.rope import rope2d_tables
+
+torch.set_num_threads(2)
+ATOL = RTOL = 2e-4
+
+
+def _inputs(c, hd, h=16, w=16, b=2, seed=0, wscale=None):
+    """Seeded numpy inputs: x [B,N,C]; LN affines; JAX-layout [in, out]
+    weights (the port takes their transposes, nn.Linear layout)."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    n = h * w
+    wscale = wscale or 1.0 / np.sqrt(c)
+    x = rng.standard_normal((b, n, c)).astype(f)
+    ln = tuple((1 + 0.1 * rng.standard_normal(c).astype(f),
+                0.1 * rng.standard_normal(c).astype(f)) for _ in range(3))
+    wq, wk, wv, wp = (wscale * rng.standard_normal((c, c)).astype(f) for _ in range(4))
+    bp = 0.1 * rng.standard_normal(c).astype(f)
+    return x, ln, (wq, wk, wv, wp), bp
+
+
+def _torch_args(x, ln, ws, dtype=torch.float32):
+    tx = torch.from_numpy(x).to(dtype)
+    tln = tuple((torch.from_numpy(g), torch.from_numpy(b)) for g, b in ln)
+    tw = tuple(torch.from_numpy(np.ascontiguousarray(w.T)) for w in ws)
+    return tx, tln, tw
+
+
+def _close(got, want, atol=ATOL, rtol=RTOL):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("pairing", ["reference", "standard"])
+def test_ln_qkv_rope_plain_matches_jax_and_pallas(pairing):
+    # 4 heads of 32: per-head permutation and RoPE halves across heads.
+    c, hd, h, w = 128, 32, 16, 16
+    x, ln, (wq, wk, wv, _), _ = _inputs(c, hd, h, w)
+    jargs = (jnp.asarray(x), tuple((jnp.asarray(g), jnp.asarray(b)) for g, b in ln),
+             jnp.asarray(wq), jnp.asarray(wk), jnp.asarray(wv), h, w)
+    ref = jfab.qkv_rope_reference(*jargs, pairing=pairing, head_dim=hd)
+    pallas = jfab.fused_qkv_rope(*jargs, pairing=pairing, head_dim=hd, interpret=True)
+    tx, tln, (twq, twk, twv, _) = _torch_args(x, ln, (wq, wk, wv, wq))
+    got = fab.ln_qkv_rope(tx, tln, twq, twk, twv, h, w, pairing, hd)  # CPU: plain
+    for g, r, p in zip(got, ref, pallas):
+        _close(g, r)
+        _close(g, p)
+
+
+@pytest.mark.parametrize("pairing,hd", [("reference", 32), ("standard", 16)])
+def test_sublayer_plain_matches_jax_and_pallas(pairing, hd):
+    c, h, w = 128, 16, 16
+    x, ln, ws, bp = _inputs(c, hd, h, w, seed=1)
+    jln = tuple((jnp.asarray(g), jnp.asarray(b)) for g, b in ln)
+    jws = tuple(jnp.asarray(t) for t in ws)
+    ref = jfab._reference(jnp.asarray(x), jln, *jws, jnp.asarray(bp), h, w,
+                          pairing, hd, hd ** -0.5, True)
+    pallas = jfab.fused_attention_sublayer(jnp.asarray(x), jln, *jws, jnp.asarray(bp),
+                                           h, w, pairing=pairing, head_dim=hd,
+                                           interpret=True)
+    tx, tln, tws = _torch_args(x, ln, ws)
+    got = fab.fused_attention_sublayer(tx, tln, *tws, torch.from_numpy(bp), h, w,
+                                       pairing, hd)
+    _close(got, ref)
+    _close(got, pallas)
+
+
+def test_kernel_split_equals_sublayer():
+    # The card runs the sublayer as ln_qkv_rope -> attention_core ->
+    # proj_bias_gemm on PERMUTED q/k; the composition of their plain versions
+    # must equal the port of _reference (natural layout).
+    c, hd, h, w = 128, 32, 8, 16
+    x, ln, ws, bp = _inputs(c, hd, h, w, seed=2, wscale=2.0 / np.sqrt(128))
+    tx, tln, (twq, twk, twv, twp) = _torch_args(x, ln, ws)
+    tbp = torch.from_numpy(bp)
+    q, k, v = fab.ln_qkv_rope(tx, tln, twq, twk, twv, h, w, head_dim=hd)
+    o = fab.attention_core(q, k, v, hd ** -0.5, head_dim=hd)
+    got = fab.proj_bias_gemm(o, twp, tbp)
+    want = fab.sublayer_reference(tx, tln, twq, twk, twv, twp, tbp, h, w, head_dim=hd)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("c,h,w", [(128, 16, 16), (256, 8, 8)])
+def test_bf16_plain_matches_jax_reference(c, h, w):
+    # The kernels' working precision and head width (hd=64): both packages
+    # round x-hat, each branch input and each projection to bf16.
+    hd = 64
+    x, ln, ws, bp = _inputs(c, hd, h, w, seed=3, wscale=2.0 / np.sqrt(c))
+    jx = jnp.asarray(x, jnp.bfloat16)
+    jln = tuple((jnp.asarray(g), jnp.asarray(b)) for g, b in ln)
+    jws = tuple(jnp.asarray(t) for t in ws)
+    tx, tln, tws = _torch_args(x, ln, ws, torch.bfloat16)  # same rounding as jx
+    ref_q = jfab.qkv_rope_reference(jx, jln, *jws[:3], h, w, head_dim=hd)
+    got_q = fab.qkv_rope_reference(tx, tln, *tws[:3], h, w, head_dim=hd)
+    for g, r in zip(got_q, ref_q):
+        r = np.asarray(r.astype(jnp.float32))
+        _close(g.float(), r, atol=2 ** -6 * np.abs(r).max(), rtol=0)
+    ref = np.asarray(jfab._reference(jx, jln, *jws, jnp.asarray(bp), h, w, "reference",
+                                     hd, hd ** -0.5, True).astype(jnp.float32))
+    got = fab.sublayer_reference(tx, tln, *tws, torch.from_numpy(bp), h, w)
+    assert got.dtype == torch.bfloat16
+    _close(got.float(), ref, atol=2 ** -6 * np.abs(ref).max(), rtol=0)
+
+
+def test_rope_tables_match_jax():
+    from deepl_project_tpu.ops.rope import _rope2d_tables_np
+
+    for pairing in ("reference", "standard"):
+        got = rope2d_tables(64, 8, 16, pairing)
+        ca, sa, cb, sb = _rope2d_tables_np(64, 8, 16)
+        want = (ca, sa, ca, sa) if pairing == "standard" else (ca, sa, cb, sb)
+        for g, wnt in zip(got, want):
+            assert g.dtype == torch.float32 and g.shape == (128, 32)
+            np.testing.assert_array_equal(g.numpy(), wnt)
+
+
+def test_head_perm_matches_jax():
+    np.testing.assert_array_equal(fab.head_perm(3, 16), jfab._head_perm(3, 16))
+
+
+def test_kernel_limits():
+    bf = torch.bfloat16
+    assert fab.kernel_supported(4096, 384, 64, bf)
+    assert fab.sublayer_supported(1024, 768, 64, bf)
+    assert fab.sublayer_supported(256, 1536, 64, bf)
+    assert not fab.sublayer_supported(4096, 384, 64, bf)  # N > 1024: qkv kernel only
+    assert not fab.kernel_supported(1024, 768, 32, bf)  # head_dim 64 only
+    assert not fab.kernel_supported(1024, 320, 64, bf)  # C % 128
+    assert not fab.kernel_supported(1000, 768, 64, bf)  # N % 64
+    assert not fab.kernel_supported(1024, 768, 64, torch.float32)
+
+
+def test_wrappers_raise_off_cpu_instead_of_falling_back():
+    # A tensor that is not on the CPU must reach a kernel or raise; the
+    # plain versions are for CPU tensors only (meta stands in for a card).
+    x = torch.empty(2, 256, 128, dtype=torch.bfloat16, device="meta")
+    w = torch.empty(128, 128, device="meta")
+    ln = tuple((torch.empty(128, device="meta"),) * 2 for _ in range(3))
+    with pytest.raises(ValueError):
+        fab.ln_qkv_rope(x, ln, w, w, w, 16, 16)
+    with pytest.raises(ValueError):
+        fab.attention_core(x, x, x, 0.125)
+    with pytest.raises(ValueError):
+        fab.proj_bias_gemm(x.float(), w, w[0])
+    with pytest.raises(ValueError):
+        fab.fused_attention_sublayer(x, ln, w, w, w, w, w[0], 16, 16)
+    assert fab.launch_counts() == {}
