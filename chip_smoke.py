@@ -3,28 +3,44 @@
 
     python3 chip_smoke.py                 # all phases, as a check
     python3 chip_smoke.py --phases build,kernels
-    python3 chip_smoke.py --profile       # also a torch.profiler breakdown
+    python3 chip_smoke.py --profile       # also torch.profiler breakdowns
 
 Phases (any failure exits non-zero and prints no result):
 
-1. build: compile the three Hopper kernels of deepl_project_tpu_torch/csrc
+1. build: compile the six Hopper kernels of deepl_project_tpu_torch/csrc
    with nvcc for sm_90a (in parallel) and print ptxas' register and shared
    memory report.
-2. kernels: run each kernel at the shapes of large f16d32 @256px, batch 32
-   ([B,4096,384] for ln_qkv_rope; [B,1024,768] and [B,256,1536] for all
-   three) and hold it against its plain PyTorch version on the same inputs:
-   max |kernel - plain| <= 2**-6 * max|plain|, i.e. two bf16 rounding steps
-   (ulp <= 2**-7 |v|) at the largest magnitude. Times each kernel, its plain
-   version and, where one exists, the one PyTorch call computing the same
-   function, with CUDA events.
-3. serve: build large f16d32 in bf16 from a seed, serve it over HTTP on
+2. kernels: run each kernel at the main paths' shapes and hold it against
+   its plain PyTorch version on the same inputs: max |kernel - plain| <=
+   2**-6 * max|plain|, i.e. two bf16 rounding steps (ulp <= 2**-7 |v|) at
+   the largest magnitude. The sublayer kernels at large f16d32 @256px,
+   batch 32 ([B,4096,384] for ln_qkv_rope; [B,1024,768] and [B,256,1536]
+   for all three); the flash kernels (forward, dq, dk/dv) at the training
+   microbatch (8 images, 6 heads, N=4096), the forward also at 512px
+   serving (2 images, N=16384) and at 256px serving batch 32 against the
+   plain chunked core (the inference dispatch's evidence). Times each
+   kernel, its plain version and, where one exists, the one PyTorch call
+   computing the same function (SDPA, its backward, F.linear), with CUDA
+   events.
+3. grad: the sublayer kernels' backward (their plain versions' VJP) at the
+   stage-3 training shape: gradients of x, the LN affines and every weight
+   on the kernel path against the plain path's.
+4. train: large f16d32 (fp32 params from a seed, bf16 compute) trained by
+   Trainer.fit on synthetic 256px images, batch 16 as 2 microbatches of 8,
+   L1 + LPIPS (random VGG) + KL, AdamW with warmup, a checkpoint at the
+   end; launch counters set to 0 before and read after: exactly 12 flash
+   forward, 12 dq and 12 dk/dv launches per step and no sublayer kernel;
+   finite losses, params moved; one batch's loss and gradient norm on the
+   kernel path against the plain attention core. Times steps, img/s and
+   peak memory.
+5. serve: build large f16d32 in bf16 from a seed, serve it over HTTP on
    localhost through InferenceEngine (concurrent uint8/float reconstruct,
    encode and decode requests), with the launch counters set to 0 before and
    read after; check shapes, finiteness and the [0,1] range; check one
-   reconstruct launches exactly 20 sublayers and 6 stage-2 ln_qkv_rope
-   kernels; hold one reconstruct (b=4) of the kernel path and of the plain
-   bf16 path against the same weights in fp32.
-4. time: reconstruct images/s at batch 32 through InferenceEngine.run.
+   reconstruct's launches per kernel and shape; hold one reconstruct (b=4)
+   of the kernel path and of the plain bf16 path against the same weights
+   in fp32; one 512px reconstruct (b=2) with its flash forward launches.
+6. time: reconstruct images/s at batch 32 through InferenceEngine.run.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -51,6 +67,19 @@ KERNEL_RTOL = 2 ** -6
 # be about as close to it as the plain bf16 path.
 MODEL_MEAN_RATIO = 1.5
 MODEL_MAX_RATIO = 2.0
+# Training: the flash path and the plain attention core round at different
+# places in 6 stage-2 sublayers of a bf16 model; on the same weights and
+# images (the mean decoded, no sampling noise) their losses must agree to 1%
+# and their gradient norms to 5%.
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_GRAD_NORM_RTOL = 5e-2
+TRAIN_STEPS = 5
+COMPARE_BATCH = 4  # the plain core's saved [B, h, N, N] weights bound it
+# (batch, N, heads) of the flash kernels' shapes: the training microbatch,
+# 256px serving at batch 32 (stage 2) and 512px serving at batch 2.
+FLASH_TRAIN = (8, 4096, 6)
+FLASH_SERVE_256 = (32, 4096, 6)
+FLASH_SERVE_512 = (2, 16384, 6)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CARD = ""
@@ -106,20 +135,39 @@ def kernel_shapes():
     return [(4096, 384, 64, 64, 32), (1024, 768, 32, 32, 32), (256, 1536, 16, 16, 32)]
 
 
-def launches_per_reconstruct(cfg) -> dict:
-    """Expected (kernel, N, C) -> launches in one reconstruct at 256px."""
+def launches_per_reconstruct(cfg, res: int = 256) -> tuple[dict, dict]:
+    """Expected launches in one reconstruct at ``res`` px: (sublayer kernels
+    by (name, N, C), flash kernels by (name, N, heads))."""
+    from deepl_project_tpu_torch.ops import attention as attn
     from deepl_project_tpu_torch.ops.hopper.fused_attention_block import MAX_SUBLAYER_TOKENS
 
-    out = {}
+    fab_want, fla_want = {}, {}
     for i in range(cfg.num_cnn_stages, cfg.num_stages):
-        side = 256 // 2 ** i
+        side = res // 2 ** i
         n, c = side * side, cfg.base_dims[i]
         calls = 2 * cfg.depths[i]  # encoder and decoder
         names = (("ln_qkv_rope", "attention_core", "proj_bias_gemm")
                  if n <= MAX_SUBLAYER_TOKENS else ("ln_qkv_rope",))
         for name in names:
-            out[(name, n, c)] = calls
-    return out
+            fab_want[(name, n, c)] = calls
+        if n > MAX_SUBLAYER_TOKENS and (
+                n >= attn._PALLAS_MIN_TOKENS or attn._PALLAS_MID_BAND[0] < n
+                <= attn._PALLAS_MID_BAND[1]):
+            fla_want[("flash_attention_fwd", n, c // 64)] = calls
+    return fab_want, fla_want
+
+
+def flash_bound(name, b, n, h):
+    """(flops, bytes) a flash kernel must do/move: the JAX cost estimates'
+    FLOPs (4, 6, 8 x BH N^2 64), each bf16 [B, N, h, 64] operand read or
+    written once and the fp32 [B, h, N] lse/delta rows."""
+    bh, d = b * h, 64
+    t, row = bh * n * d * 2, bh * n * 4
+    if name == "flash_attention_fwd":
+        return 4 * bh * n * n * d, 4 * t + row          # q k v -> o, lse
+    if name == "flash_attention_bwd_dq":
+        return 6 * bh * n * n * d, 5 * t + 2 * row      # q k v dO lse delta -> dq
+    return 8 * bh * n * n * d, 6 * t + 2 * row          # ... -> dk, dv
 
 
 def bound(name, b, n, c):
@@ -232,6 +280,276 @@ def phase_kernels():
     return results
 
 
+def phase_flash_kernels():
+    """The three flash kernels against their plain versions; times."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepl_project_tpu_torch.ops.attention import xla_attention
+    from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    scale = 64 ** -0.5
+
+    def inputs(b, n, h):
+        # Entries of std 1.5: scores q.k/8 of std ~1.1, a spread softmax row.
+        return [(1.5 * torch.randn(b, n, h, 64, generator=gen, device="cuda"))
+                .to(torch.bfloat16) for _ in range(4)]
+
+    def check(name, shape, got, ref):
+        got, ref = got.float(), ref.float()
+        if not bool(torch.isfinite(got).all()):
+            fail(f"{name} {shape}: non-finite output")
+        err = (got - ref).abs().max().item()
+        top = ref.abs().max().item()
+        lim = KERNEL_RTOL * top
+        log(f"check {name} (B, N, h)={shape}: max_abs_err={err:.3e} max|plain|={top:.3e} "
+            f"rel={err / top:.3e} bound={lim:.3e} (rel {KERNEL_RTOL:.3e})")
+        if not err <= lim:
+            fail(f"{name} {shape}: max_abs_err {err:.3e} > {lim:.3e}")
+        return err
+
+    def record(name, shape, err, ms, plain_ms, library_ms):
+        flops, nbytes = flash_bound(name, *shape)
+        r = {"err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+             "flops": flops, "bytes": nbytes,
+             "bound_ms": max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3}
+        lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
+        log(f"time {name} (B, N, h)={shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library {lib} ms, bound {r['bound_ms']:.4f} ms ({flops:.4e} FLOP, "
+            f"{nbytes:.4e} B) [{CARD}]")
+        results[(name, *shape)] = r
+
+    results = {}
+    # Training microbatch: forward, dq, dk/dv.
+    shape = FLASH_TRAIN
+    q, k, v, do = inputs(*shape)
+    o, lse = fla.flash_forward(q, k, v, scale)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fla.flash_forward_reference(q, k, v, scale)
+    err = max(check("flash_attention_fwd", shape, o, o_ref),
+              check("flash_attention_fwd lse", shape, lse, lse_ref))
+    del o_ref, lse_ref
+    delta = fla.flash_delta(o, do)
+    dq = fla.flash_backward_dq(q, k, v, do, lse, delta, scale)
+    dk, dv = fla.flash_backward_dkv(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    rdq, rdk, rdv = fla.flash_backward_reference(q, k, v, o, lse, do, scale)
+    err_dq = check("flash_attention_bwd_dq", shape, dq, rdq)
+    err_dkv = max(check("flash_attention_bwd_dkv dk", shape, dk, rdk),
+                  check("flash_attention_bwd_dkv dv", shape, dv, rdv))
+    del rdq, rdk, rdv, dq, dk, dv
+    heads = [t.transpose(1, 2) for t in (q, k, v)]
+    sdpa_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(*heads), 20)
+    hq = [t.detach().requires_grad_(True) for t in heads]
+    out = F.scaled_dot_product_attention(*hq)
+    g = do.transpose(1, 2)
+    sdpa_bwd_ms = cuda_time_ms(
+        lambda: torch.autograd.grad(out, hq, g, retain_graph=True), 20)
+    del out, hq
+    plain_fwd_ms = cuda_time_ms(lambda: fla.flash_forward_reference(q, k, v, scale), 3)
+    plain_bwd_ms = cuda_time_ms(
+        lambda: fla.flash_backward_reference(q, k, v, o, lse, do, scale), 3)
+    record("flash_attention_fwd", shape, err,
+           cuda_time_ms(lambda: fla.flash_forward(q, k, v, scale), 20), plain_fwd_ms, sdpa_ms)
+    # The plain backward and SDPA's backward each give dq, dk and dv at once:
+    # both rows carry the whole call's time.
+    record("flash_attention_bwd_dq", shape, err_dq,
+           cuda_time_ms(lambda: fla.flash_backward_dq(q, k, v, do, lse, delta, scale), 20),
+           plain_bwd_ms, sdpa_bwd_ms)
+    record("flash_attention_bwd_dkv", shape, err_dkv,
+           cuda_time_ms(lambda: fla.flash_backward_dkv(q, k, v, do, lse, delta, scale), 20),
+           plain_bwd_ms, sdpa_bwd_ms)
+    del q, k, v, do, o, lse, delta
+
+    # Serving: 512px stage 2, and the 256px stage-2 decision (flash forward
+    # against the plain chunked core, in turns: plain, kernel, kernel, plain).
+    for shape in (FLASH_SERVE_512, FLASH_SERVE_256):
+        q, k, v, _ = inputs(*shape)
+        o, _ = fla.flash_forward(q, k, v, scale)
+        torch.cuda.synchronize()
+        plain = xla_attention(q, k, v, scale)
+        err = check("flash_attention_fwd", shape, o, plain)
+        del o, plain
+        t_plain = [cuda_time_ms(lambda: xla_attention(q, k, v, scale), 3)]
+        t_kern = [cuda_time_ms(lambda: fla.flash_forward(q, k, v, scale), 10) for _ in range(2)]
+        t_plain.append(cuda_time_ms(lambda: xla_attention(q, k, v, scale), 3))
+        heads = [t.transpose(1, 2) for t in (q, k, v)]
+        sdpa_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(*heads), 10)
+        log(f"serve core (B, N, h)={shape}: flash forward {t_kern[0]:.4f} / {t_kern[1]:.4f} ms, "
+            f"plain chunked core {t_plain[0]:.4f} / {t_plain[1]:.4f} ms [{CARD}]")
+        record("flash_attention_fwd", shape, err, min(t_kern), min(t_plain), sdpa_ms)
+        del q, k, v, heads
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_grad():
+    """Part of the sublayer kernels' contract since they are differentiable:
+    at the stage-3 training shape (8 images, N=1024, C=768) the gradients of
+    x, the LN affines and every weight through the kernel path equal the
+    plain path's (the backward is the plain version's VJP)."""
+    import torch
+
+    from deepl_project_tpu_torch.ops.hopper import fused_attention_block as fab
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    b, n, c, hh, ww = 8, 1024, 768, 32, 32
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    x = randn(b, n, c).to(torch.bfloat16)
+    ln = tuple((1 + randn(c, scale=0.1), randn(c, scale=0.1)) for _ in range(3))
+    wq, wk, wv, wp = (randn(c, c, scale=2 / c ** 0.5) for _ in range(4))
+    bp = randn(c, scale=0.1)
+    leaves = [x, *[t for pair in ln for t in pair], wq, wk, wv, wp, bp]
+    for t in leaves:
+        t.requires_grad_(True)
+    for kind in ("fused_attention_sublayer", "ln_qkv_rope"):
+        if kind == "ln_qkv_rope":
+            wrt = leaves[:-2]
+            kern = lambda: torch.cat(fab.ln_qkv_rope(x, ln, wq, wk, wv, hh, ww), -1)  # noqa: E731
+            plain = lambda: torch.cat(fab.qkv_rope_reference(x, ln, wq, wk, wv, hh, ww), -1)  # noqa: E731
+        else:
+            wrt = leaves
+            kern = lambda: fab.fused_attention_sublayer(x, ln, wq, wk, wv, wp, bp, hh, ww)  # noqa: E731
+            plain = lambda: fab.sublayer_reference(x, ln, wq, wk, wv, wp, bp, hh, ww)  # noqa: E731
+        out = kern()
+        ct = randn(*out.shape)
+        got = torch.autograd.grad((out.float() * ct).sum(), wrt)
+        want = torch.autograd.grad((plain().float() * ct).sum(), wrt)
+        worst = 0.0
+        for gk, gp in zip(got, want):
+            if not bool(torch.isfinite(gk).all()):
+                fail(f"grad {kind}: non-finite gradient")
+            err = (gk.float() - gp.float()).abs().max().item()
+            top = gp.float().abs().max().item()
+            if not err <= KERNEL_RTOL * top:
+                fail(f"grad {kind}: max_abs_err {err:.3e} > {KERNEL_RTOL * top:.3e}")
+            worst = max(worst, err / top)
+        log(f"grad {kind} N={n} C={c} b={b}: {len(wrt)} gradients match the plain "
+            f"path (worst rel err {worst:.3e}, bound {KERNEL_RTOL:.3e})")
+
+
+def phase_train(profile: bool):
+    """Stage-1 training of large f16d32 at 256px through Trainer.fit."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from deepl_project_tpu_torch import get_config
+    from deepl_project_tpu_torch.data import input_pipeline, make_dataset
+    from deepl_project_tpu_torch.losses import LossWeights
+    from deepl_project_tpu_torch.ops.attention import AttentionRoPE
+    from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
+    from deepl_project_tpu_torch.ops.hopper import fused_attention_block as fab
+    from deepl_project_tpu_torch.training import Trainer, TrainerConfig
+    from deepl_project_tpu_torch.training.train_step import compute_grads, global_norm
+
+    out_dir = os.path.join(ROOT, "outputs", "chip_smoke_train")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = get_config("large", 16, 32, norm_latents=True, attention_impl="auto_train")
+    weights = LossWeights(l1=1.0, lpips=1.0, kl=1e-8, vf=0.0, gan=0.0)
+    tc = TrainerConfig(batch_size=16, accum_steps=2, warmup_steps=2, num_epochs=1,
+                       steps_per_epoch=TRAIN_STEPS, log_every=1, save_every_epochs=1,
+                       output_dir=out_dir, weights=weights, seed=0)
+    trainer = Trainer(cfg, tc, device="cuda")
+    state = trainer.create_state()
+    before = {n: p.detach().clone() for n, p in state.model.named_parameters()
+              if n in ("encoder.conv_in.weight", "decoder.conv_out.weight")}
+    stamps = []
+
+    def timed(it):
+        for batch in it:
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            yield batch
+
+    data = input_pipeline(make_dataset("synthetic", resolution=256, num_samples=10 ** 6),
+                          16, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    fab.reset_launch_counts()
+    fla.reset_launch_counts()
+    t0 = time.time()
+    state = trainer.fit(timed(data), state=state)
+    fit_s = time.time() - t0
+    counts, sub = fla.launch_counts(), fab.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if state.step != TRAIN_STEPS:
+        fail(f"train: {state.step} steps taken, {TRAIN_STEPS} asked")
+    want = {k: 12 * TRAIN_STEPS for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                                          "flash_attention_bwd_dkv")}
+    if counts != want or sub:
+        fail(f"train: flash launches {counts} (want {want}), sublayer kernel launches {sub}")
+    log(f"train: {TRAIN_STEPS} steps launched {fla.launch_counts_by_shape()} "
+        f"(12 fwd + 12 dq + 12 dk/dv per step), no sublayer kernel")
+    with open(os.path.join(out_dir, "history.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["total"] for r in rows if r["kind"] == "train"]
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        fail(f"train: losses {losses}")
+    moved = {n: (p - before[n]).abs().max().item() for n, p in state.model.named_parameters()
+             if n in before}
+    if not all(v > 0 for v in moved.values()):
+        fail(f"train: params did not move {moved}")
+    steps_s = np.diff(stamps)[1:]  # the first interval includes warm-up
+    step_ms = float(np.median(steps_s)) * 1e3
+    log(f"train: losses {[round(v, 5) for v in losses]}, grad_norm "
+        f"{[round(r['grad_norm'], 4) for r in rows]}, param change {moved}")
+    log(f"time train step large f16d32 @256 batch 16 (2 x 8), bf16: {step_ms:.1f} ms/step "
+        f"(steps 2-{TRAIN_STEPS}: {[round(float(v) * 1e3, 1) for v in steps_s]}), "
+        f"{16 / step_ms * 1e3:.2f} img/s, peak memory {peak:.2f} GiB, fit incl. "
+        f"build and checkpoint {fit_s:.1f}s [{CARD}]")
+
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof
+
+        batch = torch.as_tensor(next(data)).to("cuda")
+        trainer.step_fn(state, batch)
+        torch.cuda.synchronize()
+        with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            trainer.step_fn(state, batch)
+            torch.cuda.synchronize()
+        table = p.key_averages().table(sort_by="cuda_time_total", row_limit=50)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "profile_train_step.txt"), "w") as f:
+            f.write(f"{CARD}\n{table}\n")
+        print(table, flush=True)
+
+    # The kernel path against the plain attention core on one batch: the
+    # same weights and images, the mean decoded.
+    del state.optimizer
+    batch = torch.as_tensor(next(data)[:COMPARE_BATCH]).to("cuda")
+    attn = [m for m in state.model.modules() if isinstance(m, AttentionRoPE)]
+    res = {}
+    for impl in ("auto_train", "xla"):
+        for m in attn:
+            m.impl = impl
+        fla.reset_launch_counts()
+        grads, metrics = compute_grads(state.model, batch, weights, trainer.lpips_params,
+                                       sample=False)
+        res[impl] = (metrics["total"].item(), global_norm(grads).item(),
+                     fla.launch_counts().get("flash_attention_bwd_dkv", 0))
+        del grads
+    (lk, gk, nk), (lp, gp, npl) = res["auto_train"], res["xla"]
+    log(f"train compare ({COMPARE_BATCH} images): loss kernel path {lk:.6f} plain core "
+        f"{lp:.6f} (rel {abs(lk - lp) / abs(lp):.3e}, bound {TRAIN_LOSS_RTOL}); grad norm "
+        f"{gk:.6f} / {gp:.6f} (rel {abs(gk - gp) / gp:.3e}, bound {TRAIN_GRAD_NORM_RTOL})")
+    if nk != 6 or npl != 0:
+        fail(f"train compare: flash dk/dv launches {nk} / {npl}, want 6 / 0")
+    if not (abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp)
+            and abs(gk - gp) <= TRAIN_GRAD_NORM_RTOL * gp):
+        fail("train compare: the kernel path and the plain core disagree")
+    del trainer, state, attn
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts, {"step_ms": step_ms, "peak_gib": peak}
+
+
 # -- phase 3 -------------------------------------------------------------
 def phase_serve(model):
     import urllib.request
@@ -241,6 +559,7 @@ def phase_serve(model):
 
     from deepl_project_tpu_torch.models import TransVAE
     from deepl_project_tpu_torch.ops.attention import AttentionRoPE
+    from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
     from deepl_project_tpu_torch.ops.hopper import fused_attention_block as fab
     from deepl_project_tpu_torch.serving import InferenceEngine, make_http_server
 
@@ -278,6 +597,7 @@ def phase_serve(model):
             errors.append(f"{requests[i][0]}: {type(e).__name__}: {e}")
 
     fab.reset_launch_counts()
+    fla.reset_launch_counts()
     t = time.time()
     threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(requests))]
     for th in threads:
@@ -285,7 +605,7 @@ def phase_serve(model):
     for th in threads:
         th.join()
     served_s = time.time() - t
-    counts = fab.launch_counts()
+    counts = {**fab.launch_counts(), **fla.launch_counts()}
     server.shutdown()
     server.server_close()
     engine.stop()
@@ -307,14 +627,29 @@ def phase_serve(model):
         if counts.get(name, 0) == 0:
             fail(f"{name} was not launched while serving")
 
-    # Exactly 20 sublayers + 6 stage-2 qkv kernels per reconstruct.
-    fab.reset_launch_counts()
-    kern = engine.run("reconstruct", imgs[:4])
-    by_shape = fab.launch_counts_by_shape()
+    # Exactly 20 sublayers + 6 stage-2 qkv kernels (+ the stage-2 flash
+    # forwards when the inference dispatch takes them) per reconstruct.
     want = launches_per_reconstruct(cfg)
+    fab.reset_launch_counts()
+    fla.reset_launch_counts()
+    kern = engine.run("reconstruct", imgs[:4])
+    by_shape = (fab.launch_counts_by_shape(), fla.launch_counts_by_shape())
     if by_shape != want:
         fail(f"launches per reconstruct {by_shape} != {want}")
     log(f"one reconstruct launched {by_shape}")
+
+    # 512px: stage 2 at N=16384 takes the flash forward.
+    want = launches_per_reconstruct(cfg, 512)
+    fab.reset_launch_counts()
+    fla.reset_launch_counts()
+    big = engine.run("reconstruct", rng.integers(0, 256, (2, 512, 512, 3), dtype=np.uint8))
+    by_shape = (fab.launch_counts_by_shape(), fla.launch_counts_by_shape())
+    if big.shape != (2, 512, 512, 3) or not np.isfinite(big.astype(np.float32)).all():
+        fail(f"512px reconstruct: shape {big.shape} or non-finite output")
+    if by_shape != want or not want[1]:
+        fail(f"512px launches per reconstruct {by_shape} != {want}")
+    counts["flash_attention_fwd_512"] = sum(by_shape[1].values())
+    log(f"512px reconstruct b=2: finite {big.shape}, launched {by_shape}")
 
     # Accuracy: the kernel path and the plain bf16 path (every attention
     # sublayer through the plain modules), each against the same weights
@@ -323,10 +658,11 @@ def phase_serve(model):
     for m in attn:
         m.impl = "xla"
     fab.reset_launch_counts()
+    fla.reset_launch_counts()
     plain = engine.run("reconstruct", imgs[:4])
     for m in attn:
         m.impl = cfg.attention_impl
-    if fab.launch_counts():
+    if fab.launch_counts() or fla.launch_counts():
         fail("plain path launched kernels")
     with torch.device("meta"):
         twin = TransVAE(cfg.replace(dtype="float32"))
@@ -384,7 +720,7 @@ def phase_time(model, profile: bool):
 def main():
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,serve,time")
+    ap.add_argument("--phases", default="build,kernels,grad,train,serve,time")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -404,8 +740,17 @@ def main():
 
     t0 = time.time()
     phase_build()
-    results = phase_kernels() if "kernels" in phases else {}
+    results = {}
+    if "kernels" in phases:
+        results.update(phase_kernels())
+        results.update(phase_flash_kernels())
+    if "grad" in phases:
+        phase_grad()
+    train_counts = {}
+    if "train" in phases:
+        train_counts, _ = phase_train(args.profile)
     counts = {}
+    model = None
     if phases & {"serve", "time"}:
         from deepl_project_tpu_torch import create_transvae
 
@@ -416,7 +761,7 @@ def main():
             phase_time(model, args.profile)
 
     if results:
-        want = launches_per_reconstruct(model.config) if counts else {}
+        want = launches_per_reconstruct(model.config)[0] if counts else {}
         kernels = []
         for name, source, replaces in (
                 ("ln_qkv_rope", "deepl_project_tpu_torch/csrc/ln_qkv_rope.cu",
@@ -441,6 +786,25 @@ def main():
                              else "bytes"),
                 "library_ms": None if None in libs else tot("library_ms"),
                 "per": "one reconstruct at b32 (sum over shapes of launches x time)",
+            })
+        for name, source, replaces in (
+                ("flash_attention_fwd", "deepl_project_tpu_torch/csrc/flash_attention_fwd.cu",
+                 "deepl_project_tpu/ops/pallas/flash_attention.py:87"),
+                ("flash_attention_bwd_dq", "deepl_project_tpu_torch/csrc/flash_attention_bwd_dq.cu",
+                 "deepl_project_tpu/ops/pallas/flash_attention.py:196"),
+                ("flash_attention_bwd_dkv", "deepl_project_tpu_torch/csrc/flash_attention_bwd_dkv.cu",
+                 "deepl_project_tpu/ops/pallas/flash_attention.py:218")):
+            r = results[(name, *FLASH_TRAIN)]
+            kernels.append({
+                "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": train_counts.get(name, 0),
+                "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"],
+                "bound_by": ("operations" if r["flops"] / PEAK_BF16_FLOPS
+                             >= r["bytes"] / PEAK_HBM_BYTES else "bytes"),
+                "library_ms": r["library_ms"],
+                "per": (f"one call at the training microbatch (B, N, h)={FLASH_TRAIN}; "
+                        f"launches over {TRAIN_STEPS} training steps"),
             })
         print(json.dumps({"kernels": kernels}), flush=True)
     log(f"all phases passed in {time.time() - t0:.1f}s")

@@ -1,11 +1,13 @@
 """deepl_project_tpu_torch -- the PyTorch / CUDA port of deepl_project_tpu for
 an NVIDIA H100.
 
-This slice carries the bf16 serving path of TransVAE: the model
-(``create_transvae``), the batching ``InferenceEngine`` and ``cli.serve``.
-The attention sublayers run on hand-written Hopper kernels
-(``ops/hopper``, sources in ``csrc/``). Entry points run on CUDA unless the
-caller passes ``device="cpu"``, which takes the plain PyTorch path.
+It carries the bf16 serving path of TransVAE (the model,
+``create_transvae``, the batching ``InferenceEngine`` and ``cli.serve``) and
+stage-1 training (``training.Trainer``, ``cli.train``: L1 + LPIPS + KL,
+AdamW, checkpoints). The attention sublayers and the flash attention
+forward and backward run on hand-written Hopper kernels (``ops/hopper``,
+sources in ``csrc/``). Entry points run on CUDA unless the caller passes
+``device="cpu"``, which takes the plain PyTorch path.
 """
 
 from .config import VARIANTS, TransVAEConfig, get_config

@@ -1,0 +1,200 @@
+"""Training CLI (PyTorch port of ``cli/train.py``): the same flags, stage 1
+on one CUDA device.
+
+Usage:
+  python -m deepl_project_tpu_torch.cli.train --variant large --data synthetic \
+      --batch_size 16 --accum_steps 2 --num_epochs 1 --steps_per_epoch 20 \
+      --output_dir out/
+
+``--device cpu`` runs the plain PyTorch path. Flags of what is not ported yet
+exit non-zero with "not yet ported": --use_gan, --gradient_checkpointing,
+--scan_blocks, --optimizer adafactor, --vf_weight > 0, --perceptual self,
+--mesh_model > 1, --param_sharding other than replicate, and --data other
+than synthetic/shapes.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+from ..config import get_config
+from ..data import batch_iterator, input_pipeline, make_dataset
+from ..losses import LossWeights
+from ..training.trainer import Trainer, TrainerConfig
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Train TransVAE (PyTorch, CUDA)")
+    # Model
+    p.add_argument("--variant", default="tiny",
+                   choices=["tiny", "base", "large", "huge", "giant"])
+    p.add_argument("--compression_ratio", type=int, default=16, choices=[8, 16])
+    p.add_argument("--latent_dim", type=int, default=None)
+    p.add_argument("--config", default=None, help="YAML config path")
+    p.add_argument("--gradient_checkpointing", action="store_true",
+                   help="not yet ported")
+    p.add_argument("--norm_latents", action="store_true", default=True,
+                   help="GroupNorm before the latent heads")
+    p.add_argument("--no_norm_latents", dest="norm_latents", action="store_false")
+    p.add_argument("--scan_blocks", action="store_true", help="not yet ported")
+    p.add_argument("--attention_impl", default="auto_train",
+                   choices=["auto", "auto_train", "xla", "xla_chunked", "pallas"],
+                   help="attention dispatch; 'auto_train' takes the flash "
+                        "kernels from N=4096, whose backward saves O(N)")
+    p.add_argument("--mu_dtype", default=None, choices=[None, "bfloat16"],
+                   help="AdamW first-moment dtype")
+    p.add_argument("--optimizer", default="adamw", choices=["adamw", "adafactor"],
+                   help="'adafactor' is not yet ported")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the plain PyTorch path")
+    # Data
+    p.add_argument("--data", default="synthetic",
+                   help="'synthetic' or 'shapes' (other sources not yet ported)")
+    p.add_argument("--resolution", type=int, default=256)
+    p.add_argument("--num_workers", type=int, default=-1,
+                   help="decode threads for folder/COCO sources (unused by "
+                        "the synthetic sources)")
+    # Training
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--accum_steps", type=int, default=1)
+    p.add_argument("--num_epochs", type=int, default=100)
+    p.add_argument("--steps_per_epoch", type=int, default=1000)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--warmup_steps", type=int, default=10_000)
+    p.add_argument("--lr_schedule", default="constant", choices=["constant", "cosine"])
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--skip_data_on_resume", action="store_true")
+    # Losses
+    p.add_argument("--l1_weight", type=float, default=1.0)
+    p.add_argument("--lpips_weight", type=float, default=1.0)
+    p.add_argument("--perceptual", default="vgg", choices=["vgg", "self"],
+                   help="'self' is not yet ported")
+    p.add_argument("--perceptual_checkpoint", default="")
+    p.add_argument("--kl_weight", type=float, default=1e-8)
+    p.add_argument("--vf_weight", type=float, default=0.0,
+                   help="> 0 is not yet ported (needs the DINOv2 teacher)")
+    p.add_argument("--gan_weight", type=float, default=0.0)
+    # Stage 2 (not yet ported, but parsed so configs carry over)
+    p.add_argument("--use_gan", action="store_true", help="not yet ported")
+    p.add_argument("--freeze_encoder", action="store_true")
+    p.add_argument("--gan_adaptive_weight", action="store_true")
+    p.add_argument("--gan_warmup_steps", type=int, default=0)
+    p.add_argument("--gan_ramp_steps", type=int, default=1)
+    p.add_argument("--gan_adaptive_max", type=float, default=1.0)
+    p.add_argument("--gan_disc_loss_floor", type=float, default=0.6)
+    p.add_argument("--gan_r1_gamma", type=float, default=10.0)
+    p.add_argument("--divergence_halt_db", type=float, default=5.0)
+    p.add_argument("--divergence_patience", type=int, default=3)
+    # Infra
+    p.add_argument("--output_dir", default="outputs")
+    p.add_argument("--save_every_epochs", type=int, default=5)
+    p.add_argument("--save_every_steps", type=int, default=0)
+    p.add_argument("--eval_every_steps", type=int, default=0)
+    p.add_argument("--val_batches", type=int, default=4)
+    p.add_argument("--ema_decay", type=float, default=0.0)
+    p.add_argument("--no_keep_best", action="store_true")
+    p.add_argument("--dino_model", default="facebook/dinov2-base")
+    p.add_argument("--log_every", type=int, default=100)
+    p.add_argument("--mesh_model", type=int, default=1, help="> 1 is not yet ported")
+    p.add_argument("--param_sharding", default="replicate",
+                   choices=["replicate", "fsdp", "tensor"],
+                   help="only 'replicate' is ported")
+    return p
+
+
+def load_yaml_config(path: str, args: argparse.Namespace) -> dict:
+    """The model/training/losses sections; the model section takes
+    precedence over flags (as in the JAX CLI)."""
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f) or {}
+    for key in ("variant", "compression_ratio", "latent_dim", "norm_latents",
+                "scan_blocks"):
+        if key in raw.get("model", {}):
+            setattr(args, key, raw["model"][key])
+    for src, dst in [("batch_size", "batch_size"), ("learning_rate", "lr"),
+                     ("warmup_steps", "warmup_steps"), ("num_epochs", "num_epochs"),
+                     ("gradient_accumulation", "accum_steps")]:
+        if src in raw.get("training", {}):
+            setattr(args, dst, raw["training"][src])
+    for src, dst in [("l1", "l1_weight"), ("lpips", "lpips_weight"), ("kl", "kl_weight"),
+                     ("vf", "vf_weight"), ("gan", "gan_weight")]:
+        if src in raw.get("losses", {}):
+            setattr(args, dst, raw["losses"][src])
+    return raw
+
+
+def unported_flags(args: argparse.Namespace) -> list[str]:
+    """The flags set to what the port cannot do yet."""
+    bad = [flag for flag, on in (
+        ("--use_gan", args.use_gan),
+        ("--gradient_checkpointing", args.gradient_checkpointing),
+        ("--scan_blocks", args.scan_blocks),
+        ("--optimizer adafactor", args.optimizer == "adafactor"),
+        ("--vf_weight > 0", args.vf_weight > 0),
+        ("--perceptual self", args.perceptual == "self"),
+        ("--mesh_model > 1", args.mesh_model > 1),
+        (f"--param_sharding {args.param_sharding}", args.param_sharding != "replicate"),
+        (f"--data {args.data}", args.data not in ("synthetic", "shapes")),
+    ) if on]
+    return bad
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    if args.config:
+        load_yaml_config(args.config, args)
+    bad = unported_flags(args)
+    if bad:
+        sys.exit(f"not yet ported to deepl_project_tpu_torch: {', '.join(bad)}")
+
+    # Provenance: the resolved flags of every invocation, never overwritten.
+    os.makedirs(args.output_dir, exist_ok=True)
+    prov = os.path.join(args.output_dir, "run_args.json")
+    n = 1
+    while os.path.exists(prov):
+        prov = os.path.join(args.output_dir, f"run_args.{n}.json")
+        n += 1
+    with open(prov, "w") as f:
+        json.dump({"argv": sys.argv[1:] if argv is None else list(argv),
+                   "args": vars(args)}, f, indent=1)
+
+    model_cfg = get_config(args.variant, args.compression_ratio, args.latent_dim,
+                           norm_latents=args.norm_latents,
+                           attention_impl=args.attention_impl)
+    weights = LossWeights(l1=args.l1_weight, lpips=args.lpips_weight,
+                          kl=args.kl_weight, vf=args.vf_weight, gan=0.0)
+    train_cfg = TrainerConfig(
+        batch_size=args.batch_size, accum_steps=args.accum_steps,
+        learning_rate=args.lr, warmup_steps=args.warmup_steps,
+        num_epochs=args.num_epochs, steps_per_epoch=args.steps_per_epoch,
+        freeze_encoder=args.freeze_encoder, weights=weights,
+        use_lpips=args.lpips_weight > 0, resolution=args.resolution,
+        seed=args.seed, log_every=args.log_every,
+        save_every_epochs=args.save_every_epochs,
+        save_every_steps=args.save_every_steps,
+        eval_every_steps=args.eval_every_steps, output_dir=args.output_dir,
+        mu_dtype=args.mu_dtype, optimizer=args.optimizer,
+        ema_decay=args.ema_decay, keep_best=not args.no_keep_best,
+        lr_schedule=args.lr_schedule,
+        skip_data_on_resume=args.skip_data_on_resume,
+        divergence_halt_db=args.divergence_halt_db,
+        divergence_patience=args.divergence_patience)
+    trainer = Trainer(model_cfg, train_cfg, device=args.device)
+
+    val_batches = None
+    if args.eval_every_steps > 0:
+        val_src = make_dataset(args.data, resolution=args.resolution, seed=1234,
+                               num_samples=args.val_batches * args.batch_size)
+        val_batches = list(batch_iterator(val_src, args.batch_size))
+    source = make_dataset(args.data, resolution=args.resolution, num_samples=10 ** 9)
+    data = input_pipeline(source, args.batch_size, trainer.device)
+    trainer.fit(data, val_batches=val_batches)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,126 @@
+"""LPIPS perceptual distance with a VGG16 trunk (PyTorch port of
+``losses/lpips.py``), NCHW.
+
+lpips.LPIPS(net='vgg', spatial=False) semantics: input in [-1, 1] ->
+ImageNet-style shift/scale -> VGG16 features at relu1_2 / relu2_2 / relu3_3 /
+relu4_3 / relu5_3 -> channel-unit-normalize -> squared difference -> 1x1
+non-negative linear head -> spatial mean -> sum over the five taps.
+
+Parameters are a plain dict on the JAX package's ``.npz`` schema
+(``conv/w{i}``, ``conv/b{i}``, ``lin/w{i}``) with the conv kernels in
+PyTorch's OIHW layout (the file holds HWIO; :func:`load_lpips_params`
+transposes). Without the pretrained file the loss runs on random-init
+weights (:func:`init_lpips_params`), so training runs end to end; quality
+parity needs the real weights (``WEIGHTS.md``).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..utils.convert import lpips_params_from_jax
+
+# VGG16 convolutional config: channel widths per conv layer, 'M' = 2x2 maxpool.
+_VGG16_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
+              512, 512, 512, "M", 512, 512, 512)
+# Indices (into conv outputs, post-ReLU) of the 5 LPIPS taps.
+_TAP_AFTER_CONV = (1, 3, 6, 9, 12)
+_TAP_CHANNELS = (64, 128, 256, 512, 512)
+
+# lpips.ScalingLayer constants (input in [-1,1]).
+_SHIFT = (-0.030, -0.088, -0.188)
+_SCALE = (0.458, 0.448, 0.450)
+
+# The converted weights (scripts/convert_lpips_weights.py writes this
+# schema; WEIGHTS.md), kept beside the port's package.
+DEFAULT_WEIGHTS_PATH = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "..", "weights", "lpips_vgg.npz")
+
+
+def _conv_widths():
+    in_ch = 3
+    for c in _VGG16_CFG:
+        if c != "M":
+            yield in_ch, c
+            in_ch = c
+
+
+def init_lpips_params(generator: torch.Generator | None = None,
+                      device=None) -> dict:
+    """Random-init LPIPS params with the structure of the converted
+    pretrained weights: He-normal convs, zero biases, |normal| / C heads (the
+    JAX ``init_lpips_params``' distributions, drawn from ``generator``)."""
+    device = torch.device(device if device is not None else "cpu")
+    gen_dev = generator.device if generator is not None else device
+    params: dict = {"conv": {}, "lin": {}}
+    for idx, (cin, c) in enumerate(_conv_widths()):
+        w = torch.randn(c, cin, 3, 3, generator=generator, device=gen_dev)
+        params["conv"][f"w{idx}"] = (w * math.sqrt(2.0 / (9 * cin))).to(device)
+        params["conv"][f"b{idx}"] = torch.zeros(c, device=device)
+    for i, c in enumerate(_TAP_CHANNELS):
+        w = torch.randn(c, generator=generator, device=gen_dev).abs() / c
+        params["lin"][f"w{i}"] = w.to(device)
+    return params
+
+
+def load_lpips_params(path: str = DEFAULT_WEIGHTS_PATH, device=None) -> dict | None:
+    """Converted pretrained weights from the ``.npz``; None if absent."""
+    if not os.path.exists(path):
+        return None
+    raw = np.load(path)
+    tree: dict = {"conv": {}, "lin": {}}
+    for k in raw.files:
+        group, name = k.split("/")
+        tree[group][name] = raw[k]
+    params = lpips_params_from_jax(tree)
+    return {g: {n: t.to(device) for n, t in leaves.items()} for g, leaves in params.items()}
+
+
+def lpips_params_available(path: str = DEFAULT_WEIGHTS_PATH) -> bool:
+    return os.path.exists(path)
+
+
+def get_lpips_params(path: str = DEFAULT_WEIGHTS_PATH, device=None,
+                     generator: torch.Generator | None = None) -> dict:
+    p = load_lpips_params(path, device)
+    return p if p is not None else init_lpips_params(generator, device)
+
+
+def _vgg_features(params: dict, x: torch.Tensor) -> list[torch.Tensor]:
+    """The VGG16 trunk's five tap activations; x NCHW in [-1, 1]."""
+    shift = torch.tensor(_SHIFT, device=x.device).view(1, 3, 1, 1)
+    scale = torch.tensor(_SCALE, device=x.device).view(1, 3, 1, 1)
+    h = (x - shift) / scale
+    taps = []
+    idx = 0
+    for c in _VGG16_CFG:
+        if c == "M":
+            h = F.max_pool2d(h, 2, 2)
+            continue
+        h = F.relu(F.conv2d(h, params["conv"][f"w{idx}"], params["conv"][f"b{idx}"],
+                            padding=1))
+        if idx in _TAP_AFTER_CONV:
+            taps.append(h)
+        idx += 1
+    return taps
+
+
+def _unit_normalize(x: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
+    return x / (torch.sqrt(x.square().sum(dim=1, keepdim=True)) + eps)
+
+
+def lpips(params: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """LPIPS distance per image: x, y NCHW in [-1, 1] -> [B] (fp32)."""
+    fx = _vgg_features(params, x.float())
+    fy = _vgg_features(params, y.float())
+    total = 0.0
+    for i, (a, b) in enumerate(zip(fx, fy)):
+        d = (_unit_normalize(a) - _unit_normalize(b)).square()
+        d = (d * params["lin"][f"w{i}"].view(1, -1, 1, 1)).sum(dim=1)  # [B, H, W]
+        total = total + d.mean(dim=(1, 2))
+    return total

@@ -1,0 +1,138 @@
+"""TransVAE training losses as plain functions (PyTorch port of
+``losses/vae_loss.py``), NCHW.
+
+- The decoder emits unbounded logits; ``sigmoid`` is applied inside the
+  loss, in fp32, for every image-space term; targets are in [0, 1].
+- L1 on [0, 1] images; LPIPS inputs mapped to [-1, 1] and clamped.
+- KL in fp32 with logvar clamped to ``logvar_clip``, mean over all elements.
+- A term whose weight is 0 is an fp32 zero; ``total`` is the explicit sum.
+- VF alignment to a frozen teacher through an eagerly created projection.
+
+``make_self_perceptual`` is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+from .lpips import lpips as lpips_distance
+
+
+@dataclasses.dataclass(frozen=True)
+class LossWeights:
+    """Defaults per the reference (patched vae_loss.py:31-38)."""
+
+    l1: float = 1.0
+    lpips: float = 1.0
+    kl: float = 1e-8
+    vf: float = 0.1
+    gan: float = 0.05
+    logvar_clip: tuple = (-30.0, 20.0)
+
+
+def l1_loss(recon_img: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return (recon_img.float() - target.float()).abs().mean()
+
+
+def kl_divergence(mu: torch.Tensor, logvar: torch.Tensor,
+                  clip: tuple = (-30.0, 20.0)) -> torch.Tensor:
+    """Mean KL(q(z|x) || N(0, 1)) in fp32."""
+    mu32 = mu.float()
+    logvar32 = logvar.float().clamp(clip[0], clip[1])
+    return (-0.5 * (1.0 + logvar32 - mu32.square() - logvar32.exp())).mean()
+
+
+def vf_loss(latent: torch.Tensor, dino_features: torch.Tensor,
+            proj_kernel: torch.Tensor, proj_bias: torch.Tensor,
+            margin: float = 0.4) -> torch.Tensor:
+    """Visual-feature alignment: latent [B, D, h, w] against the teacher's
+    map [B, C, hd, wd]; the latent is resized (bilinear) to the teacher's
+    grid and projected D -> C by ``proj_kernel`` [D, C] and ``proj_bias``
+    when the widths differ; hinge on the mean cosine similarity."""
+    lat = latent.float()
+    d, cd = lat.shape[1], dino_features.shape[1]
+    if lat.shape[2:] != dino_features.shape[2:]:
+        lat = F.interpolate(lat, size=dino_features.shape[2:], mode="bilinear",
+                            align_corners=False, antialias=True)
+    lat = lat.permute(0, 2, 3, 1)
+    if d != cd:
+        lat = lat @ proj_kernel.float() + proj_bias.float()
+    lat_n = lat / (lat.norm(dim=-1, keepdim=True) + 1e-8)
+    din = dino_features.float().permute(0, 2, 3, 1)
+    din_n = din / (din.norm(dim=-1, keepdim=True) + 1e-8)
+    similarity = (lat_n * din_n).sum(dim=-1).mean()
+    return torch.clamp(margin - similarity, min=0.0)
+
+
+def gan_generator_loss(fake_logits: torch.Tensor) -> torch.Tensor:
+    """Non-saturating generator loss: softplus(-D(G(x)))."""
+    return F.softplus(-fake_logits.float()).mean()
+
+
+def discriminator_loss(real_logits: torch.Tensor, fake_logits: torch.Tensor,
+                       kind: str = "hinge") -> torch.Tensor:
+    """D-side GAN loss: bce, hinge or wgan."""
+    real, fake = real_logits.float(), fake_logits.float()
+    if kind == "bce":
+        return F.softplus(-real).mean() + F.softplus(fake).mean()
+    if kind == "hinge":
+        return F.relu(1.0 - real).mean() + F.relu(1.0 + fake).mean()
+    if kind == "wgan":
+        return fake.mean() - real.mean()
+    raise ValueError(f"Unknown GAN loss kind: {kind!r}")
+
+
+def transvae_loss(
+    recon_logits: torch.Tensor,
+    target: torch.Tensor,
+    mu: torch.Tensor,
+    logvar: torch.Tensor,
+    weights: LossWeights = LossWeights(),
+    *,
+    lpips_params: dict | None = None,
+    perceptual_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
+    vf_proj: tuple[torch.Tensor, torch.Tensor] | None = None,
+    dino_features: torch.Tensor | None = None,
+    disc_apply: Callable[[torch.Tensor], torch.Tensor] | None = None,
+) -> dict[str, torch.Tensor]:
+    """Combined weighted loss: a dict of per-term values and 'total', all
+    fp32. ``perceptual_fn`` (images in [0, 1] -> [B] distances) replaces the
+    VGG-LPIPS term when given."""
+    zero = torch.zeros((), device=recon_logits.device)
+    losses: dict[str, torch.Tensor] = {}
+
+    recon_img = torch.sigmoid(recon_logits.float())
+    target32 = target.float()
+
+    losses["l1"] = (l1_loss(recon_img, target32) * weights.l1
+                    if weights.l1 > 0 else zero)
+
+    if weights.lpips > 0 and perceptual_fn is not None:
+        losses["lpips"] = perceptual_fn(recon_img, target32).mean() * weights.lpips
+    elif weights.lpips > 0 and lpips_params is not None:
+        recon_lp = (recon_img * 2.0 - 1.0).clamp(-1.0, 1.0)
+        targ_lp = (target32 * 2.0 - 1.0).clamp(-1.0, 1.0)
+        losses["lpips"] = lpips_distance(lpips_params, recon_lp, targ_lp).mean() * weights.lpips
+    else:
+        losses["lpips"] = zero
+
+    losses["kl"] = (kl_divergence(mu, logvar, weights.logvar_clip) * weights.kl
+                    if weights.kl > 0 else zero)
+
+    if weights.vf > 0 and dino_features is not None and vf_proj is not None:
+        losses["vf"] = vf_loss(mu, dino_features, *vf_proj) * weights.vf
+    else:
+        losses["vf"] = zero
+
+    if weights.gan > 0 and disc_apply is not None:
+        losses["gan"] = gan_generator_loss(disc_apply(recon_img)) * weights.gan
+    else:
+        losses["gan"] = zero
+
+    losses["total"] = (losses["l1"] + losses["lpips"] + losses["kl"]
+                       + losses["vf"] + losses["gan"])
+    return losses

@@ -2,8 +2,10 @@
 ``models/transvae.py``), NCHW.
 
 encode -> conv_mu / conv_logvar 3x3 heads; ``forward`` clamps mu to
-+-mu_clip and logvar to logvar_clip and decodes the mean (the serving path;
-``sample=False``). The decoder emits unbounded logits.
++-mu_clip and logvar to logvar_clip and decodes either the mean
+(``sample=False``, the serving and evaluation path) or a sample of the
+posterior (``sample=True``, training; see :meth:`TransVAE.reparameterize`).
+The decoder emits unbounded logits.
 
 The module tree and state_dict keys are the reference's (the mapping of the
 JAX package's ``utils/convert.py``), so a reference-layout checkpoint loads
@@ -58,16 +60,33 @@ class TransVAE(nn.Module):
         """z [B, D, h, w] -> logits [B, C, h*f, w*f]."""
         return self.decoder(z)
 
-    def forward(self, x: torch.Tensor, sample: bool = False):
-        """(reconstruction logits, mu, logvar), decoding the clamped mean.
-        Sampling (``sample=True``) belongs to training, not yet ported."""
-        if sample:
-            raise NotImplementedError("sampling the latent is not yet ported")
+    def reparameterize(self, mu: torch.Tensor, logvar: torch.Tensor,
+                       generator: torch.Generator | None = None,
+                       eps: torch.Tensor | None = None) -> torch.Tensor:
+        """z = mu + eps * exp(0.5 * logvar) in fp32 with logvar clamped, cast
+        back to mu's dtype. ``eps`` is standard normal noise drawn from
+        ``generator`` unless given; the JAX package draws it from its
+        'sample' RNG stream, and the two generators never give the same
+        numbers, so a test hands both the same ``eps``."""
+        lo, hi = self.config.logvar_clip
+        mu32 = mu.float()
+        std = torch.exp(0.5 * logvar.float().clamp(lo, hi))
+        if eps is None:
+            eps = torch.randn(std.shape, generator=generator, device=std.device,
+                              dtype=torch.float32)
+        return (mu32 + eps * std).to(mu.dtype)
+
+    def forward(self, x: torch.Tensor, sample: bool = False,
+                generator: torch.Generator | None = None):
+        """(reconstruction logits, mu, logvar) with mu and logvar clamped;
+        decodes the clamped mean, or with ``sample=True`` a sample of the
+        posterior drawn with ``generator``."""
         cfg = self.config
         mu, logvar = self.encode(x)
         mu = mu.clamp(-cfg.mu_clip, cfg.mu_clip)
         logvar = logvar.clamp(*cfg.logvar_clip)
-        return self.decode(mu), mu, logvar
+        z = self.reparameterize(mu, logvar, generator) if sample else mu
+        return self.decode(z), mu, logvar
 
 
 @torch.no_grad()

@@ -5,16 +5,20 @@ Three separate LayerNorms on the block input, bias-free Q/K/V linears, heads
 of ``head_dim``, 2D RoPE on Q and K, softmax at scale head_dim**-0.5, and an
 output projection with bias.
 
-Dispatch (``impl='auto'``), as in the JAX module:
+Sublayer dispatch (``AttentionRoPE``), as in the JAX module:
 
-- N <= 1024 and the kernels' limits hold: the whole sublayer runs as
-  ``fused_attention_sublayer`` (three Hopper kernels);
-- N > 1024 within the kernels' limits (stage 2 at 256px, N=4096): the
-  ``ln_qkv_rope`` kernel, then the plain query-chunked core below, then the
-  projection as a plain matmul -- the JAX package also leaves both to XLA;
-- otherwise (other head widths, float32): the composable plain path.
+- ``impl='auto'`` (inference), N <= 1024 and the kernels' limits hold: the
+  whole sublayer runs as ``fused_attention_sublayer`` (three Hopper kernels);
+- ``impl='auto'``, N > 1024 within the kernels' limits (stage 2 at 256px,
+  N=4096): the ``ln_qkv_rope`` kernel, then :func:`core_attention`, then the
+  projection as a plain matmul (the JAX package also leaves it to XLA);
+- every other case (``auto_train``, ``xla``, ``pallas``, other head widths,
+  float32): the composable path -- plain LayerNorms and linears,
+  ``apply_rope2d``, :func:`core_attention`, the projection.
 
-``impl='xla'`` forces the composable plain path.
+:func:`core_attention` picks the core by token count as ``core_attention``
+in the JAX package does, with the flash kernels
+(``hopper/flash_attention.py``) in the place of the Pallas ``pallas`` band.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import math
 import torch
 from torch import nn
 
+from .hopper.flash_attention import flash_attention, flash_supported
 from .hopper.fused_attention_block import (fused_attention_sublayer,
                                            kernel_supported, ln_qkv_rope,
                                            pack_qkv, sublayer_supported)
@@ -31,14 +36,32 @@ from .layers import Linear
 from .norms import LayerNorm
 from .rope import apply_rope2d
 
+IMPLS = ("auto", "auto_train", "xla", "xla_chunked", "pallas")
+
+# Token-count bands of the JAX package's core_attention.
+_XLA_FULL_SOFTMAX_MAX_TOKENS = 2048
+_PALLAS_MID_BAND = (1024, 2048)
+_SMALL_KERNEL_MAX_TOKENS = 1024
+# Inference ('auto') takes the flash kernel from this token count on. The
+# JAX package's 8192 was tuned on a TPU; on an H100 the flash forward beats
+# the plain chunked core already at N=4096 (b32, 6 heads: 3.05 against
+# 25.2 ms, chip_smoke.py phase 2), so the port's threshold is 4096.
+_PALLAS_MIN_TOKENS = 4096
+# Training ('auto_train') takes it from N=4096: its backward saves only o and
+# the logsumexp, where the plain core's saves the [B, h, N, N] weights.
+_PALLAS_MIN_TOKENS_TRAIN = 4096
+
 # Query rows per chunk of the plain core: bounds the fp32 logits to
 # [B*h, chunk, N] (at b32, stage 2: 3.2 GB instead of 12.9 GB unchunked).
 _CHUNK = 1024
 
 
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched a @ b with fp32 accumulation and an fp32 result."""
-    if a.is_cuda and a.dtype != torch.float32:
+    """Batched a @ b with fp32 accumulation and an fp32 result. The
+    ``out_dtype`` form has no derivative, so a product that autograd records
+    takes fp32 copies of its operands instead (the same products and sums)."""
+    tracked = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+    if a.is_cuda and a.dtype != torch.float32 and not tracked:
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
 
@@ -68,6 +91,38 @@ def xla_attention(q, k, v, scale: float) -> torch.Tensor:
     return out.reshape(b, h, n, d).permute(0, 2, 1, 3)
 
 
+def core_attention(q, k, v, scale: float, impl: str = "auto") -> torch.Tensor:
+    """Dispatch the attention core; q/k/v [B, N, heads, head_dim].
+
+    'auto'/'auto_train' choose by N as the JAX package does: the mid band
+    (1024..2048, inference only) would take the small whole-head kernel for
+    N <= 1024 and the flash kernel above; N <= 2048 otherwise takes the plain
+    core; from ``_PALLAS_MIN_TOKENS`` (``_PALLAS_MIN_TOKENS_TRAIN`` for
+    'auto_train') on, the flash kernel. ``flash_supported`` (CUDA, bf16,
+    head_dim 64, N % 64 == 0) stands where the JAX package asks for a TPU.
+    The ``small_attention`` kernel is not ported yet, so its band
+    ('pallas_small') runs the plain core. 'pallas' asks for the flash
+    kernels (their plain versions for CPU tensors)."""
+    n = q.shape[1]
+    if impl in ("auto", "auto_train"):
+        min_pallas = (_PALLAS_MIN_TOKENS_TRAIN if impl == "auto_train"
+                      else _PALLAS_MIN_TOKENS)
+        ok = flash_supported(q)
+        lo, hi = _PALLAS_MID_BAND
+        if impl == "auto" and ok and lo <= n <= hi:
+            impl = "pallas_small" if n <= _SMALL_KERNEL_MAX_TOKENS else "pallas"
+        elif n <= _XLA_FULL_SOFTMAX_MAX_TOKENS:
+            impl = "xla"
+        elif ok and n >= min_pallas:
+            impl = "pallas"
+        else:
+            impl = "xla_chunked"
+    if impl == "pallas":
+        return flash_attention(q, k, v, scale)
+    # 'xla', 'xla_chunked' and (until small_attention is ported) 'pallas_small'.
+    return xla_attention(q, k, v, scale)
+
+
 class AttentionRoPE(nn.Module):
     """Multi-head global attention on an NCHW feature map."""
 
@@ -75,7 +130,7 @@ class AttentionRoPE(nn.Module):
                  rope_pairing: str = "reference", impl: str = "auto", *,
                  device=None, param_dtype=torch.float32):
         super().__init__()
-        if impl not in ("auto", "xla"):
+        if impl not in IMPLS:
             raise NotImplementedError(f"attention impl {impl!r} is not yet ported")
         self.dim, self.head_dim = dim, head_dim
         self.use_rope, self.rope_pairing, self.impl = use_rope, rope_pairing, impl
@@ -99,7 +154,8 @@ class AttentionRoPE(nn.Module):
         params = [t for pair in ln for t in pair] + [wq, wk, wv]
         key = tuple((p.data_ptr(), p._version) for p in params)
         if key != self._packed_key:
-            self._packed = pack_qkv(ln, wq, wk, wv, self.head_dim)
+            with torch.no_grad():  # kernel operands, not differentiated
+                self._packed = pack_qkv(ln, wq, wk, wv, self.head_dim)
             self._packed_key = key
         return self._packed
 
@@ -108,6 +164,8 @@ class AttentionRoPE(nn.Module):
         n, hd = h * w, self.head_dim
         nh = c // hd
         xf = x.permute(0, 2, 3, 1).reshape(b, n, c)
+        # The sublayer kernels serve inference ('auto'); training and the
+        # explicit cores keep the composable path, as in the JAX module.
         kernels = self.impl == "auto"
         if kernels and sublayer_supported(n, c, hd, x.dtype):
             ln, wq, wk, wv = self._qkv_args()
@@ -129,6 +187,6 @@ class AttentionRoPE(nn.Module):
                 if self.use_rope:
                     q = apply_rope2d(q, h, w, self.rope_pairing)
                     k = apply_rope2d(k, h, w, self.rope_pairing)
-            out = xla_attention(q, k, v, hd ** -0.5)
+            out = core_attention(q, k, v, hd ** -0.5, self.impl)
             out = self.proj(out.reshape(b, n, c))
         return out.reshape(b, h, w, c).permute(0, 3, 1, 2)

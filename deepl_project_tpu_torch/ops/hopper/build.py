@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels (``deepl_project_tpu_torch/csrc``).
 
-Each ``csrc/<name>.cu`` has a plain C launcher (``<name>_launch``) and is
+Each ``csrc/<name>.cu`` (headers: ``csrc/*.cuh``) has a plain C launcher (``<name>_launch``) and is
 compiled by ``nvcc`` for ``sm_90a`` into its own shared library, which is
 loaded with ctypes. Builds happen on first use, into ``csrc/build/`` (listed
 in ``.gitignore``), one ``nvcc`` process per source, all started together.
@@ -31,6 +31,9 @@ SIGNATURES = {
     "ln_qkv_rope": [_P] * 8 + [_I] * 4 + [_P],
     "attention_core": [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P],
     "proj_bias_gemm": [_P] * 4 + [_I] * 3 + [_P],
+    "flash_attention_fwd": [_P] * 5 + [_I] * 7 + [ctypes.c_float, _P],
+    "flash_attention_bwd_dq": [_P] * 7 + [_I] * 8 + [ctypes.c_float, _P],
+    "flash_attention_bwd_dkv": [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P],
 }
 
 _lock = threading.Lock()

@@ -16,6 +16,12 @@ raises on what the kernel does not take; for a CPU tensor it computes its
 plain PyTorch version, which is the one beside it. The plain versions are
 ports of ``qkv_rope_reference`` and ``_reference``.
 
+``ln_qkv_rope`` and ``fused_attention_sublayer`` are differentiable: each is
+a ``torch.autograd.Function`` whose forward launches the kernels and whose
+backward recomputes the plain version under autograd and returns its VJP,
+as ``_make_qkv_op`` / ``_make_op`` do in the JAX package. ``attention_core``
+and ``proj_bias_gemm`` alone have no backward and raise when asked for one.
+
 Weights are in nn.Linear layout ([out, in]). q and k come back in the
 per-head permuted layout ([even pair entries | odd pair entries] per head,
 RoPE applied); v and every output stay in the natural layout. Attention is
@@ -184,11 +190,71 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _ln_qkv_rope_kernel(xf, w, gb, height, width, pairing, head_dim, use_rope):
+    """Launch ``ln_qkv_rope``: xf [B, N, C] -> [B, N, 3C] (q | k | v)."""
+    b, n, c = xf.shape
+    xf = xf.contiguous()
+    ca, sa, cb, sb = rope2d_tables(head_dim, height, width, pairing, xf.device)
+    out = torch.empty(b, n, 3 * c, device=xf.device, dtype=xf.dtype)
+    build.launch("ln_qkv_rope", xf.data_ptr(), w.data_ptr(), gb.data_ptr(),
+                 ca.data_ptr(), sa.data_ptr(), cb.data_ptr(), sb.data_ptr(),
+                 out.data_ptr(), b * n, n, c, int(bool(use_rope)), _stream())
+    _LAUNCHES[("ln_qkv_rope", n, c)] += 1
+    return out
+
+
+def _plain_vjp(ctx, fn, cotangents):
+    """Gradients of the plain ``fn`` at the saved inputs, for the inputs
+    that need them (None for the others): the backward of a kernel that the
+    JAX package differentiates through its plain reference."""
+    saved = ctx.saved_tensors
+    needs = ctx.needs_input_grad[:len(saved)]
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
+        wrt = [t for t in ins if t.requires_grad]
+        if not wrt:
+            return [None] * len(saved)
+        grads = iter(torch.autograd.grad(fn(*ins), wrt, cotangents, allow_unused=True))
+    return [next(grads) if need else None for need in needs]
+
+
+def _ln_flat(ln_params):
+    return [t for pair in ln_params for t in pair]
+
+
+def _ln_pairs(flat):
+    return tuple(zip(flat[0::2], flat[1::2]))
+
+
+class _LnQkvRope(torch.autograd.Function):
+    """ln_qkv_rope with a backward: the forward launches the kernel, the
+    backward is the VJP of ``qkv_rope_reference`` (as ``_make_qkv_op`` in
+    the JAX package). Inputs: xf, the six LN tensors, wq, wk, wv; the packed
+    kernel operands and the static arguments are not differentiated."""
+
+    @staticmethod
+    def forward(ctx, xf, gq, bq, gk, bk, gv, bv, wq, wk, wv, packed, meta):
+        ctx.meta = meta
+        ctx.save_for_backward(xf, gq, bq, gk, bk, gv, bv, wq, wk, wv)
+        return _ln_qkv_rope_kernel(xf, *packed, *meta)
+
+    @staticmethod
+    def backward(ctx, dout):
+        meta = ctx.meta
+
+        def plain(xf, *rest):
+            return torch.cat(qkv_rope_reference(xf, _ln_pairs(rest[:6]), *rest[6:],
+                                                *meta), dim=-1)
+
+        return (*_plain_vjp(ctx, plain, dout), None, None)
+
+
 def ln_qkv_rope(xf, ln_params, wq, wk, wv, height, width, pairing="reference",
                 head_dim=HEAD_DIM, use_rope=True, packed=None):
     """LN trio + QKV projections + 2D RoPE: xf [B, N, C] -> (q, k, v), each
     [B, N, C], q/k permuted per head with RoPE applied. ``packed`` is the
-    cached result of :func:`pack_qkv` for these weights."""
+    cached result of :func:`pack_qkv` for these weights. Differentiable with
+    respect to xf, the LN affines and wq/wk/wv (not through ``packed``)."""
     if xf.device.type == "cpu":
         return qkv_rope_reference(xf, ln_params, wq, wk, wv, height, width,
                                   pairing, head_dim, use_rope)
@@ -202,14 +268,16 @@ def ln_qkv_rope(xf, ln_params, wq, wk, wv, height, width, pairing="reference",
     _check("ln_qkv_rope w", w, (3 * c, c))
     if gb.shape != (6, c) or gb.dtype != torch.float32 or not gb.is_cuda:
         raise ValueError(f"ln_qkv_rope: LN affines must be a CUDA fp32 [6, {c}] tensor")
-    xf, w, gb = xf.contiguous(), w.contiguous(), gb.contiguous()
-    ca, sa, cb, sb = rope2d_tables(head_dim, height, width, pairing, xf.device)
-    out = torch.empty(b, n, 3 * c, device=xf.device, dtype=xf.dtype)
-    build.launch("ln_qkv_rope", xf.data_ptr(), w.data_ptr(), gb.data_ptr(),
-                 ca.data_ptr(), sa.data_ptr(), cb.data_ptr(), sb.data_ptr(),
-                 out.data_ptr(), b * n, n, c, int(bool(use_rope)), _stream())
-    _LAUNCHES[("ln_qkv_rope", n, c)] += 1
+    meta = (height, width, pairing, head_dim, use_rope)
+    out = _LnQkvRope.apply(xf, *_ln_flat(ln_params), wq, wk, wv,
+                           (w.contiguous(), gb.contiguous()), meta)
     return out[..., :c], out[..., c:2 * c], out[..., 2 * c:]
+
+
+def _no_backward(name, *tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward of its own; differentiate "
+                           f"through fused_attention_sublayer")
 
 
 def attention_core(q, k, v, scale, head_dim=HEAD_DIM):
@@ -217,6 +285,7 @@ def attention_core(q, k, v, scale, head_dim=HEAD_DIM):
     N <= 1024. q/k/v may be column slices of one [B, N, 3C] buffer."""
     if q.device.type == "cpu":
         return attention_core_reference(q, k, v, scale, head_dim)
+    _no_backward("attention_core", q, k, v)
     b, n, c = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(f"attention_core {name}", t, (b, n, c))
@@ -243,6 +312,7 @@ def proj_bias_gemm(o, wp, bp):
     nn.Linear layout, cast to bf16; bias added in fp32)."""
     if o.device.type == "cpu":
         return proj_bias_reference(o, wp, bp)
+    _no_backward("proj_bias_gemm", o, wp, bp)
     b, n, c = o.shape
     _check("proj_bias_gemm o", o)
     if c % 128:
@@ -260,20 +330,53 @@ def proj_bias_gemm(o, wp, bp):
     return out
 
 
+class _Sublayer(torch.autograd.Function):
+    """fused_attention_sublayer with a backward: the forward launches the
+    three kernels, the backward is the VJP of ``sublayer_reference`` (as
+    ``_make_op`` in the JAX package). Inputs: xf, the six LN tensors, wq,
+    wk, wv, wp, bp."""
+
+    @staticmethod
+    def forward(ctx, xf, gq, bq, gk, bk, gv, bv, wq, wk, wv, wp, bp, packed, meta):
+        ctx.meta = meta
+        ctx.save_for_backward(xf, gq, bq, gk, bk, gv, bv, wq, wk, wv, wp, bp)
+        c, head_dim = xf.shape[2], meta[3]
+        qkv = _ln_qkv_rope_kernel(xf, *packed, *meta)
+        o = attention_core(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
+                           head_dim ** -0.5, head_dim)
+        return proj_bias_gemm(o, wp, bp)
+
+    @staticmethod
+    def backward(ctx, dout):
+        meta = ctx.meta
+
+        def plain(xf, *rest):
+            return sublayer_reference(xf, _ln_pairs(rest[:6]), *rest[6:], *meta)
+
+        return (*_plain_vjp(ctx, plain, dout), None, None)
+
+
 def fused_attention_sublayer(xf, ln_params, wq, wk, wv, wp, bp, height, width,
                              pairing="reference", head_dim=HEAD_DIM,
                              use_rope=True, packed=None):
     """Whole attention sublayer on tokens xf [B, N, C] -> [B, N, C]:
     ln_qkv_rope -> attention_core -> proj_bias_gemm on the card; the port of
-    ``_reference`` on the CPU."""
+    ``_reference`` on the CPU. Differentiable with respect to xf and every
+    parameter (the backward recomputes the plain version)."""
     if xf.device.type == "cpu":
         return sublayer_reference(xf, ln_params, wq, wk, wv, wp, bp, height,
                                   width, pairing, head_dim, use_rope)
-    n, c = xf.shape[1], xf.shape[2]
-    if not sublayer_supported(n, c, head_dim, xf.dtype):
+    b, n, c = xf.shape
+    _check("fused_attention_sublayer x", xf)
+    if not sublayer_supported(n, c, head_dim, xf.dtype) or n != height * width:
         raise ValueError(f"fused_attention_sublayer: unsupported N={n} C={c} "
                          f"head_dim={head_dim} dtype={xf.dtype}")
-    q, k, v = ln_qkv_rope(xf, ln_params, wq, wk, wv, height, width, pairing,
-                          head_dim, use_rope, packed)
-    o = attention_core(q, k, v, head_dim ** -0.5, head_dim)
-    return proj_bias_gemm(o, wp, bp)
+    w, gb = packed if packed is not None else pack_qkv(ln_params, wq, wk, wv,
+                                                       head_dim)
+    _check("fused_attention_sublayer w", w, (3 * c, c))
+    if gb.shape != (6, c) or gb.dtype != torch.float32 or not gb.is_cuda:
+        raise ValueError(f"fused_attention_sublayer: LN affines must be a CUDA "
+                         f"fp32 [6, {c}] tensor")
+    meta = (height, width, pairing, head_dim, use_rope)
+    return _Sublayer.apply(xf, *_ln_flat(ln_params), wq, wk, wv, wp, bp,
+                           (w.contiguous(), gb.contiguous()), meta)

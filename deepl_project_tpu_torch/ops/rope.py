@@ -58,7 +58,10 @@ def rope2d_tables(head_dim: int, height: int, width: int,
         ca, sa, cb, sb = _rope2d_tables_np(head_dim, height, width)
         if pairing == "standard":
             cb, sb = ca, sa
-        tabs = tuple(torch.from_numpy(t).to(device) for t in (ca, sa, cb, sb))
+        # Cached tables may be first built under inference_mode and later
+        # saved for a backward: make them normal tensors either way.
+        with torch.inference_mode(False):
+            tabs = tuple(torch.from_numpy(t).to(device) for t in (ca, sa, cb, sb))
         _DEVICE_TABLES[key] = tabs
     return tabs
 

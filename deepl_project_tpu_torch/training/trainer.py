@@ -1,0 +1,358 @@
+"""The training loop (PyTorch port of ``training/trainer.py``, stage 1).
+
+Assembles model, data, loss, optimizer, logging and checkpointing: synthetic
+or streamed batches -> ``Trainer.fit`` -> bf16 forward with fp32 params,
+sampling the latent -> L1 + LPIPS + KL -> backward -> clip, AdamW with warmup
+and NaN-skip -> checkpoint. Validation PSNR/SSIM every ``eval_every_steps``,
+a best checkpoint, the divergence breaker, a checkpoint on SIGTERM/SIGINT,
+and ``skip_data_on_resume``, as in the JAX trainer.
+
+Not ported yet (they raise): the GAN stage (``weights.gan > 0``), the VF
+teacher, ``perceptual='self'``, model parallelism (``mesh_model > 1``) and
+parameter sharding other than ``replicate`` (one device).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import json
+import os
+import signal
+import time
+from typing import Any, Iterator
+
+import numpy as np
+import torch
+
+from ..config import TransVAEConfig
+from ..losses import LossWeights, get_lpips_params, lpips_params_available
+from ..models.transvae import TransVAE, init_weights, resolve_device
+from ..utils.metrics import psnr, ssim
+from .checkpoint import (checkpoint_metrics, latest_step, restore_checkpoint,
+                         save_checkpoint)
+from .optim import make_optimizer
+from .schedule import warmup_cosine
+from .train_step import TrainState, init_ema, make_train_step
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    """Training hyperparameters: the JAX ``TrainerConfig``'s fields and
+    defaults (see there for each one's history)."""
+
+    batch_size: int = 16
+    accum_steps: int = 1
+    learning_rate: float = 1e-4
+    warmup_steps: int = 10_000
+    num_epochs: int = 100
+    steps_per_epoch: int = 1000
+    max_grad_norm: float = 1.0
+    freeze_encoder: bool = False
+    weights: LossWeights = dataclasses.field(default_factory=LossWeights)
+    use_lpips: bool = True
+    perceptual: str = "vgg"
+    perceptual_checkpoint: str = ""
+    resolution: int = 256
+    seed: int = 42
+    log_every: int = 100
+    save_every_epochs: int = 5
+    save_every_steps: int = 0
+    eval_every_steps: int = 0
+    output_dir: str = "outputs"
+    mesh_model: int = 1
+    param_sharding: str = "replicate"
+    mu_dtype: str | None = None
+    optimizer: str = "adamw"
+    ema_decay: float = 0.0
+    keep_best: bool = True
+    gan_adaptive_weight: bool = False
+    gan_warmup_steps: int = 0
+    gan_ramp_steps: int = 1
+    gan_adaptive_max: float = 1.0
+    gan_disc_loss_floor: float = 0.6
+    gan_r1_gamma: float = 10.0
+    lr_schedule: str = "constant"
+    divergence_halt_db: float = 5.0
+    divergence_patience: int = 3
+    skip_data_on_resume: bool = False
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what} is not yet ported to deepl_project_tpu_torch")
+
+
+class RunHistory:
+    """Append-only JSONL run record (<output_dir>/history.jsonl)."""
+
+    def __init__(self, path: str):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self.path = path
+
+    def append(self, step: int, metrics: dict, kind: str = "train") -> None:
+        row = {"step": int(step), "kind": kind, "ts": time.time(),
+               **{k: float(v) for k, v in metrics.items()}}
+        with open(self.path, "a") as f:
+            f.write(json.dumps(row) + "\n")
+
+
+class StepTimer:
+    """Images per second over a trailing window of steps, after a warmup."""
+
+    def __init__(self, warmup: int = 2, window: int = 50):
+        self.warmup = warmup
+        self._count = 0
+        self._ticks: collections.deque = collections.deque(maxlen=window + 1)
+
+    def tick(self, batch_size: int) -> None:
+        self._count += 1
+        if self._count >= self.warmup:
+            self._ticks.append((time.perf_counter(), batch_size))
+
+    @property
+    def images_per_sec(self) -> float:
+        if len(self._ticks) < 2:
+            return 0.0
+        dt = self._ticks[-1][0] - self._ticks[0][0]
+        return sum(n for _, n in list(self._ticks)[1:]) / dt if dt > 0 else 0.0
+
+
+class Trainer:
+    def __init__(self, model_config: TransVAEConfig, train_config: TrainerConfig,
+                 teacher_fn=None, device=None):
+        cfg = train_config
+        if teacher_fn is not None:
+            _not_ported("the VF teacher (vf_weight > 0)")
+        if cfg.weights.gan > 0:
+            _not_ported("the GAN stage (weights.gan > 0)")
+        if cfg.perceptual == "self":
+            _not_ported("perceptual='self'")
+        if cfg.perceptual != "vgg":
+            raise ValueError(f"perceptual must be vgg|self, got {cfg.perceptual!r}")
+        if cfg.mesh_model > 1 or cfg.param_sharding != "replicate":
+            _not_ported("model parallelism and parameter sharding")
+        if cfg.lr_schedule not in ("constant", "cosine"):
+            raise ValueError(f"lr_schedule must be constant|cosine, got {cfg.lr_schedule!r}")
+        self.model_config = model_config
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+        self.lpips_params = None
+        if cfg.use_lpips and cfg.weights.lpips > 0:
+            gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 7)
+            self.lpips_params = get_lpips_params(device=self.device, generator=gen)
+            if not lpips_params_available():
+                print("[trainer] WARNING: no pretrained LPIPS weights found; "
+                      "using random-init VGG (run scripts/convert_lpips_weights.py)")
+        self.step_fn = make_train_step(cfg.weights, self.lpips_params,
+                                       accum_steps=cfg.accum_steps,
+                                       ema_decay=cfg.ema_decay or None,
+                                       seed=cfg.seed)
+        self._best_psnr = float("-inf")
+        self._best_raw_psnr = float("-inf")
+
+    # -- state -----------------------------------------------------------
+    def _schedule(self):
+        c = self.cfg
+        if c.lr_schedule == "cosine":
+            return warmup_cosine(c.learning_rate, c.warmup_steps,
+                                 c.num_epochs * c.steps_per_epoch)
+        return None
+
+    def create_state(self) -> TrainState:
+        """A model with weights drawn from ``seed`` on the device, its
+        optimizer and (with ema_decay) the EMA shadow."""
+        with torch.device("meta"):
+            model = TransVAE(self.model_config)
+        model = model.to_empty(device=self.device)
+        init_weights(model, torch.Generator(device=self.device).manual_seed(self.cfg.seed))
+        c = self.cfg
+        opt = make_optimizer(model.named_parameters(), learning_rate=c.learning_rate,
+                             warmup_steps=c.warmup_steps, max_grad_norm=c.max_grad_norm,
+                             freeze_encoder=c.freeze_encoder, mu_dtype=c.mu_dtype,
+                             optimizer=c.optimizer, schedule=self._schedule())
+        return TrainState(step=0, model=model, optimizer=opt,
+                          ema=init_ema(model) if c.ema_decay else None)
+
+    def maybe_resume(self, state: TrainState) -> tuple[TrainState, int]:
+        ckpt_dir = os.path.join(self.cfg.output_dir, "checkpoints")
+        if latest_step(ckpt_dir) is None:
+            return state, 0
+        payload, meta = restore_checkpoint(ckpt_dir, map_location=self.device)
+        state.model.load_state_dict(payload["model"], strict=True)
+        state.optimizer.load_state_dict(payload["optimizer"])
+        state.step = int(payload["step"])
+        if state.ema is not None:
+            saved = payload.get("ema")
+            with torch.no_grad():
+                for n, t in state.ema.items():
+                    t.copy_(saved[n] if saved is not None else state.model.get_parameter(n))
+        best = checkpoint_metrics(os.path.join(self.cfg.output_dir, "checkpoints_best"))
+        if best is not None:
+            self._best_psnr = self._selection_psnr(best)
+        print(f"[trainer] resumed from step {state.step} (epoch {meta['epoch']})")
+        return state, meta["epoch"]
+
+    # -- validation -------------------------------------------------------
+    @torch.no_grad()
+    def _metrics(self, model, val_batches) -> dict:
+        vals: dict[str, list] = {"psnr": [], "ssim": []}
+        for batch in val_batches:
+            x = torch.as_tensor(np.asarray(batch)).to(self.device).permute(0, 3, 1, 2)
+            recon = torch.sigmoid(model(x.to(model.config.compute_dtype))[0].float())
+            vals["psnr"].append(psnr(recon, x).cpu())
+            vals["ssim"].append(ssim(recon, x).cpu())
+        return {k: float(torch.cat(v).mean()) for k, v in vals.items()}
+
+    def evaluate(self, state: TrainState, val_batches: list) -> dict:
+        """Mean PSNR/SSIM over fixed validation batches; with EMA on, the
+        shadow parameters are scored too (val_psnr_ema, ...)."""
+        out = {f"val_{k}": v for k, v in self._metrics(state.model, val_batches).items()}
+        if state.ema is not None:
+            params = dict(state.model.named_parameters())
+            with torch.no_grad():
+                live = {n: p.detach().clone() for n, p in params.items()}
+                for n, t in state.ema.items():
+                    params[n].copy_(t)
+                try:
+                    ema = self._metrics(state.model, val_batches)
+                finally:
+                    for n, t in live.items():
+                        params[n].copy_(t)
+            out.update({f"val_{k}_ema": v for k, v in ema.items()})
+        return out
+
+    def _selection_psnr(self, val: dict) -> float:
+        return val.get("val_psnr_ema", val.get("val_psnr", float("-inf")))
+
+    # -- loop ------------------------------------------------------------
+    def fit(self, data_iter: Iterator, state: TrainState | None = None,
+            val_batches: list | None = None) -> TrainState:
+        """Run the loop over ``data_iter`` ([B, H, W, 3] batches in [0, 1],
+        numpy or tensors). SIGTERM/SIGINT finish the step, checkpoint and
+        return; a second signal falls through to the previous handler."""
+        stop_signal: list[int | None] = [None]
+        prev_handlers: dict[int, Any] = {}
+
+        def _request_stop(signum, frame):
+            if stop_signal[0] is not None:
+                signal.signal(signum, prev_handlers.get(signum) or signal.SIG_DFL)
+                raise KeyboardInterrupt
+            stop_signal[0] = signum
+            print(f"[trainer] received signal {signum}: will checkpoint and "
+                  "stop after the current step")
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                prev_handlers[sig] = signal.signal(sig, _request_stop)
+            except ValueError:  # not the main thread
+                pass
+        try:
+            if state is None:
+                state = self.create_state()
+            state, start_epoch = self.maybe_resume(state)
+            history = RunHistory(os.path.join(self.cfg.output_dir, "history.jsonl"))
+            if state.step and self.cfg.skip_data_on_resume:
+                print(f"[trainer] skip_data_on_resume: advancing the data "
+                      f"stream by {state.step} batches to the resume point")
+                for _ in range(state.step):
+                    if next(data_iter, None) is None:
+                        break
+            return self._fit_loop(state, data_iter, val_batches, history,
+                                  start_epoch, stop_signal)
+        finally:
+            for sig, prev in prev_handlers.items():
+                signal.signal(sig, prev)
+
+    def _fit_loop(self, state, data_iter, val_batches, history, start_epoch,
+                  stop_signal):
+        c = self.cfg
+        timer = StepTimer()
+        diverged_evals = 0
+        resume_offset = state.step % c.steps_per_epoch
+        for epoch in range(start_epoch, c.num_epochs):
+            epoch_metrics: list[dict] = []
+            n_steps = c.steps_per_epoch
+            if epoch == start_epoch and resume_offset:
+                n_steps -= resume_offset
+            for _ in range(n_steps):
+                try:
+                    batch = next(data_iter)
+                except StopIteration:
+                    break
+                batch = torch.as_tensor(batch).to(self.device)
+                metrics = self.step_fn(state, batch)
+                timer.tick(c.batch_size)
+                step = state.step
+                if c.save_every_steps and step % c.save_every_steps == 0:
+                    self.save(state, epoch)
+                if step % c.log_every == 0:
+                    host = {k: float(v) for k, v in metrics.items()}
+                    host["images_per_sec"] = timer.images_per_sec
+                    history.append(step, host, kind="train")
+                    epoch_metrics.append(host)
+                    print(f"[trainer] epoch {epoch} step {step} loss {host['total']:.4f} "
+                          f"({host['images_per_sec']:.1f} img/s)")
+                if c.eval_every_steps and val_batches and step % c.eval_every_steps == 0:
+                    val = self.evaluate(state, val_batches)
+                    history.append(step, val, kind="val")
+                    ema_str = (f" ema {val['val_psnr_ema']:.2f}"
+                               if "val_psnr_ema" in val else "")
+                    print(f"[trainer] epoch {epoch} step {step} val_psnr "
+                          f"{val['val_psnr']:.2f} dB{ema_str} val_ssim {val['val_ssim']:.4f}")
+                    sel = self._selection_psnr(val)
+                    if c.keep_best and sel > self._best_psnr:
+                        self._best_psnr = sel
+                        self.save(state, epoch, best=True, val=val)
+                    # The breaker watches the raw PSNR: an EMA lags a collapse.
+                    raw = val.get("val_psnr", sel)
+                    self._best_raw_psnr = max(self._best_raw_psnr, raw)
+                    if (c.divergence_halt_db > 0 and np.isfinite(self._best_raw_psnr)
+                            and raw < self._best_raw_psnr - c.divergence_halt_db):
+                        diverged_evals += 1
+                        if diverged_evals >= c.divergence_patience:
+                            self.save(state, epoch)
+                            print(f"[trainer] DIVERGENCE HALT: raw val PSNR {raw:.2f} dB "
+                                  f"has sat more than {c.divergence_halt_db:.1f} dB below "
+                                  f"the best ({self._best_raw_psnr:.2f} dB) for "
+                                  f"{diverged_evals} consecutive evals. Halting; resume "
+                                  "from checkpoints_best/ with adjusted hyperparameters.")
+                            return state
+                    else:
+                        diverged_evals = 0
+                if stop_signal[0] is not None:
+                    break
+            if stop_signal[0] is not None:
+                self.save(state, epoch)
+                print(f"[trainer] stopped by signal {stop_signal[0]} at step "
+                      f"{state.step}; checkpoint saved, resume with the same --output_dir")
+                break
+            if epoch_metrics:
+                avg = {k: float(np.mean([m[k] for m in epoch_metrics]))
+                       for k in epoch_metrics[0]}
+                print(f"[trainer] epoch {epoch} done: avg loss {avg['total']:.4f} "
+                      f"over {len(epoch_metrics)} log points")
+            if (epoch + 1) % c.save_every_epochs == 0 or epoch == c.num_epochs - 1:
+                self.save(state, epoch)
+        return state
+
+    def save(self, state: TrainState, epoch: int, best: bool = False,
+             val: dict | None = None) -> None:
+        """Checkpoint under checkpoints/ (newest 3 kept), or with best=True
+        under checkpoints_best/ (1 kept, val metrics beside it). The config
+        is saved with the inference dispatch: 'auto_train' is a training
+        policy, not architecture."""
+        ckpt_dir = os.path.join(self.cfg.output_dir,
+                                "checkpoints_best" if best else "checkpoints")
+        payload = {"model": state.model.state_dict(),
+                   "optimizer": state.optimizer.state_dict(), "step": state.step}
+        if state.ema is not None:
+            payload["ema"] = state.ema
+        saved_cfg = self.model_config
+        if saved_cfg.attention_impl == "auto_train":
+            saved_cfg = saved_cfg.replace(attention_impl="auto")
+        save_checkpoint(ckpt_dir, state.step, payload, epoch=epoch, config=saved_cfg,
+                        max_to_keep=1 if best else 3, metrics=val if best else None)
+        tag = " (new best)" if best else ""
+        print(f"[trainer] saved checkpoint at step {state.step}{tag}")
+

@@ -1,5 +1,7 @@
-"""Weights from the JAX package's param pytree into the port (the port's own
-copy of ``deepl_project_tpu/utils/convert.py::params_to_torch_state_dict``).
+"""Weights from the JAX package's param pytrees into the port: the model's
+(the port's own copy of
+``deepl_project_tpu/utils/convert.py::params_to_torch_state_dict``) and
+LPIPS's (:func:`lpips_params_from_jax`).
 
 The JAX tree (numpy leaves) maps onto the reference's state_dict layout,
 which is the port's: HWIO conv kernels -> OIHW, [in, out] dense kernels ->
@@ -100,3 +102,17 @@ def load_reference_checkpoint(model: torch.nn.Module, path: str):
     raw = torch.load(path, map_location="cpu", weights_only=True)
     sd = raw.get("model_state_dict", raw) if isinstance(raw, dict) else raw
     return load_state_dict(model, {k.replace("module.", ""): v for k, v in sd.items()})
+
+
+def lpips_params_from_jax(tree: Mapping[str, Any]) -> dict:
+    """The port's LPIPS params from the JAX package's LPIPS tree or ``.npz``
+    groups ({'conv': {w{i}: HWIO, b{i}}, 'lin': {w{i}}}, numpy or array
+    leaves): fp32 tensors, conv kernels in OIHW."""
+    out: dict = {"conv": {}, "lin": {}}
+    for group, leaves in tree.items():
+        for name, v in leaves.items():
+            t = torch.from_numpy(np.array(v, np.float32))
+            if group == "conv" and name.startswith("w"):
+                t = t.permute(3, 2, 0, 1).contiguous()  # HWIO -> OIHW
+            out[group][name] = t
+    return out

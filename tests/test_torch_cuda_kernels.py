@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from deepl_project_tpu_torch import create_transvae
+from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
 from deepl_project_tpu_torch.ops.hopper import fused_attention_block as fab
 
 pytestmark = pytest.mark.gpu
@@ -103,3 +104,81 @@ def test_model_kernel_path_matches_plain_path(gen):
     ek, ep = (kern - ref).abs(), (plain - ref).abs()
     assert ek.mean().item() <= 1.5 * ep.mean().item(), (ek.mean(), ep.mean())
     assert ek.max().item() <= 2.0 * ep.max().item(), (ek.max(), ep.max())
+
+
+@pytest.mark.parametrize("kind", ["sublayer", "ln_qkv_rope"])
+def test_kernel_path_gradients_match_plain(gen, kind):
+    # Training through the kernel path: the gradients reach x, the three LN
+    # affines and every weight, and equal the plain path's (the backward is
+    # the plain version's VJP at the same inputs and cotangent).
+    b, n, c, h, w = 2, 256, 384, 16, 16
+    x, ln, (wq, wk, wv, wp), bp = _sublayer_args(gen, b, n, c, h, w)
+    leaves = [x, *[t for pair in ln for t in pair], wq, wk, wv, wp, bp]
+    for t in leaves:
+        t.requires_grad_(True)
+    ct = torch.randn(b, n, 3 * c if kind == "ln_qkv_rope" else c, generator=gen,
+                     device="cuda")
+
+    def run(fn):
+        out = fn(x, ln, wq, wk, wv, wp, bp, h, w)
+        out = torch.cat(out, dim=-1) if kind == "ln_qkv_rope" else out
+        grads = torch.autograd.grad((out.float() * ct).sum(), leaves, allow_unused=True)
+        return out, grads
+
+    if kind == "ln_qkv_rope":
+        kern = lambda x, ln, wq, wk, wv, wp, bp, h, w: fab.ln_qkv_rope(x, ln, wq, wk, wv, h, w)  # noqa: E731
+        plain = lambda x, ln, wq, wk, wv, wp, bp, h, w: fab.qkv_rope_reference(x, ln, wq, wk, wv, h, w)  # noqa: E731
+        leaves = leaves[:-2]
+    else:
+        kern, plain = fab.fused_attention_sublayer, fab.sublayer_reference
+    fab.reset_launch_counts()
+    out_k, g_k = run(kern)
+    assert fab.launch_counts()["ln_qkv_rope"] == 1
+    out_p, g_p = run(plain)
+    _close(out_k, out_p)
+    for gk, gp in zip(g_k, g_p):
+        assert gk is not None and bool(torch.isfinite(gk).all())
+        _close(gk, gp)
+
+
+@pytest.mark.parametrize("b,n,h,packed", [(2, 256, 2, False), (1, 1024, 3, True),
+                                          (2, 4096, 6, False)])
+def test_flash_kernels_match_plain(gen, b, n, h, packed):
+    # Forward (o, lse), dq and dk/dv against the plain versions on the same
+    # inputs; ``packed`` feeds q/k/v as column slices of one [B, N, 3C] buffer.
+    c = h * 64
+    if packed:
+        qkv = (2 * torch.randn(b, n, 3 * c, generator=gen, device="cuda")).to(torch.bfloat16)
+        q, k, v = (qkv[..., i * c:(i + 1) * c].reshape(b, n, h, 64) for i in range(3))
+    else:
+        q, k, v = ((2 * torch.randn(b, n, h, 64, generator=gen, device="cuda")).to(torch.bfloat16)
+                   for _ in range(3))
+    do = torch.randn(b, n, h, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    fla.reset_launch_counts()
+    o, lse = fla.flash_forward(q, k, v, 0.125)
+    o_ref, lse_ref = fla.flash_forward_reference(q, k, v, 0.125)
+    _close(o, o_ref)
+    _close(lse, lse_ref)
+    grads = fla.flash_backward(q, k, v, o, lse, do, 0.125)
+    for g, r in zip(grads, fla.flash_backward_reference(q, k, v, o, lse, do, 0.125)):
+        _close(g, r)
+    assert fla.launch_counts() == {"flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+                                   "flash_attention_bwd_dkv": 1}
+
+
+def test_flash_attention_autograd(gen):
+    q, k, v = (torch.randn(2, 512, 2, 64, generator=gen, device="cuda")
+               .to(torch.bfloat16).requires_grad_(True) for _ in range(3))
+    do = torch.randn(2, 512, 2, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    fla.reset_launch_counts()
+    out = fla.flash_attention(q, k, v, 0.125)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert fla.launch_counts() == {"flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+                                   "flash_attention_bwd_dkv": 1}
+    o, lse = fla.flash_forward_reference(q.detach(), k.detach(), v.detach(), 0.125)
+    _close(out, o)
+    want = fla.flash_backward_reference(q.detach(), k.detach(), v.detach(), o, lse, do, 0.125)
+    for g, r in zip(got, want):
+        _close(g, r)
+    with pytest.raises(ValueError):
+        fla.flash_forward(q[:, :100].detach(), k[:, :100].detach(), v[:, :100].detach(), 0.125)

@@ -168,3 +168,43 @@ def test_wrappers_raise_off_cpu_instead_of_falling_back():
     with pytest.raises(ValueError):
         fab.fused_attention_sublayer(x, ln, w, w, w, w, w[0], 16, 16)
     assert fab.launch_counts() == {}
+
+
+@pytest.mark.parametrize("kind", ["ln_qkv_rope", "sublayer"])
+def test_kernel_functions_backward_is_the_plain_vjp(monkeypatch, kind):
+    # The autograd Functions around the forward-only kernels, driven on the
+    # CPU with the plain forward in place of the ln_qkv_rope launch (the
+    # sublayer's attention_core and proj_bias_gemm take their plain versions
+    # for CPU tensors): gradients of x, the LN affines and every weight equal
+    # autograd through the plain composition (fp32, 1e-5 x max|grad|).
+    c, hd, h, w = 128, 32, 8, 8
+    x, ln, ws, bp = _inputs(c, hd, h, w, seed=4, wscale=2.0 / np.sqrt(c))
+    tx, tln, tws = _torch_args(x, ln, ws)
+    tbp = torch.from_numpy(bp)
+    leaves = [tx, *[t for pair in tln for t in pair], *tws, tbp]
+    if kind == "ln_qkv_rope":
+        leaves = leaves[:-2]
+    leaves = [t.clone().requires_grad_(True) for t in leaves]
+    lx, lln, lw = leaves[0], tuple(zip(leaves[1:7:2], leaves[2:7:2])), leaves[7:]
+    meta = (h, w, "reference", hd, True)
+
+    def plain_launch(xf, wpack, gb, *m):
+        return torch.cat(fab.qkv_rope_reference(xf, tuple((g.detach(), b.detach()) for g, b in lln),
+                                                *(t.detach() for t in lw[:3]), *m), dim=-1)
+
+    monkeypatch.setattr(fab, "_ln_qkv_rope_kernel", plain_launch)
+    packed = fab.pack_qkv(lln, *lw[:3], hd)
+    flat = [t for pair in lln for t in pair]
+    if kind == "ln_qkv_rope":
+        out = fab._LnQkvRope.apply(lx, *flat, *lw, packed, meta)
+        ref = torch.cat(fab.qkv_rope_reference(lx, lln, *lw, *meta), dim=-1)
+    else:
+        out = fab._Sublayer.apply(lx, *flat, *lw, packed, meta)
+        ref = fab.sublayer_reference(lx, lln, *lw, *meta)
+    ct = torch.from_numpy(np.random.default_rng(5).standard_normal(out.shape).astype(np.float32))
+    got = torch.autograd.grad(out, leaves, ct)
+    want = torch.autograd.grad(ref, leaves, ct)
+    _close(out.detach(), ref.detach())
+    for g, r in zip(got, want):
+        assert g is not None
+        _close(g, r, atol=1e-5 * float(r.abs().max()), rtol=0)

@@ -1,9 +1,11 @@
 """The PyTorch port stands alone: no JAX, nothing of deepl_project_tpu.
 
 In a fresh interpreter where ``import jax`` and ``import flax`` fail, every
-module of deepl_project_tpu_torch and chip_smoke.py must import, and none of
-deepl_project_tpu's modules may be loaded. The entry points default to CUDA
-and refuse to continue on a machine without it.
+module of deepl_project_tpu_torch (found by walking the whole package, so new
+modules are covered as they come) and chip_smoke.py must import, and none of
+deepl_project_tpu's modules may be loaded. The entry points (model factory,
+serving engine, trainer) default to CUDA and refuse to continue on a machine
+without it.
 """
 
 import os
@@ -30,10 +32,14 @@ _PROBE = textwrap.dedent("""
     assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m]]
     print(len(names))
     if not torch_cuda:
-        from deepl_project_tpu_torch import create_transvae
+        from deepl_project_tpu_torch import create_transvae, get_config
         from deepl_project_tpu_torch.cli import serve
+        from deepl_project_tpu_torch.losses import LossWeights
+        from deepl_project_tpu_torch.training import Trainer, TrainerConfig
         for fn in (lambda: create_transvae("tiny"),
-                   lambda: serve.build_engine(serve.build_parser().parse_args([]))):
+                   lambda: serve.build_engine(serve.build_parser().parse_args([])),
+                   lambda: Trainer(get_config("tiny"),
+                                   TrainerConfig(weights=LossWeights(gan=0.0)))):
             try:
                 fn()
             except RuntimeError as e:
@@ -51,4 +57,4 @@ def test_port_imports_without_jax_or_the_jax_package():
                          env={**os.environ, "PYTHONPATH": REPO})
     assert out.returncode == 0, out.stderr
     n_modules, status = out.stdout.split()
-    assert int(n_modules) >= 15 and status == "ok"
+    assert int(n_modules) >= 29 and status == "ok"

@@ -140,8 +140,12 @@ def test_clamps_and_mean_decoding():
         assert float(mu.min()) == 50.0 and float(logvar.max()) == -30.0
         raw_mu, _ = model.encode(x)
         assert float(raw_mu.min()) > 50.0  # encode itself does not clamp
-        with pytest.raises(NotImplementedError):
-            model(x, sample=True)  # sampling belongs to training
+        # Sampling (training) decodes mu + eps * exp(0.5 * -30): the mean up
+        # to noise of ~3e-7, drawn from the caller's generator.
+        s1 = model(x, sample=True, generator=torch.Generator().manual_seed(1))[0]
+        s2 = model(x, sample=True, generator=torch.Generator().manual_seed(1))[0]
+        torch.testing.assert_close(s1, s2, rtol=0, atol=0)
+        torch.testing.assert_close(s1, model(x)[0], rtol=1e-5, atol=1e-5)
 
 
 def test_seeded_init_is_reproducible_and_small_latent_heads():
