@@ -7,9 +7,9 @@
 
 Phases (any failure exits non-zero and prints no result):
 
-1. build: compile the six Hopper kernels of deepl_project_tpu_torch/csrc
-   with nvcc for sm_90a (in parallel) and print ptxas' register and shared
-   memory report.
+1. build: compile the Hopper kernel sources of deepl_project_tpu_torch/csrc
+   (nine kernels in eight files) with nvcc for sm_90a, all in parallel, and
+   print ptxas' register and shared memory report.
 2. kernels: run each kernel at the main paths' shapes and hold it against
    its plain PyTorch version on the same inputs: max |kernel - plain| <=
    2**-6 * max|plain|, i.e. two bf16 rounding steps (ulp <= 2**-7 |v|) at
@@ -18,10 +18,18 @@ Phases (any failure exits non-zero and prints no result):
    for all three); the flash kernels (forward, dq, dk/dv) at the training
    microbatch (8 images, 6 heads, N=4096), the forward also at 512px
    serving (2 images, N=16384) and at 256px serving batch 32 against the
-   plain chunked core (the inference dispatch's evidence). Times each
-   kernel, its plain version and, where one exists, the one PyTorch call
-   computing the same function (SDPA, its backward, F.linear), with CUDA
-   events.
+   plain chunked core (the inference dispatch's evidence); small_attention
+   at the 512px stage-4 shape (8 images, N=1024, 24 heads, q/k/v slices of
+   one [B, N, 3C] buffer as ln_qkv_rope leaves them); group_norm_silu (stats
+   and apply kernels) at the large f16d32 ResBlock shapes at b32,
+   [32, 192, 256, 256] and [32, 192, 128, 128] bf16, the stats kernel's fp32
+   sums each within 1e-5 relative of the plain fp32 sums. Times each kernel,
+   its plain version and, where one exists, the one PyTorch call computing
+   the same function (SDPA, its backward, F.linear, torch.var_mean for the
+   GroupNorm stats; F.group_norm + F.silu for the whole group_norm_silu),
+   with CUDA events; and the two routes of an attention sublayer at (N=1024,
+   C=1536, b=8): the whole-sublayer kernels against ln_qkv_rope +
+   small_attention + the projection.
 3. grad: the sublayer kernels' backward (their plain versions' VJP) at the
    stage-3 training shape: gradients of x, the LN affines and every weight
    on the kernel path against the plain path's.
@@ -29,7 +37,7 @@ Phases (any failure exits non-zero and prints no result):
    Trainer.fit on synthetic 256px images, batch 16 as 2 microbatches of 8,
    L1 + LPIPS (random VGG) + KL, AdamW with warmup, a checkpoint at the
    end; launch counters set to 0 before and read after: exactly 12 flash
-   forward, 12 dq and 12 dk/dv launches per step and no sublayer kernel;
+   forward, 12 dq and 12 dk/dv launches per step and no other kernel;
    finite losses, params moved; one batch's loss and gradient norm on the
    kernel path against the plain attention core. Times steps, img/s and
    peak memory.
@@ -41,8 +49,19 @@ Phases (any failure exits non-zero and prints no result):
    of the kernel path and of the plain bf16 path against the same weights
    in fp32; one 512px reconstruct (b=2) with its flash forward launches.
 6. time: reconstruct images/s at batch 32 through InferenceEngine.run.
+7. eval: evaluate_model at 256px on the shapes source (2 batches of 16, LPIPS
+   and vgg_rfid on random VGG); extrapolation_sweep at 256/512/1024px on 8
+   shapes images made at 1024px (chunks of 8, 8 and 4), with the launch
+   counters set to 0 before and read after each resolution: at 512px 12
+   small_attention and 12 + 6 + 8 ln_qkv_rope per chunk and no sublayer
+   kernel, at 1024px 6 + 8 + 12 flash forwards and no small_attention;
+   finite PSNR/SSIM, images/s and peak memory per resolution; one 512px
+   reconstruct (b=2) of the kernel path and of the plain bf16 path against
+   fp32 (the serve phase's rule); cli/generate.py --mode random on the card.
 
-The line before the last is the ``kernels`` JSON; the last line is
+Launches are checked against one table per resolution (256, 512, 1024px;
+launches_per_reconstruct); group_norm_silu, on no model path, must show no
+launch in the train, serve and eval runs. The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -56,10 +75,16 @@ import sys
 import threading
 import time
 
-# H100 SXM dense peaks (NVIDIA data sheet) for the bound of each kernel.
+# H100 SXM dense peaks (NVIDIA data sheet) for the bound of each kernel:
+# bf16 tensor cores, fp32 outside the tensor cores (elementwise work), HBM.
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 KERNEL_RTOL = 2 ** -6
+# group_norm_stats' fp32 sums (~4e5 values a group) against the plain fp32
+# sums: two summation orders differ by ~1e-6 relative; a chunk left out would
+# move a sum by far more.
+STATS_RTOL = 1e-5
 # Whole-model check: the kernel path and the plain bf16 path round at
 # different places in 26 attention sublayers, and a random-weight model
 # carries each rounding difference through the decoder, so neither is held to
@@ -80,6 +105,13 @@ COMPARE_BATCH = 4  # the plain core's saved [B, h, N, N] weights bound it
 FLASH_TRAIN = (8, 4096, 6)
 FLASH_SERVE_256 = (32, 4096, 6)
 FLASH_SERVE_512 = (2, 16384, 6)
+# small_attention at 512px stage 4, (batch, N, heads); group_norm_silu at the
+# large f16d32 ResBlock shapes (stages 0 and 1) at b32.
+SMALL_512 = (8, 1024, 24)
+GROUP_NORM_SHAPES = ((32, 192, 256, 256), (32, 192, 128, 128))
+# extrapolation_sweep: resolution -> images per forward (chunk).
+EVAL_CHUNKS = {256: 8, 512: 8, 1024: 4}
+EVAL_IMAGES = 8
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CARD = ""
@@ -135,26 +167,61 @@ def kernel_shapes():
     return [(4096, 384, 64, 64, 32), (1024, 768, 32, 32, 32), (256, 1536, 16, 16, 32)]
 
 
-def launches_per_reconstruct(cfg, res: int = 256) -> tuple[dict, dict]:
-    """Expected launches in one reconstruct at ``res`` px: (sublayer kernels
-    by (name, N, C), flash kernels by (name, N, heads))."""
-    from deepl_project_tpu_torch.ops import attention as attn
-    from deepl_project_tpu_torch.ops.hopper.fused_attention_block import MAX_SUBLAYER_TOKENS
+def launches_per_reconstruct(res: int = 256, forwards: int = 1) -> tuple[dict, dict, dict, dict]:
+    """Launches of large f16d32's kernels in ``forwards`` reconstructs at
+    ``res`` px, in kernel_launches' order: sublayer kernels by (name, N, C),
+    flash forwards by (name, N, heads), small_attention by (name, N, heads),
+    group_norm_silu's kernels (none: no model path calls them). Stages 2-4
+    hold 3, 4 and 6 blocks, each in the encoder and the decoder: 6, 8 and 12
+    attention sublayers."""
+    sub = ("ln_qkv_rope", "attention_core", "proj_bias_gemm")
+    table = {
+        # Stage 2 (4096, 384): ln_qkv_rope + flash forward; stages 3
+        # (1024, 768) and 4 (256, 1536): the whole-sublayer kernels.
+        256: ({("ln_qkv_rope", 4096, 384): 6, **{(k, 1024, 768): 8 for k in sub},
+               **{(k, 256, 1536): 12 for k in sub}},
+              {("flash_attention_fwd", 4096, 6): 6}, {}),
+        # ln_qkv_rope everywhere; flash forwards at stages 2-3, and at stage 4
+        # (1024, 1536), where the sublayer gate refuses, small_attention.
+        512: ({("ln_qkv_rope", 16384, 384): 6, ("ln_qkv_rope", 4096, 768): 8,
+               ("ln_qkv_rope", 1024, 1536): 12},
+              {("flash_attention_fwd", 16384, 6): 6, ("flash_attention_fwd", 4096, 12): 8},
+              {("small_attention", 1024, 24): 12}),
+        1024: ({("ln_qkv_rope", 65536, 384): 6, ("ln_qkv_rope", 16384, 768): 8,
+                ("ln_qkv_rope", 4096, 1536): 12},
+               {("flash_attention_fwd", 65536, 6): 6, ("flash_attention_fwd", 16384, 12): 8,
+                ("flash_attention_fwd", 4096, 24): 12}, {}),
+    }
+    return tuple({k: v * forwards for k, v in d.items()} for d in table[res]) + ({},)
 
-    fab_want, fla_want = {}, {}
-    for i in range(cfg.num_cnn_stages, cfg.num_stages):
-        side = res // 2 ** i
-        n, c = side * side, cfg.base_dims[i]
-        calls = 2 * cfg.depths[i]  # encoder and decoder
-        names = (("ln_qkv_rope", "attention_core", "proj_bias_gemm")
-                 if n <= MAX_SUBLAYER_TOKENS else ("ln_qkv_rope",))
-        for name in names:
-            fab_want[(name, n, c)] = calls
-        if n > MAX_SUBLAYER_TOKENS and (
-                n >= attn._PALLAS_MIN_TOKENS or attn._PALLAS_MID_BAND[0] < n
-                <= attn._PALLAS_MID_BAND[1]):
-            fla_want[("flash_attention_fwd", n, c // 64)] = calls
-    return fab_want, fla_want
+
+def kernel_launches() -> tuple[dict, dict, dict, dict]:
+    """Launches by shape since the last reset, in launches_per_reconstruct's
+    order."""
+    from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
+    from deepl_project_tpu_torch.ops.hopper import fused_attention_block as fab
+    from deepl_project_tpu_torch.ops.hopper import fused_norm as fnorm
+    from deepl_project_tpu_torch.ops.hopper import small_attention as sma
+
+    return (fab.launch_counts_by_shape(), fla.launch_counts_by_shape(),
+            sma.launch_counts_by_shape(), fnorm.launch_counts_by_shape())
+
+
+def norm_launches() -> dict:
+    """group_norm_silu's launches by kernel name since the last reset."""
+    from deepl_project_tpu_torch.ops.hopper import fused_norm as fnorm
+
+    return fnorm.launch_counts()
+
+
+def reset_launches() -> None:
+    from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
+    from deepl_project_tpu_torch.ops.hopper import fused_attention_block as fab
+    from deepl_project_tpu_torch.ops.hopper import fused_norm as fnorm
+    from deepl_project_tpu_torch.ops.hopper import small_attention as sma
+
+    for mod in (fab, fla, sma, fnorm):
+        mod.reset_launch_counts()
 
 
 def flash_bound(name, b, n, h):
@@ -385,6 +452,153 @@ def phase_flash_kernels():
     return results
 
 
+def phase_eval_kernels():
+    """small_attention and group_norm_silu against their plain versions at
+    the shapes their paths give them; times; and the two routes of an
+    attention sublayer at (N=1024, C=1536)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepl_project_tpu_torch.ops.hopper import fused_attention_block as fab
+    from deepl_project_tpu_torch.ops.hopper import fused_norm as fnorm
+    from deepl_project_tpu_torch.ops.hopper import small_attention as sma
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    bf = torch.bfloat16
+    results = {}
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    def check(name, shape, got, ref):
+        got, ref = got.float(), ref.float()
+        if not bool(torch.isfinite(got).all()):
+            fail(f"{name} {shape}: non-finite output")
+        err = (got - ref).abs().max().item()
+        top = ref.abs().max().item()
+        lim = KERNEL_RTOL * top
+        log(f"check {name} {shape}: max_abs_err={err:.3e} max|plain|={top:.3e} "
+            f"rel={err / top:.3e} bound={lim:.3e} (rel {KERNEL_RTOL:.3e})")
+        if not err <= lim:
+            fail(f"{name} {shape}: max_abs_err {err:.3e} > {lim:.3e}")
+        return err
+
+    def check_fp32(name, shape, got, ref):
+        """An fp32 result, each value within STATS_RTOL of the plain one's."""
+        if not bool(torch.isfinite(got).all()):
+            fail(f"{name} {shape}: non-finite output")
+        err = (got - ref).abs()
+        rel = (err / ref.abs()).max().item()
+        log(f"check {name} {shape}: max_abs_err={err.max().item():.3e} max "
+            f"rel={rel:.3e} bound rel {STATS_RTOL:.1e} (fp32)")
+        if not rel <= STATS_RTOL:
+            fail(f"{name} {shape}: max rel err {rel:.3e} > {STATS_RTOL:.1e}")
+        return err.max().item()
+
+    def record(key, err, ms, plain_ms, library_ms, flops, nbytes, peak):
+        r = {"err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+             "flops": flops, "bytes": nbytes,
+             "bound_ms": max(flops / peak, nbytes / PEAK_HBM_BYTES) * 1e3,
+             "bound_by": "operations" if flops / peak >= nbytes / PEAK_HBM_BYTES else "bytes"}
+        lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
+        log(f"time {key[0]} {key[1:]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{lib} ms, bound {r['bound_ms']:.4f} ms ({flops:.4e} FLOP, {nbytes:.4e} B) [{CARD}]")
+        results[key] = r
+
+    # small_attention at 512px stage 4: q/k/v are column slices of one
+    # [B, N, 3C] buffer, as ln_qkv_rope leaves them. Entries of std 1.5:
+    # scores q.k/8 of std ~1.1, a spread softmax row.
+    b, n, h = SMALL_512
+    c = h * 64
+    qkv = randn(b, n, 3 * c, scale=1.5).to(bf)
+    q, k, v = (qkv[..., i * c:(i + 1) * c].reshape(b, n, h, 64) for i in range(3))
+    scale = 64 ** -0.5
+    o = sma.small_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    err = check("small_attention", SMALL_512, o, sma.small_attention_reference(q, k, v, scale))
+    heads = [t.transpose(1, 2) for t in (q, k, v)]
+    record(("small_attention", *SMALL_512), err,
+           cuda_time_ms(lambda: sma.small_attention(q, k, v, scale), 20),
+           cuda_time_ms(lambda: sma.small_attention_reference(q, k, v, scale), 5),
+           cuda_time_ms(lambda: F.scaled_dot_product_attention(*heads), 20),
+           4 * b * h * n * n * 64, 4 * b * n * c * 2, PEAK_BF16_FLOPS)
+    del qkv, q, k, v, o, heads
+
+    # group_norm_silu at the large ResBlock shapes: the stats kernel reads x
+    # once (3 fp32 operations a value), the apply kernel reads x and writes y
+    # (about 8: an affine, exp, add, divide); both bound by bytes.
+    for shape in GROUP_NORM_SHAPES:
+        bb, cc, hh, ww = shape
+        x = (randn(*shape, scale=2.0) + 1).to(bf)
+        gs, gb = 1 + randn(cc, scale=0.1), randn(cc, scale=0.1)
+        y = fnorm.group_norm_silu(x, gs, gb, 32)
+        stats = fnorm.group_stats(x, 32)
+        torch.cuda.synchronize()
+        err = check("group_norm_silu", shape, y, fnorm.group_norm_silu_reference(x, gs, gb, 32))
+        err_stats = check_fp32("group_norm_stats", shape, stats,
+                               fnorm.group_stats_reference(x, 32))
+        mul, add = fnorm.mul_add(stats, (cc // 32) * hh * ww, gs, gb, 1e-5)
+        err_apply = check("group_norm_apply", shape, fnorm.apply(x, mul, add),
+                          fnorm.apply_reference(x, mul, add))
+        # Library calls, timed only: F.group_norm + F.silu for the whole
+        # function; for the stats pass the one call computing the same
+        # per-group reduction; none for the apply pass alone.
+        gsb, gbb = gs.to(bf), gb.to(bf)
+        lib_ms = cuda_time_ms(lambda: F.silu(F.group_norm(x, 32, gsb, gbb)), 10)
+        var_mean_ms = cuda_time_ms(
+            lambda: torch.var_mean(x.view(bb, 32, -1), dim=-1, correction=0), 10)
+        whole = cuda_time_ms(lambda: fnorm.group_norm_silu(x, gs, gb, 32), 10)
+        log(f"time group_norm_silu {shape} bf16 whole (2 kernels + epilogue): {whole:.4f} ms, "
+            f"plain {cuda_time_ms(lambda: fnorm.group_norm_silu_reference(x, gs, gb, 32), 3):.4f} "
+            f"ms, F.group_norm + F.silu {lib_ms:.4f} ms [{CARD}]")
+        values, xbytes = x.numel(), x.numel() * 2
+        record(("group_norm_stats", *shape), err_stats,
+               cuda_time_ms(lambda: fnorm.group_stats(x, 32), 10),
+               cuda_time_ms(lambda: fnorm.group_stats_reference(x, 32), 3),
+               var_mean_ms, 3 * values, xbytes + bb * 32 * 2 * 4, PEAK_FP32_FLOPS)
+        record(("group_norm_apply", *shape), max(err, err_apply),
+               cuda_time_ms(lambda: fnorm.apply(x, mul, add), 10),
+               cuda_time_ms(lambda: fnorm.apply_reference(x, mul, add), 3),
+               None, 8 * values, 2 * xbytes + 2 * bb * cc * 4, PEAK_FP32_FLOPS)
+        results[("group_norm_silu", *shape)] = {"ms": whole, "library_ms": lib_ms}
+        del x, y
+    torch.cuda.empty_cache()
+
+    # The two routes of a sublayer at (N=1024, C=1536, b=8), in turns: the
+    # whole-sublayer kernels (the route the JAX gate refuses at this shape)
+    # against ln_qkv_rope + small_attention + the projection (its route).
+    b, n, c, hh, ww = 8, 1024, 1536, 32, 32
+    x = randn(b, n, c).to(bf)
+    ln = tuple((1 + randn(c, scale=0.1), randn(c, scale=0.1)) for _ in range(3))
+    wq, wk, wv, wp = (randn(c, c, scale=2 / c ** 0.5) for _ in range(4))
+    bp = randn(c, scale=0.1)
+    packed = fab.pack_qkv(ln, wq, wk, wv)
+    wpb, bpb = wp.to(bf), bp.to(bf)
+
+    def sublayer():
+        return fab.fused_attention_sublayer(x, ln, wq, wk, wv, wp, bp, hh, ww, packed=packed)
+
+    def qkv_small_proj():
+        q, k, v = (t.reshape(b, n, c // 64, 64)
+                   for t in fab.ln_qkv_rope(x, ln, wq, wk, wv, hh, ww, packed=packed))
+        return F.linear(sma.small_attention(q, k, v, 64 ** -0.5).reshape(b, n, c), wpb, bpb)
+
+    a, s2 = sublayer(), qkv_small_proj()
+    torch.cuda.synchronize()
+    check("route ln_qkv_rope+small_attention+proj vs sublayer", (b, n, c), s2, a)
+    t_sub = [cuda_time_ms(sublayer, 20)]
+    t_small = [cuda_time_ms(qkv_small_proj, 20) for _ in range(2)]
+    t_sub.append(cuda_time_ms(sublayer, 20))
+    log(f"time sublayer routes (N, C, b)=({n}, {c}, {b}): whole-sublayer kernels "
+        f"{t_sub[0]:.4f} / {t_sub[1]:.4f} ms, ln_qkv_rope + small_attention + proj "
+        f"{t_small[0]:.4f} / {t_small[1]:.4f} ms [{CARD}]")
+    results[("routes", n, c)] = {"sublayer_ms": min(t_sub), "small_route_ms": min(t_small)}
+    del x, a, s2
+    torch.cuda.empty_cache()
+    return results
+
+
 def phase_grad():
     """Part of the sublayer kernels' contract since they are differentiable:
     at the stage-3 training shape (8 images, N=1024, C=768) the gradients of
@@ -472,21 +686,24 @@ def phase_train(profile: bool):
     data = input_pipeline(make_dataset("synthetic", resolution=256, num_samples=10 ** 6),
                           16, "cuda")
     torch.cuda.reset_peak_memory_stats()
-    fab.reset_launch_counts()
-    fla.reset_launch_counts()
+    reset_launches()
     t0 = time.time()
     state = trainer.fit(timed(data), state=state)
     fit_s = time.time() - t0
-    counts, sub = fla.launch_counts(), fab.launch_counts()
+    counts, sub, small, norm = (fla.launch_counts(), fab.launch_counts(),
+                                kernel_launches()[2], norm_launches())
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if state.step != TRAIN_STEPS:
         fail(f"train: {state.step} steps taken, {TRAIN_STEPS} asked")
     want = {k: 12 * TRAIN_STEPS for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
                                           "flash_attention_bwd_dkv")}
-    if counts != want or sub:
-        fail(f"train: flash launches {counts} (want {want}), sublayer kernel launches {sub}")
+    if counts != want or sub or small or norm:
+        fail(f"train: flash launches {counts} (want {want}), sublayer kernel launches {sub}, "
+             f"small_attention {small}, group_norm_silu {norm}")
     log(f"train: {TRAIN_STEPS} steps launched {fla.launch_counts_by_shape()} "
-        f"(12 fwd + 12 dq + 12 dk/dv per step), no sublayer kernel")
+        f"(12 fwd + 12 dq + 12 dk/dv per step), no sublayer kernel, small_attention "
+        f"or group_norm_silu kernel")
+    counts = {**counts, **norm}
     with open(os.path.join(out_dir, "history.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     losses = [r["total"] for r in rows if r["kind"] == "train"]
@@ -596,8 +813,7 @@ def phase_serve(model):
         except Exception as e:  # noqa: BLE001 -- reported below
             errors.append(f"{requests[i][0]}: {type(e).__name__}: {e}")
 
-    fab.reset_launch_counts()
-    fla.reset_launch_counts()
+    reset_launches()
     t = time.time()
     threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(requests))]
     for th in threads:
@@ -605,7 +821,7 @@ def phase_serve(model):
     for th in threads:
         th.join()
     served_s = time.time() - t
-    counts = {**fab.launch_counts(), **fla.launch_counts()}
+    counts = {**fab.launch_counts(), **fla.launch_counts(), **norm_launches()}
     server.shutdown()
     server.server_close()
     engine.stop()
@@ -627,26 +843,25 @@ def phase_serve(model):
         if counts.get(name, 0) == 0:
             fail(f"{name} was not launched while serving")
 
-    # Exactly 20 sublayers + 6 stage-2 qkv kernels (+ the stage-2 flash
-    # forwards when the inference dispatch takes them) per reconstruct.
-    want = launches_per_reconstruct(cfg)
-    fab.reset_launch_counts()
-    fla.reset_launch_counts()
+    # Exactly 20 sublayers + 6 stage-2 qkv kernels and flash forwards per
+    # reconstruct.
+    want = launches_per_reconstruct(256)
+    reset_launches()
     kern = engine.run("reconstruct", imgs[:4])
-    by_shape = (fab.launch_counts_by_shape(), fla.launch_counts_by_shape())
+    by_shape = kernel_launches()
     if by_shape != want:
         fail(f"launches per reconstruct {by_shape} != {want}")
     log(f"one reconstruct launched {by_shape}")
 
-    # 512px: stage 2 at N=16384 takes the flash forward.
-    want = launches_per_reconstruct(cfg, 512)
-    fab.reset_launch_counts()
-    fla.reset_launch_counts()
+    # 512px: stages 2-3 (N=16384, 4096) take the flash forward, stage 4
+    # (N=1024, C=1536) ln_qkv_rope + small_attention.
+    want = launches_per_reconstruct(512)
+    reset_launches()
     big = engine.run("reconstruct", rng.integers(0, 256, (2, 512, 512, 3), dtype=np.uint8))
-    by_shape = (fab.launch_counts_by_shape(), fla.launch_counts_by_shape())
+    by_shape = kernel_launches()
     if big.shape != (2, 512, 512, 3) or not np.isfinite(big.astype(np.float32)).all():
         fail(f"512px reconstruct: shape {big.shape} or non-finite output")
-    if by_shape != want or not want[1]:
+    if by_shape != want:
         fail(f"512px launches per reconstruct {by_shape} != {want}")
     counts["flash_attention_fwd_512"] = sum(by_shape[1].values())
     log(f"512px reconstruct b=2: finite {big.shape}, launched {by_shape}")
@@ -657,12 +872,11 @@ def phase_serve(model):
     attn = [m for m in model.modules() if isinstance(m, AttentionRoPE)]
     for m in attn:
         m.impl = "xla"
-    fab.reset_launch_counts()
-    fla.reset_launch_counts()
+    reset_launches()
     plain = engine.run("reconstruct", imgs[:4])
     for m in attn:
         m.impl = cfg.attention_impl
-    if fab.launch_counts() or fla.launch_counts():
+    if any(kernel_launches()):
         fail("plain path launched kernels")
     with torch.device("meta"):
         twin = TransVAE(cfg.replace(dtype="float32"))
@@ -717,10 +931,132 @@ def phase_time(model, profile: bool):
     return step
 
 
+# -- phase 5 -------------------------------------------------------------
+def phase_eval(model):
+    """The evaluation slice on large f16d32: evaluate_model at 256px, the
+    extrapolation sweep at 256/512/1024px with its launches, the 512px
+    accuracy check, and the generate CLI."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from deepl_project_tpu_torch.cli import generate
+    from deepl_project_tpu_torch.data import batch_iterator, make_dataset
+    from deepl_project_tpu_torch.evaluation import (evaluate_model, extrapolation_sweep,
+                                                    reconstruct, resize_images)
+    from deepl_project_tpu_torch.models import TransVAE
+    from deepl_project_tpu_torch.ops.attention import AttentionRoPE
+
+    cfg = model.config
+    out = {}
+
+    # Reconstruction metrics at 256px: 2 batches of 16 shapes images.
+    eval_dir = os.path.join(ROOT, "outputs", "chip_smoke_eval")
+    torch.cuda.synchronize()
+    t = time.time()
+    metrics = evaluate_model(model, None, batch_iterator(make_dataset("shapes", resolution=256),
+                                                         16),
+                             max_batches=2, compute_rfid=True, output_dir=eval_dir,
+                             save_grids=1)
+    torch.cuda.synchronize()
+    log(f"evaluate_model 256px shapes, 32 images, LPIPS + vgg_rfid (random VGG): "
+        f"{json.dumps(metrics)} in {time.time() - t:.2f}s [{CARD}]")
+    flat = [metrics[k][s] for k in ("psnr", "ssim", "lpips") for s in ("mean", "min", "max")]
+    if metrics["num_images"] != 32 or not np.isfinite(flat + [metrics["vgg_rfid"]]).all():
+        fail(f"evaluate_model: {metrics}")
+    if sorted(os.listdir(eval_dir)) != ["comparison_000.png", "metrics.json"]:
+        fail(f"evaluate_model wrote {os.listdir(eval_dir)}")
+
+    # The extrapolation sweep, one resolution at a time so that each one's
+    # launches are counted alone: a warm-up on one chunk, then all images.
+    imgs = next(batch_iterator(make_dataset("shapes", resolution=1024), EVAL_IMAGES))
+    sweep = {}
+    for res in sorted(EVAL_CHUNKS):
+        chunk = EVAL_CHUNKS[res]
+        extrapolation_sweep(model, None, imgs[:chunk], (res,), chunk=chunk)
+        want = launches_per_reconstruct(res, forwards=EVAL_IMAGES // chunk)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t = time.perf_counter()
+        r = extrapolation_sweep(model, None, imgs, (res,), chunk=chunk)[res]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        got = kernel_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        vals = [r[s] for s in ("mean", "min", "max")] + [r["ssim"][s] for s in ("mean", "min", "max")]
+        log(f"sweep {res}px ({EVAL_IMAGES} images, chunk {chunk}): psnr {r['mean']:.4f} dB "
+            f"(min {r['min']:.4f}, max {r['max']:.4f}), ssim {r['ssim']['mean']:.5f}; "
+            f"{EVAL_IMAGES / dt:.3f} img/s ({dt:.3f}s), peak memory {peak:.2f} GiB; "
+            f"launched {got} [{CARD}]")
+        if not np.isfinite(vals).all():
+            fail(f"sweep {res}px: non-finite metrics {r}")
+        if got != want:
+            fail(f"sweep {res}px: launches {got} != {want}")
+        sweep[res] = {"img_s": EVAL_IMAGES / dt, "seconds": dt, "peak_gib": peak,
+                      "psnr": r["mean"], "ssim": r["ssim"]["mean"], "launches": got}
+    out["sweep"] = sweep
+    out["small_attention_launches"] = sum(sweep[512]["launches"][2].values())
+    out["norm_launches"] = {}
+    for s in sweep.values():
+        for (name, _, _), cnt in s["launches"][3].items():
+            out["norm_launches"][name] = out["norm_launches"].get(name, 0) + cnt
+
+    # Accuracy at 512px (b=2): the kernel path (small_attention at stage 4)
+    # and the plain bf16 path, each against the same weights in fp32.
+    x512 = resize_images(torch.from_numpy(imgs[:2]).permute(0, 3, 1, 2), 512)
+    x512 = x512.permute(0, 2, 3, 1).numpy()
+    reset_launches()
+    kern = reconstruct(model, None, x512)
+    if kernel_launches() != launches_per_reconstruct(512):
+        fail(f"512px reconstruct launched {kernel_launches()}")
+    attn = [m for m in model.modules() if isinstance(m, AttentionRoPE)]
+    for m in attn:
+        m.impl = "xla"
+    plain = reconstruct(model, None, x512)
+    for m in attn:
+        m.impl = cfg.attention_impl
+    with torch.device("meta"):
+        twin = TransVAE(cfg.replace(dtype="float32"))
+    twin = twin.to_empty(device="cuda").eval()
+    twin.load_state_dict(model.state_dict())
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    exact = reconstruct(twin, None, x512)
+    torch.backends.cudnn.allow_tf32 = tf32
+    del twin
+    torch.cuda.empty_cache()
+    ek, ep = np.abs(kern - exact), np.abs(plain - exact)
+    log(f"reconstruct 512px b=2 sigmoid images vs fp32: kernel path max_abs={ek.max():.3e} "
+        f"mean_abs={ek.mean():.3e}; plain bf16 path max_abs={ep.max():.3e} "
+        f"mean_abs={ep.mean():.3e}; kernel vs plain max_abs={np.abs(kern - plain).max():.3e}")
+    if not (ek.mean() <= MODEL_MEAN_RATIO * ep.mean()
+            and ek.max() <= MODEL_MAX_RATIO * ep.max()):
+        fail("512px reconstruct: the kernel path is less accurate than the plain bf16 path")
+
+    # The generate CLI on the card: random latents of large f16d32, PNGs.
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.time()
+        generate.main(["--mode", "random", "--variant", "large", "--num_samples", "4",
+                       "--output_dir", tmp])
+        files = sorted(os.listdir(tmp))
+        if files != ["random.png"] + [f"sample_{i:03d}.png" for i in range(4)]:
+            fail(f"generate wrote {files}")
+        for f in files:
+            with open(os.path.join(tmp, f), "rb") as fh:
+                if fh.read(8) != b"\x89PNG\r\n\x1a\n":
+                    fail(f"generate: {f} is not a PNG")
+        log(f"cli.generate --mode random (large, 4 samples): {files} in "
+            f"{time.time() - t:.2f}s")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,grad,train,serve,time")
+    ap.add_argument("--phases", default="build,kernels,grad,train,serve,time,eval")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -744,6 +1080,7 @@ def main():
     if "kernels" in phases:
         results.update(phase_kernels())
         results.update(phase_flash_kernels())
+        results.update(phase_eval_kernels())
     if "grad" in phases:
         phase_grad()
     train_counts = {}
@@ -751,7 +1088,8 @@ def main():
         train_counts, _ = phase_train(args.profile)
     counts = {}
     model = None
-    if phases & {"serve", "time"}:
+    evaluated = {}
+    if phases & {"serve", "time", "eval"}:
         from deepl_project_tpu_torch import create_transvae
 
         model = create_transvae("large", 16, 32, device="cuda", seed=0)
@@ -759,9 +1097,11 @@ def main():
             counts = phase_serve(model)
         if "time" in phases:
             phase_time(model, args.profile)
+        if "eval" in phases:
+            evaluated = phase_eval(model)
 
     if results:
-        want = launches_per_reconstruct(model.config)[0] if counts else {}
+        want = launches_per_reconstruct()[0] if counts else {}
         kernels = []
         for name, source, replaces in (
                 ("ln_qkv_rope", "deepl_project_tpu_torch/csrc/ln_qkv_rope.cu",
@@ -806,6 +1146,52 @@ def main():
                 "per": (f"one call at the training microbatch (B, N, h)={FLASH_TRAIN}; "
                         f"launches over {TRAIN_STEPS} training steps"),
             })
+        r = results[("small_attention", *SMALL_512)]
+        kernels.append({
+            "name": "small_attention", "route": "cuda",
+            "source": "deepl_project_tpu_torch/csrc/small_attention.cu",
+            "replaces": "deepl_project_tpu/ops/pallas/small_attention.py:50",
+            "launches": evaluated.get("small_attention_launches", 0),
+            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "per": (f"one call at 512px stage 4 (B, N, h)={SMALL_512}; launches in the "
+                    f"eval phase's 512px sweep ({EVAL_IMAGES} images)"),
+        })
+        # group_norm_silu is on no model path (as in the JAX package): its
+        # launches in the train, serve and eval phases' runs must be 0.
+        norm = {name: (train_counts.get(name, 0) + counts.get(name, 0)
+                       + evaluated.get("norm_launches", {}).get(name, 0))
+                for name in ("group_norm_stats", "group_norm_apply")}
+        if any(norm.values()):
+            fail(f"group_norm_silu launched on a model path {norm}: it is documented "
+                 f"as on none; update PERF.md and this check")
+        whole = [results[("group_norm_silu", *shape)] for shape in GROUP_NORM_SHAPES]
+        for name, line, library in (
+                ("group_norm_stats", 71, "torch.var_mean over each (image, group)"),
+                ("group_norm_apply", 92, "none: no one PyTorch call computes "
+                                         "silu(x * mul + add)")):
+            rows = [results[(name, *shape)] for shape in GROUP_NORM_SHAPES]
+            tot = lambda key: sum(r[key] for r in rows)  # noqa: E731
+            row = {
+                "name": name, "route": "cuda",
+                "source": "deepl_project_tpu_torch/csrc/group_norm_silu.cu",
+                "replaces": f"deepl_project_tpu/ops/pallas/fused_norm.py:{line}",
+                "launches": norm[name],
+                "max_abs_err": max(r["err"] for r in rows), "ms": tot("ms"),
+                "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
+                "bound_by": "bytes",
+                "library_ms": None if rows[0]["library_ms"] is None else tot("library_ms"),
+                "per": (f"one call at each of {list(GROUP_NORM_SHAPES)} bf16, summed; "
+                        f"library: {library}; launches over the train, serve and eval "
+                        f"phases' runs"),
+            }
+            if name == "group_norm_apply":
+                # The whole function once: both kernels + the torch epilogue
+                # against F.group_norm + F.silu.
+                row["group_norm_silu_ms"] = sum(r["ms"] for r in whole)
+                row["group_norm_silu_library_ms"] = sum(r["library_ms"] for r in whole)
+            kernels.append(row)
         print(json.dumps({"kernels": kernels}), flush=True)
     log(f"all phases passed in {time.time() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {

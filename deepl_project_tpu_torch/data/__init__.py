@@ -1,5 +1,7 @@
 from .datasets import make_dataset, synthetic_dataset, synthetic_shapes_dataset
 from .pipeline import batch_iterator, input_pipeline, prefetch_to_device
+from .transforms import preprocess_file, preprocess_image
 
 __all__ = ["make_dataset", "synthetic_dataset", "synthetic_shapes_dataset",
-           "batch_iterator", "input_pipeline", "prefetch_to_device"]
+           "batch_iterator", "input_pipeline", "prefetch_to_device",
+           "preprocess_file", "preprocess_image"]

@@ -7,18 +7,23 @@ output projection with bias.
 
 Sublayer dispatch (``AttentionRoPE``), as in the JAX module:
 
-- ``impl='auto'`` (inference), N <= 1024 and the kernels' limits hold: the
-  whole sublayer runs as ``fused_attention_sublayer`` (three Hopper kernels);
-- ``impl='auto'``, N > 1024 within the kernels' limits (stage 2 at 256px,
-  N=4096): the ``ln_qkv_rope`` kernel, then :func:`core_attention`, then the
-  projection as a plain matmul (the JAX package also leaves it to XLA);
+- ``impl='auto'`` (inference) where the JAX package takes its sublayer
+  kernel (``sublayer_supported``: N <= 1024 and a head group that fits its
+  VMEM budget) and the kernels' limits hold: the whole sublayer runs as
+  ``fused_attention_sublayer`` (three Hopper kernels);
+- ``impl='auto'`` elsewhere within the kernels' limits (stage 2 at 256px,
+  N=4096; 512px stage 4, N=1024 at C=1536): the ``ln_qkv_rope`` kernel, then
+  :func:`core_attention`, then the projection as a plain matmul (the JAX
+  package also leaves it to XLA);
 - every other case (``auto_train``, ``xla``, ``pallas``, other head widths,
   float32): the composable path -- plain LayerNorms and linears,
   ``apply_rope2d``, :func:`core_attention`, the projection.
 
 :func:`core_attention` picks the core by token count as ``core_attention``
 in the JAX package does, with the flash kernels
-(``hopper/flash_attention.py``) in the place of the Pallas ``pallas`` band.
+(``hopper/flash_attention.py``) in the place of the Pallas ``pallas`` band
+and the whole-head kernel (``hopper/small_attention.py``) in the place of
+its ``pallas_small`` band.
 """
 
 from __future__ import annotations
@@ -32,11 +37,12 @@ from .hopper.flash_attention import flash_attention, flash_supported
 from .hopper.fused_attention_block import (fused_attention_sublayer,
                                            kernel_supported, ln_qkv_rope,
                                            pack_qkv, sublayer_supported)
+from .hopper.small_attention import small_attention
 from .layers import Linear
 from .norms import LayerNorm
 from .rope import apply_rope2d
 
-IMPLS = ("auto", "auto_train", "xla", "xla_chunked", "pallas")
+IMPLS = ("auto", "auto_train", "xla", "xla_chunked", "pallas", "pallas_small")
 
 # Token-count bands of the JAX package's core_attention.
 _XLA_FULL_SOFTMAX_MAX_TOKENS = 2048
@@ -91,35 +97,40 @@ def xla_attention(q, k, v, scale: float) -> torch.Tensor:
     return out.reshape(b, h, n, d).permute(0, 2, 1, 3)
 
 
-def core_attention(q, k, v, scale: float, impl: str = "auto") -> torch.Tensor:
-    """Dispatch the attention core; q/k/v [B, N, heads, head_dim].
-
-    'auto'/'auto_train' choose by N as the JAX package does: the mid band
-    (1024..2048, inference only) would take the small whole-head kernel for
-    N <= 1024 and the flash kernel above; N <= 2048 otherwise takes the plain
-    core; from ``_PALLAS_MIN_TOKENS`` (``_PALLAS_MIN_TOKENS_TRAIN`` for
-    'auto_train') on, the flash kernel. ``flash_supported`` (CUDA, bf16,
+def core_impl(n: int, impl: str, kernels_ok: bool) -> str:
+    """The core that ``impl`` resolves to at N tokens, as the JAX package's
+    ``core_attention`` picks it: 'auto'/'auto_train' choose by N -- the mid
+    band (1024..2048, inference only) takes the whole-head kernel
+    ('pallas_small') for N <= 1024 and the flash kernel ('pallas') above;
+    N <= 2048 otherwise takes the plain core ('xla'); from
+    ``_PALLAS_MIN_TOKENS`` (``_PALLAS_MIN_TOKENS_TRAIN`` for 'auto_train') on,
+    the flash kernel. ``kernels_ok`` (``flash_supported``: CUDA, bf16,
     head_dim 64, N % 64 == 0) stands where the JAX package asks for a TPU.
-    The ``small_attention`` kernel is not ported yet, so its band
-    ('pallas_small') runs the plain core. 'pallas' asks for the flash
-    kernels (their plain versions for CPU tensors)."""
-    n = q.shape[1]
-    if impl in ("auto", "auto_train"):
-        min_pallas = (_PALLAS_MIN_TOKENS_TRAIN if impl == "auto_train"
-                      else _PALLAS_MIN_TOKENS)
-        ok = flash_supported(q)
-        lo, hi = _PALLAS_MID_BAND
-        if impl == "auto" and ok and lo <= n <= hi:
-            impl = "pallas_small" if n <= _SMALL_KERNEL_MAX_TOKENS else "pallas"
-        elif n <= _XLA_FULL_SOFTMAX_MAX_TOKENS:
-            impl = "xla"
-        elif ok and n >= min_pallas:
-            impl = "pallas"
-        else:
-            impl = "xla_chunked"
+    Any other ``impl`` is returned as it is."""
+    if impl not in ("auto", "auto_train"):
+        return impl
+    min_pallas = _PALLAS_MIN_TOKENS_TRAIN if impl == "auto_train" else _PALLAS_MIN_TOKENS
+    lo, hi = _PALLAS_MID_BAND
+    if impl == "auto" and kernels_ok and lo <= n <= hi:
+        return "pallas_small" if n <= _SMALL_KERNEL_MAX_TOKENS else "pallas"
+    if n <= _XLA_FULL_SOFTMAX_MAX_TOKENS:
+        return "xla"
+    if kernels_ok and n >= min_pallas:
+        return "pallas"
+    return "xla_chunked"
+
+
+def core_attention(q, k, v, scale: float, impl: str = "auto") -> torch.Tensor:
+    """Dispatch the attention core; q/k/v [B, N, heads, head_dim]. The
+    choice is :func:`core_impl`'s. 'pallas' asks for the flash kernels,
+    'pallas_small' for the whole-head kernel (N <= 1024); for CPU tensors
+    each computes its plain version. 'xla' and 'xla_chunked' run the plain
+    query-chunked core."""
+    impl = core_impl(q.shape[1], impl, flash_supported(q))
     if impl == "pallas":
         return flash_attention(q, k, v, scale)
-    # 'xla', 'xla_chunked' and (until small_attention is ported) 'pallas_small'.
+    if impl == "pallas_small":
+        return small_attention(q, k, v, scale)
     return xla_attention(q, k, v, scale)
 
 

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``deepl_project_tpu_torch/csrc``).
 
-Each ``csrc/<name>.cu`` (headers: ``csrc/*.cuh``) has a plain C launcher (``<name>_launch``) and is
-compiled by ``nvcc`` for ``sm_90a`` into its own shared library, which is
-loaded with ctypes. Builds happen on first use, into ``csrc/build/`` (listed
+Each ``csrc/<name>.cu`` (headers: ``csrc/*.cuh``) has a plain C launcher
+(``<name>_launch``; a source with two kernels has one per kernel, listed in
+``SOURCE_OF``) and is compiled by ``nvcc`` for ``sm_90a`` into its own shared
+library, which is loaded with ctypes. Builds happen on first use, into ``csrc/build/`` (listed
 in ``.gitignore``), one ``nvcc`` process per source, all started together.
 A library's file name carries a hash of its sources and flags, so an edit
 rebuilds it. Nothing here falls back: a missing ``nvcc`` or a failed build
@@ -26,7 +27,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# name -> argtypes of <name>_launch (pointers and the stream as c_void_p).
+_L = ctypes.c_longlong
+# kernel name -> argtypes of <name>_launch (pointers and the stream as c_void_p).
 SIGNATURES = {
     "ln_qkv_rope": [_P] * 8 + [_I] * 4 + [_P],
     "attention_core": [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P],
@@ -34,10 +36,21 @@ SIGNATURES = {
     "flash_attention_fwd": [_P] * 5 + [_I] * 7 + [ctypes.c_float, _P],
     "flash_attention_bwd_dq": [_P] * 7 + [_I] * 8 + [ctypes.c_float, _P],
     "flash_attention_bwd_dkv": [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P],
+    "small_attention": [_P] * 4 + [_I] * 7 + [ctypes.c_float, _P],
+    "group_norm_stats": [_P] * 2 + [_I] * 3 + [_L] * 2 + [_P],
+    "group_norm_apply": [_P] * 4 + [_I] + [_L] * 2 + [_I] * 2 + [_P],
 }
+# Kernels whose launcher lives in a source of another name (csrc/<source>.cu).
+SOURCE_OF = {"group_norm_stats": "group_norm_silu", "group_norm_apply": "group_norm_silu"}
+
+
+def sources() -> list[str]:
+    """The names of every kernel source, csrc/<name>.cu."""
+    return sorted({SOURCE_OF.get(n, n) for n in SIGNATURES})
+
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_fns: dict = {}  # kernel name -> its loaded launcher
 BUILD_LOGS: dict[str, str] = {}  # name -> nvcc output (register/smem report)
 
 
@@ -60,9 +73,9 @@ def _lib_path(name: str) -> Path:
 
 
 def build(names=None) -> dict[str, Path]:
-    """Compile the named kernels (default: all) that are not built yet, in
-    parallel; returns name -> library path. Raises on any failure."""
-    names = list(SIGNATURES if names is None else names)
+    """Compile the named kernel sources (default: all) that are not built
+    yet, in parallel; returns name -> library path. Raises on any failure."""
+    names = sources() if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: _lib_path(n) for n in names}
     todo = {n: p for n, p in paths.items() if not p.exists()}
@@ -88,23 +101,23 @@ def build(names=None) -> dict[str, Path]:
     return paths
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built on first use."""
-    lib = _libs.get(name)
-    if lib is None:
+def launcher(name: str):
+    """``<name>_launch`` of kernel ``name``, its source built on first use."""
+    fn = _fns.get(name)
+    if fn is None:
         with _lock:
-            lib = _libs.get(name)
-            if lib is None:
-                lib = ctypes.CDLL(str(build([name])[name]))
-                fn = getattr(lib, f"{name}_launch")
+            fn = _fns.get(name)
+            if fn is None:
+                src = SOURCE_OF.get(name, name)
+                fn = getattr(ctypes.CDLL(str(build([src])[src])), f"{name}_launch")
                 fn.argtypes = SIGNATURES[name]
                 fn.restype = ctypes.c_int
-                _libs[name] = lib
-    return lib
+                _fns[name] = fn
+    return fn
 
 
 def launch(name: str, *args) -> None:
     """Call ``<name>_launch(*args)``; raise if the launch was refused."""
-    err = getattr(library(name), f"{name}_launch")(*args)
+    err = launcher(name)(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

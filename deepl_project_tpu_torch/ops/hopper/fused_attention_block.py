@@ -75,11 +75,42 @@ def kernel_supported(n: int, c: int, head_dim: int, dtype) -> bool:
             and dtype == torch.bfloat16)
 
 
-def sublayer_supported(n: int, c: int, head_dim: int, dtype) -> bool:
-    """Limits of the whole sublayer: the kernels' plus N <= 1024, the range
-    the TPU sublayer kernel covered (longer token axes run ln_qkv_rope and a
-    plain attention core)."""
+def sublayer_kernels_supported(n: int, c: int, head_dim: int, dtype) -> bool:
+    """Limits of the sublayer kernels themselves: the kernels' plus
+    N <= 1024 (``attention_core`` keeps a head's whole key axis per CTA)."""
     return n <= MAX_SUBLAYER_TOKENS and kernel_supported(n, c, head_dim, dtype)
+
+
+def _pick_group(num_heads: int, head_dim: int, n: int, c: int) -> int:
+    """The JAX package's ``_pick_group``: the largest head group whose
+    working set fits the TPU sublayer kernel's 14 MiB of VMEM, 0 when none
+    does. A port-owned copy, used only to take the JAX package's route."""
+    best = 0
+    for g in range(1, num_heads + 1):
+        if num_heads % g:
+            continue
+        hgd = g * head_dim
+        if hgd % 128 and hgd != c:
+            continue
+        est = (2 * n * c * 2 + n * c * 2 + n * c * 2 + n * c * 4
+               + 3 * n * hgd * 2 + 2 * 4 * c * hgd * 2
+               + min(n, 256) * n * 4 + 4 * n * (head_dim // 2) * 4
+               + 256 * c * 2)
+        if est <= 14 * 1024 * 1024:
+            best = g
+    return best
+
+
+def sublayer_supported(n: int, c: int, head_dim: int, dtype) -> bool:
+    """Dispatch gate of the whole sublayer: the kernels' limits and the JAX
+    package's route, which takes its sublayer kernel only where ``supported()``
+    holds (N <= 1024, N % 256 == 0, a head group that fits its VMEM budget).
+    That route is kept so that dispatch stays comparable with the JAX
+    package; it is not a limit of the H100. Elsewhere (512px stage 4: N=1024,
+    C=1536) the sublayer runs ``ln_qkv_rope``, ``core_attention`` (whose mid
+    band takes ``small_attention``) and the projection."""
+    return (sublayer_kernels_supported(n, c, head_dim, dtype) and n % 256 == 0
+            and c % head_dim == 0 and _pick_group(c // head_dim, head_dim, n, c) > 0)
 
 
 def head_perm(num_heads: int, head_dim: int) -> np.ndarray:
@@ -296,7 +327,7 @@ def attention_core(q, k, v, scale, head_dim=HEAD_DIM):
     if k.stride(1) != ld or v.stride(1) != ld or ld % 8:
         raise ValueError("attention_core: q, k and v need one row stride, a "
                          "multiple of 8 elements")
-    if not sublayer_supported(n, c, head_dim, q.dtype):
+    if not sublayer_kernels_supported(n, c, head_dim, q.dtype):
         raise ValueError(f"attention_core: unsupported N={n} C={c} "
                          f"head_dim={head_dim}")
     o = torch.empty(b, n, c, device=q.device, dtype=q.dtype)
@@ -368,7 +399,7 @@ def fused_attention_sublayer(xf, ln_params, wq, wk, wv, wp, bp, height, width,
                                   width, pairing, head_dim, use_rope)
     b, n, c = xf.shape
     _check("fused_attention_sublayer x", xf)
-    if not sublayer_supported(n, c, head_dim, xf.dtype) or n != height * width:
+    if not sublayer_kernels_supported(n, c, head_dim, xf.dtype) or n != height * width:
         raise ValueError(f"fused_attention_sublayer: unsupported N={n} C={c} "
                          f"head_dim={head_dim} dtype={xf.dtype}")
     w, gb = packed if packed is not None else pack_qkv(ln_params, wq, wk, wv,

@@ -1,6 +1,7 @@
 """Reconstruction metrics (PyTorch port of ``utils/metrics.py``), per image
 on NCHW batches in [0, max_val]: PSNR, and SSIM with the 11x11 Gaussian
-window (sigma 1.5, valid windows, C1/C2 of Wang et al.)."""
+window (sigma 1.5, valid windows, C1/C2 of Wang et al.); ``summarize`` for
+the per-image vectors."""
 
 from __future__ import annotations
 
@@ -42,3 +43,14 @@ def ssim(x: torch.Tensor, y: torch.Tensor, max_val: float = 1.0,
     ssim_map = ((2 * mu_xy + c1) * (2 * sigma_xy + c2)) / (
         (mu_x2 + mu_y2 + c1) * (sigma_x + sigma_y + c2))
     return ssim_map.mean(dim=(1, 2, 3))
+
+
+def summarize(values) -> dict:
+    """mean/std/median/min/max of per-image values, as the reference reports
+    them (evaluate.py:136-143); numpy arrays or tensors."""
+    if isinstance(values, torch.Tensor):
+        values = values.detach().cpu().numpy()
+    v = np.asarray(values, np.float64)
+    return {"mean": float(v.mean()), "std": float(v.std()),
+            "median": float(np.median(v)), "min": float(v.min()),
+            "max": float(v.max())}

@@ -2,10 +2,11 @@
 
 In a fresh interpreter where ``import jax`` and ``import flax`` fail, every
 module of deepl_project_tpu_torch (found by walking the whole package, so new
-modules are covered as they come) and chip_smoke.py must import, and none of
-deepl_project_tpu's modules may be loaded. The entry points (model factory,
-serving engine, trainer) default to CUDA and refuse to continue on a machine
-without it.
+modules are covered as they come; the evaluation slice's are named) and
+chip_smoke.py must import, and none of deepl_project_tpu's modules may be
+loaded. The entry points (model factory, serving engine, trainer, the
+evaluate, generate and rope_extrapolation CLIs) default to CUDA and refuse to
+continue on a machine without it.
 """
 
 import os
@@ -25,6 +26,10 @@ _PROBE = textwrap.dedent("""
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
+    named = {"evaluation", "utils.fid", "utils.image", "ops.hopper.small_attention",
+             "ops.hopper.fused_norm", "cli.evaluate", "cli.generate",
+             "cli.rope_extrapolation", "data.transforms"}
+    assert named <= {n.split(".", 1)[1] for n in names}, named
     import chip_smoke
     bad = sorted(m for m in sys.modules
                  if m == "deepl_project_tpu" or m.startswith("deepl_project_tpu."))
@@ -33,13 +38,15 @@ _PROBE = textwrap.dedent("""
     print(len(names))
     if not torch_cuda:
         from deepl_project_tpu_torch import create_transvae, get_config
-        from deepl_project_tpu_torch.cli import serve
+        from deepl_project_tpu_torch.cli import evaluate, generate, rope_extrapolation, serve
         from deepl_project_tpu_torch.losses import LossWeights
         from deepl_project_tpu_torch.training import Trainer, TrainerConfig
         for fn in (lambda: create_transvae("tiny"),
                    lambda: serve.build_engine(serve.build_parser().parse_args([])),
                    lambda: Trainer(get_config("tiny"),
-                                   TrainerConfig(weights=LossWeights(gan=0.0)))):
+                                   TrainerConfig(weights=LossWeights(gan=0.0))),
+                   lambda: evaluate.main([]), lambda: generate.main([]),
+                   lambda: rope_extrapolation.main([])):
             try:
                 fn()
             except RuntimeError as e:
@@ -57,4 +64,4 @@ def test_port_imports_without_jax_or_the_jax_package():
                          env={**os.environ, "PYTHONPATH": REPO})
     assert out.returncode == 0, out.stderr
     n_modules, status = out.stdout.split()
-    assert int(n_modules) >= 29 and status == "ok"
+    assert int(n_modules) >= 45 and status == "ok"
