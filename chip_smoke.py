@@ -4,12 +4,17 @@
     python3 chip_smoke.py                 # all phases, as a check
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --profile       # also torch.profiler breakdowns
+    python3 chip_smoke.py --phases build,kernels --baseline DIR [DIR ...]
+                                          # also time proj_bias_gemm and
+                                          # small_attention built from each
+                                          # DIR's deepl_project_tpu_torch/csrc
 
 Phases (any failure exits non-zero and prints no result):
 
 1. build: compile the Hopper kernel sources of deepl_project_tpu_torch/csrc
    (nine kernels in eight files) with nvcc for sm_90a, all in parallel, and
-   print ptxas' register and shared memory report.
+   print ptxas' register and shared memory report (in full for the two
+   wgmma/TMA kernels, proj_bias_gemm and small_attention).
 2. kernels: run each kernel at the main paths' shapes and hold it against
    its plain PyTorch version on the same inputs: max |kernel - plain| <=
    2**-6 * max|plain|, i.e. two bf16 rounding steps (ulp <= 2**-7 |v|) at
@@ -27,9 +32,13 @@ Phases (any failure exits non-zero and prints no result):
    its plain version and, where one exists, the one PyTorch call computing
    the same function (SDPA, its backward, F.linear, torch.var_mean for the
    GroupNorm stats; F.group_norm + F.silu for the whole group_norm_silu),
-   with CUDA events; and the two routes of an attention sublayer at (N=1024,
-   C=1536, b=8): the whole-sublayer kernels against ln_qkv_rope +
-   small_attention + the projection.
+   with CUDA events (proj_bias_gemm and F.linear on the same bf16 weight,
+   cast once as the model caches it); and the two routes of an attention
+   sublayer at (N=1024, C=1536, b=8): the whole-sublayer kernels against
+   ln_qkv_rope + small_attention + the projection. With --baseline DIR ...,
+   proj_bias_gemm (both shapes) and small_attention are also built from
+   each DIR's sources and each build timed beside this tree's on the same
+   inputs in turns (baseline, this tree, this tree, baseline).
 3. grad: the sublayer kernels' backward (their plain versions' VJP) at the
    stage-3 training shape: gradients of x, the LN affines and every weight
    on the kernel path against the plain path's.
@@ -113,6 +122,9 @@ GROUP_NORM_SHAPES = ((32, 192, 256, 256), (32, 192, 128, 128))
 EVAL_CHUNKS = {256: 8, 512: 8, 1024: 4}
 EVAL_IMAGES = 8
 
+# The kernels built on wgmma and TMA (csrc/hopper_tma_wgmma.cuh).
+WGMMA_KERNELS = ("proj_bias_gemm", "small_attention")
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CARD = ""
 
@@ -134,12 +146,18 @@ def card_line() -> str:
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Device time of one call: CUDA events around ``iters`` calls. A sleep
+    kernel ahead of them (~1.5 ms of clocks a call) keeps the card busy
+    while the host enqueues, so the calls run back to back and a slow or
+    shared host does not enter the time (it would for calls shorter than
+    their Python and launch overhead)."""
     import torch
 
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(3_000_000 * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -156,8 +174,9 @@ def phase_build():
     paths = build.build()
     log(f"built {sorted(paths)} in {time.time() - t:.1f}s")
     for name, text in build.BUILD_LOGS.items():
+        whole = name in WGMMA_KERNELS
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if whole or "registers" in line or "spill" in line or "warning" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
 
@@ -305,18 +324,21 @@ def phase_kernels():
                 "library_ms": cuda_time_ms(
                     lambda: F.scaled_dot_product_attention(*heads), 20)}
             o = o.contiguous()
-            out = fab.proj_bias_gemm(o, wp, bp)
+            # The weight cast once, as AttentionRoPE caches it: the kernel and
+            # F.linear are timed on the same bf16 weight.
+            wpk, bpk = fab.pack_proj(wp, bp)
+            bpb = bp.to(bf)
+            out = fab.proj_bias_gemm(o, wpk, bpk)
             torch.cuda.synchronize()
             err = check("proj_bias_gemm", n, c, out, fab.proj_bias_reference(o, wp, bp))
-            wpb, bpb = wp.to(bf), bp.to(bf)
             rec["proj_bias_gemm"] = {
                 "err": err,
-                "ms": cuda_time_ms(lambda: fab.proj_bias_gemm(o, wp, bp), 20),
+                "ms": cuda_time_ms(lambda: fab.proj_bias_gemm(o, wpk, bpk), 20),
                 "plain_ms": cuda_time_ms(lambda: fab.proj_bias_reference(o, wp, bp), 5),
-                "library_ms": cuda_time_ms(lambda: F.linear(o, wpb, bpb), 20)}
+                "library_ms": cuda_time_ms(lambda: F.linear(o, wpk, bpb), 20)}
             # Row 1 as a whole, and its library composition for comparison.
             sub = (x, ln, wq, wk, wv, wp, bp, hh, ww)
-            full = fab.fused_attention_sublayer(*sub, packed=packed)
+            full = fab.fused_attention_sublayer(*sub, packed=packed, packed_proj=(wpk, bpk))
             torch.cuda.synchronize()
             check("fused_attention_sublayer", n, c, full, fab.sublayer_reference(*sub))
             wb = [w.to(bf) for w in (wq, wk, wv)]
@@ -327,10 +349,10 @@ def phase_kernels():
                 qh, kh = (apply_rope2d(u, hh, ww) for u in t[:2])
                 a = F.scaled_dot_product_attention(
                     *(u.transpose(1, 2) for u in (qh, kh, t[2])))
-                return F.linear(a.transpose(1, 2).reshape(b, n, c), wpb, bpb)
+                return F.linear(a.transpose(1, 2).reshape(b, n, c), wpk, bpb)
 
-            sub_ms = cuda_time_ms(
-                lambda: fab.fused_attention_sublayer(*sub, packed=packed), 20)
+            sub_ms = cuda_time_ms(lambda: fab.fused_attention_sublayer(
+                *sub, packed=packed, packed_proj=(wpk, bpk)), 20)
             lib_ms = cuda_time_ms(library_sublayer, 20)
             log(f"time fused_attention_sublayer N={n} C={c} b={b}: kernels "
                 f"{sub_ms:.4f} ms, library composition (cuBLAS + SDPA) "
@@ -573,11 +595,12 @@ def phase_eval_kernels():
     ln = tuple((1 + randn(c, scale=0.1), randn(c, scale=0.1)) for _ in range(3))
     wq, wk, wv, wp = (randn(c, c, scale=2 / c ** 0.5) for _ in range(4))
     bp = randn(c, scale=0.1)
-    packed = fab.pack_qkv(ln, wq, wk, wv)
+    packed, packed_proj = fab.pack_qkv(ln, wq, wk, wv), fab.pack_proj(wp, bp)
     wpb, bpb = wp.to(bf), bp.to(bf)
 
     def sublayer():
-        return fab.fused_attention_sublayer(x, ln, wq, wk, wv, wp, bp, hh, ww, packed=packed)
+        return fab.fused_attention_sublayer(x, ln, wq, wk, wv, wp, bp, hh, ww, packed=packed,
+                                            packed_proj=packed_proj)
 
     def qkv_small_proj():
         q, k, v = (t.reshape(b, n, c // 64, 64)
@@ -595,6 +618,89 @@ def phase_eval_kernels():
         f"{t_small[0]:.4f} / {t_small[1]:.4f} ms [{CARD}]")
     results[("routes", n, c)] = {"sublayer_ms": min(t_sub), "small_route_ms": min(t_small)}
     del x, a, s2
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_baseline(dirs):
+    """proj_bias_gemm and small_attention of this tree against the same two
+    kernels built from other checkouts' sources (DIR/
+    deepl_project_tpu_torch/csrc for each DIR, same launcher signatures),
+    each launched through its ctypes launcher on the same inputs at the main
+    paths' shapes; all held to the plain version; each DIR timed beside
+    this tree in turns (DIR, change, change, DIR). Returns kernel name ->
+    DIR -> shape -> times."""
+    from pathlib import Path
+
+    import torch
+
+    from deepl_project_tpu_torch.ops.hopper import build
+    from deepl_project_tpu_torch.ops.hopper import fused_attention_block as fab
+    from deepl_project_tpu_torch.ops.hopper import small_attention as sma
+
+    srcs = {}
+    for d in dirs:
+        csrc = os.path.join(os.path.abspath(d), "deepl_project_tpu_torch", "csrc")
+        if not os.path.isdir(csrc):
+            fail(f"--baseline {d}: no deepl_project_tpu_torch/csrc there")
+        t = time.time()
+        build.build(list(WGMMA_KERNELS), csrc)
+        log(f"built {list(WGMMA_KERNELS)} of {d} in {time.time() - t:.1f}s")
+        for name in WGMMA_KERNELS:
+            for line in build.BUILD_LOGS.get(f"{name} [{Path(csrc).resolve()}]", "").splitlines():
+                if "registers" in line or "spill" in line or "C75" in line:
+                    log(f"ptxas {name} ({d}): {line.strip()}")
+        srcs[d] = csrc
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    bf = torch.bfloat16
+    stream = torch.cuda.current_stream().cuda_stream
+    results = {}
+
+    def turns(name, shape, args, out, ref, flops):
+        top = ref.float().abs().max().item()
+        for d, csrc in srcs.items():
+            fns = {"baseline": build.launcher(name, csrc), "change": build.launcher(name)}
+            for who, fn in fns.items():
+                out.zero_()
+                if fn(*args) != 0:
+                    fail(f"baseline {name} {shape}: the {who} launch ({d}) failed")
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                if not err <= KERNEL_RTOL * top:
+                    fail(f"baseline {name} {shape}: {who} ({d}) max_abs_err {err:.3e} > "
+                         f"{KERNEL_RTOL * top:.3e}")
+            times = {"baseline": [], "change": []}
+            for who in ("baseline", "change", "change", "baseline"):
+                times[who].append(cuda_time_ms(lambda: fns[who](*args), 20))
+            log(f"baseline {name} {shape}: {d} {times['baseline'][0]:.4f} / "
+                f"{times['baseline'][1]:.4f} ms, change {times['change'][0]:.4f} / "
+                f"{times['change'][1]:.4f} ms (turns {d}, change, change, {d}); "
+                f"{flops / min(times['baseline']) / 1e9:.1f} -> "
+                f"{flops / min(times['change']) / 1e9:.1f} TFLOP/s [{CARD}]")
+            results.setdefault(name, {}).setdefault(d, {})[shape] = {
+                w: min(v) for w, v in times.items()}
+
+    for n, c, _, _, b in kernel_shapes()[1:]:
+        o = torch.randn(b * n, c, generator=gen, device="cuda").to(bf)
+        wp = torch.randn(c, c, generator=gen, device="cuda") * 2 / c ** 0.5
+        bp = torch.randn(c, generator=gen, device="cuda") * 0.1
+        wpk, bpk = fab.pack_proj(wp, bp)
+        out = torch.empty_like(o)
+        args = (o.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(), b * n, c, c,
+                stream)
+        turns("proj_bias_gemm", (b, n, c), args, out, fab.proj_bias_reference(o, wp, bp),
+              2 * b * n * c * c)
+    b, n, h = SMALL_512
+    c = h * 64
+    qkv = (1.5 * torch.randn(b, n, 3 * c, generator=gen, device="cuda")).to(bf)
+    q, k, v = (qkv[..., i * c:(i + 1) * c].reshape(b, n, h, 64) for i in range(3))
+    o = torch.empty(b, n, h, 64, device="cuda", dtype=bf)
+    scale = 64 ** -0.5
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, n, h, 3 * c, 3 * c,
+            3 * c, c, scale, stream)
+    turns("small_attention", SMALL_512, args, o, sma.small_attention_reference(q, k, v, scale),
+          4 * b * h * n * n * 64)
     torch.cuda.empty_cache()
     return results
 
@@ -1058,6 +1164,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,grad,train,serve,time,eval")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--baseline", metavar="DIR", nargs="+", default=[],
+                    help="checkouts whose proj_bias_gemm and small_attention are "
+                         "timed beside this tree's (phase kernels)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -1076,11 +1185,13 @@ def main():
 
     t0 = time.time()
     phase_build()
-    results = {}
+    results, baseline = {}, {}
     if "kernels" in phases:
         results.update(phase_kernels())
         results.update(phase_flash_kernels())
         results.update(phase_eval_kernels())
+        if args.baseline:
+            baseline = phase_baseline(args.baseline)
     if "grad" in phases:
         phase_grad()
     train_counts = {}
@@ -1158,6 +1269,12 @@ def main():
             "per": (f"one call at 512px stage 4 (B, N, h)={SMALL_512}; launches in the "
                     f"eval phase's 512px sweep ({EVAL_IMAGES} images)"),
         })
+        # --baseline: each DIR's and this tree's best times per shape, in turns.
+        for row in kernels:
+            if row["name"] in baseline:
+                row["baseline_turns_ms"] = {
+                    d: {str(k): v for k, v in by_shape.items()}
+                    for d, by_shape in baseline[row["name"]].items()}
         # group_norm_silu is on no model path (as in the JAX package): its
         # launches in the train, serve and eval phases' runs must be 0.
         norm = {name: (train_counts.get(name, 0) + counts.get(name, 0)

@@ -1,6 +1,6 @@
 // Shared pieces of the port's Hopper kernels: bf16 mma.sync m16n8k16 with
 // fp32 accumulation, ldmatrix fragment loads, cp.async copies, and the
-// 128x128x32 GEMM main loop used by ln_qkv_rope.cu and proj_bias_gemm.cu.
+// 128x128x32 GEMM main loop used by ln_qkv_rope.cu.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 .bf16), with gid = lane / 4 and
 // tig = lane % 4:

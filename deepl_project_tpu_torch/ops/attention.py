@@ -36,7 +36,8 @@ from torch import nn
 from .hopper.flash_attention import flash_attention, flash_supported
 from .hopper.fused_attention_block import (fused_attention_sublayer,
                                            kernel_supported, ln_qkv_rope,
-                                           pack_qkv, sublayer_supported)
+                                           pack_proj, pack_qkv,
+                                           sublayer_supported)
 from .hopper.small_attention import small_attention
 from .layers import Linear
 from .norms import LayerNorm
@@ -153,22 +154,36 @@ class AttentionRoPE(nn.Module):
         self.to_k = Linear(dim, dim, bias=False, **kw)
         self.to_v = Linear(dim, dim, bias=False, **kw)
         self.proj = Linear(dim, dim, bias=True, **kw)
-        self._packed, self._packed_key = None, None
+        self._packed = {}  # kernel operands: name -> (key, operands)
 
     def _qkv_args(self):
         ln = tuple((m.weight, m.bias) for m in (self.norm_q, self.norm_k, self.norm_v))
         return ln, self.to_q.weight, self.to_k.weight, self.to_v.weight
 
+    def _cached(self, name, params, make):
+        """``make()`` under no_grad (kernel operands, not differentiated),
+        rebuilt when any of ``params`` changes: another storage, or an
+        in-place update (its ``_version``)."""
+        key = tuple((p.data_ptr(), p._version) for p in params)
+        hit = self._packed.get(name)
+        if hit is None or hit[0] != key:
+            with torch.no_grad():
+                hit = (key, make())
+            self._packed[name] = hit
+        return hit[1]
+
     def _packed_qkv(self):
         """pack_qkv of the current weights, rebuilt when any of them changes."""
         ln, wq, wk, wv = self._qkv_args()
         params = [t for pair in ln for t in pair] + [wq, wk, wv]
-        key = tuple((p.data_ptr(), p._version) for p in params)
-        if key != self._packed_key:
-            with torch.no_grad():  # kernel operands, not differentiated
-                self._packed = pack_qkv(ln, wq, wk, wv, self.head_dim)
-            self._packed_key = key
-        return self._packed
+        return self._cached("qkv", params,
+                            lambda: pack_qkv(ln, wq, wk, wv, self.head_dim))
+
+    def _packed_proj(self):
+        """The projection's kernel operands (bf16 weight, fp32 bias), cast
+        once and rebuilt when either parameter changes."""
+        wp, bp = self.proj.weight, self.proj.bias
+        return self._cached("proj", (wp, bp), lambda: pack_proj(wp, bp))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
@@ -183,7 +198,8 @@ class AttentionRoPE(nn.Module):
             out = fused_attention_sublayer(
                 xf, ln, wq, wk, wv, self.proj.weight, self.proj.bias, h, w,
                 self.rope_pairing, hd, self.use_rope,
-                packed=self._packed_qkv() if x.is_cuda else None)
+                packed=self._packed_qkv() if x.is_cuda else None,
+                packed_proj=self._packed_proj() if x.is_cuda else None)
         else:
             if kernels and kernel_supported(n, c, hd, x.dtype):
                 q, k, v = ln_qkv_rope(

@@ -6,8 +6,10 @@ Each ``csrc/<name>.cu`` (headers: ``csrc/*.cuh``) has a plain C launcher
 library, which is loaded with ctypes. Builds happen on first use, into ``csrc/build/`` (listed
 in ``.gitignore``), one ``nvcc`` process per source, all started together.
 A library's file name carries a hash of its sources and flags, so an edit
-rebuilds it. Nothing here falls back: a missing ``nvcc`` or a failed build
-raises.
+rebuilds it. ``csrc`` names another source directory (another checkout's,
+to time its kernels beside these); its libraries share ``csrc/build/`` under
+their own hashes. Nothing here falls back: a missing ``nvcc`` or a failed
+build raises.
 """
 
 from __future__ import annotations
@@ -50,8 +52,10 @@ def sources() -> list[str]:
 
 
 _lock = threading.Lock()
-_fns: dict = {}  # kernel name -> its loaded launcher
-BUILD_LOGS: dict[str, str] = {}  # name -> nvcc output (register/smem report)
+_fns: dict = {}  # (source directory, kernel name) -> its loaded launcher
+# name (or "name [source directory]" for another csrc) -> nvcc output, which
+# carries ptxas' register/smem report.
+BUILD_LOGS: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -64,34 +68,36 @@ def _nvcc() -> str:
                        "CUDA kernels are built from source on first use")
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, csrc: Path = CSRC) -> Path:
     h = hashlib.sha256()
-    for src in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+    for src in [csrc / f"{name}.cu"] + sorted(csrc.glob("*.cuh")):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(names=None) -> dict[str, Path]:
-    """Compile the named kernel sources (default: all) that are not built
-    yet, in parallel; returns name -> library path. Raises on any failure."""
+def build(names=None, csrc: Path = CSRC) -> dict[str, Path]:
+    """Compile the named kernel sources (default: all) of ``csrc`` that are
+    not built yet, in parallel; returns name -> library path. Raises on any
+    failure."""
     names = sources() if names is None else list(names)
+    csrc = Path(csrc).resolve()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {n: _lib_path(n) for n in names}
+    paths = {n: _lib_path(n, csrc) for n in names}
     todo = {n: p for n, p in paths.items() if not p.exists()}
     if todo:
         nvcc = _nvcc()
         procs = {}
         for n, p in todo.items():
             tmp = p.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{n}.cu")]
             procs[n] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
         failed = []
         for n, (tmp, proc) in procs.items():
             out, _ = proc.communicate()
-            BUILD_LOGS[n] = out
+            BUILD_LOGS[n if csrc == CSRC else f"{n} [{csrc}]"] = out
             if proc.returncode != 0:
                 failed.append(f"--- {n} (exit {proc.returncode}) ---\n{out}")
             else:
@@ -101,18 +107,20 @@ def build(names=None) -> dict[str, Path]:
     return paths
 
 
-def launcher(name: str):
-    """``<name>_launch`` of kernel ``name``, its source built on first use."""
-    fn = _fns.get(name)
+def launcher(name: str, csrc: Path = CSRC):
+    """``<name>_launch`` of kernel ``name`` from ``csrc``, its source built on
+    first use."""
+    key = (Path(csrc).resolve(), name)
+    fn = _fns.get(key)
     if fn is None:
         with _lock:
-            fn = _fns.get(name)
+            fn = _fns.get(key)
             if fn is None:
                 src = SOURCE_OF.get(name, name)
-                fn = getattr(ctypes.CDLL(str(build([src])[src])), f"{name}_launch")
+                fn = getattr(ctypes.CDLL(str(build([src], key[0])[src])), f"{name}_launch")
                 fn.argtypes = SIGNATURES[name]
                 fn.restype = ctypes.c_int
-                _fns[name] = fn
+                _fns[key] = fn
     return fn
 
 

@@ -75,6 +75,12 @@ def kernel_supported(n: int, c: int, head_dim: int, dtype) -> bool:
             and dtype == torch.bfloat16)
 
 
+def proj_supported(c: int, dtype) -> bool:
+    """``proj_bias_gemm``'s limits: bf16, C % 128 == 0 (K = Nout = C: 64-deep
+    stages, 128-wide output tiles). Any row count."""
+    return c > 0 and c % 128 == 0 and dtype == torch.bfloat16
+
+
 def sublayer_kernels_supported(n: int, c: int, head_dim: int, dtype) -> bool:
     """Limits of the sublayer kernels themselves: the kernels' plus
     N <= 1024 (``attention_core`` keeps a head's whole key axis per CTA)."""
@@ -132,6 +138,12 @@ def pack_qkv(ln_params, wq, wk, wv, head_dim: int = HEAD_DIM):
     w = torch.cat([wq[perm], wk[perm], wv]).to(torch.bfloat16).contiguous()
     gb = torch.stack([t.float() for pair in ln_params for t in pair]).contiguous()
     return w, gb
+
+
+def pack_proj(wp, bp):
+    """``proj_bias_gemm``'s operands from the module's parameters: the weight
+    in bf16 ([C, C], nn.Linear layout) and the bias in fp32."""
+    return wp.to(torch.bfloat16).contiguous(), bp.float().contiguous()
 
 
 def _layer_norm_hat(xf: torch.Tensor) -> torch.Tensor:
@@ -340,17 +352,17 @@ def attention_core(q, k, v, scale, head_dim=HEAD_DIM):
 
 def proj_bias_gemm(o, wp, bp):
     """Output projection o [B, N, C] @ wp.T + bp -> [B, N, C] (wp [C, C] in
-    nn.Linear layout, cast to bf16; bias added in fp32)."""
+    nn.Linear layout; bias added in fp32). Operands already in bf16 and fp32
+    (:func:`pack_proj`) are used as they are; others are cast on each call."""
     if o.device.type == "cpu":
         return proj_bias_reference(o, wp, bp)
     _no_backward("proj_bias_gemm", o, wp, bp)
     b, n, c = o.shape
     _check("proj_bias_gemm o", o)
-    if c % 128:
+    if not proj_supported(c, o.dtype):
         raise ValueError(f"proj_bias_gemm: C={c} is not a multiple of 128")
     o = o.contiguous()
-    w = wp.to(torch.bfloat16).contiguous()
-    bias = bp.float().contiguous()
+    w, bias = pack_proj(wp, bp)
     _check("proj_bias_gemm w", w, (c, c))
     if bias.shape != (c,) or not bias.is_cuda:
         raise ValueError(f"proj_bias_gemm: bias must be a CUDA [{c}] tensor")
@@ -365,17 +377,19 @@ class _Sublayer(torch.autograd.Function):
     """fused_attention_sublayer with a backward: the forward launches the
     three kernels, the backward is the VJP of ``sublayer_reference`` (as
     ``_make_op`` in the JAX package). Inputs: xf, the six LN tensors, wq,
-    wk, wv, wp, bp."""
+    wk, wv, wp, bp; ``packed`` holds the kernels' operands (pack_qkv's w and
+    gb, then pack_proj's weight and bias), which are not differentiated."""
 
     @staticmethod
     def forward(ctx, xf, gq, bq, gk, bk, gv, bv, wq, wk, wv, wp, bp, packed, meta):
         ctx.meta = meta
         ctx.save_for_backward(xf, gq, bq, gk, bk, gv, bv, wq, wk, wv, wp, bp)
         c, head_dim = xf.shape[2], meta[3]
-        qkv = _ln_qkv_rope_kernel(xf, *packed, *meta)
+        w, gb, wpk, bpk = packed
+        qkv = _ln_qkv_rope_kernel(xf, w, gb, *meta)
         o = attention_core(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
                            head_dim ** -0.5, head_dim)
-        return proj_bias_gemm(o, wp, bp)
+        return proj_bias_gemm(o, wpk, bpk)
 
     @staticmethod
     def backward(ctx, dout):
@@ -389,11 +403,13 @@ class _Sublayer(torch.autograd.Function):
 
 def fused_attention_sublayer(xf, ln_params, wq, wk, wv, wp, bp, height, width,
                              pairing="reference", head_dim=HEAD_DIM,
-                             use_rope=True, packed=None):
+                             use_rope=True, packed=None, packed_proj=None):
     """Whole attention sublayer on tokens xf [B, N, C] -> [B, N, C]:
     ln_qkv_rope -> attention_core -> proj_bias_gemm on the card; the port of
-    ``_reference`` on the CPU. Differentiable with respect to xf and every
-    parameter (the backward recomputes the plain version)."""
+    ``_reference`` on the CPU. ``packed`` and ``packed_proj`` are the cached
+    results of :func:`pack_qkv` and :func:`pack_proj` for these weights.
+    Differentiable with respect to xf and every parameter (the backward
+    recomputes the plain version from the parameters themselves)."""
     if xf.device.type == "cpu":
         return sublayer_reference(xf, ln_params, wq, wk, wv, wp, bp, height,
                                   width, pairing, head_dim, use_rope)
@@ -408,6 +424,7 @@ def fused_attention_sublayer(xf, ln_params, wq, wk, wv, wp, bp, height, width,
     if gb.shape != (6, c) or gb.dtype != torch.float32 or not gb.is_cuda:
         raise ValueError(f"fused_attention_sublayer: LN affines must be a CUDA "
                          f"fp32 [6, {c}] tensor")
+    wpk, bpk = packed_proj if packed_proj is not None else pack_proj(wp, bp)
     meta = (height, width, pairing, head_dim, use_rope)
     return _Sublayer.apply(xf, *_ln_flat(ln_params), wq, wk, wv, wp, bp,
-                           (w.contiguous(), gb.contiguous()), meta)
+                           (w.contiguous(), gb.contiguous(), wpk, bpk), meta)

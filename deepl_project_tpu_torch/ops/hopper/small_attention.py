@@ -6,7 +6,8 @@ kernel ``_kernel``: fp32 scores, the exact row softmax, the weights
 normalised and *then* rounded to bf16, P.V accumulated in fp32 (the flash
 kernels round the unnormalised weights instead). The TPU keeps a head's
 whole [N, N] score block in VMEM; the CUDA kernel runs two passes over the
-keys per 128-query tile instead (row max and sum, then the weights and P.V).
+keys per 64-query tile instead (row max and sum, then the weights and P.V),
+with wgmma products fed by TMA loads.
 
 :func:`small_attention` takes [B, N, heads, 64] tensors (the layout of
 ``ops.attention.xla_attention``), each with its own row stride, so q, k and v
@@ -50,6 +51,14 @@ def launch_counts_by_shape() -> dict[tuple, int]:
     return dict(_LAUNCHES)
 
 
+def small_attention_supported(n: int, heads: int, head_dim: int) -> bool:
+    """The kernel's limits: head_dim 64, 0 < N <= 1024 (the TPU kernel's
+    limit) with N % 64 == 0 (64-key tiles), at most 65535 heads (a grid
+    axis)."""
+    return (head_dim == HEAD_DIM and 0 < n <= MAX_SMALL_N and n % BLOCK == 0
+            and 0 < heads < 65536)
+
+
 def small_attention_reference(q, k, v, scale):
     """Plain version (the math of ``_xla_reference``): [B, N, h, d] x3 ->
     [B, N, h, d] in v's dtype; fp32 scores and softmax, the normalised
@@ -63,7 +72,7 @@ def small_attention_reference(q, k, v, scale):
 def _kernel(q, k, v, scale):
     """Launch ``small_attention``: o [B, N, h, 64] contiguous."""
     b, n, h, d = q.shape
-    if d != HEAD_DIM or n % BLOCK:
+    if not small_attention_supported(n, h, d):
         raise ValueError(f"small_attention: unsupported shape {tuple(q.shape)} "
                          f"(want [B, N, heads, {HEAD_DIM}] with N % {BLOCK} == 0)")
     q, k, v = (_rows(nm, t, q.shape) for nm, t in (("q", q), ("k", k), ("v", v)))

@@ -190,11 +190,32 @@ def test_flash_attention_autograd(gen):
         fla.flash_forward(q[:, :100].detach(), k[:, :100].detach(), v[:, :100].detach(), 0.125)
 
 
+@pytest.mark.parametrize("b,n,c", [(1, 64, 128), (3, 128, 128), (3, 100, 1536),
+                                   (2, 1024, 768)])
+def test_proj_bias_gemm_kernel_edges(gen, b, n, c):
+    # The projection alone: one partial 256-row tile (M=64), C=128 (one
+    # 128-column tile), M=300 at C=1536 (rows past M zero-filled on load and
+    # not stored), and a stage-3 shape; bf16 weight and fp32 bias as the
+    # sublayer hands them (pack_proj).
+    o = torch.randn(b, n, c, generator=gen, device="cuda").to(torch.bfloat16)
+    wp = torch.randn(c, c, generator=gen, device="cuda") * 2 / c ** 0.5
+    bp = torch.randn(c, generator=gen, device="cuda") * 0.1
+    wpk, bpk = fab.pack_proj(wp, bp)
+    fab.reset_launch_counts()
+    got = fab.proj_bias_gemm(o, wpk, bpk)
+    assert fab.launch_counts() == {"proj_bias_gemm": 1}
+    assert got.shape == o.shape and got.dtype == torch.bfloat16
+    _close(got, fab.proj_bias_reference(o, wp, bp))
+
+
 @pytest.mark.parametrize("b,n,h,packed", [(2, 1024, 3, True), (1, 256, 2, False),
-                                          (2, 960, 1, False)])
+                                          (2, 960, 1, False), (1, 64, 2, False),
+                                          (2, 960, 3, True), (2, 1024, 24, True)])
 def test_small_attention_kernel_matches_plain(gen, b, n, h, packed):
     # The whole-head kernel (normalised weights rounded to bf16) against its
-    # plain version; N=960 leaves the last 128-query tile half full.
+    # plain version: N=64 (one key tile), N=960 with two images (the
+    # per-image tensor-map bound), packed column slices of one [B, N, 3C]
+    # buffer (a row stride per tensor), the 512px stage-4 heads.
     c = h * 64
     if packed:
         qkv = (1.5 * torch.randn(b, n, 3 * c, generator=gen, device="cuda")).to(torch.bfloat16)

@@ -199,6 +199,9 @@ def test_kernel_functions_backward_is_the_plain_vjp(monkeypatch, kind):
         out = fab._LnQkvRope.apply(lx, *flat, *lw, packed, meta)
         ref = torch.cat(fab.qkv_rope_reference(lx, lln, *lw, *meta), dim=-1)
     else:
+        # The projection's operands as the forward takes them, here in the
+        # run's fp32 (pack_proj casts to the kernels' bf16).
+        packed = packed + tuple(t.detach() for t in lw[3:])
         out = fab._Sublayer.apply(lx, *flat, *lw, packed, meta)
         ref = fab.sublayer_reference(lx, lln, *lw, *meta)
     ct = torch.from_numpy(np.random.default_rng(5).standard_normal(out.shape).astype(np.float32))
@@ -208,3 +211,52 @@ def test_kernel_functions_backward_is_the_plain_vjp(monkeypatch, kind):
     for g, r in zip(got, want):
         assert g is not None
         _close(g, r, atol=1e-5 * float(r.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("updated", ["weight", "bias"])
+def test_attention_caches_projection_operands(updated):
+    # The sublayer kernels take the projection as a bf16 weight and an fp32
+    # bias. AttentionRoPE casts them once, keeps them beside pack_qkv's
+    # operands, and casts again only when a parameter changes in place.
+    from deepl_project_tpu_torch.ops.attention import AttentionRoPE
+
+    torch.manual_seed(0)
+    m = AttentionRoPE(128, head_dim=64)
+    with torch.no_grad():
+        m.proj.bias.normal_()
+    wpk, bpk = m._packed_proj()
+    assert wpk.dtype == torch.bfloat16 and bpk.dtype == torch.float32
+    torch.testing.assert_close(wpk, m.proj.weight.to(torch.bfloat16), atol=0, rtol=0)
+    torch.testing.assert_close(bpk, m.proj.bias.float(), atol=0, rtol=0)
+    again = m._packed_proj()
+    assert again[0] is wpk and again[1] is bpk  # cached, not cast again
+    with torch.no_grad():
+        getattr(m.proj, updated).add_(1.0)
+    wpk2, bpk2 = m._packed_proj()
+    assert wpk2 is not wpk
+    torch.testing.assert_close(wpk2, m.proj.weight.to(torch.bfloat16), atol=0, rtol=0)
+    torch.testing.assert_close(bpk2, m.proj.bias.float(), atol=0, rtol=0)
+    # The qkv operands keep their own key: a projection update leaves them.
+    qkv = m._packed_qkv()
+    with torch.no_grad():
+        m.proj.weight.mul_(2.0)
+    assert m._packed_qkv() is qkv
+
+
+def test_sublayer_takes_the_cached_projection_operands():
+    # proj_bias_gemm given the cast-once operands (pack_proj) computes what
+    # it computes from the fp32 parameters, bit for bit, and the sublayer
+    # with packed_proj equals the sublayer without it.
+    c, hd, h, w = 128, 64, 8, 8
+    x, ln, ws, bp = _inputs(c, hd, h, w, seed=6, wscale=2.0 / np.sqrt(c))
+    tx, tln, tws = _torch_args(x, ln, ws, torch.bfloat16)
+    tbp = torch.from_numpy(bp)
+    o = tx  # any bf16 [B, N, C] activations
+    wpk, bpk = fab.pack_proj(tws[3], tbp)
+    got = fab.proj_bias_gemm(o, wpk, bpk)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, fab.proj_bias_gemm(o, tws[3], tbp), atol=0, rtol=0)
+    args = (tx, tln, *tws, tbp, h, w, "reference", hd)
+    torch.testing.assert_close(
+        fab.fused_attention_sublayer(*args, packed_proj=(wpk, bpk)),
+        fab.fused_attention_sublayer(*args), atol=0, rtol=0)

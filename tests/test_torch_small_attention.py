@@ -22,7 +22,9 @@ import torch
 
 from deepl_project_tpu.ops.pallas import fused_attention_block as jfab
 from deepl_project_tpu.ops.pallas.small_attention import small_attention as jax_small_attention
+from deepl_project_tpu_torch.config import VARIANTS, get_config
 from deepl_project_tpu_torch.ops import attention as attn
+from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
 from deepl_project_tpu_torch.ops.hopper import fused_attention_block as fab
 from deepl_project_tpu_torch.ops.hopper import small_attention as sma
 
@@ -136,3 +138,45 @@ def test_attention_module_accepts_pallas_small():
     ref.load_state_dict(m.state_dict())
     with torch.no_grad():
         torch.testing.assert_close(m(x), ref(x), atol=1e-5, rtol=1e-5)
+
+
+def test_kernel_limits_as_predicates():
+    # One predicate per kernel, the one its wrapper checks before a launch.
+    bf = torch.bfloat16
+    assert fab.proj_supported(128, bf) and fab.proj_supported(1536, bf)
+    assert not fab.proj_supported(320, bf)  # C % 128
+    assert not fab.proj_supported(768, torch.float32)
+    assert sma.small_attention_supported(64, 1, 64)
+    assert sma.small_attention_supported(960, 24, 64)
+    assert sma.small_attention_supported(1024, 24, 64)
+    assert not sma.small_attention_supported(1088, 24, 64)  # N > 1024
+    assert not sma.small_attention_supported(1000, 24, 64)  # N % 64
+    assert not sma.small_attention_supported(1024, 24, 32)  # head_dim 64 only
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_dispatch_sends_the_kernels_only_shapes_they_take(variant):
+    # Pure Python on the config: every transformer stage's (N, C) at 256,
+    # 512 and 1024px through the gates that AttentionRoPE(impl='auto') and
+    # core_attention apply on the card (bf16, head_dim 64). Where they take
+    # the whole sublayer, proj_bias_gemm's predicate must hold; where the
+    # core takes the whole-head kernel, small_attention's must.
+    cfg = get_config(variant)
+    bf, hd = torch.bfloat16, cfg.head_dim
+    reached = []
+    for res in (256, 512, 1024):
+        for i in range(cfg.num_cnn_stages, cfg.num_stages):
+            n, c = (res >> i) ** 2, cfg.base_dims[i]
+            if fab.sublayer_supported(n, c, hd, bf):
+                assert fab.proj_supported(c, bf), (res, n, c)
+                reached.append(("proj_bias_gemm", res, n, c))
+                continue
+            # flash_supported() of the card's bf16 [B, N, heads, 64] tensors.
+            kernels_ok = hd == fla.HEAD_DIM and n % fla.BLOCK == 0
+            if attn.core_impl(n, "auto", kernels_ok) == "pallas_small":
+                assert sma.small_attention_supported(n, c // hd, hd), (res, n, c)
+                reached.append(("small_attention", res, n, c))
+    if variant == "large_f16d32":  # chip_smoke.py's launch tables
+        assert reached == [("proj_bias_gemm", 256, 1024, 768),
+                           ("proj_bias_gemm", 256, 256, 1536),
+                           ("small_attention", 512, 1024, 1536)]
