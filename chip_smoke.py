@@ -5,23 +5,27 @@
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --profile       # also torch.profiler breakdowns
     python3 chip_smoke.py --phases build,kernels --baseline DIR [DIR ...]
-                                          # also time proj_bias_gemm and
-                                          # small_attention built from each
-                                          # DIR's deepl_project_tpu_torch/csrc
+                                          # also time proj_bias_gemm,
+                                          # small_attention and the flash
+                                          # backward built from each DIR's
+                                          # deepl_project_tpu_torch/csrc
 
 Phases (any failure exits non-zero and prints no result):
 
 1. build: compile the Hopper kernel sources of deepl_project_tpu_torch/csrc
-   (nine kernels in eight files) with nvcc for sm_90a, all in parallel, and
-   print ptxas' register and shared memory report (in full for the two
-   wgmma/TMA kernels, proj_bias_gemm and small_attention).
+   (eight kernels in seven files) with nvcc for sm_90a, all in parallel, and
+   print ptxas' register and shared memory report (in full for the three
+   wgmma/TMA kernels, proj_bias_gemm, small_attention and
+   flash_attention_bwd).
 2. kernels: run each kernel at the main paths' shapes and hold it against
    its plain PyTorch version on the same inputs: max |kernel - plain| <=
    2**-6 * max|plain|, i.e. two bf16 rounding steps (ulp <= 2**-7 |v|) at
    the largest magnitude. The sublayer kernels at large f16d32 @256px,
    batch 32 ([B,4096,384] for ln_qkv_rope; [B,1024,768] and [B,256,1536]
-   for all three); the flash kernels (forward, dq, dk/dv) at the training
-   microbatch (8 images, 6 heads, N=4096), the forward also at 512px
+   for all three); the flash kernels (forward; the backward's dq, dk and dv,
+   run twice to bound dq's run-to-run difference, which its L2 reductions in
+   a run-dependent order allow) at the training microbatch (8 images, 6
+   heads, N=4096), the forward also at 512px
    serving (2 images, N=16384) and at 256px serving batch 32 against the
    plain chunked core (the inference dispatch's evidence); small_attention
    at the 512px stage-4 shape (8 images, N=1024, 24 heads, q/k/v slices of
@@ -36,7 +40,9 @@ Phases (any failure exits non-zero and prints no result):
    cast once as the model caches it); and the two routes of an attention
    sublayer at (N=1024, C=1536, b=8): the whole-sublayer kernels against
    ln_qkv_rope + small_attention + the projection. With --baseline DIR ...,
-   proj_bias_gemm (both shapes) and small_attention are also built from
+   proj_bias_gemm (both shapes), small_attention and the flash backward
+   (DIR's flash_attention_bwd, or its flash_attention_bwd_dq +
+   flash_attention_bwd_dkv pair behind the plain delta) are also built from
    each DIR's sources and each build timed beside this tree's on the same
    inputs in turns (baseline, this tree, this tree, baseline).
 3. grad: the sublayer kernels' backward (their plain versions' VJP) at the
@@ -46,7 +52,7 @@ Phases (any failure exits non-zero and prints no result):
    Trainer.fit on synthetic 256px images, batch 16 as 2 microbatches of 8,
    L1 + LPIPS (random VGG) + KL, AdamW with warmup, a checkpoint at the
    end; launch counters set to 0 before and read after: exactly 12 flash
-   forward, 12 dq and 12 dk/dv launches per step and no other kernel;
+   forward and 12 flash backward launches per step and no other kernel;
    finite losses, params moved; one batch's loss and gradient norm on the
    kernel path against the plain attention core. Times steps, img/s and
    peak memory.
@@ -123,7 +129,10 @@ EVAL_CHUNKS = {256: 8, 512: 8, 1024: 4}
 EVAL_IMAGES = 8
 
 # The kernels built on wgmma and TMA (csrc/hopper_tma_wgmma.cuh).
-WGMMA_KERNELS = ("proj_bias_gemm", "small_attention")
+WGMMA_KERNELS = ("proj_bias_gemm", "small_attention", "flash_attention_bwd")
+# The flash backward of checkouts from before its single pass: two
+# launchers, built by --baseline from such a DIR with these signatures.
+PAIR_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CARD = ""
@@ -244,16 +253,15 @@ def reset_launches() -> None:
 
 
 def flash_bound(name, b, n, h):
-    """(flops, bytes) a flash kernel must do/move: the JAX cost estimates'
-    FLOPs (4, 6, 8 x BH N^2 64), each bf16 [B, N, h, 64] operand read or
-    written once and the fp32 [B, h, N] lse/delta rows."""
+    """(flops, bytes) a flash function must do/move: its products (the
+    forward's two, 4 x BH N^2 64; the backward's five, S, dP, dV, dK and dQ,
+    10 x BH N^2 64), each bf16 [B, N, h, 64] operand read or written once
+    and the fp32 [B, h, N] lse rows."""
     bh, d = b * h, 64
     t, row = bh * n * d * 2, bh * n * 4
     if name == "flash_attention_fwd":
         return 4 * bh * n * n * d, 4 * t + row          # q k v -> o, lse
-    if name == "flash_attention_bwd_dq":
-        return 6 * bh * n * n * d, 5 * t + 2 * row      # q k v dO lse delta -> dq
-    return 8 * bh * n * n * d, 6 * t + 2 * row          # ... -> dk, dv
+    return 10 * bh * n * n * d, 8 * t + row             # q k v o dO lse -> dq dk dv
 
 
 def bound(name, b, n, c):
@@ -370,7 +378,7 @@ def phase_kernels():
 
 
 def phase_flash_kernels():
-    """The three flash kernels against their plain versions; times."""
+    """The flash forward and backward against their plain versions; times."""
     import torch
     import torch.nn.functional as F
 
@@ -411,7 +419,7 @@ def phase_flash_kernels():
         results[(name, *shape)] = r
 
     results = {}
-    # Training microbatch: forward, dq, dk/dv.
+    # Training microbatch: forward and backward.
     shape = FLASH_TRAIN
     q, k, v, do = inputs(*shape)
     o, lse = fla.flash_forward(q, k, v, scale)
@@ -420,15 +428,25 @@ def phase_flash_kernels():
     err = max(check("flash_attention_fwd", shape, o, o_ref),
               check("flash_attention_fwd lse", shape, lse, lse_ref))
     del o_ref, lse_ref
-    delta = fla.flash_delta(o, do)
-    dq = fla.flash_backward_dq(q, k, v, do, lse, delta, scale)
-    dk, dv = fla.flash_backward_dkv(q, k, v, do, lse, delta, scale)
+    # The backward twice on the same inputs: dq's fp32 partial sums reach L2
+    # in a run-dependent order, so the two dq may differ (bounded like the
+    # error); dk and dv are summed in registers and must be bit-equal.
+    first = fla.flash_backward(q, k, v, o, lse, do, scale)
+    second = fla.flash_backward(q, k, v, o, lse, do, scale)
     torch.cuda.synchronize()
-    rdq, rdk, rdv = fla.flash_backward_reference(q, k, v, o, lse, do, scale)
-    err_dq = check("flash_attention_bwd_dq", shape, dq, rdq)
-    err_dkv = max(check("flash_attention_bwd_dkv dk", shape, dk, rdk),
-                  check("flash_attention_bwd_dkv dv", shape, dv, rdv))
-    del rdq, rdk, rdv, dq, dk, dv
+    ref = fla.flash_backward_reference(q, k, v, o, lse, do, scale)
+    err_bwd = max(check(f"flash_attention_bwd {nm}", shape, g, r)
+                  for nm, g, r in zip(("dq", "dk", "dv"), first, ref))
+    rerun = (first[0].float() - second[0].float()).abs().max().item()
+    top = ref[0].float().abs().max().item()
+    log(f"check flash_attention_bwd (B, N, h)={shape}: dq run-to-run max_abs_diff={rerun:.3e} "
+        f"({(first[0] != second[0]).sum().item()} of {first[0].numel()} values differ; bound "
+        f"{KERNEL_RTOL * top:.3e}); dk, dv bit-equal: "
+        f"{torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])}")
+    if not (rerun <= KERNEL_RTOL * top and torch.equal(first[1], second[1])
+            and torch.equal(first[2], second[2])):
+        fail("flash_attention_bwd: two runs on the same inputs differ beyond the bound")
+    del first, second, ref
     heads = [t.transpose(1, 2) for t in (q, k, v)]
     sdpa_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(*heads), 20)
     hq = [t.detach().requires_grad_(True) for t in heads]
@@ -442,15 +460,13 @@ def phase_flash_kernels():
         lambda: fla.flash_backward_reference(q, k, v, o, lse, do, scale), 3)
     record("flash_attention_fwd", shape, err,
            cuda_time_ms(lambda: fla.flash_forward(q, k, v, scale), 20), plain_fwd_ms, sdpa_ms)
-    # The plain backward and SDPA's backward each give dq, dk and dv at once:
-    # both rows carry the whole call's time.
-    record("flash_attention_bwd_dq", shape, err_dq,
-           cuda_time_ms(lambda: fla.flash_backward_dq(q, k, v, do, lse, delta, scale), 20),
+    # The whole flash_backward call (delta, the pass, dq's rounding) beside
+    # SDPA's backward, which also includes its own preprocess and rounding.
+    record("flash_attention_bwd", shape, err_bwd,
+           cuda_time_ms(lambda: fla.flash_backward(q, k, v, o, lse, do, scale), 20),
            plain_bwd_ms, sdpa_bwd_ms)
-    record("flash_attention_bwd_dkv", shape, err_dkv,
-           cuda_time_ms(lambda: fla.flash_backward_dkv(q, k, v, do, lse, delta, scale), 20),
-           plain_bwd_ms, sdpa_bwd_ms)
-    del q, k, v, do, o, lse, delta
+    results[("flash_attention_bwd", *shape)]["rerun_max_abs_diff"] = rerun
+    del q, k, v, do, o, lse
 
     # Serving: 512px stage 2, and the 256px stage-2 decision (flash forward
     # against the plain chunked core, in turns: plain, kernel, kernel, plain).
@@ -623,63 +639,87 @@ def phase_eval_kernels():
 
 
 def phase_baseline(dirs):
-    """proj_bias_gemm and small_attention of this tree against the same two
-    kernels built from other checkouts' sources (DIR/
-    deepl_project_tpu_torch/csrc for each DIR, same launcher signatures),
-    each launched through its ctypes launcher on the same inputs at the main
-    paths' shapes; all held to the plain version; each DIR timed beside
-    this tree in turns (DIR, change, change, DIR). Returns kernel name ->
-    DIR -> shape -> times."""
+    """proj_bias_gemm, small_attention and the flash backward of this tree
+    against the same functions built from other checkouts' sources
+    (DIR/deepl_project_tpu_torch/csrc for each DIR), each launched through
+    its ctypes launcher on the same inputs at the main paths' shapes; all
+    held to the plain version; each DIR timed beside this tree in turns
+    (DIR, change, change, DIR). A DIR from before the single-pass backward
+    has the flash_attention_bwd_dq + flash_attention_bwd_dkv pair instead: it
+    is timed with the plain delta it was given (the device work of that
+    tree's flash_backward) against this tree's launcher, which computes delta
+    itself. Returns kernel name -> DIR -> shape -> times."""
+    import ctypes
     from pathlib import Path
 
     import torch
 
     from deepl_project_tpu_torch.ops.hopper import build
+    from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
     from deepl_project_tpu_torch.ops.hopper import fused_attention_block as fab
     from deepl_project_tpu_torch.ops.hopper import small_attention as sma
 
+    P, I = ctypes.c_void_p, ctypes.c_int
+    pair_sigs = {"flash_attention_bwd_dq": [P] * 7 + [I] * 8 + [ctypes.c_float, P],
+                 "flash_attention_bwd_dkv": [P] * 8 + [I] * 8 + [ctypes.c_float, P]}
     srcs = {}
     for d in dirs:
         csrc = os.path.join(os.path.abspath(d), "deepl_project_tpu_torch", "csrc")
         if not os.path.isdir(csrc):
             fail(f"--baseline {d}: no deepl_project_tpu_torch/csrc there")
+        names = [n for n in WGMMA_KERNELS + PAIR_KERNELS
+                 if os.path.exists(os.path.join(csrc, f"{n}.cu"))]
         t = time.time()
-        build.build(list(WGMMA_KERNELS), csrc)
-        log(f"built {list(WGMMA_KERNELS)} of {d} in {time.time() - t:.1f}s")
-        for name in WGMMA_KERNELS:
+        build.build(names, csrc)
+        log(f"built {names} of {d} in {time.time() - t:.1f}s")
+        for name in names:
             for line in build.BUILD_LOGS.get(f"{name} [{Path(csrc).resolve()}]", "").splitlines():
                 if "registers" in line or "spill" in line or "C75" in line:
                     log(f"ptxas {name} ({d}): {line.strip()}")
-        srcs[d] = csrc
+        srcs[d] = (csrc, names)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     bf = torch.bfloat16
     stream = torch.cuda.current_stream().cuda_stream
     results = {}
 
-    def turns(name, shape, args, out, ref, flops):
-        top = ref.float().abs().max().item()
-        for d, csrc in srcs.items():
-            fns = {"baseline": build.launcher(name, csrc), "change": build.launcher(name)}
-            for who, fn in fns.items():
+    def turns(name, shape, d, fns, outs, refs, flops):
+        """fns: "baseline" (DIR's) and "change" (this tree's) -> a function
+        launching one call; outs are compared with refs after each."""
+        for who, fn in fns.items():
+            for out in outs:
                 out.zero_()
-                if fn(*args) != 0:
-                    fail(f"baseline {name} {shape}: the {who} launch ({d}) failed")
-                torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            for out, ref in zip(outs, refs):
+                top = ref.float().abs().max().item()
                 err = (out.float() - ref.float()).abs().max().item()
                 if not err <= KERNEL_RTOL * top:
-                    fail(f"baseline {name} {shape}: {who} ({d}) max_abs_err {err:.3e} > "
+                    fail(f"baseline {name} {shape}: {who} max_abs_err {err:.3e} > "
                          f"{KERNEL_RTOL * top:.3e}")
-            times = {"baseline": [], "change": []}
-            for who in ("baseline", "change", "change", "baseline"):
-                times[who].append(cuda_time_ms(lambda: fns[who](*args), 20))
-            log(f"baseline {name} {shape}: {d} {times['baseline'][0]:.4f} / "
-                f"{times['baseline'][1]:.4f} ms, change {times['change'][0]:.4f} / "
-                f"{times['change'][1]:.4f} ms (turns {d}, change, change, {d}); "
-                f"{flops / min(times['baseline']) / 1e9:.1f} -> "
-                f"{flops / min(times['change']) / 1e9:.1f} TFLOP/s [{CARD}]")
-            results.setdefault(name, {}).setdefault(d, {})[shape] = {
-                w: min(v) for w, v in times.items()}
+        times = {"baseline": [], "change": []}
+        for who in ("baseline", "change", "change", "baseline"):
+            times[who].append(cuda_time_ms(fns[who], 20))
+        log(f"baseline {name} {shape}: {d} {times['baseline'][0]:.4f} / "
+            f"{times['baseline'][1]:.4f} ms, change {times['change'][0]:.4f} / "
+            f"{times['change'][1]:.4f} ms (turns {d}, change, change, {d}); "
+            f"{flops / min(times['baseline']) / 1e9:.1f} -> "
+            f"{flops / min(times['change']) / 1e9:.1f} TFLOP/s [{CARD}]")
+        results.setdefault(name, {}).setdefault(d, {})[shape] = {
+            w: min(v) for w, v in times.items()}
+
+    def launch(fn, *args):
+        def run():
+            if fn(*args) != 0:
+                fail(f"baseline: a launch failed ({fn.__name__})")
+        return run
+
+    def same_launcher(name, shape, args, outs, refs, flops):
+        for d, (csrc, names) in srcs.items():
+            if name in names:
+                turns(name, shape, d, {"baseline": launch(build.launcher(name, csrc), *args),
+                                       "change": launch(build.launcher(name), *args)},
+                      outs, refs, flops)
 
     for n, c, _, _, b in kernel_shapes()[1:]:
         o = torch.randn(b * n, c, generator=gen, device="cuda").to(bf)
@@ -689,8 +729,8 @@ def phase_baseline(dirs):
         out = torch.empty_like(o)
         args = (o.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(), b * n, c, c,
                 stream)
-        turns("proj_bias_gemm", (b, n, c), args, out, fab.proj_bias_reference(o, wp, bp),
-              2 * b * n * c * c)
+        same_launcher("proj_bias_gemm", (b, n, c), args, [out],
+                      [fab.proj_bias_reference(o, wp, bp)], 2 * b * n * c * c)
     b, n, h = SMALL_512
     c = h * 64
     qkv = (1.5 * torch.randn(b, n, 3 * c, generator=gen, device="cuda")).to(bf)
@@ -699,8 +739,49 @@ def phase_baseline(dirs):
     scale = 64 ** -0.5
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, n, h, 3 * c, 3 * c,
             3 * c, c, scale, stream)
-    turns("small_attention", SMALL_512, args, o, sma.small_attention_reference(q, k, v, scale),
-          4 * b * h * n * n * 64)
+    same_launcher("small_attention", SMALL_512, args, [o],
+                  [sma.small_attention_reference(q, k, v, scale)], 4 * b * h * n * n * 64)
+    del qkv, q, k, v, o
+
+    # The flash backward at the training microbatch.
+    b, n, h = FLASH_TRAIN
+    c = h * 64
+    q, k, v, do = ((1.5 * torch.randn(b, n, h, 64, generator=gen, device="cuda")).to(bf)
+                   for _ in range(4))
+    o, lse = fla.flash_forward(q, k, v, scale)
+    refs = fla.flash_backward_reference(q, k, v, o, lse, do, scale)
+    outs = [torch.empty_like(q) for _ in range(3)]
+    delta = torch.empty(b, h, n, device="cuda")
+    acc = torch.empty(b, h, n, 64, device="cuda")
+    flops = flash_bound("flash_attention_bwd", b, n, h)[0]
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), acc.data_ptr(), *(t.data_ptr() for t in outs),
+            b, n, h, c, c, c, c, c, c, scale, stream)
+    same_launcher("flash_attention_bwd", FLASH_TRAIN, args, outs, refs, flops)
+    for d, (csrc, names) in srcs.items():
+        if not set(PAIR_KERNELS) <= set(names):
+            continue
+        dq_fn, dkv_fn = (build.launcher(nm, csrc, pair_sigs[nm]) for nm in PAIR_KERNELS)
+        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr())
+
+        def pair():
+            for fn, outp in ((dq_fn, (outs[0].data_ptr(),)),
+                             (dkv_fn, (outs[1].data_ptr(), outs[2].data_ptr()))):
+                if fn(*common, *outp, b, n, h, c, c, c, c, c, scale, stream) != 0:
+                    fail(f"baseline: the {d} flash backward pair failed to launch")
+
+        def parent_call():
+            # That tree's flash_backward on the device: the plain delta, dq, dk/dv.
+            delta.copy_((do.float() * o.float()).sum(dim=-1).transpose(1, 2))
+            pair()
+
+        turns("flash_attention_bwd", FLASH_TRAIN, d,
+              {"baseline": parent_call,
+               "change": launch(build.launcher("flash_attention_bwd"), *args)},
+              outs, refs, flops)
+        log(f"baseline flash_attention_bwd {FLASH_TRAIN}: {d}'s dq + dk/dv kernels alone "
+            f"(delta given) {cuda_time_ms(pair, 20):.4f} ms [{CARD}]")
     torch.cuda.empty_cache()
     return results
 
@@ -801,13 +882,12 @@ def phase_train(profile: bool):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if state.step != TRAIN_STEPS:
         fail(f"train: {state.step} steps taken, {TRAIN_STEPS} asked")
-    want = {k: 12 * TRAIN_STEPS for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
-                                          "flash_attention_bwd_dkv")}
+    want = {k: 12 * TRAIN_STEPS for k in ("flash_attention_fwd", "flash_attention_bwd")}
     if counts != want or sub or small or norm:
         fail(f"train: flash launches {counts} (want {want}), sublayer kernel launches {sub}, "
              f"small_attention {small}, group_norm_silu {norm}")
     log(f"train: {TRAIN_STEPS} steps launched {fla.launch_counts_by_shape()} "
-        f"(12 fwd + 12 dq + 12 dk/dv per step), no sublayer kernel, small_attention "
+        f"(12 forward + 12 backward per step), no sublayer kernel, small_attention "
         f"or group_norm_silu kernel")
     counts = {**counts, **norm}
     with open(os.path.join(out_dir, "history.jsonl")) as f:
@@ -856,14 +936,14 @@ def phase_train(profile: bool):
         grads, metrics = compute_grads(state.model, batch, weights, trainer.lpips_params,
                                        sample=False)
         res[impl] = (metrics["total"].item(), global_norm(grads).item(),
-                     fla.launch_counts().get("flash_attention_bwd_dkv", 0))
+                     fla.launch_counts().get("flash_attention_bwd", 0))
         del grads
     (lk, gk, nk), (lp, gp, npl) = res["auto_train"], res["xla"]
     log(f"train compare ({COMPARE_BATCH} images): loss kernel path {lk:.6f} plain core "
         f"{lp:.6f} (rel {abs(lk - lp) / abs(lp):.3e}, bound {TRAIN_LOSS_RTOL}); grad norm "
         f"{gk:.6f} / {gp:.6f} (rel {abs(gk - gp) / gp:.3e}, bound {TRAIN_GRAD_NORM_RTOL})")
     if nk != 6 or npl != 0:
-        fail(f"train compare: flash dk/dv launches {nk} / {npl}, want 6 / 0")
+        fail(f"train compare: flash backward launches {nk} / {npl}, want 6 / 0")
     if not (abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp)
             and abs(gk - gp) <= TRAIN_GRAD_NORM_RTOL * gp):
         fail("train compare: the kernel path and the plain core disagree")
@@ -1165,8 +1245,8 @@ def main():
     ap.add_argument("--phases", default="build,kernels,grad,train,serve,time,eval")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--baseline", metavar="DIR", nargs="+", default=[],
-                    help="checkouts whose proj_bias_gemm and small_attention are "
-                         "timed beside this tree's (phase kernels)")
+                    help="checkouts whose proj_bias_gemm, small_attention and flash "
+                         "backward are timed beside this tree's (phase kernels)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -1241,11 +1321,14 @@ def main():
         for name, source, replaces in (
                 ("flash_attention_fwd", "deepl_project_tpu_torch/csrc/flash_attention_fwd.cu",
                  "deepl_project_tpu/ops/pallas/flash_attention.py:87"),
-                ("flash_attention_bwd_dq", "deepl_project_tpu_torch/csrc/flash_attention_bwd_dq.cu",
-                 "deepl_project_tpu/ops/pallas/flash_attention.py:196"),
-                ("flash_attention_bwd_dkv", "deepl_project_tpu_torch/csrc/flash_attention_bwd_dkv.cu",
-                 "deepl_project_tpu/ops/pallas/flash_attention.py:218")):
+                ("flash_attention_bwd", "deepl_project_tpu_torch/csrc/flash_attention_bwd.cu",
+                 "deepl_project_tpu/ops/pallas/flash_attention.py:196")):
             r = results[(name, *FLASH_TRAIN)]
+            extra = {} if name == "flash_attention_fwd" else {
+                # One pass for both TPU kernels of _flash_backward: dq (:196)
+                # and dk/dv (:218); ms is the whole flash_backward call.
+                "also_replaces": "deepl_project_tpu/ops/pallas/flash_attention.py:218",
+                "dq_rerun_max_abs_diff": r["rerun_max_abs_diff"]}
             kernels.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": train_counts.get(name, 0),
@@ -1256,6 +1339,7 @@ def main():
                 "library_ms": r["library_ms"],
                 "per": (f"one call at the training microbatch (B, N, h)={FLASH_TRAIN}; "
                         f"launches over {TRAIN_STEPS} training steps"),
+                **extra,
             })
         r = results[("small_attention", *SMALL_512)]
         kernels.append({

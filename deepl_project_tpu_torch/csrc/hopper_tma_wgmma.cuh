@@ -1,15 +1,16 @@
 // Shared pieces of the port's warp-specialised Hopper kernels
-// (proj_bias_gemm.cu, small_attention.cu), in inline PTX for sm_90a:
+// (proj_bias_gemm.cu, small_attention.cu, flash_attention_bwd.cu), in
+// inline PTX for sm_90a:
 //
 //   - mbarrier init / arrive / arrive.expect_tx / try_wait with phase parity;
-//   - 2D and 3D TMA tile loads (cp.async.bulk.tensor) that complete on an
-//     mbarrier, 2D TMA stores tracked by bulk groups, and the host-side
-//     tensor-map encoder, fetched once from the driver through the runtime
-//     (no -lcuda);
+//   - 2D and 3D TMA tile loads (cp.async.bulk.tensor) and plain bulk copies
+//     that complete on an mbarrier, 2D and 3D TMA stores and 2D TMA
+//     reduce-adds tracked by bulk groups, and the host-side tensor-map
+//     encoder, fetched once from the driver through the runtime (no -lcuda);
 //   - the proxy fence and named barriers of a staged epilogue;
 //   - the wgmma shared-memory descriptor of a 128-byte-swizzled tile;
 //   - wgmma fence / commit_group / wait_group, and the bf16 -> fp32
-//     m64n64k16 and m64n128k16 products;
+//     m64n64k16, m64n128k16 and m64n32k16 (both operands MN-major) products;
 //   - setmaxnreg.
 //
 // Tiles: every operand tile is 64 bf16 (128 bytes) wide, loaded by TMA with
@@ -127,7 +128,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Copy a box from shared memory at src to `map` at (c0, c1); elements
+// Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) of global
+// memory at src into shared memory at dst; the bytes complete on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Copy a box from shared memory at src to `map` at (c0, c1[, c2]); elements
 // outside the tensor are not written. Completion is tracked per thread by
 // bulk groups (bulk_commit, bulk_wait_read, bulk_wait).
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src,
@@ -135,6 +148,15 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
   asm volatile(
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
       :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src,
+                                             int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1),
+         "r"(c2)
       : "memory");
 }
 
@@ -157,6 +179,16 @@ __device__ __forceinline__ void bulk_wait() {
 // Barrier over `count` threads (a multiple of 32) on named barrier id (1-15).
 __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// Add a box of fp32 from shared memory at src into `map` at (c0, c1) in
+// global memory (an element-wise reduction in L2); tracked by bulk groups.
+__device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map, const void* src,
+                                                  int c0, int c1) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group [%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
 }
 
 // -- wgmma -------------------------------------------------------------------
@@ -267,6 +299,23 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_mn(float (&d)[32], const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32]: A and B from shared memory, both
+// MN-major (M, resp. N, contiguous: both transpose flags set). The k slice
+// kk of a 64-wide tile is 16 rows (two atoms, 2048 bytes) on; a B of 32
+// columns may start 64 bytes into the swizzled rows (the hardware swizzles
+// the address it computes, as for the 32-byte k steps of a K-major tile).
+__device__ __forceinline__ void wgmma_m64n32k16_ss_tt(float (&d)[16], uint64_t da,
+                                                      uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, "
+      "%4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // -- registers ---------------------------------------------------------------
 // Move registers between warpgroups (all 128 threads of the warpgroup).
 template <int R>
@@ -326,6 +375,23 @@ inline int make_map_bf16(CUtensorMap* map, const void* base, int rank,
   const cuuint32_t elem[3] = {1, 1, 1};
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
                   const_cast<void*>(base), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)r;
+}
+
+// An fp32 [rows, cols] row-major tensor at base: boxes of box_cols (at most
+// 32: 128 bytes, the swizzle's span) x box_rows, 128-byte swizzle. Returns 0,
+// or a nonzero CUDA error code.
+inline int make_map_f32_2d(CUtensorMap* map, void* base, uint64_t cols, uint64_t rows,
+                           uint32_t box_cols, uint32_t box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 4};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, base, dims, strides, box, elem,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)r;

@@ -36,8 +36,7 @@ SIGNATURES = {
     "attention_core": [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P],
     "proj_bias_gemm": [_P] * 4 + [_I] * 3 + [_P],
     "flash_attention_fwd": [_P] * 5 + [_I] * 7 + [ctypes.c_float, _P],
-    "flash_attention_bwd_dq": [_P] * 7 + [_I] * 8 + [ctypes.c_float, _P],
-    "flash_attention_bwd_dkv": [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P],
+    "flash_attention_bwd": [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P],
     "small_attention": [_P] * 4 + [_I] * 7 + [ctypes.c_float, _P],
     "group_norm_stats": [_P] * 2 + [_I] * 3 + [_L] * 2 + [_P],
     "group_norm_apply": [_P] * 4 + [_I] + [_L] * 2 + [_I] * 2 + [_P],
@@ -107,9 +106,10 @@ def build(names=None, csrc: Path = CSRC) -> dict[str, Path]:
     return paths
 
 
-def launcher(name: str, csrc: Path = CSRC):
+def launcher(name: str, csrc: Path = CSRC, argtypes=None):
     """``<name>_launch`` of kernel ``name`` from ``csrc``, its source built on
-    first use."""
+    first use; ``argtypes`` (default ``SIGNATURES[name]``) names the
+    signature of a launcher this tree no longer has."""
     key = (Path(csrc).resolve(), name)
     fn = _fns.get(key)
     if fn is None:
@@ -118,7 +118,7 @@ def launcher(name: str, csrc: Path = CSRC):
             if fn is None:
                 src = SOURCE_OF.get(name, name)
                 fn = getattr(ctypes.CDLL(str(build([src], key[0])[src])), f"{name}_launch")
-                fn.argtypes = SIGNATURES[name]
+                fn.argtypes = SIGNATURES[name] if argtypes is None else argtypes
                 fn.restype = ctypes.c_int
                 _fns[key] = fn
     return fn

@@ -1,22 +1,25 @@
 """Flash attention for Hopper (port of
 ``deepl_project_tpu/ops/pallas/flash_attention.py``).
 
-Three hand-written CUDA kernels (``deepl_project_tpu_torch/csrc``) carry the
-three TPU kernels of that file:
+Two launchers of hand-written CUDA kernels (``deepl_project_tpu_torch/csrc``)
+carry the three TPU kernels of that file:
 
 - ``flash_attention_fwd``: o = softmax(q k^T * scale) v and the row
   logsumexp (``_flash_kernel``); its tile code is shared with
   ``attention_core`` through ``flash_fwd_tile.cuh``;
-- ``flash_attention_bwd_dq``: dq (``_flash_bwd_dq_kernel``);
-- ``flash_attention_bwd_dkv``: dk and dv (``_flash_bwd_dkv_kernel``).
+- ``flash_attention_bwd``: dq, dk and dv in one wgmma + TMA pass
+  (``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``), between two
+  small kernels of the same launcher: one computes delta = rowsum(dO * o)
+  in fp32 (XLA's work beside the TPU kernels) and zeroes an fp32 dq buffer,
+  which the pass sums into by reductions in L2, in an order that changes
+  from run to run; the other rounds it to bf16.
 
 :func:`flash_attention` is a ``torch.autograd.Function`` on the port's
 [B, N, heads, 64] layout: the forward saves (q, k, v, o, lse) and the
-backward launches dq and dk/dv, as the custom VJP of the JAX function does.
-q, k and v are read in place (each with its own row stride; heads must be
-adjacent 64-column groups), so neither direction folds or transposes them.
-delta = rowsum(dO * o) is a plain fp32 reduction beside the kernels, as it is
-XLA beside the TPU kernels.
+backward launches the backward kernel, as the custom VJP of the JAX
+function launches its two. q, k and v are read in place (each with its own
+row stride; heads must be adjacent 64-column groups), so neither direction
+folds or transposes them.
 
 For CPU tensors every function runs its plain PyTorch version
 (:func:`flash_forward_reference`, :func:`flash_backward_reference`); for a
@@ -166,59 +169,34 @@ def _check_lse(name, t, b, h, n):
                          f"[{b}, {h}, {n}] tensor")
 
 
-def flash_delta(o, do):
-    """delta = rowsum(dO * o) in fp32, [B, h, N]: the backward's per-row term
-    (a plain reduction, as it is XLA beside the TPU kernels)."""
-    return (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
-
-
-def flash_backward_dq(q, k, v, do, lse, delta, scale):
-    """dq from the ``flash_attention_bwd_dq`` kernel (CUDA tensors only)."""
+def flash_backward_kernel(q, k, v, o, do, lse, scale):
+    """(dq, dk, dv) from the ``flash_attention_bwd`` launcher (CUDA tensors
+    only): delta = rowsum(dO * o) and a zeroed fp32 [B, h, N, 64] dq buffer,
+    the pass, dq rounded to bf16."""
     _check_shape(q)
     b, n, h, d = q.shape
-    q, k, v, do = (_rows(nm, t, q.shape) for nm, t in
-                   (("q", q), ("k", k), ("v", v), ("dO", do)))
+    q, k, v, o, do = (_rows(nm, t, q.shape) for nm, t in
+                      (("q", q), ("k", k), ("v", v), ("o", o), ("dO", do)))
     _check_lse("lse", lse, b, h, n)
-    _check_lse("delta", delta, b, h, n)
-    dq = torch.empty(b, n, h, d, device=q.device, dtype=q.dtype)
-    build.launch("flash_attention_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                 b, n, h, q.stride(1), k.stride(1), v.stride(1), do.stride(1),
-                 h * d, float(scale), _stream())
-    _LAUNCHES[("flash_attention_bwd_dq", n, h)] += 1
-    return dq
-
-
-def flash_backward_dkv(q, k, v, do, lse, delta, scale):
-    """(dk, dv) from the ``flash_attention_bwd_dkv`` kernel (CUDA tensors
-    only)."""
-    _check_shape(q)
-    b, n, h, d = q.shape
-    q, k, v, do = (_rows(nm, t, q.shape) for nm, t in
-                   (("q", q), ("k", k), ("v", v), ("dO", do)))
-    _check_lse("lse", lse, b, h, n)
-    _check_lse("delta", delta, b, h, n)
-    dk, dv = (torch.empty(b, n, h, d, device=q.device, dtype=q.dtype) for _ in range(2))
-    build.launch("flash_attention_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), b, n, h, q.stride(1), k.stride(1), v.stride(1),
-                 do.stride(1), h * d, float(scale), _stream())
-    _LAUNCHES[("flash_attention_bwd_dkv", n, h)] += 1
-    return dk, dv
+    delta = torch.empty(b, h, n, device=q.device, dtype=torch.float32)
+    dq_acc = torch.empty(b, h, n, d, device=q.device, dtype=torch.float32)
+    dq, dk, dv = (torch.empty(b, n, h, d, device=q.device, dtype=q.dtype) for _ in range(3))
+    build.launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, h,
+                 q.stride(1), k.stride(1), v.stride(1), o.stride(1), do.stride(1), h * d,
+                 float(scale), _stream())
+    _LAUNCHES[("flash_attention_bwd", n, h)] += 1
+    return dq, dk, dv
 
 
 def flash_backward(q, k, v, o, lse, do, scale):
     """(dq, dk, dv) from the forward's o and lse and the output gradient:
-    the ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` kernels
-    on the card, the plain backward on the CPU."""
+    the ``flash_attention_bwd`` kernels on the card, the plain backward on
+    the CPU."""
     if q.device.type == "cpu":
         return flash_backward_reference(q, k, v, o, lse, do, scale)
-    _check_shape(q)
-    do = _rows("dO", do, q.shape)
-    delta = flash_delta(_rows("o", o, q.shape), do)
-    dq = flash_backward_dq(q, k, v, do, lse, delta, scale)
-    dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, scale)
-    return dq, dk, dv
+    return flash_backward_kernel(q, k, v, o, do, lse, scale)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -240,5 +218,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """softmax(q k^T * scale) v on [B, N, heads, 64] tensors (the layout of
     ``ops.attention.xla_attention``), differentiable: the backward launches
-    the dq and dk/dv kernels from the saved o and logsumexp."""
+    the backward kernel from the saved o and logsumexp."""
     return _FlashAttention.apply(q, k, v, float(scale))

@@ -5,7 +5,8 @@ The port's plain forward (o and logsumexp) and plain backward (dq, dk, dv)
 are what its wrappers run for CPU tensors and what ``chip_smoke.py`` holds
 the CUDA kernels to on the card; here they are held to the Pallas kernels
 (``_flash_forward`` and ``jax.vjp`` through the custom VJP) on the same
-seeded numpy inputs, N=256 with 128-token blocks, 3 heads.
+seeded numpy inputs, N=256 with 128-token blocks, 3 heads (the backward
+also at N=320 with 64-token blocks).
 
 Tolerances: fp32, 1e-4 x max|ref| (online vs whole-row softmax, other
 summation orders); bf16, 2**-6 x max|ref| (two bf16 rounding steps at the
@@ -36,9 +37,9 @@ def _interpret_mode(monkeypatch):
     monkeypatch.setattr(jfa.pl, "pallas_call", functools.partial(orig, interpret=True))
 
 
-def _inputs(seed, dtype):
+def _inputs(seed, dtype, n=N):
     rng = np.random.default_rng(seed)
-    arrs = [(1.5 * rng.standard_normal((B, N, H, D))).astype(np.float32) for _ in range(4)]
+    arrs = [(1.5 * rng.standard_normal((B, n, H, D))).astype(np.float32) for _ in range(4)]
     if dtype == "bfloat16":  # both sides start from the same bf16 values
         arrs = [np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32)) for a in arrs]
     return arrs
@@ -84,6 +85,23 @@ def test_plain_backward_matches_jax_grad(dtype):
     got = fla.flash_backward(q, k, v, o, lse, g, SCALE)
     for gt, w in zip(got, want):
         assert gt.dtype == q.dtype
+        _close(gt, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_backward_matches_jax_grad_on_odd_tile_count(dtype):
+    # N = 320 with 64-token blocks: five 64-key tiles, a shape the gate
+    # admits that is not a multiple of 128 (the card's backward takes keys
+    # 128 at a time and ends on a half tile there).
+    n, block = 320, 64
+    (jq, jk, jv, jg), (q, k, v, g) = _to(_inputs(3, dtype, n), dtype)
+    fn = functools.partial(jfa.flash_attention, scale=SCALE, block_q=block, block_k=block)
+    _, vjp = jax.vjp(fn, jq, jk, jv)
+    want = vjp(jg)
+    o, lse = fla.flash_forward(q, k, v, SCALE)
+    got = fla.flash_backward(q, k, v, o, lse, g, SCALE)
+    for gt, w in zip(got, want):
+        assert gt.shape == (B, n, H, D) and gt.dtype == q.dtype
         _close(gt, w, dtype)
 
 
