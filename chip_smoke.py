@@ -5,18 +5,16 @@
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --profile       # also torch.profiler breakdowns
     python3 chip_smoke.py --phases build,kernels --baseline DIR [DIR ...]
-                                          # also time proj_bias_gemm,
-                                          # small_attention and the flash
-                                          # backward built from each DIR's
-                                          # deepl_project_tpu_torch/csrc
+                                          # also time the wgmma kernels
+                                          # (WGMMA_KERNELS) built from each
+                                          # DIR's deepl_project_tpu_torch/csrc
 
 Phases (any failure exits non-zero and prints no result):
 
 1. build: compile the Hopper kernel sources of deepl_project_tpu_torch/csrc
-   (eight kernels in seven files) with nvcc for sm_90a, all in parallel, and
-   print ptxas' register and shared memory report (in full for the three
-   wgmma/TMA kernels, proj_bias_gemm, small_attention and
-   flash_attention_bwd).
+   (nine launchers in seven files) with nvcc for sm_90a, all in parallel, and
+   print ptxas' register and shared memory report (in full for the five
+   wgmma/TMA kernels, WGMMA_KERNELS).
 2. kernels: run each kernel at the main paths' shapes and hold it against
    its plain PyTorch version on the same inputs: max |kernel - plain| <=
    2**-6 * max|plain|, i.e. two bf16 rounding steps (ulp <= 2**-7 |v|) at
@@ -24,10 +22,13 @@ Phases (any failure exits non-zero and prints no result):
    batch 32 ([B,4096,384] for ln_qkv_rope; [B,1024,768] and [B,256,1536]
    for all three); the flash kernels (forward; the backward's dq, dk and dv,
    run twice to bound dq's run-to-run difference, which its L2 reductions in
-   a run-dependent order allow) at the training microbatch (8 images, 6
-   heads, N=4096), the forward also at 512px
-   serving (2 images, N=16384) and at 256px serving batch 32 against the
-   plain chunked core (the inference dispatch's evidence); small_attention
+   a run-dependent order allow, and twice more under
+   torch.use_deterministic_algorithms(True), where the deterministic
+   launcher must give bit-equal results; its time and memory are logged) at
+   the training microbatch (8 images, 6 heads, N=4096), the forward also at
+   512px serving (2 images, N=16384), at 256px serving batch 32 against the
+   plain chunked core (the inference dispatch's evidence) and at the 1024px
+   sweep's stage 2 (4 images, N=65536); small_attention
    at the 512px stage-4 shape (8 images, N=1024, 24 heads, q/k/v slices of
    one [B, N, 3C] buffer as ln_qkv_rope leaves them); group_norm_silu (stats
    and apply kernels) at the large f16d32 ResBlock shapes at b32,
@@ -40,11 +41,13 @@ Phases (any failure exits non-zero and prints no result):
    cast once as the model caches it); and the two routes of an attention
    sublayer at (N=1024, C=1536, b=8): the whole-sublayer kernels against
    ln_qkv_rope + small_attention + the projection. With --baseline DIR ...,
-   proj_bias_gemm (both shapes), small_attention and the flash backward
-   (DIR's flash_attention_bwd, or its flash_attention_bwd_dq +
-   flash_attention_bwd_dkv pair behind the plain delta) are also built from
-   each DIR's sources and each build timed beside this tree's on the same
-   inputs in turns (baseline, this tree, this tree, baseline).
+   proj_bias_gemm (both shapes), small_attention, the flash forward (the
+   four flash shapes above), attention_core (both sublayer shapes) and the
+   flash backward (DIR's flash_attention_bwd, or its flash_attention_bwd_dq
+   + flash_attention_bwd_dkv pair behind the plain delta) are also built
+   from each DIR's sources that exist and each build timed beside this
+   tree's on the same inputs in turns (baseline, this tree, this tree,
+   baseline).
 3. grad: the sublayer kernels' backward (their plain versions' VJP) at the
    stage-3 training shape: gradients of x, the LN affines and every weight
    on the kernel path against the plain path's.
@@ -73,6 +76,8 @@ Phases (any failure exits non-zero and prints no result):
    finite PSNR/SSIM, images/s and peak memory per resolution; one 512px
    reconstruct (b=2) of the kernel path and of the plain bf16 path against
    fp32 (the serve phase's rule); cli/generate.py --mode random on the card.
+   With --profile, a torch.profiler table of one 1024px chunk's reconstruct
+   (as the train and time phases profile one step and one reconstruct).
 
 Launches are checked against one table per resolution (256, 512, 1024px;
 launches_per_reconstruct); group_norm_silu, on no model path, must show no
@@ -116,10 +121,12 @@ TRAIN_GRAD_NORM_RTOL = 5e-2
 TRAIN_STEPS = 5
 COMPARE_BATCH = 4  # the plain core's saved [B, h, N, N] weights bound it
 # (batch, N, heads) of the flash kernels' shapes: the training microbatch,
-# 256px serving at batch 32 (stage 2) and 512px serving at batch 2.
+# 256px serving at batch 32 (stage 2), 512px serving at batch 2 and the
+# 1024px sweep's chunk of 4 (stage 2).
 FLASH_TRAIN = (8, 4096, 6)
 FLASH_SERVE_256 = (32, 4096, 6)
 FLASH_SERVE_512 = (2, 16384, 6)
+FLASH_SWEEP_1024 = (4, 65536, 6)
 # small_attention at 512px stage 4, (batch, N, heads); group_norm_silu at the
 # large f16d32 ResBlock shapes (stages 0 and 1) at b32.
 SMALL_512 = (8, 1024, 24)
@@ -129,7 +136,8 @@ EVAL_CHUNKS = {256: 8, 512: 8, 1024: 4}
 EVAL_IMAGES = 8
 
 # The kernels built on wgmma and TMA (csrc/hopper_tma_wgmma.cuh).
-WGMMA_KERNELS = ("proj_bias_gemm", "small_attention", "flash_attention_bwd")
+WGMMA_KERNELS = ("proj_bias_gemm", "small_attention", "flash_attention_bwd",
+                 "flash_attention_fwd", "attention_core")
 # The flash backward of checkouts from before its single pass: two
 # launchers, built by --baseline from such a DIR with these signatures.
 PAIR_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
@@ -446,7 +454,31 @@ def phase_flash_kernels():
     if not (rerun <= KERNEL_RTOL * top and torch.equal(first[1], second[1])
             and torch.equal(first[2], second[2])):
         fail("flash_attention_bwd: two runs on the same inputs differ beyond the bound")
-    del first, second, ref
+    # Under torch.use_deterministic_algorithms(True): the deterministic
+    # launcher, two runs bit-equal, within the bound of the plain version;
+    # its time and the device memory one call adds.
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        det = [fla.flash_backward(q, k, v, o, lse, do, scale)]
+        torch.cuda.synchronize()
+        det_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        det.append(fla.flash_backward(q, k, v, o, lse, do, scale))
+        det_ms = cuda_time_ms(lambda: fla.flash_backward(q, k, v, o, lse, do, scale), 20)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    same = all(torch.equal(a, b) for a, b in zip(*det))
+    log(f"check flash_attention_bwd deterministic (B, N, h)={shape}: two runs bit-equal "
+        f"(dq, dk, dv): {same}; one call's peak device memory above its inputs "
+        f"{det_gib:.3f} GiB")
+    err_det = max(check(f"flash_attention_bwd_det {nm}", shape, g, r)
+                  for nm, g, r in zip(("dq", "dk", "dv"), det[0], ref))
+    if not same:
+        fail("flash_attention_bwd_det: two runs on the same inputs are not bit-equal")
+    del first, second, ref, det
     heads = [t.transpose(1, 2) for t in (q, k, v)]
     sdpa_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(*heads), 20)
     hq = [t.detach().requires_grad_(True) for t in heads]
@@ -465,7 +497,11 @@ def phase_flash_kernels():
     record("flash_attention_bwd", shape, err_bwd,
            cuda_time_ms(lambda: fla.flash_backward(q, k, v, o, lse, do, scale), 20),
            plain_bwd_ms, sdpa_bwd_ms)
-    results[("flash_attention_bwd", *shape)]["rerun_max_abs_diff"] = rerun
+    row = results[("flash_attention_bwd", *shape)]
+    row.update(rerun_max_abs_diff=rerun, det_ms=det_ms, det_max_abs_err=err_det,
+               det_peak_gib=det_gib)
+    log(f"time flash_attention_bwd (B, N, h)={shape}: default {row['ms']:.4f} ms, "
+        f"deterministic {det_ms:.4f} ms [{CARD}]")
     del q, k, v, do, o, lse
 
     # Serving: 512px stage 2, and the 256px stage-2 decision (flash forward
@@ -486,6 +522,26 @@ def phase_flash_kernels():
             f"plain chunked core {t_plain[0]:.4f} / {t_plain[1]:.4f} ms [{CARD}]")
         record("flash_attention_fwd", shape, err, min(t_kern), min(t_plain), sdpa_ms)
         del q, k, v, heads
+
+    # The 1024px sweep's stage 2: once against the plain forward (its one
+    # call timed by events), then the kernel and SDPA.
+    shape = FLASH_SWEEP_1024
+    q, k, v, _ = inputs(*shape)
+    o, lse = fla.flash_forward(q, k, v, scale)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    o_ref, lse_ref = fla.flash_forward_reference(q, k, v, scale)
+    end.record()
+    torch.cuda.synchronize()
+    err = max(check("flash_attention_fwd", shape, o, o_ref),
+              check("flash_attention_fwd lse", shape, lse, lse_ref))
+    del o, lse, o_ref, lse_ref
+    heads = [t.transpose(1, 2) for t in (q, k, v)]
+    record("flash_attention_fwd", shape, err,
+           cuda_time_ms(lambda: fla.flash_forward(q, k, v, scale), 3), start.elapsed_time(end),
+           cuda_time_ms(lambda: F.scaled_dot_product_attention(*heads), 3))
+    del q, k, v, heads
     torch.cuda.empty_cache()
     return results
 
@@ -639,8 +695,9 @@ def phase_eval_kernels():
 
 
 def phase_baseline(dirs):
-    """proj_bias_gemm, small_attention and the flash backward of this tree
-    against the same functions built from other checkouts' sources
+    """proj_bias_gemm, small_attention, the flash backward, the flash forward
+    and attention_core of this tree against the same functions built from
+    other checkouts' sources
     (DIR/deepl_project_tpu_torch/csrc for each DIR), each launched through
     its ctypes launcher on the same inputs at the main paths' shapes; all
     held to the plain version; each DIR timed beside this tree in turns
@@ -698,8 +755,9 @@ def phase_baseline(dirs):
                     fail(f"baseline {name} {shape}: {who} max_abs_err {err:.3e} > "
                          f"{KERNEL_RTOL * top:.3e}")
         times = {"baseline": [], "change": []}
+        iters = 20 if flops < 5e12 else 3  # the 1024px flash forward: ~0.1 s a call
         for who in ("baseline", "change", "change", "baseline"):
-            times[who].append(cuda_time_ms(fns[who], 20))
+            times[who].append(cuda_time_ms(fns[who], iters))
         log(f"baseline {name} {shape}: {d} {times['baseline'][0]:.4f} / "
             f"{times['baseline'][1]:.4f} ms, change {times['change'][0]:.4f} / "
             f"{times['change'][1]:.4f} ms (turns {d}, change, change, {d}); "
@@ -742,6 +800,31 @@ def phase_baseline(dirs):
     same_launcher("small_attention", SMALL_512, args, [o],
                   [sma.small_attention_reference(q, k, v, scale)], 4 * b * h * n * n * 64)
     del qkv, q, k, v, o
+
+    # The forward tile: flash_attention_fwd at its four shapes (training,
+    # serving at 256 and 512px, the 1024px sweep), attention_core at the two
+    # sublayer shapes with q/k/v column slices of one [B, N, 3C] buffer.
+    for b, n, h in (FLASH_TRAIN, FLASH_SERVE_256, FLASH_SERVE_512, FLASH_SWEEP_1024):
+        c = h * 64
+        q, k, v = ((1.5 * torch.randn(b, n, h, 64, generator=gen, device="cuda")).to(bf)
+                   for _ in range(3))
+        o, lse = torch.empty_like(q), torch.empty(b, h, n, device="cuda")
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, n, h,
+                c, c, c, c, scale, stream)
+        same_launcher("flash_attention_fwd", (b, n, h), args, [o, lse],
+                      list(fla.flash_forward_reference(q, k, v, scale)),
+                      flash_bound("flash_attention_fwd", b, n, h)[0])
+        del q, k, v, o, lse
+        torch.cuda.empty_cache()
+    for n, c, _, _, b in kernel_shapes()[1:]:
+        qkv = (1.5 * torch.randn(b, n, 3 * c, generator=gen, device="cuda")).to(bf)
+        q, k, v = (qkv[..., i * c:(i + 1) * c] for i in range(3))
+        o = torch.empty(b, n, c, device="cuda", dtype=bf)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, n, c // 64, 3 * c, c,
+                scale, stream)
+        same_launcher("attention_core", (b, n, c), args, [o],
+                      [fab.attention_core_reference(q, k, v, scale)], 4 * b * n * n * c)
+        del qkv, q, k, v, o
 
     # The flash backward at the training microbatch.
     b, n, h = FLASH_TRAIN
@@ -1118,10 +1201,11 @@ def phase_time(model, profile: bool):
 
 
 # -- phase 5 -------------------------------------------------------------
-def phase_eval(model):
+def phase_eval(model, profile: bool):
     """The evaluation slice on large f16d32: evaluate_model at 256px, the
     extrapolation sweep at 256/512/1024px with its launches, the 512px
-    accuracy check, and the generate CLI."""
+    accuracy check, and the generate CLI; with ``profile``, a torch.profiler
+    table of one 1024px chunk's reconstruct."""
     import tempfile
 
     import numpy as np
@@ -1184,6 +1268,20 @@ def phase_eval(model):
                       "psnr": r["mean"], "ssim": r["ssim"]["mean"], "launches": got}
     out["sweep"] = sweep
     out["small_attention_launches"] = sum(sweep[512]["launches"][2].values())
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof
+
+        chunk = imgs[:EVAL_CHUNKS[1024]]
+        reconstruct(model, None, chunk)
+        torch.cuda.synchronize()
+        with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            reconstruct(model, None, chunk)
+            torch.cuda.synchronize()
+        table = p.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "profile_sweep_1024.txt"), "w") as f:
+            f.write(f"{CARD}\n{table}\n")
+        print(table, flush=True)
     out["norm_launches"] = {}
     for s in sweep.values():
         for (name, _, _), cnt in s["launches"][3].items():
@@ -1245,8 +1343,8 @@ def main():
     ap.add_argument("--phases", default="build,kernels,grad,train,serve,time,eval")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--baseline", metavar="DIR", nargs="+", default=[],
-                    help="checkouts whose proj_bias_gemm, small_attention and flash "
-                         "backward are timed beside this tree's (phase kernels)")
+                    help="checkouts whose wgmma kernels (WGMMA_KERNELS) are timed "
+                         "beside this tree's (phase kernels)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -1289,7 +1387,7 @@ def main():
         if "time" in phases:
             phase_time(model, args.profile)
         if "eval" in phases:
-            evaluated = phase_eval(model)
+            evaluated = phase_eval(model, args.profile)
 
     if results:
         want = launches_per_reconstruct()[0] if counts else {}
@@ -1324,11 +1422,17 @@ def main():
                 ("flash_attention_bwd", "deepl_project_tpu_torch/csrc/flash_attention_bwd.cu",
                  "deepl_project_tpu/ops/pallas/flash_attention.py:196")):
             r = results[(name, *FLASH_TRAIN)]
-            extra = {} if name == "flash_attention_fwd" else {
+            extra = {
+                # The serving and sweep shapes: (kernel, SDPA) ms by (B, N, h).
+                "ms_by_shape": {str(k[1:]): [v["ms"], v["library_ms"]]
+                                for k, v in results.items() if k[0] == name}
+            } if name == "flash_attention_fwd" else {
                 # One pass for both TPU kernels of _flash_backward: dq (:196)
-                # and dk/dv (:218); ms is the whole flash_backward call.
+                # and dk/dv (:218); ms is the whole flash_backward call; the
+                # deterministic launcher's call and the memory it adds.
                 "also_replaces": "deepl_project_tpu/ops/pallas/flash_attention.py:218",
-                "dq_rerun_max_abs_diff": r["rerun_max_abs_diff"]}
+                "dq_rerun_max_abs_diff": r["rerun_max_abs_diff"],
+                "deterministic_ms": r["det_ms"], "deterministic_peak_gib": r["det_peak_gib"]}
             kernels.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": train_counts.get(name, 0),

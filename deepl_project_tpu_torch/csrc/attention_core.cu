@@ -13,11 +13,17 @@
 //
 // Bound on an H100: at large@256 b32 stage 3 (N=1024, 12 heads) it does
 // 4*B*h*N^2*64 = 103 GFLOP over 0.2 GB, so the tensor cores bound it
-// (0.10 ms). The tile code is flash_fwd_tile.cuh (shared with
-// flash_attention_fwd.cu), here without the logsumexp output. P is rounded
-// to bf16 unnormalised (the TPU sublayer kernel rounds the normalised
-// weights), which moves results by bf16 rounding only.
-#include "flash_fwd_tile.cuh"
+// (0.10 ms). The tile code is flash_fwd_wgmma.cuh (shared with
+// flash_attention_fwd.cu), here without the logsumexp output.
+//
+// Rounding point: P is rounded to bf16 unnormalised and o divided by the row
+// sum at the end, as in the flash forward. The TPU sublayer kernel rounds
+// the normalised weights (fused_attention_block.py:122-126); doing that here
+// needs the row sum before P.V, i.e. a second Q K^T pass (+50% products, as
+// small_attention.cu pays), so the port keeps the flash rounding point. The
+// two differ by bf16 rounding of the weights only (the card holds the kernel
+// to attention_core_reference, which normalises first, within 2^-6 x max).
+#include "flash_fwd_wgmma.cuh"
 
 extern "C" int attention_core_launch(const void* q, const void* k,
                                      const void* v, void* o, int B, int N,

@@ -47,14 +47,22 @@
 // computes delta and zeroes the buffer, one after it rounds the buffer to
 // bf16 dq. dK and dV leave through swizzled staging tiles and TMA stores.
 //
-// Determinism: the N/128 partial sums of each dq value reach L2 in an order
-// that changes from run to run, so dq's fp32 sum differs between runs in its
-// last bits, and its bf16 rounding can then differ by one step; dk and dv are
-// deterministic. The TPU kernels are deterministic.
+// Determinism: in flash_attention_bwd_launch the N/128 partial sums of each
+// dq value reach L2 in an order that changes from run to run, so dq's fp32
+// sum differs between runs in its last bits, and its bf16 rounding can then
+// differ by one step; dk and dv are deterministic. The TPU kernels are
+// deterministic, and so is flash_attention_bwd_det_launch (the wrapper takes
+// it when torch.are_deterministic_algorithms_enabled()): there each 128-key
+// CTA stores its partial dq with a plain TMA store into its own slot of an
+// fp32 [B, H, ceil(N/128), N, 64] buffer (every slot row written once, so
+// nothing is zeroed), and the rounding kernel adds the slots in ascending
+// key order before it rounds. The buffer grows as N^2 (1.5 GiB at the
+// training shape) and costs its write and read in device memory.
 //
 // q, k, v, o, dO: [B, N] rows, each with its own row stride (elements),
 // head h at columns h*64..; lse: [B, H, N] fp32; scratch delta [B, H, N] and
-// dq_acc [B, H, N, 64] fp32; dq, dk, dv: [B*N, ld_out] bf16. N % 64 == 0.
+// dq_acc [B, H, N, 64] fp32 ([B, H, ceil(N/128), N, 64] deterministic); dq,
+// dk, dv: [B*N, ld_out] bf16. N % 64 == 0.
 // Maps are 3D (columns, N, B): a tile never reads another image's rows. A
 // final tile of 64 keys leaves the second consumer on zero-filled keys; its
 // P and dS are set to zero and the TMA store clips its dK/dV rows.
@@ -88,6 +96,9 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// kDet: each CTA's partial dq goes to its own slot (a TMA store) instead of
+// a reduce-add into the shared sum.
+template <bool kDet>
 __global__ __launch_bounds__(kThreads, 1) void flash_bwd_kernel(
     __grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUtensorMap tm_k,
     __grid_constant__ const CUtensorMap tm_v, __grid_constant__ const CUtensorMap tm_g,
@@ -191,7 +202,10 @@ __global__ __launch_bounds__(kThreads, 1) void flash_bwd_kernel(
     fence_proxy_async();
     named_bar_sync(2 + wg, 128);
     if (tid == 0) {
-      tma_reduce_add_2d(&tm_dq, stg, wg * 32, (int)(bh * N + t * kBQ));
+      if constexpr (kDet)
+        tma_store_2d(&tm_dq, stg, wg * 32, (int)((bh * gridDim.x + blockIdx.x) * N + t * kBQ));
+      else
+        tma_reduce_add_2d(&tm_dq, stg, wg * 32, (int)(bh * N + t * kBQ));
       bulk_commit();
     }
   };
@@ -359,8 +373,9 @@ __global__ __launch_bounds__(kThreads, 1) void flash_bwd_kernel(
 }
 
 // Before the pass: delta[b, h, n] = sum of dO * o over the row (fp32
-// products and sum, as XLA computes it beside the TPU kernels) and
-// dq_acc[b, h, n, :] = 0; eight threads a row, 8 values each.
+// products and sum, as XLA computes it beside the TPU kernels) and, if
+// kZero, dq_acc[b, h, n, :] = 0; eight threads a row, 8 values each.
+template <bool kZero>
 __global__ void dq_prepare_kernel(const bf16* __restrict__ o, const bf16* __restrict__ g,
                                   float* __restrict__ delta, float* __restrict__ dq_acc,
                                   int N, int H, int ld_o, int ld_g, size_t groups) {
@@ -387,14 +402,18 @@ __global__ void dq_prepare_kernel(const bf16* __restrict__ o, const bf16* __rest
   sum += __shfl_xor_sync(0xffffffffu, sum, 4);
   const size_t out = (b * H + h) * N + n;
   if (c8 == 0) delta[out] = sum;
-  float4* z = reinterpret_cast<float4*>(dq_acc + out * kHD + c8 * 8);
-  z[0] = make_float4(0.f, 0.f, 0.f, 0.f);
-  z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (kZero) {
+    float4* z = reinterpret_cast<float4*>(dq_acc + out * kHD + c8 * 8);
+    z[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+    z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
 }
 
-// After it: dq[b, n, h, :] = bf16(dq_acc[b, h, n, :]); one thread per 8 values.
+// After it: dq[b, n, h, :] = bf16 of dq_acc[b, h, n, :] (slots = 1), or of
+// the sum of dq_acc[b, h, x, n, :] over the slots x in ascending order (the
+// deterministic form); one thread per 8 values.
 __global__ void dq_convert_kernel(const float* __restrict__ acc, bf16* __restrict__ dq, int N,
-                                  int H, int ld_out, size_t groups) {
+                                  int H, int slots, int ld_out, size_t groups) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= groups) return;
   const int c8 = (int)(i % 8);
@@ -402,8 +421,15 @@ __global__ void dq_convert_kernel(const float* __restrict__ acc, bf16* __restric
   const int n = (int)(row % N);
   const int h = (int)(row / N % H);
   const size_t b = row / N / H;
-  const float4 a = reinterpret_cast<const float4*>(acc)[2 * i];
-  const float4 c = reinterpret_cast<const float4*>(acc)[2 * i + 1];
+  const size_t bh = row / N;
+  const float4* src = reinterpret_cast<const float4*>(acc + (bh * slots * N + n) * kHD + c8 * 8);
+  const size_t step = (size_t)N * kHD / 4;  // one slot on, in float4
+  float4 a = src[0], c = src[1];
+  for (int x = 1; x < slots; ++x) {
+    const float4 a2 = src[x * step], c2 = src[x * step + 1];
+    a.x += a2.x; a.y += a2.y; a.z += a2.z; a.w += a2.w;
+    c.x += c2.x; c.y += c2.y; c.z += c2.z; c.w += c2.w;
+  }
   uint4 out;
   out.x = pack_bf16(a.x, a.y);
   out.y = pack_bf16(a.z, a.w);
@@ -412,18 +438,19 @@ __global__ void dq_convert_kernel(const float* __restrict__ acc, bf16* __restric
   *reinterpret_cast<uint4*>(dq + (b * N + n) * ld_out + h * kHD + c8 * 8) = out;
 }
 
-}  // namespace fbwd
-
-extern "C" int flash_attention_bwd_launch(
-    const void* q, const void* k, const void* v, const void* o, const void* g,
-    const void* lse, void* delta, void* dq_acc, void* dq, void* dk, void* dv, int B, int N,
-    int H, int ld_q, int ld_k, int ld_v, int ld_o, int ld_g, int ld_out, float scale,
-    void* stream) {
+// The three kernels of a backward call; 0 or a CUDA error. Internal linkage,
+// as flash_fwd_wgmma.cuh's fwd_launch, so that its static flag is this
+// library's own.
+template <bool kDet>
+static int bwd_launch(const void* q, const void* k, const void* v, const void* o,
+                      const void* g, const void* lse, void* delta, void* dq_acc, void* dq,
+                      void* dk, void* dv, int B, int N, int H, int ld_q, int ld_k, int ld_v,
+                      int ld_o, int ld_g, int ld_out, float scale, void* stream) {
   static bool smem_ok = false;
   if (!smem_ok) {
-    cudaError_t e = cudaFuncSetAttribute(fbwd::flash_bwd_kernel,
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_kernel<kDet>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         fbwd::kSmemBytes);
+                                         kSmemBytes);
     if (e != cudaSuccess) return (int)e;
     smem_ok = true;
   }
@@ -440,22 +467,45 @@ extern "C" int flash_attention_bwd_launch(
   cudaStream_t st = (cudaStream_t)stream;
   const size_t groups = (size_t)B * H * N * 8;
   const unsigned blocks = (unsigned)((groups + 255) / 256);
-  fbwd::dq_prepare_kernel<<<blocks, 256, 0, st>>>((const bf16*)o, (const bf16*)g,
-                                                  (float*)delta, (float*)dq_acc, N, H, ld_o,
-                                                  ld_g, groups);
+  dq_prepare_kernel<!kDet><<<blocks, 256, 0, st>>>((const bf16*)o, (const bf16*)g,
+                                                   (float*)delta, (float*)dq_acc, N, H, ld_o,
+                                                   ld_g, groups);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((N + fbwd::kBK - 1) / fbwd::kBK, H, B);
-  // dq_acc as [B*H*N, 64] fp32 rows, reduced into by 32-column boxes.
+  dim3 grid((N + kBK - 1) / kBK, H, B);
+  // dq_acc as [B*H*slots*N, 64] fp32 rows (one slot, or one a key tile),
+  // reduced into or stored to by 32-column boxes.
+  const int slots = kDet ? (int)grid.x : 1;
   CUtensorMap tm_dq;
-  int me = hopper::make_map_f32_2d(&tm_dq, dq_acc, 64, (uint64_t)B * H * N, 32, 64);
+  int me = hopper::make_map_f32_2d(&tm_dq, dq_acc, 64, (uint64_t)B * H * slots * N, 32, 64);
   if (me != 0) return me;
-  fbwd::flash_bwd_kernel<<<grid, fbwd::kThreads, fbwd::kSmemBytes, st>>>(
+  flash_bwd_kernel<kDet><<<grid, kThreads, kSmemBytes, st>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], tm_dq, (const float*)lse,
       (const float*)delta, N, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  fbwd::dq_convert_kernel<<<blocks, 256, 0, st>>>((const float*)dq_acc, (bf16*)dq, N, H,
-                                                  ld_out, groups);
+  dq_convert_kernel<<<blocks, 256, 0, st>>>((const float*)dq_acc, (bf16*)dq, N, H, slots,
+                                            ld_out, groups);
   return (int)cudaGetLastError();
+}
+
+}  // namespace fbwd
+
+extern "C" int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* o, const void* g,
+    const void* lse, void* delta, void* dq_acc, void* dq, void* dk, void* dv, int B, int N,
+    int H, int ld_q, int ld_k, int ld_v, int ld_o, int ld_g, int ld_out, float scale,
+    void* stream) {
+  return fbwd::bwd_launch<false>(q, k, v, o, g, lse, delta, dq_acc, dq, dk, dv, B, N, H, ld_q,
+                                 ld_k, ld_v, ld_o, ld_g, ld_out, scale, stream);
+}
+
+// The same arguments; dq_acc is the fp32 [B, H, ceil(N/128), N, 64] slot buffer.
+extern "C" int flash_attention_bwd_det_launch(
+    const void* q, const void* k, const void* v, const void* o, const void* g,
+    const void* lse, void* delta, void* dq_acc, void* dq, void* dk, void* dv, int B, int N,
+    int H, int ld_q, int ld_k, int ld_v, int ld_o, int ld_g, int ld_out, float scale,
+    void* stream) {
+  return fbwd::bwd_launch<true>(q, k, v, o, g, lse, delta, dq_acc, dq, dk, dv, B, N, H, ld_q,
+                                ld_k, ld_v, ld_o, ld_g, ld_out, scale, stream);
 }

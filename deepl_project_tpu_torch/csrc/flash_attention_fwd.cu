@@ -9,16 +9,15 @@
 //
 // q, k, v: [B*N, ld_*] rows, each tensor with its own row stride (training
 // feeds three separate tensors; serving, column slices of one [B*N, 3C]
-// buffer), head h at columns h*64..; read in place, with no fold/transpose
-// copies. o: [B*N, ld_o]; lse: [B, H, N]. N % 64 == 0.
+// buffer), head h at columns h*64..; read in place by TMA, with no
+// fold/transpose copies. o: [B*N, ld_o]; lse: [B, H, N]. N % 64 == 0.
 //
 // Bound on an H100: at the training shape (8 images, 6 heads, N=4096) it does
 // 4*BH*N^2*64 = 206 GFLOP against 0.1 GB moved, so the tensor cores bound it
-// (0.21 ms). The tile code is flash_fwd_tile.cuh, shared with
-// attention_core.cu: 128-query CTAs, 64-key tiles double-buffered through
-// cp.async, scores and P in registers; the logsumexp is written once per row
-// from the running max and sum.
-#include "flash_fwd_tile.cuh"
+// (0.21 ms). The tile code is flash_fwd_wgmma.cuh (warp-specialised wgmma +
+// TMA), shared with attention_core.cu; here it also writes the logsumexp,
+// once per row, from the running max and sum.
+#include "flash_fwd_wgmma.cuh"
 
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
                                           const void* v, void* o, void* lse,

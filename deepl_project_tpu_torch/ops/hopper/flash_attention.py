@@ -5,14 +5,23 @@ Two launchers of hand-written CUDA kernels (``deepl_project_tpu_torch/csrc``)
 carry the three TPU kernels of that file:
 
 - ``flash_attention_fwd``: o = softmax(q k^T * scale) v and the row
-  logsumexp (``_flash_kernel``); its tile code is shared with
-  ``attention_core`` through ``flash_fwd_tile.cuh``;
+  logsumexp (``_flash_kernel``), a warp-specialised wgmma + TMA tile shared
+  with ``attention_core`` through ``flash_fwd_wgmma.cuh``;
 - ``flash_attention_bwd``: dq, dk and dv in one wgmma + TMA pass
   (``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``), between two
   small kernels of the same launcher: one computes delta = rowsum(dO * o)
   in fp32 (XLA's work beside the TPU kernels) and zeroes an fp32 dq buffer,
   which the pass sums into by reductions in L2, in an order that changes
   from run to run; the other rounds it to bf16.
+
+Determinism: dk, dv and the forward are the same from run to run; dq is
+not, by up to a bf16 step, because of the order of those reductions. Under
+``torch.use_deterministic_algorithms(True)`` the backward takes the
+launcher's second entry, ``flash_attention_bwd_det``, counted under that
+name: each 128-key CTA stores its partial dq into a slot of its own (fp32
+[B, h, ceil(N/128), N, 64], so the scratch grows as N^2: 1.5 GiB at
+(8, 4096, 6 heads)) and the rounding kernel adds the slots in key order,
+so dq, dk and dv are bit-equal from run to run.
 
 :func:`flash_attention` is a ``torch.autograd.Function`` on the port's
 [B, N, heads, 64] layout: the forward saves (q, k, v, o, lse) and the
@@ -36,6 +45,7 @@ from . import build
 
 HEAD_DIM = 64
 BLOCK = 64  # tokens per kernel tile: N must be a multiple
+KEY_BLOCK = 128  # keys a CTA of the backward pass: one dq slot each when deterministic
 
 # (kernel name, tokens per image, heads) -> launches since the last reset.
 _LAUNCHES: collections.Counter = collections.Counter()
@@ -172,21 +182,33 @@ def _check_lse(name, t, b, h, n):
 def flash_backward_kernel(q, k, v, o, do, lse, scale):
     """(dq, dk, dv) from the ``flash_attention_bwd`` launcher (CUDA tensors
     only): delta = rowsum(dO * o) and a zeroed fp32 [B, h, N, 64] dq buffer,
-    the pass, dq rounded to bf16."""
+    the pass, dq rounded to bf16. Under
+    ``torch.are_deterministic_algorithms_enabled()``, its deterministic entry
+    ``flash_attention_bwd_det`` with one dq slot per 128-key tile."""
     _check_shape(q)
     b, n, h, d = q.shape
     q, k, v, o, do = (_rows(nm, t, q.shape) for nm, t in
                       (("q", q), ("k", k), ("v", v), ("o", o), ("dO", do)))
     _check_lse("lse", lse, b, h, n)
+    det = torch.are_deterministic_algorithms_enabled()
+    name = "flash_attention_bwd_det" if det else "flash_attention_bwd"
+    slots = (b, h, -(-n // KEY_BLOCK)) if det else (b, h)
     delta = torch.empty(b, h, n, device=q.device, dtype=torch.float32)
-    dq_acc = torch.empty(b, h, n, d, device=q.device, dtype=torch.float32)
+    # The pass writes every element of dq_acc: PyTorch's deterministic mode
+    # would otherwise fill it (1.5 GiB at the training shape) with NaN first.
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        dq_acc = torch.empty(*slots, n, d, device=q.device, dtype=torch.float32)
+    finally:
+        torch.utils.deterministic.fill_uninitialized_memory = fill
     dq, dk, dv = (torch.empty(b, n, h, d, device=q.device, dtype=q.dtype) for _ in range(3))
-    build.launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    build.launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, h,
                  q.stride(1), k.stride(1), v.stride(1), o.stride(1), do.stride(1), h * d,
                  float(scale), _stream())
-    _LAUNCHES[("flash_attention_bwd", n, h)] += 1
+    _LAUNCHES[(name, n, h)] += 1
     return dq, dk, dv
 
 

@@ -7,7 +7,14 @@ two TPU kernels of that file:
 - ``ln_qkv_rope``: LN statistics + three affines + bias-free Q/K/V + RoPE, one
   GEMM with an LN prologue and a RoPE epilogue. It is ``fused_qkv_rope`` whole
   and the first half of ``fused_attention_sublayer``.
-- ``attention_core``: softmax(q k^T * scale) v for N <= 1024, head_dim 64.
+- ``attention_core``: softmax(q k^T * scale) v for N <= 1024, head_dim 64,
+  on the flash forward's wgmma + TMA tile (``csrc/flash_fwd_wgmma.cuh``).
+  It rounds the unnormalised weights to bf16 and divides o by the row sum
+  at the end, as the flash forward does; the TPU ``_kernel`` and
+  :func:`attention_core_reference` normalise first and then round. That is
+  a known port deviation, within two bf16 steps (the card tests hold the
+  kernel to the plain version): normalising first would need a second
+  Q K^T pass.
 - ``proj_bias_gemm``: the output projection with its bias.
 
 ``fused_attention_sublayer`` = ``ln_qkv_rope`` -> ``attention_core`` ->
@@ -83,7 +90,7 @@ def proj_supported(c: int, dtype) -> bool:
 
 def sublayer_kernels_supported(n: int, c: int, head_dim: int, dtype) -> bool:
     """Limits of the sublayer kernels themselves: the kernels' plus
-    N <= 1024 (``attention_core`` keeps a head's whole key axis per CTA)."""
+    N <= 1024, the TPU sublayer kernel's bound, which the dispatch keeps."""
     return n <= MAX_SUBLAYER_TOKENS and kernel_supported(n, c, head_dim, dtype)
 
 

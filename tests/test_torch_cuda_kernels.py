@@ -161,12 +161,16 @@ def _flash_inputs(gen, b, n, h, packed):
 
 @pytest.mark.parametrize("b,n,h,packed", [(2, 256, 2, False), (1, 1024, 3, True),
                                           (2, 4096, 6, False), (1, 320, 2, False),
-                                          (2, 192, 3, True)])
+                                          (2, 192, 3, True), (1, 1088, 2, True),
+                                          (1, 65536, 1, False)])
 def test_flash_kernels_match_plain(gen, b, n, h, packed):
     # Forward (o, lse) and the backward (dq, dk, dv) against the plain
     # versions on the same inputs; ``packed`` feeds q/k/v as column slices of
-    # one [B, N, 3C] buffer; N = 320 and 192 end on a 64-key half tile of the
-    # backward's 128-key CTAs.
+    # one [B, N, 3C] buffer. The forward's CTA shape depends on N (64 queries
+    # up to 1024, 192 above): N = 320, 192 and 1088 end on a 64-key half tile
+    # of the 128-key tiles of both directions and on a partial query tile of
+    # the forward, one case for each shape; N = 65536 is the 1024px stage-2
+    # loop length.
     q, k, v, do = _flash_inputs(gen, b, n, h, packed)
     fla.reset_launch_counts()
     o, lse = fla.flash_forward(q, k, v, 0.125)
@@ -179,16 +183,48 @@ def test_flash_kernels_match_plain(gen, b, n, h, packed):
     assert fla.launch_counts() == {"flash_attention_fwd": 1, "flash_attention_bwd": 1}
 
 
+@pytest.mark.parametrize("deterministic", [False, True])
 @pytest.mark.parametrize("b,n,h,packed", [(2, 1024, 3, True), (1, 320, 2, False)])
-def test_flash_backward_repeat_runs(gen, b, n, h, packed):
-    # dq's fp32 partial sums reach L2 in a run-dependent order: two runs on
-    # the same inputs may differ, by no more than the kernel tolerance; dk
-    # and dv are summed in registers and are bit-equal.
+def test_flash_backward_repeat_runs(gen, b, n, h, packed, deterministic):
+    # By default dq's fp32 partial sums reach L2 in a run-dependent order:
+    # two runs on the same inputs may differ, by no more than the kernel
+    # tolerance; dk and dv are summed in registers and are bit-equal. Under
+    # torch.use_deterministic_algorithms(True) the deterministic launcher
+    # runs and all three are bit-equal, dq within tolerance of the plain one.
     q, k, v, do = _flash_inputs(gen, b, n, h, packed)
     o, lse = fla.flash_forward(q, k, v, 0.125)
-    first, second = (fla.flash_backward(q, k, v, o, lse, do, 0.125) for _ in range(2))
-    _close(first[0], second[0])
+    was = torch.are_deterministic_algorithms_enabled()
+    fla.reset_launch_counts()
+    try:
+        torch.use_deterministic_algorithms(deterministic)
+        first, second = [fla.flash_backward(q, k, v, o, lse, do, 0.125) for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(was)
+    name = "flash_attention_bwd_det" if deterministic else "flash_attention_bwd"
+    assert fla.launch_counts() == {name: 2}
+    if deterministic:
+        assert torch.equal(first[0], second[0])
+        _close(first[0], fla.flash_backward_reference(q, k, v, o, lse, do, 0.125)[0])
+    else:
+        _close(first[0], second[0])
     assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+
+
+@pytest.mark.parametrize("b,n,h", [(2, 64, 2), (2, 256, 4), (1, 320, 2), (2, 1024, 12)])
+def test_attention_core_kernel_matches_plain(gen, b, n, h):
+    # The sublayer's core alone on q/k/v column slices of one [B, N, 3C]
+    # buffer, as ln_qkv_rope leaves them: one key tile (N = 64, half zero
+    # fill of a 128-key tile), N = 320 (a half last key tile and a partial
+    # 128-query tile), the stage-3 length. The kernel rounds the
+    # unnormalised weights, the plain version the normalised ones (a known
+    # port deviation): within the kernel tolerance of each other.
+    c = h * 64
+    qkv = (1.5 * torch.randn(b, n, 3 * c, generator=gen, device="cuda")).to(torch.bfloat16)
+    q, k, v = (qkv[..., i * c:(i + 1) * c] for i in range(3))
+    fab.reset_launch_counts()
+    got = fab.attention_core(q, k, v, 0.125)
+    assert fab.launch_counts() == {"attention_core": 1}
+    _close(got, fab.attention_core_reference(q, k, v, 0.125))
 
 
 def test_flash_attention_autograd(gen):

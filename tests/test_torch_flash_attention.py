@@ -5,8 +5,8 @@ The port's plain forward (o and logsumexp) and plain backward (dq, dk, dv)
 are what its wrappers run for CPU tensors and what ``chip_smoke.py`` holds
 the CUDA kernels to on the card; here they are held to the Pallas kernels
 (``_flash_forward`` and ``jax.vjp`` through the custom VJP) on the same
-seeded numpy inputs, N=256 with 128-token blocks, 3 heads (the backward
-also at N=320 with 64-token blocks).
+seeded numpy inputs, N=256 with 128-token blocks, 3 heads (both also at
+N=320 with 64-token blocks).
 
 Tolerances: fp32, 1e-4 x max|ref| (online vs whole-row softmax, other
 summation orders); bf16, 2**-6 x max|ref| (two bf16 rounding steps at the
@@ -62,17 +62,21 @@ def _close(got, want, dtype):
 
 
 def _fold(x):  # [B, N, h, d] -> [B*h, N, d], the JAX kernel's layout
-    return x.transpose(0, 2, 1, 3).reshape(B * H, N, D)
+    return x.transpose(0, 2, 1, 3).reshape(B * H, x.shape[1], D)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_plain_forward_and_lse_match_pallas(dtype):
-    (jq, jk, jv, _), (q, k, v, _) = _to(_inputs(0, dtype), dtype)
-    out, lse = jfa._flash_forward(_fold(jq), _fold(jk), _fold(jv), SCALE, BLOCK, BLOCK)
+@pytest.mark.parametrize("dtype,n,block", [
+    ("float32", N, BLOCK), ("bfloat16", N, BLOCK), ("float32", 320, 64), ("bfloat16", 320, 64)],
+    ids=["float32", "bfloat16", "float32-320-64", "bfloat16-320-64"])
+def test_plain_forward_and_lse_match_pallas(dtype, n, block):
+    # N = 320 with 64-token blocks: five 64-key tiles, where the card's
+    # forward (128-key tiles) masks the zero-filled half of its last tile.
+    (jq, jk, jv, _), (q, k, v, _) = _to(_inputs(0, dtype, n), dtype)
+    out, lse = jfa._flash_forward(_fold(jq), _fold(jk), _fold(jv), SCALE, block, block)
     o, tlse = fla.flash_forward(q, k, v, SCALE)  # CPU: the plain forward
     assert o.dtype == q.dtype and tlse.dtype == torch.float32
-    _close(o, out.reshape(B, H, N, D).transpose(0, 2, 1, 3), dtype)
-    _close(tlse, lse.reshape(B, H, N), "float32")
+    _close(o, out.reshape(B, H, n, D).transpose(0, 2, 1, 3), dtype)
+    _close(tlse, lse.reshape(B, H, n), "float32")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -70,8 +70,9 @@ def test_ln_qkv_rope_plain_matches_jax_and_pallas(pairing):
         _close(g, p)
 
 
-@pytest.mark.parametrize("pairing,hd", [("reference", 32), ("standard", 16)])
+@pytest.mark.parametrize("pairing,hd", [("reference", 32), ("standard", 16), ("reference", 64)])
 def test_sublayer_plain_matches_jax_and_pallas(pairing, hd):
+    # head_dim 64 is the card kernels' own head width (2 heads at C = 128).
     c, h, w = 128, 16, 16
     x, ln, ws, bp = _inputs(c, hd, h, w, seed=1)
     jln = tuple((jnp.asarray(g), jnp.asarray(b)) for g, b in ln)
