@@ -13,7 +13,7 @@ Phases (any failure exits non-zero and prints no result):
 
 1. build: compile the Hopper kernel sources of deepl_project_tpu_torch/csrc
    (nine launchers in seven files) with nvcc for sm_90a, all in parallel, and
-   print ptxas' register and shared memory report (in full for the five
+   print ptxas' register and shared memory report (in full for the six
    wgmma/TMA kernels, WGMMA_KERNELS).
 2. kernels: run each kernel at the main paths' shapes and hold it against
    its plain PyTorch version on the same inputs: max |kernel - plain| <=
@@ -36,12 +36,16 @@ Phases (any failure exits non-zero and prints no result):
    sums each within 1e-5 relative of the plain fp32 sums. Times each kernel,
    its plain version and, where one exists, the one PyTorch call computing
    the same function (SDPA, its backward, F.linear, torch.var_mean for the
-   GroupNorm stats; F.group_norm + F.silu for the whole group_norm_silu),
+   GroupNorm stats; F.group_norm + F.silu for the whole group_norm_silu;
+   for ln_qkv_rope, which no one call computes, a two-call yardstick:
+   F.layer_norm with one affine + F.linear on the packed [3C, C] weight),
    with CUDA events (proj_bias_gemm and F.linear on the same bf16 weight,
    cast once as the model caches it); and the two routes of an attention
    sublayer at (N=1024, C=1536, b=8): the whole-sublayer kernels against
-   ln_qkv_rope + small_attention + the projection. With --baseline DIR ...,
-   proj_bias_gemm (both shapes), small_attention, the flash forward (the
+   ln_qkv_rope + small_attention + the projection; ln_qkv_rope also at the
+   sweep's six shapes (QKV_SWEEP). With --baseline DIR ..., ln_qkv_rope
+   (the three 256px shapes and (4, 65536, 384)), proj_bias_gemm (both
+   shapes), small_attention, the flash forward (the
    four flash shapes above), attention_core (both sublayer shapes) and the
    flash backward (DIR's flash_attention_bwd, or its flash_attention_bwd_dq
    + flash_attention_bwd_dkv pair behind the plain delta) are also built
@@ -133,10 +137,14 @@ SMALL_512 = (8, 1024, 24)
 GROUP_NORM_SHAPES = ((32, 192, 256, 256), (32, 192, 128, 128))
 # extrapolation_sweep: resolution -> images per forward (chunk).
 EVAL_CHUNKS = {256: 8, 512: 8, 1024: 4}
+# ln_qkv_rope's shapes in the sweep, (batch, N, C, height, width): stages 2-4
+# of a 512px chunk of 8 and of a 1024px chunk of 4.
+QKV_SWEEP = ((8, 16384, 384, 128, 128), (8, 4096, 768, 64, 64), (8, 1024, 1536, 32, 32),
+             (4, 65536, 384, 256, 256), (4, 16384, 768, 128, 128), (4, 4096, 1536, 64, 64))
 EVAL_IMAGES = 8
 
 # The kernels built on wgmma and TMA (csrc/hopper_tma_wgmma.cuh).
-WGMMA_KERNELS = ("proj_bias_gemm", "small_attention", "flash_attention_bwd",
+WGMMA_KERNELS = ("ln_qkv_rope", "proj_bias_gemm", "small_attention", "flash_attention_bwd",
                  "flash_attention_fwd", "attention_core")
 # The flash backward of checkouts from before its single pass: two
 # launchers, built by --baseline from such a DIR with these signatures.
@@ -327,6 +335,7 @@ def phase_kernels():
         rec["ln_qkv_rope"]["ms"] = cuda_time_ms(lambda: fab.ln_qkv_rope(*args, packed=packed), 20)
         rec["ln_qkv_rope"]["plain_ms"] = cuda_time_ms(lambda: fab.qkv_rope_reference(*args), 5)
         rec["ln_qkv_rope"]["library_ms"] = None  # no single PyTorch call
+        rec["ln_qkv_rope"]["yardstick_ms"] = qkv_yardstick_ms(x, ln, packed[0])
         if n <= fab.MAX_SUBLAYER_TOKENS:
             scale = 64 ** -0.5
             o = fab.attention_core(q, k, v, scale)
@@ -378,11 +387,53 @@ def phase_kernels():
             r["flops"], r["bytes"] = flops, nbytes
             r["bound_ms"] = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
             lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-            log(f"time {name} N={n} C={c} b={b}: kernel {r['ms']:.4f} ms, plain "
-                f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
-                f"{r['bound_ms']:.4f} ms ({flops:.4e} FLOP, {nbytes:.4e} B) [{CARD}]")
+            yard = (f", yardstick {r['yardstick_ms']:.4f} ms ({QKV_YARDSTICK})"
+                    if "yardstick_ms" in r else "")
+            log(f"time {name} N={n} C={c} b={b}: kernel {r['ms']:.4f} ms "
+                f"({flops / r['ms'] / 1e9:.1f} TFLOP/s), plain {r['plain_ms']:.4f} ms, "
+                f"library {lib} ms{yard}, bound {r['bound_ms']:.4f} ms ({flops:.4e} FLOP, "
+                f"{nbytes:.4e} B) [{CARD}]")
             results[(name, n, c)] = r
+
+    # ln_qkv_rope at the sweep's shapes (512px and 1024px chunks): checked,
+    # timed beside its plain version and the yardstick.
+    for b, n, c, hh, ww in QKV_SWEEP:
+        x = randn(b, n, c, dtype=bf)
+        ln = tuple((1 + randn(c, scale=0.1), randn(c, scale=0.1)) for _ in range(3))
+        wq, wk, wv = (randn(c, c, scale=2 / c ** 0.5) for _ in range(3))
+        packed = fab.pack_qkv(ln, wq, wk, wv)
+        args = (x, ln, wq, wk, wv, hh, ww)
+        got = fab.ln_qkv_rope(*args, packed=packed)
+        torch.cuda.synchronize()
+        err = max(check("ln_qkv_rope", n, c, t, r)
+                  for t, r in zip(got, fab.qkv_rope_reference(*args)))
+        del got
+        flops, nbytes = bound("ln_qkv_rope", b, n, c)
+        r = {"err": err, "ms": cuda_time_ms(lambda: fab.ln_qkv_rope(*args, packed=packed), 10),
+             "plain_ms": cuda_time_ms(lambda: fab.qkv_rope_reference(*args), 3),
+             "yardstick_ms": qkv_yardstick_ms(x, ln, packed[0], 10),
+             "bound_ms": max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3}
+        log(f"time ln_qkv_rope (B, N, C)={(b, n, c)}: kernel {r['ms']:.4f} ms "
+            f"({flops / r['ms'] / 1e9:.1f} TFLOP/s), plain {r['plain_ms']:.4f} ms, yardstick "
+            f"{r['yardstick_ms']:.4f} ms ({QKV_YARDSTICK}), bound {r['bound_ms']:.4f} ms "
+            f"({flops:.4e} FLOP, {nbytes:.4e} B) [{CARD}]")
+        results[("ln_qkv_rope_sweep", b, n, c)] = r
+        del x, args, packed
+        torch.cuda.empty_cache()
     return results
+
+
+QKV_YARDSTICK = "two calls, one affine, no RoPE"
+
+
+def qkv_yardstick_ms(x, ln, w, iters=20):
+    """ln_qkv_rope's yardstick, timed only (no one PyTorch call computes LN,
+    three affines, the products and RoPE): F.layer_norm with the q branch's
+    affine, then one F.linear on the packed [3C, C] bf16 weight."""
+    import torch.nn.functional as F
+
+    g, b = (t.to(x.dtype) for t in ln[0])
+    return cuda_time_ms(lambda: F.linear(F.layer_norm(x, (x.shape[-1],), g, b), w), iters)
 
 
 def phase_flash_kernels():
@@ -695,10 +746,10 @@ def phase_eval_kernels():
 
 
 def phase_baseline(dirs):
-    """proj_bias_gemm, small_attention, the flash backward, the flash forward
-    and attention_core of this tree against the same functions built from
-    other checkouts' sources
-    (DIR/deepl_project_tpu_torch/csrc for each DIR), each launched through
+    """ln_qkv_rope, proj_bias_gemm, small_attention, the flash backward, the
+    flash forward and attention_core of this tree against the same functions
+    built from other checkouts' sources (DIR/deepl_project_tpu_torch/csrc for
+    each DIR), each launched through
     its ctypes launcher on the same inputs at the main paths' shapes; all
     held to the plain version; each DIR timed beside this tree in turns
     (DIR, change, change, DIR). A DIR from before the single-pass backward
@@ -715,6 +766,7 @@ def phase_baseline(dirs):
     from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
     from deepl_project_tpu_torch.ops.hopper import fused_attention_block as fab
     from deepl_project_tpu_torch.ops.hopper import small_attention as sma
+    from deepl_project_tpu_torch.ops.rope import rope2d_tables
 
     P, I = ctypes.c_void_p, ctypes.c_int
     pair_sigs = {"flash_attention_bwd_dq": [P] * 7 + [I] * 8 + [ctypes.c_float, P],
@@ -789,6 +841,39 @@ def phase_baseline(dirs):
                 stream)
         same_launcher("proj_bias_gemm", (b, n, c), args, [out],
                       [fab.proj_bias_reference(o, wp, bp)], 2 * b * n * c * c)
+
+    # ln_qkv_rope at the three 256px b32 shapes and the 1024px sweep's stage
+    # 2. A DIR from before the normalisation pass (its csrc still has
+    # tile_mma.cuh) has a launcher without the x-hat scratch.
+    for b, n, c, hh, ww in [(b, n, c, hh, ww) for n, c, hh, ww, b in kernel_shapes()] + [
+            QKV_SWEEP[3]]:
+        x = torch.randn(b, n, c, generator=gen, device="cuda").to(bf)
+        ln = tuple((1 + 0.1 * torch.randn(c, generator=gen, device="cuda"),
+                    0.1 * torch.randn(c, generator=gen, device="cuda")) for _ in range(3))
+        wq, wk, wv = (torch.randn(c, c, generator=gen, device="cuda") * 2 / c ** 0.5
+                      for _ in range(3))
+        w, gbt = fab.pack_qkv(ln, wq, wk, wv)
+        tables = rope2d_tables(64, hh, ww, "reference", "cuda")
+        out = torch.empty(b, n, 3 * c, device="cuda", dtype=bf)
+        xhat = torch.empty_like(x)  # the scratch of this tree's launcher
+        ref = torch.cat(fab.qkv_rope_reference(x, ln, wq, wk, wv, hh, ww), dim=-1)
+        ptrs = [t.data_ptr() for t in (x, w, gbt, *tables)]
+        tail = (b * n, n, c, 1, stream)
+        change = launch(build.launcher("ln_qkv_rope"), *ptrs, xhat.data_ptr(),
+                        out.data_ptr(), *tail)
+        for d, (csrc, names) in srcs.items():
+            if "ln_qkv_rope" not in names:
+                continue
+            if os.path.exists(os.path.join(csrc, "tile_mma.cuh")):
+                base = launch(build.launcher("ln_qkv_rope", csrc, [P] * 8 + [I] * 4 + [P]),
+                              *ptrs, out.data_ptr(), *tail)
+            else:
+                base = launch(build.launcher("ln_qkv_rope", csrc), *ptrs, xhat.data_ptr(),
+                              out.data_ptr(), *tail)
+            turns("ln_qkv_rope", (b, n, c), d, {"baseline": base, "change": change}, [out],
+                  [ref], 2 * b * n * c * 3 * c)
+        del x, out, ref, xhat
+        torch.cuda.empty_cache()
     b, n, h = SMALL_512
     c = h * 64
     qkv = (1.5 * torch.randn(b, n, 3 * c, generator=gen, device="cuda")).to(bf)
@@ -1406,6 +1491,13 @@ def main():
             flops = sum(per[k] * r["flops"] for k, r in rows.items())
             nbytes = sum(per[k] * r["bytes"] for k, r in rows.items())
             libs = [r["library_ms"] for r in rows.values()]
+            extra = {
+                # The two-call yardstick (not the one-call library_ms) and the
+                # sweep's shapes: (kernel, yardstick, bound) ms by (B, N, C).
+                "yardstick_ms": tot("yardstick_ms"), "yardstick": QKV_YARDSTICK,
+                "sweep_ms_by_shape": {str(k[1:]): [v["ms"], v["yardstick_ms"], v["bound_ms"]]
+                                      for k, v in results.items() if k[0] == "ln_qkv_rope_sweep"},
+            } if name == "ln_qkv_rope" else {}
             kernels.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": counts.get(name, 0),
@@ -1415,6 +1507,7 @@ def main():
                              else "bytes"),
                 "library_ms": None if None in libs else tot("library_ms"),
                 "per": "one reconstruct at b32 (sum over shapes of launches x time)",
+                **extra,
             })
         for name, source, replaces in (
                 ("flash_attention_fwd", "deepl_project_tpu_torch/csrc/flash_attention_fwd.cu",

@@ -1,6 +1,7 @@
 // Shared pieces of the port's warp-specialised Hopper kernels
-// (proj_bias_gemm.cu, small_attention.cu, flash_attention_bwd.cu and the
-// forward tile flash_fwd_wgmma.cuh), in inline PTX for sm_90a:
+// (ln_qkv_rope.cu, proj_bias_gemm.cu, small_attention.cu,
+// flash_attention_bwd.cu and the forward tile flash_fwd_wgmma.cuh), in inline
+// PTX for sm_90a:
 //
 //   - mbarrier init / arrive / arrive.expect_tx / try_wait with phase parity;
 //   - 2D and 3D TMA tile loads (cp.async.bulk.tensor) and plain bulk copies

@@ -11,156 +11,321 @@
 //
 // x [M, C] bf16 (M = B*N tokens), w [3C, C] bf16 (rows: q and k output
 // channels permuted per head to [evens | odds], then v), gb [6, C] fp32
-// (gq, bq, gk, bk, gv, bv), RoPE tables [N, 32] fp32, out [M, 3C] bf16.
-// head_dim is 64: a warp's 64 output columns are exactly one head, so the
-// rotation pairs column j with j + 32 inside one thread's registers.
+// (gq, bq, gk, bk, gv, bv), RoPE tables [N, 32] fp32, out [M, 3C] bf16,
+// xhat [M, C] bf16 scratch. C % 128 == 0; M need not be a multiple of the
+// tile. head_dim is 64: column j of a head's even half pairs with j + 32,
+// which lies in the same thread's accumulators.
 //
 // Bound on an H100: at the main path's shapes (large@256, b32) the GEMM does
-// 2*M*C*3C = 116 GFLOP against about 0.4 GB of traffic, i.e. near the ridge
-// of the bf16 roofline (0.12 ms each way). Design: 128x128x32 tiles on
-// mma.sync with fp32 accumulation, a 4-stage cp.async pipeline, ldmatrix
-// fragment loads. The LN transform rewrites each landed A tile in shared
-// memory, so x-hat never exists in device memory; RoPE runs on the
-// accumulators before the only store. A CTA covers several column tiles of
-// one row block, so its row statistics (one pass, shifted by the row's first
-// element) are computed once for all of them.
-#include "tile_mma.cuh"
+// 2*M*C*3C = 116 GFLOP against about 0.4 GB of traffic, near the ridge of the
+// bf16 roofline (0.12 ms each way); only wgmma reaches that rate. Design:
+//
+// 1. A normalisation pass (one warp a row, in fp32: the mean, then the mean
+//    of squared deviations, as the plain version) writes xhat =
+//    bf16((x - mean) * rstd), the rounding point the three branches share.
+//    The GEMM rewrites each x tile once per column tile (3C / 128 times), so
+//    the shared part is done here once: with the row statistics kept in the
+//    GEMM instead, the kernel took 3-9% longer (PERF.md).
+// 2. The GEMM is proj_bias_gemm's: one persistent CTA per SM walks 256 x 128
+//    output tiles row block first (a 128-column tile lies in one of the q/k/v
+//    branches), one producer thread keeps a ring of 64-deep xhat and W stages
+//    full with TMA (128-byte swizzle, zero fill past M), and two consumer
+//    warpgroups of 128 rows run m64n128k16 wgmma from shared memory.
+// 3. The LN prologue runs in shared memory, in place: once a stage's xhat
+//    tile has landed, each consumer thread rewrites 8 rows x one 16-byte chunk
+//    of its warpgroup's rows to the branch's xt = bf16(xhat * g + b), then a
+//    proxy fence and a named barrier over the warpgroup hand the stage to
+//    wgmma. The products of stage s stay in flight while stage s+1 is
+//    rewritten.
+// 4. The RoPE epilogue runs on the accumulators: rounded to bf16, rotated in
+//    fp32 with the table row of each token, rounded again, then written into a
+//    swizzled staging tile and stored by TMA (which clips rows past M).
+#include "hopper_tma_wgmma.cuh"
 
 namespace {
 
-constexpr int kHeadDim = 64;
+using namespace hopper;
 
-// Writes a warp's 32x64 accumulator tile (one head) to out (row stride ldo)
-// from row `row0`: rounded to bf16, then, with `rope`, rotated in fp32 --
-// column j < 32 pairs with j + 32 in the same thread's registers.
-__device__ __forceinline__ void store_tile(
-    const float (&acc)[2][8][4], bf16* __restrict__ out, int ldo, int row0, int M,
-    int N, bool rope, const float* __restrict__ ca, const float* __restrict__ sa,
-    const float* __restrict__ cb, const float* __restrict__ sb) {
-  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+constexpr int BM = 256;  // rows of a tile: two consumer warpgroups of 128
+constexpr int BN = 128;  // columns of a tile: two heads of one branch
+constexpr int BK = 64;   // depth of a stage (one 128-byte swizzled row)
+constexpr int STAGES = 4;
+constexpr int kConsumers = 2;
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kABytes = BM * BK * 2;  // 32 KB
+constexpr int kBBytes = BN * BK * 2;  // 16 KB
+constexpr int kStageBytes = kABytes + kBBytes;
+constexpr int kOutBytes = 64 * BN * 2;  // 16 KB: a consumer's 64-row half, two 64-column boxes
+constexpr int kSmemBytes = STAGES * kStageBytes + kConsumers * kOutBytes + 2 * STAGES * 8 + 1024;
+constexpr float kEps = 1e-5f;
+
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float lo_bf16(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float hi_bf16(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+
+// xhat = bf16((x - mean) * rstd) of each row of x [M, C]: one warp a row, 8
+// rows a block.
+__global__ __launch_bounds__(256) void ln_hat_kernel(const bf16* __restrict__ x,
+                                                      bf16* __restrict__ xhat, int M, int C) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= M) return;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * C);
+  float s = 0.f;
+  for (int v = lane; v < C / 8; v += 32) {
+    const uint4 u = __ldg(xr + v);
+    s += lo_bf16(u.x) + hi_bf16(u.x) + lo_bf16(u.y) + hi_bf16(u.y) + lo_bf16(u.z) +
+         hi_bf16(u.z) + lo_bf16(u.w) + hi_bf16(u.w);
+  }
+  const float mean = warp_sum(s) / C;
+  float q = 0.f;
+  for (int v = lane; v < C / 8; v += 32) {
+    const uint4 u = __ldg(xr + v);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = row0 + mt * 16 + gid + half * 8;
-      if (row >= M) continue;
-      bf16* orow = out + (size_t)row * ldo;
-      if (rope) {
-        const int n = row % N;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int j = nt * 8 + tig * 2;  // position in the even half
-          const float2 ca2 = *reinterpret_cast<const float2*>(ca + n * 32 + j);
-          const float2 sa2 = *reinterpret_cast<const float2*>(sa + n * 32 + j);
-          const float2 cb2 = *reinterpret_cast<const float2*>(cb + n * 32 + j);
-          const float2 sb2 = *reinterpret_cast<const float2*>(sb + n * 32 + j);
-          const float e0 = round_bf16(acc[mt][nt][half * 2]);
-          const float e1 = round_bf16(acc[mt][nt][half * 2 + 1]);
-          const float o0 = round_bf16(acc[mt][nt + 4][half * 2]);
-          const float o1 = round_bf16(acc[mt][nt + 4][half * 2 + 1]);
-          *reinterpret_cast<bf162*>(orow + j) = __floats2bfloat162_rn(
-              e0 * ca2.x - o0 * sa2.x, e1 * ca2.y - o1 * sa2.y);
-          *reinterpret_cast<bf162*>(orow + 32 + j) = __floats2bfloat162_rn(
-              e0 * sb2.x + o0 * cb2.x, e1 * sb2.y + o1 * cb2.y);
-        }
-      } else {
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          *reinterpret_cast<bf162*>(orow + nt * 8 + tig * 2) = __floats2bfloat162_rn(
-              acc[mt][nt][half * 2], acc[mt][nt][half * 2 + 1]);
-        }
-      }
+    for (int i = 0; i < 4; ++i) {
+      const float a = lo_bf16(w[i]) - mean, b = hi_bf16(w[i]) - mean;
+      q += a * a + b * b;
     }
+  }
+  const float rstd = rsqrtf(warp_sum(q) / C + kEps);
+  uint4* xo = reinterpret_cast<uint4*>(xhat + (size_t)row * C);
+  for (int v = lane; v < C / 8; v += 32) {
+    const uint4 u = __ldg(xr + v);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+    uint32_t o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      o[i] = pack_bf16((lo_bf16(w[i]) - mean) * rstd, (hi_bf16(w[i]) - mean) * rstd);
+    xo[v] = make_uint4(o[0], o[1], o[2], o[3]);
   }
 }
 
-__global__ __launch_bounds__(tile::THREADS, 2) void ln_qkv_rope_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ w,
-    const float* __restrict__ gb, const float* __restrict__ ca,
-    const float* __restrict__ sa, const float* __restrict__ cb,
-    const float* __restrict__ sb, bf16* __restrict__ out, int M, int N, int C,
-    int use_rope, int tiles_per_cta) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  tile::Smem& sm = *reinterpret_cast<tile::Smem*>(smem_raw);
-  __shared__ float s_mean[tile::BM], s_rstd[tile::BM];
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int row0 = blockIdx.y * tile::BM;
-
-  // Row statistics in fp32, one pass: sums of (x - x0) and (x - x0)^2 with
-  // x0 the row's first element, which keeps E[d^2] - E[d]^2 free of
-  // cancellation when the row mean is large against its spread.
-  for (int r = warp; r < tile::BM; r += tile::THREADS / 32) {
-    const int row = row0 + r;
-    float mean = 0.f, rstd = 0.f;
-    if (row < M) {
-      const bf16* xr = x + (size_t)row * C;
-      const float shift = __bfloat162float(xr[0]);
-      float s1 = 0.f, s2 = 0.f;
-      for (int v = lane; v < C / 8; v += 32) {
-        uint4 u = reinterpret_cast<const uint4*>(xr)[v];
-        const bf16* e = reinterpret_cast<const bf16*>(&u);
+// Rewrite one 16-byte chunk (8 values of one row) of xhat in shared memory
+// to bf16(xhat * g + b).
+__device__ __forceinline__ void ln_chunk(unsigned char* p, const float4 (&g)[2],
+                                         const float4 (&b)[2]) {
+  uint4 v = *reinterpret_cast<uint4*>(p);
+  uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  const float gg[8] = {g[0].x, g[0].y, g[0].z, g[0].w, g[1].x, g[1].y, g[1].z, g[1].w};
+  const float bb[8] = {b[0].x, b[0].y, b[0].z, b[0].w, b[1].x, b[1].y, b[1].z, b[1].w};
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float d = __bfloat162float(e[j]) - shift;
-          s1 += d;
-          s2 += d * d;
+  for (int i = 0; i < 4; ++i) {
+    w[i] = pack_bf16(lo_bf16(w[i]) * gg[2 * i] + bb[2 * i],
+                     hi_bf16(w[i]) * gg[2 * i + 1] + bb[2 * i + 1]);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__global__ __launch_bounds__(kThreads, 1) void ln_qkv_rope_kernel(
+    __grid_constant__ const CUtensorMap tm_xhat, __grid_constant__ const CUtensorMap tm_w,
+    __grid_constant__ const CUtensorMap tm_out,
+    const float* __restrict__ gb, const float* __restrict__ ca, const float* __restrict__ sa,
+    const float* __restrict__ cb, const float* __restrict__ sb, int M, int N, int C,
+    int use_rope) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* staging = smem + STAGES * kStageBytes;  // kOutBytes a consumer
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + kConsumers * kOutBytes);
+  uint64_t* empty = full + STAGES;
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int tiles_n = 3 * C / BN;
+  const int tiles = (M + BM - 1) / BM * tiles_n;
+  const int KT = C / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // Producer warpgroup: one thread issues the TMA loads.
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == kConsumers * 128) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / tiles_n * BM, n0 = t % tiles_n * BN;
+        for (int kt = 0; kt < KT; ++kt) {
+          mbar_wait(&empty[s], ph ^ 1);
+          unsigned char* st = smem + s * kStageBytes;
+          mbar_arrive_expect_tx(&full[s], kStageBytes);
+          tma_load_2d(st, &tm_xhat, &full[s], kt * BK, m0);
+          tma_load_2d(st + kABytes, &tm_w, &full[s], kt * BK, n0);
+          if (++s == STAGES) {
+            s = 0;
+            ph ^= 1;
+          }
         }
       }
-      const float m1 = warp_sum(s1) / C;
-      mean = shift + m1;
-      rstd = rsqrtf(fmaxf(warp_sum(s2) / C - m1 * m1, 0.f) + 1e-5f);
     }
-    if (lane == 0) {
-      s_mean[r] = mean;
-      s_rstd[r] = rstd;
-    }
-  }
-  // (The main loop's opening barrier publishes the statistics.)
+  } else {
+    // Consumer warpgroup wg: rows wg*128 .. +127 of each tile, as two m64
+    // halves sharing the W tile.
+    setmaxnreg_inc<232>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int gid = lane / 4, tig = lane % 4;
+    // The LN prologue's share of a stage: logical chunk lc (columns 8lc..+7)
+    // of rows r0 + 16i, i < 8, of this warpgroup's 128 rows. A quarter warp
+    // covers one whole 128-byte row: no bank conflicts.
+    const int lc = tid % 8, r0 = tid / 8;
+    const int chunk_off = r0 * 128 + ((lc ^ (r0 % 8)) << 4);
+    float acc[2][64];
+    int s = 0;
+    uint32_t ph = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = t / tiles_n * BM, n0 = t % tiles_n * BN;
+      const int branch = n0 / C;  // 0 = q, 1 = k, 2 = v
+      const float* g = gb + 2 * branch * C + lc * 8;  // this thread's columns
+      int prev = 0;
+      for (int kt = 0; kt < KT; ++kt) {
+        float4 g4[2], b4[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          g4[i] = __ldg(reinterpret_cast<const float4*>(g + kt * BK) + i);
+          b4[i] = __ldg(reinterpret_cast<const float4*>(g + C + kt * BK) + i);
+        }
+        mbar_wait(&full[s], ph);
+        unsigned char* stage = smem + s * kStageBytes;
+        unsigned char* mine = stage + wg * 128 * 128;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) ln_chunk(mine + chunk_off + i * 16 * 128, g4, b4);
+        fence_proxy_async();  // the rewritten tile is visible to wgmma
+        named_bar_sync(1 + wg, 128);
+        const uint64_t da = desc_kmajor(mine);
+        const uint64_t db = desc_kmajor(stage + kABytes);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const int add = kt > 0 || kk > 0;
+          // +32 bytes per k slice; the second half starts 64 rows (8 KB) on.
+          wgmma_m64n128k16_ss(acc[0], da + 2 * kk, db + 2 * kk, add);
+          wgmma_m64n128k16_ss(acc[1], da + (64 * 128 >> 4) + 2 * kk, db + 2 * kk, add);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done
+        if (kt > 0) mbar_arrive_if(&empty[prev], tid == 0);
+        prev = s;
+        if (++s == STAGES) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+      // RoPE table values of this thread's rows, fetched ahead of their use:
+      // buffer `half` holds (ca, sa, cb, sb) at the 4 even-half positions of
+      // row (h, half); h = 0's are in flight under the last products.
+      float2 tab[2][4][4];
+      const int rbase = m0 + wg * 128 + warp * 16 + gid;
+      auto fetch_tab = [&](float2 (&tb)[4][4], int grow) {
+        const int n = grow % N;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int p = n * 32 + 8 * j + 2 * tig;
+          tb[j][0] = __ldg(reinterpret_cast<const float2*>(ca + p));
+          tb[j][1] = __ldg(reinterpret_cast<const float2*>(sa + p));
+          tb[j][2] = __ldg(reinterpret_cast<const float2*>(cb + p));
+          tb[j][3] = __ldg(reinterpret_cast<const float2*>(sb + p));
+        }
+      };
+      fetch_tab(tab[0], rbase);
+      fetch_tab(tab[1], rbase + 8);
+      wgmma_wait<0>();
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      mbar_arrive_if(&empty[prev], tid == 0);
 
-  for (int t = 0; t < tiles_per_cta; ++t) {
-    const int col0 = (blockIdx.x * tiles_per_cta + t) * tile::BN;
-    const int branch = col0 / C;  // 0 = q, 1 = k, 2 = v (C % 128 == 0)
-    tile::APrologue<true> pro{s_mean, s_rstd, gb + (2 * branch) * C,
-                              gb + (2 * branch + 1) * C};
-    float acc[2][8][4];
-    tile::gemm_mainloop<true>(sm, x, C, w, C, M, row0, col0, pro, acc);
-    store_tile(acc, out + col0 + wn * kHeadDim, 3 * C, row0 + wm * 32, M, N,
-               use_rope && branch < 2, ca, sa, cb, sb);
+      // Epilogue, one 64-row half at a time through this warpgroup's staging
+      // tile: [2 boxes of 64 columns][64 rows][128 bytes], 16-byte chunk c
+      // of row r at chunk c ^ (r % 8) (the store map's 128-byte swizzle).
+      const bool rope = use_rope && branch < 2;
+      unsigned char* stg = staging + wg * kOutBytes;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (tid == 0) bulk_wait_read<0>();  // the last store has read stg
+        named_bar_sync(1 + wg, 128);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = warp * 16 + half * 8 + gid;  // r % 8 == gid
+          unsigned char* row = stg + r * 128 + tig * 4;
+          const float* d = acc[h] + 2 * half;
+          if (rope) {
+            // The two heads of the tile share the token's table row.
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float2 ca2 = tab[half][j][0], sa2 = tab[half][j][1];
+              const float2 cb2 = tab[half][j][2], sb2 = tab[half][j][3];
+#pragma unroll
+              for (int head = 0; head < 2; ++head) {
+                const int je = 8 * head + j, jo = je + 4;  // 8-column groups
+                const uint32_t e = pack_bf16(d[4 * je], d[4 * je + 1]);
+                const uint32_t o = pack_bf16(d[4 * jo], d[4 * jo + 1]);
+                const float e0 = lo_bf16(e), e1 = hi_bf16(e), o0 = lo_bf16(o), o1 = hi_bf16(o);
+                *reinterpret_cast<uint32_t*>(row + head * 8192 + (((je % 8) ^ gid) << 4)) =
+                    pack_bf16(e0 * ca2.x - o0 * sa2.x, e1 * ca2.y - o1 * sa2.y);
+                *reinterpret_cast<uint32_t*>(row + head * 8192 + (((jo % 8) ^ gid) << 4)) =
+                    pack_bf16(e0 * sb2.x + o0 * cb2.x, e1 * sb2.y + o1 * cb2.y);
+              }
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j)
+              *reinterpret_cast<uint32_t*>(row + (j / 8) * 8192 + (((j % 8) ^ gid) << 4)) =
+                  pack_bf16(d[4 * j], d[4 * j + 1]);
+          }
+          if (h == 0) fetch_tab(tab[half], rbase + 64 + 8 * half);
+        }
+        fence_proxy_async();
+        named_bar_sync(1 + wg, 128);
+        if (tid == 0) {
+          const int rr = m0 + wg * 128 + h * 64;
+          tma_store_2d(&tm_out, stg, n0, rr);
+          tma_store_2d(&tm_out, stg + 8192, n0 + 64, rr);
+          bulk_commit();
+        }
+      }
+    }
+    if (tid == 0) bulk_wait<0>();  // the stores are done before the CTA exits
   }
 }
 
 }  // namespace
 
 extern "C" int ln_qkv_rope_launch(const void* x, const void* w, const void* gb,
-                                  const void* ca, const void* sa,
-                                  const void* cb, const void* sb, void* out,
-                                  int M, int N, int C, int use_rope,
-                                  void* stream) {
-  static int sms = 0;
-  if (sms == 0) {
-    cudaError_t e = allow_smem(ln_qkv_rope_kernel, tile::kSmemBytes);
+                                  const void* ca, const void* sa, const void* cb,
+                                  const void* sb, void* xhat, void* out, int M, int N,
+                                  int C, int use_rope, void* stream) {
+  static bool smem_ok = false;
+  if (!smem_ok) {
+    cudaError_t e = cudaFuncSetAttribute(
+        ln_qkv_rope_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (e != cudaSuccess) return (int)e;
-    int dev = 0, n = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    sms = n;
+    smem_ok = true;
   }
-  // Column tiles per CTA: as many as keep >= 4 CTAs per SM in the grid (two
-  // resident, two more waves), so the row statistics are shared widely.
-  const int col_tiles = 3 * C / tile::BN, row_tiles = (M + tile::BM - 1) / tile::BM;
-  int per = 1;
-  for (int t = col_tiles; t >= 1; --t) {
-    if (col_tiles % t == 0 && (col_tiles / t) * row_tiles >= 4 * sms) {
-      per = t;
-      break;
-    }
-  }
-  dim3 grid(col_tiles / per, row_tiles);
-  ln_qkv_rope_kernel<<<grid, tile::THREADS, tile::kSmemBytes, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)w, (const float*)gb, (const float*)ca,
-      (const float*)sa, (const float*)cb, (const float*)sb, (bf16*)out, M, N,
-      C, use_rope, per);
+  // Maps are encoded on every call: the operands' addresses change.
+  CUtensorMap tm_xhat, tm_w, tm_out;
+  const cuuint64_t dims_x[2] = {(cuuint64_t)C, (cuuint64_t)M};
+  const cuuint64_t dims_w[2] = {(cuuint64_t)C, (cuuint64_t)(3 * C)};
+  const cuuint64_t dims_o[2] = {(cuuint64_t)(3 * C), (cuuint64_t)M};
+  int e = hopper::make_map_bf16(&tm_xhat, xhat, 2, dims_x, (uint64_t)C * 2, 0, BM);
+  if (e == 0) e = hopper::make_map_bf16(&tm_w, w, 2, dims_w, (uint64_t)C * 2, 0, BN);
+  if (e == 0) e = hopper::make_map_bf16(&tm_out, out, 2, dims_o, (uint64_t)C * 6, 0, 64);
+  if (e != 0) return e;
+  cudaStream_t st = (cudaStream_t)stream;
+  ln_hat_kernel<<<(M + 7) / 8, 256, 0, st>>>((const bf16*)x, (bf16*)xhat, M, C);
+  const int tiles = (M + BM - 1) / BM * (3 * C / BN);
+  const int sms = hopper::sm_count();
+  const int grid = sms > 0 && sms < tiles ? sms : tiles;
+  ln_qkv_rope_kernel<<<grid, kThreads, kSmemBytes, st>>>(
+      tm_xhat, tm_w, tm_out, (const float*)gb, (const float*)ca,
+      (const float*)sa, (const float*)cb, (const float*)sb, M, N, C, use_rope);
   return (int)cudaGetLastError();
 }

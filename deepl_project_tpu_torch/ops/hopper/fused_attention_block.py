@@ -4,9 +4,13 @@
 Three hand-written CUDA kernels (``deepl_project_tpu_torch/csrc``) carry the
 two TPU kernels of that file:
 
-- ``ln_qkv_rope``: LN statistics + three affines + bias-free Q/K/V + RoPE, one
-  GEMM with an LN prologue and a RoPE epilogue. It is ``fused_qkv_rope`` whole
-  and the first half of ``fused_attention_sublayer``.
+- ``ln_qkv_rope``: LN statistics + three affines + bias-free Q/K/V + RoPE.
+  A normalisation pass writes x-hat = bf16((x - mean) * rstd) to a bf16
+  scratch, then a persistent wgmma + TMA GEMM (``proj_bias_gemm``'s)
+  rewrites each landed x-hat tile in shared memory with the branch's affine
+  (the LN prologue) and rotates q and k on the accumulators (the RoPE
+  epilogue). It is ``fused_qkv_rope`` whole and the first half of
+  ``fused_attention_sublayer``.
 - ``attention_core``: softmax(q k^T * scale) v for N <= 1024, head_dim 64,
   on the flash forward's wgmma + TMA tile (``csrc/flash_fwd_wgmma.cuh``).
   It rounds the unnormalised weights to bf16 and divides o by the row sum
@@ -246,9 +250,11 @@ def _ln_qkv_rope_kernel(xf, w, gb, height, width, pairing, head_dim, use_rope):
     xf = xf.contiguous()
     ca, sa, cb, sb = rope2d_tables(head_dim, height, width, pairing, xf.device)
     out = torch.empty(b, n, 3 * c, device=xf.device, dtype=xf.dtype)
+    xhat = torch.empty_like(xf)  # scratch: bf16((x - mean) * rstd)
     build.launch("ln_qkv_rope", xf.data_ptr(), w.data_ptr(), gb.data_ptr(),
                  ca.data_ptr(), sa.data_ptr(), cb.data_ptr(), sb.data_ptr(),
-                 out.data_ptr(), b * n, n, c, int(bool(use_rope)), _stream())
+                 xhat.data_ptr(), out.data_ptr(), b * n, n, c, int(bool(use_rope)),
+                 _stream())
     _LAUNCHES[("ln_qkv_rope", n, c)] += 1
     return out
 

@@ -65,6 +65,24 @@ def test_ln_qkv_rope_long_axis_matches_plain(gen):
         _close(g, r)
 
 
+@pytest.mark.parametrize("b,n,c,h,w,pairing,use_rope,offset", [
+    (2, 192, 256, 12, 16, "reference", True, 0.0),   # M = 384: a part tile of rows
+    (2, 256, 128, 16, 16, "reference", True, 0.0),   # C = 128: the shortest K, two stages
+    (2, 256, 384, 16, 16, "reference", False, 0.0),  # no RoPE: every branch stored plainly
+    (1, 1024, 256, 32, 32, "standard", True, 0.0),
+    (2, 256, 256, 16, 16, "reference", True, 64.0),  # rows offset by 64: the normalisation pass
+])
+def test_ln_qkv_rope_kernel_edges(gen, b, n, c, h, w, pairing, use_rope, offset):
+    x, ln, (wq, wk, wv, _), _ = _sublayer_args(gen, b, n, c, h, w)
+    x = (x.float() + offset).to(torch.bfloat16)
+    fab.reset_launch_counts()
+    got = fab.ln_qkv_rope(x, ln, wq, wk, wv, h, w, pairing, use_rope=use_rope)
+    assert fab.launch_counts() == {"ln_qkv_rope": 1}
+    want = fab.qkv_rope_reference(x, ln, wq, wk, wv, h, w, pairing, use_rope=use_rope)
+    for g, r in zip(got, want):
+        _close(g, r)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     x, ln, (wq, wk, wv, wp), bp = _sublayer_args(gen, 1, 256, 128, 16, 16)
     with pytest.raises(ValueError):

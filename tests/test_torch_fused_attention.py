@@ -126,6 +126,29 @@ def test_bf16_plain_matches_jax_reference(c, h, w):
     _close(got.float(), ref, atol=2 ** -6 * np.abs(ref).max(), rtol=0)
 
 
+@pytest.mark.parametrize("pairing,use_rope", [("reference", True), ("standard", True),
+                                              ("reference", False)])
+def test_ln_qkv_rope_bf16_hd64_matches_jax_and_pallas(pairing, use_rope):
+    # The card kernel's width and precision: head_dim 64 (2 heads at C = 128),
+    # bf16 in and out. The Pallas kernel keeps x-hat in fp32 where both plain
+    # versions round it to bf16: one bf16 step, inside the tolerance.
+    c, hd, h, w = 128, 64, 16, 16
+    x, ln, (wq, wk, wv, _), _ = _inputs(c, hd, h, w, seed=4, wscale=2.0 / np.sqrt(c))
+    jargs = (jnp.asarray(x, jnp.bfloat16),
+             tuple((jnp.asarray(g), jnp.asarray(b)) for g, b in ln),
+             jnp.asarray(wq), jnp.asarray(wk), jnp.asarray(wv), h, w)
+    kw = dict(pairing=pairing, head_dim=hd, use_rope=use_rope)
+    ref = jfab.qkv_rope_reference(*jargs, **kw)
+    pallas = jfab.fused_qkv_rope(*jargs, **kw, interpret=True)
+    tx, tln, (twq, twk, twv, _) = _torch_args(x, ln, (wq, wk, wv, wq), torch.bfloat16)
+    got = fab.ln_qkv_rope(tx, tln, twq, twk, twv, h, w, **kw)  # CPU: plain
+    for g, r, p in zip(got, ref, pallas):
+        assert g.dtype == torch.bfloat16
+        for want in (r, p):
+            want = np.asarray(want.astype(jnp.float32))
+            _close(g.float(), want, atol=2 ** -6 * np.abs(want).max(), rtol=0)
+
+
 def test_rope_tables_match_jax():
     from deepl_project_tpu.ops.rope import _rope2d_tables_np
 
