@@ -70,7 +70,11 @@ Phases (any failure exits non-zero and prints no result):
    reconstruct's launches per kernel and shape; hold one reconstruct (b=4)
    of the kernel path and of the plain bf16 path against the same weights
    in fp32; one 512px reconstruct (b=2) with its flash forward launches.
-6. time: reconstruct images/s at batch 32 through InferenceEngine.run.
+6. time: reconstruct images/s at batch 32 through InferenceEngine.run, and
+   with the JAX package's exact rewrites (ConvFFN fold_output, the fused
+   resample convs; the model's default) on and off in turns (on, off, off,
+   on), the module flags toggled; train times the step on and off the same
+   way after its fit with --profile.
 7. eval: evaluate_model at 256px on the shapes source (2 batches of 16, LPIPS
    and vgg_rfid on random VGG); extrapolation_sweep at 256/512/1024px on 8
    shapes images made at 1024px (chunks of 8, 8 and 4), with the launch
@@ -82,6 +86,22 @@ Phases (any failure exits non-zero and prints no result):
    fp32 (the serve phase's rule); cli/generate.py --mode random on the card.
    With --profile, a torch.profiler table of one 1024px chunk's reconstruct
    (as the train and time phases profile one step and one reconstruct).
+8. quant: int8 post-training quantization of the same model, calibrated as
+   cli.serve calibrates (8 synthetic shapes images at 256px, two batches of
+   4), at the three scopes. The int32 accumulators of torch._int_mm and the
+   int8 im2col on the card bit-equal to the CPU's at a stage-0 ResBlock conv
+   (b1) and the stage-4 FFN w_head / w_fold shapes (b4); each int8 site
+   alone (quantize + im2col / int GEMM + dequantize) timed at the b32
+   shapes beside its bf16 cuDNN conv or F.linear and its bound (operations
+   at 1979 TOP/s int8 or bytes at 3.35 TB/s, im2col not counted), its output
+   within 5% (relative L2) of the bf16 call's; reconstruct b32 img/s and
+   peak memory for 'none', 'resblock', 'ffn' and 'all' in turns; attention
+   launches per int8 reconstruct equal to the bf16 table; the int8
+   reconstruct (b4) against the fp32 twin within relative L2 0.15 (the JAX
+   package's bound), the bf16 path's error beside it; one HTTP round trip
+   through cli.serve's engine with --quantize unset and one with --quantize
+   int8 (scope resblock). Writes
+   chiprun_out/quant.json; with --profile, a table of one int8 reconstruct.
 
 Launches are checked against one table per resolution (256, 512, 1024px;
 launches_per_reconstruct); group_norm_silu, on no model path, must show no
@@ -92,6 +112,7 @@ launch in the train, serve and eval runs. The line before the last is the ``kern
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -103,6 +124,7 @@ import time
 # bf16 tensor cores, fp32 outside the tensor cores (elementwise work), HBM.
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 KERNEL_RTOL = 2 ** -6
 # group_norm_stats' fp32 sums (~4e5 values a group) against the plain fp32
@@ -142,6 +164,13 @@ EVAL_CHUNKS = {256: 8, 512: 8, 1024: 4}
 QKV_SWEEP = ((8, 16384, 384, 128, 128), (8, 4096, 768, 64, 64), (8, 1024, 1536, 32, 32),
              (4, 65536, 384, 256, 256), (4, 16384, 768, 128, 128), (4, 4096, 1536, 64, 64))
 EVAL_IMAGES = 8
+# Int8: the scopes, the JAX package's bound on the int8 reconstruction's
+# relative L2 error against the float model (tests/test_quant.py), and the
+# bound on one int8 site's output against its bf16 call (per-tensor int8
+# activations of normal data: ~1.3% expected).
+QUANT_SCOPES = ("resblock", "ffn", "all")
+QUANT_REL_L2 = 0.15
+QUANT_SITE_REL_L2 = 0.05
 
 # The kernels built on wgmma and TMA (csrc/hopper_tma_wgmma.cuh).
 WGMMA_KERNELS = ("ln_qkv_rope", "proj_bias_gemm", "small_attention", "flash_attention_bwd",
@@ -161,6 +190,14 @@ def fail(msg: str):
 
 def log(msg: str):
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+@contextlib.contextmanager
+def phase_clock(name: str):
+    """Log the host seconds a phase took."""
+    t = time.time()
+    yield
+    log(f"phase {name} took {time.time() - t:.1f}s")
 
 
 def card_line() -> str:
@@ -1080,8 +1117,13 @@ def phase_train(profile: bool):
         from torch.profiler import ProfilerActivity, profile as prof
 
         batch = torch.as_tensor(next(data)).to("cuda")
-        trainer.step_fn(state, batch)
-        torch.cuda.synchronize()
+
+        def step():
+            trainer.step_fn(state, batch)
+            torch.cuda.synchronize()
+
+        step()
+        rewrites_in_turns(state.model, step, "train step batch 16 (2 x 8)", 2)
         with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
             trainer.step_fn(state, batch)
             torch.cuda.synchronize()
@@ -1252,6 +1294,39 @@ def phase_serve(model):
     return counts
 
 
+def set_rewrites(model, on: bool) -> None:
+    """The JAX package's exact rewrites (ConvFFN fold_output, the fused
+    resample convs) on or off in every module of ``model``."""
+    from deepl_project_tpu_torch.ops.ffn import ConvFFN
+    from deepl_project_tpu_torch.ops.resample import Downsample, Upsample
+
+    for m in model.modules():
+        if isinstance(m, ConvFFN):
+            m.fold_output = on
+        elif isinstance(m, Downsample):
+            m.fuse_dc = on
+        elif isinstance(m, Upsample):
+            m.fuse_main = m.fuse_dc = on
+
+
+def rewrites_in_turns(model, fn, label: str, reps: int) -> dict:
+    """Host time of ``fn()`` (which ends in a device sync) with the rewrites
+    on and off in turns (on, off, off, on), ``reps`` calls a turn; the
+    rewrites are left on."""
+    times = {True: [], False: []}
+    for on in (True, False, False, True):
+        set_rewrites(model, on)
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times[on].append((time.perf_counter() - t) / reps * 1e3)
+    set_rewrites(model, True)
+    log(f"time {label}, rewrites on / off in turns (on, off, off, on; {reps} a turn): "
+        f"on {[round(v, 2) for v in times[True]]} ms, off "
+        f"{[round(v, 2) for v in times[False]]} ms [{CARD}]")
+    return {"on_ms": times[True], "off_ms": times[False]}
+
+
 # -- phase 4 -------------------------------------------------------------
 def phase_time(model, profile: bool):
     import numpy as np
@@ -1271,6 +1346,7 @@ def phase_time(model, profile: bool):
     log(f"time reconstruct b=32 @256px bf16: {step * 1e3:.2f} ms/batch, "
         f"{32 / step:.2f} img/s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{CARD}]")
+    rewrites_in_turns(model, lambda: engine.run("reconstruct", imgs), "reconstruct b=32 @256px", 2)
     if profile:
         from torch.profiler import ProfilerActivity, profile as prof
 
@@ -1422,10 +1498,237 @@ def phase_eval(model, profile: bool):
     return out
 
 
+# -- phase 8 -------------------------------------------------------------
+def int8_sites():
+    """(name, kind, B, H, W, C_in, C_out) of large f16d32's int8 sites at
+    256px b32: the ResBlock 3x3 convs of stages 0 and 1, and each ConvFFN
+    product of stages 2-4 (proj_in, w_head = [conv_0 | proj_out], the 3x3
+    conv_1, w_fold = conv_2 proj_out)."""
+    sites = [(f"resblock conv3x3 stage {i}", "conv", 32, hw, hw, 192, 192)
+             for i, hw in ((0, 256), (1, 128))]
+    for stage, hw, c in ((2, 64, 384), (3, 32, 768), (4, 16, 1536)):
+        sites += [(f"ffn proj_in stage {stage}", "linear", 32, hw, hw, c, 4 * c),
+                  (f"ffn w_head stage {stage}", "linear", 32, hw, hw, 4 * c, 2 * c),
+                  (f"ffn conv_1 stage {stage}", "conv", 32, hw, hw, c, c),
+                  (f"ffn w_fold stage {stage}", "linear", 32, hw, hw, c, c)]
+    return sites
+
+
+def model_gib(model) -> float:
+    return sum(t.numel() * t.element_size()
+               for t in list(model.parameters()) + list(model.buffers())) / 2 ** 30
+
+
+def phase_quant(model, profile: bool):
+    """Int8 post-training quantization of ``model`` (large f16d32 from the
+    seed): card-vs-CPU accumulators, each int8 site against its bf16 call
+    and bound, the four scopes' reconstruct in turns, launches, accuracy
+    against fp32, and cli.serve's engine with --quantize unset over HTTP."""
+    import io
+    import urllib.request
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from deepl_project_tpu_torch.cli import serve as serve_cli
+    from deepl_project_tpu_torch.models import TransVAE
+    from deepl_project_tpu_torch.ops import quant
+    from deepl_project_tpu_torch.serving import InferenceEngine, make_http_server
+
+    out = {"card": CARD}
+    tq = time.time()
+    # The card's int8 products against the CPU's exact ones.
+    g = torch.Generator().manual_seed(0)
+    i8 = lambda *s: torch.randint(-127, 128, s, generator=g, dtype=torch.int8)  # noqa: E731
+    for name, fn, x, w in (
+            ("resblock conv3x3 stage 0, b1", quant.int_conv, i8(1, 256, 256, 192),
+             i8(192, 3, 3, 192)),
+            ("ffn w_head stage 4, b4", quant.int_mm, i8(4 * 256, 6144), i8(3072, 6144)),
+            ("ffn w_fold stage 4, b4", quant.int_mm, i8(4 * 256, 1536), i8(1536, 1536))):
+        cpu = fn(x, w)
+        card = fn(x.cuda(), w.cuda()).cpu()
+        if not torch.equal(cpu, card):
+            fail(f"quant {name}: the card's int32 accumulators differ from the CPU's "
+                 f"({int((cpu != card).sum())} values)")
+        log(f"quant {name}: int32 accumulators bit-equal card vs CPU ({cpu.numel()} values, "
+            f"max |acc| {int(cpu.abs().max())})")
+
+    log(f"quant: accumulators took {time.time() - tq:.1f}s")
+    tq = time.time()
+    # Each int8 site alone against its bf16 call, with its bound.
+    sites = []
+    for name, kind, b, h, w, ci, co in int8_sites():
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        x = torch.randn(b, h, w, ci, generator=gen, device="cuda").to(torch.bfloat16)
+        a = x.float().abs().amax() / quant.QMAX
+        bias = 0.1 * torch.randn(co, generator=gen, device="cuda")
+        k = (3, 3) if kind == "conv" else ()
+        wf = torch.randn(co, ci, *k, generator=gen, device="cuda") * (ci * (9 if k else 1)) ** -0.5
+        kq, ks = quant.quantize_weight(wf, axis=0)
+        wb, bb = wf.to(torch.bfloat16), bias.to(torch.bfloat16)
+        if kind == "conv":
+            kq = kq.permute(0, 2, 3, 1).contiguous()
+            xc = x.permute(0, 3, 1, 2)  # NCHW, channels-last in memory
+            f8 = lambda: quant.qconv(x, kq, ks, a, bias, torch.bfloat16)  # noqa: E731
+            fb = lambda: F.conv2d(xc, wb, bb, padding=1).permute(0, 2, 3, 1)  # noqa: E731
+        else:
+            f8 = lambda: quant.qmatmul(x, kq, ks, a, bias, torch.bfloat16)  # noqa: E731
+            fb = lambda: F.linear(x, wb, bb)  # noqa: E731
+        got, want = f8().float(), fb().float()
+        rel = ((got - want).norm() / want.norm()).item()
+        if rel > QUANT_SITE_REL_L2:
+            fail(f"quant site {name}: int8 vs bf16 relative L2 {rel:.4f} > {QUANT_SITE_REL_L2}")
+        del got, want
+        ops = 2 * b * h * w * ci * co * (9 if k else 1)
+        nbytes = b * h * w * (ci + co) * 2 + kq.numel()
+        bound_ms = max(ops / PEAK_INT8_OPS, nbytes / PEAK_HBM_BYTES) * 1e3
+        t8, tb = cuda_time_ms(f8, 10), cuda_time_ms(fb, 10)
+        row = {"site": name, "shape": [b, h, w, ci, co], "int8_ms": t8, "bf16_ms": tb,
+               "bound_ms": bound_ms,
+               "bound_by": "operations" if ops / PEAK_INT8_OPS >= nbytes / PEAK_HBM_BYTES
+               else "bytes", "rel_l2_vs_bf16": rel}
+        sites.append(row)
+        log(f"quant site {name} [{b}, {h}, {w}, {ci}] -> {co}: int8 {t8:.4f} ms, bf16 "
+            f"{'cuDNN conv' if k else 'F.linear'} {tb:.4f} ms, int8 bound {bound_ms:.4f} ms "
+            f"({row['bound_by']}), int8 vs bf16 rel L2 {rel:.4f} [{CARD}]")
+        del x, kq, wf, wb
+        torch.cuda.empty_cache()
+    out["sites"] = sites
+    log(f"quant: sites took {time.time() - tq:.1f}s")
+    tq = time.time()
+
+    # The three scopes, calibrated as cli.serve calibrates.
+    t = time.time()
+    models = {"none": model}
+    for scope in QUANT_SCOPES:
+        models[scope] = serve_cli.quantize_for_serving(model, scope, 256)
+    log(f"quant: calibrated and quantized {list(QUANT_SCOPES)} in {time.time() - t:.1f}s")
+    rng = np.random.default_rng(2)
+    imgs = rng.integers(0, 256, (32, 256, 256, 3), dtype=np.uint8)
+    engines = {s: InferenceEngine(m, max_batch=32) for s, m in models.items()}
+    # One b32 reconstruct at each scope (which also warms each engine)
+    # launches the bf16 table.
+    want = launches_per_reconstruct(256)
+    for scope in models:
+        reset_launches()
+        engines[scope].run("reconstruct", imgs)
+        if kernel_launches() != want:
+            fail(f"quant {scope}: launches per reconstruct {kernel_launches()} != {want}")
+    log(f"quant: one reconstruct at each scope launched the bf16 table {want[:2]}")
+
+    # Reconstruct b32 in turns, one a turn: none, resblock, ffn, all, all,
+    # ffn, resblock, none.
+    order = list(models) + list(reversed(models))
+    times = {s: [] for s in models}
+    peaks = {s: 0.0 for s in models}
+    for s in order:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        engines[s].run("reconstruct", imgs)
+        times[s].append(time.perf_counter() - t)
+        peaks[s] = max(peaks[s], (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+                       + model_gib(models[s]))
+    whole = {}
+    for s in models:
+        whole[s] = {"ms": [v * 1e3 for v in times[s]], "img_s": [32 / v for v in times[s]],
+                    "peak_gib": peaks[s], "weights_gib": model_gib(models[s])}
+        log(f"quant reconstruct b=32 @256px scope {s}: {[round(v * 1e3, 2) for v in times[s]]} "
+            f"ms ({[round(32 / v, 2) for v in times[s]]} img/s) in turns, peak memory "
+            f"{peaks[s]:.2f} GiB (weights {model_gib(models[s]):.2f}) [{CARD}]")
+    out["reconstruct"] = whole
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof
+
+        with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            engines["resblock"].run("reconstruct", imgs)
+        table = p.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "profile_reconstruct_b32_int8.txt"),
+                  "w") as f:
+            f.write(f"{CARD}\n{table}\n")
+        print(table, flush=True)
+    del engines
+    log(f"quant: scopes took {time.time() - tq:.1f}s")
+    tq = time.time()
+
+    # Accuracy: each scope's reconstruction logits (b4) against the fp32
+    # twin's, the bf16 model's beside them.
+    with torch.device("meta"):
+        twin = TransVAE(model.config.replace(dtype="float32"))
+    twin = twin.to_empty(device="cuda").eval()
+    twin.load_state_dict(model.state_dict())
+    x = torch.from_numpy(imgs[:4]).cuda().permute(0, 3, 1, 2).float() / 255.0
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        exact = twin(x)[0].float()
+        errs = {s: ((m(x)[0].float() - exact).norm() / exact.norm()).item()
+                for s, m in models.items()}
+    torch.backends.cudnn.allow_tf32 = tf32
+    del twin, exact
+    out["rel_l2_vs_fp32"] = errs
+    log(f"quant reconstruct b=4 logits vs the fp32 twin, relative L2: "
+        f"{ {s: round(v, 5) for s, v in errs.items()} } (bound {QUANT_REL_L2} for int8)")
+    if not all(np.isfinite(v) and v < QUANT_REL_L2 for s, v in errs.items() if s != "none"):
+        fail(f"quant: int8 reconstruction error {errs} exceeds {QUANT_REL_L2}")
+    for scope in QUANT_SCOPES:
+        del models[scope]
+    torch.cuda.empty_cache()
+    log(f"quant: accuracy took {time.time() - tq:.1f}s")
+
+    # cli.serve's engine over HTTP: --quantize unset, then int8 at the
+    # default scope (the other scopes' engines are the turns' above, built
+    # by the same quantize_for_serving).
+    out["serve"] = []
+    for argv in ([], ["--quantize", "int8"]):
+        args = serve_cli.build_parser().parse_args(["--variant", "large", "--max_batch", "8"]
+                                                   + argv)
+        resolved = serve_cli.resolve_quantize(args.quantize, args.mesh_model)
+        t = time.time()
+        engine = serve_cli.build_engine(args)
+        built_s = time.time() - t
+        cfg = engine.model.config
+        if (cfg.quant or "none") != resolved or (resolved == "int8"
+                                                 and cfg.quant_scope != args.quantize_scope):
+            fail(f"cli.serve {argv}: resolved {resolved!r} but built quant={cfg.quant!r} "
+                 f"scope {cfg.quant_scope!r}")
+        engine.start()
+        server = make_http_server(engine, "127.0.0.1", 0)
+        srv = threading.Thread(target=server.serve_forever, daemon=True)
+        srv.start()
+        buf = io.BytesIO()
+        np.save(buf, imgs[:4])
+        try:
+            url = f"http://127.0.0.1:{server.server_address[1]}/reconstruct?dtype=uint8"
+            with urllib.request.urlopen(url, data=buf.getvalue(), timeout=600) as r:
+                rec = np.load(io.BytesIO(r.read()))
+        finally:
+            server.shutdown()
+            server.server_close()
+            engine.stop()
+        if rec.shape != (4, 256, 256, 3) or rec.dtype != np.uint8:
+            fail(f"cli.serve {argv} round trip: {rec.shape} {rec.dtype}")
+        label = " ".join(argv) or "--quantize unset"
+        log(f"cli.serve --variant large {label} -> {resolved}"
+            f"{' scope ' + cfg.quant_scope if cfg.quant else ''}: engine built in "
+            f"{built_s:.1f}s, HTTP reconstruct of 4 uint8 images -> {rec.shape} {rec.dtype}")
+        out["serve"].append({"argv": argv, "resolved": resolved, "quant": cfg.quant,
+                             "scope": cfg.quant_scope})
+        del engine
+        torch.cuda.empty_cache()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "quant.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
+
 def main():
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,grad,train,serve,time,eval")
+    ap.add_argument("--phases", default="build,kernels,grad,train,serve,time,eval,quant")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--baseline", metavar="DIR", nargs="+", default=[],
                     help="checkouts whose wgmma kernels (WGMMA_KERNELS) are timed "
@@ -1450,29 +1753,38 @@ def main():
     phase_build()
     results, baseline = {}, {}
     if "kernels" in phases:
-        results.update(phase_kernels())
-        results.update(phase_flash_kernels())
-        results.update(phase_eval_kernels())
-        if args.baseline:
-            baseline = phase_baseline(args.baseline)
+        with phase_clock("kernels"):
+            results.update(phase_kernels())
+            results.update(phase_flash_kernels())
+            results.update(phase_eval_kernels())
+            if args.baseline:
+                baseline = phase_baseline(args.baseline)
     if "grad" in phases:
-        phase_grad()
+        with phase_clock("grad"):
+            phase_grad()
     train_counts = {}
     if "train" in phases:
-        train_counts, _ = phase_train(args.profile)
+        with phase_clock("train"):
+            train_counts, _ = phase_train(args.profile)
     counts = {}
     model = None
     evaluated = {}
-    if phases & {"serve", "time", "eval"}:
+    if phases & {"serve", "time", "eval", "quant"}:
         from deepl_project_tpu_torch import create_transvae
 
         model = create_transvae("large", 16, 32, device="cuda", seed=0)
         if "serve" in phases:
-            counts = phase_serve(model)
+            with phase_clock("serve"):
+                counts = phase_serve(model)
         if "time" in phases:
-            phase_time(model, args.profile)
+            with phase_clock("time"):
+                phase_time(model, args.profile)
         if "eval" in phases:
-            evaluated = phase_eval(model, args.profile)
+            with phase_clock("eval"):
+                evaluated = phase_eval(model, args.profile)
+        if "quant" in phases:
+            with phase_clock("quant"):
+                phase_quant(model, args.profile)
 
     if results:
         want = launches_per_reconstruct()[0] if counts else {}

@@ -1,8 +1,9 @@
 """deepl_project_tpu_torch -- the PyTorch / CUDA port of deepl_project_tpu for
 an NVIDIA H100.
 
-It carries the bf16 serving path of TransVAE (the model,
-``create_transvae``, the batching ``InferenceEngine`` and ``cli.serve``) and
+It carries the serving path of TransVAE in bf16 or int8 (the model,
+``create_transvae``, ``quantize.quantize_model``, the batching
+``InferenceEngine`` and ``cli.serve``) and
 stage-1 training (``training.Trainer``, ``cli.train``: L1 + LPIPS + KL,
 AdamW, checkpoints). The attention sublayers and the flash attention
 forward and backward run on hand-written Hopper kernels (``ops/hopper``,

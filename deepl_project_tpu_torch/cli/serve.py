@@ -1,14 +1,19 @@
-"""Serving CLI: batched TransVAE inference over HTTP (npy payloads), bf16 on
-one CUDA device (PyTorch port of ``cli/serve.py``).
+"""Serving CLI: batched TransVAE inference over HTTP (npy payloads) on one
+CUDA device, bf16 or int8 (PyTorch port of ``cli/serve.py``).
 
 Usage:
   python -m deepl_project_tpu_torch.cli.serve --checkpoint model.pt --port 8471
   python -m deepl_project_tpu_torch.cli.serve --variant tiny     # random init
+  python -m deepl_project_tpu_torch.cli.serve --quantize int8 --quantize_scope all
 
 ``--checkpoint`` takes a reference-layout ``.pt`` file, as
-``scripts/export_to_torch.py`` writes it from a JAX checkpoint. Int8 serving
-and multi-device meshes are not ported yet: ``--quantize int8`` and
-``--mesh_model > 1`` exit with a message.
+``scripts/export_to_torch.py`` writes it from a JAX checkpoint.
+``--quantize int8`` serves the int8 post-training-quantized model
+(``quantize.quantize_model``) at ``--quantize_scope``, calibrated on 8
+synthetic shapes images (two batches of 4) at ``--warmup_resolution`` or
+256px; ``--quantize`` unset serves the float model (:func:`resolve_quantize`).
+Multi-device meshes are not ported yet: ``--mesh_model > 1`` exits with a
+message.
 """
 
 from __future__ import annotations
@@ -49,11 +54,45 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_queue", type=int, default=256)
     p.add_argument("--mesh_model", type=int, default=1,
                    help="tensor-parallel serving: not yet ported (must be 1)")
-    p.add_argument("--quantize", default="none", choices=["int8", "none"],
-                   help="int8 serving is not yet ported; 'none' serves bf16")
+    p.add_argument("--quantize", default=None, choices=["int8", "none"],
+                   help="post-training int8 quantization of the served model "
+                        "at --quantize_scope. Unset: 'none' (resolve_quantize; "
+                        "the JAX package's unset is int8 on one device, but on "
+                        "an H100 the int8 path is slower: reconstruct b32 "
+                        "@256px of large f16d32 at 45.7 img/s at scope "
+                        "resblock against 82.9 img/s bf16 on an NVIDIA H100 "
+                        "80GB HBM3 at 700 W, PERF.md). 'none' serves the "
+                        "float model")
+    p.add_argument("--quantize_scope", default="resblock",
+                   choices=["all", "resblock", "ffn"],
+                   help="module families int8 covers: the ResBlock convs, "
+                        "the ConvFFN matmuls and conv, or both")
     p.add_argument("--param_dtype", default=None, choices=["bfloat16"],
                    help="keep the parameters in bf16 (half the memory)")
     return p
+
+
+def resolve_quantize(quantize: str | None, mesh_model: int) -> str:
+    """The serving default. The JAX package's signature; its rule is int8 on
+    one device (faster on a TPU) and the float model on a mesh. The port's
+    unset resolves to the float model on any mesh: the int8 path of
+    ``ops/quant.py`` (torch ops around ``torch._int_mm``) is slower than bf16
+    on an H100 at every scope (PERF.md, section 6). An explicit
+    choice is kept."""
+    del mesh_model  # the float model either way
+    return "none" if quantize is None else quantize
+
+
+def quantize_for_serving(model, scope: str, resolution: int):
+    """The int8 twin of ``model``, calibrated as the JAX server calibrates:
+    8 synthetic shapes images (seed 0) at ``resolution``, two batches of 4."""
+    import numpy as np
+
+    from ..data.datasets import synthetic_shapes_dataset
+    from ..quantize import quantize_model
+
+    imgs = list(synthetic_shapes_dataset(resolution, num_samples=8, seed=0))
+    return quantize_model(model, [np.stack(imgs[j:j + 4]) for j in (0, 4)], scope=scope)
 
 
 def build_engine(args):
@@ -79,6 +118,12 @@ def build_engine(args):
         model = create_transvae(args.variant, args.compression_ratio,
                                 args.latent_dim, device=device, seed=0, **extra)
         print("[serve] WARNING: no --checkpoint; serving random weights")
+    quantize = resolve_quantize(args.quantize, args.mesh_model)
+    if quantize == "int8":
+        res = args.warmup_resolution or 256
+        model = quantize_for_serving(model, args.quantize_scope, res)
+        print(f"[serve] int8-quantized scope={args.quantize_scope} (calibrated on "
+              f"synthetic batches at {res}px)")
     return InferenceEngine(model, max_batch=args.max_batch,
                            batch_window_ms=args.batch_window_ms,
                            max_queue=args.max_queue)
@@ -88,8 +133,6 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if bool(args.tls_cert) != bool(args.tls_key):
         raise SystemExit("--tls_cert and --tls_key must be given together")
-    if args.quantize == "int8":
-        raise SystemExit("--quantize int8: not yet ported to deepl_project_tpu_torch")
     if args.mesh_model > 1:
         raise SystemExit("--mesh_model > 1: not yet ported to deepl_project_tpu_torch")
 

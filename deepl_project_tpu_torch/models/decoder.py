@@ -16,7 +16,7 @@ from ..ops.blocks import ResBlock, TransVAEBlock
 from ..ops.layers import Conv2d
 from ..ops.norms import GroupNorm, gn_groups
 from ..ops.resample import Upsample
-from .encoder import transformer_kwargs
+from .encoder import resblock_kwargs, transformer_kwargs
 
 
 class TransVAEDecoder(nn.Module):
@@ -33,7 +33,8 @@ class TransVAEDecoder(nn.Module):
         self.upsamples = nn.ModuleList()
         for i in range(cfg.num_stages):
             if i >= n_transformer:
-                blocks = [ResBlock(dims[i], dims[i], **kw) for _ in range(depths[i])]
+                blocks = [ResBlock(dims[i], dims[i], **resblock_kwargs(cfg), **kw)
+                          for _ in range(depths[i])]
             else:
                 blocks = [TransVAEBlock(**transformer_kwargs(cfg, dims[i]), **kw)
                           for _ in range(depths[i])]

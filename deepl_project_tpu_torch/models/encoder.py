@@ -17,7 +17,15 @@ def transformer_kwargs(cfg: TransVAEConfig, dim: int) -> dict:
     return dict(dim=dim, mlp_ratio=cfg.mlp_ratio, head_dim=cfg.head_dim,
                 use_rope=cfg.use_rope, rope_pairing=cfg.rope_pairing,
                 use_conv_ffn=cfg.use_conv_ffn, conv_ffn_type=cfg.conv_ffn_type,
-                attention_impl=cfg.attention_impl)
+                attention_impl=cfg.attention_impl, calibrate=cfg.quant_calibrate,
+                quant=cfg.quant if cfg.quant_scope in ("all", "ffn") else None)
+
+
+def resblock_kwargs(cfg: TransVAEConfig) -> dict:
+    """The int8 settings of the ResBlocks (``quant_scope`` 'all' or
+    'resblock'; the ConvFFNs: 'all' or 'ffn', as in the JAX package)."""
+    return dict(calibrate=cfg.quant_calibrate,
+                quant=cfg.quant if cfg.quant_scope in ("all", "resblock") else None)
 
 
 class TransVAEEncoder(nn.Module):
@@ -32,7 +40,8 @@ class TransVAEEncoder(nn.Module):
         self.downsamples = nn.ModuleList()
         for i in range(cfg.num_stages):
             if i < cfg.num_cnn_stages:
-                blocks = [ResBlock(dims[i], dims[i], **kw) for _ in range(cfg.depths[i])]
+                blocks = [ResBlock(dims[i], dims[i], **resblock_kwargs(cfg), **kw)
+                          for _ in range(cfg.depths[i])]
             else:
                 blocks = [TransVAEBlock(**transformer_kwargs(cfg, dims[i]), **kw)
                           for _ in range(cfg.depths[i])]

@@ -9,7 +9,9 @@ The decoder emits unbounded logits.
 
 The module tree and state_dict keys are the reference's (the mapping of the
 JAX package's ``utils/convert.py``), so a reference-layout checkpoint loads
-with ``load_state_dict(strict=True)``.
+with ``load_state_dict(strict=True)``. ``quant='int8'`` builds the int8
+serving tree as the JAX config does (``quant_scope``: the ResBlocks, the
+ConvFFNs or both); ``quantize.quantize_model`` fills it from a float model.
 """
 
 from __future__ import annotations
@@ -25,9 +27,7 @@ from .encoder import TransVAEEncoder
 
 # Config settings of the JAX package whose code paths are not ported yet.
 _NOT_PORTED = {
-    "remat": False, "remat_resample": False, "scan_blocks": False,
-    "context_axis": None, "quant": None, "quant_calibrate": False,
-    "dropout": 0.0,
+    "remat": False, "remat_resample": False, "context_axis": None, "dropout": 0.0,
 }
 
 
@@ -39,6 +39,14 @@ class TransVAE(nn.Module):
                 raise NotImplementedError(
                     f"{field}={getattr(cfg, field)!r} is not yet ported to "
                     f"deepl_project_tpu_torch")
+        if cfg.scan_blocks:
+            raise NotImplementedError(
+                "scan_blocks=True names the JAX package's stacked parameter layout; "
+                "the port's model is unrolled. Build it with scan_blocks=False and "
+                "load a scan-layout tree with utils.convert.load_jax_params "
+                "(from_scanned_params unrolls it)")
+        if cfg.quant not in (None, "int8"):
+            raise ValueError(f"quant must be None or 'int8', got {cfg.quant!r}")
         self.config = cfg
         self.encoder = TransVAEEncoder(cfg, device=device)
         self.decoder = TransVAEDecoder(cfg, device=device)

@@ -39,7 +39,7 @@ from .hopper.fused_attention_block import (fused_attention_sublayer,
                                            pack_proj, pack_qkv,
                                            sublayer_supported)
 from .hopper.small_attention import small_attention
-from .layers import Linear
+from .layers import CachedOperands, Linear, matmul_f32
 from .norms import LayerNorm
 from .rope import apply_rope2d
 
@@ -63,16 +63,6 @@ _PALLAS_MIN_TOKENS_TRAIN = 4096
 _CHUNK = 1024
 
 
-def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched a @ b with fp32 accumulation and an fp32 result. The
-    ``out_dtype`` form has no derivative, so a product that autograd records
-    takes fp32 copies of its operands instead (the same products and sums)."""
-    tracked = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
-    if a.is_cuda and a.dtype != torch.float32 and not tracked:
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.bmm(a.float(), b.float())
-
-
 def xla_attention(q, k, v, scale: float) -> torch.Tensor:
     """Plain attention core: [B, N, nh, hd] x3 -> [B, N, nh, hd]. fp32 logits
     and softmax, weights rounded to v's dtype for P.V (fp32 accumulation),
@@ -87,14 +77,14 @@ def xla_attention(q, k, v, scale: float) -> torch.Tensor:
     kt = kh.transpose(1, 2)
     out = torch.empty_like(qh)
     for r0 in range(0, n, _CHUNK):
-        logits = _bmm_f32(qh[:, r0:r0 + _CHUNK], kt)
+        logits = matmul_f32(qh[:, r0:r0 + _CHUNK], kt)
         weights = torch.softmax(logits if exact else logits.mul_(scale),
                                 dim=-1).to(v.dtype)
         del logits
         if weights.dtype == torch.float32:
             out[:, r0:r0 + _CHUNK] = torch.bmm(weights, vh)
         else:
-            out[:, r0:r0 + _CHUNK] = _bmm_f32(weights, vh).to(v.dtype)
+            out[:, r0:r0 + _CHUNK] = matmul_f32(weights, vh).to(v.dtype)
     return out.reshape(b, h, n, d).permute(0, 2, 1, 3)
 
 
@@ -135,7 +125,7 @@ def core_attention(q, k, v, scale: float, impl: str = "auto") -> torch.Tensor:
     return xla_attention(q, k, v, scale)
 
 
-class AttentionRoPE(nn.Module):
+class AttentionRoPE(CachedOperands, nn.Module):
     """Multi-head global attention on an NCHW feature map."""
 
     def __init__(self, dim: int, head_dim: int = 64, use_rope: bool = True,
@@ -154,23 +144,10 @@ class AttentionRoPE(nn.Module):
         self.to_k = Linear(dim, dim, bias=False, **kw)
         self.to_v = Linear(dim, dim, bias=False, **kw)
         self.proj = Linear(dim, dim, bias=True, **kw)
-        self._packed = {}  # kernel operands: name -> (key, operands)
 
     def _qkv_args(self):
         ln = tuple((m.weight, m.bias) for m in (self.norm_q, self.norm_k, self.norm_v))
         return ln, self.to_q.weight, self.to_k.weight, self.to_v.weight
-
-    def _cached(self, name, params, make):
-        """``make()`` under no_grad (kernel operands, not differentiated),
-        rebuilt when any of ``params`` changes: another storage, or an
-        in-place update (its ``_version``)."""
-        key = tuple((p.data_ptr(), p._version) for p in params)
-        hit = self._packed.get(name)
-        if hit is None or hit[0] != key:
-            with torch.no_grad():
-                hit = (key, make())
-            self._packed[name] = hit
-        return hit[1]
 
     def _packed_qkv(self):
         """pack_qkv of the current weights, rebuilt when any of them changes."""

@@ -27,6 +27,42 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b (2-D, or batched 3-D) with fp32 accumulation and an fp32
+    result: the JAX package's ``preferred_element_type=float32``. On CUDA a
+    bf16 product takes the ``out_dtype`` form; that form has no derivative
+    (and no CPU kernel), so a product that autograd records, and any CPU
+    product, takes fp32 copies of the operands instead (the same products
+    and sums)."""
+    tracked = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+    if a.is_cuda and a.dtype != torch.float32 and not tracked:
+        return (torch.bmm if a.dim() == 3 else torch.mm)(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
+
+
+class CachedOperands:
+    """Mixin for modules whose forward reads tensors derived from their
+    parameters (cast, packed or folded weights): made once and rebuilt when
+    any of the parameters changes (another storage, or an in-place update,
+    its ``_version``)."""
+
+    def _cached(self, name, params, make, differentiable: bool = False):
+        """``make()`` under no_grad, cached per parameter version. With
+        ``differentiable``, a call that autograd records (grad on and a
+        parameter requiring it) runs ``make()`` under autograd instead, so
+        training differentiates through the derived tensors."""
+        if differentiable and torch.is_grad_enabled() and any(p.requires_grad for p in params):
+            return make()
+        key = tuple((p.data_ptr(), p._version) for p in params)
+        store = self.__dict__.setdefault("_operand_cache", {})
+        hit = store.get(name)
+        if hit is None or hit[0] != key:
+            with torch.no_grad():
+                hit = (key, make())
+            store[name] = hit
+        return hit[1]
+
+
 class GELU(nn.Module):
     """GELU at the compute precision: the tanh form in bf16 (within bf16's
     own rounding of the erf form), exact erf otherwise -- the JAX package's

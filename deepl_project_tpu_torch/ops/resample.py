@@ -6,13 +6,26 @@
 - Upsample: nearest x2 -> conv3x3 -> SiLU -> conv3x3, plus the DC path
   1x1 conv to 4*C_out -> pixel_shuffle(2), summed.
 
-The port runs this literal op order with torch's pixel_(un)shuffle, whose
-channel order is the one the JAX package's space_to_depth/depth_to_space
-reproduce. The JAX package's fused rewrites (one 2x2 stride-2 conv for the
-down DC path, one transposed conv for nearest+conv3x3 and for the up DC
-path) are the same math with other rounding and fewer FLOPs, left to a later
-change. The module tree (main_path.{0,2} / main_path.{1,3}, dc_conv) is the
-reference's.
+By default each module runs the JAX package's exact fused forms (its
+``fuse_dc`` and ``fuse_main`` flags, on by default there too):
+
+- down DC: pixel_unshuffle + 1x1 conv is one 2x2 stride-2 conv, the 1x1
+  weight [Co, 4C] read as [Co, C, 2, 2] (unshuffle's channel order
+  c*4 + i*2 + j);
+- up main: nearest x2 + conv3x3 is one stride-2 transposed conv with the
+  4x4 kernel K[u, v] = sum over dy in S_u, dx in S_v of W[dy, dx],
+  S = {0}, {0,1}, {1,2}, {2} (nearest duplication merges adjacent taps),
+  summed in the compute dtype in the JAX module's order: 16 instead of 36
+  multiply-adds an output and no 4x-size intermediate. JAX's lhs-dilated
+  conv with padding 2 is a transposed conv with padding 1 and the kernel
+  flipped;
+- up DC: 1x1 conv to 4*Co + pixel_shuffle is one 2x2 stride-2 transposed
+  conv, with the per-phase bias added to each (row, column) phase.
+
+With a flag off the literal op order runs (torch's pixel_(un)shuffle, whose
+channel order JAX's space_to_depth/depth_to_space reproduce). The module
+tree (main_path.{0,2} / main_path.{1,3}, dc_conv) and its parameters are the
+reference's either way.
 """
 
 from __future__ import annotations
@@ -21,17 +34,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Conv2d
+from .layers import CachedOperands, Conv2d
+
+# Taps of the 3x3 kernel that each of the fused up-conv's 4 rows (columns) sums.
+_UP_TAPS = ((0,), (0, 1), (1, 2), (2,))
 
 
 class Downsample(nn.Module):
     """Conv downsample x2 with an information-preserving DC shortcut."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 use_dc_path: bool = True, *, device=None,
+                 use_dc_path: bool = True, *, fuse_dc: bool = True, device=None,
                  param_dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=param_dtype)
+        self.fuse_dc = fuse_dc
         self.main_path = nn.Sequential(
             Conv2d(in_channels, in_channels, 3, padding=1, **kw), nn.SiLU(),
             Conv2d(in_channels, out_channels, 3, stride=2, padding=1, **kw))
@@ -40,19 +57,24 @@ class Downsample(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.main_path(x)
-        if self.dc_conv is not None:
-            y = y + self.dc_conv(F.pixel_unshuffle(x, 2))
-        return y
+        if self.dc_conv is None:
+            return y
+        if self.fuse_dc:
+            w, b = self.dc_conv.weight, self.dc_conv.bias
+            w = w.to(x.dtype).reshape(w.shape[0], w.shape[1] // 4, 2, 2)
+            return y + F.conv2d(x, w, b.to(x.dtype), stride=2)
+        return y + self.dc_conv(F.pixel_unshuffle(x, 2))
 
 
-class Upsample(nn.Module):
+class Upsample(CachedOperands, nn.Module):
     """Conv upsample x2 with an information-preserving DC shortcut."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 use_dc_path: bool = True, *, device=None,
-                 param_dtype=torch.float32):
+                 use_dc_path: bool = True, *, fuse_main: bool = True,
+                 fuse_dc: bool = True, device=None, param_dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=param_dtype)
+        self.fuse_main, self.fuse_dc = fuse_main, fuse_dc
         self.main_path = nn.Sequential(
             nn.Upsample(scale_factor=2, mode="nearest"),
             Conv2d(in_channels, out_channels, 3, padding=1, **kw), nn.SiLU(),
@@ -60,8 +82,45 @@ class Upsample(nn.Module):
         self.dc_conv = (Conv2d(in_channels, 4 * out_channels, 1, **kw)
                         if use_dc_path else None)
 
+    def _up_kernel(self, dt: torch.dtype) -> torch.Tensor:
+        """The fused up-conv's transposed-conv weight [Ci, Co, 4, 4] in
+        ``dt``, cached per weight version; recomputed under autograd."""
+        weight = self.main_path[1].weight
+
+        def make():
+            w = weight.to(dt)  # [Co, Ci, 3, 3]
+            rows = []
+            for su in _UP_TAPS:
+                cols = []
+                for sv in _UP_TAPS:
+                    acc = None
+                    for dy in su:
+                        for dx in sv:
+                            acc = w[:, :, dy, dx] if acc is None else acc + w[:, :, dy, dx]
+                    cols.append(acc)
+                rows.append(torch.stack(cols, -1))
+            k4 = torch.stack(rows, -2)  # [Co, Ci, u, v]
+            return k4.flip(2, 3).transpose(0, 1).contiguous()
+
+        return self._cached(("up", dt), (weight,), make, differentiable=True)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.main_path(x)
-        if self.dc_conv is not None:
-            y = y + F.pixel_shuffle(self.dc_conv(x), 2)
-        return y
+        if self.fuse_main:
+            conv = self.main_path[1]
+            y = F.conv_transpose2d(x, self._up_kernel(x.dtype), conv.bias.to(x.dtype),
+                                   stride=2, padding=1)
+            y = self.main_path[3](F.silu(y))
+        else:
+            y = self.main_path(x)
+        if self.dc_conv is None:
+            return y
+        if not self.fuse_dc:
+            return y + F.pixel_shuffle(self.dc_conv(x), 2)
+        w, b = self.dc_conv.weight, self.dc_conv.bias  # [4 Co, Ci, 1, 1], [4 Co]
+        co = w.shape[0] // 4
+        k = w.to(x.dtype).reshape(co, 2, 2, w.shape[1]).permute(3, 0, 1, 2)
+        dc = F.conv_transpose2d(x, k, stride=2).permute(0, 2, 3, 1)  # [B, 2H, 2W, Co]
+        bsz, h2, w2, _ = dc.shape
+        btile = b.to(x.dtype).reshape(co, 2, 2).permute(1, 2, 0)  # [i, j, Co]
+        dc = dc.reshape(bsz, h2 // 2, 2, w2 // 2, 2, co) + btile[:, None]
+        return y + dc.reshape(bsz, h2, w2, co).permute(0, 3, 1, 2)

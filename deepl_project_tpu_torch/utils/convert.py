@@ -1,13 +1,18 @@
 """Weights from the JAX package's param pytrees into the port: the model's
 (the port's own copy of
-``deepl_project_tpu/utils/convert.py::params_to_torch_state_dict``) and
-LPIPS's (:func:`lpips_params_from_jax`).
+``deepl_project_tpu/utils/convert.py::params_to_torch_state_dict``, which
+also takes the int8 tree of ``quantize.quantize_params`` and, through
+:func:`from_scanned_params`, the ``scan_blocks`` layout) and LPIPS's
+(:func:`lpips_params_from_jax`).
 
 The JAX tree (numpy leaves) maps onto the reference's state_dict layout,
 which is the port's: HWIO conv kernels -> OIHW, [in, out] dense kernels ->
 [out, in], ``scale`` -> ``weight``, stage{i}_block{j} -> stages.i.j,
 down{i}/up{i} -> downsamples.i/upsamples.i with the reference's
-nn.Sequential indices, conv_0/1/2 -> conv.0/2/4, conv_dw -> conv.
+nn.Sequential indices, conv_0/1/2 -> conv.0/2/4, conv_dw -> conv. Int8
+leaves keep their names, their kernels output channels first (HWIO ``kernel_q``
+-> [out, kh, kw, in], [in, out] ``kernel_q``/``w_head_q``/``w_fold_q`` ->
+[out, in]), as ``ops/quant.py`` stores them.
 """
 
 from __future__ import annotations
@@ -27,9 +32,36 @@ def _seq_name(sub: str, name: str) -> str:
     return {"main_0": "main_path.1", "main_1": "main_path.3"}[name]
 
 
+# Leaves of the int8 tree copied as they are (scales, biases of the fold).
+_INT8_PLAIN = ("kernel_scale", "act_scale", "w_head_scale", "w_fold_scale",
+               "act_scale_y", "act_scale_z2", "b0", "b_fold")
+
+
+def from_scanned_params(params: Mapping[str, Any], depths) -> dict:
+    """The JAX ``scan_blocks`` layout (``stage{i}_blocks/scan/block`` with a
+    leading depth axis) unrolled into ``stage{i}_block{j}``, for the encoder
+    (``depths``) and the decoder (``depths`` reversed); numpy leaves (the
+    port's copy of ``ops/stack.py::from_scanned_params``)."""
+    def take(node, j):
+        if isinstance(node, Mapping):
+            return {k: take(v, j) for k, v in node.items()}
+        return np.asarray(node)[j]
+
+    out = dict(params)
+    for top, ds in (("encoder", tuple(depths)), ("decoder", tuple(reversed(depths)))):
+        sub = dict(out[top])
+        for i, d in enumerate(ds):
+            stacked = sub.pop(f"stage{i}_blocks")["scan"]["block"]
+            for j in range(d):
+                sub[f"stage{i}_block{j}"] = take(stacked, j)
+        out[top] = sub
+    return out
+
+
 def params_to_torch_state_dict(params: Mapping[str, Any]) -> dict:
-    """The JAX model params (the tree under {'params': ...}) as a
-    reference-layout state_dict of numpy arrays."""
+    """The JAX model params (the tree under {'params': ...}, float or the
+    int8 tree of ``quantize_params``) as a reference-layout state_dict of
+    numpy arrays."""
     flat: dict[tuple, np.ndarray] = {}
 
     def walk(node, path):
@@ -50,8 +82,14 @@ def params_to_torch_state_dict(params: Mapping[str, Any]) -> dict:
                       if tensor.ndim == 4 else np.ascontiguousarray(tensor.T))
         elif leaf == "scale":
             torch_leaf = "weight"
-        elif leaf == "bias":
-            torch_leaf = "bias"
+        elif leaf == "kernel_q":
+            torch_leaf = leaf
+            tensor = (np.ascontiguousarray(np.transpose(tensor, (3, 0, 1, 2)))
+                      if tensor.ndim == 4 else np.ascontiguousarray(tensor.T))
+        elif leaf in ("w_head_q", "w_fold_q"):
+            torch_leaf, tensor = leaf, np.ascontiguousarray(tensor.T)
+        elif leaf == "bias" or leaf in _INT8_PLAIN:
+            torch_leaf = leaf
         else:
             raise ValueError(f"Unexpected param leaf {'.'.join(path)}")
 
@@ -91,8 +129,15 @@ def load_state_dict(model: torch.nn.Module, state_dict: Mapping[str, Any]):
     return model
 
 
+# The JAX package's quantize_params tree converts by the same walk.
+quantized_params_to_torch_state_dict = params_to_torch_state_dict
+
+
 def load_jax_params(model: torch.nn.Module, params_np: Mapping[str, Any]):
-    """Load the JAX package's param pytree (numpy leaves) into ``model``."""
+    """Load the JAX package's param pytree (numpy leaves; float, int8 or in
+    the ``scan_blocks`` layout) into ``model``."""
+    if any(k.endswith("_blocks") for k in params_np["encoder"]):
+        params_np = from_scanned_params(params_np, model.config.depths)
     return load_state_dict(model, params_to_torch_state_dict(params_np))
 
 

@@ -10,10 +10,15 @@ Tolerance: 2**-6 x max|plain| (two bf16 rounding steps at the largest
 magnitude); shapes are small, chip_smoke.py covers the main path's.
 """
 
+import copy
+
 import pytest
 import torch
 
 from deepl_project_tpu_torch import create_transvae
+from deepl_project_tpu_torch.ops import quant
+from deepl_project_tpu_torch.ops.ffn import ConvFFN
+from deepl_project_tpu_torch.ops.resample import Downsample, Upsample
 from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
 from deepl_project_tpu_torch.ops.hopper import fused_attention_block as fab
 from deepl_project_tpu_torch.ops.hopper import fused_norm as fnorm
@@ -328,3 +333,64 @@ def test_group_norm_silu_kernels_match_plain(gen, dtype, shape, groups):
     # The stats are fp32 sums: held to fp32, each within 1e-5 relative.
     stats, want = fnorm.group_stats(x, groups), fnorm.group_stats_reference(x, groups)
     assert ((stats - want).abs() <= 1e-5 * want.abs()).all()
+
+
+@pytest.mark.parametrize("kind", ["mm", "mm16", "mm1", "conv3", "conv1"])
+def test_int8_products_bit_equal_card_and_cpu(gen, kind):
+    # torch._int_mm (cuBLASLt) and the int8 im2col: int32 results equal to
+    # the CPU's exact integer products (M <= 16 through the zero rows).
+    g = torch.Generator().manual_seed(1)
+    i8 = lambda *s: torch.randint(-127, 128, s, generator=g, dtype=torch.int8)  # noqa: E731
+    if kind.startswith("mm"):
+        m = {"mm": 96, "mm16": 16, "mm1": 1}[kind]
+        x, w, fn = i8(m, 136), i8(48, 136), quant.int_mm
+    else:
+        k = 3 if kind == "conv3" else 1
+        x, w, fn = i8(3, 9, 11, 24), i8(40, k, k, 24), quant.int_conv
+    assert torch.equal(fn(x.cuda(), w.cuda()).cpu(), fn(x, w))
+
+
+def test_int8_gemm_refuses_what_cublas_does_not_take(gen):
+    for m, k, n in ((16, 60, 64), (64, 60, 64), (64, 64, 12)):
+        a = torch.zeros(m, k, dtype=torch.int8, device="cuda")
+        with pytest.raises(ValueError, match=f"M={m}, K={k}, N={n}"):
+            quant.int_mm(a, torch.zeros(n, k, dtype=torch.int8, device="cuda"))
+
+
+_REWRITES = {"ffn_fold": (lambda: ConvFFN(64), ("fold_output",)),
+             "down_dc": (lambda: Downsample(64, 128), ("fuse_dc",)),
+             "up_main": (lambda: Upsample(64, 32, False), ("fuse_main",)),
+             "up_dc": (lambda: Upsample(64, 32, fuse_main=False), ("fuse_dc",))}
+
+
+@pytest.mark.parametrize("name", sorted(_REWRITES))
+def test_rewrites_on_card(gen, name):
+    # bf16: the card's rewrite (cuBLAS with an fp32 result, cuDNN's
+    # transposed convolutions) against the same module's CPU path on the
+    # same values. fp32 with TF32 off, under autograd: the rewrite's
+    # gradients against the literal op order's (1e-4 x max).
+    make, flags = _REWRITES[name]
+    cpu = make()
+    for p in cpu.parameters():
+        p.data.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(p.numel()))
+    card = copy.deepcopy(cpu).cuda()
+    x = torch.randn(2, 64, 16, 16, generator=gen, device="cuda")
+    x = x.contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        xb = x.to(torch.bfloat16)
+        _close(card(xb).cpu(), cpu(xb.cpu()))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        grads = []
+        for on in (True, False):
+            for f in flags:
+                setattr(card, f, on)
+            card.zero_grad()
+            xr = x.clone().requires_grad_(True)
+            card(xr).square().mean().backward()
+            grads.append([xr.grad] + [p.grad for p in card.parameters()])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for a, b in zip(*grads):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()

@@ -26,6 +26,11 @@ from deepl_project_tpu.ops.pallas import flash_attention as jfa
 from deepl_project_tpu_torch.ops import attention as tattn
 from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
 
+# The process's first torch.exp on two threads (MKL's vector math setting
+# itself up from both at once) can return values off by ~1e-4 in one
+# thread's chunk; one first call on a single thread avoids that.
+torch.set_num_threads(1)
+torch.exp(torch.zeros(1 << 16))
 torch.set_num_threads(2)
 B, N, H, D, BLOCK = 1, 256, 3, 64, 128
 SCALE = D ** -0.5

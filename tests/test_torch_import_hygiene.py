@@ -28,7 +28,7 @@ _PROBE = textwrap.dedent("""
         importlib.import_module(name)
     named = {"evaluation", "utils.fid", "utils.image", "ops.hopper.small_attention",
              "ops.hopper.fused_norm", "cli.evaluate", "cli.generate",
-             "cli.rope_extrapolation", "data.transforms"}
+             "cli.rope_extrapolation", "data.transforms", "quantize", "ops.quant"}
     assert named <= {n.split(".", 1)[1] for n in names}, named
     import chip_smoke
     bad = sorted(m for m in sys.modules

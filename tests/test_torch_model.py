@@ -158,8 +158,25 @@ def test_seeded_init_is_reproducible_and_small_latent_heads():
 
 
 @pytest.mark.parametrize("field,value", [("scan_blocks", True), ("remat", True),
-                                         ("quant", "int8"), ("context_axis", "context"),
-                                         ("dropout", 0.1)])
+                                         ("context_axis", "context"), ("dropout", 0.1)])
 def test_settings_not_yet_ported_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         TransVAE(get_config("tiny_f16d32", **MICRO, **{field: value}), device="meta")
+
+
+@pytest.mark.parametrize("scope", ["all", "resblock", "ffn"])
+def test_int8_model_is_the_converted_jax_tree(scope):
+    # TransVAE(quant='int8') holds exactly the keys, shapes and dtypes of the
+    # JAX int8 model's param tree carried through the port's converter.
+    kw = dict(MICRO, quant="int8", quant_scope=scope)
+    jm = JaxTransVAE(jax_get_config("tiny_f16d32", **kw))
+    shapes = jax.eval_shape(lambda: jm.init({"params": jax.random.PRNGKey(0)},
+                                            jnp.zeros((1, 32, 32, 3)), sample=False))["params"]
+    tree = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+    want = params_to_torch_state_dict(tree)
+    got = TransVAE(get_config("tiny_f16d32", **kw), device="meta").state_dict()
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert tuple(got[k].shape) == v.shape and str(got[k].dtype) == f"torch.{v.dtype}", k
+    n_int8 = sum(v.dtype == np.int8 for v in want.values())
+    assert n_int8 == {"all": 32, "resblock": 8, "ffn": 24}[scope]

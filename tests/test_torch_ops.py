@@ -95,7 +95,7 @@ def test_apply_rope2d(pairing):
 def test_conv_ffn(conv_type, fold):
     x = _x((2, 6, 6, 16))
     jmod = jffn.ConvFFN(16, conv_type=conv_type, fold_output=fold, dtype=F32)
-    _close(*_run_pair(jmod, ffn.ConvFFN(16, conv_type=conv_type), x))
+    _close(*_run_pair(jmod, ffn.ConvFFN(16, conv_type=conv_type, fold_output=fold), x))
 
 
 def test_standard_ffn():
@@ -135,3 +135,52 @@ def test_upsample(dc):
     jmod = jresample.Upsample(32, 16, use_dc_path=dc, dtype=F32)
     _close(*_run_pair(jmod, resample.Upsample(32, 16, dc), x,
                       wrap=("decoder", "up0", "decoder.upsamples.0.")))
+
+
+_REWRITES = {
+    # name: (JAX module, port module with the rewrite on, its flags, input,
+    #        resample wrap)
+    "ffn_fold": (lambda dt: jffn.ConvFFN(16, dtype=dt), lambda: ffn.ConvFFN(16),
+                 ("fold_output",), (2, 6, 6, 16), None),
+    "down_dc": (lambda dt: jresample.Downsample(16, 32, dtype=dt),
+                lambda: resample.Downsample(16, 32), ("fuse_dc",), (2, 8, 8, 16),
+                ("encoder", "down0", "encoder.downsamples.0.")),
+    "up_main": (lambda dt: jresample.Upsample(32, 16, use_dc_path=False, dtype=dt),
+                lambda: resample.Upsample(32, 16, False), ("fuse_main",), (2, 4, 4, 32),
+                ("decoder", "up0", "decoder.upsamples.0.")),
+    "up_dc": (lambda dt: jresample.Upsample(32, 16, fuse_main=False, dtype=dt),
+              lambda: resample.Upsample(32, 16, fuse_main=False), ("fuse_dc",),
+              (2, 4, 4, 32), ("decoder", "up0", "decoder.upsamples.0.")),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(_REWRITES))
+def test_exact_rewrites_match_jax_and_the_literal_order(name, dtype):
+    jmk, tmk, flags, shape, wrap = _REWRITES[name]
+    x = _x(shape, seed=3)
+    bf16 = dtype == "bfloat16"
+    if bf16:  # both packages start from the same bf16 values
+        x = np.asarray(jnp.asarray(x, jnp.bfloat16).astype(F32))
+    tmod = tmk()
+    assert all(getattr(tmod, f) for f in flags)  # on by default
+    params = jax.jit(jmk(F32).init)(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    params = jax.tree_util.tree_map(np.asarray, params)
+    tree, prefix = params, ""
+    if wrap is not None:
+        tree, prefix = {wrap[0]: {wrap[1]: params}}, wrap[2]
+    load_state_dict(tmod, {k[len(prefix):]: v
+                           for k, v in params_to_torch_state_dict(tree).items()})
+    jdt = jnp.bfloat16 if bf16 else F32
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    ref = np.asarray(jmk(jdt).apply({"params": jparams}, jnp.asarray(x, jdt)).astype(F32))
+    xt = torch.from_numpy(x.copy()).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    xt = xt.to(torch.bfloat16 if bf16 else torch.float32)
+    with torch.inference_mode():
+        fused = tmod(xt).float().permute(0, 2, 3, 1).numpy()
+        for f in flags:
+            setattr(tmod, f, False)
+        literal = tmod(xt).float().permute(0, 2, 3, 1).numpy()
+    tol = dict(atol=2 ** -6 * np.abs(ref).max(), rtol=0) if bf16 else {}
+    _close(ref, fused, **tol)
+    _close(literal, fused, **tol)

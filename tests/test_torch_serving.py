@@ -224,8 +224,7 @@ def test_warmup_ladder_includes_non_pow2_cap_and_default_encoding():
 
 
 def test_serve_cli_refuses_what_is_not_ported():
-    for argv in (["--quantize", "int8"], ["--mesh_model", "2"],
-                 ["--tls_cert", "only.pem"]):
+    for argv in (["--mesh_model", "2"], ["--tls_cert", "only.pem"]):
         with pytest.raises(SystemExit):
             serve_cli.main(argv)
 
