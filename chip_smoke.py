@@ -63,19 +63,31 @@ Phases (any failure exits non-zero and prints no result):
    finite losses, params moved; one batch's loss and gradient norm on the
    kernel path against the plain attention core. Times steps, img/s and
    peak memory.
-5. serve: build large f16d32 in bf16 from a seed, serve it over HTTP on
+5. gan: stage 2 of the same model (README's recipe) through Trainer.fit:
+   phase train's stage-1 checkpoint resumed into a GAN trainer (frozen
+   encoder, PatchGAN at gan 0.05 with R1 10 and the disc loss floor 0.6,
+   EMA 0.999, LPIPS on random VGG), batch 8, 5 steps; the hand-off checked
+   (step carried over, optimizer count 0 and zero moments, EMA restarted,
+   discriminator fresh); launch counters set to 0 before and read after:
+   exactly 12 flash forward (the generator's 6, the discriminator update's
+   fresh forward 6) and 6 flash backward launches per step and no other
+   kernel; finite losses, disc_loss and disc_r1; the decoder and the
+   discriminator moved, the encoder bit-equal; one batch's generator loss
+   and gradient norm on the kernel path against the plain attention core
+   (the train phase's bounds). Times steps, img/s and peak memory (< 80 GB).
+6. serve: build large f16d32 in bf16 from a seed, serve it over HTTP on
    localhost through InferenceEngine (concurrent uint8/float reconstruct,
    encode and decode requests), with the launch counters set to 0 before and
    read after; check shapes, finiteness and the [0,1] range; check one
    reconstruct's launches per kernel and shape; hold one reconstruct (b=4)
    of the kernel path and of the plain bf16 path against the same weights
    in fp32; one 512px reconstruct (b=2) with its flash forward launches.
-6. time: reconstruct images/s at batch 32 through InferenceEngine.run, and
+7. time: reconstruct images/s at batch 32 through InferenceEngine.run, and
    with the JAX package's exact rewrites (ConvFFN fold_output, the fused
    resample convs; the model's default) on and off in turns (on, off, off,
    on), the module flags toggled; train times the step on and off the same
    way after its fit with --profile.
-7. eval: evaluate_model at 256px on the shapes source (2 batches of 16, LPIPS
+8. eval: evaluate_model at 256px on the shapes source (2 batches of 16, LPIPS
    and vgg_rfid on random VGG); extrapolation_sweep at 256/512/1024px on 8
    shapes images made at 1024px (chunks of 8, 8 and 4), with the launch
    counters set to 0 before and read after each resolution: at 512px 12
@@ -86,7 +98,7 @@ Phases (any failure exits non-zero and prints no result):
    fp32 (the serve phase's rule); cli/generate.py --mode random on the card.
    With --profile, a torch.profiler table of one 1024px chunk's reconstruct
    (as the train and time phases profile one step and one reconstruct).
-8. quant: int8 post-training quantization of the same model, calibrated as
+9. quant: int8 post-training quantization of the same model, calibrated as
    cli.serve calibrates (8 synthetic shapes images at 256px, two batches of
    4), at the three scopes. The int32 accumulators of torch._int_mm and the
    int8 im2col on the card bit-equal to the CPU's at a stage-0 ResBlock conv
@@ -105,7 +117,8 @@ Phases (any failure exits non-zero and prints no result):
 
 Launches are checked against one table per resolution (256, 512, 1024px;
 launches_per_reconstruct); group_norm_silu, on no model path, must show no
-launch in the train, serve and eval runs. The line before the last is the ``kernels`` JSON; the last line is
+launch in the train, gan, serve and eval runs. The line before the last is the
+``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -146,6 +159,13 @@ TRAIN_LOSS_RTOL = 1e-2
 TRAIN_GRAD_NORM_RTOL = 5e-2
 TRAIN_STEPS = 5
 COMPARE_BATCH = 4  # the plain core's saved [B, h, N, N] weights bound it
+# Stage 2 (phase gan): the yaml's stage-2 batch, no accumulation (the GAN
+# step takes the whole batch); flash launches per step: the generator's
+# forward and backward at stage 2 (6 + 6) and the discriminator update's
+# fresh forward (6).
+GAN_BATCH = 8
+GAN_STEPS = 5
+GAN_LAUNCHES_PER_STEP = {"flash_attention_fwd": 12, "flash_attention_bwd": 6}
 # (batch, N, heads) of the flash kernels' shapes: the training microbatch,
 # 256px serving at batch 32 (stage 2), 512px serving at batch 2 and the
 # 1024px sweep's chunk of 4 (stage 2).
@@ -1040,8 +1060,10 @@ def phase_grad():
             f"path (worst rel err {worst:.3e}, bound {KERNEL_RTOL:.3e})")
 
 
-def phase_train(profile: bool):
-    """Stage-1 training of large f16d32 at 256px through Trainer.fit."""
+def phase_train(profile: bool, keep_checkpoint: bool = False):
+    """Stage-1 training of large f16d32 at 256px through Trainer.fit. With
+    ``keep_checkpoint`` its checkpoint directory is kept (phase gan resumes
+    it) and returned, else deleted."""
     import shutil
 
     import numpy as np
@@ -1158,6 +1180,169 @@ def phase_train(profile: bool):
             and abs(gk - gp) <= TRAIN_GRAD_NORM_RTOL * gp):
         fail("train compare: the kernel path and the plain core disagree")
     del trainer, state, attn
+    ckpt_dir = os.path.join(out_dir, "checkpoints") if keep_checkpoint else None
+    if not keep_checkpoint:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts, {"step_ms": step_ms, "peak_gib": peak}, ckpt_dir
+
+
+def phase_gan(stage1_ckpt: str, profile: bool):
+    """Stage 2 of large f16d32 at 256px through Trainer.fit: the stage-1
+    checkpoint of phase train resumed into a GAN trainer (README's recipe:
+    frozen encoder, gan 0.05, R1 10, floor 0.6, EMA 0.999), batch 8."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from deepl_project_tpu_torch import get_config
+    from deepl_project_tpu_torch.data import input_pipeline, make_dataset
+    from deepl_project_tpu_torch.losses import LossWeights
+    from deepl_project_tpu_torch.ops.attention import AttentionRoPE
+    from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
+    from deepl_project_tpu_torch.ops.hopper import fused_attention_block as fab
+    from deepl_project_tpu_torch.training import Trainer, TrainerConfig
+    from deepl_project_tpu_torch.training.train_step import gan_generator_grads, global_norm
+
+    out_dir = os.path.join(ROOT, "outputs", "chip_smoke_gan")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    # The stage hand-off: stage 2 resumes the stage-1 checkpoint from its
+    # own output_dir.
+    os.replace(stage1_ckpt, os.path.join(out_dir, "checkpoints"))
+    shutil.rmtree(os.path.dirname(stage1_ckpt), ignore_errors=True)
+    cfg = get_config("large", 16, 32, norm_latents=True, attention_impl="auto_train")
+    weights = LossWeights(l1=1.0, lpips=1.0, kl=1e-8, vf=0.0, gan=0.05)
+    tc = TrainerConfig(batch_size=GAN_BATCH, warmup_steps=2, num_epochs=1,
+                       steps_per_epoch=GAN_STEPS, log_every=1, save_every_epochs=1,
+                       output_dir=out_dir, weights=weights, seed=0, freeze_encoder=True,
+                       ema_decay=0.999, gan_r1_gamma=10.0, gan_disc_loss_floor=0.6)
+    t0 = time.time()
+    trainer = Trainer(cfg, tc, device="cuda")
+    state, _ = trainer.maybe_resume(trainer.create_state())
+    resume_s = time.time() - t0
+    opt = state.optimizer
+    fresh = opt.count == 0 and all(not bool(m.any()) for m in opt.mu if m is not None)
+    ema_restart = all(torch.equal(t, state.model.get_parameter(n)) for n, t in state.ema.items())
+    if (state.step != TRAIN_STEPS or not fresh or not ema_restart
+            or trainer._disc_state is not None):
+        fail(f"gan hand-off: step {state.step} (want {TRAIN_STEPS}), optimizer count "
+             f"{opt.count} with zero moments {fresh}, EMA from the restored params "
+             f"{ema_restart}, discriminator {trainer._disc_state}")
+    log(f"gan hand-off: resumed the stage-1 checkpoint at step {state.step} in "
+        f"{resume_s:.1f}s; optimizer fresh (count 0, zero moments), EMA restarted from "
+        f"the restored params, discriminator fresh")
+    shutil.rmtree(os.path.join(out_dir, "checkpoints"))
+    disc = trainer._ensure_disc_state()  # as the first step would make it
+    disc_before = disc.model.conv0.weight.detach().clone()
+    encoder = {n: (p.double().sum().item(), p.double().square().sum().item())
+               for n, p in state.model.named_parameters() if n.startswith("encoder.")}
+    # The decoder's last conv and its last attention block's query weight
+    # (stage 2, the flash kernels' stage).
+    watch = ("decoder.conv_out.weight",
+             [n for n, _ in state.model.named_parameters()
+              if n.startswith("decoder.") and n.endswith(".attn.to_q.weight")][-1])
+    before = {n: state.model.get_parameter(n).detach().clone() for n in watch}
+    stamps = []
+
+    def timed(it):
+        for batch in it:
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            yield batch
+
+    data = input_pipeline(make_dataset("synthetic", resolution=256, num_samples=10 ** 6,
+                                       seed=3), GAN_BATCH, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    state = trainer.fit(timed(data), state=state)
+    fit_s = time.time() - t0
+    counts, sub, small, norm = (fla.launch_counts(), fab.launch_counts(),
+                                kernel_launches()[2], norm_launches())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if state.step != TRAIN_STEPS + GAN_STEPS or disc.step != GAN_STEPS:
+        fail(f"gan: generator step {state.step}, discriminator {disc.step}; want "
+             f"{TRAIN_STEPS + GAN_STEPS} and {GAN_STEPS}")
+    want = {k: v * GAN_STEPS for k, v in GAN_LAUNCHES_PER_STEP.items()}
+    if counts != want or sub or small or norm:
+        fail(f"gan: flash launches {counts} (want {want}), sublayer kernel launches {sub}, "
+             f"small_attention {small}, group_norm_silu {norm}")
+    log(f"gan: {GAN_STEPS} steps launched {fla.launch_counts_by_shape()} (12 forward + 6 "
+        f"backward per step), no sublayer kernel, small_attention or group_norm_silu kernel")
+    counts = {**counts, **norm}
+    with open(os.path.join(out_dir, "history.jsonl")) as f:
+        rows = [r for r in map(json.loads, f) if r["kind"] == "train"]
+    keys = ("total", "disc_loss", "disc_r1", "grad_norm")
+    if len(rows) != GAN_STEPS or not all(np.isfinite(r[k]) for r in rows for k in keys):
+        fail(f"gan: metrics {[{k: r.get(k) for k in keys} for r in rows]}")
+    moved = {n: (state.model.get_parameter(n) - before[n]).abs().max().item() for n in watch}
+    moved["disc.conv0.weight"] = (disc.model.conv0.weight - disc_before).abs().max().item()
+    enc_after = {n: (p.double().sum().item(), p.double().square().sum().item())
+                 for n, p in state.model.named_parameters() if n.startswith("encoder.")}
+    if not all(v > 0 for v in moved.values()) or enc_after != encoder:
+        fail(f"gan: decoder and discriminator change {moved}, encoder unchanged "
+             f"{enc_after == encoder}")
+    saved = sorted(os.listdir(os.path.join(out_dir, "checkpoints")))
+    # Step times from the history's stamps: each row is written once the
+    # step's metrics are on the host.
+    steps_s = np.diff([r["ts"] for r in rows])
+    step_ms = float(np.median(steps_s)) * 1e3
+    log(f"gan: losses {[round(r['total'], 5) for r in rows]}, disc_loss "
+        f"{[round(r['disc_loss'], 4) for r in rows]}, disc_r1 "
+        f"{[round(r['disc_r1'], 4) for r in rows]}, grad_norm "
+        f"{[round(r['grad_norm'], 4) for r in rows]}, disc_update_scale "
+        f"{[r['disc_update_scale'] for r in rows]}; parameter change {moved}, "
+        f"{len(encoder)} encoder tensors bit-equal, checkpoint {saved}")
+    log(f"time gan step large f16d32 @256 batch {GAN_BATCH}, bf16, frozen encoder, R1: "
+        f"{step_ms:.1f} ms/step (steps 2-{GAN_STEPS}: "
+        f"{[round(float(v) * 1e3, 1) for v in steps_s]}), {GAN_BATCH / step_ms * 1e3:.2f} "
+        f"img/s, peak memory {peak:.2f} GiB, fit incl. checkpoint {fit_s:.1f}s [{CARD}]")
+    if peak >= 80e9 / 2 ** 30:
+        fail(f"gan: peak memory {peak:.2f} GiB does not fit in 80 GB")
+
+    batch = torch.as_tensor(next(data)).to("cuda")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof
+
+        with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            trainer.step_fn(state, batch)
+            torch.cuda.synchronize()
+        table = p.key_averages().table(sort_by="cuda_time_total", row_limit=50)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "profile_gan_step.txt"), "w") as f:
+            f.write(f"{CARD}\n{table}\n")
+        print(table, flush=True)
+
+    # The GAN step's generator loss and gradients on the kernel path
+    # against the plain attention core: the same weights, discriminator and
+    # images, the mean decoded.
+    del state.optimizer, state.ema, disc.optimizer
+    torch.cuda.empty_cache()
+    batch = batch[:COMPARE_BATCH]
+    attn = [m for m in state.model.modules() if isinstance(m, AttentionRoPE)]
+    res = {}
+    for impl in ("auto_train", "xla"):
+        for m in attn:
+            m.impl = impl
+        fla.reset_launch_counts()
+        grads, metrics = gan_generator_grads(state.model, disc.model, batch, weights,
+                                             trainer.lpips_params, sample=False)
+        res[impl] = (metrics["total"].item(), global_norm(grads).item(),
+                     fla.launch_counts().get("flash_attention_bwd", 0))
+        del grads
+    (lk, gk, nk), (lp, gp, npl) = res["auto_train"], res["xla"]
+    log(f"gan compare ({COMPARE_BATCH} images): generator loss kernel path {lk:.6f} plain "
+        f"core {lp:.6f} (rel {abs(lk - lp) / abs(lp):.3e}, bound {TRAIN_LOSS_RTOL}); grad "
+        f"norm {gk:.6f} / {gp:.6f} (rel {abs(gk - gp) / gp:.3e}, bound "
+        f"{TRAIN_GRAD_NORM_RTOL})")
+    if nk != 6 or npl != 0:
+        fail(f"gan compare: flash backward launches {nk} / {npl}, want 6 / 0")
+    if not (abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp)
+            and abs(gk - gp) <= TRAIN_GRAD_NORM_RTOL * gp):
+        fail("gan compare: the kernel path and the plain core disagree")
+    del trainer, state, disc, attn
     shutil.rmtree(out_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     return counts, {"step_ms": step_ms, "peak_gib": peak}
@@ -1728,7 +1913,7 @@ def phase_quant(model, profile: bool):
 def main():
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,grad,train,serve,time,eval,quant")
+    ap.add_argument("--phases", default="build,kernels,grad,train,gan,serve,time,eval,quant")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--baseline", metavar="DIR", nargs="+", default=[],
                     help="checkouts whose wgmma kernels (WGMMA_KERNELS) are timed "
@@ -1762,10 +1947,17 @@ def main():
     if "grad" in phases:
         with phase_clock("grad"):
             phase_grad()
-    train_counts = {}
+    train_counts, stage1_ckpt = {}, None
+    if "gan" in phases and "train" not in phases:
+        fail("phase gan resumes phase train's stage-1 checkpoint: run both")
     if "train" in phases:
         with phase_clock("train"):
-            train_counts, _ = phase_train(args.profile)
+            train_counts, _, stage1_ckpt = phase_train(args.profile, "gan" in phases)
+    if "gan" in phases:
+        with phase_clock("gan"):
+            gan_counts, _ = phase_gan(stage1_ckpt, args.profile)
+        train_counts = {k: train_counts.get(k, 0) + gan_counts.get(k, 0)
+                        for k in set(train_counts) | set(gan_counts)}
     counts = {}
     model = None
     evaluated = {}
@@ -1847,7 +2039,8 @@ def main():
                              >= r["bytes"] / PEAK_HBM_BYTES else "bytes"),
                 "library_ms": r["library_ms"],
                 "per": (f"one call at the training microbatch (B, N, h)={FLASH_TRAIN}; "
-                        f"launches over {TRAIN_STEPS} training steps"),
+                        f"launches over {TRAIN_STEPS} stage-1 training steps and "
+                        f"{GAN_STEPS} stage-2 GAN steps"),
                 **extra,
             })
         r = results[("small_attention", *SMALL_512)]
@@ -1869,7 +2062,7 @@ def main():
                     d: {str(k): v for k, v in by_shape.items()}
                     for d, by_shape in baseline[row["name"]].items()}
         # group_norm_silu is on no model path (as in the JAX package): its
-        # launches in the train, serve and eval phases' runs must be 0.
+        # launches in the train, gan, serve and eval phases' runs must be 0.
         norm = {name: (train_counts.get(name, 0) + counts.get(name, 0)
                        + evaluated.get("norm_launches", {}).get(name, 0))
                 for name in ("group_norm_stats", "group_norm_apply")}
@@ -1893,7 +2086,7 @@ def main():
                 "bound_by": "bytes",
                 "library_ms": None if rows[0]["library_ms"] is None else tot("library_ms"),
                 "per": (f"one call at each of {list(GROUP_NORM_SHAPES)} bf16, summed; "
-                        f"library: {library}; launches over the train, serve and eval "
+                        f"library: {library}; launches over the train, gan, serve and eval "
                         f"phases' runs"),
             }
             if name == "group_norm_apply":

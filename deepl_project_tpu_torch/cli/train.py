@@ -1,16 +1,22 @@
-"""Training CLI (PyTorch port of ``cli/train.py``): the same flags, stage 1
-on one CUDA device.
+"""Training CLI (PyTorch port of ``cli/train.py``): the same flags, stages 1
+and 2 on one CUDA device.
 
 Usage:
+  # Stage 1
   python -m deepl_project_tpu_torch.cli.train --variant large --data synthetic \
       --batch_size 16 --accum_steps 2 --num_epochs 1 --steps_per_epoch 20 \
       --output_dir out/
+  # Stage 2: GAN finetune with a frozen encoder, resuming the stage-1
+  # checkpoint in the same --output_dir (the GAN term needs --gan_weight > 0)
+  python -m deepl_project_tpu_torch.cli.train --variant large --use_gan \
+      --freeze_encoder --gan_weight 0.05 --gan_r1_gamma 10 --ema_decay 0.999 \
+      --batch_size 8 --output_dir out/
 
 ``--device cpu`` runs the plain PyTorch path. Flags of what is not ported yet
-exit non-zero with "not yet ported": --use_gan, --gradient_checkpointing,
---scan_blocks, --optimizer adafactor, --vf_weight > 0, --perceptual self,
---mesh_model > 1, --param_sharding other than replicate, and --data other
-than synthetic/shapes.
+exit non-zero with "not yet ported": --gradient_checkpointing, --scan_blocks,
+--optimizer adafactor, --vf_weight > 0, --perceptual self, --mesh_model > 1,
+--param_sharding other than replicate, and --data other than
+synthetic/shapes.
 """
 
 from __future__ import annotations
@@ -77,8 +83,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vf_weight", type=float, default=0.0,
                    help="> 0 is not yet ported (needs the DINOv2 teacher)")
     p.add_argument("--gan_weight", type=float, default=0.0)
-    # Stage 2 (not yet ported, but parsed so configs carry over)
-    p.add_argument("--use_gan", action="store_true", help="not yet ported")
+    # Stage 2
+    p.add_argument("--use_gan", action="store_true",
+                   help="train with the PatchGAN discriminator at --gan_weight")
     p.add_argument("--freeze_encoder", action="store_true")
     p.add_argument("--gan_adaptive_weight", action="store_true")
     p.add_argument("--gan_warmup_steps", type=int, default=0)
@@ -131,7 +138,6 @@ def load_yaml_config(path: str, args: argparse.Namespace) -> dict:
 def unported_flags(args: argparse.Namespace) -> list[str]:
     """The flags set to what the port cannot do yet."""
     bad = [flag for flag, on in (
-        ("--use_gan", args.use_gan),
         ("--gradient_checkpointing", args.gradient_checkpointing),
         ("--scan_blocks", args.scan_blocks),
         ("--optimizer adafactor", args.optimizer == "adafactor"),
@@ -167,7 +173,8 @@ def main(argv=None):
                            norm_latents=args.norm_latents,
                            attention_impl=args.attention_impl)
     weights = LossWeights(l1=args.l1_weight, lpips=args.lpips_weight,
-                          kl=args.kl_weight, vf=args.vf_weight, gan=0.0)
+                          kl=args.kl_weight, vf=args.vf_weight,
+                          gan=args.gan_weight if args.use_gan else 0.0)
     train_cfg = TrainerConfig(
         batch_size=args.batch_size, accum_steps=args.accum_steps,
         learning_rate=args.lr, warmup_steps=args.warmup_steps,
@@ -180,6 +187,10 @@ def main(argv=None):
         eval_every_steps=args.eval_every_steps, output_dir=args.output_dir,
         mu_dtype=args.mu_dtype, optimizer=args.optimizer,
         ema_decay=args.ema_decay, keep_best=not args.no_keep_best,
+        gan_adaptive_weight=args.gan_adaptive_weight,
+        gan_warmup_steps=args.gan_warmup_steps, gan_ramp_steps=args.gan_ramp_steps,
+        gan_adaptive_max=args.gan_adaptive_max,
+        gan_disc_loss_floor=args.gan_disc_loss_floor, gan_r1_gamma=args.gan_r1_gamma,
         lr_schedule=args.lr_schedule,
         skip_data_on_resume=args.skip_data_on_resume,
         divergence_halt_db=args.divergence_halt_db,

@@ -146,6 +146,22 @@ def create_transvae(variant: str = "large", compression_ratio: int = 16,
     return model.eval()
 
 
+def get_last_layer(model: TransVAE) -> torch.Tensor:
+    """The decoder's final conv weight: the layer the adaptive GAN weight
+    differentiates against."""
+    return model.decoder.conv_out.weight
+
+
+def adaptive_gan_weight(rec_grad: torch.Tensor, gan_grad: torch.Tensor,
+                        max_weight: float = 1e4) -> torch.Tensor:
+    """VQGAN's adaptive weight ||grad_last L_rec|| / (||grad_last L_gan|| +
+    1e-4), clamped to [0, max_weight] and detached: it balances the
+    adversarial term against the reconstruction losses."""
+    weight = torch.linalg.vector_norm(rec_grad.float()) / (
+        torch.linalg.vector_norm(gan_grad.float()) + 1e-4)
+    return weight.clamp(0.0, max_weight).detach()
+
+
 def count_params(model: nn.Module) -> dict:
     """Parameter counts: total, encoder, decoder (works on a meta model)."""
     def _count(m):

@@ -1,5 +1,5 @@
-"""The training step: forward, loss, backward, update (PyTorch port of
-``training/train_step.py``, stage 1).
+"""The training steps: forward, loss, backward, update (PyTorch port of
+``training/train_step.py``): stage 1's and stage 2's GAN step.
 
 - Params fp32, compute in the model's dtype (bf16): the model casts each
   weight at its use, so autograd returns fp32 gradients; no loss scaling
@@ -12,8 +12,12 @@
   optimizer clips, skips non-finite steps and updates in place.
 - The latent sample's noise comes from a ``torch.Generator`` seeded from
   (seed, step), so a resumed run draws what an unbroken one would.
-
-The GAN step (stage 2) is not ported yet.
+- ``make_gan_train_step`` (stage 2): one generator update, then one
+  discriminator update on fresh reconstructions, as the JAX package's
+  ``make_gan_train_step`` computes them (its docstring has the history of
+  each control: the warmup gate and ramp, the adaptive weight and its clamp,
+  the disc loss floor, R1). Like the JAX step it takes the whole batch and
+  ignores gradient accumulation.
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ from typing import Callable
 
 import torch
 
-from ..losses.vae_loss import LossWeights, transvae_loss
+from ..losses.vae_loss import LossWeights, discriminator_loss, transvae_loss
+from ..models.transvae import adaptive_gan_weight, get_last_layer
 from .optim import AdamW
 
 
@@ -61,14 +66,16 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 def loss_and_metrics(model, images_nhwc: torch.Tensor, weights: LossWeights,
                      lpips_params: dict | None = None, sample: bool = True,
-                     generator: torch.Generator | None = None):
+                     generator: torch.Generator | None = None,
+                     disc_apply: Callable | None = None):
     """(total loss, metrics) for one batch of [B, H, W, 3] images in [0, 1]:
-    the model sees them in its compute dtype, the loss in fp32."""
+    the model sees them in its compute dtype, the loss in fp32.
+    ``disc_apply`` (NCHW images in [0, 1] -> logits) gives the GAN term."""
     target = images_nhwc.permute(0, 3, 1, 2)
     x = target.to(model.config.compute_dtype)
     recon, mu, logvar = model(x, sample=sample, generator=generator)
     losses = transvae_loss(recon, target, mu, logvar, weights,
-                           lpips_params=lpips_params)
+                           lpips_params=lpips_params, disc_apply=disc_apply)
     metrics = dict(losses)
     metrics["recon_finite_frac"] = torch.isfinite(recon).float().mean()
     metrics["mu_absmax"] = mu.detach().abs().max().float()
@@ -128,6 +135,133 @@ def make_train_step(weights: LossWeights = LossWeights(),
             _ema_update(ema_decay, state.ema, model)
         state.step += 1
         return metrics
+
+    return train_step
+
+
+def _grads(loss: torch.Tensor, params: list[torch.Tensor],
+           retain_graph: bool = False) -> list[torch.Tensor]:
+    """d loss / d params; zeros for a parameter the loss does not reach."""
+    if not loss.requires_grad:
+        return [torch.zeros_like(p) for p in params]
+    got = torch.autograd.grad(loss, params, retain_graph=retain_graph, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for g, p in zip(got, params)]
+
+
+def gan_generator_grads(model, disc, batch: torch.Tensor, weights: LossWeights,
+                        lpips_params: dict | None = None, gan_scale: float = 1.0,
+                        adaptive_weight: bool = False, adaptive_max: float = 1e4,
+                        sample: bool = True, generator: torch.Generator | None = None
+                        ) -> tuple[list[torch.Tensor], dict]:
+    """The generator's half of the GAN step: fp32 gradients of its loss for
+    every parameter of ``model`` (a frozen encoder's too, for the grad norm)
+    and the metrics.
+
+    ``gan_scale`` gates the adversarial term: metrics['gan'] already holds
+    weights.gan, and total - (1 - gan_scale) * gan removes the generator's
+    pull while the discriminator warms up. With ``adaptive_weight`` the
+    term is rescaled by VQGAN's rule, the norms of the gradients of l1 +
+    lpips and of gan with respect to the decoder's last conv weight, taken
+    on the same graph: total = l1 + lpips + kl + vf + gan_scale * w * gan."""
+    params = list(model.parameters())
+    total, metrics = loss_and_metrics(model, batch, weights, lpips_params, sample,
+                                      generator, disc_apply=disc)
+    total = total - (1.0 - gan_scale) * metrics["gan"]
+    metrics["gan_scale"] = torch.tensor(gan_scale, dtype=torch.float32, device=batch.device)
+    if adaptive_weight and weights.gan > 0:
+        last = [get_last_layer(model)]
+        rec = metrics["l1"] + metrics["lpips"]
+        w = adaptive_gan_weight(_grads(rec, last, retain_graph=True)[0],
+                                _grads(metrics["gan"], last, retain_graph=True)[0],
+                                max_weight=adaptive_max)
+        total = rec + metrics["kl"] + metrics["vf"] + gan_scale * w * metrics["gan"]
+        metrics["adaptive_gan_weight"] = w
+    metrics["total"] = total
+    grads = _grads(total, params)
+    return grads, {k: v.detach().float() for k, v in metrics.items()}
+
+
+def discriminator_grads(disc, real: torch.Tensor, fake: torch.Tensor,
+                        kind: str = "hinge", r1_gamma: float = 0.0
+                        ) -> tuple[list[torch.Tensor], dict]:
+    """The discriminator's half of the GAN step on NCHW fp32 images in [0, 1]:
+    the gradients of its loss (``kind``, plus with ``r1_gamma`` the R1
+    penalty 0.5 * gamma * mean_b ||d sum(D(real)) / d real||^2, a double
+    backward) for every parameter of ``disc``, and the metrics. ``disc_loss``
+    is the loss before R1 (what the floor reads). One forward of the real
+    images serves the loss and R1: the JAX step's two are the same function
+    of the same input."""
+    params = list(disc.parameters())
+    real = real.detach()
+    if r1_gamma > 0:
+        real.requires_grad_(True)
+    real_logits = disc(real)
+    fake_logits = disc(fake.detach())
+    loss = discriminator_loss(real_logits, fake_logits, kind)
+    metrics = {"disc_loss": loss.detach(), "disc_real_mean": real_logits.detach().mean(),
+               "disc_fake_mean": fake_logits.detach().mean()}
+    if r1_gamma > 0:
+        (g,) = torch.autograd.grad(real_logits.float().sum(), real, create_graph=True)
+        r1 = g.square().flatten(1).sum(dim=-1).mean()
+        loss = loss + 0.5 * r1_gamma * r1
+        metrics["disc_r1"] = r1.detach()
+    return _grads(loss, params), metrics
+
+
+def make_gan_train_step(weights: LossWeights = LossWeights(),
+                        lpips_params: dict | None = None, disc_loss_kind: str = "hinge",
+                        adaptive_weight: bool = False, ema_decay: float | None = None,
+                        gan_warmup_steps: int = 0, gan_ramp_steps: int = 1,
+                        adaptive_max: float = 1e4, disc_loss_floor: float = 0.0,
+                        r1_gamma: float = 0.0, seed: int = 0) -> Callable:
+    """fn(gen_state, disc_state, batch) -> metrics: one generator update and
+    one discriminator update on ``batch`` ([B, H, W, 3] in [0, 1]), both
+    states updated in place.
+
+    - gan_scale = clip((disc_step - gan_warmup_steps + 1) / max(ramp, 1), 0,
+      1), read from the discriminator's step before its update: the gate is
+      stage-2 relative even when the generator resumes at step 6000.
+    - The generator's update (its optimizer partitions a frozen encoder),
+      then its EMA.
+    - The discriminator trains on fresh reconstructions: a second forward
+      with the updated parameters, without grad, drawing the same latent
+      noise as the generator's forward (its generator is rebuilt from the
+      same seed and step); fake = sigmoid(recon) in fp32.
+    - ``disc_loss_floor``: while disc_loss is below it, D's gradients are
+      multiplied by 0 and its optimizer still steps, so Adam's moments move
+      D's parameters; mirrored from the JAX step, not fixed.
+    """
+
+    def train_step(gen_state: TrainState, disc_state: TrainState,
+                   batch: torch.Tensor) -> dict:
+        model, disc, step = gen_state.model, disc_state.model, gen_state.step
+        past_gate = float(disc_state.step - gan_warmup_steps + 1)
+        gan_scale = min(max(past_gate / max(gan_ramp_steps, 1), 0.0), 1.0)
+
+        grads, metrics = gan_generator_grads(
+            model, disc, batch, weights, lpips_params, gan_scale, adaptive_weight,
+            adaptive_max, generator=step_generator(seed, step, batch.device))
+        metrics["grad_norm"] = global_norm(grads)
+        gen_state.optimizer.step(grads)
+        del grads
+        if ema_decay is not None:
+            _ema_update(ema_decay, gen_state.ema, model)
+        gen_state.step += 1
+
+        real = batch.permute(0, 3, 1, 2).float().contiguous()
+        with torch.no_grad():
+            recon = model(real.to(model.config.compute_dtype), sample=True,
+                          generator=step_generator(seed, step, batch.device))[0]
+            fake = torch.sigmoid(recon.float())
+        del recon
+        d_grads, d_metrics = discriminator_grads(disc, real, fake, disc_loss_kind, r1_gamma)
+        if disc_loss_floor > 0:
+            d_scale = (d_metrics["disc_loss"] >= disc_loss_floor).float()
+            torch._foreach_mul_(d_grads, d_scale)
+            d_metrics["disc_update_scale"] = d_scale
+        disc_state.optimizer.step(d_grads)
+        disc_state.step += 1
+        return {**metrics, **d_metrics}
 
     return train_step
 

@@ -1,4 +1,4 @@
-"""The training loop (PyTorch port of ``training/trainer.py``, stage 1).
+"""The training loop (PyTorch port of ``training/trainer.py``), both stages.
 
 Assembles model, data, loss, optimizer, logging and checkpointing: synthetic
 or streamed batches -> ``Trainer.fit`` -> bf16 forward with fp32 params,
@@ -7,9 +7,15 @@ and NaN-skip -> checkpoint. Validation PSNR/SSIM every ``eval_every_steps``,
 a best checkpoint, the divergence breaker, a checkpoint on SIGTERM/SIGINT,
 and ``skip_data_on_resume``, as in the JAX trainer.
 
-Not ported yet (they raise): the GAN stage (``weights.gan > 0``), the VF
-teacher, ``perceptual='self'``, model parallelism (``mesh_model > 1``) and
-parameter sharding other than ``replicate`` (one device).
+Stage 2 (``weights.gan > 0``): a PatchGAN discriminator with its own AdamW
+(no warmup, no freeze) and its own step count, trained by
+``make_gan_train_step`` one update per generator update; its parameters,
+optimizer and step go in the checkpoint. A stage hand-off resumes as in the
+JAX trainer (:meth:`Trainer.maybe_resume`).
+
+Not ported yet (they raise): the VF teacher, ``perceptual='self'``, model
+parallelism (``mesh_model > 1``) and parameter sharding other than
+``replicate`` (one device).
 """
 
 from __future__ import annotations
@@ -27,13 +33,14 @@ import torch
 
 from ..config import TransVAEConfig
 from ..losses import LossWeights, get_lpips_params, lpips_params_available
+from ..models.discriminator import PatchDiscriminator, init_disc_weights
 from ..models.transvae import TransVAE, init_weights, resolve_device
 from ..utils.metrics import psnr, ssim
 from .checkpoint import (checkpoint_metrics, latest_step, restore_checkpoint,
                          save_checkpoint)
 from .optim import make_optimizer
 from .schedule import warmup_cosine
-from .train_step import TrainState, init_ema, make_train_step
+from .train_step import TrainState, init_ema, make_gan_train_step, make_train_step
 
 
 @dataclasses.dataclass
@@ -82,6 +89,12 @@ def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not yet ported to deepl_project_tpu_torch")
 
 
+def _same_trainable(saved: dict, opt) -> bool:
+    """Whether a saved optimizer state holds moments for exactly the
+    parameters ``opt`` trains (a frozen encoder has none)."""
+    return set(saved["mu"]) == {n for n, m in zip(opt.names, opt.mu) if m is not None}
+
+
 class RunHistory:
     """Append-only JSONL run record (<output_dir>/history.jsonl)."""
 
@@ -123,8 +136,6 @@ class Trainer:
         cfg = train_config
         if teacher_fn is not None:
             _not_ported("the VF teacher (vf_weight > 0)")
-        if cfg.weights.gan > 0:
-            _not_ported("the GAN stage (weights.gan > 0)")
         if cfg.perceptual == "self":
             _not_ported("perceptual='self'")
         if cfg.perceptual != "vgg":
@@ -144,10 +155,30 @@ class Trainer:
             if not lpips_params_available():
                 print("[trainer] WARNING: no pretrained LPIPS weights found; "
                       "using random-init VGG (run scripts/convert_lpips_weights.py)")
-        self.step_fn = make_train_step(cfg.weights, self.lpips_params,
-                                       accum_steps=cfg.accum_steps,
-                                       ema_decay=cfg.ema_decay or None,
-                                       seed=cfg.seed)
+        self.use_gan = cfg.weights.gan > 0
+        self._disc_state: TrainState | None = None
+        if self.use_gan:
+            # As the JAX GAN step, this one takes the whole batch:
+            # accum_steps does not apply to stage 2.
+            gan_step = make_gan_train_step(
+                cfg.weights, self.lpips_params,
+                adaptive_weight=cfg.gan_adaptive_weight,
+                ema_decay=cfg.ema_decay or None,
+                gan_warmup_steps=cfg.gan_warmup_steps,
+                gan_ramp_steps=cfg.gan_ramp_steps,
+                adaptive_max=cfg.gan_adaptive_max,
+                disc_loss_floor=cfg.gan_disc_loss_floor,
+                r1_gamma=cfg.gan_r1_gamma, seed=cfg.seed)
+
+            def gan_adapter(state, batch):
+                return gan_step(state, self._ensure_disc_state(), batch)
+
+            self.step_fn = gan_adapter
+        else:
+            self.step_fn = make_train_step(cfg.weights, self.lpips_params,
+                                           accum_steps=cfg.accum_steps,
+                                           ema_decay=cfg.ema_decay or None,
+                                           seed=cfg.seed)
         self._best_psnr = float("-inf")
         self._best_raw_psnr = float("-inf")
 
@@ -174,19 +205,67 @@ class Trainer:
         return TrainState(step=0, model=model, optimizer=opt,
                           ema=init_ema(model) if c.ema_decay else None)
 
+    def _ensure_disc_state(self) -> TrainState:
+        """The discriminator's train state, made at first use: weights from a
+        generator seeded with seed + 1 (the JAX trainer's PRNGKey(seed + 1)
+        is another stream), AdamW at the generator's rate without warmup."""
+        if self._disc_state is None:
+            mc, c = self.model_config, self.cfg
+            with torch.device("meta"):
+                disc = PatchDiscriminator(dtype=mc.compute_dtype, param_dtype=mc.params_dtype)
+            disc = disc.to_empty(device=self.device)
+            init_disc_weights(disc, torch.Generator(device=self.device).manual_seed(c.seed + 1))
+            opt = make_optimizer(disc.named_parameters(), learning_rate=c.learning_rate,
+                                 warmup_steps=0, max_grad_norm=c.max_grad_norm)
+            self._disc_state = TrainState(step=0, model=disc, optimizer=opt)
+        return self._disc_state
+
     def maybe_resume(self, state: TrainState) -> tuple[TrainState, int]:
+        """Restore the newest checkpoint under output_dir/checkpoints.
+
+        The JAX trainer's rule: everything is restored only when the
+        checkpoint's keys are the live state's (model, optimizer, step, ema
+        with EMA on, and with the GAN on the discriminator's keys the
+        checkpoint has) and the saved optimizer trains the same parameters.
+        Otherwise (a stage hand-off: freeze_encoder toggled, EMA added, a
+        stage-2 checkpoint into stage 1) the model and the step only: the
+        optimizer stays fresh (its warmup starts again), the EMA shadow
+        restarts from the restored parameters and the discriminator starts
+        at step 0. A checkpoint without disc_step restores D at step 0."""
         ckpt_dir = os.path.join(self.cfg.output_dir, "checkpoints")
         if latest_step(ckpt_dir) is None:
             return state, 0
         payload, meta = restore_checkpoint(ckpt_dir, map_location=self.device)
+        keys = set(payload)
+        live = {"model", "optimizer", "step"} | ({"ema"} if state.ema is not None else set())
+        if self.use_gan and "disc_model" in keys:
+            live |= {"disc_model", "disc_optimizer"} | ({"disc_step"} & keys)
+        full = keys == live
+        if full and not _same_trainable(payload["optimizer"], state.optimizer):
+            print("[trainer] structured restore failed (the saved optimizer trains "
+                  "other parameters); falling back to params/step-only restore")
+            full = False
         state.model.load_state_dict(payload["model"], strict=True)
-        state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
-        if state.ema is not None:
-            saved = payload.get("ema")
-            with torch.no_grad():
-                for n, t in state.ema.items():
-                    t.copy_(saved[n] if saved is not None else state.model.get_parameter(n))
+        if full:
+            state.optimizer.load_state_dict(payload["optimizer"])
+            if state.ema is not None:
+                with torch.no_grad():
+                    for n, t in state.ema.items():
+                        t.copy_(payload["ema"][n])
+            if "disc_model" in payload:
+                disc = self._ensure_disc_state()
+                disc.model.load_state_dict(payload["disc_model"], strict=True)
+                disc.optimizer.load_state_dict(payload["disc_optimizer"])
+                disc.step = int(payload.get("disc_step", 0))
+        else:
+            print(f"[trainer] WARNING: checkpoint keys {sorted(keys)} do not match the "
+                  "live state; restoring params/step only (optimizer state reset)")
+            if state.ema is not None:
+                with torch.no_grad():
+                    for n, t in state.ema.items():
+                        t.copy_(state.model.get_parameter(n))
+        del payload
         best = checkpoint_metrics(os.path.join(self.cfg.output_dir, "checkpoints_best"))
         if best is not None:
             self._best_psnr = self._selection_psnr(best)
@@ -348,6 +427,10 @@ class Trainer:
                    "optimizer": state.optimizer.state_dict(), "step": state.step}
         if state.ema is not None:
             payload["ema"] = state.ema
+        if self.use_gan and self._disc_state is not None:
+            d = self._disc_state
+            payload.update(disc_model=d.model.state_dict(),
+                           disc_optimizer=d.optimizer.state_dict(), disc_step=d.step)
         saved_cfg = self.model_config
         if saved_cfg.attention_impl == "auto_train":
             saved_cfg = saved_cfg.replace(attention_impl="auto")

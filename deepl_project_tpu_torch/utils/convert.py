@@ -2,7 +2,8 @@
 (the port's own copy of
 ``deepl_project_tpu/utils/convert.py::params_to_torch_state_dict``, which
 also takes the int8 tree of ``quantize.quantize_params`` and, through
-:func:`from_scanned_params`, the ``scan_blocks`` layout) and LPIPS's
+:func:`from_scanned_params`, the ``scan_blocks`` layout), the PatchGAN
+discriminator's (:func:`disc_params_to_torch_state_dict`) and LPIPS's
 (:func:`lpips_params_from_jax`).
 
 The JAX tree (numpy leaves) maps onto the reference's state_dict layout,
@@ -139,6 +140,29 @@ def load_jax_params(model: torch.nn.Module, params_np: Mapping[str, Any]):
     if any(k.endswith("_blocks") for k in params_np["encoder"]):
         params_np = from_scanned_params(params_np, model.config.depths)
     return load_state_dict(model, params_to_torch_state_dict(params_np))
+
+
+def disc_params_to_torch_state_dict(params: Mapping[str, Any]) -> dict:
+    """The JAX ``PatchDiscriminator``'s params ({'conv0': {'kernel', 'bias'},
+    'conv1': {'kernel'}, 'norm1': {'scale', 'bias'}, ..., 'conv_out'}, numpy
+    or array leaves) as the port's state_dict of numpy arrays: HWIO kernels
+    -> OIHW ``weight``, ``scale`` -> ``weight``."""
+    out: dict[str, np.ndarray] = {}
+    for module, leaves in params.items():
+        for leaf, value in leaves.items():
+            a = np.asarray(value)
+            if leaf == "kernel":
+                out[f"{module}.weight"] = np.ascontiguousarray(np.transpose(a, (3, 2, 0, 1)))
+            elif leaf in ("scale", "bias"):
+                out[f"{module}.{'weight' if leaf == 'scale' else 'bias'}"] = a
+            else:
+                raise ValueError(f"Unexpected discriminator param {module}.{leaf}")
+    return out
+
+
+def load_jax_disc_params(disc: torch.nn.Module, params_np: Mapping[str, Any]):
+    """Load the JAX ``PatchDiscriminator``'s params into ``disc``."""
+    return load_state_dict(disc, disc_params_to_torch_state_dict(params_np))
 
 
 def load_reference_checkpoint(model: torch.nn.Module, path: str):

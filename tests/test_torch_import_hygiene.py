@@ -28,7 +28,8 @@ _PROBE = textwrap.dedent("""
         importlib.import_module(name)
     named = {"evaluation", "utils.fid", "utils.image", "ops.hopper.small_attention",
              "ops.hopper.fused_norm", "cli.evaluate", "cli.generate",
-             "cli.rope_extrapolation", "data.transforms", "quantize", "ops.quant"}
+             "cli.rope_extrapolation", "data.transforms", "quantize", "ops.quant",
+             "models.discriminator"}
     assert named <= {n.split(".", 1)[1] for n in names}, named
     import chip_smoke
     bad = sorted(m for m in sys.modules
@@ -45,6 +46,7 @@ _PROBE = textwrap.dedent("""
                    lambda: serve.build_engine(serve.build_parser().parse_args([])),
                    lambda: Trainer(get_config("tiny"),
                                    TrainerConfig(weights=LossWeights(gan=0.0))),
+                   lambda: Trainer(get_config("tiny"), TrainerConfig(weights=LossWeights())),
                    lambda: evaluate.main([]), lambda: generate.main([]),
                    lambda: rope_extrapolation.main([])):
             try:

@@ -242,7 +242,7 @@ def test_checkpoint_interop_and_synthetic_data(tmp_path, micro_pair):
             assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
 
 
-@pytest.mark.parametrize("flags", [["--use_gan"], ["--gradient_checkpointing"],
+@pytest.mark.parametrize("flags", [["--gradient_checkpointing"],
                                    ["--scan_blocks"], ["--optimizer", "adafactor"],
                                    ["--vf_weight", "0.1"], ["--perceptual", "self"],
                                    ["--mesh_model", "2"], ["--data", "hf:imagenet"]])
@@ -253,7 +253,7 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path, flags):
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     cfg = get_config(VARIANT, **MICRO)
-    for kw in (dict(weights=LossWeights()), dict(perceptual="self"), dict(mesh_model=2)):
+    for kw in (dict(perceptual="self"), dict(mesh_model=2)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             Trainer(cfg, TrainerConfig(**{"weights": LossWeights(gan=0.0), **kw}),
                     device="cpu")
