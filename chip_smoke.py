@@ -75,19 +75,42 @@ Phases (any failure exits non-zero and prints no result):
    discriminator moved, the encoder bit-equal; one batch's generator loss
    and gradient norm on the kernel path against the plain attention core
    (the train phase's bounds). Times steps, img/s and peak memory (< 80 GB).
-6. serve: build large f16d32 in bf16 from a seed, serve it over HTTP on
+   Phase train's checkpoint is hard-linked, not moved: phase remat reads it.
+6. recipe: the repo's own stage-1 recipe, configs/transvae_large_f16d32.yaml
+   read by the train CLI's load_yaml_config: large f16d32 @256, batch 8 in 4
+   microbatches of 2, L1 + LPIPS (random VGG) + KL 1e-8 + VF 0.1 through
+   make_vf_teacher (the stub teacher where no DINOv2 weights are on the
+   machine), AdamW (warmup cut to 2), 5 steps of Trainer.fit; exactly 24
+   flash forward and 24 backward launches per step and no other kernel;
+   finite losses, the VF term finite and > 0, vf_proj moved. Times steps,
+   img/s and peak memory. With --profile (here and in remat), one step
+   (one compute_grads without remat, under none and under dots) under
+   torch.profiler: wall and device ms, aten calls, a table in chiprun_out/.
+7. remat: gradient checkpointing. One compute_grads of a batch of 8 @256
+   (L1 + LPIPS + KL) with no remat and under each policy (none, dots,
+   dots_all, conv_dots, dots + remat_resample): ms (median of 3 after a
+   warm-up), peak memory, flash launches (6 forward without remat, 12 with:
+   each block's forward runs again in its recompute; 6 backward), loss and
+   grad norm within 1e-3 relative of no remat. Then Trainer.fit with remat
+   'dots' and Adafactor at batch 16 in one microbatch (5 steps, < 80 GB,
+   12 + 6 flash launches a step), and one step with perceptual='self' on
+   phase train's checkpoint (its frozen encoder at attention 'auto': the
+   flash and sublayer kernels on the target, on the reconstruction and in
+   that checkpoint's recompute; the flash backward on the reconstruction's
+   side): ms, peak and launches.
+8. serve: build large f16d32 in bf16 from a seed, serve it over HTTP on
    localhost through InferenceEngine (concurrent uint8/float reconstruct,
    encode and decode requests), with the launch counters set to 0 before and
    read after; check shapes, finiteness and the [0,1] range; check one
    reconstruct's launches per kernel and shape; hold one reconstruct (b=4)
    of the kernel path and of the plain bf16 path against the same weights
    in fp32; one 512px reconstruct (b=2) with its flash forward launches.
-7. time: reconstruct images/s at batch 32 through InferenceEngine.run, and
+9. time: reconstruct images/s at batch 32 through InferenceEngine.run, and
    with the JAX package's exact rewrites (ConvFFN fold_output, the fused
    resample convs; the model's default) on and off in turns (on, off, off,
    on), the module flags toggled; train times the step on and off the same
    way after its fit with --profile.
-8. eval: evaluate_model at 256px on the shapes source (2 batches of 16, LPIPS
+10. eval: evaluate_model at 256px on the shapes source (2 batches of 16, LPIPS
    and vgg_rfid on random VGG); extrapolation_sweep at 256/512/1024px on 8
    shapes images made at 1024px (chunks of 8, 8 and 4), with the launch
    counters set to 0 before and read after each resolution: at 512px 12
@@ -98,7 +121,7 @@ Phases (any failure exits non-zero and prints no result):
    fp32 (the serve phase's rule); cli/generate.py --mode random on the card.
    With --profile, a torch.profiler table of one 1024px chunk's reconstruct
    (as the train and time phases profile one step and one reconstruct).
-9. quant: int8 post-training quantization of the same model, calibrated as
+11. quant: int8 post-training quantization of the same model, calibrated as
    cli.serve calibrates (8 synthetic shapes images at 256px, two batches of
    4), at the three scopes. The int32 accumulators of torch._int_mm and the
    int8 im2col on the card bit-equal to the CPU's at a stage-0 ResBlock conv
@@ -117,7 +140,8 @@ Phases (any failure exits non-zero and prints no result):
 
 Launches are checked against one table per resolution (256, 512, 1024px;
 launches_per_reconstruct); group_norm_silu, on no model path, must show no
-launch in the train, gan, serve and eval runs. The line before the last is the
+launch in the train, gan, recipe, remat, serve and eval runs. The DINOv2
+teacher is looked up with the Hugging Face libraries offline. The line before the last is the
 ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -166,10 +190,26 @@ COMPARE_BATCH = 4  # the plain core's saved [B, h, N, N] weights bound it
 GAN_BATCH = 8
 GAN_STEPS = 5
 GAN_LAUNCHES_PER_STEP = {"flash_attention_fwd": 12, "flash_attention_bwd": 6}
+# Phase recipe: the repo's stage-1 recipe as the yaml sets it (batch 8 in 4
+# microbatches of 2): per step 4 x (6 forward + 6 backward) flash launches.
+RECIPE_YAML = "configs/transvae_large_f16d32.yaml"
+RECIPE_STEPS = 5
+# Phase remat: one compute_grads of a batch of 8 under each setting
+# (policy, remat_resample); None is no remat.
+REMAT_BATCH = 8
+REMAT_CASES = (("no remat", None, False), ("none", "none", False), ("dots", "dots", False),
+               ("dots_all", "dots_all", False), ("conv_dots", "conv_dots", False),
+               ("dots+resample", "dots", True))
+REMAT_RTOL = 1e-3  # loss and grad norm against no remat
+REMAT_FIT_BATCH = 16  # one microbatch: without remat 2 x 8 peaks at ~68 GiB
+REMAT_FIT_STEPS = 5
 # (batch, N, heads) of the flash kernels' shapes: the training microbatch,
 # 256px serving at batch 32 (stage 2), 512px serving at batch 2 and the
 # 1024px sweep's chunk of 4 (stage 2).
 FLASH_TRAIN = (8, 4096, 6)
+# The other training shapes, checked only: phase recipe's microbatch of 2
+# and phase remat's fit at batch 16.
+FLASH_TRAIN_CHECKED = ((2, 4096, 6), (16, 4096, 6))
 FLASH_SERVE_256 = (32, 4096, 6)
 FLASH_SERVE_512 = (2, 16384, 6)
 FLASH_SWEEP_1024 = (4, 65536, 6)
@@ -263,9 +303,10 @@ def phase_build():
 
 
 # -- phase 2 -------------------------------------------------------------
-def kernel_shapes():
+def kernel_shapes(batch: int = 32):
     """(N, C, height, width, batch) of the main path's attention stages."""
-    return [(4096, 384, 64, 64, 32), (1024, 768, 32, 32, 32), (256, 1536, 16, 16, 32)]
+    return [(4096, 384, 64, 64, batch), (1024, 768, 32, 32, batch),
+            (256, 1536, 16, 16, batch)]
 
 
 def launches_per_reconstruct(res: int = 256, forwards: int = 1) -> tuple[dict, dict, dict, dict]:
@@ -362,20 +403,23 @@ def phase_kernels():
     def randn(*shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
 
-    def check(name, n, c, got, ref):
+    def check(name, shape, got, ref):
         got, ref = got.float(), ref.float()
         if not bool(torch.isfinite(got).all()):
-            fail(f"{name} N={n} C={c}: non-finite output")
+            fail(f"{name} (B, N, C)={shape}: non-finite output")
         err = (got - ref).abs().max().item()
         top = ref.abs().max().item()
         lim = KERNEL_RTOL * top
-        log(f"check {name} N={n} C={c}: max_abs_err={err:.3e} max|plain|={top:.3e} "
+        log(f"check {name} (B, N, C)={shape}: max_abs_err={err:.3e} max|plain|={top:.3e} "
             f"rel={err / top:.3e} bound={lim:.3e} (rel {KERNEL_RTOL:.3e})")
         if not err <= lim:
-            fail(f"{name} N={n} C={c}: max_abs_err {err:.3e} > {lim:.3e}")
+            fail(f"{name} (B, N, C)={shape}: max_abs_err {err:.3e} > {lim:.3e}")
         return err
 
-    for n, c, hh, ww, b in kernel_shapes():
+    # Serving at b32 (checked and timed), then the self-perceptual step's
+    # frozen encoder at b8 (checked only; its max_abs_err joins the row's).
+    for n, c, hh, ww, b in kernel_shapes() + kernel_shapes(REMAT_BATCH):
+        timed, shape = b == 32, (b, n, c)
         nh = c // 64
         x = randn(b, n, c, dtype=bf)
         ln = tuple((1 + randn(c, scale=0.1), randn(c, scale=0.1)) for _ in range(3))
@@ -387,24 +431,29 @@ def phase_kernels():
         q, k, v = fab.ln_qkv_rope(*args, packed=packed)
         torch.cuda.synchronize()
         ref = fab.qkv_rope_reference(*args)
-        err = max(check("ln_qkv_rope", n, c, t, r) for t, r in zip((q, k, v), ref))
-        rec = {"ln_qkv_rope": {"err": err}}
-        rec["ln_qkv_rope"]["ms"] = cuda_time_ms(lambda: fab.ln_qkv_rope(*args, packed=packed), 20)
-        rec["ln_qkv_rope"]["plain_ms"] = cuda_time_ms(lambda: fab.qkv_rope_reference(*args), 5)
-        rec["ln_qkv_rope"]["library_ms"] = None  # no single PyTorch call
-        rec["ln_qkv_rope"]["yardstick_ms"] = qkv_yardstick_ms(x, ln, packed[0])
+        errs = {"ln_qkv_rope": max(check("ln_qkv_rope", shape, t, r)
+                                   for t, r in zip((q, k, v), ref))}
+        rec = {}
+        if timed:
+            rec["ln_qkv_rope"] = {
+                "ms": cuda_time_ms(lambda: fab.ln_qkv_rope(*args, packed=packed), 20),
+                "plain_ms": cuda_time_ms(lambda: fab.qkv_rope_reference(*args), 5),
+                "library_ms": None,  # no single PyTorch call
+                "yardstick_ms": qkv_yardstick_ms(x, ln, packed[0])}
         if n <= fab.MAX_SUBLAYER_TOKENS:
             scale = 64 ** -0.5
             o = fab.attention_core(q, k, v, scale)
             torch.cuda.synchronize()
-            err = check("attention_core", n, c, o, fab.attention_core_reference(q, k, v, scale))
+            errs["attention_core"] = check("attention_core", shape, o,
+                                           fab.attention_core_reference(q, k, v, scale))
             heads = [t.reshape(b, n, nh, 64).transpose(1, 2) for t in (q, k, v)]
-            rec["attention_core"] = {
-                "err": err,
-                "ms": cuda_time_ms(lambda: fab.attention_core(q, k, v, scale), 20),
-                "plain_ms": cuda_time_ms(lambda: fab.attention_core_reference(q, k, v, scale), 5),
-                "library_ms": cuda_time_ms(
-                    lambda: F.scaled_dot_product_attention(*heads), 20)}
+            if timed:
+                rec["attention_core"] = {
+                    "ms": cuda_time_ms(lambda: fab.attention_core(q, k, v, scale), 20),
+                    "plain_ms": cuda_time_ms(
+                        lambda: fab.attention_core_reference(q, k, v, scale), 5),
+                    "library_ms": cuda_time_ms(
+                        lambda: F.scaled_dot_product_attention(*heads), 20)}
             o = o.contiguous()
             # The weight cast once, as AttentionRoPE caches it: the kernel and
             # F.linear are timed on the same bf16 weight.
@@ -412,17 +461,18 @@ def phase_kernels():
             bpb = bp.to(bf)
             out = fab.proj_bias_gemm(o, wpk, bpk)
             torch.cuda.synchronize()
-            err = check("proj_bias_gemm", n, c, out, fab.proj_bias_reference(o, wp, bp))
-            rec["proj_bias_gemm"] = {
-                "err": err,
-                "ms": cuda_time_ms(lambda: fab.proj_bias_gemm(o, wpk, bpk), 20),
-                "plain_ms": cuda_time_ms(lambda: fab.proj_bias_reference(o, wp, bp), 5),
-                "library_ms": cuda_time_ms(lambda: F.linear(o, wpk, bpb), 20)}
+            errs["proj_bias_gemm"] = check("proj_bias_gemm", shape, out,
+                                           fab.proj_bias_reference(o, wp, bp))
+            if timed:
+                rec["proj_bias_gemm"] = {
+                    "ms": cuda_time_ms(lambda: fab.proj_bias_gemm(o, wpk, bpk), 20),
+                    "plain_ms": cuda_time_ms(lambda: fab.proj_bias_reference(o, wp, bp), 5),
+                    "library_ms": cuda_time_ms(lambda: F.linear(o, wpk, bpb), 20)}
             # Row 1 as a whole, and its library composition for comparison.
             sub = (x, ln, wq, wk, wv, wp, bp, hh, ww)
             full = fab.fused_attention_sublayer(*sub, packed=packed, packed_proj=(wpk, bpk))
             torch.cuda.synchronize()
-            check("fused_attention_sublayer", n, c, full, fab.sublayer_reference(*sub))
+            check("fused_attention_sublayer", shape, full, fab.sublayer_reference(*sub))
             wb = [w.to(bf) for w in (wq, wk, wv)]
 
             def library_sublayer():
@@ -433,13 +483,21 @@ def phase_kernels():
                     *(u.transpose(1, 2) for u in (qh, kh, t[2])))
                 return F.linear(a.transpose(1, 2).reshape(b, n, c), wpk, bpb)
 
-            sub_ms = cuda_time_ms(lambda: fab.fused_attention_sublayer(
-                *sub, packed=packed, packed_proj=(wpk, bpk)), 20)
-            lib_ms = cuda_time_ms(library_sublayer, 20)
-            log(f"time fused_attention_sublayer N={n} C={c} b={b}: kernels "
-                f"{sub_ms:.4f} ms, library composition (cuBLAS + SDPA) "
-                f"{lib_ms:.4f} ms [{CARD}]")
+            if timed:
+                sub_ms = cuda_time_ms(lambda: fab.fused_attention_sublayer(
+                    *sub, packed=packed, packed_proj=(wpk, bpk)), 20)
+                lib_ms = cuda_time_ms(library_sublayer, 20)
+                log(f"time fused_attention_sublayer N={n} C={c} b={b}: kernels "
+                    f"{sub_ms:.4f} ms, library composition (cuBLAS + SDPA) "
+                    f"{lib_ms:.4f} ms [{CARD}]")
+        if not timed:
+            for name, err in errs.items():
+                row = results[(name, n, c)]
+                row["err"] = max(row["err"], err)
+                row["checked_batches"].append(b)
+            continue
         for name, r in rec.items():
+            r["err"], r["checked_batches"] = errs[name], [b]
             flops, nbytes = bound(name, b, n, c)
             r["flops"], r["bytes"] = flops, nbytes
             r["bound_ms"] = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
@@ -451,6 +509,8 @@ def phase_kernels():
                 f"library {lib} ms{yard}, bound {r['bound_ms']:.4f} ms ({flops:.4e} FLOP, "
                 f"{nbytes:.4e} B) [{CARD}]")
             results[(name, n, c)] = r
+        del x, args, packed, q, k, v, ref
+        torch.cuda.empty_cache()
 
     # ln_qkv_rope at the sweep's shapes (512px and 1024px chunks): checked,
     # timed beside its plain version and the yardstick.
@@ -462,7 +522,7 @@ def phase_kernels():
         args = (x, ln, wq, wk, wv, hh, ww)
         got = fab.ln_qkv_rope(*args, packed=packed)
         torch.cuda.synchronize()
-        err = max(check("ln_qkv_rope", n, c, t, r)
+        err = max(check("ln_qkv_rope", (b, n, c), t, r)
                   for t, r in zip(got, fab.qkv_rope_reference(*args)))
         del got
         flops, nbytes = bound("ln_qkv_rope", b, n, c)
@@ -611,6 +671,28 @@ def phase_flash_kernels():
     log(f"time flash_attention_bwd (B, N, h)={shape}: default {row['ms']:.4f} ms, "
         f"deterministic {det_ms:.4f} ms [{CARD}]")
     del q, k, v, do, o, lse
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        results[(name, *FLASH_TRAIN)]["checked_shapes"] = [FLASH_TRAIN]
+    # The other training shapes: forward and backward checked, each error
+    # joining the training row's max_abs_err.
+    for shape in FLASH_TRAIN_CHECKED:
+        q, k, v, do = inputs(*shape)
+        o, lse = fla.flash_forward(q, k, v, scale)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fla.flash_forward_reference(q, k, v, scale)
+        errs = {"flash_attention_fwd": max(check("flash_attention_fwd", shape, o, o_ref),
+                                           check("flash_attention_fwd lse", shape, lse, lse_ref))}
+        del o_ref, lse_ref
+        got = fla.flash_backward(q, k, v, o, lse, do, scale)
+        torch.cuda.synchronize()
+        ref = fla.flash_backward_reference(q, k, v, o, lse, do, scale)
+        errs["flash_attention_bwd"] = max(check(f"flash_attention_bwd {nm}", shape, g, r)
+                                          for nm, g, r in zip(("dq", "dk", "dv"), got, ref))
+        for name, err in errs.items():
+            row = results[(name, *FLASH_TRAIN)]
+            row["err"] = max(row["err"], err)
+            row["checked_shapes"].append(shape)
+        del q, k, v, do, o, lse, got, ref
 
     # Serving: 512px stage 2, and the 256px stage-2 decision (flash forward
     # against the plain chunked core, in turns: plain, kernel, kernel, plain).
@@ -1060,6 +1142,73 @@ def phase_grad():
             f"path (worst rel err {worst:.3e}, bound {KERNEL_RTOL:.3e})")
 
 
+def _synthetic(batch: int, seed: int = 0):
+    """Synthetic 256px batches on the card, prefetched."""
+    from deepl_project_tpu_torch.data import input_pipeline, make_dataset
+
+    return input_pipeline(make_dataset("synthetic", resolution=256, num_samples=10 ** 6,
+                                       seed=seed), batch, "cuda")
+
+
+def _fit_timed(trainer, state, data):
+    """Trainer.fit over ``data``: (state, step intervals in seconds after the
+    first, peak GiB, flash launches, other kernels' launches, fit seconds).
+    The launch counters are set to 0 just before and read just after."""
+    import numpy as np
+    import torch
+
+    from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
+    from deepl_project_tpu_torch.ops.hopper import fused_attention_block as fab
+
+    stamps = []
+
+    def timed(it):
+        for b in it:
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            yield b
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    state = trainer.fit(timed(data), state=state)
+    fit_s = time.time() - t0
+    counts = fla.launch_counts()
+    other = {**fab.launch_counts(), **kernel_launches()[2], **norm_launches()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return state, np.diff(stamps)[1:], peak, counts, other, fit_s
+
+
+def _profile(fn, name: str) -> None:
+    """One call of ``fn`` under torch.profiler: its wall ms, the host and
+    device time totals, and the table (chiprun_out/profile_<name>.txt)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = p.key_averages()
+    ops = sum(e.count for e in events if e.key.startswith("aten::"))
+    table = events.table(sort_by="cuda_time_total", row_limit=40)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", f"profile_{name}.txt"), "w") as f:
+        f.write(f"{CARD}\n{table}\n")
+    # The table's footer: host time of the ops and device time of the kernels.
+    totals = [line for line in table.splitlines() if "time total" in line]
+    log(f"profile {name}: wall {wall:.1f} ms (profiled), {'; '.join(totals)}, "
+        f"{ops} aten calls [{CARD}]")
+
+
+def _history(out_dir: str) -> list[dict]:
+    """The train rows of a run's history.jsonl."""
+    with open(os.path.join(out_dir, "history.jsonl")) as f:
+        return [r for r in map(json.loads, f) if r["kind"] == "train"]
+
+
 def phase_train(profile: bool, keep_checkpoint: bool = False):
     """Stage-1 training of large f16d32 at 256px through Trainer.fit. With
     ``keep_checkpoint`` its checkpoint directory is kept (phase gan resumes
@@ -1070,11 +1219,9 @@ def phase_train(profile: bool, keep_checkpoint: bool = False):
     import torch
 
     from deepl_project_tpu_torch import get_config
-    from deepl_project_tpu_torch.data import input_pipeline, make_dataset
     from deepl_project_tpu_torch.losses import LossWeights
     from deepl_project_tpu_torch.ops.attention import AttentionRoPE
     from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
-    from deepl_project_tpu_torch.ops.hopper import fused_attention_block as fab
     from deepl_project_tpu_torch.training import Trainer, TrainerConfig
     from deepl_project_tpu_torch.training.train_step import compute_grads, global_norm
 
@@ -1089,44 +1236,24 @@ def phase_train(profile: bool, keep_checkpoint: bool = False):
     state = trainer.create_state()
     before = {n: p.detach().clone() for n, p in state.model.named_parameters()
               if n in ("encoder.conv_in.weight", "decoder.conv_out.weight")}
-    stamps = []
-
-    def timed(it):
-        for batch in it:
-            torch.cuda.synchronize()
-            stamps.append(time.perf_counter())
-            yield batch
-
-    data = input_pipeline(make_dataset("synthetic", resolution=256, num_samples=10 ** 6),
-                          16, "cuda")
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t0 = time.time()
-    state = trainer.fit(timed(data), state=state)
-    fit_s = time.time() - t0
-    counts, sub, small, norm = (fla.launch_counts(), fab.launch_counts(),
-                                kernel_launches()[2], norm_launches())
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    data = _synthetic(16)
+    state, steps_s, peak, counts, other, fit_s = _fit_timed(trainer, state, data)
     if state.step != TRAIN_STEPS:
         fail(f"train: {state.step} steps taken, {TRAIN_STEPS} asked")
     want = {k: 12 * TRAIN_STEPS for k in ("flash_attention_fwd", "flash_attention_bwd")}
-    if counts != want or sub or small or norm:
-        fail(f"train: flash launches {counts} (want {want}), sublayer kernel launches {sub}, "
-             f"small_attention {small}, group_norm_silu {norm}")
+    if counts != want or other:
+        fail(f"train: flash launches {counts} (want {want}), other kernels' launches {other}")
     log(f"train: {TRAIN_STEPS} steps launched {fla.launch_counts_by_shape()} "
         f"(12 forward + 12 backward per step), no sublayer kernel, small_attention "
         f"or group_norm_silu kernel")
-    counts = {**counts, **norm}
-    with open(os.path.join(out_dir, "history.jsonl")) as f:
-        rows = [json.loads(line) for line in f]
-    losses = [r["total"] for r in rows if r["kind"] == "train"]
+    rows = _history(out_dir)
+    losses = [r["total"] for r in rows]
     if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
         fail(f"train: losses {losses}")
     moved = {n: (p - before[n]).abs().max().item() for n, p in state.model.named_parameters()
              if n in before}
     if not all(v > 0 for v in moved.values()):
         fail(f"train: params did not move {moved}")
-    steps_s = np.diff(stamps)[1:]  # the first interval includes warm-up
     step_ms = float(np.median(steps_s)) * 1e3
     log(f"train: losses {[round(v, 5) for v in losses]}, grad_norm "
         f"{[round(r['grad_norm'], 4) for r in rows]}, param change {moved}")
@@ -1136,8 +1263,6 @@ def phase_train(profile: bool, keep_checkpoint: bool = False):
         f"build and checkpoint {fit_s:.1f}s [{CARD}]")
 
     if profile:
-        from torch.profiler import ProfilerActivity, profile as prof
-
         batch = torch.as_tensor(next(data)).to("cuda")
 
         def step():
@@ -1146,14 +1271,7 @@ def phase_train(profile: bool, keep_checkpoint: bool = False):
 
         step()
         rewrites_in_turns(state.model, step, "train step batch 16 (2 x 8)", 2)
-        with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-            trainer.step_fn(state, batch)
-            torch.cuda.synchronize()
-        table = p.key_averages().table(sort_by="cuda_time_total", row_limit=50)
-        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-        with open(os.path.join(ROOT, "chiprun_out", "profile_train_step.txt"), "w") as f:
-            f.write(f"{CARD}\n{table}\n")
-        print(table, flush=True)
+        _profile(step, "train_step")
 
     # The kernel path against the plain attention core on one batch: the
     # same weights and images, the mean decoded.
@@ -1197,11 +1315,9 @@ def phase_gan(stage1_ckpt: str, profile: bool):
     import torch
 
     from deepl_project_tpu_torch import get_config
-    from deepl_project_tpu_torch.data import input_pipeline, make_dataset
     from deepl_project_tpu_torch.losses import LossWeights
     from deepl_project_tpu_torch.ops.attention import AttentionRoPE
     from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
-    from deepl_project_tpu_torch.ops.hopper import fused_attention_block as fab
     from deepl_project_tpu_torch.training import Trainer, TrainerConfig
     from deepl_project_tpu_torch.training.train_step import gan_generator_grads, global_norm
 
@@ -1209,9 +1325,8 @@ def phase_gan(stage1_ckpt: str, profile: bool):
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
     # The stage hand-off: stage 2 resumes the stage-1 checkpoint from its
-    # own output_dir.
-    os.replace(stage1_ckpt, os.path.join(out_dir, "checkpoints"))
-    shutil.rmtree(os.path.dirname(stage1_ckpt), ignore_errors=True)
+    # own output_dir (hard links: phase remat reads the stage-1 files too).
+    shutil.copytree(stage1_ckpt, os.path.join(out_dir, "checkpoints"), copy_function=os.link)
     cfg = get_config("large", 16, 32, norm_latents=True, attention_impl="auto_train")
     weights = LossWeights(l1=1.0, lpips=1.0, kl=1e-8, vf=0.0, gan=0.05)
     tc = TrainerConfig(batch_size=GAN_BATCH, warmup_steps=2, num_epochs=1,
@@ -1244,36 +1359,17 @@ def phase_gan(stage1_ckpt: str, profile: bool):
              [n for n, _ in state.model.named_parameters()
               if n.startswith("decoder.") and n.endswith(".attn.to_q.weight")][-1])
     before = {n: state.model.get_parameter(n).detach().clone() for n in watch}
-    stamps = []
-
-    def timed(it):
-        for batch in it:
-            torch.cuda.synchronize()
-            stamps.append(time.perf_counter())
-            yield batch
-
-    data = input_pipeline(make_dataset("synthetic", resolution=256, num_samples=10 ** 6,
-                                       seed=3), GAN_BATCH, "cuda")
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t0 = time.time()
-    state = trainer.fit(timed(data), state=state)
-    fit_s = time.time() - t0
-    counts, sub, small, norm = (fla.launch_counts(), fab.launch_counts(),
-                                kernel_launches()[2], norm_launches())
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    data = _synthetic(GAN_BATCH, seed=3)
+    state, steps_s, peak, counts, other, fit_s = _fit_timed(trainer, state, data)
     if state.step != TRAIN_STEPS + GAN_STEPS or disc.step != GAN_STEPS:
         fail(f"gan: generator step {state.step}, discriminator {disc.step}; want "
              f"{TRAIN_STEPS + GAN_STEPS} and {GAN_STEPS}")
     want = {k: v * GAN_STEPS for k, v in GAN_LAUNCHES_PER_STEP.items()}
-    if counts != want or sub or small or norm:
-        fail(f"gan: flash launches {counts} (want {want}), sublayer kernel launches {sub}, "
-             f"small_attention {small}, group_norm_silu {norm}")
+    if counts != want or other:
+        fail(f"gan: flash launches {counts} (want {want}), other kernels' launches {other}")
     log(f"gan: {GAN_STEPS} steps launched {fla.launch_counts_by_shape()} (12 forward + 6 "
         f"backward per step), no sublayer kernel, small_attention or group_norm_silu kernel")
-    counts = {**counts, **norm}
-    with open(os.path.join(out_dir, "history.jsonl")) as f:
-        rows = [r for r in map(json.loads, f) if r["kind"] == "train"]
+    rows = _history(out_dir)
     keys = ("total", "disc_loss", "disc_r1", "grad_norm")
     if len(rows) != GAN_STEPS or not all(np.isfinite(r[k]) for r in rows for k in keys):
         fail(f"gan: metrics {[{k: r.get(k) for k in keys} for r in rows]}")
@@ -1285,9 +1381,6 @@ def phase_gan(stage1_ckpt: str, profile: bool):
         fail(f"gan: decoder and discriminator change {moved}, encoder unchanged "
              f"{enc_after == encoder}")
     saved = sorted(os.listdir(os.path.join(out_dir, "checkpoints")))
-    # Step times from the history's stamps: each row is written once the
-    # step's metrics are on the host.
-    steps_s = np.diff([r["ts"] for r in rows])
     step_ms = float(np.median(steps_s)) * 1e3
     log(f"gan: losses {[round(r['total'], 5) for r in rows]}, disc_loss "
         f"{[round(r['disc_loss'], 4) for r in rows]}, disc_r1 "
@@ -1304,16 +1397,7 @@ def phase_gan(stage1_ckpt: str, profile: bool):
 
     batch = torch.as_tensor(next(data)).to("cuda")
     if profile:
-        from torch.profiler import ProfilerActivity, profile as prof
-
-        with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-            trainer.step_fn(state, batch)
-            torch.cuda.synchronize()
-        table = p.key_averages().table(sort_by="cuda_time_total", row_limit=50)
-        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-        with open(os.path.join(ROOT, "chiprun_out", "profile_gan_step.txt"), "w") as f:
-            f.write(f"{CARD}\n{table}\n")
-        print(table, flush=True)
+        _profile(lambda: trainer.step_fn(state, batch), "gan_step")
 
     # The GAN step's generator loss and gradients on the kernel path
     # against the plain attention core: the same weights, discriminator and
@@ -1346,6 +1430,241 @@ def phase_gan(stage1_ckpt: str, profile: bool):
     shutil.rmtree(out_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     return counts, {"step_ms": step_ms, "peak_gib": peak}
+
+
+def phase_recipe(profile: bool = False):
+    """The repo's own stage-1 recipe: configs/transvae_large_f16d32.yaml read
+    by the train CLI's load_yaml_config (large f16d32 @256, batch 8 in 4
+    microbatches, L1 1 + LPIPS 1 on random VGG + KL 1e-8 + VF 0.1 through
+    make_vf_teacher, the stub where DINOv2 is absent), AdamW, Trainer.fit
+    for RECIPE_STEPS steps; the warmup cut to 2 so that the steps move."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from deepl_project_tpu_torch import get_config
+    from deepl_project_tpu_torch.cli.train import (CLI_REMAT_POLICY, build_parser,
+                                                   load_yaml_config)
+    from deepl_project_tpu_torch.losses import LossWeights, make_vf_teacher
+    from deepl_project_tpu_torch.training import Trainer, TrainerConfig
+
+    out_dir = os.path.join(ROOT, "outputs", "chip_smoke_recipe")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    args = build_parser().parse_args(["--config", os.path.join(ROOT, RECIPE_YAML)])
+    load_yaml_config(args.config, args)
+    cfg = get_config(args.variant, args.compression_ratio, args.latent_dim,
+                     remat=args.gradient_checkpointing, remat_policy=CLI_REMAT_POLICY,
+                     norm_latents=args.norm_latents, attention_impl=args.attention_impl)
+    weights = LossWeights(l1=args.l1_weight, lpips=args.lpips_weight, kl=args.kl_weight,
+                          vf=args.vf_weight, gan=0.0)
+    batch, accum = args.batch_size, args.accum_steps
+    if (cfg.variant, batch, accum, weights.vf, cfg.remat) != ("large_f16d32", 8, 4, 0.1, False):
+        fail(f"recipe: {RECIPE_YAML} read as {cfg.variant}, batch {batch} x accumulation "
+             f"{accum}, vf {weights.vf}, remat {cfg.remat}")
+    teacher = make_vf_teacher(args.dino_model, device="cuda")
+    tc = TrainerConfig(batch_size=batch, accum_steps=accum, learning_rate=args.lr,
+                       warmup_steps=2, num_epochs=1, steps_per_epoch=RECIPE_STEPS,
+                       log_every=1, output_dir=out_dir, weights=weights, seed=0,
+                       use_lpips=args.lpips_weight > 0)
+    trainer = Trainer(cfg, tc, teacher_fn=teacher, device="cuda")
+    state = trainer.create_state()
+    kernel_before = state.vf_proj.kernel.detach().clone()
+    log(f"recipe: {RECIPE_YAML}: {cfg.variant} @256, batch {batch} = {accum} x "
+        f"{batch // accum}, {weights}, teacher feature_dim {teacher.feature_dim}, "
+        f"vf_proj {tuple(state.vf_proj.kernel.shape)}")
+    state, steps_s, peak, counts, other, fit_s = _fit_timed(trainer, state, _synthetic(batch))
+    # Stage 2's 3 + 3 blocks in each of the step's microbatches.
+    want = {k: 6 * accum * RECIPE_STEPS for k in ("flash_attention_fwd", "flash_attention_bwd")}
+    if state.step != RECIPE_STEPS or counts != want or other:
+        fail(f"recipe: {state.step} steps, flash launches {counts} (want {want}), other "
+             f"kernels {other}")
+    rows = _history(out_dir)
+    vf = [r["vf"] for r in rows]
+    moved = (state.vf_proj.kernel.detach() - kernel_before).abs().max().item()
+    if (len(rows) != RECIPE_STEPS or not np.isfinite([r["total"] for r in rows]).all()
+            or not all(np.isfinite(v) and v > 0 for v in vf) or not moved > 0):
+        fail(f"recipe: losses {[r['total'] for r in rows]}, vf {vf}, vf_proj change {moved}")
+    step_ms = float(np.median(steps_s)) * 1e3
+    log(f"recipe: losses {[round(r['total'], 5) for r in rows]}, vf {[round(v, 6) for v in vf]}, "
+        f"grad_norm {[round(r['grad_norm'], 4) for r in rows]}, vf_proj change {moved:.3e}; "
+        f"flash launches per step {accum * 6} forward + {accum * 6} backward at "
+        f"(B, N, h)=({batch // accum}, 4096, 6), no other kernel")
+    log(f"time recipe step large f16d32 @256 batch {batch} ({accum} x {batch // accum}), "
+        f"L1 + LPIPS + KL + VF, AdamW: {step_ms:.1f} ms/step (steps 2-{RECIPE_STEPS}: "
+        f"{[round(float(v) * 1e3, 1) for v in steps_s]}), {batch / step_ms * 1e3:.2f} img/s, "
+        f"peak memory {peak:.2f} GiB, fit incl. checkpoint {fit_s:.1f}s [{CARD}]")
+    if profile:
+        from deepl_project_tpu_torch.data import make_dataset
+
+        batch_t = torch.as_tensor(np.stack(list(make_dataset(
+            "synthetic", resolution=256, num_samples=batch, seed=9)))).to("cuda")
+        _profile(lambda: trainer.step_fn(state, batch_t), "recipe_step")
+    del trainer, state
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts, {"step_ms": step_ms, "peak_gib": peak}
+
+
+def phase_remat(stage1_ckpt: str, profile: bool = False):
+    """Gradient checkpointing of large f16d32 @256: one compute_grads of a
+    batch of 8 under each of REMAT_CASES (time, peak memory, flash launches,
+    loss and grad norm against no remat); Trainer.fit with remat 'dots' and
+    Adafactor at batch 16 in one microbatch; one step with perceptual='self'
+    on phase train's stage-1 checkpoint."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from deepl_project_tpu_torch import get_config
+    from deepl_project_tpu_torch.data import make_dataset
+    from deepl_project_tpu_torch.losses import LossWeights, get_lpips_params
+    from deepl_project_tpu_torch.models import TransVAE, enable_gradient_checkpointing
+    from deepl_project_tpu_torch.models import init_weights
+    from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
+    from deepl_project_tpu_torch.training import Trainer, TrainerConfig
+    from deepl_project_tpu_torch.training.train_step import (compute_grads, global_norm,
+                                                             step_generator)
+
+    cfg = get_config("large", 16, 32, norm_latents=True, attention_impl="auto_train")
+    weights = LossWeights(l1=1.0, lpips=1.0, kl=1e-8, vf=0.0, gan=0.0)
+    with torch.device("meta"):
+        model = TransVAE(cfg)
+    model = model.to_empty(device="cuda")
+    init_weights(model, torch.Generator(device="cuda").manual_seed(0))
+    lpips = get_lpips_params(device="cuda", generator=torch.Generator(device="cuda").manual_seed(7))
+    images = np.stack(list(make_dataset("synthetic", resolution=256, num_samples=REMAT_BATCH,
+                                        seed=5)))
+    batch = torch.as_tensor(images).to("cuda")
+
+    def grads_of(m):
+        g, metrics = compute_grads(m, batch, weights, lpips,
+                                   generator=step_generator(0, 0, "cuda"))
+        norm = global_norm(g).item()
+        del g
+        return metrics["total"].item(), norm
+
+    rows = {}
+    for name, policy, resample in REMAT_CASES:
+        m = model
+        if policy is not None:
+            m = enable_gradient_checkpointing(model, policy)
+            if resample:
+                with torch.device("meta"):
+                    m = TransVAE(m.config.replace(remat_resample=True))
+                m.load_state_dict(model.state_dict(keep_vars=True), assign=True)
+        reset_launches()
+        loss, gnorm = grads_of(m)
+        launches = fla.launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            grads_of(m)  # ends in a host read of the grad norm
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rows[name] = dict(ms=float(np.median(times)), peak_gib=peak, loss=loss,
+                          grad_norm=gnorm, launches=launches)
+        if profile and name in ("no remat", "none", "dots"):
+            _profile(lambda: grads_of(m), f"remat_{name.replace(' ', '_')}")
+        log(f"remat {name}: compute_grads batch {REMAT_BATCH} @256 {np.median(times):.1f} ms "
+            f"({[round(t, 1) for t in times]}), peak {peak:.2f} GiB, flash launches "
+            f"{launches}, loss {loss:.6f}, grad norm {gnorm:.6f} [{CARD}]")
+        del m
+    base = rows["no remat"]
+    for name, r in rows.items():
+        fwd = 6 if name == "no remat" else 12
+        want = {"flash_attention_fwd": fwd, "flash_attention_bwd": 6}
+        rel = (abs(r["loss"] - base["loss"]) / abs(base["loss"]),
+               abs(r["grad_norm"] - base["grad_norm"]) / base["grad_norm"])
+        log(f"remat {name}: {r['ms'] / base['ms']:.3f}x the time and "
+            f"{r['peak_gib'] / base['peak_gib']:.3f}x the peak of no remat; loss rel "
+            f"{rel[0]:.2e}, grad norm rel {rel[1]:.2e} (bound {REMAT_RTOL})")
+        if r["launches"] != want or max(rel) > REMAT_RTOL:
+            fail(f"remat {name}: flash launches {r['launches']} (want {want}), loss and grad "
+                 f"norm relative to no remat {rel}")
+    del model, batch
+    torch.cuda.empty_cache()
+
+    out_dir = os.path.join(ROOT, "outputs", "chip_smoke_remat")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    rcfg = cfg.replace(remat=True, remat_policy="dots")
+    tc = TrainerConfig(batch_size=REMAT_FIT_BATCH, warmup_steps=2, num_epochs=1,
+                       steps_per_epoch=REMAT_FIT_STEPS, log_every=1, output_dir=out_dir,
+                       weights=weights, seed=0, optimizer="adafactor")
+    trainer = Trainer(rcfg, tc, device="cuda")
+    state, steps_s, peak, counts, other, fit_s = _fit_timed(trainer, None,
+                                                            _synthetic(REMAT_FIT_BATCH))
+    want = {"flash_attention_fwd": 12 * REMAT_FIT_STEPS,
+            "flash_attention_bwd": 6 * REMAT_FIT_STEPS}
+    rows_fit = _history(out_dir)
+    if (state.step != REMAT_FIT_STEPS or counts != want or other
+            or not np.isfinite([r["total"] for r in rows_fit]).all()
+            or peak >= 80e9 / 2 ** 30 or state.optimizer.kind != "adafactor"):
+        fail(f"remat fit: {state.step} steps, flash launches {counts} (want {want}), other "
+             f"{other}, losses {[r['total'] for r in rows_fit]}, peak {peak:.2f} GiB")
+    step_ms = float(np.median(steps_s)) * 1e3
+    log(f"remat fit: losses {[round(r['total'], 5) for r in rows_fit]}, grad_norm "
+        f"{[round(r['grad_norm'], 4) for r in rows_fit]}; 12 flash forward (6 + 6 "
+        f"recomputed) + 6 backward per step, no other kernel")
+    log(f"time remat-dots + Adafactor step large f16d32 @256 batch {REMAT_FIT_BATCH} (one "
+        f"microbatch): {step_ms:.1f} ms/step (steps 2-{REMAT_FIT_STEPS}: "
+        f"{[round(float(v) * 1e3, 1) for v in steps_s]}), "
+        f"{REMAT_FIT_BATCH / step_ms * 1e3:.2f} img/s, peak memory {peak:.2f} GiB, fit incl. "
+        f"checkpoint {fit_s:.1f}s [{CARD}]")
+    fit = {"step_ms": step_ms, "peak_gib": peak}
+    del trainer, state
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # perceptual='self': phase train's checkpoint as the frozen feature net
+    # (its saved config: attention_impl 'auto', so the inference kernels).
+    sp_weights = LossWeights(l1=1.0, lpips=1.0, kl=1e-8, vf=0.0, gan=0.0)
+    tc = TrainerConfig(batch_size=REMAT_BATCH, warmup_steps=2, output_dir=out_dir,
+                       weights=sp_weights, seed=0, optimizer="adafactor", perceptual="self",
+                       perceptual_checkpoint=stage1_ckpt)
+    t0 = time.time()
+    trainer = Trainer(rcfg, tc, device="cuda")
+    load_s = time.time() - t0
+    state = trainer.create_state()
+    batch = torch.as_tensor(images).to("cuda")
+    trainer.step_fn(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = trainer.step_fn(state, batch)
+    lpips_term = metrics["lpips"].item()
+    sp_ms = (time.perf_counter() - t0) * 1e3
+    sp_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sp_counts = {**fla.launch_counts(), **kernel_launches()[0]}
+    sub = {}
+    for (name, _, _), n in kernel_launches()[0].items():
+        sub[name] = sub.get(name, 0) + n
+    # The model (remat dots): 6 + 6 forward, 6 backward; the frozen encoder
+    # (3 + 4 + 6 blocks at stages 2-4) on the target, on the reconstruction
+    # and again in that checkpoint's recompute: 3 flash forwards and 3 + 4 +
+    # 6 ln_qkv_rope, 4 + 6 attention_core and proj_bias_gemm each time; the
+    # reconstruction's backward: 3 flash backwards.
+    want = {"flash_attention_fwd": 12 + 3 * 3, "flash_attention_bwd": 6 + 3}
+    want_sub = {"ln_qkv_rope": 3 * 13, "attention_core": 3 * 10, "proj_bias_gemm": 3 * 10}
+    if (fla.launch_counts() != want or sub != want_sub or norm_launches()
+            or not (np.isfinite(lpips_term) and lpips_term > 0)):
+        fail(f"remat self-perceptual: flash launches {fla.launch_counts()} (want {want}), "
+             f"sublayer kernels {sub} (want {want_sub}), lpips slot {lpips_term}")
+    log(f"remat self-perceptual step (remat dots + Adafactor, batch {REMAT_BATCH}, the frozen "
+        f"encoder of {stage1_ckpt}, loaded in {load_s:.1f}s): {sp_ms:.1f} ms, peak "
+        f"{sp_peak:.2f} GiB, self-perceptual term {lpips_term:.6f}, launches {sp_counts} "
+        f"[{CARD}]")
+    del trainer, state, batch
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    counts = {k: counts.get(k, 0) + fla.launch_counts().get(k, 0) for k in counts}
+    return counts, {"rows": rows, "fit": fit, "self_perceptual_ms": sp_ms,
+                    "self_perceptual_peak_gib": sp_peak}
 
 
 # -- phase 3 -------------------------------------------------------------
@@ -1533,16 +1852,7 @@ def phase_time(model, profile: bool):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{CARD}]")
     rewrites_in_turns(model, lambda: engine.run("reconstruct", imgs), "reconstruct b=32 @256px", 2)
     if profile:
-        from torch.profiler import ProfilerActivity, profile as prof
-
-        with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-            engine.run("reconstruct", imgs)
-        out_dir = os.path.join(ROOT, "chiprun_out")
-        os.makedirs(out_dir, exist_ok=True)
-        table = p.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-        with open(os.path.join(out_dir, "profile_reconstruct_b32.txt"), "w") as f:
-            f.write(f"{CARD}\n{table}\n")
-        print(table, flush=True)
+        _profile(lambda: engine.run("reconstruct", imgs), "reconstruct_b32")
     return step
 
 
@@ -1615,19 +1925,9 @@ def phase_eval(model, profile: bool):
     out["sweep"] = sweep
     out["small_attention_launches"] = sum(sweep[512]["launches"][2].values())
     if profile:
-        from torch.profiler import ProfilerActivity, profile as prof
-
         chunk = imgs[:EVAL_CHUNKS[1024]]
         reconstruct(model, None, chunk)
-        torch.cuda.synchronize()
-        with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-            reconstruct(model, None, chunk)
-            torch.cuda.synchronize()
-        table = p.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-        with open(os.path.join(ROOT, "chiprun_out", "profile_sweep_1024.txt"), "w") as f:
-            f.write(f"{CARD}\n{table}\n")
-        print(table, flush=True)
+        _profile(lambda: reconstruct(model, None, chunk), "sweep_1024")
     out["norm_launches"] = {}
     for s in sweep.values():
         for (name, _, _), cnt in s["launches"][3].items():
@@ -1825,16 +2125,7 @@ def phase_quant(model, profile: bool):
             f"{peaks[s]:.2f} GiB (weights {model_gib(models[s]):.2f}) [{CARD}]")
     out["reconstruct"] = whole
     if profile:
-        from torch.profiler import ProfilerActivity, profile as prof
-
-        with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-            engines["resblock"].run("reconstruct", imgs)
-        table = p.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-        with open(os.path.join(ROOT, "chiprun_out", "profile_reconstruct_b32_int8.txt"),
-                  "w") as f:
-            f.write(f"{CARD}\n{table}\n")
-        print(table, flush=True)
+        _profile(lambda: engines["resblock"].run("reconstruct", imgs), "reconstruct_b32_int8")
     del engines
     log(f"quant: scopes took {time.time() - tq:.1f}s")
     tq = time.time()
@@ -1913,13 +2204,17 @@ def phase_quant(model, profile: bool):
 def main():
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,grad,train,gan,serve,time,eval,quant")
+    ap.add_argument("--phases",
+                    default="build,kernels,grad,train,gan,recipe,remat,serve,time,eval,quant")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--baseline", metavar="DIR", nargs="+", default=[],
                     help="checkouts whose wgmma kernels (WGMMA_KERNELS) are timed "
                          "beside this tree's (phase kernels)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
+    # make_vf_teacher looks for DINOv2 weights on this machine only.
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")
+    os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
 
     import torch
 
@@ -1948,16 +2243,31 @@ def main():
         with phase_clock("grad"):
             phase_grad()
     train_counts, stage1_ckpt = {}, None
-    if "gan" in phases and "train" not in phases:
-        fail("phase gan resumes phase train's stage-1 checkpoint: run both")
+    for later in ("gan", "remat"):
+        if later in phases and "train" not in phases:
+            fail(f"phase {later} reads phase train's stage-1 checkpoint: run both")
     if "train" in phases:
         with phase_clock("train"):
-            train_counts, _, stage1_ckpt = phase_train(args.profile, "gan" in phases)
+            train_counts, _, stage1_ckpt = phase_train(args.profile,
+                                                       bool(phases & {"gan", "remat"}))
+
+    def add(more):
+        return {k: train_counts.get(k, 0) + more.get(k, 0)
+                for k in set(train_counts) | set(more)}
+
     if "gan" in phases:
         with phase_clock("gan"):
-            gan_counts, _ = phase_gan(stage1_ckpt, args.profile)
-        train_counts = {k: train_counts.get(k, 0) + gan_counts.get(k, 0)
-                        for k in set(train_counts) | set(gan_counts)}
+            train_counts = add(phase_gan(stage1_ckpt, args.profile)[0])
+    if "recipe" in phases:
+        with phase_clock("recipe"):
+            train_counts = add(phase_recipe(args.profile)[0])
+    if "remat" in phases:
+        with phase_clock("remat"):
+            train_counts = add(phase_remat(stage1_ckpt, args.profile)[0])
+    if stage1_ckpt is not None:
+        import shutil
+
+        shutil.rmtree(os.path.dirname(stage1_ckpt), ignore_errors=True)
     counts = {}
     model = None
     evaluated = {}
@@ -2011,6 +2321,9 @@ def main():
                              else "bytes"),
                 "library_ms": None if None in libs else tot("library_ms"),
                 "per": "one reconstruct at b32 (sum over shapes of launches x time)",
+                # max_abs_err is over these batches at each of the row's shapes.
+                "checked_batches": sorted({b for r in rows.values()
+                                           for b in r["checked_batches"]}),
                 **extra,
             })
         for name, source, replaces in (
@@ -2033,14 +2346,16 @@ def main():
             kernels.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": train_counts.get(name, 0),
-                "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                "bound_ms": r["bound_ms"],
+                "max_abs_err": r["err"], "checked_shapes": r["checked_shapes"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": ("operations" if r["flops"] / PEAK_BF16_FLOPS
                              >= r["bytes"] / PEAK_HBM_BYTES else "bytes"),
                 "library_ms": r["library_ms"],
                 "per": (f"one call at the training microbatch (B, N, h)={FLASH_TRAIN}; "
-                        f"launches over {TRAIN_STEPS} stage-1 training steps and "
-                        f"{GAN_STEPS} stage-2 GAN steps"),
+                        f"launches over {TRAIN_STEPS} stage-1 training steps, "
+                        f"{GAN_STEPS} stage-2 GAN steps, {RECIPE_STEPS} steps of the "
+                        f"yaml recipe, {REMAT_FIT_STEPS} remat-dots + Adafactor steps "
+                        f"and one self-perceptual step"),
                 **extra,
             })
         r = results[("small_attention", *SMALL_512)]
@@ -2062,7 +2377,8 @@ def main():
                     d: {str(k): v for k, v in by_shape.items()}
                     for d, by_shape in baseline[row["name"]].items()}
         # group_norm_silu is on no model path (as in the JAX package): its
-        # launches in the train, gan, serve and eval phases' runs must be 0.
+        # launches in the train, gan, recipe, remat, serve and eval phases'
+        # runs must be 0.
         norm = {name: (train_counts.get(name, 0) + counts.get(name, 0)
                        + evaluated.get("norm_launches", {}).get(name, 0))
                 for name in ("group_norm_stats", "group_norm_apply")}
@@ -2086,8 +2402,8 @@ def main():
                 "bound_by": "bytes",
                 "library_ms": None if rows[0]["library_ms"] is None else tot("library_ms"),
                 "per": (f"one call at each of {list(GROUP_NORM_SHAPES)} bf16, summed; "
-                        f"library: {library}; launches over the train, gan, serve and eval "
-                        f"phases' runs"),
+                        f"library: {library}; launches over the train, gan, recipe, "
+                        f"remat, serve and eval phases' runs"),
             }
             if name == "group_norm_apply":
                 # The whole function once: both kernels + the torch epilogue

@@ -4,8 +4,10 @@ an NVIDIA H100.
 It carries the serving path of TransVAE in bf16 or int8 (the model,
 ``create_transvae``, ``quantize.quantize_model``, the batching
 ``InferenceEngine`` and ``cli.serve``), evaluation, and both training
-stages (``training.Trainer``, ``cli.train``: L1 + LPIPS + KL, AdamW,
-checkpoints; stage 2 adds the PatchGAN discriminator and its GAN step). The attention sublayers and the flash attention
+stages (``training.Trainer``, ``cli.train``: L1 + LPIPS (VGG or the
+self-perceptual net) + KL + VF alignment to a teacher, AdamW or Adafactor,
+gradient checkpointing, checkpoints; stage 2 adds the PatchGAN
+discriminator and its GAN step). The attention sublayers and the flash attention
 forward and backward run on hand-written Hopper kernels (``ops/hopper``,
 sources in ``csrc/``). Entry points run on CUDA unless the caller passes
 ``device="cpu"``, which takes the plain PyTorch path.

@@ -6,15 +6,25 @@ Usage:
   python -m deepl_project_tpu_torch.cli.train --variant large --data synthetic \
       --batch_size 16 --accum_steps 2 --num_epochs 1 --steps_per_epoch 20 \
       --output_dir out/
+  # The repo's stage-1 recipe (batch 8 in 4 microbatches, L1 + LPIPS + KL +
+  # VF 0.1; the VF teacher is DINOv2 where its weights are on this machine,
+  # else a deterministic stub)
+  python -m deepl_project_tpu_torch.cli.train \
+      --config configs/transvae_large_f16d32.yaml --output_dir out/
+  # Gradient checkpointing and Adafactor (batch 16 in one microbatch)
+  python -m deepl_project_tpu_torch.cli.train --variant large \
+      --gradient_checkpointing --optimizer adafactor --batch_size 16 ...
   # Stage 2: GAN finetune with a frozen encoder, resuming the stage-1
   # checkpoint in the same --output_dir (the GAN term needs --gan_weight > 0)
   python -m deepl_project_tpu_torch.cli.train --variant large --use_gan \
       --freeze_encoder --gan_weight 0.05 --gan_r1_gamma 10 --ema_decay 0.999 \
       --batch_size 8 --output_dir out/
 
-``--device cpu`` runs the plain PyTorch path. Flags of what is not ported yet
-exit non-zero with "not yet ported": --gradient_checkpointing, --scan_blocks,
---optimizer adafactor, --vf_weight > 0, --perceptual self, --mesh_model > 1,
+``--device cpu`` runs the plain PyTorch path. As in the JAX CLI, the yaml's
+``training.gradient_checkpointing`` is not read: pass
+--gradient_checkpointing. It checkpoints under remat policy 'none' where the
+JAX CLI keeps 'dots' (``CLI_REMAT_POLICY``). Flags of what is not ported
+yet exit non-zero with "not yet ported": --scan_blocks, --mesh_model > 1,
 --param_sharding other than replicate, and --data other than
 synthetic/shapes.
 """
@@ -29,7 +39,17 @@ import sys
 from ..config import get_config
 from ..data import batch_iterator, input_pipeline, make_dataset
 from ..losses import LossWeights
+from ..losses.teachers import make_vf_teacher
+from ..models.transvae import resolve_device
 from ..training.trainer import Trainer, TrainerConfig
+
+# The remat policy --gradient_checkpointing selects. The JAX CLI leaves the
+# config's 'dots'; on an H100 'none' (each block's input kept, the rest
+# recomputed) is both faster and smaller than every selective policy, whose
+# dispatch mode costs more host time than the matmuls it saves (PERF.md,
+# section 6: b8 @256, 'none' 1.27-1.39x no remat's time at 12.55 GiB,
+# 'dots' 1.55-2.05x at 15.15 GiB).
+CLI_REMAT_POLICY = "none"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -41,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--latent_dim", type=int, default=None)
     p.add_argument("--config", default=None, help="YAML config path")
     p.add_argument("--gradient_checkpointing", action="store_true",
-                   help="not yet ported")
+                   help="per-block gradient checkpointing (remat, policy "
+                        f"{CLI_REMAT_POLICY!r})")
     p.add_argument("--norm_latents", action="store_true", default=True,
                    help="GroupNorm before the latent heads")
     p.add_argument("--no_norm_latents", dest="norm_latents", action="store_false")
@@ -53,7 +74,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mu_dtype", default=None, choices=[None, "bfloat16"],
                    help="AdamW first-moment dtype")
     p.add_argument("--optimizer", default="adamw", choices=["adamw", "adafactor"],
-                   help="'adafactor' is not yet ported")
+                   help="'adafactor': factored second moment, no first moment")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch path")
     # Data
@@ -77,11 +98,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--l1_weight", type=float, default=1.0)
     p.add_argument("--lpips_weight", type=float, default=1.0)
     p.add_argument("--perceptual", default="vgg", choices=["vgg", "self"],
-                   help="'self' is not yet ported")
-    p.add_argument("--perceptual_checkpoint", default="")
+                   help="'self': the frozen encoder of --perceptual_checkpoint in "
+                        "the LPIPS slot (not VGG-LPIPS)")
+    p.add_argument("--perceptual_checkpoint", default="",
+                   help="checkpoint directory of a trained model (perceptual self)")
     p.add_argument("--kl_weight", type=float, default=1e-8)
     p.add_argument("--vf_weight", type=float, default=0.0,
-                   help="> 0 is not yet ported (needs the DINOv2 teacher)")
+                   help="VF alignment to the --dino_model teacher (a deterministic "
+                        "stub where its weights are not on this machine)")
     p.add_argument("--gan_weight", type=float, default=0.0)
     # Stage 2
     p.add_argument("--use_gan", action="store_true",
@@ -138,11 +162,7 @@ def load_yaml_config(path: str, args: argparse.Namespace) -> dict:
 def unported_flags(args: argparse.Namespace) -> list[str]:
     """The flags set to what the port cannot do yet."""
     bad = [flag for flag, on in (
-        ("--gradient_checkpointing", args.gradient_checkpointing),
         ("--scan_blocks", args.scan_blocks),
-        ("--optimizer adafactor", args.optimizer == "adafactor"),
-        ("--vf_weight > 0", args.vf_weight > 0),
-        ("--perceptual self", args.perceptual == "self"),
         ("--mesh_model > 1", args.mesh_model > 1),
         (f"--param_sharding {args.param_sharding}", args.param_sharding != "replicate"),
         (f"--data {args.data}", args.data not in ("synthetic", "shapes")),
@@ -170,6 +190,8 @@ def main(argv=None):
                    "args": vars(args)}, f, indent=1)
 
     model_cfg = get_config(args.variant, args.compression_ratio, args.latent_dim,
+                           remat=args.gradient_checkpointing,
+                           remat_policy=CLI_REMAT_POLICY,
                            norm_latents=args.norm_latents,
                            attention_impl=args.attention_impl)
     weights = LossWeights(l1=args.l1_weight, lpips=args.lpips_weight,
@@ -187,7 +209,8 @@ def main(argv=None):
         eval_every_steps=args.eval_every_steps, output_dir=args.output_dir,
         mu_dtype=args.mu_dtype, optimizer=args.optimizer,
         ema_decay=args.ema_decay, keep_best=not args.no_keep_best,
-        gan_adaptive_weight=args.gan_adaptive_weight,
+        gan_adaptive_weight=args.gan_adaptive_weight, perceptual=args.perceptual,
+        perceptual_checkpoint=args.perceptual_checkpoint,
         gan_warmup_steps=args.gan_warmup_steps, gan_ramp_steps=args.gan_ramp_steps,
         gan_adaptive_max=args.gan_adaptive_max,
         gan_disc_loss_floor=args.gan_disc_loss_floor, gan_r1_gamma=args.gan_r1_gamma,
@@ -195,7 +218,11 @@ def main(argv=None):
         skip_data_on_resume=args.skip_data_on_resume,
         divergence_halt_db=args.divergence_halt_db,
         divergence_patience=args.divergence_patience)
-    trainer = Trainer(model_cfg, train_cfg, device=args.device)
+    # The VF teacher (the yaml's stage-1 recipe sets vf 0.1): DINOv2 where its
+    # weights are on this machine, else the deterministic stub.
+    device = resolve_device(args.device)
+    teacher_fn = make_vf_teacher(args.dino_model, device=device) if args.vf_weight > 0 else None
+    trainer = Trainer(model_cfg, train_cfg, teacher_fn=teacher_fn, device=device)
 
     val_batches = None
     if args.eval_every_steps > 0:

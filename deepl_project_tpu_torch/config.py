@@ -2,10 +2,9 @@
 
 Same fields, defaults and variants as ``deepl_project_tpu/config.py``; the
 only difference is that ``compute_dtype``/``params_dtype`` resolve to torch
-dtypes. Fields that belong to parts of the JAX package not yet ported
-(``remat``, ``scan_blocks``, ``context_axis``, ``quant``) are kept so configs
-round-trip between the packages; the port's model refuses the settings it
-cannot honour instead of ignoring them.
+dtypes. Fields of parts of the JAX package the port's model does not take
+(``scan_blocks``, ``context_axis``) are kept so configs round-trip between
+the packages; the model refuses those settings instead of ignoring them.
 """
 
 from __future__ import annotations
@@ -47,8 +46,10 @@ class TransVAEConfig:
     norm_latents: bool = False
     dtype: str = "bfloat16"  # compute dtype
     param_dtype: str = "float32"
-    remat: bool = False
-    remat_resample: bool = False
+    remat: bool = False  # per-block gradient checkpointing
+    remat_resample: bool = False  # also checkpoint Down/Upsample
+    # 'none' | 'dots' | 'dots_all' | 'conv_dots': the outputs a checkpointed
+    # block keeps (ops/blocks.py resolve_remat_policy).
     remat_policy: str = "dots"
     scan_blocks: bool = False
     attention_impl: str = "auto"

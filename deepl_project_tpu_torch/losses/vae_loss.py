@@ -7,8 +7,8 @@
 - KL in fp32 with logvar clamped to ``logvar_clip``, mean over all elements.
 - A term whose weight is 0 is an fp32 zero; ``total`` is the explicit sum.
 - VF alignment to a frozen teacher through an eagerly created projection.
-
-``make_self_perceptual`` is not ported yet.
+- :func:`make_self_perceptual`: the perceptual term from a trained model's
+  own frozen encoder, in the LPIPS slot.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .lpips import lpips as lpips_distance
 
@@ -84,6 +85,44 @@ def discriminator_loss(real_logits: torch.Tensor, fake_logits: torch.Tensor,
     if kind == "wgan":
         return fake.mean() - real.mean()
     raise ValueError(f"Unknown GAN loss kind: {kind!r}")
+
+
+def make_self_perceptual(model: torch.nn.Module, frozen_state: dict | None = None) -> Callable:
+    """Perceptual distance from a trained model's own encoder, frozen: the
+    features are the encoder's mu map, unit-normalised over the channels,
+    compared by the mean squared distance per image (LPIPS's form with
+    uniform weights; the JAX package's substitute where no pretrained VGG
+    weights exist -- not LPIPS).
+
+    ``frozen_state`` (a state_dict, e.g. from
+    ``training.checkpoint.restore_model_params``) is loaded into ``model``
+    (strict) when given, else ``model`` holds the frozen parameters; they
+    are set not to require grad. The
+    reconstruction's side runs through ``torch.utils.checkpoint``, as JAX
+    wraps it in ``jax.checkpoint``: its backward recomputes the encoder
+    instead of keeping its activations beside the trained model's. The
+    target's side runs under no grad.
+
+    Returns fn(recon [B, 3, H, W] in [0, 1], target) -> [B] distances."""
+    if frozen_state is not None:
+        model.load_state_dict(frozen_state, strict=True)
+    model.requires_grad_(False)
+
+    def feats(x: torch.Tensor) -> torch.Tensor:
+        mu, _ = model.encode(x.to(model.config.compute_dtype))
+        f = mu.float()
+        return f / (f.norm(dim=1, keepdim=True) + 1e-8)
+
+    def fn(recon_img: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled() and recon_img.requires_grad:
+            fr = checkpoint(feats, recon_img, use_reentrant=False)
+        else:
+            fr = feats(recon_img)
+        with torch.no_grad():
+            ft = feats(target)
+        return (fr - ft).square().mean(dim=(1, 2, 3))
+
+    return fn
 
 
 def transvae_loss(

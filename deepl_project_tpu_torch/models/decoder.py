@@ -3,6 +3,8 @@ encoder: a 3x3 conv from the latent, transformer stages, then CNN stages,
 with an Upsample between stages, and a final GroupNorm -> SiLU -> 3x3 conv.
 
 Output contract: unbounded logits; apply a sigmoid for [0, 1] images.
+Gradient checkpointing as in the encoder (``remat``, ``remat_resample``:
+the Upsamples).
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import TransVAEConfig
-from ..ops.blocks import ResBlock, TransVAEBlock
+from ..ops.blocks import ResBlock, TransVAEBlock, resolve_remat_policy, run_block
 from ..ops.layers import Conv2d
 from ..ops.norms import GroupNorm, gn_groups
 from ..ops.resample import Upsample
@@ -23,6 +25,7 @@ class TransVAEDecoder(nn.Module):
     def __init__(self, cfg: TransVAEConfig, *, device=None):
         super().__init__()
         self.config = cfg
+        self.remat_policy = resolve_remat_policy(cfg.remat_policy) if cfg.remat else None
         kw = dict(device=device, param_dtype=cfg.params_dtype)
         pkw = dict(device=device, dtype=cfg.params_dtype)
         depths = tuple(reversed(cfg.depths))
@@ -45,13 +48,15 @@ class TransVAEDecoder(nn.Module):
         self.norm_out = GroupNorm(gn_groups(dims[-1]), dims[-1], **pkw)
         self.conv_out = Conv2d(dims[-1], cfg.input_channels, 3, padding=1, **pkw)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
         """z [B, D, h, w] -> logits [B, C, h*f, w*f]."""
-        z = z.to(self.config.compute_dtype).contiguous(memory_format=torch.channels_last)
+        cfg = self.config
+        z = z.to(cfg.compute_dtype).contiguous(memory_format=torch.channels_last)
         h = self.conv_in(z)
         for i, stage in enumerate(self.stages):
             for block in stage:
-                h = block(h)
+                args = () if isinstance(block, ResBlock) else (deterministic,)
+                h = run_block(block, h, *args, remat=cfg.remat, policy=self.remat_policy)
             if i < len(self.upsamples):
-                h = self.upsamples[i](h)
+                h = run_block(self.upsamples[i], h, remat=cfg.remat and cfg.remat_resample)
         return self.conv_out(F.silu(self.norm_out(h)))

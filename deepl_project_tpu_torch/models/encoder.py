@@ -1,6 +1,11 @@
 """TransVAE encoder (PyTorch port of ``models/encoder.py``): a 3x3 conv stem,
 ``num_cnn_stages`` stages of ResBlocks, then TransVAE blocks, with a
-Downsample between every pair of stages."""
+Downsample between every pair of stages.
+
+``remat``: each block runs through ``torch.utils.checkpoint`` under the
+config's ``remat_policy`` in a forward that builds a graph; with
+``remat_resample`` the Downsamples too, saving nothing (the JAX
+``nn.remat(Downsample)`` has no policy)."""
 
 from __future__ import annotations
 
@@ -8,7 +13,7 @@ import torch
 from torch import nn
 
 from ..config import TransVAEConfig
-from ..ops.blocks import ResBlock, TransVAEBlock
+from ..ops.blocks import ResBlock, TransVAEBlock, resolve_remat_policy, run_block
 from ..ops.layers import Conv2d
 from ..ops.resample import Downsample
 
@@ -17,7 +22,8 @@ def transformer_kwargs(cfg: TransVAEConfig, dim: int) -> dict:
     return dict(dim=dim, mlp_ratio=cfg.mlp_ratio, head_dim=cfg.head_dim,
                 use_rope=cfg.use_rope, rope_pairing=cfg.rope_pairing,
                 use_conv_ffn=cfg.use_conv_ffn, conv_ffn_type=cfg.conv_ffn_type,
-                attention_impl=cfg.attention_impl, calibrate=cfg.quant_calibrate,
+                attention_impl=cfg.attention_impl, dropout=cfg.dropout,
+                calibrate=cfg.quant_calibrate,
                 quant=cfg.quant if cfg.quant_scope in ("all", "ffn") else None)
 
 
@@ -32,6 +38,7 @@ class TransVAEEncoder(nn.Module):
     def __init__(self, cfg: TransVAEConfig, *, device=None):
         super().__init__()
         self.config = cfg
+        self.remat_policy = resolve_remat_policy(cfg.remat_policy) if cfg.remat else None
         kw = dict(device=device, param_dtype=cfg.params_dtype)
         dims = cfg.base_dims
         self.conv_in = Conv2d(cfg.input_channels, dims[0], 3, padding=1,
@@ -50,13 +57,15 @@ class TransVAEEncoder(nn.Module):
                 self.downsamples.append(Downsample(dims[i], dims[i + 1],
                                                    cfg.use_dc_path, **kw))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
         """x [B, C, H, W] -> features [B, base_dims[-1], H/f, W/f]."""
-        x = x.to(self.config.compute_dtype).contiguous(memory_format=torch.channels_last)
+        cfg = self.config
+        x = x.to(cfg.compute_dtype).contiguous(memory_format=torch.channels_last)
         h = self.conv_in(x)
         for i, stage in enumerate(self.stages):
             for block in stage:
-                h = block(h)
+                args = () if isinstance(block, ResBlock) else (deterministic,)
+                h = run_block(block, h, *args, remat=cfg.remat, policy=self.remat_policy)
             if i < len(self.downsamples):
-                h = self.downsamples[i](h)
+                h = run_block(self.downsamples[i], h, remat=cfg.remat and cfg.remat_resample)
         return h

@@ -12,6 +12,9 @@ JAX package's ``utils/convert.py``), so a reference-layout checkpoint loads
 with ``load_state_dict(strict=True)``. ``quant='int8'`` builds the int8
 serving tree as the JAX config does (``quant_scope``: the ResBlocks, the
 ConvFFNs or both); ``quantize.quantize_model`` fills it from a float model.
+``remat`` (see :func:`enable_gradient_checkpointing`) checkpoints each block
+in training; ``dropout`` acts only in a call with ``deterministic=False``,
+which the training steps never make (as in the JAX package).
 """
 
 from __future__ import annotations
@@ -26,9 +29,7 @@ from .decoder import TransVAEDecoder
 from .encoder import TransVAEEncoder
 
 # Config settings of the JAX package whose code paths are not ported yet.
-_NOT_PORTED = {
-    "remat": False, "remat_resample": False, "context_axis": None, "dropout": 0.0,
-}
+_NOT_PORTED = {"context_axis": None}
 
 
 class TransVAE(nn.Module):
@@ -57,16 +58,16 @@ class TransVAE(nn.Module):
         self.latent_norm = (GroupNorm(gn_groups(final), final, **pkw)
                             if cfg.norm_latents else None)
 
-    def encode(self, x: torch.Tensor):
+    def encode(self, x: torch.Tensor, deterministic: bool = True):
         """x [B, C, H, W] -> (mu, logvar), each [B, D, H/f, W/f], unclamped."""
-        h = self.encoder(x)
+        h = self.encoder(x, deterministic)
         if self.latent_norm is not None:
             h = self.latent_norm(h)
         return self.conv_mu(h), self.conv_logvar(h)
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
+    def decode(self, z: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
         """z [B, D, h, w] -> logits [B, C, h*f, w*f]."""
-        return self.decoder(z)
+        return self.decoder(z, deterministic)
 
     def reparameterize(self, mu: torch.Tensor, logvar: torch.Tensor,
                        generator: torch.Generator | None = None,
@@ -85,16 +86,17 @@ class TransVAE(nn.Module):
         return (mu32 + eps * std).to(mu.dtype)
 
     def forward(self, x: torch.Tensor, sample: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, deterministic: bool = True):
         """(reconstruction logits, mu, logvar) with mu and logvar clamped;
         decodes the clamped mean, or with ``sample=True`` a sample of the
-        posterior drawn with ``generator``."""
+        posterior drawn with ``generator``. ``deterministic=False`` turns
+        the config's dropout on."""
         cfg = self.config
-        mu, logvar = self.encode(x)
+        mu, logvar = self.encode(x, deterministic)
         mu = mu.clamp(-cfg.mu_clip, cfg.mu_clip)
         logvar = logvar.clamp(*cfg.logvar_clip)
         z = self.reparameterize(mu, logvar, generator) if sample else mu
-        return self.decode(z), mu, logvar
+        return self.decode(z, deterministic), mu, logvar
 
 
 @torch.no_grad()
@@ -144,6 +146,22 @@ def create_transvae(variant: str = "large", compression_ratio: int = 16,
         gen.manual_seed(seed)
         init_weights(model, gen)
     return model.eval()
+
+
+def enable_gradient_checkpointing(model: TransVAE, policy: str | None = None) -> TransVAE:
+    """A TransVAE with per-block gradient checkpointing (``remat=True``) on
+    the same parameter and buffer tensors as ``model``: the counterpart of
+    the JAX package's ``enable_gradient_checkpointing``, which returns a new
+    module for the same params. ``policy`` overrides ``remat_policy``
+    ('none', 'dots', 'dots_all', 'conv_dots'; see
+    ``ops.blocks.resolve_remat_policy``)."""
+    kw = {"remat": True}
+    if policy is not None:
+        kw["remat_policy"] = policy
+    with torch.device("meta"):
+        out = TransVAE(model.config.replace(**kw))
+    out.load_state_dict(model.state_dict(keep_vars=True), strict=True, assign=True)
+    return out.train(model.training)
 
 
 def get_last_layer(model: TransVAE) -> torch.Tensor:

@@ -31,6 +31,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .hopper.flash_attention import flash_attention, flash_supported
@@ -126,16 +127,20 @@ def core_attention(q, k, v, scale: float, impl: str = "auto") -> torch.Tensor:
 
 
 class AttentionRoPE(CachedOperands, nn.Module):
-    """Multi-head global attention on an NCHW feature map."""
+    """Multi-head global attention on an NCHW feature map. ``dropout`` acts
+    on the output projection in a call with ``deterministic=False``, which
+    also keeps the sublayer kernels out (the JAX gates' ``dropout == 0.0 or
+    deterministic``)."""
 
     def __init__(self, dim: int, head_dim: int = 64, use_rope: bool = True,
                  rope_pairing: str = "reference", impl: str = "auto", *,
-                 device=None, param_dtype=torch.float32):
+                 dropout: float = 0.0, device=None, param_dtype=torch.float32):
         super().__init__()
         if impl not in IMPLS:
             raise NotImplementedError(f"attention impl {impl!r} is not yet ported")
         self.dim, self.head_dim = dim, head_dim
         self.use_rope, self.rope_pairing, self.impl = use_rope, rope_pairing, impl
+        self.dropout = dropout
         kw = dict(device=device, dtype=param_dtype)
         self.norm_q = LayerNorm(dim, **kw)
         self.norm_k = LayerNorm(dim, **kw)
@@ -162,14 +167,14 @@ class AttentionRoPE(CachedOperands, nn.Module):
         wp, bp = self.proj.weight, self.proj.bias
         return self._cached("proj", (wp, bp), lambda: pack_proj(wp, bp))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
         b, c, h, w = x.shape
         n, hd = h * w, self.head_dim
         nh = c // hd
         xf = x.permute(0, 2, 3, 1).reshape(b, n, c)
         # The sublayer kernels serve inference ('auto'); training and the
         # explicit cores keep the composable path, as in the JAX module.
-        kernels = self.impl == "auto"
+        kernels = self.impl == "auto" and (self.dropout == 0.0 or deterministic)
         if kernels and sublayer_supported(n, c, hd, x.dtype):
             ln, wq, wk, wv = self._qkv_args()
             out = fused_attention_sublayer(
@@ -193,4 +198,6 @@ class AttentionRoPE(CachedOperands, nn.Module):
                     k = apply_rope2d(k, h, w, self.rope_pairing)
             out = core_attention(q, k, v, hd ** -0.5, self.impl)
             out = self.proj(out.reshape(b, n, c))
+            if self.dropout > 0.0 and not deterministic:
+                out = F.dropout(out, self.dropout)
         return out.reshape(b, h, w, c).permute(0, 3, 1, 2)

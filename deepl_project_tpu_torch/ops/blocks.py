@@ -1,17 +1,77 @@
 """Building blocks (PyTorch port of ``ops/blocks.py``): the CNN ResBlock and
-the hybrid TransVAE block, on NCHW maps."""
+the hybrid TransVAE block, on NCHW maps, and the per-block gradient
+checkpointing of the encoder and decoder (:func:`resolve_remat_policy`,
+:func:`run_block`)."""
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from .attention import AttentionRoPE
 from .ffn import ConvFFN, StandardFFN
 from .layers import Conv2d
 from .norms import GroupNorm, RMSNorm, gn_groups
 from .quant import QConv2d, record_amax
+
+_aten = torch.ops.aten
+# The ops whose outputs each policy keeps (every overload of each): products
+# without a batch dimension (the linear layers), batched products (the plain
+# attention core's QK^T and PV), convolutions.
+_DOTS = (_aten.mm, _aten.addmm)
+_BATCHED_DOTS = (_aten.bmm, _aten.baddbmm)
+_CONVS = (_aten.convolution,)
+_SAVED = {"dots": _DOTS, "dots_all": _DOTS + _BATCHED_DOTS,
+          "conv_dots": _DOTS + _BATCHED_DOTS + _CONVS}
+
+
+def resolve_remat_policy(name: str | None):
+    """Map a config ``remat_policy`` name to a selective-checkpoint policy
+    (``create_selective_checkpoint_contexts``), as the JAX package maps it to
+    a ``jax.checkpoint`` policy:
+
+    - 'none' (or None): save nothing (returns None: a plain checkpoint);
+    - 'dots': save the outputs of products with no batch dimension
+      (``aten.mm``/``addmm``: the linear layers);
+    - 'dots_all': also the batched products (``aten.bmm``/``baddbmm``);
+    - 'conv_dots': also the convolutions, so the backward recomputes only
+      elementwise chains.
+
+    The hand-written kernels are launched through ctypes, so no policy sees
+    them: a checkpointed block always launches them again when it is
+    recomputed, as a ``pallas_call`` in JAX is neither ``dot_general`` nor
+    ``conv_general_dilated`` and is recomputed under every policy."""
+    if name in (None, "none"):
+        return None
+    if name not in _SAVED:
+        raise ValueError(f"Unknown remat policy {name!r}")
+    saved = _SAVED[name]
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return policy
+
+
+def run_block(block: nn.Module, x: torch.Tensor, *args, remat: bool = False,
+              policy=None) -> torch.Tensor:
+    """``block(x, *args)``, through ``torch.utils.checkpoint`` (non-reentrant)
+    under ``remat`` when the call builds a graph: the block's activations are
+    dropped after the forward, except the outputs that ``policy`` (from
+    :func:`resolve_remat_policy`) keeps, and recomputed in the backward.
+    Dropout's global RNG state is restored for the recompute."""
+    if not (remat and torch.is_grad_enabled()):
+        return block(x, *args)
+    context_fn = (functools.partial(create_selective_checkpoint_contexts, policy)
+                  if policy is not None else noop_context_fn)
+    return checkpoint(block, x, *args, use_reentrant=False, context_fn=context_fn)
 
 
 class ResBlock(nn.Module):
@@ -59,24 +119,27 @@ class ResBlock(nn.Module):
 
 class TransVAEBlock(nn.Module):
     """Pre-norm transformer block on feature maps:
-    x + attn(RMSNorm(x)); x + ffn(RMSNorm(x))."""
+    x + attn(RMSNorm(x)); x + ffn(RMSNorm(x)). ``dropout`` is active only in
+    a call with ``deterministic=False`` (the attention output projection and
+    the FFN, as in the JAX block)."""
 
     def __init__(self, dim: int, mlp_ratio: float = 1.0, head_dim: int = 64,
                  use_rope: bool = True, rope_pairing: str = "reference",
                  use_conv_ffn: bool = True, conv_ffn_type: str = "full",
-                 attention_impl: str = "auto", *, quant: str | None = None,
-                 calibrate: bool = False, device=None, param_dtype=torch.float32):
+                 attention_impl: str = "auto", dropout: float = 0.0, *,
+                 quant: str | None = None, calibrate: bool = False, device=None,
+                 param_dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, param_dtype=param_dtype)
         self.norm1 = RMSNorm(dim, device=device, dtype=param_dtype)
         self.attn = AttentionRoPE(dim, head_dim, use_rope, rope_pairing,
-                                  attention_impl, **kw)
+                                  attention_impl, dropout=dropout, **kw)
         self.norm2 = RMSNorm(dim, device=device, dtype=param_dtype)
         # quant and calibrate reach the ConvFFN only: attention stays bf16.
-        self.ffn = (ConvFFN(dim, mlp_ratio, conv_ffn_type, quant=quant,
+        self.ffn = (ConvFFN(dim, mlp_ratio, conv_ffn_type, dropout=dropout, quant=quant,
                             calibrate=calibrate, **kw) if use_conv_ffn
-                    else StandardFFN(dim, mlp_ratio, **kw))
+                    else StandardFFN(dim, mlp_ratio, dropout=dropout, **kw))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.ffn(self.norm2(x))
+    def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x), deterministic)
+        return x + self.ffn(self.norm2(x), deterministic)

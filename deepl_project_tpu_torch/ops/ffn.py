@@ -17,6 +17,9 @@ b2 Wout + bout in fp32, out = yw[:, ch:] + z W_fold (fp32) + b_fold rounded
 once. Off, the literal reference op order runs. The parameters are the
 reference's either way.
 
+``dropout`` acts on the FFN's output (StandardFFN: also after its GELU) in
+a call with ``deterministic=False``, as in the JAX modules.
+
 ``quant='int8'`` (full conv type) builds the int8 serving form of the folded
 op order (``_int8_forward``): int8 buffers instead of parameters, from
 ``quantize.quantize_model`` or a JAX-quantized tree.
@@ -25,6 +28,7 @@ op order (``_int8_forward``): int8 buffers instead of parameters, from
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .layers import GELU, CachedOperands, Conv2d, Linear, matmul_f32
@@ -35,12 +39,14 @@ class ConvFFN(CachedOperands, nn.Module):
     """Inverted-bottleneck FFN with spatial conv mixing."""
 
     def __init__(self, dim: int, mlp_ratio: float = 1.0, conv_type: str = "full",
-                 *, fold_output: bool = True, quant: str | None = None,
-                 calibrate: bool = False, device=None, param_dtype=torch.float32):
+                 *, fold_output: bool = True, dropout: float = 0.0,
+                 quant: str | None = None, calibrate: bool = False, device=None,
+                 param_dtype=torch.float32):
         super().__init__()
         hidden = int(dim * mlp_ratio * 4)
         ch = int(dim * mlp_ratio)
         self.fold_output, self.calibrate, self.amax = fold_output, calibrate, {}
+        self.dropout = dropout
         self.quant = quant if conv_type == "full" else None
         self.act = GELU()
         if self.quant == "int8":
@@ -69,7 +75,7 @@ class ConvFFN(CachedOperands, nn.Module):
             raise ValueError(f"Unknown conv_type: {conv_type}")
         self.proj_out = Linear(hidden, dim, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
         if self.quant == "int8":
             return self._int8_forward(x)
         full = isinstance(self.conv, nn.Sequential)
@@ -78,10 +84,14 @@ class ConvFFN(CachedOperands, nn.Module):
             record_amax(self, "amax_in", xt)
         y = self.act(self.proj_in(xt))  # [B, H, W, hidden]
         if full and self.fold_output:
-            return self._fold_forward(y)
-        y = y.permute(0, 3, 1, 2)  # NCHW view, channels-last in memory
-        y = y + self.conv(y)  # residual around the conv branch
-        return self.proj_out(y.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            out = self._fold_forward(y)
+        else:
+            y = y.permute(0, 3, 1, 2)  # NCHW view, channels-last in memory
+            y = y + self.conv(y)  # residual around the conv branch
+            out = self.proj_out(y.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        if self.dropout > 0.0 and not deterministic:
+            out = F.dropout(out, self.dropout)
+        return out
 
     def _fold_operands(self, dt: torch.dtype):
         """(W_head [hidden, ch + dim], W_fold [ch, dim]) in ``dt`` and b_fold
@@ -94,7 +104,9 @@ class ConvFFN(CachedOperands, nn.Module):
             w_head = torch.cat([conv0.weight.reshape(ch, hidden).t().to(dt), wout], 1)
             w2 = conv2.weight.reshape(hidden, ch).t().to(dt)  # [ch, hidden]
             w_fold = matmul_f32(w2, wout).to(dt)
-            b_fold = (conv2.bias @ out.weight.t() + out.bias).float()
+            # A [1, ch] row: a vector @ matrix product squeezes its output
+            # in place, which a checkpoint policy that keeps products forbids.
+            b_fold = (conv2.bias[None] @ out.weight.t())[0].add(out.bias).float()
             return w_head, w_fold, b_fold
 
         params = (conv0.weight, conv2.weight, conv2.bias, out.weight, out.bias)
@@ -118,8 +130,14 @@ class ConvFFN(CachedOperands, nn.Module):
         if self.calibrate:
             record_amax(self, "amax_z2", z)
         z = z.permute(0, 2, 3, 1).reshape(-1, ch)
-        # (yw_tail + z W_fold) + b_fold in fp32, summed into the product.
-        out = matmul_f32(z, w_fold).add_(yw[:, ch:]).add_(b_fold)
+        # (yw_tail + z W_fold) + b_fold in fp32, summed into the product
+        # (out of place under autograd: a checkpoint policy may keep the
+        # product, which must then stay as it was made).
+        out = matmul_f32(z, w_fold)
+        if torch.is_grad_enabled():
+            out = out + yw[:, ch:] + b_fold
+        else:
+            out = out.add_(yw[:, ch:]).add_(b_fold)
         return out.to(dt).view(b, h, w, -1).permute(0, 3, 1, 2)
 
     def _int8_forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -142,15 +160,22 @@ class ConvFFN(CachedOperands, nn.Module):
 class StandardFFN(nn.Module):
     """Plain Linear-GELU-Linear FFN (ablation baseline)."""
 
-    def __init__(self, dim: int, mlp_ratio: float = 1.0, *, device=None,
-                 param_dtype=torch.float32):
+    def __init__(self, dim: int, mlp_ratio: float = 1.0, *, dropout: float = 0.0,
+                 device=None, param_dtype=torch.float32):
         super().__init__()
         hidden = int(dim * mlp_ratio)
         kw = dict(device=device, dtype=param_dtype)
+        self.dropout = dropout
         self.fc1 = Linear(dim, hidden, **kw)
         self.act = GELU()
         self.fc2 = Linear(hidden, dim, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.fc2(self.act(self.fc1(x.permute(0, 2, 3, 1))))
+    def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
+        drop = self.dropout > 0.0 and not deterministic
+        y = self.act(self.fc1(x.permute(0, 2, 3, 1)))
+        if drop:
+            y = F.dropout(y, self.dropout)
+        y = self.fc2(y)
+        if drop:
+            y = F.dropout(y, self.dropout)
         return y.permute(0, 3, 1, 2)

@@ -2,8 +2,8 @@
 ``training/checkpoint.py``).
 
 A checkpoint directory holds ``ckpt_<step>.pt`` files -- {'state': {'model':
-reference-layout state_dict, 'optimizer': ..., 'step': ..., ['ema': ...]},
-'meta': {'epoch', 'step'}} -- the newest ``max_to_keep`` of them, a
+reference-layout state_dict, 'optimizer': ..., 'step': ..., ['ema': ...],
+['vf_proj': ...]}, 'meta': {'epoch', 'step'}} -- the newest ``max_to_keep`` of them, a
 ``config.json`` beside them and, for a best checkpoint, ``metrics.json``.
 Files are written to a temporary name and renamed, so a crash mid-save
 leaves the previous checkpoints whole.
@@ -68,6 +68,25 @@ def restore_checkpoint(directory: str, step: int | None = None,
     raw = torch.load(_path(directory, step), map_location=map_location,
                      weights_only=True)
     return raw["state"], raw["meta"]
+
+
+def restore_model_params(directory: str, step: int | None = None, prefer_ema: bool = True,
+                         map_location="cpu") -> dict:
+    """The model's state_dict alone from a trainer checkpoint (the JAX
+    ``restore_model_params``): with ``prefer_ema`` the EMA shadow's
+    parameters where the checkpoint has one (the model the best checkpoint
+    scored), without the optimizer, the VF projection or the discriminator.
+    The file is memory-mapped, so the optimizer's tensors are not read."""
+    step = latest_step(directory) if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"No checkpoint found in {directory}")
+    raw = torch.load(_path(directory, step), map_location="cpu", weights_only=True,
+                     mmap=True)
+    state = raw["state"]
+    model = dict(state["model"])
+    if prefer_ema and state.get("ema") is not None:
+        model.update({k: state["ema"][k] for k in model if k in state["ema"]})
+    return {k: v.to(map_location) for k, v in model.items()}
 
 
 def checkpoint_metrics(directory: str) -> dict | None:

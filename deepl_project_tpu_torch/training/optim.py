@@ -1,102 +1,116 @@
-"""The training optimizer (PyTorch port of ``training/optim.py``, its
-``adamw`` branch).
+"""The training optimizers (PyTorch port of ``training/optim.py``).
 
 ``make_optimizer`` builds what the JAX package's optax chain computes,
-written out over tensors (``torch._foreach_*``):
+written out over tensors:
 
     apply_if_finite(                      # NaN-skip, max_consecutive_errors
       multi_transform(                    # freeze_encoder: encoder -> zeros
         chain(clip_by_global_norm(max_grad_norm),
-              adamw(schedule, b1, b2, eps, weight_decay, mu_dtype))))
+              adamw(schedule, b1, b2, eps, weight_decay, mu_dtype)
+              | adafactor(schedule, min_dim_size_to_factor=128,
+                          decay_rate=0.8, momentum=None,
+                          multiply_by_parameter_scale=False))))
+
+Shared by both (:class:`_Chain`):
 
 - A step whose gradients hold a non-finite value changes nothing (params,
   moments, counts), unless more than ``max_consecutive_errors`` such steps
   came in a row; ``notfinite_count`` / ``total_notfinite`` count them.
 - The clip is optax's: g * max_norm / norm when norm >= max_norm (no 1e-6
   term), over the trainable gradients only.
-- AdamW: mu = b1 mu + (1 - b1) g, nu = b2 nu + (1 - b2) g^2, bias-corrected
-  with the update count, u = mu_hat / (sqrt(nu_hat) + eps) + wd * p, and the
-  step is -lr(count) * u with the schedule read at the 0-based count of
-  applied updates. With ``mu_dtype='bfloat16'`` mu is stored in bf16 and
-  updated as bf16(b1) * mu + (1 - b1) * g in fp32, as the compiled optax
-  chain computes it.
 - ``freeze_encoder``: parameters whose name has an ``encoder`` component get
-  zero updates and no moments, and stay out of the clip norm.
+  zero updates and no state, and stay out of the clip norm.
+- The schedule is read at the 0-based count of applied updates.
+
+:class:`AdamW` (``torch._foreach_*``): mu = b1 mu + (1 - b1) g, nu = b2 nu +
+(1 - b2) g^2, bias-corrected with the update count, u = mu_hat /
+(sqrt(nu_hat) + eps) + wd * p, and the step is -lr(count) * u. With
+``mu_dtype='bfloat16'`` mu is stored in bf16 and updated as bf16(b1) * mu +
+(1 - b1) * g in fp32, as the compiled optax chain computes it.
+``torch.optim.AdamW`` differs in each of these points (epsilon placement
+aside, its clip helper adds 1e-6 and it has no NaN-skip), hence the class.
+
+:class:`Adafactor`, optax's rule (``factorized.py``, ``alias.py``): with
+decay d = 1 - (count + 1)^-0.8 and g2 = g^2 + 1e-30, a parameter whose two
+largest dimensions are >= 128 keeps row and column means of g2 (v_row,
+v_col; u = g (v_row / mean(v_row))^-1/2 v_col^-1/2), any other the full v
+(u = g v^-1/2); then u / max(1, rms(u)) (``clip_by_block_rms(1.0)``), then
+-lr(count) * u. No first moment. The two dimensions are the ones optax
+picks on the JAX layout of the parameter (:func:`jax_layout`), mapped to
+the port's.
 
 The update is in place on the parameters and on the gradients handed in.
-``torch.optim.AdamW`` differs in each of these points (epsilon placement
-aside, its clip helper adds 1e-6 and it has no NaN-skip), hence this class.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .schedule import Schedule, warmup_constant
 
 # Tensors per foreach group: bounds the update's temporaries.
 _GROUP_NUMEL = 1 << 26
+# The JAX make_optimizer's fixed Adafactor settings: optax's decay_rate, its
+# eps added to g^2, min_dim_size_to_factor, and clip_by_block_rms's threshold.
+_DECAY_RATE = 0.8
+_EPS = 1e-30
+_MIN_DIM_TO_FACTOR = 128
+_BLOCK_RMS = 1.0
 
 
 def _is_frozen(name: str) -> bool:
     return "encoder" in name.split(".")
 
 
-class AdamW:
-    """AdamW with global-norm clipping, NaN-skip and an optional frozen
-    encoder over named parameters (see the module docstring)."""
+class _Chain:
+    """The NaN-skip, freeze partition and global-norm clip around an
+    optimizer's rule (``_update``), over named parameters."""
 
-    def __init__(self, named_params, schedule: Schedule, *, b1: float = 0.9,
-                 b2: float = 0.95, eps: float = 1e-8, weight_decay: float = 0.0,
-                 max_grad_norm: float = 1.0, freeze_encoder: bool = False,
-                 nan_skip: bool = True, mu_dtype: str | None = None,
+    kind = ""
+
+    def __init__(self, named_params, schedule: Schedule, *, max_grad_norm: float = 1.0,
+                 freeze_encoder: bool = False, nan_skip: bool = True,
                  max_consecutive_errors: int = 100):
         self.names, self.params = map(list, zip(*named_params))
         self.schedule = schedule
-        self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
         self.max_grad_norm = max_grad_norm
         self.nan_skip = nan_skip
         self.max_consecutive_errors = max_consecutive_errors
         self.trainable = [not (freeze_encoder and _is_frozen(n)) for n in self.names]
-        self.mu_dtype = getattr(torch, mu_dtype) if mu_dtype else None
-        with torch.no_grad():
-            self.mu = [torch.zeros_like(p, dtype=self.mu_dtype or p.dtype) if t else None
-                       for p, t in zip(self.params, self.trainable)]
-            self.nu = [torch.zeros_like(p) if t else None
-                       for p, t in zip(self.params, self.trainable)]
         self.count = 0  # applied updates
         self.notfinite_count = 0
         self.total_notfinite = 0
         self.last_finite = True
 
-    # -- state -------------------------------------------------------------
+    @property
+    def trainable_names(self) -> set[str]:
+        return {n for n, t in zip(self.names, self.trainable) if t}
+
+    @staticmethod
+    def saved_trainable_names(state: dict) -> set[str]:
+        """The parameters a saved state trains (it holds state for each)."""
+        if state.get("kind", "adamw") == "adafactor":
+            return set(state["v"]) | set(state["v_row"])
+        return set(state["mu"])
+
+    def trains_as(self, state: dict) -> bool:
+        """Whether a saved state is of this optimizer over the same trainable
+        parameters (what a structured restore in the JAX trainer needs)."""
+        return (state.get("kind", "adamw") == self.kind
+                and self.saved_trainable_names(state) == self.trainable_names)
+
     def state_dict(self) -> dict:
-        return {"count": self.count, "notfinite_count": self.notfinite_count,
-                "total_notfinite": self.total_notfinite,
-                "last_finite": self.last_finite,
-                "mu": {n: m for n, m in zip(self.names, self.mu) if m is not None},
-                "nu": {n: v for n, v in zip(self.names, self.nu) if v is not None}}
+        return {"kind": self.kind, "count": self.count,
+                "notfinite_count": self.notfinite_count,
+                "total_notfinite": self.total_notfinite, "last_finite": self.last_finite,
+                **self._state()}
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
         for key in ("count", "notfinite_count", "total_notfinite", "last_finite"):
             setattr(self, key, state[key])
-        for name, m, v in zip(self.names, self.mu, self.nu):
-            if m is not None:
-                m.copy_(state["mu"][name])
-                v.copy_(state["nu"][name])
-
-    # -- update ------------------------------------------------------------
-    def _groups(self, idx):
-        group, numel = [], 0
-        for i in idx:
-            group.append(i)
-            numel += self.params[i].numel()
-            if numel >= _GROUP_NUMEL:
-                yield group
-                group, numel = [], 0
-        if group:
-            yield group
+        self._load(state)
 
     @torch.no_grad()
     def step(self, grads: list[torch.Tensor]) -> bool:
@@ -121,12 +135,55 @@ class AdamW:
         if bool(norm >= self.max_grad_norm):
             torch._foreach_div_(g, norm)
             torch._foreach_mul_(g, self.max_grad_norm)
-
         self.count += 1
+        self._update(idx, grads, self.schedule(self.count - 1))
+        return True
+
+
+class AdamW(_Chain):
+    """AdamW with global-norm clipping, NaN-skip and an optional frozen
+    encoder over named parameters (see the module docstring)."""
+
+    kind = "adamw"
+
+    def __init__(self, named_params, schedule: Schedule, *, b1: float = 0.9,
+                 b2: float = 0.95, eps: float = 1e-8, weight_decay: float = 0.0,
+                 mu_dtype: str | None = None, **chain):
+        super().__init__(named_params, schedule, **chain)
+        self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
+        self.mu_dtype = getattr(torch, mu_dtype) if mu_dtype else None
+        with torch.no_grad():
+            self.mu = [torch.zeros_like(p, dtype=self.mu_dtype or p.dtype) if t else None
+                       for p, t in zip(self.params, self.trainable)]
+            self.nu = [torch.zeros_like(p) if t else None
+                       for p, t in zip(self.params, self.trainable)]
+
+    def _state(self) -> dict:
+        return {"mu": {n: m for n, m in zip(self.names, self.mu) if m is not None},
+                "nu": {n: v for n, v in zip(self.names, self.nu) if v is not None}}
+
+    def _load(self, state: dict) -> None:
+        for name, m, v in zip(self.names, self.mu, self.nu):
+            if m is not None:
+                m.copy_(state["mu"][name])
+                v.copy_(state["nu"][name])
+
+    # -- update ------------------------------------------------------------
+    def _groups(self, idx):
+        group, numel = [], 0
+        for i in idx:
+            group.append(i)
+            numel += self.params[i].numel()
+            if numel >= _GROUP_NUMEL:
+                yield group
+                group, numel = [], 0
+        if group:
+            yield group
+
+    def _update(self, idx: list[int], grads: list[torch.Tensor], lr: float) -> None:
         b1, b2 = self.b1, self.b2
         bc1 = 1.0 - float(torch.tensor(b1) ** self.count)
         bc2 = 1.0 - float(torch.tensor(b2) ** self.count)
-        lr = self.schedule(self.count - 1)
         # JAX multiplies a low-precision moment by b1 taken to the moment's
         # dtype first (a weakly typed constant); in the compiled step XLA
         # keeps that product and the sum in fp32 (excess precision).
@@ -157,7 +214,95 @@ class AdamW:
                 torch._foreach_add_(upd, [t.float() for t in p], alpha=self.wd)
             torch._foreach_mul_(upd, -lr)
             torch._foreach_add_(p, upd)
-        return True
+
+
+def jax_layout(name: str, shape) -> tuple[int, ...]:
+    """The axes of a port parameter in the order of the JAX package's layout
+    (``port.permute(axes)`` has the JAX shape): 4-D ``.weight``s are convs,
+    [O, I, kh, kw] here and [kh, kw, I, O] there; 2-D ``.weight``s are
+    linears, [O, I] here and [I, O] there; every other parameter (norm
+    scales, biases, ``vf_proj.kernel``) has one layout in both."""
+    if name.endswith(".weight") and len(shape) == 4:
+        return (2, 3, 1, 0)
+    if name.endswith(".weight") and len(shape) == 2:
+        return (1, 0)
+    return tuple(range(len(shape)))
+
+
+def factored_dims(name: str, shape):
+    """The port axes (row, col) over whose means Adafactor keeps a
+    parameter's second moment, or None for a full one: optax's
+    ``_factored_dims`` (the two largest dimensions when the second largest
+    is >= 128, ties broken by ``np.argsort``) on the
+    JAX layout of the parameter, mapped back to the port's axes."""
+    axes = jax_layout(name, shape)
+    jax_shape = tuple(shape[a] for a in axes)
+    if len(jax_shape) < 2:
+        return None
+    order = np.argsort(jax_shape)
+    if jax_shape[order[-2]] < _MIN_DIM_TO_FACTOR:
+        return None
+    # optax's (d1, d0): v_row is the mean over d0, v_col over d1.
+    return axes[int(order[-2])], axes[int(order[-1])]
+
+
+class Adafactor(_Chain):
+    """optax's ``adafactor`` with ``min_dim_size_to_factor=128``,
+    ``decay_rate=0.8``, no momentum, no parameter scale and the block-RMS
+    clip at 1.0, inside the shared chain (see the module docstring).
+
+    State per trainable parameter: ``v_row`` and ``v_col`` (factored) or
+    ``v`` (full), fp32, in the port's axis order."""
+
+    kind = "adafactor"
+
+    def __init__(self, named_params, schedule: Schedule, **chain):
+        super().__init__(named_params, schedule, **chain)
+        self.dims = [factored_dims(n, p.shape) for n, p in zip(self.names, self.params)]
+        self.v_row, self.v_col, self.v = [], [], []
+        with torch.no_grad():
+            for p, t, d in zip(self.params, self.trainable, self.dims):
+                full = t and d is None
+                self.v.append(torch.zeros_like(p) if full else None)
+                self.v_row.append(p.new_zeros(_drop(p.shape, d[1])) if t and d else None)
+                self.v_col.append(p.new_zeros(_drop(p.shape, d[0])) if t and d else None)
+
+    def _state(self) -> dict:
+        def named(ts):
+            return {n: t for n, t in zip(self.names, ts) if t is not None}
+        return {"v_row": named(self.v_row), "v_col": named(self.v_col), "v": named(self.v)}
+
+    def _load(self, state: dict) -> None:
+        for key in ("v_row", "v_col", "v"):
+            for name, t in zip(self.names, getattr(self, key)):
+                if t is not None:
+                    t.copy_(state[key][name])
+
+    def _update(self, idx: list[int], grads: list[torch.Tensor], lr: float) -> None:
+        # optax's decay schedule in fp32, at the 0-based count of this update.
+        decay = 1.0 - torch.tensor(float(self.count), dtype=torch.float32) ** -_DECAY_RATE
+        keep = float(1.0 - decay)
+        decay = float(decay)
+        for i in idx:
+            g, p, d = grads[i], self.params[i], self.dims[i]
+            g2 = g * g + _EPS
+            if d is not None:
+                row, col = d  # optax's d1, d0
+                v_row = self.v_row[i].mul_(decay).add_(g2.mean(dim=col), alpha=keep)
+                v_col = self.v_col[i].mul_(decay).add_(g2.mean(dim=row), alpha=keep)
+                reduced = row - 1 if row > col else row
+                row_factor = (v_row / v_row.mean(dim=reduced, keepdim=True)).pow(-0.5)
+                u = g * row_factor.unsqueeze(col) * v_col.pow(-0.5).unsqueeze(row)
+            else:
+                v = self.v[i].mul_(decay).add_(g2, alpha=keep)
+                u = g * v.pow(-0.5)
+            rms = u.square().mean().sqrt()
+            u = u / torch.clamp(rms / _BLOCK_RMS, min=1.0)
+            p.add_(u, alpha=-lr)
+
+
+def _drop(shape, axis: int) -> tuple[int, ...]:
+    return tuple(s for k, s in enumerate(shape) if k != axis)
 
 
 def make_optimizer(named_params, learning_rate: float = 1e-4,
@@ -165,16 +310,26 @@ def make_optimizer(named_params, learning_rate: float = 1e-4,
                    weight_decay: float = 0.0, max_grad_norm: float = 1.0,
                    freeze_encoder: bool = False, nan_skip: bool = True,
                    schedule: Schedule | None = None, mu_dtype: str | None = None,
-                   optimizer: str = "adamw") -> AdamW:
+                   optimizer: str = "adamw") -> _Chain:
     """The training optimizer over ``named_params`` (name, tensor) pairs,
-    with the JAX ``make_optimizer``'s arguments and defaults."""
-    if optimizer == "adafactor":
-        raise NotImplementedError("optimizer='adafactor' is not yet ported to "
-                                  "deepl_project_tpu_torch")
-    if optimizer != "adamw":
-        raise ValueError(f"unknown optimizer {optimizer!r}")
+    with the JAX ``make_optimizer``'s arguments and defaults: ``AdamW`` or
+    ``Adafactor`` (which takes no weight decay and ignores ``b1``, ``b2``
+    and ``mu_dtype``, as the JAX chain does)."""
     sched = schedule if schedule is not None else warmup_constant(learning_rate,
                                                                   warmup_steps)
+    chain = dict(max_grad_norm=max_grad_norm, freeze_encoder=freeze_encoder,
+                 nan_skip=nan_skip)
+    if optimizer == "adafactor":
+        if weight_decay:
+            # The JAX package's refusal: optax's adafactor decay is not
+            # scaled by the learning rate.
+            raise ValueError(
+                "weight_decay with optimizer='adafactor' is not supported: "
+                "adafactor's decay is not scaled by the learning rate; use "
+                "adamw, or extend make_optimizer with an explicit "
+                "adafactor_decay_rate argument")
+        return Adafactor(named_params, sched, **chain)
+    if optimizer != "adamw":
+        raise ValueError(f"unknown optimizer {optimizer!r}")
     return AdamW(named_params, sched, b1=b1, b2=b2, weight_decay=weight_decay,
-                 max_grad_norm=max_grad_norm, freeze_encoder=freeze_encoder,
-                 nan_skip=nan_skip, mu_dtype=mu_dtype)
+                 mu_dtype=mu_dtype, **chain)

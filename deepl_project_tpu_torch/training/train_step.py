@@ -12,6 +12,12 @@
   optimizer clips, skips non-finite steps and updates in place.
 - The latent sample's noise comes from a ``torch.Generator`` seeded from
   (seed, step), so a resumed run draws what an unbroken one would.
+- The VF term: with a teacher and the eager projection (``TrainState.vf_proj``,
+  :func:`make_vf_proj_params`), the teacher sees the batch's images and the
+  projection trains with the model (its gradients follow the model's, and
+  the EMA covers it), in both steps, as in the JAX steps.
+- The model is called deterministic (its dropout off), as the JAX steps
+  call it (they pass only the 'sample' RNG).
 - ``make_gan_train_step`` (stage 2): one generator update, then one
   discriminator update on fresh reconstructions, as the JAX package's
   ``make_gan_train_step`` computes them (its docstring has the history of
@@ -26,33 +32,67 @@ import dataclasses
 from typing import Callable
 
 import torch
+from torch import nn
 
 from ..losses.vae_loss import LossWeights, discriminator_loss, transvae_loss
 from ..models.transvae import adaptive_gan_weight, get_last_layer
-from .optim import AdamW
+from .optim import _Chain
+
+
+class VFProj(nn.Module):
+    """The eager VF projection, latent D -> teacher C: ``kernel`` [D, C]
+    (the JAX layout: the loss computes latent @ kernel) and ``bias`` [C]."""
+
+    def __init__(self, latent_dim: int, dino_dim: int, *, device=None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(latent_dim, dino_dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dino_dim, device=device))
+
+
+def make_vf_proj_params(latent_dim: int, dino_dim: int, generator: torch.Generator,
+                        device=None) -> VFProj:
+    """The VF projection made eagerly, so the optimizer has it from step 0:
+    kernel N(0, 1) / sqrt(D) drawn from ``generator``, bias 0 (the JAX
+    ``make_vf_proj_params``; its draw is JAX's own stream)."""
+    proj = VFProj(latent_dim, dino_dim, device=device)
+    with torch.no_grad():
+        proj.kernel.normal_(generator=generator).div_(latent_dim ** 0.5)
+    return proj
 
 
 @dataclasses.dataclass
 class TrainState:
     """What a step carries: the step count, the model (its parameters), the
-    optimizer (its moments and counts) and, with EMA on, the shadow
-    parameters by name."""
+    optimizer (its moments and counts), with EMA on the shadow parameters by
+    name, and with a VF teacher the projection."""
 
     step: int
     model: torch.nn.Module
-    optimizer: AdamW
+    optimizer: _Chain
     ema: dict[str, torch.Tensor] | None = None
+    vf_proj: VFProj | None = None
 
 
-def init_ema(model: torch.nn.Module) -> dict[str, torch.Tensor]:
-    return {n: p.detach().clone() for n, p in model.named_parameters()}
+def named_trainables(model: torch.nn.Module, vf_proj: VFProj | None = None
+                     ) -> list[tuple[str, torch.Tensor]]:
+    """The parameters a step trains, by name: the model's, then
+    ``vf_proj.kernel`` and ``vf_proj.bias``."""
+    named = list(model.named_parameters())
+    if vf_proj is not None:
+        named += [(f"vf_proj.{n}", p) for n, p in vf_proj.named_parameters()]
+    return named
+
+
+def init_ema(model: torch.nn.Module, vf_proj: VFProj | None = None
+             ) -> dict[str, torch.Tensor]:
+    return {n: p.detach().clone() for n, p in named_trainables(model, vf_proj)}
 
 
 @torch.no_grad()
-def _ema_update(ema_decay: float, ema: dict, model: torch.nn.Module) -> None:
+def _ema_update(ema_decay: float, ema: dict, named: list) -> None:
     """ema = decay * ema + (1 - decay) * params, in place."""
+    params = dict(named)
     names = list(ema)
-    params = dict(model.named_parameters())
     shadow = [ema[n] for n in names]
     torch._foreach_mul_(shadow, ema_decay)
     torch._foreach_add_(shadow, [params[n].detach() for n in names],
@@ -67,15 +107,21 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 def loss_and_metrics(model, images_nhwc: torch.Tensor, weights: LossWeights,
                      lpips_params: dict | None = None, sample: bool = True,
                      generator: torch.Generator | None = None,
-                     disc_apply: Callable | None = None):
+                     disc_apply: Callable | None = None, teacher_fn: Callable | None = None,
+                     vf_proj: VFProj | None = None, perceptual_fn: Callable | None = None):
     """(total loss, metrics) for one batch of [B, H, W, 3] images in [0, 1]:
     the model sees them in its compute dtype, the loss in fp32.
-    ``disc_apply`` (NCHW images in [0, 1] -> logits) gives the GAN term."""
+    ``disc_apply`` (NCHW images in [0, 1] -> logits) gives the GAN term;
+    ``teacher_fn`` (NCHW images -> features) and ``vf_proj`` the VF term;
+    ``perceptual_fn`` takes the LPIPS slot (``make_self_perceptual``)."""
     target = images_nhwc.permute(0, 3, 1, 2)
     x = target.to(model.config.compute_dtype)
     recon, mu, logvar = model(x, sample=sample, generator=generator)
-    losses = transvae_loss(recon, target, mu, logvar, weights,
-                           lpips_params=lpips_params, disc_apply=disc_apply)
+    dino = teacher_fn(target) if teacher_fn is not None else None
+    proj = (vf_proj.kernel, vf_proj.bias) if vf_proj is not None else None
+    losses = transvae_loss(recon, target, mu, logvar, weights, lpips_params=lpips_params,
+                           perceptual_fn=perceptual_fn, vf_proj=proj,
+                           dino_features=dino, disc_apply=disc_apply)
     metrics = dict(losses)
     metrics["recon_finite_frac"] = torch.isfinite(recon).float().mean()
     metrics["mu_absmax"] = mu.detach().abs().max().float()
@@ -84,22 +130,26 @@ def loss_and_metrics(model, images_nhwc: torch.Tensor, weights: LossWeights,
 
 def compute_grads(model, batch: torch.Tensor, weights: LossWeights,
                   lpips_params: dict | None = None, accum_steps: int = 1,
-                  sample: bool = True, generator: torch.Generator | None = None
+                  sample: bool = True, generator: torch.Generator | None = None,
+                  teacher_fn: Callable | None = None, vf_proj: VFProj | None = None,
+                  perceptual_fn: Callable | None = None
                   ) -> tuple[list[torch.Tensor], dict]:
-    """fp32 gradients (one per parameter, in ``named_parameters`` order)
-    averaged over ``accum_steps`` microbatches of ``batch``, and the
+    """fp32 gradients (one per parameter of :func:`named_trainables`, in its
+    order) averaged over ``accum_steps`` microbatches of ``batch``, and the
     averaged metrics."""
     b = batch.shape[0]
     if b % accum_steps:
         raise ValueError(f"batch {b} does not split into {accum_steps} microbatches")
-    params = list(model.parameters())
+    params = [p for _, p in named_trainables(model, vf_proj)]
     for p in params:
         p.grad = None
     micro = b // accum_steps
     sums: dict[str, torch.Tensor] = {}
     for i in range(accum_steps):
         loss, metrics = loss_and_metrics(model, batch[i * micro:(i + 1) * micro],
-                                         weights, lpips_params, sample, generator)
+                                         weights, lpips_params, sample, generator,
+                                         teacher_fn=teacher_fn, vf_proj=vf_proj,
+                                         perceptual_fn=perceptual_fn)
         loss.backward()
         for k, v in metrics.items():
             sums[k] = sums.get(k, 0.0) + v.detach().float()
@@ -118,7 +168,8 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
 def make_train_step(weights: LossWeights = LossWeights(),
                     lpips_params: dict | None = None, accum_steps: int = 1,
                     ema_decay: float | None = None, seed: int = 0,
-                    sample: bool = True) -> Callable:
+                    sample: bool = True, teacher_fn: Callable | None = None,
+                    perceptual_fn: Callable | None = None) -> Callable:
     """fn(state, batch) -> metrics: one optimizer step on ``batch``
     ([B, H, W, 3] in [0, 1] on the model's device), updating ``state`` in
     place. Metrics stay on the device (one host sync per step, the
@@ -128,11 +179,12 @@ def make_train_step(weights: LossWeights = LossWeights(),
         model = state.model
         gen = step_generator(seed, state.step, batch.device)
         grads, metrics = compute_grads(model, batch, weights, lpips_params,
-                                       accum_steps, sample, gen)
+                                       accum_steps, sample, gen, teacher_fn,
+                                       state.vf_proj, perceptual_fn)
         metrics["grad_norm"] = global_norm(grads)
         state.optimizer.step(grads)
         if ema_decay is not None:
-            _ema_update(ema_decay, state.ema, model)
+            _ema_update(ema_decay, state.ema, named_trainables(model, state.vf_proj))
         state.step += 1
         return metrics
 
@@ -151,11 +203,13 @@ def _grads(loss: torch.Tensor, params: list[torch.Tensor],
 def gan_generator_grads(model, disc, batch: torch.Tensor, weights: LossWeights,
                         lpips_params: dict | None = None, gan_scale: float = 1.0,
                         adaptive_weight: bool = False, adaptive_max: float = 1e4,
-                        sample: bool = True, generator: torch.Generator | None = None
+                        sample: bool = True, generator: torch.Generator | None = None,
+                        teacher_fn: Callable | None = None, vf_proj: VFProj | None = None,
+                        perceptual_fn: Callable | None = None
                         ) -> tuple[list[torch.Tensor], dict]:
     """The generator's half of the GAN step: fp32 gradients of its loss for
-    every parameter of ``model`` (a frozen encoder's too, for the grad norm)
-    and the metrics.
+    every parameter of :func:`named_trainables` (a frozen encoder's too, for
+    the grad norm) and the metrics.
 
     ``gan_scale`` gates the adversarial term: metrics['gan'] already holds
     weights.gan, and total - (1 - gan_scale) * gan removes the generator's
@@ -163,9 +217,10 @@ def gan_generator_grads(model, disc, batch: torch.Tensor, weights: LossWeights,
     term is rescaled by VQGAN's rule, the norms of the gradients of l1 +
     lpips and of gan with respect to the decoder's last conv weight, taken
     on the same graph: total = l1 + lpips + kl + vf + gan_scale * w * gan."""
-    params = list(model.parameters())
+    params = [p for _, p in named_trainables(model, vf_proj)]
     total, metrics = loss_and_metrics(model, batch, weights, lpips_params, sample,
-                                      generator, disc_apply=disc)
+                                      generator, disc_apply=disc, teacher_fn=teacher_fn,
+                                      vf_proj=vf_proj, perceptual_fn=perceptual_fn)
     total = total - (1.0 - gan_scale) * metrics["gan"]
     metrics["gan_scale"] = torch.tensor(gan_scale, dtype=torch.float32, device=batch.device)
     if adaptive_weight and weights.gan > 0:
@@ -213,7 +268,9 @@ def make_gan_train_step(weights: LossWeights = LossWeights(),
                         adaptive_weight: bool = False, ema_decay: float | None = None,
                         gan_warmup_steps: int = 0, gan_ramp_steps: int = 1,
                         adaptive_max: float = 1e4, disc_loss_floor: float = 0.0,
-                        r1_gamma: float = 0.0, seed: int = 0) -> Callable:
+                        r1_gamma: float = 0.0, seed: int = 0,
+                        teacher_fn: Callable | None = None,
+                        perceptual_fn: Callable | None = None) -> Callable:
     """fn(gen_state, disc_state, batch) -> metrics: one generator update and
     one discriminator update on ``batch`` ([B, H, W, 3] in [0, 1]), both
     states updated in place.
@@ -240,12 +297,13 @@ def make_gan_train_step(weights: LossWeights = LossWeights(),
 
         grads, metrics = gan_generator_grads(
             model, disc, batch, weights, lpips_params, gan_scale, adaptive_weight,
-            adaptive_max, generator=step_generator(seed, step, batch.device))
+            adaptive_max, generator=step_generator(seed, step, batch.device),
+            teacher_fn=teacher_fn, vf_proj=gen_state.vf_proj, perceptual_fn=perceptual_fn)
         metrics["grad_norm"] = global_norm(grads)
         gen_state.optimizer.step(grads)
         del grads
         if ema_decay is not None:
-            _ema_update(ema_decay, gen_state.ema, model)
+            _ema_update(ema_decay, gen_state.ema, named_trainables(model, gen_state.vf_proj))
         gen_state.step += 1
 
         real = batch.permute(0, 3, 1, 2).float().contiguous()

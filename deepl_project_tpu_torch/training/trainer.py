@@ -2,10 +2,13 @@
 
 Assembles model, data, loss, optimizer, logging and checkpointing: synthetic
 or streamed batches -> ``Trainer.fit`` -> bf16 forward with fp32 params,
-sampling the latent -> L1 + LPIPS + KL -> backward -> clip, AdamW with warmup
-and NaN-skip -> checkpoint. Validation PSNR/SSIM every ``eval_every_steps``,
-a best checkpoint, the divergence breaker, a checkpoint on SIGTERM/SIGINT,
-and ``skip_data_on_resume``, as in the JAX trainer.
+sampling the latent -> L1 + LPIPS (VGG, or ``perceptual='self'``: a trained
+checkpoint's frozen encoder) + KL + VF (with a teacher: the eager
+projection ``vf_proj``, trained, in the EMA and the checkpoint) -> backward
+-> clip, AdamW or Adafactor with warmup and NaN-skip -> checkpoint.
+Validation PSNR/SSIM every ``eval_every_steps``, a best checkpoint, the
+divergence breaker, a checkpoint on SIGTERM/SIGINT, and
+``skip_data_on_resume``, as in the JAX trainer.
 
 Stage 2 (``weights.gan > 0``): a PatchGAN discriminator with its own AdamW
 (no warmup, no freeze) and its own step count, trained by
@@ -13,9 +16,8 @@ Stage 2 (``weights.gan > 0``): a PatchGAN discriminator with its own AdamW
 optimizer and step go in the checkpoint. A stage hand-off resumes as in the
 JAX trainer (:meth:`Trainer.maybe_resume`).
 
-Not ported yet (they raise): the VF teacher, ``perceptual='self'``, model
-parallelism (``mesh_model > 1``) and parameter sharding other than
-``replicate`` (one device).
+Not ported yet (they raise): model parallelism (``mesh_model > 1``) and
+parameter sharding other than ``replicate`` (one device).
 """
 
 from __future__ import annotations
@@ -32,15 +34,17 @@ import numpy as np
 import torch
 
 from ..config import TransVAEConfig
-from ..losses import LossWeights, get_lpips_params, lpips_params_available
+from ..losses import (LossWeights, get_lpips_params, lpips_params_available,
+                      make_self_perceptual)
 from ..models.discriminator import PatchDiscriminator, init_disc_weights
 from ..models.transvae import TransVAE, init_weights, resolve_device
 from ..utils.metrics import psnr, ssim
-from .checkpoint import (checkpoint_metrics, latest_step, restore_checkpoint,
-                         save_checkpoint)
+from .checkpoint import (checkpoint_metrics, latest_step, load_config, restore_checkpoint,
+                         restore_model_params, save_checkpoint)
 from .optim import make_optimizer
 from .schedule import warmup_cosine
-from .train_step import TrainState, init_ema, make_gan_train_step, make_train_step
+from .train_step import (TrainState, init_ema, make_gan_train_step, make_train_step,
+                         make_vf_proj_params, named_trainables)
 
 
 @dataclasses.dataclass
@@ -89,12 +93,6 @@ def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not yet ported to deepl_project_tpu_torch")
 
 
-def _same_trainable(saved: dict, opt) -> bool:
-    """Whether a saved optimizer state holds moments for exactly the
-    parameters ``opt`` trains (a frozen encoder has none)."""
-    return set(saved["mu"]) == {n for n, m in zip(opt.names, opt.mu) if m is not None}
-
-
 class RunHistory:
     """Append-only JSONL run record (<output_dir>/history.jsonl)."""
 
@@ -133,12 +131,11 @@ class StepTimer:
 class Trainer:
     def __init__(self, model_config: TransVAEConfig, train_config: TrainerConfig,
                  teacher_fn=None, device=None):
+        """``teacher_fn`` (``losses.teachers``; images -> features, with a
+        ``feature_dim``) turns the VF term on: ``create_state`` makes the
+        projection to its width."""
         cfg = train_config
-        if teacher_fn is not None:
-            _not_ported("the VF teacher (vf_weight > 0)")
-        if cfg.perceptual == "self":
-            _not_ported("perceptual='self'")
-        if cfg.perceptual != "vgg":
+        if cfg.perceptual not in ("vgg", "self"):
             raise ValueError(f"perceptual must be vgg|self, got {cfg.perceptual!r}")
         if cfg.mesh_model > 1 or cfg.param_sharding != "replicate":
             _not_ported("model parallelism and parameter sharding")
@@ -147,9 +144,16 @@ class Trainer:
         self.model_config = model_config
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.teacher_fn = teacher_fn
+        self.dino_dim = getattr(teacher_fn, "feature_dim", None)
 
         self.lpips_params = None
-        if cfg.use_lpips and cfg.weights.lpips > 0:
+        self.perceptual_fn = None
+        if cfg.perceptual == "self":
+            # As in the JAX trainer, the net is built and the banner printed
+            # whatever the lpips weight; the loss gates the term on it.
+            self.perceptual_fn = self._self_perceptual()
+        elif cfg.use_lpips and cfg.weights.lpips > 0:
             gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 7)
             self.lpips_params = get_lpips_params(device=self.device, generator=gen)
             if not lpips_params_available():
@@ -168,7 +172,8 @@ class Trainer:
                 gan_ramp_steps=cfg.gan_ramp_steps,
                 adaptive_max=cfg.gan_adaptive_max,
                 disc_loss_floor=cfg.gan_disc_loss_floor,
-                r1_gamma=cfg.gan_r1_gamma, seed=cfg.seed)
+                r1_gamma=cfg.gan_r1_gamma, seed=cfg.seed, teacher_fn=teacher_fn,
+                perceptual_fn=self.perceptual_fn)
 
             def gan_adapter(state, batch):
                 return gan_step(state, self._ensure_disc_state(), batch)
@@ -178,9 +183,26 @@ class Trainer:
             self.step_fn = make_train_step(cfg.weights, self.lpips_params,
                                            accum_steps=cfg.accum_steps,
                                            ema_decay=cfg.ema_decay or None,
-                                           seed=cfg.seed)
+                                           seed=cfg.seed, teacher_fn=teacher_fn,
+                                           perceptual_fn=self.perceptual_fn)
         self._best_psnr = float("-inf")
         self._best_raw_psnr = float("-inf")
+
+    def _self_perceptual(self):
+        """The frozen feature net of ``perceptual='self'``: the model of
+        ``perceptual_checkpoint`` (its saved config, its EMA parameters when
+        it has them) on the device."""
+        path = self.cfg.perceptual_checkpoint
+        if not path:
+            raise ValueError("perceptual='self' needs perceptual_checkpoint (a trained "
+                             "checkpoint whose frozen encoder becomes the feature net)")
+        with torch.device("meta"):
+            net = TransVAE(load_config(path))
+        net = net.to_empty(device=self.device)
+        fn = make_self_perceptual(net, restore_model_params(path, map_location=self.device))
+        print("[trainer] perceptual=self: LPIPS slot uses the frozen encoder from "
+              f"{path} (self-perceptual distance, NOT VGG-LPIPS)")
+        return fn
 
     # -- state -----------------------------------------------------------
     def _schedule(self):
@@ -191,19 +213,25 @@ class Trainer:
         return None
 
     def create_state(self) -> TrainState:
-        """A model with weights drawn from ``seed`` on the device, its
-        optimizer and (with ema_decay) the EMA shadow."""
+        """A model with weights drawn from ``seed`` on the device, with a
+        teacher the VF projection (drawn next from the same generator), the
+        optimizer over both and (with ema_decay) the EMA shadow of both."""
         with torch.device("meta"):
             model = TransVAE(self.model_config)
         model = model.to_empty(device=self.device)
-        init_weights(model, torch.Generator(device=self.device).manual_seed(self.cfg.seed))
+        gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
+        init_weights(model, gen)
+        vf_proj = None
+        if self.teacher_fn is not None and self.dino_dim:
+            vf_proj = make_vf_proj_params(self.model_config.latent_dim, self.dino_dim, gen,
+                                          device=self.device)
         c = self.cfg
-        opt = make_optimizer(model.named_parameters(), learning_rate=c.learning_rate,
+        opt = make_optimizer(named_trainables(model, vf_proj), learning_rate=c.learning_rate,
                              warmup_steps=c.warmup_steps, max_grad_norm=c.max_grad_norm,
                              freeze_encoder=c.freeze_encoder, mu_dtype=c.mu_dtype,
                              optimizer=c.optimizer, schedule=self._schedule())
-        return TrainState(step=0, model=model, optimizer=opt,
-                          ema=init_ema(model) if c.ema_decay else None)
+        return TrainState(step=0, model=model, optimizer=opt, vf_proj=vf_proj,
+                          ema=init_ema(model, vf_proj) if c.ema_decay else None)
 
     def _ensure_disc_state(self) -> TrainState:
         """The discriminator's train state, made at first use: weights from a
@@ -225,27 +253,34 @@ class Trainer:
 
         The JAX trainer's rule: everything is restored only when the
         checkpoint's keys are the live state's (model, optimizer, step, ema
-        with EMA on, and with the GAN on the discriminator's keys the
-        checkpoint has) and the saved optimizer trains the same parameters.
-        Otherwise (a stage hand-off: freeze_encoder toggled, EMA added, a
-        stage-2 checkpoint into stage 1) the model and the step only: the
-        optimizer stays fresh (its warmup starts again), the EMA shadow
-        restarts from the restored parameters and the discriminator starts
-        at step 0. A checkpoint without disc_step restores D at step 0."""
+        with EMA on, vf_proj with a teacher, and with the GAN on the
+        discriminator's keys the checkpoint has) and the saved optimizer is
+        the same kind over the same trainable parameters (vf_proj's
+        included). Otherwise (a stage hand-off: freeze_encoder toggled, EMA
+        added, AdamW to Adafactor, a stage-2 checkpoint into stage 1) the
+        model, the step and vf_proj when both have it: the optimizer stays
+        fresh (its warmup starts again), the EMA shadow restarts from the
+        restored parameters and the discriminator starts at step 0. A
+        checkpoint without disc_step restores D at step 0."""
         ckpt_dir = os.path.join(self.cfg.output_dir, "checkpoints")
         if latest_step(ckpt_dir) is None:
             return state, 0
         payload, meta = restore_checkpoint(ckpt_dir, map_location=self.device)
         keys = set(payload)
-        live = {"model", "optimizer", "step"} | ({"ema"} if state.ema is not None else set())
+        live = ({"model", "optimizer", "step"}
+                | ({"ema"} if state.ema is not None else set())
+                | ({"vf_proj"} if state.vf_proj is not None else set()))
         if self.use_gan and "disc_model" in keys:
             live |= {"disc_model", "disc_optimizer"} | ({"disc_step"} & keys)
         full = keys == live
-        if full and not _same_trainable(payload["optimizer"], state.optimizer):
-            print("[trainer] structured restore failed (the saved optimizer trains "
-                  "other parameters); falling back to params/step-only restore")
+        if full and not state.optimizer.trains_as(payload["optimizer"]):
+            print("[trainer] structured restore failed (the saved optimizer is another "
+                  "kind or trains other parameters); falling back to params/step-only "
+                  "restore")
             full = False
         state.model.load_state_dict(payload["model"], strict=True)
+        if state.vf_proj is not None and "vf_proj" in payload:
+            state.vf_proj.load_state_dict(payload["vf_proj"], strict=True)
         state.step = int(payload["step"])
         if full:
             state.optimizer.load_state_dict(payload["optimizer"])
@@ -262,9 +297,10 @@ class Trainer:
             print(f"[trainer] WARNING: checkpoint keys {sorted(keys)} do not match the "
                   "live state; restoring params/step only (optimizer state reset)")
             if state.ema is not None:
+                params = dict(named_trainables(state.model, state.vf_proj))
                 with torch.no_grad():
                     for n, t in state.ema.items():
-                        t.copy_(state.model.get_parameter(n))
+                        t.copy_(params[n])
         del payload
         best = checkpoint_metrics(os.path.join(self.cfg.output_dir, "checkpoints_best"))
         if best is not None:
@@ -291,8 +327,8 @@ class Trainer:
             params = dict(state.model.named_parameters())
             with torch.no_grad():
                 live = {n: p.detach().clone() for n, p in params.items()}
-                for n, t in state.ema.items():
-                    params[n].copy_(t)
+                for n, p in params.items():
+                    p.copy_(state.ema[n])
                 try:
                     ema = self._metrics(state.model, val_batches)
                 finally:
@@ -427,6 +463,8 @@ class Trainer:
                    "optimizer": state.optimizer.state_dict(), "step": state.step}
         if state.ema is not None:
             payload["ema"] = state.ema
+        if state.vf_proj is not None:
+            payload["vf_proj"] = state.vf_proj.state_dict()
         if self.use_gan and self._disc_state is not None:
             d = self._disc_state
             payload.update(disc_model=d.model.state_dict(),

@@ -3,8 +3,10 @@
 ``deepl_project_tpu/utils/convert.py::params_to_torch_state_dict``, which
 also takes the int8 tree of ``quantize.quantize_params`` and, through
 :func:`from_scanned_params`, the ``scan_blocks`` layout), the PatchGAN
-discriminator's (:func:`disc_params_to_torch_state_dict`) and LPIPS's
-(:func:`lpips_params_from_jax`).
+discriminator's (:func:`disc_params_to_torch_state_dict`), LPIPS's
+(:func:`lpips_params_from_jax`) and a trainer's {'model', 'vf_proj'} tree
+(:func:`load_jax_train_params`; ``vf_proj`` keeps its layout, kernel [D, C]
+and bias [C], as the port's ``vf_loss`` computes latent @ kernel).
 
 The JAX tree (numpy leaves) maps onto the reference's state_dict layout,
 which is the port's: HWIO conv kernels -> OIHW, [in, out] dense kernels ->
@@ -140,6 +142,22 @@ def load_jax_params(model: torch.nn.Module, params_np: Mapping[str, Any]):
     if any(k.endswith("_blocks") for k in params_np["encoder"]):
         params_np = from_scanned_params(params_np, model.config.depths)
     return load_state_dict(model, params_to_torch_state_dict(params_np))
+
+
+def load_jax_train_params(model: torch.nn.Module, params_np: Mapping[str, Any]):
+    """Load a JAX trainer's params ({'model': ..., and with a VF teacher
+    'vf_proj': {'kernel': [D, C], 'bias': [C]}}, numpy leaves) into
+    ``model``; returns the VF projection (``training.train_step.VFProj``) on
+    the model's device, or None when the tree has none."""
+    from ..training.train_step import VFProj
+
+    load_jax_params(model, params_np["model"])
+    if "vf_proj" not in params_np:
+        return None
+    tree = params_np["vf_proj"]
+    kernel = np.asarray(tree["kernel"], np.float32)
+    proj = VFProj(*kernel.shape, device=next(model.parameters()).device)
+    return load_state_dict(proj, {"kernel": kernel, "bias": tree["bias"]})
 
 
 def disc_params_to_torch_state_dict(params: Mapping[str, Any]) -> dict:

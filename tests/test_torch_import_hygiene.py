@@ -4,9 +4,10 @@ In a fresh interpreter where ``import jax`` and ``import flax`` fail, every
 module of deepl_project_tpu_torch (found by walking the whole package, so new
 modules are covered as they come; the evaluation slice's are named) and
 chip_smoke.py must import, and none of deepl_project_tpu's modules may be
-loaded. The entry points (model factory, serving engine, trainer, the
-evaluate, generate and rope_extrapolation CLIs) default to CUDA and refuse to
-continue on a machine without it.
+loaded. The entry points (model factory, serving engine, trainer -- also
+with a VF teacher, remat and Adafactor -- the evaluate, generate and
+rope_extrapolation CLIs) default to CUDA and refuse to continue on a machine
+without it.
 """
 
 import os
@@ -29,7 +30,7 @@ _PROBE = textwrap.dedent("""
     named = {"evaluation", "utils.fid", "utils.image", "ops.hopper.small_attention",
              "ops.hopper.fused_norm", "cli.evaluate", "cli.generate",
              "cli.rope_extrapolation", "data.transforms", "quantize", "ops.quant",
-             "models.discriminator"}
+             "models.discriminator", "losses.teachers"}
     assert named <= {n.split(".", 1)[1] for n in names}, named
     import chip_smoke
     bad = sorted(m for m in sys.modules
@@ -40,13 +41,17 @@ _PROBE = textwrap.dedent("""
     if not torch_cuda:
         from deepl_project_tpu_torch import create_transvae, get_config
         from deepl_project_tpu_torch.cli import evaluate, generate, rope_extrapolation, serve
-        from deepl_project_tpu_torch.losses import LossWeights
+        from deepl_project_tpu_torch.losses import LossWeights, make_stub_teacher
         from deepl_project_tpu_torch.training import Trainer, TrainerConfig
         for fn in (lambda: create_transvae("tiny"),
                    lambda: serve.build_engine(serve.build_parser().parse_args([])),
                    lambda: Trainer(get_config("tiny"),
                                    TrainerConfig(weights=LossWeights(gan=0.0))),
                    lambda: Trainer(get_config("tiny"), TrainerConfig(weights=LossWeights())),
+                   lambda: Trainer(get_config("tiny", remat=True),
+                                   TrainerConfig(weights=LossWeights(gan=0.0),
+                                                 optimizer="adafactor"),
+                                   teacher_fn=make_stub_teacher()),
                    lambda: evaluate.main([]), lambda: generate.main([]),
                    lambda: rope_extrapolation.main([])):
             try:

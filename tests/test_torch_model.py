@@ -157,8 +157,7 @@ def test_seeded_init_is_reproducible_and_small_latent_heads():
     assert a.conv_mu.weight.detach().std() < 1e-3 < a.encoder.conv_in.weight.detach().std()
 
 
-@pytest.mark.parametrize("field,value", [("scan_blocks", True), ("remat", True),
-                                         ("context_axis", "context"), ("dropout", 0.1)])
+@pytest.mark.parametrize("field,value", [("scan_blocks", True), ("context_axis", "context")])
 def test_settings_not_yet_ported_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         TransVAE(get_config("tiny_f16d32", **MICRO, **{field: value}), device="meta")

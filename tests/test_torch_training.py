@@ -114,8 +114,8 @@ def test_schedules_match_optax():
                          (warmup_cosine(2e-4, 0, 20), jax_warmup_cosine(2e-4, 0, 20))):
         for count in (0, 1, 4, 5, 9, 10, 17, 40, 55):
             _close(ours(count), float(theirs(count)), rtol=1e-6, atol=1e-12)
-    with pytest.raises(NotImplementedError, match="adafactor"):
-        make_optimizer([("w", torch.zeros(2))], optimizer="adafactor")
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        make_optimizer([("w", torch.zeros(2))], optimizer="adagrad")
 
 
 # -- model loss and gradients ---------------------------------------------------
@@ -242,10 +242,8 @@ def test_checkpoint_interop_and_synthetic_data(tmp_path, micro_pair):
             assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
 
 
-@pytest.mark.parametrize("flags", [["--gradient_checkpointing"],
-                                   ["--scan_blocks"], ["--optimizer", "adafactor"],
-                                   ["--vf_weight", "0.1"], ["--perceptual", "self"],
-                                   ["--mesh_model", "2"], ["--data", "hf:imagenet"]])
+@pytest.mark.parametrize("flags", [["--scan_blocks"], ["--mesh_model", "2"],
+                                   ["--data", "hf:imagenet"]])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, flags):
     with pytest.raises(SystemExit, match="not yet ported"):
         train_cli.main(["--output_dir", str(tmp_path), "--device", "cpu", *flags])
@@ -253,10 +251,41 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path, flags):
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     cfg = get_config(VARIANT, **MICRO)
-    for kw in (dict(perceptual="self"), dict(mesh_model=2)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            Trainer(cfg, TrainerConfig(**{"weights": LossWeights(gan=0.0), **kw}),
-                    device="cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        Trainer(cfg, TrainerConfig(weights=LossWeights(gan=0.0), mesh_model=2), device="cpu")
+
+
+@pytest.mark.parametrize("flag", ["--gradient_checkpointing", "--optimizer adafactor",
+                                  "--vf_weight 0.1", "--perceptual self"])
+def test_train_cli_runs_the_stage1_flags(tmp_path, monkeypatch, capsys, flag):
+    """Each flag the port took over in its stage-1 slice, for one step of the
+    CLI on the CPU (the CLI's model is the micro model: its variant
+    resolution is patched, as in tests/test_torch_gan.py)."""
+    monkeypatch.setattr(train_cli, "get_config",
+                        lambda *a, **kw: get_config(VARIANT, **{**kw, **MICRO}))
+    extra = flag.split()
+    if flag == "--perceptual self":  # a trained checkpoint: the micro model's
+        src = _trainer(tmp_path / "src")
+        src.save(src.create_state(), epoch=0)
+        extra += ["--perceptual_checkpoint", str(tmp_path / "src" / "checkpoints")]
+    out = tmp_path / "run"
+    train_cli.main(["--data", "shapes", "--resolution", "32", "--batch_size", "2",
+                    "--num_epochs", "1", "--steps_per_epoch", "1", "--log_every", "1",
+                    "--warmup_steps", "1", "--device", "cpu", "--output_dir", str(out),
+                    *extra])
+    (row,) = [json.loads(line) for line in open(out / "history.jsonl")]
+    assert row["step"] == 1 and np.isfinite(row["total"])
+    saved, _ = restore_checkpoint(str(out / "checkpoints"))
+    log = capsys.readouterr().out
+    if flag == "--gradient_checkpointing":
+        cfg = load_config(str(out / "checkpoints"))
+        assert cfg.remat and cfg.remat_policy == train_cli.CLI_REMAT_POLICY == "none"
+    elif flag == "--optimizer adafactor":
+        assert saved["optimizer"]["kind"] == "adafactor"
+    elif flag == "--vf_weight 0.1":
+        assert row["vf"] > 0 and "vf_proj" in saved and "stub teacher" in log
+    else:
+        assert row["lpips"] > 0 and "perceptual=self" in log
 
 
 def test_input_pipeline_batches_and_errors():
