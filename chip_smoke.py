@@ -31,12 +31,17 @@ Phases (any failure exits non-zero and prints no result):
    sweep's stage 2 (4 images, N=65536); small_attention
    at the 512px stage-4 shape (8 images, N=1024, 24 heads, q/k/v slices of
    one [B, N, 3C] buffer as ln_qkv_rope leaves them); group_norm_silu (stats
-   and apply kernels) at the large f16d32 ResBlock shapes at b32,
-   [32, 192, 256, 256] and [32, 192, 128, 128] bf16, the stats kernel's fp32
-   sums each within 1e-5 relative of the plain fp32 sums. Times each kernel,
+   and apply kernels) on channels_last maps at the large f16d32 ResBlock
+   shapes at b32, [32, 192, 256, 256] and [32, 192, 128, 128] bf16, and at
+   [8, 384, 128, 128] fp32, the stats kernel's per-channel fp32 sums each
+   within 1e-5 relative of the plain fp32 sums, an NCHW-contiguous input
+   refused; checked only, at every other map the paths below give them
+   (norm_checked_shapes: norm_sites at each path's batch and resolution,
+   NORM_PATH_BATCHES). Times each kernel,
    its plain version and, where one exists, the one PyTorch call computing
    the same function (SDPA, its backward, F.linear, torch.var_mean for the
-   GroupNorm stats; F.group_norm + F.silu for the whole group_norm_silu;
+   GroupNorm stats; F.group_norm + F.silu for the whole group_norm_silu, on
+   the same channels_last map and on an NCHW copy;
    for ln_qkv_rope, which no one call computes, a two-call yardstick:
    F.layer_norm with one affine + F.linear on the packed [3C, C] weight),
    with CUDA events (proj_bias_gemm and F.linear on the same bf16 weight,
@@ -103,20 +108,24 @@ Phases (any failure exits non-zero and prints no result):
    encode and decode requests), with the launch counters set to 0 before and
    read after; check shapes, finiteness and the [0,1] range; check one
    reconstruct's launches per kernel and shape; hold one reconstruct (b=4)
-   of the kernel path and of the plain bf16 path against the same weights
-   in fp32; one 512px reconstruct (b=2) with its flash forward launches.
+   of the kernel path and of the plain bf16 path (plain attention, plain
+   GroupNorm and SiLU) against the same weights in fp32; one 512px
+   reconstruct (b=2) with its flash forward launches.
 9. time: reconstruct images/s at batch 32 through InferenceEngine.run, and
    with the JAX package's exact rewrites (ConvFFN fold_output, the fused
    resample convs; the model's default) on and off in turns (on, off, off,
-   on), the module flags toggled; train times the step on and off the same
-   way after its fit with --profile.
+   on), the module flags toggled, then the same with the fused GroupNorm ->
+   SiLU (ops.norms.FUSE_NORM_SILU) on and off; train times the step with
+   the rewrites on and off the same way after its fit with --profile.
 10. eval: evaluate_model at 256px on the shapes source (2 batches of 16, LPIPS
    and vgg_rfid on random VGG); extrapolation_sweep at 256/512/1024px on 8
    shapes images made at 1024px (chunks of 8, 8 and 4), with the launch
    counters set to 0 before and read after each resolution: at 512px 12
    small_attention and 12 + 6 + 8 ln_qkv_rope per chunk and no sublayer
    kernel, at 1024px 6 + 8 + 12 flash forwards and no small_attention;
-   finite PSNR/SSIM, images/s and peak memory per resolution; one 512px
+   finite PSNR/SSIM, images/s and peak memory per resolution; each
+   resolution's sweep with the fused GroupNorm -> SiLU on and off in turns;
+   one 512px
    reconstruct (b=2) of the kernel path and of the plain bf16 path against
    fp32 (the serve phase's rule); cli/generate.py --mode random on the card.
    With --profile, a torch.profiler table of one 1024px chunk's reconstruct
@@ -139,8 +148,13 @@ Phases (any failure exits non-zero and prints no result):
    chiprun_out/quant.json; with --profile, a table of one int8 reconstruct.
 
 Launches are checked against one table per resolution (256, 512, 1024px;
-launches_per_reconstruct); group_norm_silu, on no model path, must show no
-launch in the train, gan, recipe, remat, serve and eval runs. The DINOv2
+launches_per_reconstruct). group_norm_silu's launches are checked on every
+path against norm_table, derived from the module structure (norm_sites: two
+sites a ResBlock and the decoder's norm_out, a stats and an apply launch
+each, in no-grad bf16 forwards): a 256px reconstruct 13 at 256x256 and 12
+at 128x128 (C=192), the sweep's chunks, int8 serving, the GAN step's
+no-grad forward of the discriminator update, the self-perceptual target
+pass (the encoder's 12), and none in any forward that builds a graph. The DINOv2
 teacher is looked up with the Hugging Face libraries offline. The line before the last is the
 ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -151,6 +165,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -164,9 +179,9 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 KERNEL_RTOL = 2 ** -6
-# group_norm_stats' fp32 sums (~4e5 values a group) against the plain fp32
-# sums: two summation orders differ by ~1e-6 relative; a chunk left out would
-# move a sum by far more.
+# group_norm_stats' per-channel fp32 sums (6.6e4 values an image at 256px)
+# against the plain fp32 sums: two summation orders differ by ~1e-6
+# relative; a slab or a row left out would move a sum by far more.
 STATS_RTOL = 1e-5
 # Whole-model check: the kernel path and the plain bf16 path round at
 # different places in 26 attention sublayers, and a random-weight model
@@ -217,8 +232,20 @@ FLASH_SWEEP_1024 = (4, 65536, 6)
 # large f16d32 ResBlock shapes (stages 0 and 1) at b32.
 SMALL_512 = (8, 1024, 24)
 GROUP_NORM_SHAPES = ((32, 192, 256, 256), (32, 192, 128, 128))
+# Also one fp32 map, at large_f8d16's stage-1 width (C=384).
+GROUP_NORM_CASES = tuple((s, "bf16") for s in GROUP_NORM_SHAPES) + (((8, 384, 128, 128), "fp32"),)
 # extrapolation_sweep: resolution -> images per forward (chunk).
 EVAL_CHUNKS = {256: 8, 512: 8, 1024: 4}
+# Resolution -> the other batches at which a path runs large f16d32's no-grad
+# bf16 forward (the fused GroupNorm -> SiLU): at 256px the engine's padded
+# batches (a power of two up to 32: serve's requests of 2, 4 and 8, the
+# quant calibration's 4) and evaluate_model's 16, the GAN discriminator
+# update's and the self-perceptual target pass's 8, the sweep's chunk; at
+# 512px serve's and eval's b2 and the sweep's chunk; at 1024px the sweep's
+# chunk. Their maps (norm_checked_shapes) are checked only: the kernels'
+# grid (slabs, B) depends on B and H*W.
+NORM_PATH_BATCHES = {256: (2, 4, GAN_BATCH, REMAT_BATCH, EVAL_CHUNKS[256], 16),
+                     512: (2, EVAL_CHUNKS[512]), 1024: (EVAL_CHUNKS[1024],)}
 # ln_qkv_rope's shapes in the sweep, (batch, N, C, height, width): stages 2-4
 # of a 512px chunk of 8 and of a 1024px chunk of 4.
 QKV_SWEEP = ((8, 16384, 384, 128, 128), (8, 4096, 768, 64, 64), (8, 1024, 1536, 32, 32),
@@ -241,6 +268,9 @@ PAIR_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CARD = ""
+# Path label -> group_norm_silu's launches by (kernel, H*W, C) in that
+# path's checked run (each equal to its norm_table).
+NORM_PATHS: dict = {}
 
 
 def fail(msg: str):
@@ -309,13 +339,53 @@ def kernel_shapes(batch: int = 32):
             (256, 1536, 16, 16, batch)]
 
 
-def launches_per_reconstruct(res: int = 256, forwards: int = 1) -> tuple[dict, dict, dict, dict]:
+def norm_sites(model, res: int, parts=("encoder", "decoder")) -> dict:
+    """(H*W, C) -> GroupNorm -> SiLU sites of one forward of ``model``'s
+    ``parts`` at ``res`` px that take the fused kernels, from the module
+    structure: with the switch (``ops.norms.FUSE_NORM_SILU``) on, two per
+    ResBlock (norm1 at its input width, norm2 at its output width), encoder
+    stage i at res / 2^i, decoder stage i at res / 2^(stages - 1 - i), and
+    the decoder's norm_out at res; none with it off."""
+    from deepl_project_tpu_torch.ops import norms
+    from deepl_project_tpu_torch.ops.blocks import ResBlock
+
+    sites: dict = {}
+    if not norms.FUSE_NORM_SILU:
+        return sites
+
+    def add(side, c, n=1):
+        key = (side * side, c)
+        sites[key] = sites.get(key, 0) + n
+
+    for part in parts:
+        stages = getattr(model, part).stages
+        for i, stage in enumerate(stages):
+            side = res >> (i if part == "encoder" else len(stages) - 1 - i)
+            for block in stage:
+                if isinstance(block, ResBlock):
+                    add(side, block.norm1.weight.numel())
+                    add(side, block.norm2.weight.numel())
+    if "decoder" in parts:
+        add(res, model.decoder.norm_out.weight.numel())
+    return sites
+
+
+def norm_table(model, res: int, forwards: int = 1, parts=("encoder", "decoder")) -> dict:
+    """group_norm_silu's launches by (kernel, H*W, C) in ``forwards``
+    no-grad bf16 forwards: one stats and one apply launch a site."""
+    return {(name, hw, c): n * forwards
+            for (hw, c), n in norm_sites(model, res, parts).items()
+            for name in ("group_norm_stats", "group_norm_apply")}
+
+
+def launches_per_reconstruct(res: int = 256, forwards: int = 1,
+                             model=None) -> tuple[dict, dict, dict, dict]:
     """Launches of large f16d32's kernels in ``forwards`` reconstructs at
     ``res`` px, in kernel_launches' order: sublayer kernels by (name, N, C),
     flash forwards by (name, N, heads), small_attention by (name, N, heads),
-    group_norm_silu's kernels (none: no model path calls them). Stages 2-4
-    hold 3, 4 and 6 blocks, each in the encoder and the decoder: 6, 8 and 12
-    attention sublayers."""
+    group_norm_silu's kernels by (name, H*W, C) (``norm_table`` of
+    ``model``; none without it). Stages 2-4 hold 3, 4 and 6 blocks, each in
+    the encoder and the decoder: 6, 8 and 12 attention sublayers."""
     sub = ("ln_qkv_rope", "attention_core", "proj_bias_gemm")
     table = {
         # Stage 2 (4096, 384): ln_qkv_rope + flash forward; stages 3
@@ -334,7 +404,33 @@ def launches_per_reconstruct(res: int = 256, forwards: int = 1) -> tuple[dict, d
                {("flash_attention_fwd", 65536, 6): 6, ("flash_attention_fwd", 16384, 12): 8,
                 ("flash_attention_fwd", 4096, 24): 12}, {}),
     }
-    return tuple({k: v * forwards for k, v in d.items()} for d in table[res]) + ({},)
+    norm = {} if model is None else norm_table(model, res, forwards)
+    return tuple({k: v * forwards for k, v in d.items()} for d in table[res]) + (norm,)
+
+
+def norm_checked_shapes() -> list:
+    """[B, C, H, W] of every GroupNorm -> SiLU map of large f16d32 at
+    NORM_PATH_BATCHES, from norm_sites (a meta-device model), less
+    GROUP_NORM_SHAPES."""
+    import torch
+
+    from deepl_project_tpu_torch import get_config
+    from deepl_project_tpu_torch.models import TransVAE
+
+    with torch.device("meta"):
+        model = TransVAE(get_config("large", 16, 32))
+    shapes = {(b, c, math.isqrt(hw), math.isqrt(hw))
+              for res, batches in NORM_PATH_BATCHES.items() for b in batches
+              for hw, c in norm_sites(model, res)}
+    return sorted(shapes - set(GROUP_NORM_SHAPES))
+
+
+def set_fused_norm(on: bool) -> None:
+    """The fused GroupNorm -> SiLU switch (``ops.norms.FUSE_NORM_SILU``)
+    on or off."""
+    from deepl_project_tpu_torch.ops import norms
+
+    norms.FUSE_NORM_SILU = on
 
 
 def kernel_launches() -> tuple[dict, dict, dict, dict]:
@@ -354,6 +450,19 @@ def norm_launches() -> dict:
     from deepl_project_tpu_torch.ops.hopper import fused_norm as fnorm
 
     return fnorm.launch_counts()
+
+
+def check_norms(path: str, want: dict) -> None:
+    """group_norm_silu's launches by (kernel, H*W, C) since the last reset
+    must equal ``want`` (a norm_table, or {} for a run that builds a
+    graph); kept under ``path`` for the kernels line."""
+    from deepl_project_tpu_torch.ops.hopper import fused_norm as fnorm
+
+    got = fnorm.launch_counts_by_shape()
+    if got != want:
+        fail(f"group_norm_silu launches, {path}: {got} != {want}")
+    NORM_PATHS[path] = got
+    log(f"group_norm_silu launches, {path}: {got or 'none'} (as expected)")
 
 
 def reset_launches() -> None:
@@ -737,9 +846,9 @@ def phase_flash_kernels():
 
 
 def phase_eval_kernels():
-    """small_attention and group_norm_silu against their plain versions at
-    the shapes their paths give them; times; and the two routes of an
-    attention sublayer at (N=1024, C=1536)."""
+    """small_attention and group_norm_silu (channels_last) against their
+    plain versions at the shapes their paths give them; times; and the two
+    routes of an attention sublayer at (N=1024, C=1536)."""
     import torch
     import torch.nn.functional as F
 
@@ -809,44 +918,83 @@ def phase_eval_kernels():
            4 * b * h * n * n * 64, 4 * b * n * c * 2, PEAK_BF16_FLOPS)
     del qkv, q, k, v, o, heads
 
-    # group_norm_silu at the large ResBlock shapes: the stats kernel reads x
-    # once (3 fp32 operations a value), the apply kernel reads x and writes y
-    # (about 8: an affine, exp, add, divide); both bound by bytes.
-    for shape in GROUP_NORM_SHAPES:
+    # group_norm_silu at the large ResBlock shapes (bf16) and one fp32 shape,
+    # on channels_last maps as the model holds them: the stats kernel reads
+    # x once and writes its partials (3 fp32 operations a value), the apply
+    # kernel reads the partials, x, scale and bias and writes y (about 8:
+    # an affine, exp, add, divide); both bound by bytes. Then, checked only,
+    # every other map the paths give them (norm_checked_shapes), each
+    # error joining its kernel's max_abs_err.
+    checked = {"group_norm_stats": 0.0, "group_norm_apply": 0.0, "shapes": []}
+    for shape, dname, timed in ([(s, d, True) for s, d in GROUP_NORM_CASES]
+                                + [(s, "bf16", False) for s in norm_checked_shapes()]):
         bb, cc, hh, ww = shape
-        x = (randn(*shape, scale=2.0) + 1).to(bf)
+        dtype = {"bf16": bf, "fp32": torch.float32}[dname]
+        x = (randn(*shape, scale=2.0) + 1).to(dtype).contiguous(
+            memory_format=torch.channels_last)
         gs, gb = 1 + randn(cc, scale=0.1), randn(cc, scale=0.1)
+        label = (*shape, dname)
         y = fnorm.group_norm_silu(x, gs, gb, 32)
-        stats = fnorm.group_stats(x, 32)
+        partial = fnorm.stats(x)
         torch.cuda.synchronize()
-        err = check("group_norm_silu", shape, y, fnorm.group_norm_silu_reference(x, gs, gb, 32))
-        err_stats = check_fp32("group_norm_stats", shape, stats,
-                               fnorm.group_stats_reference(x, 32))
-        mul, add = fnorm.mul_add(stats, (cc // 32) * hh * ww, gs, gb, 1e-5)
-        err_apply = check("group_norm_apply", shape, fnorm.apply(x, mul, add),
+        if not y.is_contiguous(memory_format=torch.channels_last):
+            fail(f"group_norm_silu {label}: output strides {y.stride()}, not channels_last")
+        rows = fnorm._rows_per_slab(x)
+        log(f"group_norm_silu {label}: {partial.shape[1]} slabs of {rows} rows, the last "
+            f"{hh * ww - (partial.shape[1] - 1) * rows}")
+        err = check("group_norm_silu", label, y, fnorm.group_norm_silu_reference(x, gs, gb, 32))
+        # The kernel's partials summed over its slabs (torch, for this
+        # check only) against the plain per-channel sums.
+        err_stats = check_fp32("group_norm_stats", label, partial.sum(1),
+                               fnorm.channel_stats_reference(x))
+        mul, add = fnorm.mul_add(fnorm.group_sums(partial.sum(1), 32),
+                                 (cc // 32) * hh * ww, gs, gb, 1e-5)
+        err_apply = check("group_norm_apply", label, fnorm.apply(x, partial, gs, gb, 32),
                           fnorm.apply_reference(x, mul, add))
+        if not timed:
+            checked["group_norm_stats"] = max(checked["group_norm_stats"], err_stats)
+            checked["group_norm_apply"] = max(checked["group_norm_apply"], err, err_apply)
+            checked["shapes"].append(shape)
+            del x, y, partial, mul, add
+            continue
+        try:
+            fnorm.group_norm_silu(x.contiguous(), gs, gb, 32)
+        except ValueError as e:
+            refusal = str(e)
+        else:
+            fail(f"group_norm_silu {label}: took an NCHW-contiguous input")
         # Library calls, timed only: F.group_norm + F.silu for the whole
-        # function; for the stats pass the one call computing the same
-        # per-group reduction; none for the apply pass alone.
-        gsb, gbb = gs.to(bf), gb.to(bf)
-        lib_ms = cuda_time_ms(lambda: F.silu(F.group_norm(x, 32, gsb, gbb)), 10)
-        var_mean_ms = cuda_time_ms(
-            lambda: torch.var_mean(x.view(bb, 32, -1), dim=-1, correction=0), 10)
+        # function on the same channels_last x (what the model would call)
+        # and on an NCHW-contiguous copy; for the stats pass the one call
+        # computing the same per-(image, channel) moments; none for apply.
+        gsb, gbb = gs.to(dtype), gb.to(dtype)
+        xn = x.contiguous()
+        lib_cl = cuda_time_ms(lambda: F.silu(F.group_norm(x, 32, gsb, gbb)), 10)
+        lib_nchw = cuda_time_ms(lambda: F.silu(F.group_norm(xn, 32, gsb, gbb)), 10)
+        del xn
+        var_mean_ms = cuda_time_ms(lambda: torch.var_mean(x, dim=(2, 3), correction=0), 10)
         whole = cuda_time_ms(lambda: fnorm.group_norm_silu(x, gs, gb, 32), 10)
-        log(f"time group_norm_silu {shape} bf16 whole (2 kernels + epilogue): {whole:.4f} ms, "
-            f"plain {cuda_time_ms(lambda: fnorm.group_norm_silu_reference(x, gs, gb, 32), 3):.4f} "
-            f"ms, F.group_norm + F.silu {lib_ms:.4f} ms [{CARD}]")
-        values, xbytes = x.numel(), x.numel() * 2
-        record(("group_norm_stats", *shape), err_stats,
-               cuda_time_ms(lambda: fnorm.group_stats(x, 32), 10),
-               cuda_time_ms(lambda: fnorm.group_stats_reference(x, 32), 3),
-               var_mean_ms, 3 * values, xbytes + bb * 32 * 2 * 4, PEAK_FP32_FLOPS)
-        record(("group_norm_apply", *shape), max(err, err_apply),
-               cuda_time_ms(lambda: fnorm.apply(x, mul, add), 10),
+        plain = cuda_time_ms(lambda: fnorm.group_norm_silu_reference(x, gs, gb, 32), 3)
+        values, xbytes = x.numel(), x.numel() * x.element_size()
+        pbytes = partial.numel() * 4
+        whole_bound = (2 * xbytes + xbytes + 2 * cc * 4) / PEAK_HBM_BYTES * 1e3
+        log(f"time group_norm_silu {label} whole (2 launches): {whole:.4f} ms, bound "
+            f"{whole_bound:.4f} ms (x read twice, y written once), plain {plain:.4f} ms, "
+            f"F.group_norm + F.silu channels_last {lib_cl:.4f} ms, NCHW {lib_nchw:.4f} ms; "
+            f"NCHW input refused: {refusal} [{CARD}]")
+        record(("group_norm_stats", *label), err_stats,
+               cuda_time_ms(lambda: fnorm.stats(x), 10),
+               cuda_time_ms(lambda: fnorm.channel_stats_reference(x), 3),
+               var_mean_ms, 3 * values, xbytes + pbytes, PEAK_FP32_FLOPS)
+        record(("group_norm_apply", *label), max(err, err_apply),
+               cuda_time_ms(lambda: fnorm.apply(x, partial, gs, gb, 32), 10),
                cuda_time_ms(lambda: fnorm.apply_reference(x, mul, add), 3),
-               None, 8 * values, 2 * xbytes + 2 * bb * cc * 4, PEAK_FP32_FLOPS)
-        results[("group_norm_silu", *shape)] = {"ms": whole, "library_ms": lib_ms}
-        del x, y
+               None, 8 * values, 2 * xbytes + pbytes + 2 * cc * 4, PEAK_FP32_FLOPS)
+        results[("group_norm_silu", *label)] = {
+            "ms": whole, "plain_ms": plain, "bound_ms": whole_bound, "library_ms": lib_cl,
+            "library_nchw_ms": lib_nchw}
+        del x, y, partial
+    results[("group_norm_checked",)] = checked
     torch.cuda.empty_cache()
 
     # The two routes of a sublayer at (N=1024, C=1536, b=8), in turns: the
@@ -1152,8 +1300,10 @@ def _synthetic(batch: int, seed: int = 0):
 
 def _fit_timed(trainer, state, data):
     """Trainer.fit over ``data``: (state, step intervals in seconds after the
-    first, peak GiB, flash launches, other kernels' launches, fit seconds).
-    The launch counters are set to 0 just before and read just after."""
+    first, peak GiB, flash launches, other kernels' launches but
+    group_norm_silu's, fit seconds). The launch counters are set to 0 just
+    before and read just after; the caller checks group_norm_silu's
+    (check_norms) before the next reset."""
     import numpy as np
     import torch
 
@@ -1174,7 +1324,7 @@ def _fit_timed(trainer, state, data):
     state = trainer.fit(timed(data), state=state)
     fit_s = time.time() - t0
     counts = fla.launch_counts()
-    other = {**fab.launch_counts(), **kernel_launches()[2], **norm_launches()}
+    other = {**fab.launch_counts(), **kernel_launches()[2]}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     return state, np.diff(stamps)[1:], peak, counts, other, fit_s
 
@@ -1243,6 +1393,7 @@ def phase_train(profile: bool, keep_checkpoint: bool = False):
     want = {k: 12 * TRAIN_STEPS for k in ("flash_attention_fwd", "flash_attention_bwd")}
     if counts != want or other:
         fail(f"train: flash launches {counts} (want {want}), other kernels' launches {other}")
+    check_norms(f"train: {TRAIN_STEPS} stage-1 steps (graph-building forwards)", {})
     log(f"train: {TRAIN_STEPS} steps launched {fla.launch_counts_by_shape()} "
         f"(12 forward + 12 backward per step), no sublayer kernel, small_attention "
         f"or group_norm_silu kernel")
@@ -1270,7 +1421,8 @@ def phase_train(profile: bool, keep_checkpoint: bool = False):
             torch.cuda.synchronize()
 
         step()
-        rewrites_in_turns(state.model, step, "train step batch 16 (2 x 8)", 2)
+        in_turns(lambda on: set_rewrites(state.model, on), step,
+                 "train step batch 16 (2 x 8)", 2)
         _profile(step, "train_step")
 
     # The kernel path against the plain attention core on one batch: the
@@ -1282,11 +1434,12 @@ def phase_train(profile: bool, keep_checkpoint: bool = False):
     for impl in ("auto_train", "xla"):
         for m in attn:
             m.impl = impl
-        fla.reset_launch_counts()
+        reset_launches()
         grads, metrics = compute_grads(state.model, batch, weights, trainer.lpips_params,
                                        sample=False)
         res[impl] = (metrics["total"].item(), global_norm(grads).item(),
                      fla.launch_counts().get("flash_attention_bwd", 0))
+        check_norms(f"train compare, attention {impl}: compute_grads", {})
         del grads
     (lk, gk, nk), (lp, gp, npl) = res["auto_train"], res["xla"]
     log(f"train compare ({COMPARE_BATCH} images): loss kernel path {lk:.6f} plain core "
@@ -1367,8 +1520,12 @@ def phase_gan(stage1_ckpt: str, profile: bool):
     want = {k: v * GAN_STEPS for k, v in GAN_LAUNCHES_PER_STEP.items()}
     if counts != want or other:
         fail(f"gan: flash launches {counts} (want {want}), other kernels' launches {other}")
+    # The generator's forward builds a graph (plain norms); the
+    # discriminator update's fresh forward runs without grad: every site.
+    check_norms(f"gan: {GAN_STEPS} steps (the discriminator update's no-grad forward, "
+                f"b{GAN_BATCH})", norm_table(state.model, 256, GAN_STEPS))
     log(f"gan: {GAN_STEPS} steps launched {fla.launch_counts_by_shape()} (12 forward + 6 "
-        f"backward per step), no sublayer kernel, small_attention or group_norm_silu kernel")
+        f"backward per step), no sublayer kernel or small_attention")
     rows = _history(out_dir)
     keys = ("total", "disc_loss", "disc_r1", "grad_norm")
     if len(rows) != GAN_STEPS or not all(np.isfinite(r[k]) for r in rows for k in keys):
@@ -1410,11 +1567,12 @@ def phase_gan(stage1_ckpt: str, profile: bool):
     for impl in ("auto_train", "xla"):
         for m in attn:
             m.impl = impl
-        fla.reset_launch_counts()
+        reset_launches()
         grads, metrics = gan_generator_grads(state.model, disc.model, batch, weights,
                                              trainer.lpips_params, sample=False)
         res[impl] = (metrics["total"].item(), global_norm(grads).item(),
                      fla.launch_counts().get("flash_attention_bwd", 0))
+        check_norms(f"gan compare, attention {impl}: gan_generator_grads", {})
         del grads
     (lk, gk, nk), (lp, gp, npl) = res["auto_train"], res["xla"]
     log(f"gan compare ({COMPARE_BATCH} images): generator loss kernel path {lk:.6f} plain "
@@ -1479,6 +1637,7 @@ def phase_recipe(profile: bool = False):
     if state.step != RECIPE_STEPS or counts != want or other:
         fail(f"recipe: {state.step} steps, flash launches {counts} (want {want}), other "
              f"kernels {other}")
+    check_norms(f"recipe: {RECIPE_STEPS} steps (graph-building forwards)", {})
     rows = _history(out_dir)
     vf = [r["vf"] for r in rows]
     moved = (state.vf_proj.kernel.detach() - kernel_before).abs().max().item()
@@ -1557,6 +1716,7 @@ def phase_remat(stage1_ckpt: str, profile: bool = False):
         reset_launches()
         loss, gnorm = grads_of(m)
         launches = fla.launch_counts()
+        check_norms(f"remat {name}: compute_grads", {})
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1606,6 +1766,7 @@ def phase_remat(stage1_ckpt: str, profile: bool = False):
             or peak >= 80e9 / 2 ** 30 or state.optimizer.kind != "adafactor"):
         fail(f"remat fit: {state.step} steps, flash launches {counts} (want {want}), other "
              f"{other}, losses {[r['total'] for r in rows_fit]}, peak {peak:.2f} GiB")
+    check_norms(f"remat fit: {REMAT_FIT_STEPS} steps (graph-building forwards)", {})
     step_ms = float(np.median(steps_s)) * 1e3
     log(f"remat fit: losses {[round(r['total'], 5) for r in rows_fit]}, grad_norm "
         f"{[round(r['grad_norm'], 4) for r in rows_fit]}; 12 flash forward (6 + 6 "
@@ -1651,7 +1812,11 @@ def phase_remat(stage1_ckpt: str, profile: bool = False):
     # reconstruction's backward: 3 flash backwards.
     want = {"flash_attention_fwd": 12 + 3 * 3, "flash_attention_bwd": 6 + 3}
     want_sub = {"ln_qkv_rope": 3 * 13, "attention_core": 3 * 10, "proj_bias_gemm": 3 * 10}
-    if (fla.launch_counts() != want or sub != want_sub or norm_launches()
+    # group_norm_silu: the frozen encoder's target pass only (no grad); the
+    # reconstruction's pass and its recompute build a graph.
+    check_norms("self-perceptual step (the frozen encoder's no-grad target pass, "
+                f"b{REMAT_BATCH})", norm_table(state.model, 256, 1, parts=("encoder",)))
+    if (fla.launch_counts() != want or sub != want_sub
             or not (np.isfinite(lpips_term) and lpips_term > 0)):
         fail(f"remat self-perceptual: flash launches {fla.launch_counts()} (want {want}), "
              f"sublayer kernels {sub} (want {want_sub}), lpips slot {lpips_term}")
@@ -1744,18 +1909,23 @@ def phase_serve(model):
             fail(f"{name} was not launched while serving")
 
     # Exactly 20 sublayers + 6 stage-2 qkv kernels and flash forwards per
-    # reconstruct.
-    want = launches_per_reconstruct(256)
+    # reconstruct, and a stats and an apply launch per GroupNorm -> SiLU
+    # site (norm_sites: the table derived from the module structure).
+    for res in (256, 512):
+        log(f"GroupNorm -> SiLU sites per {res}px reconstruct, (H*W, C) -> sites: "
+            f"{norm_sites(model, res)}")
+    want = launches_per_reconstruct(256, model=model)
     reset_launches()
     kern = engine.run("reconstruct", imgs[:4])
     by_shape = kernel_launches()
     if by_shape != want:
         fail(f"launches per reconstruct {by_shape} != {want}")
+    NORM_PATHS["serve: one 256px reconstruct, b4"] = by_shape[3]
     log(f"one reconstruct launched {by_shape}")
 
     # 512px: stages 2-3 (N=16384, 4096) take the flash forward, stage 4
     # (N=1024, C=1536) ln_qkv_rope + small_attention.
-    want = launches_per_reconstruct(512)
+    want = launches_per_reconstruct(512, model=model)
     reset_launches()
     big = engine.run("reconstruct", rng.integers(0, 256, (2, 512, 512, 3), dtype=np.uint8))
     by_shape = kernel_launches()
@@ -1763,21 +1933,25 @@ def phase_serve(model):
         fail(f"512px reconstruct: shape {big.shape} or non-finite output")
     if by_shape != want:
         fail(f"512px launches per reconstruct {by_shape} != {want}")
+    NORM_PATHS["serve: one 512px reconstruct, b2"] = by_shape[3]
     counts["flash_attention_fwd_512"] = sum(by_shape[1].values())
     log(f"512px reconstruct b=2: finite {big.shape}, launched {by_shape}")
 
     # Accuracy: the kernel path and the plain bf16 path (every attention
-    # sublayer through the plain modules), each against the same weights
-    # computed in fp32 on the plain path with TF32 off.
+    # sublayer through the plain modules, the plain GroupNorm and SiLU),
+    # each against the same weights computed in fp32 on the plain path with
+    # TF32 off.
     attn = [m for m in model.modules() if isinstance(m, AttentionRoPE)]
     for m in attn:
         m.impl = "xla"
+    set_fused_norm(False)
     reset_launches()
     plain = engine.run("reconstruct", imgs[:4])
     for m in attn:
         m.impl = cfg.attention_impl
+    set_fused_norm(True)
     if any(kernel_launches()):
-        fail("plain path launched kernels")
+        fail(f"plain path launched kernels {kernel_launches()}")
     with torch.device("meta"):
         twin = TransVAE(cfg.replace(dtype="float32"))
     twin = twin.to_empty(device="cuda").eval()
@@ -1813,22 +1987,23 @@ def set_rewrites(model, on: bool) -> None:
             m.fuse_main = m.fuse_dc = on
 
 
-def rewrites_in_turns(model, fn, label: str, reps: int) -> dict:
-    """Host time of ``fn()`` (which ends in a device sync) with the rewrites
-    on and off in turns (on, off, off, on), ``reps`` calls a turn; the
-    rewrites are left on."""
+def in_turns(setter, fn, label: str, reps: int, what: str = "rewrites") -> dict:
+    """Host time of ``fn()`` (which ends in a device sync) with the flags
+    ``setter(on)`` sets on and off in turns (on, off, off, on), ``reps``
+    calls a turn; the flags are left on."""
     times = {True: [], False: []}
     for on in (True, False, False, True):
-        set_rewrites(model, on)
+        setter(on)
         t = time.perf_counter()
         for _ in range(reps):
             fn()
         times[on].append((time.perf_counter() - t) / reps * 1e3)
-    set_rewrites(model, True)
-    log(f"time {label}, rewrites on / off in turns (on, off, off, on; {reps} a turn): "
+    setter(True)
+    log(f"time {label}, {what} on / off in turns (on, off, off, on; {reps} a turn): "
         f"on {[round(v, 2) for v in times[True]]} ms, off "
         f"{[round(v, 2) for v in times[False]]} ms [{CARD}]")
     return {"on_ms": times[True], "off_ms": times[False]}
+
 
 
 # -- phase 4 -------------------------------------------------------------
@@ -1850,9 +2025,21 @@ def phase_time(model, profile: bool):
     log(f"time reconstruct b=32 @256px bf16: {step * 1e3:.2f} ms/batch, "
         f"{32 / step:.2f} img/s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{CARD}]")
-    rewrites_in_turns(model, lambda: engine.run("reconstruct", imgs), "reconstruct b=32 @256px", 2)
+    recon = lambda: engine.run("reconstruct", imgs)  # noqa: E731
+    in_turns(lambda on: set_rewrites(model, on), recon, "reconstruct b=32 @256px", 2)
+    # The fused GroupNorm -> SiLU kernels (25 sites) against the plain
+    # GroupNorm and SiLU modules: the evidence for the module flag's default.
+    fused = in_turns(set_fused_norm, recon, "reconstruct b=32 @256px", 3,
+                     "fused GroupNorm -> SiLU")
+    on, off = min(fused["on_ms"]), min(fused["off_ms"])
+    log(f"time reconstruct b=32 @256px: fused GroupNorm -> SiLU {on:.2f} ms "
+        f"({32 / on * 1e3:.2f} img/s), plain {off:.2f} ms ({32 / off * 1e3:.2f} img/s), "
+        f"best of each: {off / on:.4f}x [{CARD}]")
     if profile:
-        _profile(lambda: engine.run("reconstruct", imgs), "reconstruct_b32")
+        _profile(recon, "reconstruct_b32")
+        set_fused_norm(False)
+        _profile(recon, "reconstruct_b32_plain_norm")
+        set_fused_norm(True)
     return step
 
 
@@ -1901,7 +2088,7 @@ def phase_eval(model, profile: bool):
     for res in sorted(EVAL_CHUNKS):
         chunk = EVAL_CHUNKS[res]
         extrapolation_sweep(model, None, imgs[:chunk], (res,), chunk=chunk)
-        want = launches_per_reconstruct(res, forwards=EVAL_IMAGES // chunk)
+        want = launches_per_reconstruct(res, forwards=EVAL_IMAGES // chunk, model=model)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -1920,18 +2107,27 @@ def phase_eval(model, profile: bool):
             fail(f"sweep {res}px: non-finite metrics {r}")
         if got != want:
             fail(f"sweep {res}px: launches {got} != {want}")
+        NORM_PATHS[f"eval: sweep {res}px, {EVAL_IMAGES} images in chunks of {chunk}"] = got[3]
         sweep[res] = {"img_s": EVAL_IMAGES / dt, "seconds": dt, "peak_gib": peak,
                       "psnr": r["mean"], "ssim": r["ssim"]["mean"], "launches": got}
+    # Each resolution's sweep with the fused GroupNorm -> SiLU on and off
+    # in turns, one sweep a turn: what the switch moves in the sweep.
+    for res, chunk in sorted(EVAL_CHUNKS.items()):
+        ab = in_turns(set_fused_norm,
+                      lambda res=res, chunk=chunk: extrapolation_sweep(model, None, imgs, (res,),
+                                                                       chunk=chunk),
+                      f"sweep {res}px ({EVAL_IMAGES} images, chunk {chunk})", 1,
+                      "fused GroupNorm -> SiLU")
+        on, off = min(ab["on_ms"]), min(ab["off_ms"])
+        log(f"sweep {res}px: fused GroupNorm -> SiLU {EVAL_IMAGES / on * 1e3:.3f} img/s, "
+            f"plain {EVAL_IMAGES / off * 1e3:.3f} img/s, best of each {off / on:.4f}x [{CARD}]")
+        sweep[res]["fused_norm_in_turns_ms"] = ab
     out["sweep"] = sweep
     out["small_attention_launches"] = sum(sweep[512]["launches"][2].values())
     if profile:
         chunk = imgs[:EVAL_CHUNKS[1024]]
         reconstruct(model, None, chunk)
         _profile(lambda: reconstruct(model, None, chunk), "sweep_1024")
-    out["norm_launches"] = {}
-    for s in sweep.values():
-        for (name, _, _), cnt in s["launches"][3].items():
-            out["norm_launches"][name] = out["norm_launches"].get(name, 0) + cnt
 
     # Accuracy at 512px (b=2): the kernel path (small_attention at stage 4)
     # and the plain bf16 path, each against the same weights in fp32.
@@ -1939,14 +2135,19 @@ def phase_eval(model, profile: bool):
     x512 = x512.permute(0, 2, 3, 1).numpy()
     reset_launches()
     kern = reconstruct(model, None, x512)
-    if kernel_launches() != launches_per_reconstruct(512):
+    if kernel_launches() != launches_per_reconstruct(512, model=model):
         fail(f"512px reconstruct launched {kernel_launches()}")
     attn = [m for m in model.modules() if isinstance(m, AttentionRoPE)]
     for m in attn:
         m.impl = "xla"
+    set_fused_norm(False)
+    reset_launches()
     plain = reconstruct(model, None, x512)
     for m in attn:
         m.impl = cfg.attention_impl
+    set_fused_norm(True)
+    if any(kernel_launches()):
+        fail(f"512px plain path launched kernels {kernel_launches()}")
     with torch.device("meta"):
         twin = TransVAE(cfg.replace(dtype="float32"))
     twin = twin.to_empty(device="cuda").eval()
@@ -2094,13 +2295,15 @@ def phase_quant(model, profile: bool):
     engines = {s: InferenceEngine(m, max_batch=32) for s, m in models.items()}
     # One b32 reconstruct at each scope (which also warms each engine)
     # launches the bf16 table.
-    want = launches_per_reconstruct(256)
+    want = launches_per_reconstruct(256, model=model)
     for scope in models:
         reset_launches()
         engines[scope].run("reconstruct", imgs)
         if kernel_launches() != want:
             fail(f"quant {scope}: launches per reconstruct {kernel_launches()} != {want}")
-    log(f"quant: one reconstruct at each scope launched the bf16 table {want[:2]}")
+        if scope != "none":
+            NORM_PATHS[f"quant: one int8 reconstruct, scope {scope}, b32"] = kernel_launches()[3]
+    log(f"quant: one reconstruct at each scope launched the bf16 table {want}")
 
     # Reconstruct b32 in turns, one a turn: none, resblock, ffn, all, all,
     # ffn, resblock, none.
@@ -2376,40 +2579,48 @@ def main():
                 row["baseline_turns_ms"] = {
                     d: {str(k): v for k, v in by_shape.items()}
                     for d, by_shape in baseline[row["name"]].items()}
-        # group_norm_silu is on no model path (as in the JAX package): its
-        # launches in the train, gan, recipe, remat, serve and eval phases'
-        # runs must be 0.
-        norm = {name: (train_counts.get(name, 0) + counts.get(name, 0)
-                       + evaluated.get("norm_launches", {}).get(name, 0))
-                for name in ("group_norm_stats", "group_norm_apply")}
-        if any(norm.values()):
-            fail(f"group_norm_silu launched on a model path {norm}: it is documented "
-                 f"as on none; update PERF.md and this check")
-        whole = [results[("group_norm_silu", *shape)] for shape in GROUP_NORM_SHAPES]
+        # group_norm_silu: launches in the serve phase's concurrent requests
+        # (the main path), each path's exact count beside them (every phase
+        # checks its own against norm_table).
+        by_path = {path: {name: sum(n for (k, _, _), n in got.items() if k == name)
+                          for name in ("group_norm_stats", "group_norm_apply")}
+                   for path, got in NORM_PATHS.items()}
+        if counts and not all(counts.get(n, 0) for n in ("group_norm_stats",
+                                                          "group_norm_apply")):
+            fail(f"group_norm_silu was not launched while serving: {counts}")
         for name, line, library in (
-                ("group_norm_stats", 71, "torch.var_mean over each (image, group)"),
+                ("group_norm_stats", 71, "torch.var_mean(x, dim=(2, 3)) on the same "
+                                         "channels_last x"),
                 ("group_norm_apply", 92, "none: no one PyTorch call computes "
                                          "silu(x * mul + add)")):
-            rows = [results[(name, *shape)] for shape in GROUP_NORM_SHAPES]
-            tot = lambda key: sum(r[key] for r in rows)  # noqa: E731
+            rows = {label: r for label, r in results.items() if label[0] == name}
+            checked = results[("group_norm_checked",)]
+            bf16 = [r for label, r in rows.items() if label[-1] == "bf16"]
+            tot = lambda key: sum(r[key] for r in bf16)  # noqa: E731
             row = {
                 "name": name, "route": "cuda",
                 "source": "deepl_project_tpu_torch/csrc/group_norm_silu.cu",
                 "replaces": f"deepl_project_tpu/ops/pallas/fused_norm.py:{line}",
-                "launches": norm[name],
-                "max_abs_err": max(r["err"] for r in rows), "ms": tot("ms"),
+                "launches": counts.get(name, 0),
+                # Over the timed shapes and the checked-only ones.
+                "max_abs_err": max([r["err"] for r in rows.values()] + [checked[name]]),
+                "checked_shapes": checked["shapes"], "ms": tot("ms"),
                 "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
                 "bound_by": "bytes",
-                "library_ms": None if rows[0]["library_ms"] is None else tot("library_ms"),
-                "per": (f"one call at each of {list(GROUP_NORM_SHAPES)} bf16, summed; "
-                        f"library: {library}; launches over the train, gan, recipe, "
-                        f"remat, serve and eval phases' runs"),
+                "library_ms": None if bf16[0]["library_ms"] is None else tot("library_ms"),
+                "ms_by_shape": {str(k[1:]): [r["ms"], r["bound_ms"], r["library_ms"]]
+                                for k, r in rows.items()},
+                "launches_by_path": {p: c[name] for p, c in by_path.items()},
+                "per": (f"one call at each of {list(GROUP_NORM_SHAPES)} bf16, summed "
+                        f"(ms_by_shape: [kernel, bound, library] ms, the fp32 shape "
+                        f"too); library: {library}; launches in the serve phase's "
+                        f"concurrent requests"),
             }
             if name == "group_norm_apply":
-                # The whole function once: both kernels + the torch epilogue
-                # against F.group_norm + F.silu.
-                row["group_norm_silu_ms"] = sum(r["ms"] for r in whole)
-                row["group_norm_silu_library_ms"] = sum(r["library_ms"] for r in whole)
+                # The whole function (both launches) against F.group_norm +
+                # F.silu on the same channels_last x and on an NCHW copy.
+                row["group_norm_silu_by_shape"] = {
+                    str(k[1:]): r for k, r in results.items() if k[0] == "group_norm_silu"}
             kernels.append(row)
         print(json.dumps({"kernels": kernels}), flush=True)
     log(f"all phases passed in {time.time() - t0:.1f}s")

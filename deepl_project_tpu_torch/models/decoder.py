@@ -4,19 +4,19 @@ with an Upsample between stages, and a final GroupNorm -> SiLU -> 3x3 conv.
 
 Output contract: unbounded logits; apply a sigmoid for [0, 1] images.
 Gradient checkpointing as in the encoder (``remat``, ``remat_resample``:
-the Upsamples).
+the Upsamples). The final GroupNorm -> SiLU goes through
+``norms.group_norm_silu``, as the ResBlocks' do.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..config import TransVAEConfig
 from ..ops.blocks import ResBlock, TransVAEBlock, resolve_remat_policy, run_block
 from ..ops.layers import Conv2d
-from ..ops.norms import GroupNorm, gn_groups
+from ..ops.norms import GroupNorm, gn_groups, group_norm_silu
 from ..ops.resample import Upsample
 from .encoder import resblock_kwargs, transformer_kwargs
 
@@ -59,4 +59,4 @@ class TransVAEDecoder(nn.Module):
                 h = run_block(block, h, *args, remat=cfg.remat, policy=self.remat_policy)
             if i < len(self.upsamples):
                 h = run_block(self.upsamples[i], h, remat=cfg.remat and cfg.remat_resample)
-        return self.conv_out(F.silu(self.norm_out(h)))
+        return self.conv_out(group_norm_silu(self.norm_out, h))

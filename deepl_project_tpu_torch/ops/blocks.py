@@ -8,7 +8,6 @@ from __future__ import annotations
 import functools
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
@@ -17,7 +16,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from .attention import AttentionRoPE
 from .ffn import ConvFFN, StandardFFN
 from .layers import Conv2d
-from .norms import GroupNorm, RMSNorm, gn_groups
+from .norms import GroupNorm, RMSNorm, gn_groups, group_norm_silu
 from .quant import QConv2d, record_amax
 
 _aten = torch.ops.aten
@@ -80,7 +79,9 @@ class ResBlock(nn.Module):
 
     ``quant='int8'``: the three convs are int8 (``QConv2d``), the norms and
     SiLU stay float. ``calibrate``: record the absmax of each conv's input
-    (sites ``amax_h1``, ``amax_h2``, ``amax_x``) in ``self.amax``."""
+    (sites ``amax_h1``, ``amax_h2``, ``amax_x``) in ``self.amax``.
+    Each GroupNorm -> SiLU goes through ``norms.group_norm_silu``, which
+    takes the fused kernels where their gate holds (no-grad CUDA bf16)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  use_conv_shortcut: bool = False, *, quant: str | None = None,
@@ -103,10 +104,10 @@ class ResBlock(nn.Module):
             self.shortcut = conv(in_channels, out_channels, 3 if use_conv_shortcut else 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.silu(self.norm1(x))
+        h = group_norm_silu(self.norm1, x)
         if self.calibrate:
             record_amax(self, "amax_h1", h)
-        h = F.silu(self.norm2(self.conv1(h)))
+        h = group_norm_silu(self.norm2, self.conv1(h))
         if self.calibrate:
             record_amax(self, "amax_h2", h)
         h = self.conv2(h)

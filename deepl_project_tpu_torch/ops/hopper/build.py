@@ -39,8 +39,8 @@ SIGNATURES = {
     "flash_attention_bwd": [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P],
     "flash_attention_bwd_det": [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P],
     "small_attention": [_P] * 4 + [_I] * 7 + [ctypes.c_float, _P],
-    "group_norm_stats": [_P] * 2 + [_I] * 3 + [_L] * 2 + [_P],
-    "group_norm_apply": [_P] * 4 + [_I] + [_L] * 2 + [_I] * 2 + [_P],
+    "group_norm_stats": [_P] * 2 + [_I] * 5 + [_P],
+    "group_norm_apply": [_P, _P, _I, _P, _P, _P] + [_I] * 6 + [ctypes.c_float, _I, _P],
 }
 # Kernels whose launcher lives in a source of another name (csrc/<source>.cu).
 SOURCE_OF = {"group_norm_stats": "group_norm_silu", "group_norm_apply": "group_norm_silu",

@@ -3,6 +3,7 @@
 All statistics are computed in float32 whatever the compute dtype, then the
 result is cast back to the input's dtype. Feature maps are NCHW (any memory
 format); LayerNorm works on token tensors ``[..., C]``.
+:func:`group_norm_silu` is the model's GroupNorm -> SiLU site.
 """
 
 from __future__ import annotations
@@ -10,7 +11,10 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from .hopper import fused_norm
 
 
 class RMSNorm(nn.Module):
@@ -81,3 +85,21 @@ class GroupNorm(nn.Module):
         y = ((x32 - m1) * torch.rsqrt(var + self.eps)).reshape(b, h, w, c)
         y = y * self.weight.float() + self.bias.float()
         return y.to(x.dtype).permute(0, 3, 1, 2)
+
+
+# The model's one switch for the fused GroupNorm -> SiLU kernels: a port
+# dispatch choice, on by default (the in-model A/B on the card); flipped only
+# by chip_smoke.py and the tests.
+FUSE_NORM_SILU = True
+
+
+def group_norm_silu(norm: GroupNorm, x: torch.Tensor) -> torch.Tensor:
+    """silu(norm(x)). With :data:`FUSE_NORM_SILU` on and ``x`` a no-grad
+    CUDA bf16 map (``fused_norm.group_norm_silu_supported``), the fused
+    kernel pair, which rounds once to x's dtype after SiLU and raises on a
+    map that is not channels_last; otherwise the two modules as the JAX
+    model runs them, rounding after the norm and again after SiLU."""
+    if FUSE_NORM_SILU and fused_norm.group_norm_silu_supported(x, norm.weight, norm.bias):
+        return fused_norm.group_norm_silu(x, norm.weight, norm.bias, norm.num_groups,
+                                          norm.eps)
+    return F.silu(norm(x))

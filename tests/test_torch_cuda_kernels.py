@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from deepl_project_tpu_torch import create_transvae
-from deepl_project_tpu_torch.ops import quant
+from deepl_project_tpu_torch.ops import norms, quant
 from deepl_project_tpu_torch.ops.ffn import ConvFFN
 from deepl_project_tpu_torch.ops.resample import Downsample, Upsample
 from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
@@ -104,7 +104,9 @@ def test_model_kernel_path_matches_plain_path(gen):
     # at different places, and random weights carry each difference through
     # the decoder, so both are held to the same weights computed in fp32
     # (TF32 off): the kernel path must be about as close to it as the plain
-    # path (mean error within 1.5x, max within 2x, as in chip_smoke.py).
+    # path (mean error within 1.5x, max within 2x, as in chip_smoke.py). The
+    # kernel path also takes the fused GroupNorm -> SiLU at its 9 sites; the
+    # plain path the GroupNorm and SiLU modules.
     kw = dict(depths=(1, 1, 1, 1, 1), base_dims=(32, 32, 128, 128, 128),
               latent_dim=4, head_dim=64)
     model = create_transvae("tiny_f16d32", device="cuda", seed=0, **kw)
@@ -116,7 +118,9 @@ def test_model_kernel_path_matches_plain_path(gen):
     try:
         with torch.inference_mode():
             fab.reset_launch_counts()
+            fnorm.reset_launch_counts()
             kern = torch.sigmoid(model(x)[0].float())
+            assert fnorm.launch_counts() == {"group_norm_stats": 9, "group_norm_apply": 9}
             # Stages 2-3 (N=1024, 256) take the whole sublayer, enc + dec;
             # stage 4 (N=64) ln_qkv_rope and the plain core, as the JAX
             # package's route (its sublayer kernel wants N % 256 == 0).
@@ -125,11 +129,15 @@ def test_model_kernel_path_matches_plain_path(gen):
             for m in model.modules():
                 if hasattr(m, "impl"):
                     m.impl = "xla"
+            norms.FUSE_NORM_SILU = False
+            fnorm.reset_launch_counts()
             plain = torch.sigmoid(model(x)[0].float())
+            assert fnorm.launch_counts() == {}
             torch.backends.cudnn.allow_tf32 = False
             ref = torch.sigmoid(exact(x)[0])
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+        norms.FUSE_NORM_SILU = True
     ek, ep = (kern - ref).abs(), (plain - ref).abs()
     assert ek.mean().item() <= 1.5 * ep.mean().item(), (ek.mean(), ep.mean())
     assert ek.max().item() <= 2.0 * ep.max().item(), (ek.max(), ep.max())
@@ -319,20 +327,32 @@ def test_small_attention_autograd(gen):
 
 
 @pytest.mark.parametrize("dtype,shape,groups", [(torch.bfloat16, (2, 192, 64, 64), 32),
+                                                (torch.bfloat16, (2, 128, 40, 24), 32),
+                                                (torch.float32, (3, 320, 24, 40), 32),
+                                                (torch.bfloat16, (1, 384, 37, 29), 32),
                                                 (torch.float32, (3, 64, 24, 40), 8)])
 def test_group_norm_silu_kernels_match_plain(gen, dtype, shape, groups):
+    # channels_last maps, as the model holds them. (1, 384, 37, 29): H*W =
+    # 1073 rows in 5 slabs of 215, the last one short.
     c = shape[1]
-    x = (2 * torch.randn(*shape, generator=gen, device="cuda") + 1).to(dtype)
+    x = (2 * torch.randn(*shape, generator=gen, device="cuda") + 1).to(dtype).contiguous(
+        memory_format=torch.channels_last)
     scale = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
     bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
     fnorm.reset_launch_counts()
     got = fnorm.group_norm_silu(x, scale, bias, groups)
     assert fnorm.launch_counts() == {"group_norm_stats": 1, "group_norm_apply": 1}
-    assert got.dtype == dtype
+    assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
     _close(got, fnorm.group_norm_silu_reference(x, scale, bias, groups))
-    # The stats are fp32 sums: held to fp32, each within 1e-5 relative.
-    stats, want = fnorm.group_stats(x, groups), fnorm.group_stats_reference(x, groups)
+    # The stats are fp32 sums: the kernel's partials, added over its slabs,
+    # held to fp32, each per-channel sum within 1e-5 relative.
+    partial = fnorm.stats(x)
+    if shape == (1, 384, 37, 29):
+        assert (37 * 29) % partial.shape[1]
+    stats, want = partial.sum(1), fnorm.channel_stats_reference(x)
     assert ((stats - want).abs() <= 1e-5 * want.abs()).all()
+    with pytest.raises(ValueError, match=r"channels_last.*strides"):
+        fnorm.group_norm_silu(x.contiguous(), scale, bias, groups)
 
 
 @pytest.mark.parametrize("kind", ["mm", "mm16", "mm1", "conv3", "conv1"])

@@ -97,3 +97,43 @@ def test_group_norm_silu_is_forward_only_and_refuses_off_cpu_tensors():
     with pytest.raises(ValueError):
         fnorm.group_norm_silu(_nchw(x), torch.ones(64), torch.zeros(64), groups=6)
     assert fnorm.launch_counts() == {}
+
+
+@pytest.mark.parametrize("c", [96, 192])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_on_channels_last_matches_pallas_interpret(jax_group_norm_silu, dtype, c):
+    # The model's layout: the same NHWC numpy array is the JAX function's
+    # input and, permuted, the port's channels_last [B, C, H, W] view.
+    x, scale, bias = _inputs(b=2, c=c, h=8, w=16, seed=c)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jax_group_norm_silu(jnp.asarray(x, jdt), jnp.asarray(scale), jnp.asarray(bias),
+                               groups=32, block_rows=64)
+    want = np.asarray(want.astype(jnp.float32))
+    tx = torch.from_numpy(x).to(tdt).permute(0, 3, 1, 2)
+    assert tx.is_contiguous(memory_format=torch.channels_last)
+    ts, tb = torch.from_numpy(scale), torch.from_numpy(bias)
+    got = fnorm.group_norm_silu(tx, ts, tb, groups=32)
+    assert got.dtype == tdt and got.is_contiguous(memory_format=torch.channels_last)
+    # What the card runs, in plain versions: per-channel stats, the group
+    # fold and mul/add, the apply pass.
+    stats = fnorm.group_sums(fnorm.channel_stats_reference(tx), 32)
+    mul, add = fnorm.mul_add(stats, (c // 32) * 8 * 16, ts, tb, 1e-5)
+    passes = fnorm.apply_reference(tx, mul, add)
+    for y in (got, passes):
+        y = y.float().permute(0, 2, 3, 1).numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(y, want, atol=1e-5, rtol=1e-4)
+        else:
+            np.testing.assert_allclose(y, want, atol=2 ** -6 * np.abs(want).max(), rtol=0)
+
+
+def test_channel_stats_do_not_depend_on_the_memory_format():
+    x, _, _ = _inputs(c=96, seed=2)
+    cl = torch.from_numpy(x).permute(0, 3, 1, 2)
+    stats = fnorm.channel_stats_reference(cl)
+    assert stats.shape == (2, 2, 96)
+    torch.testing.assert_close(stats, fnorm.channel_stats_reference(cl.contiguous()))
+    np.testing.assert_allclose(stats[:, 0].numpy(), x.sum(axis=(1, 2)), rtol=1e-5)
+    np.testing.assert_allclose(stats[:, 1].numpy(), np.square(x).sum(axis=(1, 2)), rtol=1e-5)
+    torch.testing.assert_close(fnorm.group_stats_reference(cl, 32),
+                               fnorm.group_sums(stats, 32))
