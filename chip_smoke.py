@@ -146,6 +146,30 @@ Phases (any failure exits non-zero and prints no result):
    through cli.serve's engine with --quantize unset and one with --quantize
    int8 (scope resblock). Writes
    chiprun_out/quant.json; with --profile, a table of one int8 reconstruct.
+12. data (run after the training phases): training and evaluation from a
+   folder of images. Probes the decoders (the native C++ decoder built from
+   native/image_loader.cpp, PIL) and prints which one decodes; writes 112
+   PNGs (4 class directories, 8 loose; 256x320, 384x256, 300x300) and times
+   their decode at min(cpu_count, 16) threads; cli.train --variant large
+   --data <folder> (batch 16 = 2 x 8, 5 steps, one validation batch of 16 at
+   step 5) with launches counted: 12 + 12 flash a step and 6 flash forward
+   in the validation pass, group_norm_silu as norm_table for that one
+   no-grad forward, no other kernel; history.jsonl, and tb/ exactly when
+   tensorboardX is installed; the same step fed by the folder pipeline and
+   by synthetic batches in turns (folder, synthetic, synthetic, folder; 3
+   steps a turn); one step under utils.logging.profiler_trace (its trace
+   written); cli.evaluate --data <folder> --rfid (2 batches of 16; vgg_rfid
+   without the Inception weights) with launches as two 256px reconstructs;
+   InceptionV3 (seeded random params, fp32 with TF32 off) at b32 256 -> 299px
+   timed beside its bound, its first 4 images against the CPU fp32 path
+   (INCEPTION_RTOL), rFID of the originals against themselves (~0) and
+   against the trained model's reconstructions; pool_latents over the
+   folder, latent_diagnostics, linear_probe on the 4 class labels;
+   from_pretrained('transvae-large-f16d32') through DEEPL_PRETRAINED_DIR,
+   its reconstruct bit-equal to model_from_checkpoint's; python -m
+   deepl_project_tpu_torch.cli.smoke_test exiting 0. Deletes its folder and
+   checkpoint. Where neither decoder is present (the probe says so), it
+   trains and evaluates on --data shapes instead.
 
 Launches are checked against one table per resolution (256, 512, 1024px;
 launches_per_reconstruct). group_norm_silu's launches are checked on every
@@ -218,6 +242,22 @@ REMAT_CASES = (("no remat", None, False), ("none", "none", False), ("dots", "dot
 REMAT_RTOL = 1e-3  # loss and grad norm against no remat
 REMAT_FIT_BATCH = 16  # one microbatch: without remat 2 x 8 peaks at ~68 GiB
 REMAT_FIT_STEPS = 5
+# Phase data: an image folder of DATA_IMAGES PNGs (DATA_CLASSES class
+# directories and DATA_LOOSE loose images) in (H, W) sizes that make the
+# resize and the crop run; cli.train's 5 steps of 16 and a validation batch
+# repeat over it. The folder-fed and synthetic steps in turns, DATA_TURN_STEPS
+# a turn. InceptionV3 at b32; its first INCEPTION_CHECKED images also on the
+# CPU in fp32 (TF32 off on the card), max abs error within INCEPTION_RTOL x
+# the largest feature: fp32 on both sides, summed in other orders (4.8e-7
+# measured; TF32's 10-bit mantissa alone would be ~1e-3).
+DATA_IMAGES = 112
+DATA_CLASSES = 4
+DATA_LOOSE = 8
+DATA_SIZES = ((256, 320), (384, 256), (300, 300))
+DATA_TURN_STEPS = 3
+INCEPTION_BATCH = 32
+INCEPTION_CHECKED = 4
+INCEPTION_RTOL = 1e-5
 # (batch, N, heads) of the flash kernels' shapes: the training microbatch,
 # 256px serving at batch 32 (stage 2), 512px serving at batch 2 and the
 # 1024px sweep's chunk of 4 (stage 2).
@@ -1832,6 +1872,300 @@ def phase_remat(stage1_ckpt: str, profile: bool = False):
                     "self_perceptual_peak_gib": sp_peak}
 
 
+# -- phase data ----------------------------------------------------------
+def _write_image_folder(root: str) -> dict:
+    """DATA_IMAGES PNGs (utils.image.save_image: zlib, no PIL) of shapes
+    content under ``root``: DATA_CLASSES class directories and a few loose
+    images, in DATA_SIZES (H, W), so that the resize and the crop both
+    run. Returns {'files': n, 'bytes': total}."""
+    import numpy as np
+
+    from deepl_project_tpu_torch.data import make_dataset
+    from deepl_project_tpu_torch.utils.image import save_image
+
+    per_class = (DATA_IMAGES - DATA_LOOSE) // DATA_CLASSES
+    dirs = [f"class_{c}" for c in range(DATA_CLASSES) for _ in range(per_class)]
+    dirs += [""] * DATA_LOOSE
+    side = max(max(s) for s in DATA_SIZES)
+    src = make_dataset("shapes", resolution=side, num_samples=len(dirs), seed=11)
+    total = 0
+    for i, (sub, img) in enumerate(zip(dirs, src)):
+        h, w = DATA_SIZES[i % len(DATA_SIZES)]
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        path = os.path.join(root, sub, f"img_{i:03d}.png")
+        save_image((img[:h, :w] * 255).round().astype(np.uint8), path)
+        total += os.path.getsize(path)
+    return {"files": len(dirs), "bytes": total}
+
+
+def phase_data():
+    """Training and evaluation of large f16d32 on a folder of images (the
+    data slice's user path): the decoder probe, the folder written and its
+    decode timed, cli.train on it (5 steps, one validation pass), its steps
+    in turns with synthetic ones, a step under profiler_trace,
+    cli.evaluate --rfid over the folder, InceptionV3 on the card against its
+    fp32 CPU path, the latent diagnostics and linear probe, from_pretrained
+    against model_from_checkpoint, and cli.smoke_test."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from deepl_project_tpu_torch import from_pretrained, get_config
+    from deepl_project_tpu_torch.cli import evaluate as evaluate_cli
+    from deepl_project_tpu_torch.cli import train as train_cli
+    from deepl_project_tpu_torch.data import (image_folder_dataset, input_pipeline,
+                                              make_dataset, native_loader)
+    from deepl_project_tpu_torch.data.transforms import pil_available
+    from deepl_project_tpu_torch.evaluation import model_from_checkpoint, reconstruct
+    from deepl_project_tpu_torch.models import TransVAE
+    from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
+    from deepl_project_tpu_torch.utils import inception as inc
+    from deepl_project_tpu_torch.utils import latent_metrics as lm
+    from deepl_project_tpu_torch.utils.fid import fid_from_features
+    from deepl_project_tpu_torch.utils.logging import profiler_trace
+
+    out_dir = os.path.join(ROOT, "outputs", "chip_smoke_data")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    folder = os.path.join(out_dir, "images")
+    run_dir = os.path.join(out_dir, "run")
+    ckpt = os.path.join(run_dir, "checkpoints")
+    workers = min(os.cpu_count() or 1, 16)
+    with torch.device("meta"):
+        meta = TransVAE(get_config("large", 16, 32, norm_latents=True))
+
+    # 1. The decoders: the only branch of this phase.
+    native, pil = native_loader.native_available(), pil_available()
+    decoder = "native" if native else "PIL" if pil else None
+    why = "" if native else " (its build: {})".format(
+        " | ".join((native_loader.build_error() or "").splitlines()[:3]))
+    log(f"data: decoders: native {'built and loaded' if native else 'unavailable'}{why}; "
+        f"PIL {'imports' if pil else 'absent'}; the folder decodes with "
+        f"{decoder or 'nothing: training and evaluation read --data shapes instead'}")
+
+    # 2. The folder, and its decode at the CLI's thread count.
+    written = _write_image_folder(folder)
+    data = folder if decoder else "shapes"
+    if decoder:
+        t = time.perf_counter()
+        n = sum(1 for _ in image_folder_dataset(folder, 256, num_workers=workers))
+        dt = time.perf_counter() - t
+        if n != written["files"]:
+            fail(f"data: decoded {n} of {written['files']} images")
+        log(f"data: {written['files']} PNGs ({written['bytes'] / 2 ** 20:.2f} MiB, sizes "
+            f"{DATA_SIZES}) decoded to 256px with {decoder} on {workers} threads in "
+            f"{dt:.3f}s: {n / dt:.1f} img/s")
+
+    # 3. cli.train on the folder: 5 steps of 16 = 2 x 8, one validation pass
+    # of one batch at step 5; its steps stamped at each batch.
+    made = {}
+    stamps = []
+
+    class Recording(train_cli.Trainer):
+        def fit(self, data_iter, state=None, val_batches=None):
+            made["trainer"] = self
+            made["state"] = super().fit(data_iter, state, val_batches)
+            return made["state"]
+
+    def stamped(source, batch_size, device, **kw):
+        for b in input_pipeline(source, batch_size, device, **kw):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            yield b
+
+    argv = ["--variant", "large", "--data", data, "--batch_size", "16", "--accum_steps", "2",
+            "--num_epochs", "1", "--steps_per_epoch", str(TRAIN_STEPS), "--log_every", "1",
+            "--warmup_steps", "2", "--eval_every_steps", str(TRAIN_STEPS),
+            "--val_batches", "1", "--no_keep_best", "--output_dir", run_dir]
+    real = train_cli.Trainer, train_cli.input_pipeline
+    train_cli.Trainer, train_cli.input_pipeline = Recording, stamped
+    reset_launches()
+    t = time.time()
+    try:
+        train_cli.main(argv)
+    finally:
+        train_cli.Trainer, train_cli.input_pipeline = real
+    fit_s = time.time() - t
+    trainer, state = made["trainer"], made["state"]
+    counts = fla.launch_counts()
+    want = {("flash_attention_fwd", 4096, 6): 12 * TRAIN_STEPS + 6,
+            ("flash_attention_bwd", 4096, 6): 12 * TRAIN_STEPS}
+    got = kernel_launches()
+    if state.step != TRAIN_STEPS or got[1] != want or got[0] or got[2]:
+        fail(f"data: cli.train took {state.step} steps; launched {got}, want flash {want} "
+             f"and no sublayer or small_attention kernel")
+    check_norms("data: cli.train on the folder, its validation pass (1 batch of 16)",
+                norm_table(meta, 256))
+    rows = [json.loads(r) for r in open(os.path.join(run_dir, "history.jsonl"))]
+    train_rows = [r for r in rows if r["kind"] == "train"]
+    val_rows = [r for r in rows if r["kind"] == "val"]
+    if (len(train_rows) != TRAIN_STEPS or len(val_rows) != 1
+            or not np.isfinite([r["total"] for r in train_rows] + [val_rows[0]["val_psnr"]]).all()):
+        fail(f"data: history.jsonl rows {rows}")
+    try:
+        import tensorboardX  # noqa: F401
+        has_tbx = True
+    except ImportError:
+        has_tbx = False
+    tb = os.path.join(run_dir, "tb")
+    tb_files = os.listdir(tb) if os.path.isdir(tb) else []
+    if has_tbx != bool(tb_files):
+        fail(f"data: tensorboardX {'installed' if has_tbx else 'absent'}, tb/ holds {tb_files}")
+    steps_ms = np.diff(stamps)[1:] * 1e3
+    log(f"data: cli.train --data <folder> large f16d32 @256 batch 16 (2 x 8): losses "
+        f"{[round(r['total'], 5) for r in train_rows]}, val_psnr "
+        f"{val_rows[0]['val_psnr']:.3f} dB; flash launches {got[1]} (12 + 12 a step, 6 "
+        f"forward in the validation pass); tb/ {tb_files or 'not written (no tensorboardX)'}; "
+        f"batch intervals after the first {[round(float(v), 1) for v in steps_ms]} ms, fit incl. "
+        f"build and checkpoint {fit_s:.1f}s [{CARD}]")
+
+    # The same step fed by the folder pipeline and by the synthetic one, in
+    # turns (folder, synthetic, synthetic, folder), DATA_TURN_STEPS a turn.
+    feeds = {"folder": input_pipeline(make_dataset(data, resolution=256,
+                                                   **train_cli.source_kwargs(data, -1)),
+                                      16, "cuda"),
+             "synthetic": _synthetic(16)}
+    turns = {"folder": [], "synthetic": []}
+    for name in ("folder", "synthetic", "synthetic", "folder"):
+        marks = []
+        for _ in range(DATA_TURN_STEPS + 1):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            trainer.step_fn(state, next(feeds[name]))
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        turns[name] += [round(float(v) * 1e3, 1) for v in np.diff(marks)[1:]]
+    folder_ms, synth_ms = (float(np.median(turns[k])) for k in ("folder", "synthetic"))
+    log(f"time train step batch 16 (2 x 8) fed by the folder ({decoder or 'shapes'}) / by "
+        f"synthetic batches, in turns (folder, synthetic, synthetic, folder; "
+        f"{DATA_TURN_STEPS} a turn): folder {turns['folder']} ms, synthetic "
+        f"{turns['synthetic']} ms; medians {folder_ms:.1f} / {synth_ms:.1f} ms "
+        f"({folder_ms / synth_ms:.4f}x) [{CARD}]")
+    batch = next(feeds["folder"])
+    trace_dir = os.path.join(out_dir, "trace")
+    with profiler_trace(trace_dir):
+        trainer.step_fn(state, batch)
+        torch.cuda.synchronize()
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    if len(traces) != 1 or os.path.getsize(os.path.join(trace_dir, traces[0])) == 0:
+        fail(f"data: profiler_trace wrote {os.listdir(trace_dir)}")
+    log(f"data: profiler_trace of one step wrote {traces[0]} "
+        f"({os.path.getsize(os.path.join(trace_dir, traces[0])) / 2 ** 20:.1f} MiB)")
+    made.clear()
+    del feeds, trainer, state, batch
+    train_counts = {k: counts.get(k, 0) for k in ("flash_attention_fwd", "flash_attention_bwd")}
+    torch.cuda.empty_cache()
+
+    # 4. cli.evaluate over the folder with --rfid (vgg_rfid without the
+    # Inception weights): 2 batches of 16 through the inference kernels.
+    reset_launches()
+    t = time.time()
+    metrics = evaluate_cli.main(["--checkpoint", ckpt, "--data", data, "--rfid",
+                                 "--batch_size", "16", "--num_batches", "2", "--save_grids", "1",
+                                 "--output_dir", os.path.join(out_dir, "eval")])
+    eval_s = time.time() - t
+    want = launches_per_reconstruct(256, forwards=2, model=meta)
+    if kernel_launches() != want:
+        fail(f"data: cli.evaluate launched {kernel_launches()}, want {want}")
+    NORM_PATHS["data: cli.evaluate, 2 batches of 16"] = kernel_launches()[3]
+    key = "rfid" if inc.inception_params_available() else "vgg_rfid"
+    flat = [metrics[k][s] for k in ("psnr", "ssim", "lpips") for s in ("mean", "min", "max")]
+    if metrics["num_images"] != 32 or not np.isfinite(flat + [metrics.get(key, np.nan)]).all():
+        fail(f"data: cli.evaluate gave {metrics}")
+    log(f"data: cli.evaluate --data <folder> --rfid (32 images): psnr "
+        f"{metrics['psnr']['mean']:.4f} dB, ssim {metrics['ssim']['mean']:.5f}, lpips "
+        f"{metrics['lpips']['mean']:.5f}, {key} {metrics[key]:.4f}; launches as "
+        f"launches_per_reconstruct(256) x 2; {eval_s:.1f}s incl. the checkpoint load [{CARD}]")
+
+    # InceptionV3 on the card: seeded random params, b32 at 256px (resized to
+    # 299 inside), against its fp32 CPU path on the first images.
+    model = model_from_checkpoint(ckpt, "cuda")
+    items = list(image_folder_dataset(folder, 256, shuffle=False, with_labels=True)
+                 if decoder else make_dataset("shapes", 256, with_labels=True,
+                                              num_samples=written["files"]))
+    images = np.stack([x for x, _ in items])
+    x = torch.from_numpy(images[:INCEPTION_BATCH]).permute(0, 3, 1, 2).to("cuda")
+    params = inc.init_inception_params(device="cuda")
+    feats = inc.inception_features(params, x)
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    plain = inc.inception_features(cpu_params, x[:INCEPTION_CHECKED].cpu())
+    err = (feats[:INCEPTION_CHECKED].cpu() - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    ms = cuda_time_ms(lambda: inc.inception_features(params, x), 10)
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        inc.inception_features(params, x[:1])
+    flops = fc.get_total_flops() * INCEPTION_BATCH
+    nbytes = 4 * (x.numel() + sum(p.numel() for p in params.values()) + feats.numel())
+    bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+    log(f"data: InceptionV3 (fp32, TF32 off) b{INCEPTION_BATCH} 256 -> 299px: {ms:.3f} ms, "
+        f"{INCEPTION_BATCH / ms * 1e3:.1f} img/s, {flops / INCEPTION_BATCH / 1e9:.3f} GFLOP "
+        f"an image, bound {bound_ms:.3f} ms ({bound_ms / ms:.1%}); first "
+        f"{INCEPTION_CHECKED} images vs the fp32 CPU path max abs {err:.3e} (max |f| "
+        f"{scale:.3e}, rel {err / scale:.3e}, bound {INCEPTION_RTOL}) [{CARD}]")
+    if not (torch.isfinite(feats).all() and err <= INCEPTION_RTOL * scale):
+        fail("data: InceptionV3 on the card disagrees with its fp32 CPU path")
+    recon = torch.from_numpy(reconstruct(model, None, images[:INCEPTION_BATCH])).permute(0, 3, 1, 2)
+    real_f = feats.double().cpu().numpy()
+    fake_f = inc.inception_features(params, recon.to("cuda")).double().cpu().numpy()
+    t = time.time()
+    same, rfid = fid_from_features(real_f, real_f), fid_from_features(real_f, fake_f)
+    log(f"data: InceptionV3 rFID (random params) originals vs originals {same:.3e}, vs the "
+        f"reconstructions {rfid:.4f} ({INCEPTION_BATCH} images; {time.time() - t:.1f}s "
+        f"of scipy sqrtm on the host)")
+    if not (abs(same) < 1e-3 and np.isfinite(rfid) and rfid > 0):
+        fail(f"data: rFID {same} / {rfid}")
+    del params, cpu_params, feats, x, recon
+
+    # 5. Latent diagnostics and the linear probe on the class labels (numbers
+    # of random-init weights trained 5 steps: they mean nothing yet).
+    labels = np.array([y for _, y in items]) if decoder else np.arange(len(items)) % 4
+    latents = lm.pool_latents(model, None, (images[i:i + 16] for i in range(0, len(images), 16)))
+    keep = labels >= 0
+    diag = lm.latent_diagnostics(latents)
+    probe = lm.linear_probe(latents[keep], labels[keep], DATA_CLASSES, device="cuda")
+    if latents.shape != (len(images), 32) or not np.isfinite(list(diag.values())
+                                                             + list(probe.values())).all():
+        fail(f"data: latents {latents.shape}, diagnostics {diag}, probe {probe}")
+    log(f"data: pool_latents {latents.shape}; latent_diagnostics {diag}; linear_probe on "
+        f"{int(keep.sum())} labelled images, {DATA_CLASSES} classes: {probe}")
+
+    # 6. from_pretrained through DEEPL_PRETRAINED_DIR, bit-equal to the
+    # checkpoint's model; then the smoke-test CLI on the card.
+    registry = tempfile.mkdtemp(dir=out_dir)
+    os.symlink(ckpt, os.path.join(registry, "transvae-large-f16d32"))
+    old = os.environ.get("DEEPL_PRETRAINED_DIR")
+    os.environ["DEEPL_PRETRAINED_DIR"] = registry
+    try:
+        named = from_pretrained("transvae-large-f16d32", norm_latents=True)
+    finally:
+        if old is None:
+            del os.environ["DEEPL_PRETRAINED_DIR"]
+        else:
+            os.environ["DEEPL_PRETRAINED_DIR"] = old
+    a = reconstruct(named, None, images[:8])
+    b = reconstruct(model, None, images[:8])
+    if not np.array_equal(a, b):
+        fail(f"data: from_pretrained's reconstruct differs from the checkpoint's "
+             f"(max abs {np.abs(a - b).max():.3e})")
+    log("data: from_pretrained('transvae-large-f16d32') via DEEPL_PRETRAINED_DIR: "
+        "reconstruct of 8 images bit-equal to model_from_checkpoint's")
+    del named, model
+    torch.cuda.empty_cache()
+    t = time.time()
+    smoke = subprocess.run([sys.executable, "-m", "deepl_project_tpu_torch.cli.smoke_test"],
+                           cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if smoke.returncode != 0:
+        fail(f"data: cli.smoke_test exited {smoke.returncode}:\n{smoke.stdout}\n{smoke.stderr}")
+    log(f"data: cli.smoke_test on the card: {smoke.stdout.strip().splitlines()[-1]} in "
+        f"{time.time() - t:.1f}s")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return train_counts, {"decoder": decoder, "step_ms_in_turns": turns,
+                          "inception_ms": ms, "inception_bound_ms": bound_ms}
+
+
 # -- phase 3 -------------------------------------------------------------
 def phase_serve(model):
     import urllib.request
@@ -2408,7 +2742,8 @@ def main():
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,kernels,grad,train,gan,recipe,remat,serve,time,eval,quant")
+                    default="build,kernels,grad,train,data,gan,recipe,remat,serve,time,eval,"
+                            "quant")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--baseline", metavar="DIR", nargs="+", default=[],
                     help="checkouts whose wgmma kernels (WGMMA_KERNELS) are timed "
@@ -2471,6 +2806,9 @@ def main():
         import shutil
 
         shutil.rmtree(os.path.dirname(stage1_ckpt), ignore_errors=True)
+    if "data" in phases:
+        with phase_clock("data"):
+            train_counts = add(phase_data()[0])
     counts = {}
     model = None
     evaluated = {}
@@ -2557,8 +2895,9 @@ def main():
                 "per": (f"one call at the training microbatch (B, N, h)={FLASH_TRAIN}; "
                         f"launches over {TRAIN_STEPS} stage-1 training steps, "
                         f"{GAN_STEPS} stage-2 GAN steps, {RECIPE_STEPS} steps of the "
-                        f"yaml recipe, {REMAT_FIT_STEPS} remat-dots + Adafactor steps "
-                        f"and one self-perceptual step"),
+                        f"yaml recipe, {REMAT_FIT_STEPS} remat-dots + Adafactor steps, "
+                        f"one self-perceptual step and cli.train on an image folder "
+                        f"({TRAIN_STEPS} steps and a validation batch of 16)"),
                 **extra,
             })
         r = results[("small_attention", *SMALL_512)]

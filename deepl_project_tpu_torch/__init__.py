@@ -2,21 +2,24 @@
 an NVIDIA H100.
 
 It carries the serving path of TransVAE in bf16 or int8 (the model,
-``create_transvae``, ``quantize.quantize_model``, the batching
-``InferenceEngine`` and ``cli.serve``), evaluation, and both training
-stages (``training.Trainer``, ``cli.train``: L1 + LPIPS (VGG or the
-self-perceptual net) + KL + VF alignment to a teacher, AdamW or Adafactor,
-gradient checkpointing, checkpoints; stage 2 adds the PatchGAN
-discriminator and its GAN step). The attention sublayers and the flash attention
+``create_transvae``, ``from_pretrained``, ``quantize.quantize_model``, the
+batching ``InferenceEngine`` and ``cli.serve``), evaluation (PSNR, SSIM,
+LPIPS, InceptionV3 rFID, latent diagnostics and the linear probe), both
+training stages (``training.Trainer``, ``cli.train``: L1 + LPIPS (VGG or
+the self-perceptual net) + KL + VF alignment to a teacher, AdamW or
+Adafactor, gradient checkpointing, checkpoints, TensorBoard scalars; stage
+2 adds the PatchGAN discriminator and its GAN step), and the data sources
+(synthetic, image folders, COCO and Hugging Face streaming, decoded by the
+native C++ decoder or PIL). The attention sublayers and the flash attention
 forward and backward run on hand-written Hopper kernels (``ops/hopper``,
 sources in ``csrc/``). Entry points run on CUDA unless the caller passes
 ``device="cpu"``, which takes the plain PyTorch path.
 """
 
 from .config import VARIANTS, TransVAEConfig, get_config
-from .models import TransVAE, count_params, create_transvae
+from .models import TransVAE, count_params, create_transvae, from_pretrained
 
 __version__ = "0.1.0"
 
 __all__ = ["TransVAE", "TransVAEConfig", "VARIANTS", "get_config",
-           "create_transvae", "count_params"]
+           "create_transvae", "count_params", "from_pretrained"]

@@ -8,8 +8,12 @@ Usage:
 ``--checkpoint`` is a checkpoint directory of the port's trainer (with its
 ``config.json``); without it the model of ``--variant`` gets random weights
 from seed 0, with a warning. ``--device cpu`` runs the plain PyTorch path.
-``--rfid`` adds a VGG-feature rFID (``vgg_rfid``; InceptionV3 rFID is not
-ported yet). ``--data`` takes the synthetic sources (synthetic, shapes).
+``--rfid`` adds rFID: InceptionV3 features (``rfid``) where the converted
+weights are at ``utils/inception.py``'s ``DEFAULT_WEIGHTS_PATH``, else VGG
+features (``vgg_rfid``, a relative metric). ``--data`` takes every source of
+``data.make_dataset``: synthetic, shapes, ``hf:<name>``, a COCO root or a
+folder of images (shuffled with seed 42, one pass, serial decode, as the
+JAX CLI reads it).
 """
 
 from __future__ import annotations
@@ -24,13 +28,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint dir (with config.json); random init if absent")
     p.add_argument("--variant", default="tiny")
     p.add_argument("--compression_ratio", type=int, default=16)
-    p.add_argument("--data", default="synthetic")
+    p.add_argument("--data", default="synthetic",
+                   help="'synthetic', 'shapes', 'hf:<dataset>', or a local path")
     p.add_argument("--resolution", type=int, default=256)
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--num_batches", type=int, default=None)
     p.add_argument("--no_lpips", action="store_true")
     p.add_argument("--rfid", action="store_true",
-                   help="also compute VGG-feature rFID (relative metric)")
+                   help="also compute rFID (InceptionV3 where its weights exist, "
+                        "else VGG-feature vgg_rfid, a relative metric)")
     p.add_argument("--output_dir", default="eval_out")
     p.add_argument("--save_grids", type=int, default=4)
     p.add_argument("--device", default="cuda",

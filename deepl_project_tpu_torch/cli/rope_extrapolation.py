@@ -1,7 +1,8 @@
 """RoPE resolution extrapolation (PyTorch counterpart of
 ``scripts/reproduce/test_rope_extrapolation.py``): PSNR and SSIM (and,
-with ``--rfid``, a VGG-feature rFID) at 256/512/1024px from one model,
-printed as JSON per resolution.
+with ``--rfid``, rFID: InceptionV3's where its weights exist, else on VGG
+features) at 256/512/1024px from one model, printed as JSON per
+resolution.
 
 Usage:
   python -m deepl_project_tpu_torch.cli.rope_extrapolation            # card

@@ -2,8 +2,9 @@
 and 2 on one CUDA device.
 
 Usage:
-  # Stage 1
-  python -m deepl_project_tpu_torch.cli.train --variant large --data synthetic \
+  # Stage 1 on a folder of images (ImageFolder layout; a COCO root or
+  # hf:<dataset> also work)
+  python -m deepl_project_tpu_torch.cli.train --variant large --data /data/images \
       --batch_size 16 --accum_steps 2 --num_epochs 1 --steps_per_epoch 20 \
       --output_dir out/
   # The repo's stage-1 recipe (batch 8 in 4 microbatches, L1 + LPIPS + KL +
@@ -23,10 +24,12 @@ Usage:
 ``--device cpu`` runs the plain PyTorch path. As in the JAX CLI, the yaml's
 ``training.gradient_checkpointing`` is not read: pass
 --gradient_checkpointing. It checkpoints under remat policy 'none' where the
-JAX CLI keeps 'dots' (``CLI_REMAT_POLICY``). Flags of what is not ported
-yet exit non-zero with "not yet ported": --scan_blocks, --mesh_model > 1,
---param_sharding other than replicate, and --data other than
-synthetic/shapes.
+JAX CLI keeps 'dots' (``CLI_REMAT_POLICY``). A path's images decode on
+``--num_workers`` threads (-1: min(cpu_count, 16)) and repeat over epochs;
+with --eval_every_steps the validation batches are the source's first
+batches (for a folder, the first training images: the JAX CLI's choice).
+Flags of what is not ported yet exit non-zero with "not yet ported":
+--scan_blocks, --mesh_model > 1 and --param_sharding other than replicate.
 """
 
 from __future__ import annotations
@@ -79,11 +82,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device; 'cpu' runs the plain PyTorch path")
     # Data
     p.add_argument("--data", default="synthetic",
-                   help="'synthetic' or 'shapes' (other sources not yet ported)")
+                   help="'synthetic', 'shapes', 'hf:<dataset>', or a local path "
+                        "(a COCO root or a folder of images)")
     p.add_argument("--resolution", type=int, default=256)
     p.add_argument("--num_workers", type=int, default=-1,
-                   help="decode threads for folder/COCO sources (unused by "
-                        "the synthetic sources)")
+                   help="parallel decode threads for folder/COCO/hf: sources; "
+                        "-1 = min(cpu_count, 16)")
     # Training
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--accum_steps", type=int, default=1)
@@ -159,13 +163,26 @@ def load_yaml_config(path: str, args: argparse.Namespace) -> dict:
     return raw
 
 
+SYNTHETIC_SOURCES = ("synthetic", "shapes")
+
+
+def source_kwargs(data: str, num_workers: int) -> dict:
+    """The training source's keywords, as the JAX CLI passes them:
+    ``num_workers`` -1 is min(cpu_count, 16); a path repeats over epochs."""
+    workers = min(os.cpu_count() or 1, 16) if num_workers < 0 else num_workers
+    if data in SYNTHETIC_SOURCES:
+        return {"num_samples": 10 ** 9}
+    if data.startswith("hf:"):
+        return {"num_workers": workers}
+    return {"repeat": True, "num_workers": workers}
+
+
 def unported_flags(args: argparse.Namespace) -> list[str]:
     """The flags set to what the port cannot do yet."""
     bad = [flag for flag, on in (
         ("--scan_blocks", args.scan_blocks),
         ("--mesh_model > 1", args.mesh_model > 1),
         (f"--param_sharding {args.param_sharding}", args.param_sharding != "replicate"),
-        (f"--data {args.data}", args.data not in ("synthetic", "shapes")),
     ) if on]
     return bad
 
@@ -226,10 +243,16 @@ def main(argv=None):
 
     val_batches = None
     if args.eval_every_steps > 0:
-        val_src = make_dataset(args.data, resolution=args.resolution, seed=1234,
-                               num_samples=args.val_batches * args.batch_size)
-        val_batches = list(batch_iterator(val_src, args.batch_size))
-    source = make_dataset(args.data, resolution=args.resolution, num_samples=10 ** 9)
+        # A held-out slice for synthetic sources (another seed); for the
+        # others, the first batches of the same source, as the JAX CLI makes.
+        val_kw = {"resolution": args.resolution}
+        if args.data in SYNTHETIC_SOURCES:
+            val_kw.update(seed=1234, num_samples=args.val_batches * args.batch_size)
+        val_src = make_dataset(args.data, **val_kw)
+        val_batches = [b for _, b in zip(range(args.val_batches),
+                                         batch_iterator(val_src, args.batch_size))]
+    source = make_dataset(args.data, resolution=args.resolution,
+                          **source_kwargs(args.data, args.num_workers))
     data = input_pipeline(source, args.batch_size, trainer.device)
     trainer.fit(data, val_batches=val_batches)
 

@@ -21,6 +21,14 @@ def _pil():
     return Image
 
 
+def pil_available() -> bool:
+    try:
+        _pil()
+    except ImportError:
+        return False
+    return True
+
+
 def resize_shorter_side(img, size: int):
     """torchvision.Resize(int) semantics: shorter side -> size, keep aspect."""
     w, h = img.size

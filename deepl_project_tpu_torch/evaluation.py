@@ -31,11 +31,6 @@ from .models.transvae import TransVAE
 from .utils.image import make_grid, save_image
 from .utils.metrics import psnr, ssim, summarize
 
-# Converted InceptionV3 weights (the paper's rFID protocol), kept beside the
-# port's package as the LPIPS weights are; not in the repository (WEIGHTS.md).
-INCEPTION_WEIGHTS_PATH = os.path.join(
-    os.path.dirname(os.path.abspath(__file__)), "weights", "inception_v3.npz")
-
 
 def _device(model: TransVAE) -> torch.device:
     return next(model.parameters()).device
@@ -106,13 +101,15 @@ def make_vgg_feature_fn(lpips_params: dict):
 
 
 def make_fid_feature_fn(device=None, lpips_params: dict | None = None) -> tuple:
-    """(feature_fn, metric_key): InceptionV3 pool3 features under 'rfid' when
-    converted weights exist -- not yet ported, so that raises -- else pooled
+    """(feature_fn, metric_key) for NCHW [0, 1] images on ``device``:
+    InceptionV3 pool3 features under 'rfid' where the converted weights
+    exist (``utils/inception.py``'s ``DEFAULT_WEIGHTS_PATH``), else pooled
     VGG features under 'vgg_rfid', so relative-only numbers are never taken
     for paper-comparable ones."""
-    if os.path.exists(INCEPTION_WEIGHTS_PATH):
-        raise NotImplementedError("InceptionV3 rFID (utils/inception.py) is not yet "
-                                  "ported to deepl_project_tpu_torch")
+    from .utils.inception import inception_params_available, make_inception_feature_fn
+
+    if inception_params_available():
+        return make_inception_feature_fn(device=device), "rfid"
     if lpips_params is None:
         lpips_params = default_lpips_params(device)
     return make_vgg_feature_fn(lpips_params), "vgg_rfid"

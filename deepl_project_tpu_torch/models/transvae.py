@@ -19,6 +19,8 @@ which the training steps never make (as in the JAX package).
 
 from __future__ import annotations
 
+import os
+
 import torch
 from torch import nn
 
@@ -146,6 +148,38 @@ def create_transvae(variant: str = "large", compression_ratio: int = 16,
         gen.manual_seed(seed)
         init_weights(model, gen)
     return model.eval()
+
+
+def from_pretrained(model_name: str, checkpoint_dir: str | None = None, device=None,
+                    **kw) -> TransVAE:
+    """A model by name, ``transvae-<variant>-f<f>d<d>`` (the reference's
+    names), built from the name and ``kw`` as ``create_transvae`` builds it.
+
+    Its weights come from a local registry, not a download: an explicit
+    ``checkpoint_dir`` first; else ``$DEEPL_PRETRAINED_DIR/<model_name>``
+    where that directory exists; each a checkpoint directory of the port's
+    trainer (``training/checkpoint.py``; its EMA parameters where it has
+    them, as the JAX package restores). Without either the weights are
+    random, drawn from seed 0. On ``device`` (default CUDA), in eval mode."""
+    parts = model_name.split("-")
+    if len(parts) < 3:
+        raise ValueError(f"Bad model name {model_name!r}; want transvae-<variant>-f<f>d<d>")
+    variant, fd = parts[1], parts[2]
+    f = int(fd[1:].split("d")[0])
+    d = int(fd.split("d")[1])
+    if checkpoint_dir is None:
+        registry = os.environ.get("DEEPL_PRETRAINED_DIR")
+        if registry and os.path.isdir(os.path.join(registry, model_name)):
+            checkpoint_dir = os.path.join(registry, model_name)
+    model = create_transvae(variant, f, d, device=device,
+                            seed=0 if checkpoint_dir is None else None, **kw)
+    if checkpoint_dir is not None:
+        from ..training.checkpoint import restore_model_params
+
+        device = next(model.parameters()).device
+        model.load_state_dict(restore_model_params(checkpoint_dir, map_location=device),
+                              strict=True)
+    return model
 
 
 def enable_gradient_checkpointing(model: TransVAE, policy: str | None = None) -> TransVAE:

@@ -8,7 +8,11 @@ projection ``vf_proj``, trained, in the EMA and the checkpoint) -> backward
 -> clip, AdamW or Adafactor with warmup and NaN-skip -> checkpoint.
 Validation PSNR/SSIM every ``eval_every_steps``, a best checkpoint, the
 divergence breaker, a checkpoint on SIGTERM/SIGINT, and
-``skip_data_on_resume``, as in the JAX trainer.
+``skip_data_on_resume``, as in the JAX trainer. Logged rows go to
+``<output_dir>/history.jsonl`` and, with tensorboardX installed, as
+TensorBoard scalars to ``<output_dir>/tb`` (train rows, val rows and the
+epoch averages, at the JAX trainer's steps). ``DEEPL_DEBUG_NANS`` set in
+the environment turns on autograd's anomaly mode for the run.
 
 Stage 2 (``weights.gan > 0``): a PatchGAN discriminator with its own AdamW
 (no warmup, no freeze) and its own step count, trained by
@@ -22,12 +26,9 @@ parameter sharding other than ``replicate`` (one device).
 
 from __future__ import annotations
 
-import collections
 import dataclasses
-import json
 import os
 import signal
-import time
 from typing import Any, Iterator
 
 import numpy as np
@@ -38,6 +39,7 @@ from ..losses import (LossWeights, get_lpips_params, lpips_params_available,
                       make_self_perceptual)
 from ..models.discriminator import PatchDiscriminator, init_disc_weights
 from ..models.transvae import TransVAE, init_weights, resolve_device
+from ..utils.logging import MetricWriter, RunHistory, StepTimer
 from ..utils.metrics import psnr, ssim
 from .checkpoint import (checkpoint_metrics, latest_step, load_config, restore_checkpoint,
                          restore_model_params, save_checkpoint)
@@ -91,41 +93,6 @@ class TrainerConfig:
 
 def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not yet ported to deepl_project_tpu_torch")
-
-
-class RunHistory:
-    """Append-only JSONL run record (<output_dir>/history.jsonl)."""
-
-    def __init__(self, path: str):
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        self.path = path
-
-    def append(self, step: int, metrics: dict, kind: str = "train") -> None:
-        row = {"step": int(step), "kind": kind, "ts": time.time(),
-               **{k: float(v) for k, v in metrics.items()}}
-        with open(self.path, "a") as f:
-            f.write(json.dumps(row) + "\n")
-
-
-class StepTimer:
-    """Images per second over a trailing window of steps, after a warmup."""
-
-    def __init__(self, warmup: int = 2, window: int = 50):
-        self.warmup = warmup
-        self._count = 0
-        self._ticks: collections.deque = collections.deque(maxlen=window + 1)
-
-    def tick(self, batch_size: int) -> None:
-        self._count += 1
-        if self._count >= self.warmup:
-            self._ticks.append((time.perf_counter(), batch_size))
-
-    @property
-    def images_per_sec(self) -> float:
-        if len(self._ticks) < 2:
-            return 0.0
-        dt = self._ticks[-1][0] - self._ticks[0][0]
-        return sum(n for _, n in list(self._ticks)[1:]) / dt if dt > 0 else 0.0
 
 
 class Trainer:
@@ -362,10 +329,17 @@ class Trainer:
                 prev_handlers[sig] = signal.signal(sig, _request_stop)
             except ValueError:  # not the main thread
                 pass
+        # DEEPL_DEBUG_NANS: autograd's anomaly mode names the op whose
+        # backward made a NaN (the JAX trainer turns on jax_debug_nans).
+        anomaly = torch.is_anomaly_enabled()
+        if os.environ.get("DEEPL_DEBUG_NANS"):
+            torch.autograd.set_detect_anomaly(True)
+        writer = None
         try:
             if state is None:
                 state = self.create_state()
             state, start_epoch = self.maybe_resume(state)
+            writer = MetricWriter(os.path.join(self.cfg.output_dir, "tb"))
             history = RunHistory(os.path.join(self.cfg.output_dir, "history.jsonl"))
             if state.step and self.cfg.skip_data_on_resume:
                 print(f"[trainer] skip_data_on_resume: advancing the data "
@@ -373,13 +347,16 @@ class Trainer:
                 for _ in range(state.step):
                     if next(data_iter, None) is None:
                         break
-            return self._fit_loop(state, data_iter, val_batches, history,
+            return self._fit_loop(state, data_iter, val_batches, writer, history,
                                   start_epoch, stop_signal)
         finally:
             for sig, prev in prev_handlers.items():
                 signal.signal(sig, prev)
+            torch.autograd.set_detect_anomaly(anomaly)
+            if writer is not None:
+                writer.close()
 
-    def _fit_loop(self, state, data_iter, val_batches, history, start_epoch,
+    def _fit_loop(self, state, data_iter, val_batches, writer, history, start_epoch,
                   stop_signal):
         c = self.cfg
         timer = StepTimer()
@@ -404,12 +381,14 @@ class Trainer:
                 if step % c.log_every == 0:
                     host = {k: float(v) for k, v in metrics.items()}
                     host["images_per_sec"] = timer.images_per_sec
+                    writer.scalars(step, host)
                     history.append(step, host, kind="train")
                     epoch_metrics.append(host)
                     print(f"[trainer] epoch {epoch} step {step} loss {host['total']:.4f} "
                           f"({host['images_per_sec']:.1f} img/s)")
                 if c.eval_every_steps and val_batches and step % c.eval_every_steps == 0:
                     val = self.evaluate(state, val_batches)
+                    writer.scalars(step, val)
                     history.append(step, val, kind="val")
                     ema_str = (f" ema {val['val_psnr_ema']:.2f}"
                                if "val_psnr_ema" in val else "")
@@ -443,9 +422,10 @@ class Trainer:
                       f"{state.step}; checkpoint saved, resume with the same --output_dir")
                 break
             if epoch_metrics:
-                avg = {k: float(np.mean([m[k] for m in epoch_metrics]))
+                avg = {f"epoch_avg/{k}": float(np.mean([m[k] for m in epoch_metrics]))
                        for k in epoch_metrics[0]}
-                print(f"[trainer] epoch {epoch} done: avg loss {avg['total']:.4f} "
+                writer.scalars(state.step, avg)
+                print(f"[trainer] epoch {epoch} done: avg loss {avg['epoch_avg/total']:.4f} "
                       f"over {len(epoch_metrics)} log points")
             if (epoch + 1) % c.save_every_epochs == 0 or epoch == c.num_epochs - 1:
                 self.save(state, epoch)

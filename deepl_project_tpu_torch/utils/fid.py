@@ -1,10 +1,10 @@
 """rFID (reconstruction FID) machinery (PyTorch port of ``utils/fid.py``).
 
 Feature statistics and the Fréchet distance in numpy/scipy, with a pluggable
-feature extractor. The InceptionV3 extractor of the paper's protocol needs
-converted weights that are not in the repository (``WEIGHTS.md``); without
-them evaluation uses pooled VGG features (``evaluation.make_vgg_feature_fn``,
-reported under ``vgg_rfid``). ``fid_from_features`` also serves any other
+feature extractor. The InceptionV3 extractor of the paper's protocol
+(``utils/inception.py``) needs converted weights that are not in the
+repository (``WEIGHTS.md``); without them evaluation uses pooled VGG
+features (``evaluation.make_vgg_feature_fn``, reported under ``vgg_rfid``). ``fid_from_features`` also serves any other
 feature sets, e.g. latents.
 """
 

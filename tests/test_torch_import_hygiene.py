@@ -4,10 +4,10 @@ In a fresh interpreter where ``import jax`` and ``import flax`` fail, every
 module of deepl_project_tpu_torch (found by walking the whole package, so new
 modules are covered as they come; the evaluation slice's are named) and
 chip_smoke.py must import, and none of deepl_project_tpu's modules may be
-loaded. The entry points (model factory, serving engine, trainer -- also
-with a VF teacher, remat and Adafactor -- the evaluate, generate and
-rope_extrapolation CLIs) default to CUDA and refuse to continue on a machine
-without it.
+loaded. The entry points (model factory, ``from_pretrained``, serving
+engine, trainer -- also with a VF teacher, remat and Adafactor -- the
+evaluate, generate, rope_extrapolation and smoke_test CLIs) default to CUDA
+and refuse to continue on a machine without it.
 """
 
 import os
@@ -30,7 +30,9 @@ _PROBE = textwrap.dedent("""
     named = {"evaluation", "utils.fid", "utils.image", "ops.hopper.small_attention",
              "ops.hopper.fused_norm", "cli.evaluate", "cli.generate",
              "cli.rope_extrapolation", "data.transforms", "quantize", "ops.quant",
-             "models.discriminator", "losses.teachers"}
+             "models.discriminator", "losses.teachers", "data.native_loader",
+             "data.datasets", "utils.inception", "utils.inception_spec",
+             "utils.latent_metrics", "utils.logging", "utils.flops", "cli.smoke_test"}
     assert named <= {n.split(".", 1)[1] for n in names}, named
     import chip_smoke
     bad = sorted(m for m in sys.modules
@@ -39,8 +41,9 @@ _PROBE = textwrap.dedent("""
     assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m]]
     print(len(names))
     if not torch_cuda:
-        from deepl_project_tpu_torch import create_transvae, get_config
-        from deepl_project_tpu_torch.cli import evaluate, generate, rope_extrapolation, serve
+        from deepl_project_tpu_torch import create_transvae, from_pretrained, get_config
+        from deepl_project_tpu_torch.cli import (evaluate, generate, rope_extrapolation, serve,
+                                                 smoke_test)
         from deepl_project_tpu_torch.losses import LossWeights, make_stub_teacher
         from deepl_project_tpu_torch.training import Trainer, TrainerConfig
         for fn in (lambda: create_transvae("tiny"),
@@ -53,7 +56,8 @@ _PROBE = textwrap.dedent("""
                                                  optimizer="adafactor"),
                                    teacher_fn=make_stub_teacher()),
                    lambda: evaluate.main([]), lambda: generate.main([]),
-                   lambda: rope_extrapolation.main([])):
+                   lambda: rope_extrapolation.main([]), lambda: smoke_test.main([]),
+                   lambda: from_pretrained("transvae-tiny-f16d32")):
             try:
                 fn()
             except RuntimeError as e:

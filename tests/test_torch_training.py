@@ -243,7 +243,7 @@ def test_checkpoint_interop_and_synthetic_data(tmp_path, micro_pair):
 
 
 @pytest.mark.parametrize("flags", [["--scan_blocks"], ["--mesh_model", "2"],
-                                   ["--data", "hf:imagenet"]])
+                                   ["--param_sharding", "fsdp"]])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, flags):
     with pytest.raises(SystemExit, match="not yet ported"):
         train_cli.main(["--output_dir", str(tmp_path), "--device", "cpu", *flags])
@@ -303,5 +303,54 @@ def test_input_pipeline_batches_and_errors():
 
     with pytest.raises(OSError, match="corrupt"):
         list(input_pipeline(broken(), 1, "cpu"))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_dataset("/data/imagenet")
+    with pytest.raises(FileNotFoundError, match="No images"):
+        list(make_dataset("/data/imagenet"))
+
+
+def test_train_cli_on_an_image_folder(tmp_path, monkeypatch):
+    """cli.train --data <folder>: the first training batch is the first batch
+    of the source the JAX CLI builds for the same flags (repeat, min(cpu, 16)
+    decode threads, seed 42), and the validation batches are that same
+    source's first batches, as in the JAX CLI."""
+    from PIL import Image
+
+    from deepl_project_tpu.data import make_dataset as jax_make_dataset
+    from deepl_project_tpu.data.pipeline import batch_iterator as jax_batch_iterator
+
+    rng = np.random.RandomState(0)
+    for i in range(6):
+        os.makedirs(tmp_path / "images" / f"c{i % 2}", exist_ok=True)
+        arr = (rng.rand(40 + 4 * i, 36, 3) * 255).astype(np.uint8)
+        Image.fromarray(arr).save(tmp_path / "images" / f"c{i % 2}" / f"{i}.png")
+    folder = str(tmp_path / "images")
+    monkeypatch.setattr(train_cli, "get_config",
+                        lambda *a, **kw: get_config(VARIANT, **{**kw, **MICRO}))
+    seen = {}
+    pipeline = train_cli.input_pipeline
+
+    def first_batch(source, batch_size, device, **kw):
+        for b in pipeline(source, batch_size, device, **kw):
+            seen.setdefault("train", b.numpy().copy())
+            yield b
+
+    class Recording(Trainer):
+        def fit(self, data_iter, state=None, val_batches=None):
+            seen["val"] = val_batches
+            return super().fit(data_iter, state, val_batches)
+
+    monkeypatch.setattr(train_cli, "input_pipeline", first_batch)
+    monkeypatch.setattr(train_cli, "Trainer", Recording)
+    out = tmp_path / "run"
+    train_cli.main(["--data", folder, "--resolution", "32", "--batch_size", "2",
+                    "--num_epochs", "1", "--steps_per_epoch", "1", "--log_every", "1",
+                    "--warmup_steps", "1", "--eval_every_steps", "1", "--val_batches", "2",
+                    "--lpips_weight", "0", "--device", "cpu", "--output_dir", str(out)])
+    workers = min(os.cpu_count() or 1, 16)
+    jax_source = jax_make_dataset(folder, resolution=32, repeat=True, num_workers=workers)
+    want = next(jax_batch_iterator(jax_source, 2))
+    assert seen["train"].tobytes() == want.tobytes()
+    jax_val = list(zip(range(2), jax_batch_iterator(jax_make_dataset(folder, resolution=32), 2)))
+    assert len(seen["val"]) == 2 and seen["val"][0].tobytes() == want.tobytes()
+    assert all(a.tobytes() == b.tobytes() for a, (_, b) in zip(seen["val"], jax_val))
+    rows = [json.loads(line) for line in open(out / "history.jsonl")]
+    assert [r["kind"] for r in rows] == ["train", "val"] and np.isfinite(rows[0]["total"])
