@@ -170,9 +170,32 @@ Phases (any failure exits non-zero and prints no result):
    deepl_project_tpu_torch.cli.smoke_test exiting 0. Deletes its folder and
    checkpoint. Where neither decoder is present (the probe says so), it
    trains and evaluates on --data shapes instead.
+13. dit (run after data): the latent DiT. cli.train_dit --dit_variant B
+   --vae_variant large on a labelled folder (_write_image_folder: training
+   is class-conditional) at 256px, b64, 10 steps, 2 stats batches, a
+   checkpoint, a sample grid and a vgg_rfid-keyed generation FID (64
+   samples, 50 steps, CFG 4) at step 10, with launches counted: each b64
+   encode exactly the encoder half of the 256px tables (half of
+   launches_per_reconstruct's attention table, norm_table of the encoder),
+   the FID's and the grid's decodes the decoder half, no flash launch in the
+   DiT (N=64: the plain core); finite losses, the params moved, the
+   sidecar, history.jsonl, best/metrics.json. cli.sample_dit on that
+   checkpoint (16 samples, 50 steps, CFG 4): the decoder half at b16,
+   grid.png and 16 sample files. DiT-B/2 (every parameter random) at b16 in
+   bf16 against its fp32 twin on the same weights and draws: the loss
+   within 1% and the gradient norm within 5% (phase train's bounds).
+   DiT-B/1 on 32x32 latents (N=1024, b8): exactly 12 small_attention
+   launches and no other kernel, as close to fp32 as the plain bf16 core
+   (MODEL_MEAN_RATIO / MODEL_MAX_RATIO). Times the b64 encode, the b16
+   decode, one folder batch's serial decode, the DiT-B/2 step at b64 on
+   ready latents (median of steps 2-5, with its peak), a CFG Euler step at
+   b16 and cli.train_dit's img/s (with --profile, torch.profiler tables of
+   a b64 encode, a DiT step and a CFG Euler step). Phase kernels also checks the attention
+   kernels at b64 and b16 and small_attention on DiT-B/1's operands (v a
+   strided view of the qkv product).
 
 Launches are checked against one table per resolution (256, 512, 1024px;
-launches_per_reconstruct). group_norm_silu's launches are checked on every
+launches_per_reconstruct; phase dit's tokenizer halves, tokenizer_launches). group_norm_silu's launches are checked on every
 path against norm_table, derived from the module structure (norm_sites: two
 sites a ResBlock and the decoder's norm_out, a stats and an apply launch
 each, in no-grad bf16 forwards): a 256px reconstruct 13 at 256x256 and 12
@@ -258,6 +281,22 @@ DATA_TURN_STEPS = 3
 INCEPTION_BATCH = 32
 INCEPTION_CHECKED = 4
 INCEPTION_RTOL = 1e-5
+# Phase dit: the latent DiT-B/2 (hidden 768, depth 12, 12 heads; RMSNorm,
+# SwiGLU, RoPE) trained by cli.train_dit on large f16d32 @256 latents (16 x
+# 16 x 32) of a labelled image folder at the CLI's batch of 64, then sampled
+# by cli.sample_dit (16 samples, 50 Euler steps, CFG 4: one b16 decode).
+# The tokenizer's no-grad bf16 encode and decode take the attention and
+# GroupNorm -> SiLU kernels; the DiT's own attention at N=64 takes the plain
+# core. DiT-B/1 on 32 x 32 latents (N=1024, b8) takes small_attention.
+DIT_BATCH = 64
+DIT_STEPS = 10
+DIT_STATS_BATCHES = 2
+DIT_FID_SAMPLES = 64
+DIT_SAMPLES = 16
+DIT_SAMPLE_STEPS = 50
+DIT_CFG = 4.0
+DIT_B1 = (8, 32)  # (batch, latent grid) of the DiT-B/1 forward
+DIT_TIMED_STEPS = 5  # the b64 step on ready latents: median of steps 2-5
 # (batch, N, heads) of the flash kernels' shapes: the training microbatch,
 # 256px serving at batch 32 (stage 2), 512px serving at batch 2 and the
 # 1024px sweep's chunk of 4 (stage 2).
@@ -268,9 +307,15 @@ FLASH_TRAIN_CHECKED = ((2, 4096, 6), (16, 4096, 6))
 FLASH_SERVE_256 = (32, 4096, 6)
 FLASH_SERVE_512 = (2, 16384, 6)
 FLASH_SWEEP_1024 = (4, 65536, 6)
+# Forward only, checked: phase dit's b64 encode (its b16 and b8 decodes are
+# FLASH_TRAIN_CHECKED's and FLASH_TRAIN's shapes).
+FLASH_FWD_CHECKED = ((DIT_BATCH, 4096, 6),)
 # small_attention at 512px stage 4, (batch, N, heads); group_norm_silu at the
 # large f16d32 ResBlock shapes (stages 0 and 1) at b32.
 SMALL_512 = (8, 1024, 24)
+# small_attention in DiT-B/1 (12 heads at N=1024): q and k fresh from RoPE,
+# v a view of the [B, N, 3C] qkv product with row stride 3C.
+SMALL_DIT = (DIT_B1[0], DIT_B1[1] ** 2, 12)
 GROUP_NORM_SHAPES = ((32, 192, 256, 256), (32, 192, 128, 128))
 # Also one fp32 map, at large_f8d16's stage-1 width (C=384).
 GROUP_NORM_CASES = tuple((s, "bf16") for s in GROUP_NORM_SHAPES) + (((8, 384, 128, 128), "fp32"),)
@@ -280,11 +325,12 @@ EVAL_CHUNKS = {256: 8, 512: 8, 1024: 4}
 # bf16 forward (the fused GroupNorm -> SiLU): at 256px the engine's padded
 # batches (a power of two up to 32: serve's requests of 2, 4 and 8, the
 # quant calibration's 4) and evaluate_model's 16, the GAN discriminator
-# update's and the self-perceptual target pass's 8, the sweep's chunk; at
+# update's and the self-perceptual target pass's 8, the sweep's chunk, phase
+# dit's encode and FID decode at 64 and its sample decodes at 8 and 16; at
 # 512px serve's and eval's b2 and the sweep's chunk; at 1024px the sweep's
 # chunk. Their maps (norm_checked_shapes) are checked only: the kernels'
 # grid (slabs, B) depends on B and H*W.
-NORM_PATH_BATCHES = {256: (2, 4, GAN_BATCH, REMAT_BATCH, EVAL_CHUNKS[256], 16),
+NORM_PATH_BATCHES = {256: (2, 4, GAN_BATCH, REMAT_BATCH, EVAL_CHUNKS[256], 16, DIT_BATCH),
                      512: (2, EVAL_CHUNKS[512]), 1024: (EVAL_CHUNKS[1024],)}
 # ln_qkv_rope's shapes in the sweep, (batch, N, C, height, width): stages 2-4
 # of a 512px chunk of 8 and of a 1024px chunk of 4.
@@ -311,6 +357,9 @@ CARD = ""
 # Path label -> group_norm_silu's launches by (kernel, H*W, C) in that
 # path's checked run (each equal to its norm_table).
 NORM_PATHS: dict = {}
+# Phase dit's paths ('dit_train', 'dit_sample', 'dit_b1') -> launches by
+# kernel name in that path's run.
+DIT_PATHS: dict = {}
 
 
 def fail(msg: str):
@@ -566,8 +615,10 @@ def phase_kernels():
         return err
 
     # Serving at b32 (checked and timed), then the self-perceptual step's
-    # frozen encoder at b8 (checked only; its max_abs_err joins the row's).
-    for n, c, hh, ww, b in kernel_shapes() + kernel_shapes(REMAT_BATCH):
+    # frozen encoder at b8 and phase dit's encode at b64 and decode at b16
+    # (checked only; each max_abs_err joins the row's).
+    for n, c, hh, ww, b in (kernel_shapes() + kernel_shapes(REMAT_BATCH)
+                            + kernel_shapes(DIT_BATCH) + kernel_shapes(DIT_SAMPLES)):
         timed, shape = b == 32, (b, n, c)
         nh = c // 64
         x = randn(b, n, c, dtype=bf)
@@ -842,6 +893,17 @@ def phase_flash_kernels():
             row["err"] = max(row["err"], err)
             row["checked_shapes"].append(shape)
         del q, k, v, do, o, lse, got, ref
+    # Forward-only paths (phase dit's b64 encode): the forward checked.
+    for shape in FLASH_FWD_CHECKED:
+        q, k, v, _ = inputs(*shape)
+        o, lse = fla.flash_forward(q, k, v, scale)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fla.flash_forward_reference(q, k, v, scale)
+        row = results[("flash_attention_fwd", *FLASH_TRAIN)]
+        row["err"] = max(row["err"], check("flash_attention_fwd", shape, o, o_ref),
+                         check("flash_attention_fwd lse", shape, lse, lse_ref))
+        row["checked_shapes"].append(shape)
+        del q, k, v, o, lse, o_ref, lse_ref
 
     # Serving: 512px stage 2, and the 256px stage-2 decision (flash forward
     # against the plain chunked core, in turns: plain, kernel, kernel, plain).
@@ -895,6 +957,7 @@ def phase_eval_kernels():
     from deepl_project_tpu_torch.ops.hopper import fused_attention_block as fab
     from deepl_project_tpu_torch.ops.hopper import fused_norm as fnorm
     from deepl_project_tpu_torch.ops.hopper import small_attention as sma
+    from deepl_project_tpu_torch.ops.rope import apply_rope2d
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
@@ -952,6 +1015,25 @@ def phase_eval_kernels():
     err = check("small_attention", SMALL_512, o, sma.small_attention_reference(q, k, v, scale))
     heads = [t.transpose(1, 2) for t in (q, k, v)]
     record(("small_attention", *SMALL_512), err,
+           cuda_time_ms(lambda: sma.small_attention(q, k, v, scale), 20),
+           cuda_time_ms(lambda: sma.small_attention_reference(q, k, v, scale), 5),
+           cuda_time_ms(lambda: F.scaled_dot_product_attention(*heads), 20),
+           4 * b * h * n * n * 64, 4 * b * n * c * 2, PEAK_BF16_FLOPS)
+    del qkv, q, k, v, o, heads
+    # DiT-B/1's operands: q and k fresh from the standard-pairing RoPE, v a
+    # view of the qkv product (row stride 3C) that the wrapper takes as it is.
+    b, n, h = SMALL_DIT
+    c = h * 64
+    qkv = randn(b, n, 3 * c, scale=1.5).to(bf)
+    q, k, v = qkv.reshape(b, n, 3 * h, 64).split(h, dim=2)
+    q, k = (apply_rope2d(t, DIT_B1[1], DIT_B1[1], "standard") for t in (q, k))
+    if v.is_contiguous() or v.stride(1) != 3 * c:
+        fail(f"small_attention: the DiT's v is not a strided view ({v.stride()})")
+    o = sma.small_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    err = check("small_attention", SMALL_DIT, o, sma.small_attention_reference(q, k, v, scale))
+    heads = [t.transpose(1, 2) for t in (q, k, v)]
+    record(("small_attention", *SMALL_DIT), err,
            cuda_time_ms(lambda: sma.small_attention(q, k, v, scale), 20),
            cuda_time_ms(lambda: sma.small_attention_reference(q, k, v, scale), 5),
            cuda_time_ms(lambda: F.scaled_dot_product_attention(*heads), 20),
@@ -2166,6 +2248,329 @@ def phase_data():
                           "inception_ms": ms, "inception_bound_ms": bound_ms}
 
 
+def launches_by_name() -> dict:
+    """Every kernel's launches by name since the last reset."""
+    from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
+    from deepl_project_tpu_torch.ops.hopper import fused_attention_block as fab
+    from deepl_project_tpu_torch.ops.hopper import fused_norm as fnorm
+    from deepl_project_tpu_torch.ops.hopper import small_attention as sma
+
+    return {k: v for mod in (fab, fla, sma, fnorm) for k, v in mod.launch_counts().items()}
+
+
+def tokenizer_launches(model, forwards: dict) -> tuple[dict, dict, dict, dict]:
+    """Launches of the tokenizer's no-grad bf16 halves at 256px, ``forwards``
+    = {'encoder': n, 'decoder': m} passes, in kernel_launches' order: half
+    of launches_per_reconstruct(256)'s attention tables a pass (the encoder
+    and the decoder hold the same blocks at each stage) and norm_table of
+    that half."""
+    out: tuple = ({}, {}, {}, {})
+    for part, n in forwards.items():
+        if not n:
+            continue
+        halves = [{k: v // 2 * n for k, v in d.items()}
+                  for d in launches_per_reconstruct(256)[:3]]
+        for d, more in zip(out, halves + [norm_table(model, 256, n, parts=(part,))]):
+            for k, v in more.items():
+                d[k] = d.get(k, 0) + v
+    return out
+
+
+def _dit_twin(model, **changes):
+    """A DiT of ``model``'s config with ``changes`` on the same parameter
+    tensors (another dtype or attention core, no copy)."""
+    import torch
+
+    from deepl_project_tpu_torch.models import DiT
+
+    with torch.device("meta"):
+        twin = DiT(model.config.replace(**changes))
+    twin.load_state_dict(model.state_dict(keep_vars=True), strict=True, assign=True)
+    return twin.train(model.training)
+
+
+def _dit_random(cfg, seed: int):
+    """A DiT on the card with every parameter random: the JAX initializers,
+    then N(0, 0.02^2) in the zero-initialised adaLN and head layers, so
+    that every block shapes the output (a trained-like model)."""
+    import torch
+
+    from deepl_project_tpu_torch.models import create_dit
+
+    model = create_dit(cfg, device="cuda", seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if not p.any():
+                p.normal_(0.0, 0.02, generator=gen)
+    return model
+
+
+def dit_step_flops(model, batch: int, tokens: int) -> float:
+    """Forward + backward FLOPs of one DiT training step: 6 per parameter
+    applied to each token (patch embedding, qkv, proj, FFN, head), 6 per
+    parameter applied once an image (the timestep MLP and the adaLN
+    layers; the label table is a lookup), and the attention products (3 x
+    4 B N^2 D a block)."""
+    d = model.config.hidden_dim
+    per_image = {"t_embed", "adaln", "adaln_out"}
+    n_img = sum(p.numel() for n, p in model.named_parameters()
+                if per_image & set(n.split(".")))
+    n_tok = sum(p.numel() for n, p in model.named_parameters()
+                if not per_image & set(n.split(".")) and not n.startswith("y_embed"))
+    attn = 3 * 4 * batch * tokens ** 2 * d * model.config.depth
+    return 6 * (n_tok * batch * tokens + n_img * batch) + attn
+
+
+def phase_dit(profile: bool = False):
+    """The latent-DiT slice on the card: cli.train_dit (DiT-B/2 on the
+    random large f16d32 tokenizer's latents of a labelled folder, b64, with
+    its FID, sample grid and checkpoints) and cli.sample_dit (16 samples,
+    CFG 4) with their launches against the tokenizer's tables; a DiT-B/2
+    forward and loss in bf16 against fp32 on the same weights; DiT-B/1's
+    small_attention path; times of the b64 encode, the b64 DiT step on ready
+    latents, the CLI's img/s, a CFG Euler step at b16 and the b16 decode.
+    With ``profile``, torch.profiler tables of a b64 encode, a DiT step and
+    a CFG Euler step."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from deepl_project_tpu_torch import get_config
+    from deepl_project_tpu_torch.cli import sample_dit as sample_cli
+    from deepl_project_tpu_torch.cli import train_dit as train_cli
+    from deepl_project_tpu_torch.data import batch_iterator, make_dataset, native_loader
+    from deepl_project_tpu_torch.data.transforms import pil_available
+    from deepl_project_tpu_torch.models import DiTConfig, TransVAE, create_dit, get_dit_config
+    from deepl_project_tpu_torch.training import (TrainState, encode_to_latents,
+                                                  make_dit_train_step, make_optimizer,
+                                                  make_sampler, rectified_flow_loss,
+                                                  restore_checkpoint)
+    from deepl_project_tpu_torch.training.train_step import global_norm, init_ema, step_generator
+
+    out_dir = os.path.join(ROOT, "outputs", "chip_smoke_dit")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    folder, run_dir = os.path.join(out_dir, "images"), os.path.join(out_dir, "run")
+    samples_dir = os.path.join(out_dir, "samples")
+    if not (native_loader.native_available() or pil_available()):
+        fail("dit: no image decoder (native or PIL) for the labelled folder")
+    _write_image_folder(folder)
+    with torch.device("meta"):
+        meta = TransVAE(get_config("large", 16, 32))
+    out = {}
+
+    # 1. cli.train_dit, the tokenizer kept (random, in memory) for the times.
+    made = {}
+    real_load = train_cli.load_tokenizer
+
+    def recording(*a, **kw):
+        made["vae"] = real_load(*a, **kw)
+        return made["vae"]
+
+    argv = ["--dit_variant", "B", "--vae_variant", "large", "--data", folder,
+            "--resolution", "256", "--batch_size", str(DIT_BATCH), "--total_steps",
+            str(DIT_STEPS), "--stats_batches", str(DIT_STATS_BATCHES), "--log_every", "1",
+            "--save_every", str(DIT_STEPS), "--sample_every", str(DIT_STEPS), "--fid_every",
+            str(DIT_STEPS), "--fid_samples", str(DIT_FID_SAMPLES), "--sample_steps",
+            str(DIT_SAMPLE_STEPS), "--cfg_scale", str(DIT_CFG), "--output_dir", run_dir]
+    train_cli.load_tokenizer = recording
+    reset_launches()
+    t = time.time()
+    try:
+        train_cli.main(argv)
+    finally:
+        train_cli.load_tokenizer = real_load
+    train_s = time.time() - t
+    vae = made.pop("vae")
+    encodes = DIT_STATS_BATCHES + DIT_STEPS
+    decodes = -(-DIT_FID_SAMPLES // DIT_BATCH) + 1  # the FID's and the 8-sample grid's
+    want = tokenizer_launches(meta, {"encoder": encodes, "decoder": decodes})
+    got = kernel_launches()
+    if got != want:
+        fail(f"dit: cli.train_dit launched {got}, want {want} ({encodes} b{DIT_BATCH} "
+             f"encodes, {decodes} decodes; no flash launch in the DiT)")
+    DIT_PATHS["dit_train"] = launches_by_name()
+    NORM_PATHS[f"dit: cli.train_dit, {encodes} encodes and {decodes} decodes"] = got[3]
+    side = json.load(open(os.path.join(run_dir, "dit_config.json")))
+    rows = [json.loads(r) for r in open(os.path.join(run_dir, "history.jsonl"))]
+    train_rows = [r for r in rows if r["kind"] == "train"]
+    fid_rows = [r for r in rows if r["kind"] == "fid"]
+    best = json.load(open(os.path.join(run_dir, "best", "metrics.json")))
+    state, ck_meta = restore_checkpoint(run_dir, map_location="cuda")
+    inner = state["state"]
+    # The CLI's initial weights (seed + 1, its default seed 42) against the
+    # trained ones.
+    start = create_dit(DiTConfig(**side["dit"]), side["grid"], device="cuda", seed=43)
+    moved = max((inner["model"][k] - p).abs().max().item()
+                for k, p in start.state_dict().items())
+    del start
+    if (side["unconditional"] or side["dit"]["hidden_dim"] != 768 or side["grid"] != 16
+            or len(train_rows) != DIT_STEPS or len(fid_rows) != 1
+            or not np.isfinite([r["loss"] for r in train_rows] + [r["grad_norm"] for r in
+                                                                   train_rows]).all()
+            or not np.isfinite(best.get("vgg_gen_fid", best.get("gen_fid", np.nan)))
+            or ck_meta["step"] != DIT_STEPS or inner["optimizer"]["count"] != DIT_STEPS
+            or not os.path.exists(os.path.join(run_dir, f"samples_{DIT_STEPS:07d}.png"))
+            or not moved > 0):
+        fail(f"dit: cli.train_dit wrote sidecar {side}, history {rows}, best {best}, "
+             f"checkpoint step {ck_meta['step']}, params-vs-EMA {moved}")
+    ips = [r["images_per_sec"] for r in train_rows[1:]]
+    out["cli_img_s"] = float(np.median(ips))
+    log(f"dit: cli.train_dit DiT-B/2 on large f16d32 @256 latents (16x16x32) of the folder, "
+        f"b{DIT_BATCH}, {DIT_STEPS} steps: losses {[round(r['loss'], 5) for r in train_rows]}, "
+        f"grad norms {[round(r['grad_norm'], 4) for r in train_rows]}; {list(best)[-1]} "
+        f"{best[list(best)[-1]]:.4f} ({DIT_FID_SAMPLES} samples, {DIT_SAMPLE_STEPS} steps, "
+        f"CFG {DIT_CFG}); img/s of steps 2-{DIT_STEPS} {[round(v, 2) for v in ips]} "
+        f"(median {out['cli_img_s']:.2f}); params moved up to {moved:.3e} from their init; "
+        f"launches {got} as tokenizer_launches; {train_s:.1f}s in all [{CARD}]")
+
+    # 2. cli.sample_dit on that checkpoint: 16 samples, 50 steps, CFG 4;
+    # the decoder random (no tokenizer checkpoint recorded), in memory.
+    reset_launches()
+    t = time.time()
+    imgs = sample_cli.main(["--checkpoint", run_dir, "--num_samples", str(DIT_SAMPLES),
+                            "--sample_steps", str(DIT_SAMPLE_STEPS), "--cfg_scale",
+                            str(DIT_CFG), "--output_dir", samples_dir])
+    sample_s = time.time() - t
+    want = tokenizer_launches(meta, {"decoder": 1})
+    got = kernel_launches()
+    if got != want:
+        fail(f"dit: cli.sample_dit launched {got}, want the decoder half at b{DIT_SAMPLES} {want}")
+    DIT_PATHS["dit_sample"] = launches_by_name()
+    NORM_PATHS[f"dit: cli.sample_dit, one b{DIT_SAMPLES} decode"] = got[3]
+    files = sorted(os.listdir(samples_dir))
+    if (imgs.shape != (DIT_SAMPLES, 256, 256, 3) or not np.isfinite(imgs).all()
+            or files[0] != "grid.png" or len(files) != DIT_SAMPLES + 1):
+        fail(f"dit: cli.sample_dit gave {imgs.shape} images, files {files}")
+    log(f"dit: cli.sample_dit {DIT_SAMPLES} samples, {DIT_SAMPLE_STEPS} steps, CFG {DIT_CFG}: "
+        f"{len(files)} files, images in [{imgs.min():.4f}, {imgs.max():.4f}], launches {got} "
+        f"(the decoder half); {sample_s:.1f}s incl. the tokenizer's build [{CARD}]")
+
+    # 3. DiT-B/2 in bf16 against fp32 on the card, same weights and draws:
+    # the forward at b16, one loss and its gradient norm.
+    b = DIT_SAMPLES
+    model = _dit_random(get_dit_config("B", 2), 1)
+    exact = _dit_twin(model, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    z = torch.randn(b, 16, 16, 32, generator=gen, device="cuda")
+    t_ = torch.rand(b, generator=gen, device="cuda")
+    y = torch.randint(0, 1001, (b,), generator=gen, device="cuda")
+    noise = torch.randn(z.shape, generator=gen, device="cuda")
+    with torch.no_grad():
+        v16, v32 = model(z, t_, y), exact(z, t_, y)
+    err = (v16 - v32).abs()
+    res = {}
+    for name, m in (("bf16", model), ("fp32", exact)):
+        loss, _ = rectified_flow_loss(m, z, y, step_generator(0, 0, "cuda"), t=t_, noise=noise)
+        params = [p for p in m.parameters()]
+        res[name] = (loss.item(), global_norm(list(torch.autograd.grad(loss, params))).item())
+    dl = abs(res["bf16"][0] - res["fp32"][0]) / res["fp32"][0]
+    dg = abs(res["bf16"][1] - res["fp32"][1]) / res["fp32"][1]
+    log(f"dit: DiT-B/2 b{b} bf16 vs fp32 (same weights, all random): forward max abs "
+        f"{err.max().item():.3e} mean {err.mean().item():.3e} (max|v| "
+        f"{v32.abs().max().item():.3e}, mean {v32.abs().mean().item():.3e}); loss "
+        f"{res['bf16'][0]:.6f} / {res['fp32'][0]:.6f} (rel {dl:.2e}, bound "
+        f"{TRAIN_LOSS_RTOL}), grad norm {res['bf16'][1]:.5f} / {res['fp32'][1]:.5f} "
+        f"(rel {dg:.2e}, bound {TRAIN_GRAD_NORM_RTOL})")
+    if not (torch.isfinite(v16).all() and dl <= TRAIN_LOSS_RTOL and dg <= TRAIN_GRAD_NORM_RTOL):
+        fail("dit: DiT-B/2 in bf16 disagrees with fp32")
+    del model, exact, v16, v32
+
+    # 4. DiT-B/1 on 32x32 latents (N=1024): small_attention in every block
+    # and no other kernel; as close to fp32 as the plain bf16 core.
+    b1, g1 = DIT_B1
+    model = _dit_random(get_dit_config("B", 1), 3)
+    z = torch.randn(b1, g1, g1, 32, generator=gen, device="cuda")
+    t_ = torch.rand(b1, generator=gen, device="cuda")
+    y = torch.randint(0, 1000, (b1,), generator=gen, device="cuda")
+    reset_launches()
+    with torch.no_grad():
+        vk = model(z, t_, y)
+    torch.cuda.synchronize()
+    got = kernel_launches()
+    want = ({}, {}, {("small_attention", g1 * g1, 12): 12}, {})
+    if got != want:
+        fail(f"dit: DiT-B/1 forward launched {got}, want {want}")
+    DIT_PATHS["dit_b1"] = launches_by_name()
+    with torch.no_grad():
+        vp = _dit_twin(model, attention_impl="xla")(z, t_, y)
+        v32 = _dit_twin(model, dtype="float32")(z, t_, y)
+    ek, ep = (vk - v32).abs(), (vp - v32).abs()
+    log(f"dit: DiT-B/1 b{b1} @{g1}x{g1} (N={g1 * g1}) against fp32: kernel path mean abs "
+        f"{ek.mean().item():.4e} max {ek.max().item():.4e}; plain bf16 core mean "
+        f"{ep.mean().item():.4e} max {ep.max().item():.4e} (ratios {MODEL_MEAN_RATIO}, "
+        f"{MODEL_MAX_RATIO}); launches {got}")
+    if not (torch.isfinite(vk).all() and ek.mean() <= MODEL_MEAN_RATIO * ep.mean()
+            and ek.max() <= MODEL_MAX_RATIO * ep.max()):
+        fail("dit: DiT-B/1's kernel path is not as close to fp32 as the plain bf16 core")
+    out["b1_forward_ms"] = cuda_time_ms(lambda: model(z, t_, y), 5)
+    del model, vk, vp, v32
+    torch.cuda.empty_cache()
+
+    # 5. Times [card]: the b64 encode and the b16 decode (the CLI's
+    # tokenizer), the serial decode of one folder batch, the DiT-B/2 step at
+    # b64 on ready latents, a CFG Euler step at b16.
+    x = torch.rand(DIT_BATCH, 256, 256, 3, generator=gen, device="cuda")
+    with torch.no_grad():
+        out["encode_b64_ms"] = cuda_time_ms(lambda: encode_to_latents(vae, None, x), 5)
+        zd = torch.randn(DIT_SAMPLES, 32, 16, 16, generator=gen, device="cuda")
+        out["decode_b16_ms"] = cuda_time_ms(lambda: vae.decode(zd), 5)
+    del x, zd
+    src = batch_iterator(make_dataset(folder, 256, with_labels=True), DIT_BATCH)
+    t = time.perf_counter()
+    next(src)
+    out["folder_batch_s"] = time.perf_counter() - t
+
+    dit = _dit_random(get_dit_config("B", 2), 4).train()
+    state_ = TrainState(step=0, model=dit, ema=init_ema(dit),
+                        optimizer=make_optimizer(list(dit.named_parameters()),
+                                                 learning_rate=2e-4, warmup_steps=1000, b2=0.95))
+    step = make_dit_train_step(dit, ema_decay=0.9999)
+    z0 = torch.randn(DIT_BATCH, 16, 16, 32, generator=gen, device="cuda")
+    y = torch.randint(0, 1000, (DIT_BATCH,), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps = []
+    for _ in range(DIT_TIMED_STEPS + 1):
+        stamps.append(time.perf_counter())
+        step(state_, z0, y)
+        torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    steps_ms = np.diff(stamps)[1:] * 1e3
+    out["step_b64_ms"] = float(np.median(steps_ms[:DIT_TIMED_STEPS - 1]))
+    out["step_b64_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_params = sum(p.numel() for p in dit.parameters())
+    flops = dit_step_flops(dit, DIT_BATCH, 64)
+    if profile:
+        _profile(lambda: step(state_, z0, y), "dit_step_b64")
+    sampler = make_sampler(dit.eval(), num_steps=10, cfg_scale=DIT_CFG, num_classes=1000)
+    labels = torch.arange(DIT_SAMPLES, device="cuda")
+    out["euler_cfg_b16_ms"] = cuda_time_ms(
+        lambda: sampler(labels, 16, 32, torch.Generator(device="cuda").manual_seed(0)), 2) / 10
+    if profile:
+        one = make_sampler(dit, num_steps=1, cfg_scale=DIT_CFG, num_classes=1000)
+        _profile(lambda: one(labels, 16, 32), "dit_euler_cfg_b16")
+        x = torch.rand(DIT_BATCH, 256, 256, 3, generator=gen, device="cuda")
+        _profile(lambda: encode_to_latents(vae, None, x), "dit_encode_b64")
+        del x
+    log(f"time dit: tokenizer encode b{DIT_BATCH} @256 {out['encode_b64_ms']:.2f} ms, decode "
+        f"b{DIT_SAMPLES} {out['decode_b16_ms']:.2f} ms (CUDA events); one folder batch of "
+        f"{DIT_BATCH} PNGs decoded serially (the CLI's source) {out['folder_batch_s']:.3f} s; "
+        f"DiT-B/2 step b{DIT_BATCH} on ready latents (AdamW, EMA; host clock, synchronised) "
+        f"{[round(float(v), 2) for v in steps_ms]} ms, median of steps 2-{DIT_TIMED_STEPS} "
+        f"{out['step_b64_ms']:.2f} ms ({n_params / 1e6:.1f}M params, {flops / 1e12:.3f} TFLOP "
+        f"a step (dit_step_flops): {flops / PEAK_BF16_FLOPS * 1e3:.3f} ms at the bf16 peak), peak "
+        f"{out['step_b64_peak_gib']:.2f} GiB; Euler step with CFG at b{DIT_SAMPLES} (a "
+        f"doubled batch of {2 * DIT_SAMPLES}) {out['euler_cfg_b16_ms']:.3f} ms; DiT-B/1 "
+        f"forward b{b1} {out['b1_forward_ms']:.2f} ms; cli.train_dit {out['cli_img_s']:.2f} "
+        f"img/s [{CARD}]")
+    del dit, state_, vae
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- phase 3 -------------------------------------------------------------
 def phase_serve(model):
     import urllib.request
@@ -2742,8 +3147,8 @@ def main():
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,kernels,grad,train,data,gan,recipe,remat,serve,time,eval,"
-                            "quant")
+                    default="build,kernels,grad,train,data,dit,gan,recipe,remat,serve,time,"
+                            "eval,quant")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--baseline", metavar="DIR", nargs="+", default=[],
                     help="checkouts whose wgmma kernels (WGMMA_KERNELS) are timed "
@@ -2809,6 +3214,9 @@ def main():
     if "data" in phases:
         with phase_clock("data"):
             train_counts = add(phase_data()[0])
+    if "dit" in phases:
+        with phase_clock("dit"):
+            phase_dit(args.profile)
     counts = {}
     model = None
     evaluated = {}
@@ -2901,14 +3309,19 @@ def main():
                 **extra,
             })
         r = results[("small_attention", *SMALL_512)]
+        dit = results[("small_attention", *SMALL_DIT)]
         kernels.append({
             "name": "small_attention", "route": "cuda",
             "source": "deepl_project_tpu_torch/csrc/small_attention.cu",
             "replaces": "deepl_project_tpu/ops/pallas/small_attention.py:50",
             "launches": evaluated.get("small_attention_launches", 0),
-            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "max_abs_err": max(r["err"], dit["err"]), "checked_shapes": [SMALL_512, SMALL_DIT],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            # DiT-B/1's shape and operand layout: [kernel, plain, bound, library] ms.
+            "ms_by_shape": {str(SMALL_DIT): [dit["ms"], dit["plain_ms"], dit["bound_ms"],
+                                             dit["library_ms"]]},
             "per": (f"one call at 512px stage 4 (B, N, h)={SMALL_512}; launches in the "
                     f"eval phase's 512px sweep ({EVAL_IMAGES} images)"),
         })
@@ -2961,6 +3374,10 @@ def main():
                 row["group_norm_silu_by_shape"] = {
                     str(k[1:]): r for k, r in results.items() if k[0] == "group_norm_silu"}
             kernels.append(row)
+        # Phase dit's paths, each driven with the counts set to 0 just before.
+        for row in kernels:
+            row.setdefault("launches_by_path", {}).update(
+                {p: c.get(row["name"], 0) for p, c in DIT_PATHS.items()})
         print(json.dumps({"kernels": kernels}), flush=True)
     log(f"all phases passed in {time.time() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {

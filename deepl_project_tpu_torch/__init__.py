@@ -8,9 +8,13 @@ LPIPS, InceptionV3 rFID, latent diagnostics and the linear probe), both
 training stages (``training.Trainer``, ``cli.train``: L1 + LPIPS (VGG or
 the self-perceptual net) + KL + VF alignment to a teacher, AdamW or
 Adafactor, gradient checkpointing, checkpoints, TensorBoard scalars; stage
-2 adds the PatchGAN discriminator and its GAN step), and the data sources
+2 adds the PatchGAN discriminator and its GAN step), the data sources
 (synthetic, image folders, COCO and Hugging Face streaming, decoded by the
-native C++ decoder or PIL). The attention sublayers and the flash attention
+native C++ decoder or PIL), and the latent DiT of the paper's Table 2(b)
+(``models.DiT``, the single-device Switch MoE FFN, rectified-flow training
+and the CFG sampler in ``training.diffusion``, ``cli.train_dit`` and
+``cli.sample_dit``), whose tokenizer encodes and decodes through the same
+kernels. The attention sublayers and the flash attention
 forward and backward run on hand-written Hopper kernels (``ops/hopper``,
 sources in ``csrc/``). Entry points run on CUDA unless the caller passes
 ``device="cpu"``, which takes the plain PyTorch path.

@@ -6,7 +6,8 @@ also takes the int8 tree of ``quantize.quantize_params`` and, through
 discriminator's (:func:`disc_params_to_torch_state_dict`), LPIPS's
 (:func:`lpips_params_from_jax`) and a trainer's {'model', 'vf_proj'} tree
 (:func:`load_jax_train_params`; ``vf_proj`` keeps its layout, kernel [D, C]
-and bias [C], as the port's ``vf_loss`` computes latent @ kernel).
+and bias [C], as the port's ``vf_loss`` computes latent @ kernel), and the
+latent DiT's (:func:`dit_params_to_torch_state_dict`).
 
 The JAX tree (numpy leaves) maps onto the reference's state_dict layout,
 which is the port's: HWIO conv kernels -> OIHW, [in, out] dense kernels ->
@@ -203,3 +204,56 @@ def lpips_params_from_jax(tree: Mapping[str, Any]) -> dict:
                 t = t.permute(3, 2, 0, 1).contiguous()  # HWIO -> OIHW
             out[group][name] = t
     return out
+
+
+def _unstack_dit_blocks(params: Mapping[str, Any]) -> dict:
+    """The DiT's scan layout (``blocks/block/...``, a leading depth axis on
+    every leaf) unrolled into ``block{i}``; a flat tree as it is."""
+    if "blocks" not in params:
+        return dict(params)
+
+    def take(node, i):
+        if isinstance(node, Mapping):
+            return {k: take(v, i) for k, v in node.items()}
+        return np.asarray(node)[i]
+
+    def first_leaf(node):
+        return first_leaf(next(iter(node.values()))) if isinstance(node, Mapping) else node
+
+    out = dict(params)
+    stacked = out.pop("blocks")["block"]
+    for i in range(np.shape(first_leaf(stacked))[0]):
+        out[f"block{i}"] = take(stacked, i)
+    return out
+
+
+def dit_params_to_torch_state_dict(params: Mapping[str, Any]) -> dict:
+    """The JAX DiT's params (numpy or array leaves; flat ``block{i}`` or the
+    scan layout) as the port's state_dict of numpy arrays: module paths
+    joined with '.', Dense kernels [in, out] -> ``weight`` [out, in], the
+    HWIO patch conv -> OIHW, MoE expert kernels [E, in, out] -> [E, out,
+    in]; biases, ``embedding`` and ``pos_embed`` as they are."""
+    out: dict[str, np.ndarray] = {}
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, path + (k,))
+            return
+        a = np.asarray(node)
+        leaf = path[-1]
+        if leaf == "kernel":
+            leaf = "weight"
+            a = np.transpose(a, {2: (1, 0), 3: (0, 2, 1), 4: (3, 2, 0, 1)}[a.ndim])
+        elif leaf not in ("bias", "embedding", "pos_embed"):
+            raise ValueError(f"Unexpected DiT param {'.'.join(path)}")
+        out[".".join(path[:-1] + (leaf,))] = np.ascontiguousarray(a)
+
+    walk(_unstack_dit_blocks(params), ())
+    return out
+
+
+def load_jax_dit_params(model: torch.nn.Module, params_np: Mapping[str, Any]):
+    """Load the JAX DiT's param tree (flat or scan layout) into the port's
+    ``models.dit.DiT`` with ``strict=True``."""
+    return load_state_dict(model, dit_params_to_torch_state_dict(params_np))

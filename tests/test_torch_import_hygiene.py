@@ -6,8 +6,9 @@ modules are covered as they come; the evaluation slice's are named) and
 chip_smoke.py must import, and none of deepl_project_tpu's modules may be
 loaded. The entry points (model factory, ``from_pretrained``, serving
 engine, trainer -- also with a VF teacher, remat and Adafactor -- the
-evaluate, generate, rope_extrapolation and smoke_test CLIs) default to CUDA
-and refuse to continue on a machine without it.
+evaluate, generate, rope_extrapolation and smoke_test CLIs, the DiT factory
+and the train_dit and sample_dit CLIs) default to CUDA and refuse to
+continue on a machine without it.
 """
 
 import os
@@ -32,7 +33,9 @@ _PROBE = textwrap.dedent("""
              "cli.rope_extrapolation", "data.transforms", "quantize", "ops.quant",
              "models.discriminator", "losses.teachers", "data.native_loader",
              "data.datasets", "utils.inception", "utils.inception_spec",
-             "utils.latent_metrics", "utils.logging", "utils.flops", "cli.smoke_test"}
+             "utils.latent_metrics", "utils.logging", "utils.flops", "cli.smoke_test",
+             "models.dit", "ops.moe", "training.diffusion", "cli.train_dit",
+             "cli.sample_dit"}
     assert named <= {n.split(".", 1)[1] for n in names}, named
     import chip_smoke
     bad = sorted(m for m in sys.modules
@@ -42,8 +45,9 @@ _PROBE = textwrap.dedent("""
     print(len(names))
     if not torch_cuda:
         from deepl_project_tpu_torch import create_transvae, from_pretrained, get_config
-        from deepl_project_tpu_torch.cli import (evaluate, generate, rope_extrapolation, serve,
-                                                 smoke_test)
+        from deepl_project_tpu_torch.cli import (evaluate, generate, rope_extrapolation,
+                                                 sample_dit, serve, smoke_test, train_dit)
+        from deepl_project_tpu_torch.models import create_dit, get_dit_config
         from deepl_project_tpu_torch.losses import LossWeights, make_stub_teacher
         from deepl_project_tpu_torch.training import Trainer, TrainerConfig
         for fn in (lambda: create_transvae("tiny"),
@@ -57,7 +61,9 @@ _PROBE = textwrap.dedent("""
                                    teacher_fn=make_stub_teacher()),
                    lambda: evaluate.main([]), lambda: generate.main([]),
                    lambda: rope_extrapolation.main([]), lambda: smoke_test.main([]),
-                   lambda: from_pretrained("transvae-tiny-f16d32")):
+                   lambda: from_pretrained("transvae-tiny-f16d32"),
+                   lambda: create_dit(get_dit_config("S")), lambda: train_dit.main([]),
+                   lambda: sample_dit.main(["--checkpoint", "none"])):
             try:
                 fn()
             except RuntimeError as e:
@@ -75,4 +81,4 @@ def test_port_imports_without_jax_or_the_jax_package():
                          env={**os.environ, "PYTHONPATH": REPO})
     assert out.returncode == 0, out.stderr
     n_modules, status = out.stdout.split()
-    assert int(n_modules) >= 45 and status == "ok"
+    assert int(n_modules) >= 50 and status == "ok"
