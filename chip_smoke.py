@@ -194,6 +194,40 @@ Phases (any failure exits non-zero and prints no result):
    kernels at b64 and b16 and small_attention on DiT-B/1's operands (v a
    strided view of the qkv product).
 
+14. parallel (run last; needs phase train's rows): parallel training on the
+   one card. (a) World size 1 over NCCL in this process (a FileStore under
+   outputs/): Trainer.fit of phase train's run (2 x 8, 5 steps, 12 + 12
+   flash launches a step) reported step by step beside phase train's
+   rows; the plain and the distributed compute_grads on the same weights,
+   batch and noise (loss within PARALLEL_LOSS_RTOL, grad norm within
+   PARALLEL_GRAD_NORM_RTOL; bit-equality logged), the two steps in turns
+   and the gradient all-reduce alone; then `python -m torch.distributed.run
+   --nproc_per_node 1 -m deepl_project_tpu_torch.cli.train` for 3 steps,
+   its checkpoint resumed by one process (step and optimizer count 3). The
+   process group is destroyed before (b). (b) Two processes on the card
+   over gloo (this script under torchrun, --worker dp; NCCL refuses two
+   ranks on one device), each run of DP_RUNS against one process on the
+   same weights and global batch of PARALLEL_BATCH under remat 'none':
+   replicate stage 1 (2 x 4) and GAN, in bf16 and in fp32 without TF32
+   (the adaptive weight, unclamped, within PARALLEL_ADAPTIVE_RTOL, the
+   global disc loss within PARALLEL_LOSS_RTOL, the same decision of a floor
+   near it; in fp32 the grad norm within the stage-1 bar and the loss
+   within the weight's),
+   FSDP and tensor
+   parallel stage 1 at model 2 (each rank all 8 rows); stage-1 loss and
+   grad norm within the bars; the parameters every rank holds whole
+   bit-identical across ranks (checksums); flash launches a rank (12 + 6
+   a stage-1 step, 18 + 6 a bf16 GAN step, none in fp32; 3 heads under
+   tensor); peak memory.
+   (c) The stage-2 attention sublayer's two head shards of model=2 (3 of 6
+   heads each, the composable route: the kernel gates refuse the local
+   width) summed against the whole sublayer (KERNEL_RTOL), their route
+   counts and flash launches at 3 heads; the flash kernels timed at 3 and
+   6 heads (phase kernels checks them at FLASH_LOCAL_HEADS).
+   Not in the defaults: refusals (two ranks on the card: NCCL's group and
+   gloo's collectives on CUDA tensors, each accepted or refused, with the
+   message).
+
 Launches are checked against one table per resolution (256, 512, 1024px;
 launches_per_reconstruct; phase dit's tokenizer halves, tokenizer_launches). group_norm_silu's launches are checked on every
 path against norm_table, derived from the module structure (norm_sites: two
@@ -301,9 +335,11 @@ DIT_TIMED_STEPS = 5  # the b64 step on ready latents: median of steps 2-5
 # 256px serving at batch 32 (stage 2), 512px serving at batch 2 and the
 # 1024px sweep's chunk of 4 (stage 2).
 FLASH_TRAIN = (8, 4096, 6)
-# The other training shapes, checked only: phase recipe's microbatch of 2
-# and phase remat's fit at batch 16.
-FLASH_TRAIN_CHECKED = ((2, 4096, 6), (16, 4096, 6))
+# The other training shapes, checked only: phase recipe's microbatch of 2,
+# phase remat's fit at batch 16, and stage 2's local heads under tensor
+# parallelism at model=2 (3 of 6; phase parallel (c)).
+FLASH_LOCAL_HEADS = (8, 4096, 3)
+FLASH_TRAIN_CHECKED = ((2, 4096, 6), (16, 4096, 6), FLASH_LOCAL_HEADS)
 FLASH_SERVE_256 = (32, 4096, 6)
 FLASH_SERVE_512 = (2, 16384, 6)
 FLASH_SWEEP_1024 = (4, 65536, 6)
@@ -352,8 +388,31 @@ WGMMA_KERNELS = ("ln_qkv_rope", "proj_bias_gemm", "small_attention", "flash_atte
 # launchers, built by --baseline from such a DIR with these signatures.
 PAIR_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
+# Phase parallel: (b)'s global batch (2 ranks x 4 rows under remat 'none'
+# against one process at 8); its bars, loss within PARALLEL_LOSS_RTOL and
+# grad norm within PARALLEL_GRAD_NORM_RTOL relative (the same in (a) against
+# phase train's rows). The GAN step, in bf16 and in fp32 without TF32:
+# its adaptive weight (unclamped: PARALLEL_GAN_ADAPTIVE_MAX) within
+# PARALLEL_ADAPTIVE_RTOL, its global disc loss within PARALLEL_LOSS_RTOL,
+# the same decision of a floor near the untrained discriminator's hinge
+# loss (PARALLEL_GAN_FLOOR; ~2 with D's outputs near 0); in fp32 only its
+# grad norm within PARALLEL_GRAD_NORM_RTOL and its loss, which carries the
+# weight's gap through the weighted GAN term, within the weight's bar
+# (in bf16 one process at b8 lies percents from fp32 in grad norm where
+# the ranks do not; PERF.md).
+PARALLEL_BATCH = 8
+PARALLEL_LOSS_RTOL = 1e-3
+PARALLEL_GRAD_NORM_RTOL = 1e-2
+PARALLEL_ADAPTIVE_RTOL = 1e-2
+PARALLEL_GAN_ADAPTIVE_MAX = 1e4
+PARALLEL_GAN_FLOOR = 2.0
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CARD = ""
+# Phase parallel's files: the (a) FileStore, the (b) ranks' results.
+PARALLEL_DIR = os.path.join(ROOT, "outputs", "chip_smoke_parallel_ipc")
+# Phase parallel's paths -> launches by kernel name in that path's run.
+PARALLEL_PATHS: dict = {}
 # Path label -> group_norm_silu's launches by (kernel, H*W, C) in that
 # path's checked run (each equal to its norm_table).
 NORM_PATHS: dict = {}
@@ -1577,7 +1636,7 @@ def phase_train(profile: bool, keep_checkpoint: bool = False):
     if not keep_checkpoint:
         shutil.rmtree(out_dir, ignore_errors=True)
     torch.cuda.empty_cache()
-    return counts, {"step_ms": step_ms, "peak_gib": peak}, ckpt_dir
+    return counts, {"step_ms": step_ms, "peak_gib": peak, "rows": rows}, ckpt_dir
 
 
 def phase_gan(stage1_ckpt: str, profile: bool):
@@ -3143,17 +3202,519 @@ def phase_quant(model, profile: bool):
     return out
 
 
+# -- phase parallel ------------------------------------------------------------
+def _fingerprint(params) -> "torch.Tensor":
+    """Two int64 checksums of each parameter's bits ([n, 2] on the CPU):
+    the sum of its int32 words and their sum weighted by position mod
+    65521 + 1. Two ranks whose rows all agree hold bit-identical copies
+    (short of a collision the weighting makes unlikely)."""
+    import torch
+
+    rows = []
+    for p in params:
+        words = p.detach().contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+        weight = torch.arange(words.numel(), device=words.device) % 65521 + 1
+        rows.append(torch.stack([words.sum(), (words * weight).sum()]))
+    return torch.stack(rows).cpu()
+
+
+def _dp_configs(dtype: str):
+    """Phase parallel (b)'s model in ``dtype``, trainers' configs and batch:
+    large f16d32 @256 under remat 'none', a global batch of PARALLEL_BATCH;
+    stage 1 (L1 + LPIPS + KL) and one GAN step (frozen encoder, the
+    adaptive weight unclamped, R1, a floor near the initial disc loss)."""
+    import numpy as np
+
+    from deepl_project_tpu_torch import get_config
+    from deepl_project_tpu_torch.data import make_dataset
+    from deepl_project_tpu_torch.losses import LossWeights
+    from deepl_project_tpu_torch.training import TrainerConfig
+
+    cfg = get_config("large", 16, 32, norm_latents=True, attention_impl="auto_train",
+                     remat=True, remat_policy="none", dtype=dtype)
+    common = dict(batch_size=PARALLEL_BATCH, accum_steps=1, warmup_steps=2, num_epochs=1,
+                  steps_per_epoch=1, seed=0,
+                  output_dir=os.path.join(ROOT, "outputs", "chip_smoke_parallel_b"))
+    stage1 = TrainerConfig(weights=LossWeights(l1=1.0, lpips=1.0, kl=1e-8, vf=0.0, gan=0.0),
+                           **common)
+    gan = TrainerConfig(weights=LossWeights(l1=1.0, lpips=1.0, kl=1e-8, vf=0.0, gan=0.05),
+                        freeze_encoder=True, gan_adaptive_weight=True,
+                        gan_adaptive_max=PARALLEL_GAN_ADAPTIVE_MAX,
+                        gan_disc_loss_floor=PARALLEL_GAN_FLOOR, gan_r1_gamma=10.0, **common)
+    batch = np.stack(list(make_dataset("synthetic", resolution=256, num_samples=PARALLEL_BATCH,
+                                       seed=11)))
+    return cfg, stage1, gan, batch
+
+
+# Phase parallel (b)'s runs: (name, step, param_sharding, mesh_model). The
+# single process runs the steps; the two ranks each of these. gan_fp32 is
+# the GAN step in fp32 with TF32 off (the plain attention core and norms:
+# no kernel takes fp32).
+DP_RUNS = (("stage1", "stage1", "replicate", 1), ("gan", "gan", "replicate", 1),
+           ("gan_fp32", "gan_fp32", "replicate", 1),
+           ("fsdp", "stage1", "fsdp", 2), ("tensor", "stage1", "tensor", 2))
+
+
+def _dp_steps(runs) -> dict:
+    """One step of _dp_configs() from the seed's weights for each of
+    ``runs`` (DP_RUNS' rows; without a process group the single process):
+    the step's loss, grad norm, the GAN step's adaptive weight, disc loss
+    and floor decision, peak memory, launches by kernel and flash launches by heads,
+    and under a process group the fingerprints of the parameters every rank
+    holds whole after the update."""
+    import dataclasses
+
+    import torch
+
+    from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
+    from deepl_project_tpu_torch.parallel import shard_batch
+    from deepl_project_tpu_torch.training import Trainer
+    from deepl_project_tpu_torch.training.train_step import named_trainables
+
+    out = {}
+    for name, step, mode, model in runs:
+        fp32 = step == "gan_fp32"
+        cfg, stage1, gan, batch = _dp_configs("float32" if fp32 else "bfloat16")
+        tc = dataclasses.replace(stage1 if step == "stage1" else gan, param_sharding=mode,
+                                 mesh_model=model)
+        # True fp32: cuDNN's convolutions default to TF32 (cuBLAS's products
+        # do not); PyTorch's default is restored after the runs.
+        torch.backends.cudnn.allow_tf32 = not fp32
+        trainer = Trainer(cfg, tc, device="cuda")
+        state = trainer.create_state()
+        local = torch.as_tensor(shard_batch(trainer.mesh, batch)).to("cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        m = trainer.step_fn(state, local)
+        torch.cuda.synchronize()
+        row = {"ms": (time.perf_counter() - t0) * 1e3, "launches": launches_by_name(),
+               "flash_heads": sorted({h for (_, _, h) in fla.launch_counts_by_shape()}),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "rows": int(local.shape[0]),
+               **{k: float(m[k]) for k in ("total", "grad_norm", "adaptive_gan_weight",
+                                            "disc_loss", "disc_update_scale") if k in m}}
+        if trainer.mesh is not None:
+            pl = trainer.placement
+            whole = [p for n, p in named_trainables(state.model) if pl.dim(n) is None]
+            disc = [] if trainer._disc_state is None else list(
+                trainer._disc_state.model.parameters())
+            row["fingerprint"] = _fingerprint(whole + disc)
+            row["sharded"] = sum(pl.dim(n) is not None for n, _ in named_trainables(state.model))
+        out[name] = row
+        del trainer, state, local, m
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    return out
+
+
+def dp_worker() -> None:
+    """A rank of phase parallel (b), started by torchrun: two processes on
+    the one card over gloo (CUDA tensors; NCCL refuses two ranks on one
+    device), each of DP_RUNS. Writes its results to
+    PARALLEL_DIR/rank<r>.json; any failure exits non-zero."""
+    import torch
+    import torch.distributed as dist
+
+    from deepl_project_tpu_torch.parallel import initialize_multihost
+
+    info = initialize_multihost(backend="gloo", device="cuda:0")
+    rank = info["process_index"]
+    out = _dp_steps(DP_RUNS)
+    for row in out.values():
+        fp = row.pop("fingerprint")
+        lo, hi = fp.clone(), fp.clone()
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        row["params_bit_identical"] = bool(torch.equal(lo, hi))
+        row["params_checked"] = int(fp.shape[0])
+    with open(os.path.join(PARALLEL_DIR, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def refusal_worker(kind: str) -> None:
+    """Under torchrun, two ranks on the one card: 'nccl' joins an NCCL group
+    from both (one device) and all-reduces; 'gloo' tries each collective the
+    parallel paths use on CUDA tensors. Prints one RESULT line per probe,
+    accepted or refused with the library's message."""
+    import torch
+    import torch.distributed as dist
+
+    from deepl_project_tpu_torch.parallel import initialize_multihost
+
+    def probe(op, fn):
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 -- the refusal is what this probe records
+            msg = " ".join(str(e).split())[:300]
+            print(f"RESULT {kind} {op} rank {os.environ.get('RANK')}: refused: "
+                  f"{type(e).__name__}: {msg}", flush=True)
+            return False
+        print(f"RESULT {kind} {op} rank {os.environ.get('RANK')}: accepted", flush=True)
+        return True
+
+    if not probe("init", lambda: initialize_multihost(backend=kind, device="cuda:0",
+                                                      timeout_s=60)):
+        return
+    x = torch.ones(4, device="cuda")
+    world = dist.get_world_size()
+    probe("all_reduce", lambda: dist.all_reduce(x))
+    probe("broadcast", lambda: dist.broadcast(x, 0))
+    probe("all_gather", lambda: dist.all_gather([torch.empty_like(x) for _ in range(world)], x))
+    probe("reduce_scatter", lambda: dist.reduce_scatter(
+        torch.empty(2, device="cuda"), list(torch.ones(2 * world, device="cuda").chunk(world))))
+
+
+def _torchrun(nproc: int, args: list, timeout: int) -> subprocess.CompletedProcess:
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), *args]
+    return subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+                          env={**os.environ, "PYTHONPATH": ROOT})
+
+
+def phase_refusals() -> None:
+    """What two ranks on the card's one device may do (PERF.md): NCCL's
+    group, and gloo's collectives on CUDA tensors, each accepted or refused
+    with the library's message."""
+    for kind in ("nccl", "gloo"):
+        try:
+            proc = _torchrun(2, [os.path.join(ROOT, "chip_smoke.py"), "--worker",
+                                 f"refusal-{kind}"], timeout=180)
+            text = proc.stdout + proc.stderr
+        except subprocess.TimeoutExpired as e:
+            text = f"TIMEOUT after 180 s: {(e.stdout or '')[-2000:]}"
+        lines = sorted({ln.strip() for ln in text.splitlines() if "RESULT" in ln
+                        or "TIMEOUT" in ln})
+        for ln in lines:
+            log(f"collective probe {kind}: {ln[ln.find('RESULT'):][:500]}")
+        if not lines:
+            fail(f"collective probe {kind}: no result recorded:\n{text[-3000:]}")
+
+
+def _dp_compare() -> tuple[dict, list]:
+    """One process's steps of DP_RUNS, then two ranks on the card (torchrun,
+    ``--worker dp``): (one process's rows by step, each rank's rows by run
+    name)."""
+    import torch
+
+    ref = _dp_steps([(step, step, "replicate", 1)
+                     for step in dict.fromkeys(r[1] for r in DP_RUNS)])
+    torch.cuda.empty_cache()
+    for r in range(2):
+        path = os.path.join(PARALLEL_DIR, f"rank{r}.json")
+        if os.path.exists(path):
+            os.remove(path)
+    proc = _torchrun(2, [os.path.join(ROOT, "chip_smoke.py"), "--worker", "dp"], timeout=900)
+    if proc.returncode != 0:
+        fail(f"parallel (b): the two ranks exited {proc.returncode}:\n"
+             f"{(proc.stdout + proc.stderr)[-6000:]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(PARALLEL_DIR, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ref, ranks
+
+
+def phase_parallel(train_rows: list) -> None:
+    """Parallel training on the one card (PERF.md, section 6):
+    (a) world size 1 over NCCL in this process, against phase train's rows,
+    the step in turns with the plain one, and cli.train under torchrun with
+    its checkpoint resumed by one process; (b) two processes over gloo
+    against one process; (c) the tensor-parallel attention sublayer's two
+    head shards (composable route, flash at 3 heads) against the whole
+    sublayer. The process group is gone when the phase ends."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from deepl_project_tpu_torch import get_config
+    from deepl_project_tpu_torch.losses import LossWeights
+    from deepl_project_tpu_torch.ops import attention as attn_mod
+    from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
+    from deepl_project_tpu_torch.parallel import all_reduce_mean_, initialize_multihost
+    from deepl_project_tpu_torch.parallel.collectives import BUCKET_NUMEL
+    from deepl_project_tpu_torch.training import Trainer, TrainerConfig
+    from deepl_project_tpu_torch.training.checkpoint import load_config
+    from deepl_project_tpu_torch.training.train_step import (compute_grads, global_norm,
+                                                             named_trainables, step_generator)
+
+    if dist.is_initialized():
+        fail("parallel: a process group exists before phase parallel (the single-process "
+             "phases must create none)")
+    os.makedirs(PARALLEL_DIR, exist_ok=True)
+    out_dir = os.path.join(ROOT, "outputs", "chip_smoke_parallel")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = get_config("large", 16, 32, norm_latents=True, attention_impl="auto_train")
+    weights = LossWeights(l1=1.0, lpips=1.0, kl=1e-8, vf=0.0, gan=0.0)
+    tc = TrainerConfig(batch_size=16, accum_steps=2, warmup_steps=2, num_epochs=1,
+                       steps_per_epoch=TRAIN_STEPS, log_every=1, save_every_epochs=10,
+                       output_dir=out_dir, weights=weights, seed=0)
+    plain = Trainer(cfg, tc, device="cuda")  # no process group yet: the plain step
+    store = os.path.join(PARALLEL_DIR, "store_ws1")
+    if os.path.exists(store):
+        os.remove(store)
+
+    # (a) World size 1 over NCCL, in process.
+    initialize_multihost(backend="nccl", device="cuda:0", init_method=f"file://{store}",
+                         rank=0, world_size=1)
+    trainer = Trainer(cfg, tc, device="cuda")
+    if trainer.mesh is None or trainer.placement.data_size != 1:
+        fail("parallel (a): the trainer built no mesh of one rank")
+    state = trainer.create_state()
+    data = _synthetic(16)
+    state, steps_s, peak, counts, other, fit_s = _fit_timed(trainer, state, data)
+    want = {k: 12 * TRAIN_STEPS for k in ("flash_attention_fwd", "flash_attention_bwd")}
+    if counts != want or other:
+        fail(f"parallel (a): flash launches {counts} (want {want}), others {other}")
+    check_norms(f"parallel (a): {TRAIN_STEPS} steps at world size 1", {})
+    PARALLEL_PATHS["parallel_ws1_fit"] = dict(counts)
+    # The run against phase train's (same seed, batches): reported, not
+    # held (the two fits part from step 1's grad norm, a cause not isolated:
+    # PERF.md section 7).
+    pairs = list(zip(train_rows, _history(out_dir), strict=True))
+    rel = {key: [f"{abs(b[key] - a[key]) / abs(a[key]):.2e}" for a, b in pairs]
+           for key in ("total", "grad_norm")}
+    log(f"parallel (a): world size 1 (NCCL) fit vs phase train's plain fit, same seed and "
+        f"batches, step by step: loss rel {rel['total']}, grad norm rel {rel['grad_norm']}")
+    # The check: the plain and the distributed compute_grads on the same
+    # weights, batch and noise (the plain one twice: its own spread).
+    batch = torch.as_tensor(next(data)).to("cuda")
+    got = {}
+    for label, placement in (("plain", None), ("plain again", None),
+                             ("distributed", trainer.placement)):
+        grads, m = compute_grads(state.model, batch, weights, trainer.lpips_params,
+                                 accum_steps=2, generator=step_generator(0, state.step, "cuda"),
+                                 placement=placement)
+        got[label] = (m["total"].item(), global_norm(grads).item())
+        del grads, m
+    (lp, gp), (lp2, gp2), (ld, gd) = got["plain"], got["plain again"], got["distributed"]
+    lr_, gr_ = abs(ld - lp) / abs(lp), abs(gd - gp) / gp
+    log(f"parallel (a): same weights and batch, world size 1 vs plain: loss {ld:.7f} / {lp:.7f} "
+        f"(rel {lr_:.2e}, bit-equal {ld == lp}; bound {PARALLEL_LOSS_RTOL}), grad norm "
+        f"{gd:.7f} / {gp:.7f} (rel {gr_:.2e}, bit-equal {gd == gp}; bound "
+        f"{PARALLEL_GRAD_NORM_RTOL}); plain twice: loss rel {abs(lp2 - lp) / abs(lp):.2e}, "
+        f"grad norm rel {abs(gp2 - gp) / gp:.2e}")
+    if lr_ > PARALLEL_LOSS_RTOL or gr_ > PARALLEL_GRAD_NORM_RTOL:
+        fail("parallel (a): the distributed step's loss or grad norm is off the plain one's")
+    step_ms = float(np.median(steps_s)) * 1e3
+    log(f"time parallel (a) train step at world size 1, batch 16 (2 x 8): {step_ms:.1f} ms "
+        f"(steps 2-{TRAIN_STEPS}: {[round(float(v) * 1e3, 1) for v in steps_s]}), peak "
+        f"{peak:.2f} GiB [{CARD}]")
+    # The plain and the distributed step on the same state, in turns.
+    turns = {"plain": [], "distributed": []}
+    for label in ("plain", "distributed", "distributed", "plain"):
+        fn = plain.step_fn if label == "plain" else trainer.step_fn
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(state, batch)
+        torch.cuda.synchronize()
+        turns[label].append((time.perf_counter() - t0) * 1e3)
+    grads = [torch.zeros_like(p) for _, p in named_trainables(state.model)]
+    ar_ms = cuda_time_ms(lambda: all_reduce_mean_(grads, trainer.placement.data_group), 3, 1)
+    numel = sum(g.numel() for g in grads)
+    log(f"time parallel (a) in turns (plain, distributed, distributed, plain): plain "
+        f"{[round(v, 1) for v in turns['plain']]} ms, distributed "
+        f"{[round(v, 1) for v in turns['distributed']]} ms a step; the gradient all-reduce "
+        f"alone ({numel} fp32 values, {math.ceil(numel / BUCKET_NUMEL)} buckets) "
+        f"{ar_ms:.2f} ms [{CARD}]")
+    del state, grads, batch, trainer, plain, data
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    # cli.train under torchrun (one process), resumed by a single process.
+    run_dir = os.path.join(ROOT, "outputs", "chip_smoke_torchrun")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    t0 = time.time()
+    proc = _torchrun(1, ["-m", "deepl_project_tpu_torch.cli.train", "--variant", "large",
+                         "--data", "synthetic", "--batch_size", "16", "--accum_steps", "2",
+                         "--num_epochs", "1", "--steps_per_epoch", "3", "--log_every", "1",
+                         "--warmup_steps", "2", "--save_every_epochs", "1",
+                         "--output_dir", run_dir], timeout=600)
+    if proc.returncode != 0:
+        fail(f"parallel (a): torchrun cli.train exited {proc.returncode}:\n"
+             f"{(proc.stdout + proc.stderr)[-4000:]}")
+    ckpt = os.path.join(run_dir, "checkpoints")
+    run_rows = _history(run_dir)
+    if [r["step"] for r in run_rows] != [1, 2, 3] or not np.isfinite(
+            [r["total"] for r in run_rows]).all():
+        fail(f"parallel (a): torchrun cli.train rows {run_rows}")
+    resumer = Trainer(load_config(ckpt).replace(attention_impl="auto_train"),
+                      TrainerConfig(batch_size=16, accum_steps=2, output_dir=run_dir,
+                                    weights=LossWeights(gan=0.0)), device="cuda")
+    if resumer.mesh is not None:
+        fail("parallel (a): the single-process resume built a mesh")
+    state, _ = resumer.maybe_resume(resumer.create_state())
+    if state.step != 3 or state.optimizer.count != 3:
+        fail(f"parallel (a): resumed step {state.step}, optimizer count "
+             f"{state.optimizer.count}; want 3 and 3")
+    log(f"parallel (a): torchrun --nproc_per_node 1 cli.train, 3 steps, losses "
+        f"{[round(r['total'], 5) for r in run_rows]}, checkpoint resumed by one process at "
+        f"step 3 with its optimizer ({time.time() - t0:.1f}s)")
+    del state, resumer
+    torch.cuda.empty_cache()
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+    # (b) Two processes on the one card over gloo against one process:
+    # data parallel (stage 1 and GAN), FSDP and tensor parallel (stage 1).
+    t0 = time.time()
+    ref, ranks = _dp_compare()
+    for name, step, mode, model in DP_RUNS:
+        a = ref[step]
+        for r, got in enumerate(ranks):
+            b = got[name]
+            lr = abs(b["total"] - a["total"]) / abs(a["total"])
+            gr = abs(b["grad_norm"] - a["grad_norm"]) / a["grad_norm"]
+            held = "not held in bf16, " if step == "gan" else ""
+            loss_bar = PARALLEL_ADAPTIVE_RTOL if step == "gan_fp32" else PARALLEL_LOSS_RTOL
+            log(f"parallel (b) {name} ({mode}, model {model}) rank {r}: {b['rows']} of "
+                f"{PARALLEL_BATCH} rows, {b['sharded']} tensors split, loss {b['total']:.6f} vs "
+                f"one process {a['total']:.6f} (rel {lr:.2e}, {held}bound {loss_bar}), "
+                f"grad norm {b['grad_norm']:.6f} vs {a['grad_norm']:.6f} (rel {gr:.2e}, {held}"
+                f"bound {PARALLEL_GRAD_NORM_RTOL}), the whole parameters bit-identical across ranks "
+                f"{b['params_bit_identical']} ({b['params_checked']} tensors), peak "
+                f"{b['peak_gib']:.2f} GiB (one process {a['peak_gib']:.2f}), first step, "
+                f"warm-up included, {b['ms']:.1f} ms (one process {a['ms']:.1f}), launches "
+                f"{b['launches']}, flash at {b['flash_heads']} heads [{CARD}]")
+            if step != "gan" and (lr > loss_bar or gr > PARALLEL_GRAD_NORM_RTOL):
+                fail(f"parallel (b) {name} rank {r}: loss or grad norm off the one process's")
+            if not b["params_bit_identical"]:
+                fail(f"parallel (b) {name}: the ranks' whole parameters differ after the update")
+            if (mode == "replicate") != (b["sharded"] == 0):
+                fail(f"parallel (b) {name}: {b['sharded']} tensors split under {mode}")
+            # Stage 2's 6 sublayers (3 heads a rank under tensor): forward, its
+            # recompute under remat, (GAN) the discriminator update's fresh
+            # forward; one backward.
+            want = ({} if step == "gan_fp32" else
+                    {"flash_attention_fwd": 12 if step == "stage1" else 18,
+                     "flash_attention_bwd": 6})
+            heads = [3] if mode == "tensor" else [6]
+            if ({k: v for k, v in b["launches"].items() if k.startswith("flash")} != want
+                    or b["flash_heads"] != (heads if want else [])
+                    or (step == "gan_fp32" and b["launches"])):
+                fail(f"parallel (b) {name} rank {r}: launches {b['launches']} at "
+                     f"{b['flash_heads']} heads; flash {want} at {heads}")
+            if step.startswith("gan"):
+                w_rel = abs(b["adaptive_gan_weight"] - a["adaptive_gan_weight"]) / a[
+                    "adaptive_gan_weight"]
+                d_rel = abs(b["disc_loss"] - a["disc_loss"]) / abs(a["disc_loss"])
+                log(f"parallel (b) {name} rank {r}: adaptive weight {b['adaptive_gan_weight']:.5f} "
+                    f"vs {a['adaptive_gan_weight']:.5f} (rel {w_rel:.2e}, bound "
+                    f"{PARALLEL_ADAPTIVE_RTOL}; clamp {PARALLEL_GAN_ADAPTIVE_MAX:g}), disc loss "
+                    f"{b['disc_loss']:.6f} vs {a['disc_loss']:.6f} (rel {d_rel:.2e}, bound "
+                    f"{PARALLEL_LOSS_RTOL}), floor {PARALLEL_GAN_FLOOR} decision "
+                    f"{b['disc_update_scale']} vs {a['disc_update_scale']}")
+                if (w_rel > PARALLEL_ADAPTIVE_RTOL or d_rel > PARALLEL_LOSS_RTOL
+                        or a["adaptive_gan_weight"] >= PARALLEL_GAN_ADAPTIVE_MAX
+                        or b["disc_update_scale"] != a["disc_update_scale"]):
+                    fail(f"parallel (b) {name}: the adaptive weight, the disc loss or the "
+                         "floor decision differs (or the weight sits at its clamp)")
+            if b["launches"]:
+                PARALLEL_PATHS[f"parallel_gloo_rank{r}_{name}"] = b["launches"]
+    log(f"parallel (b): two processes over gloo took {time.time() - t0:.1f}s")
+    shutil.rmtree(os.path.join(ROOT, "outputs", "chip_smoke_parallel_b"), ignore_errors=True)
+
+    # (c) The tensor-parallel attention sublayer at stage 2 (C=384, 6 heads),
+    # its two head shards of model=2 in one process, against the whole one.
+    from deepl_project_tpu_torch.ops.attention import AttentionRoPE
+
+    b, n, h = FLASH_LOCAL_HEADS
+    c = 2 * h * 64
+    full = AttentionRoPE(c, 64, impl="auto", device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    with torch.no_grad():
+        for name, p in full.named_parameters():
+            scale = 1.0 if name.startswith("norm") and name.endswith("weight") else 0.0
+            p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * 0.05 + scale)
+    side = int(n ** 0.5)
+    x = torch.randn(b, c, side, side, generator=gen, device="cuda").to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    xf = x.permute(0, 2, 3, 1).reshape(b, n, c)
+    shards = []
+    for r in range(2):
+        s = AttentionRoPE(c, 64, impl="auto", device="cuda")
+        s.load_state_dict(full.state_dict())
+        rows = slice(r * c // 2, (r + 1) * c // 2)
+        with torch.no_grad():
+            for lin in (s.to_q, s.to_k, s.to_v):
+                lin.weight = torch.nn.Parameter(lin.weight[rows].clone())
+            s.proj.weight = torch.nn.Parameter(s.proj.weight[:, rows].clone())
+        shards.append(s)
+    reset_launches()
+    attn_mod.reset_route_counts()
+    with torch.no_grad():
+        got = sum(s.partial_heads(xf, side, side) for s in shards) + full.proj.bias.to(x.dtype)
+        torch.cuda.synchronize()
+        launches, by_shape = launches_by_name(), fla.launch_counts_by_shape()
+        routes = attn_mod.route_counts()
+        full.impl = "pallas"  # the whole sublayer on the composable route, flash core
+        want_out = full(x).permute(0, 2, 3, 1).reshape(b, n, c)
+    err = (got.float() - want_out.float()).abs().max().item()
+    top = want_out.float().abs().max().item()
+    log(f"parallel (c): two head shards (3 of 6 heads each) of the stage-2 sublayer at "
+        f"(B, N, C)=({b}, {n}, {c}), summed, vs the whole sublayer: max_abs_err {err:.3e} "
+        f"(rel {err / top:.3e}, bound {KERNEL_RTOL:.3e}); routes {routes}, launches "
+        f"{launches}, by shape {by_shape}")
+    if routes != {"local_heads": 2} or by_shape != {("flash_attention_fwd", n, h): 2}:
+        fail(f"parallel (c): routes {routes}, flash launches by shape {by_shape}; want two "
+             "local_heads routes and two flash forwards at 3 heads")
+    if not err <= KERNEL_RTOL * top:
+        fail("parallel (c): the head shards' sum differs from the whole sublayer")
+    PARALLEL_PATHS["parallel_tensor_local_heads"] = launches
+    # The flash kernels at the local heads (checked in phase kernels), timed
+    # beside the 6-head call, their plain versions, SDPA and their bounds.
+    import torch.nn.functional as F
+
+    scale = 64 ** -0.5
+    for shape in (FLASH_LOCAL_HEADS, FLASH_TRAIN):
+        q, k, v, do = (torch.randn(*shape, 64, generator=gen, device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        o, lse = fla.flash_forward(q, k, v, scale)
+        ms = [cuda_time_ms(lambda: fla.flash_forward(q, k, v, scale), 10),
+              cuda_time_ms(lambda: fla.flash_backward(q, k, v, o, lse, do, scale), 10)]
+        plain = [cuda_time_ms(lambda: fla.flash_forward_reference(q, k, v, scale), 3),
+                 cuda_time_ms(lambda: fla.flash_backward_reference(q, k, v, o, lse, do, scale),
+                              3)]
+        hq = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*hq)
+        library = [cuda_time_ms(lambda: F.scaled_dot_product_attention(*hq), 10),
+                   cuda_time_ms(lambda: torch.autograd.grad(out, hq, do.transpose(1, 2),
+                                                            retain_graph=True), 10)]
+        bounds = [max(f / PEAK_BF16_FLOPS, nb / PEAK_HBM_BYTES) * 1e3
+                  for f, nb in (flash_bound(nm, *shape) for nm in ("flash_attention_fwd",
+                                                                    "flash_attention_bwd"))]
+        for i, name in enumerate(("forward", "backward")):
+            log(f"time parallel (c) flash {name} at (B, N, h)={shape}: kernel {ms[i]:.4f} ms, "
+                f"plain {plain[i]:.4f} ms, SDPA {library[i]:.4f} ms, bound {bounds[i]:.4f} ms "
+                f"[{CARD}]")
+        del q, k, v, do, o, lse, hq, out
+
+
 def main():
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernels,grad,train,data,dit,gan,recipe,remat,serve,time,"
-                            "eval,quant")
+                            "eval,quant,parallel")
+    ap.add_argument("--worker", choices=["dp", "refusal-nccl", "refusal-gloo"],
+                    help="run as a rank of phase parallel (started by torchrun)")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--baseline", metavar="DIR", nargs="+", default=[],
                     help="checkouts whose wgmma kernels (WGMMA_KERNELS) are timed "
                          "beside this tree's (phase kernels)")
     args = ap.parse_args()
+    if args.worker:
+        sys.path.insert(0, ROOT)
+        if args.worker == "dp":
+            dp_worker()
+        else:
+            refusal_worker(args.worker.split("-")[1])
+        return
     phases = set(args.phases.split(","))
     # make_vf_teacher looks for DINOv2 weights on this machine only.
     os.environ.setdefault("HF_HUB_OFFLINE", "1")
@@ -3185,14 +3746,14 @@ def main():
     if "grad" in phases:
         with phase_clock("grad"):
             phase_grad()
-    train_counts, stage1_ckpt = {}, None
-    for later in ("gan", "remat"):
+    train_counts, stage1_ckpt, train_info = {}, None, {}
+    for later in ("gan", "remat", "parallel"):
         if later in phases and "train" not in phases:
-            fail(f"phase {later} reads phase train's stage-1 checkpoint: run both")
+            fail(f"phase {later} reads phase train's checkpoint or rows: run both")
     if "train" in phases:
         with phase_clock("train"):
-            train_counts, _, stage1_ckpt = phase_train(args.profile,
-                                                       bool(phases & {"gan", "remat"}))
+            train_counts, train_info, stage1_ckpt = phase_train(
+                args.profile, bool(phases & {"gan", "remat"}))
 
     def add(more):
         return {k: train_counts.get(k, 0) + more.get(k, 0)
@@ -3236,6 +3797,16 @@ def main():
         if "quant" in phases:
             with phase_clock("quant"):
                 phase_quant(model, args.profile)
+        del model
+        torch.cuda.empty_cache()
+    # The single-process phases above create no process group; phase
+    # parallel makes its own and ends it.
+    if "parallel" in phases:
+        with phase_clock("parallel"):
+            phase_parallel(train_info["rows"])
+    if "refusals" in phases:
+        with phase_clock("refusals"):
+            phase_refusals()
 
     if results:
         want = launches_per_reconstruct()[0] if counts else {}
@@ -3374,10 +3945,11 @@ def main():
                 row["group_norm_silu_by_shape"] = {
                     str(k[1:]): r for k, r in results.items() if k[0] == "group_norm_silu"}
             kernels.append(row)
-        # Phase dit's paths, each driven with the counts set to 0 just before.
+        # Phase dit's and phase parallel's paths, each driven with the counts
+        # set to 0 just before.
         for row in kernels:
             row.setdefault("launches_by_path", {}).update(
-                {p: c.get(row["name"], 0) for p, c in DIT_PATHS.items()})
+                {p: c.get(row["name"], 0) for p, c in {**DIT_PATHS, **PARALLEL_PATHS}.items()})
         print(json.dumps({"kernels": kernels}), flush=True)
     log(f"all phases passed in {time.time() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,20 @@ Usage:
       --freeze_encoder --gan_weight 0.05 --gan_r1_gamma 10 --ema_decay 0.999 \
       --batch_size 8 --output_dir out/
 
+Data-, FSDP- and tensor-parallel training runs under torchrun, one process
+a rank (NCCL between CUDA devices, gloo with ``--device cpu``): the ranks
+form a (data, 1, --mesh_model) mesh and --param_sharding places the
+parameters (replicate | fsdp | tensor), as in the JAX CLI; --batch_size is
+the global batch, and each rank decodes only its rows of it (hf:
+sources read their ``ds.shard`` of the data coordinate instead):
+
+  python -m torch.distributed.run --nproc_per_node 4 \
+      -m deepl_project_tpu_torch.cli.train --variant huge --mesh_model 2 \
+      --param_sharding fsdp --batch_size 16 ...
+
+TensorBoard, history.jsonl, run_args.json and the checkpoints are written
+by rank 0. --mesh_model > 1 outside torchrun exits non-zero.
+
 ``--device cpu`` runs the plain PyTorch path. As in the JAX CLI, the yaml's
 ``training.gradient_checkpointing`` is not read: pass
 --gradient_checkpointing. It checkpoints under remat policy 'none' where the
@@ -28,8 +42,7 @@ JAX CLI keeps 'dots' (``CLI_REMAT_POLICY``). A path's images decode on
 ``--num_workers`` threads (-1: min(cpu_count, 16)) and repeat over epochs;
 with --eval_every_steps the validation batches are the source's first
 batches (for a folder, the first training images: the JAX CLI's choice).
-Flags of what is not ported yet exit non-zero with "not yet ported":
---scan_blocks, --mesh_model > 1 and --param_sharding other than replicate.
+--scan_blocks is not ported yet: it exits non-zero with "not yet ported".
 """
 
 from __future__ import annotations
@@ -40,11 +53,13 @@ import os
 import sys
 
 from ..config import get_config
-from ..data import batch_iterator, input_pipeline, make_dataset
+from ..data import batch_iterator, input_pipeline, make_dataset, row_filter
 from ..losses import LossWeights
 from ..losses.teachers import make_vf_teacher
 from ..models.transvae import resolve_device
+from ..parallel import host_shard_info, initialize_multihost, under_torchrun
 from ..training.trainer import Trainer, TrainerConfig
+from ..utils.logging import is_primary
 
 # The remat policy --gradient_checkpointing selects. The JAX CLI leaves the
 # config's 'dots'; on an H100 'none' (each block's input kept, the rest
@@ -133,10 +148,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_keep_best", action="store_true")
     p.add_argument("--dino_model", default="facebook/dinov2-base")
     p.add_argument("--log_every", type=int, default=100)
-    p.add_argument("--mesh_model", type=int, default=1, help="> 1 is not yet ported")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="model-parallel axis size (under torchrun)")
     p.add_argument("--param_sharding", default="replicate",
-                   choices=["replicate", "fsdp", "tensor"],
-                   help="only 'replicate' is ported")
+                   choices=["replicate", "fsdp", "tensor"])
     return p
 
 
@@ -179,12 +194,7 @@ def source_kwargs(data: str, num_workers: int) -> dict:
 
 def unported_flags(args: argparse.Namespace) -> list[str]:
     """The flags set to what the port cannot do yet."""
-    bad = [flag for flag, on in (
-        ("--scan_blocks", args.scan_blocks),
-        ("--mesh_model > 1", args.mesh_model > 1),
-        (f"--param_sharding {args.param_sharding}", args.param_sharding != "replicate"),
-    ) if on]
-    return bad
+    return ["--scan_blocks"] if args.scan_blocks else []
 
 
 def main(argv=None):
@@ -194,17 +204,25 @@ def main(argv=None):
     bad = unported_flags(args)
     if bad:
         sys.exit(f"not yet ported to deepl_project_tpu_torch: {', '.join(bad)}")
+    if args.mesh_model > 1 and not under_torchrun():
+        sys.exit(f"--mesh_model {args.mesh_model} needs a model group of that many ranks: "
+                 "launch under torchrun (python -m torch.distributed.run)")
+    # Under torchrun: the process group, and this rank's device.
+    device = (initialize_multihost(device=args.device)["device"] if under_torchrun()
+              else resolve_device(args.device))
 
-    # Provenance: the resolved flags of every invocation, never overwritten.
+    # Provenance: the resolved flags of every invocation, never overwritten
+    # (rank 0's).
     os.makedirs(args.output_dir, exist_ok=True)
-    prov = os.path.join(args.output_dir, "run_args.json")
-    n = 1
-    while os.path.exists(prov):
-        prov = os.path.join(args.output_dir, f"run_args.{n}.json")
-        n += 1
-    with open(prov, "w") as f:
-        json.dump({"argv": sys.argv[1:] if argv is None else list(argv),
-                   "args": vars(args)}, f, indent=1)
+    if is_primary():
+        prov = os.path.join(args.output_dir, "run_args.json")
+        n = 1
+        while os.path.exists(prov):
+            prov = os.path.join(args.output_dir, f"run_args.{n}.json")
+            n += 1
+        with open(prov, "w") as f:
+            json.dump({"argv": sys.argv[1:] if argv is None else list(argv),
+                       "args": vars(args)}, f, indent=1)
 
     model_cfg = get_config(args.variant, args.compression_ratio, args.latent_dim,
                            remat=args.gradient_checkpointing,
@@ -234,10 +252,10 @@ def main(argv=None):
         lr_schedule=args.lr_schedule,
         skip_data_on_resume=args.skip_data_on_resume,
         divergence_halt_db=args.divergence_halt_db,
-        divergence_patience=args.divergence_patience)
+        divergence_patience=args.divergence_patience,
+        mesh_model=args.mesh_model, param_sharding=args.param_sharding)
     # The VF teacher (the yaml's stage-1 recipe sets vf 0.1): DINOv2 where its
     # weights are on this machine, else the deterministic stub.
-    device = resolve_device(args.device)
     teacher_fn = make_vf_teacher(args.dino_model, device=device) if args.vf_weight > 0 else None
     trainer = Trainer(model_cfg, train_cfg, teacher_fn=teacher_fn, device=device)
 
@@ -251,9 +269,17 @@ def main(argv=None):
         val_src = make_dataset(args.data, **val_kw)
         val_batches = [b for _, b in zip(range(args.val_batches),
                                          batch_iterator(val_src, args.batch_size))]
-    source = make_dataset(args.data, resolution=args.resolution,
-                          **source_kwargs(args.data, args.num_workers))
-    data = input_pipeline(source, args.batch_size, trainer.device)
+    # Under a mesh each data rank reads its rows of every global batch (hf:
+    # its ds.shard), model-axis peers the same rows.
+    index, shards = host_shard_info(trainer.mesh)
+    kw = source_kwargs(args.data, args.num_workers)
+    if shards > 1 and args.data.startswith("hf:"):
+        kw.update(shard_index=index, num_shards=shards)
+    elif shards > 1:
+        accum = 1 if trainer.use_gan else args.accum_steps
+        kw["keep"] = row_filter(args.batch_size, accum, index, shards)
+    source = make_dataset(args.data, resolution=args.resolution, **kw)
+    data = input_pipeline(source, args.batch_size // shards, trainer.device)
     trainer.fit(data, val_batches=val_batches)
 
 

@@ -12,6 +12,12 @@ of HWC float32 [0, 1] numpy images, or of ``(image, label)`` pairs with
 - ``hf:<name>``: a Hugging Face streaming split, sharded, then shuffled in a
   buffer (needs the ``datasets`` package and the hub).
 
+``keep`` (a predicate on a sample's 0-based position in the stream,
+``pipeline.row_filter``) keeps one data rank's rows of every global batch:
+the synthetic sources draw every sample and yield the kept ones; the folder
+and COCO sources drop the others before decoding them (a file that turns
+out unreadable then leaves its row to the rank's next file).
+
 Files decode with the native C++ decoder (``native_loader``) where it
 builds, else with PIL, as the JAX package chooses; unreadable files are
 skipped. Where neither decoder is present the folder and COCO sources
@@ -147,10 +153,15 @@ def folder_class_index(root: str) -> dict[str, int]:
     return {c: i for i, c in enumerate(classes)}
 
 
+def _kept(files: list, keep, start: int) -> list:
+    return files if keep is None else [f for k, f in enumerate(files, start) if keep(k)]
+
+
 def image_folder_dataset(root: str, resolution: int = 256, shuffle: bool = True,
                          seed: int = 42, shard_index: int | None = None,
                          num_shards: int | None = None, repeat: bool = False,
-                         with_labels: bool = False, num_workers: int = 0) -> Iterator:
+                         with_labels: bool = False, num_workers: int = 0,
+                         keep=None) -> Iterator:
     """Images under ``root`` (recursive). With ``with_labels`` each item is
     ``(image, label)``, label the index of its top-level class directory
     (-1 for an image not under one). Each epoch's order is the sorted list
@@ -173,8 +184,8 @@ def image_folder_dataset(root: str, resolution: int = 256, shuffle: bool = True,
         order = list(files)
         if shuffle:
             random.Random(seed + epoch).shuffle(order)
-        yield from _iter_decoded(order, resolution, num_workers,
-                                 label_of if with_labels else None)
+        yield from _iter_decoded(_kept(order, keep, epoch * len(files)), resolution,
+                                 num_workers, label_of if with_labels else None)
         epoch += 1
         if not repeat:
             return
@@ -183,7 +194,7 @@ def image_folder_dataset(root: str, resolution: int = 256, shuffle: bool = True,
 def coco_dataset(root: str, resolution: int = 256, split: str = "train2017",
                  max_samples: int | None = None, shard_index: int | None = None,
                  num_shards: int | None = None, num_workers: int = 0,
-                 repeat: bool = False) -> Iterator[np.ndarray]:
+                 repeat: bool = False, keep=None) -> Iterator[np.ndarray]:
     """COCO images of ``split``, in the annotation file's order (or sorted
     by name without it); no shuffle."""
     ann_path = os.path.join(root, "annotations", f"instances_{split}.json")
@@ -199,8 +210,11 @@ def coco_dataset(root: str, resolution: int = 256, split: str = "train2017",
         names = names[(shard_index or 0)::num_shards]
     files = [os.path.join(img_dir, name) for name in names]
     _require_decoder()
+    epoch = 0
     while True:
-        yield from _iter_decoded(files, resolution, num_workers)
+        yield from _iter_decoded(_kept(files, keep, epoch * len(files)), resolution,
+                                 num_workers)
+        epoch += 1
         if not repeat:
             return
 
@@ -265,11 +279,17 @@ def make_dataset(source: str, resolution: int = 256, with_labels: bool = False,
     if source in ("synthetic", "shapes"):
         for key in ("shard_index", "num_shards", "num_workers"):
             kw.pop(key, None)
+        keep = kw.pop("keep", None)
         fn = synthetic_dataset if source == "synthetic" else synthetic_shapes_dataset
         it = fn(resolution, **kw)
+        if keep is not None:
+            it = (x for k, x in enumerate(it) if keep(k))
         return _with_dummy_labels(it) if with_labels else it
     if source.startswith("hf:"):
         kw.pop("repeat", None)
+        if kw.pop("keep", None) is not None:
+            raise ValueError("an hf: source splits by ds.shard (shard_index, num_shards), "
+                             "not by rows")
         return hf_streaming_dataset(source[3:], resolution=resolution,
                                     with_labels=with_labels, **kw)
     if os.path.isdir(os.path.join(source, "annotations")):

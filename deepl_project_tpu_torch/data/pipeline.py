@@ -21,6 +21,18 @@ import torch
 from .datasets import _pipelined_map
 
 
+def row_filter(batch_size: int, accum_steps: int, index: int, size: int
+               ) -> Callable[[int], bool]:
+    """The predicate on a sample's 0-based position in a stream of global
+    batches that keeps data coordinate ``index`` of ``size``'s rows
+    (``parallel.batch_rows``: its block of each microbatch), in order: a
+    source filtered by it yields that rank's batches of batch_size / size."""
+    from ..parallel.mesh import batch_rows
+
+    rows = set(batch_rows(batch_size, index, size, accum_steps).tolist())
+    return lambda k: k % batch_size in rows
+
+
 def batch_iterator(sample_iter: Iterator, batch_size: int, drop_last: bool = True,
                    num_workers: int = 0,
                    sample_fn: Callable[[Any], Any] | None = None) -> Iterator:

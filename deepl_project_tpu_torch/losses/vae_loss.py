@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.collectives import global_mean
 from .lpips import lpips as lpips_distance
 
 
@@ -49,11 +50,13 @@ def kl_divergence(mu: torch.Tensor, logvar: torch.Tensor,
 
 def vf_loss(latent: torch.Tensor, dino_features: torch.Tensor,
             proj_kernel: torch.Tensor, proj_bias: torch.Tensor,
-            margin: float = 0.4) -> torch.Tensor:
+            margin: float = 0.4, data_group=None) -> torch.Tensor:
     """Visual-feature alignment: latent [B, D, h, w] against the teacher's
     map [B, C, hd, wd]; the latent is resized (bilinear) to the teacher's
     grid and projected D -> C by ``proj_kernel`` [D, C] and ``proj_bias``
-    when the widths differ; hinge on the mean cosine similarity."""
+    when the widths differ; hinge on the mean cosine similarity. With
+    ``data_group`` (data parallelism) the mean is over the whole batch,
+    every rank's rows, before the hinge (``collectives.global_mean``)."""
     lat = latent.float()
     d, cd = lat.shape[1], dino_features.shape[1]
     if lat.shape[2:] != dino_features.shape[2:]:
@@ -66,6 +69,8 @@ def vf_loss(latent: torch.Tensor, dino_features: torch.Tensor,
     din = dino_features.float().permute(0, 2, 3, 1)
     din_n = din / (din.norm(dim=-1, keepdim=True) + 1e-8)
     similarity = (lat_n * din_n).sum(dim=-1).mean()
+    if data_group is not None:
+        similarity = global_mean(similarity, data_group)
     return torch.clamp(margin - similarity, min=0.0)
 
 
@@ -137,10 +142,13 @@ def transvae_loss(
     vf_proj: tuple[torch.Tensor, torch.Tensor] | None = None,
     dino_features: torch.Tensor | None = None,
     disc_apply: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    data_group=None,
 ) -> dict[str, torch.Tensor]:
     """Combined weighted loss: a dict of per-term values and 'total', all
     fp32. ``perceptual_fn`` (images in [0, 1] -> [B] distances) replaces the
-    VGG-LPIPS term when given."""
+    VGG-LPIPS term when given. ``data_group``: the VF hinge reads the whole
+    batch's similarity (the other terms are means of this rank's rows, which
+    the gradient all-reduce averages)."""
     zero = torch.zeros((), device=recon_logits.device)
     losses: dict[str, torch.Tensor] = {}
 
@@ -163,7 +171,8 @@ def transvae_loss(
                     if weights.kl > 0 else zero)
 
     if weights.vf > 0 and dino_features is not None and vf_proj is not None:
-        losses["vf"] = vf_loss(mu, dino_features, *vf_proj) * weights.vf
+        losses["vf"] = vf_loss(mu, dino_features, *vf_proj,
+                               data_group=data_group) * weights.vf
     else:
         losses["vf"] = zero
 

@@ -73,31 +73,41 @@ class TransVAE(nn.Module):
 
     def reparameterize(self, mu: torch.Tensor, logvar: torch.Tensor,
                        generator: torch.Generator | None = None,
-                       eps: torch.Tensor | None = None) -> torch.Tensor:
+                       eps: torch.Tensor | None = None,
+                       noise_rows: tuple[int, int] | None = None) -> torch.Tensor:
         """z = mu + eps * exp(0.5 * logvar) in fp32 with logvar clamped, cast
         back to mu's dtype. ``eps`` is standard normal noise drawn from
         ``generator`` unless given; the JAX package draws it from its
         'sample' RNG stream, and the two generators never give the same
-        numbers, so a test hands both the same ``eps``."""
+        numbers, so a test hands both the same ``eps``. ``noise_rows``
+        (first, total): the draw is the whole batch's, ``total`` rows, of
+        which rows first.. are this batch's (data parallelism: every rank
+        draws what a single process would and keeps its own rows)."""
         lo, hi = self.config.logvar_clip
         mu32 = mu.float()
         std = torch.exp(0.5 * logvar.float().clamp(lo, hi))
         if eps is None:
-            eps = torch.randn(std.shape, generator=generator, device=std.device,
+            shape = std.shape if noise_rows is None else (noise_rows[1], *std.shape[1:])
+            eps = torch.randn(shape, generator=generator, device=std.device,
                               dtype=torch.float32)
+            if noise_rows is not None:
+                eps = eps[noise_rows[0]:noise_rows[0] + std.shape[0]]
         return (mu32 + eps * std).to(mu.dtype)
 
     def forward(self, x: torch.Tensor, sample: bool = False,
-                generator: torch.Generator | None = None, deterministic: bool = True):
+                generator: torch.Generator | None = None, deterministic: bool = True,
+                noise_rows: tuple[int, int] | None = None):
         """(reconstruction logits, mu, logvar) with mu and logvar clamped;
         decodes the clamped mean, or with ``sample=True`` a sample of the
-        posterior drawn with ``generator``. ``deterministic=False`` turns
-        the config's dropout on."""
+        posterior drawn with ``generator`` (``noise_rows``: see
+        :meth:`reparameterize`). ``deterministic=False`` turns the config's
+        dropout on."""
         cfg = self.config
         mu, logvar = self.encode(x, deterministic)
         mu = mu.clamp(-cfg.mu_clip, cfg.mu_clip)
         logvar = logvar.clamp(*cfg.logvar_clip)
-        z = self.reparameterize(mu, logvar, generator) if sample else mu
+        z = (self.reparameterize(mu, logvar, generator, noise_rows=noise_rows)
+             if sample else mu)
         return self.decode(z, deterministic), mu, logvar
 
 

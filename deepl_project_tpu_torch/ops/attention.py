@@ -17,7 +17,15 @@ Sublayer dispatch (``AttentionRoPE``), as in the JAX module:
   package also leaves it to XLA);
 - every other case (``auto_train``, ``xla``, ``pallas``, other head widths,
   float32): the composable path -- plain LayerNorms and linears,
-  ``apply_rope2d``, :func:`core_attention`, the projection.
+  ``apply_rope2d``, :func:`core_attention`, the projection;
+- under tensor parallelism (``model_group`` set by
+  ``parallel.shard_params``): the composable path on this rank's heads
+  (``to_q/to_k/to_v`` C -> C/m, the projection C/m -> C with its partial
+  products summed over the group), whatever ``impl``: the sublayer kernels
+  are square, and their gates (``width``) refuse a local width.
+
+:func:`route_counts` counts each forward's route by name ('sublayer',
+``'ln_qkv_rope'``, ``'composable'``, ``'local_heads'``).
 
 :func:`core_attention` picks the core by token count as ``core_attention``
 in the JAX package does, with the flash kernels
@@ -28,6 +36,7 @@ its ``pallas_small`` band.
 
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
@@ -40,9 +49,21 @@ from .hopper.fused_attention_block import (fused_attention_sublayer,
                                            pack_proj, pack_qkv,
                                            sublayer_supported)
 from .hopper.small_attention import small_attention
+from ..parallel.collectives import copy_to_group, reduce_from_group
 from .layers import CachedOperands, Linear, matmul_f32
 from .norms import LayerNorm
 from .rope import apply_rope2d
+
+# Route name -> AttentionRoPE forwards since the last reset.
+_ROUTES: collections.Counter = collections.Counter()
+
+
+def reset_route_counts() -> None:
+    _ROUTES.clear()
+
+
+def route_counts() -> dict[str, int]:
+    return dict(_ROUTES)
 
 IMPLS = ("auto", "auto_train", "xla", "xla_chunked", "pallas", "pallas_small")
 
@@ -149,6 +170,9 @@ class AttentionRoPE(CachedOperands, nn.Module):
         self.to_k = Linear(dim, dim, bias=False, **kw)
         self.to_v = Linear(dim, dim, bias=False, **kw)
         self.proj = Linear(dim, dim, bias=True, **kw)
+        # The model group of tensor parallelism (parallel.shard_params):
+        # to_q/to_k/to_v and proj then hold this rank's heads.
+        self.model_group = None
 
     def _qkv_args(self):
         ln = tuple((m.weight, m.bias) for m in (self.norm_q, self.norm_k, self.norm_v))
@@ -173,23 +197,31 @@ class AttentionRoPE(CachedOperands, nn.Module):
         nh = c // hd
         xf = x.permute(0, 2, 3, 1).reshape(b, n, c)
         # The sublayer kernels serve inference ('auto'); training and the
-        # explicit cores keep the composable path, as in the JAX module.
+        # explicit cores keep the composable path, as in the JAX module. The
+        # kernels are square: a tensor-parallel head shard (q/k/v width C/m)
+        # fails their gates and takes the local-heads route.
         kernels = self.impl == "auto" and (self.dropout == 0.0 or deterministic)
-        if kernels and sublayer_supported(n, c, hd, x.dtype):
+        width = self.to_q.weight.shape[0]
+        if kernels and sublayer_supported(n, c, hd, x.dtype, width):
+            _ROUTES["sublayer"] += 1
             ln, wq, wk, wv = self._qkv_args()
             out = fused_attention_sublayer(
                 xf, ln, wq, wk, wv, self.proj.weight, self.proj.bias, h, w,
                 self.rope_pairing, hd, self.use_rope,
                 packed=self._packed_qkv() if x.is_cuda else None,
                 packed_proj=self._packed_proj() if x.is_cuda else None)
+        elif self.model_group is not None:
+            out = self._local_heads(xf, h, w, deterministic)
         else:
-            if kernels and kernel_supported(n, c, hd, x.dtype):
+            if kernels and kernel_supported(n, c, hd, x.dtype, width):
+                _ROUTES["ln_qkv_rope"] += 1
                 q, k, v = ln_qkv_rope(
                     xf, *self._qkv_args(), h, w, self.rope_pairing, hd,
                     self.use_rope,
                     packed=self._packed_qkv() if x.is_cuda else None)
                 q, k, v = (t.reshape(b, n, nh, hd) for t in (q, k, v))
             else:
+                _ROUTES["composable"] += 1
                 q = self.to_q(self.norm_q(xf)).reshape(b, n, nh, hd)
                 k = self.to_k(self.norm_k(xf)).reshape(b, n, nh, hd)
                 v = self.to_v(self.norm_v(xf)).reshape(b, n, nh, hd)
@@ -201,3 +233,29 @@ class AttentionRoPE(CachedOperands, nn.Module):
             if self.dropout > 0.0 and not deterministic:
                 out = F.dropout(out, self.dropout)
         return out.reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+    def partial_heads(self, xf: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        """This rank's heads of the sublayer on tokens ``xf`` [B, N, C]:
+        LayerNorms, the local q/k/v (C -> C/m), RoPE, the core on the local
+        heads and the local projection (C/m -> C, no bias); summed over the
+        model group this is the sublayer's output less the projection's
+        bias. The composable route (the core takes its kernels by token
+        count)."""
+        b, n, c = xf.shape
+        hd, group = self.head_dim, self.model_group
+        width = self.to_q.weight.shape[0]
+        _ROUTES["local_heads"] += 1
+        q, k, v = (lin(copy_to_group(norm(xf), group)).reshape(b, n, width // hd, hd)
+                   for lin, norm in ((self.to_q, self.norm_q), (self.to_k, self.norm_k),
+                                     (self.to_v, self.norm_v)))
+        if self.use_rope:
+            q = apply_rope2d(q, h, w, self.rope_pairing)
+            k = apply_rope2d(k, h, w, self.rope_pairing)
+        out = core_attention(q, k, v, hd ** -0.5, self.impl)
+        return F.linear(out.reshape(b, n, width), self.proj.weight.to(xf.dtype))
+
+    def _local_heads(self, xf, h, w, deterministic):
+        if self.dropout > 0.0 and not deterministic:
+            raise NotImplementedError("dropout under tensor parallelism is not ported")
+        out = reduce_from_group(self.partial_heads(xf, h, w), self.model_group)
+        return out + self.proj.bias.to(xf.dtype)

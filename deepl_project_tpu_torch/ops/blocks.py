@@ -13,6 +13,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from ..parallel.collectives import copy_to_group, gather_from_group
 from .attention import AttentionRoPE
 from .ffn import ConvFFN, StandardFFN
 from .layers import Conv2d
@@ -81,7 +82,12 @@ class ResBlock(nn.Module):
     SiLU stay float. ``calibrate``: record the absmax of each conv's input
     (sites ``amax_h1``, ``amax_h2``, ``amax_x``) in ``self.amax``.
     Each GroupNorm -> SiLU goes through ``norms.group_norm_silu``, which
-    takes the fused kernels where their gate holds (no-grad CUDA bf16)."""
+    takes the fused kernels where their gate holds (no-grad CUDA bf16).
+
+    Under tensor parallelism (``model_group`` set by
+    ``parallel.shard_params``) ``conv1`` holds this rank's output channels
+    and its map is gathered whole (channels_last) before ``norm2``, which
+    with SiLU and ``conv2`` runs replicated."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  use_conv_shortcut: bool = False, *, quant: str | None = None,
@@ -102,12 +108,20 @@ class ResBlock(nn.Module):
         self.shortcut = None
         if in_channels != out_channels:
             self.shortcut = conv(in_channels, out_channels, 3 if use_conv_shortcut else 1)
+        self.model_group = None
+
+    def _conv1(self, h: torch.Tensor) -> torch.Tensor:
+        if self.model_group is None:
+            return self.conv1(h)
+        part = self.conv1(copy_to_group(h, self.model_group))
+        return gather_from_group(part, 1, self.model_group).contiguous(
+            memory_format=torch.channels_last)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = group_norm_silu(self.norm1, x)
         if self.calibrate:
             record_amax(self, "amax_h1", h)
-        h = group_norm_silu(self.norm2, self.conv1(h))
+        h = group_norm_silu(self.norm2, self._conv1(h))
         if self.calibrate:
             record_amax(self, "amax_h2", h)
         h = self.conv2(h)

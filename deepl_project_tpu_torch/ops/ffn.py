@@ -23,6 +23,14 @@ a call with ``deterministic=False``, as in the JAX modules.
 ``quant='int8'`` (full conv type) builds the int8 serving form of the folded
 op order (``_int8_forward``): int8 buffers instead of parameters, from
 ``quantize.quantize_model`` or a JAX-quantized tree.
+
+Under tensor parallelism (``model_group`` set by ``parallel.shard_params``)
+``proj_in``, ``conv_0`` (``conv.0``) and ``conv_2`` (``conv.4``) hold this
+rank's output channels and ``proj_out`` its input channels, and the
+unfolded op order runs (``_tensor_forward``): the fold's [W0 | Wout] head
+would read the whole y for W0 and this rank's slice for Wout. conv_0 reads
+the gathered y, the 3x3 conv (replicated) the gathered z, and proj_out's
+partial products are summed over the group before its bias.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import (copy_to_group, gather_from_group, reduce_from_group,
+                                    scatter_to_group)
 from .layers import GELU, CachedOperands, Conv2d, Linear, matmul_f32
 from .quant import QConv2d, QLinear, qmatmul, record_amax
 
@@ -47,6 +57,7 @@ class ConvFFN(CachedOperands, nn.Module):
         ch = int(dim * mlp_ratio)
         self.fold_output, self.calibrate, self.amax = fold_output, calibrate, {}
         self.dropout = dropout
+        self.model_group = None  # tensor parallelism (module docstring)
         self.quant = quant if conv_type == "full" else None
         self.act = GELU()
         if self.quant == "int8":
@@ -78,6 +89,10 @@ class ConvFFN(CachedOperands, nn.Module):
     def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
         if self.quant == "int8":
             return self._int8_forward(x)
+        if self.model_group is not None:
+            if self.dropout > 0.0 and not deterministic:
+                raise NotImplementedError("dropout under tensor parallelism is not ported")
+            return self._tensor_forward(x)
         full = isinstance(self.conv, nn.Sequential)
         xt = x.permute(0, 2, 3, 1)  # [B, H, W, C]
         if self.calibrate and full:
@@ -92,6 +107,26 @@ class ConvFFN(CachedOperands, nn.Module):
         if self.dropout > 0.0 and not deterministic:
             out = F.dropout(out, self.dropout)
         return out
+
+    def _tensor_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The unfolded op order on this rank's channels (module docstring).
+        A gather whose consumer holds split weights (conv_0) sums its
+        gradient over the group; one with replicated consumers keeps this
+        rank's slice."""
+        group = self.model_group
+        y = self.act(self.proj_in(copy_to_group(x.permute(0, 2, 3, 1), group)))
+        y = y.permute(0, 3, 1, 2)  # [B, hidden / m, H, W]
+        if isinstance(self.conv, nn.Sequential):
+            conv0, conv1, conv2 = self.conv[0], self.conv[2], self.conv[4]
+            z = self.act(conv0(gather_from_group(y, 1, group, reduce_grad=True)))
+            z = self.act(conv1(gather_from_group(z, 1, group)))
+            s = y + conv2(copy_to_group(z, group))
+        else:  # depthwise, replicated: on the gathered y, then this rank's slice
+            full = gather_from_group(y, 1, group)
+            s = scatter_to_group(full + self.conv(full), 1, group)
+        out = F.linear(s.permute(0, 2, 3, 1), self.proj_out.weight.to(x.dtype))
+        out = reduce_from_group(out, group) + self.proj_out.bias.to(x.dtype)
+        return out.permute(0, 3, 1, 2)
 
     def _fold_operands(self, dt: torch.dtype):
         """(W_head [hidden, ch + dim], W_fold [ch, dim]) in ``dt`` and b_fold

@@ -78,12 +78,14 @@ def launch_counts_by_shape() -> dict[tuple, int]:
     return dict(_LAUNCHES)
 
 
-def kernel_supported(n: int, c: int, head_dim: int, dtype) -> bool:
+def kernel_supported(n: int, c: int, head_dim: int, dtype, width: int | None = None) -> bool:
     """The kernels' own limits: head_dim 64, C % 128 == 0 (a 128-column
     GEMM tile lies in one of the q/k/v branches), N % 64 == 0 (64-token
-    attention tiles), bf16."""
+    attention tiles), bf16, and a square layer: ``width``, the q/k/v width
+    of the heads on this rank (C / model under tensor parallelism), must be
+    C (the kernels take W [3C, C] and a [C, C] projection)."""
     return (head_dim == HEAD_DIM and c % 128 == 0 and n % 64 == 0
-            and dtype == torch.bfloat16)
+            and dtype == torch.bfloat16 and width in (None, c))
 
 
 def proj_supported(c: int, dtype) -> bool:
@@ -92,10 +94,11 @@ def proj_supported(c: int, dtype) -> bool:
     return c > 0 and c % 128 == 0 and dtype == torch.bfloat16
 
 
-def sublayer_kernels_supported(n: int, c: int, head_dim: int, dtype) -> bool:
+def sublayer_kernels_supported(n: int, c: int, head_dim: int, dtype,
+                               width: int | None = None) -> bool:
     """Limits of the sublayer kernels themselves: the kernels' plus
     N <= 1024, the TPU sublayer kernel's bound, which the dispatch keeps."""
-    return n <= MAX_SUBLAYER_TOKENS and kernel_supported(n, c, head_dim, dtype)
+    return n <= MAX_SUBLAYER_TOKENS and kernel_supported(n, c, head_dim, dtype, width)
 
 
 def _pick_group(num_heads: int, head_dim: int, n: int, c: int) -> int:
@@ -118,7 +121,7 @@ def _pick_group(num_heads: int, head_dim: int, n: int, c: int) -> int:
     return best
 
 
-def sublayer_supported(n: int, c: int, head_dim: int, dtype) -> bool:
+def sublayer_supported(n: int, c: int, head_dim: int, dtype, width: int | None = None) -> bool:
     """Dispatch gate of the whole sublayer: the kernels' limits and the JAX
     package's route, which takes its sublayer kernel only where ``supported()``
     holds (N <= 1024, N % 256 == 0, a head group that fits its VMEM budget).
@@ -126,7 +129,7 @@ def sublayer_supported(n: int, c: int, head_dim: int, dtype) -> bool:
     package; it is not a limit of the H100. Elsewhere (512px stage 4: N=1024,
     C=1536) the sublayer runs ``ln_qkv_rope``, ``core_attention`` (whose mid
     band takes ``small_attention``) and the projection."""
-    return (sublayer_kernels_supported(n, c, head_dim, dtype) and n % 256 == 0
+    return (sublayer_kernels_supported(n, c, head_dim, dtype, width) and n % 256 == 0
             and c % head_dim == 0 and _pick_group(c // head_dim, head_dim, n, c) > 0)
 
 

@@ -44,7 +44,9 @@ class CachedOperands:
     """Mixin for modules whose forward reads tensors derived from their
     parameters (cast, packed or folded weights): made once and rebuilt when
     any of the parameters changes (another storage, or an in-place update,
-    its ``_version``)."""
+    its ``_version``). A weight that FSDP gathers (``_gathered_from``: new
+    storage at each use) is keyed on the slice it was gathered from, so a
+    reused allocation never hits a stale operand."""
 
     def _cached(self, name, params, make, differentiable: bool = False):
         """``make()`` under no_grad, cached per parameter version. With
@@ -53,7 +55,8 @@ class CachedOperands:
         training differentiates through the derived tensors."""
         if differentiable and torch.is_grad_enabled() and any(p.requires_grad for p in params):
             return make()
-        key = tuple((p.data_ptr(), p._version) for p in params)
+        key = tuple((src.data_ptr(), src._version)
+                    for src in (getattr(p, "_gathered_from", p) for p in params))
         store = self.__dict__.setdefault("_operand_cache", {})
         hit = store.get(name)
         if hit is None or hit[0] != key:

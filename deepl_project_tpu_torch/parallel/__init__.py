@@ -1,0 +1,22 @@
+"""Data-, FSDP- and tensor-parallel training over ``torch.distributed``
+(PyTorch port of ``deepl_project_tpu/parallel``): the mesh, torchrun's
+process group, the collectives as autograd functions, and the parameter
+placements. Ring context parallelism, GPipe and expert parallelism are not
+ported yet."""
+
+from .collectives import (all_reduce_mean_, copy_to_group, gather_from_group, global_mean,
+                          reduce_from_group, reduce_scatter, reduce_metrics,
+                          scatter_to_group)
+from .mesh import (CONTEXT_AXIS, DATA_AXIS, MODEL_AXIS, Replicate, Shard, batch_rows,
+                   create_mesh, data_axis_size, replicated, shard_batch)
+from .multihost import host_shard_info, initialize_multihost, under_torchrun
+from .sharding import Placement, canonical_name, param_specs, shard_params
+
+__all__ = [
+    "CONTEXT_AXIS", "DATA_AXIS", "MODEL_AXIS", "create_mesh", "replicated", "shard_batch",
+    "batch_rows", "data_axis_size", "Replicate", "Shard", "param_specs", "shard_params",
+    "Placement", "canonical_name", "initialize_multihost", "host_shard_info",
+    "under_torchrun", "all_reduce_mean_", "reduce_metrics", "copy_to_group",
+    "reduce_from_group", "gather_from_group", "scatter_to_group", "reduce_scatter",
+    "global_mean",
+]

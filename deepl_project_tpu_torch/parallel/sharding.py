@@ -1,0 +1,301 @@
+"""Parameter placement over the ``model`` axis: replicate, FSDP or tensor
+parallel (PyTorch port of ``parallel/sharding.py``; its rules, kept here as
+the port's own copy).
+
+- ``replicate``: every rank holds every parameter; the gradients are
+  averaged over ``data`` inside the step (what DDP's all-reduce did).
+- ``fsdp``: every parameter of at least ``fsdp_min_size`` elements holds
+  this rank's slice along its largest divisible dimension (ties: the first
+  in the JAX layout); a ``torch.nn.utils.parametrize`` parametrization
+  all-gathers the whole weight at each use, and its backward keeps this
+  rank's slice of the gradient (every model peer holds it whole: they see
+  the same rows).
+- ``tensor``: Megatron-style. Column parallel (output split): ``to_q``,
+  ``to_k``, ``to_v``, ``proj_in``; row parallel (input split): ``proj``,
+  ``proj_out``; column convolutions: the ConvFFN's ``conv_0`` and
+  ``conv_2`` (the port's ``conv.0`` / ``conv.4``) and the ResBlock's
+  ``conv1``; biases of column layers split with them. The modules that own
+  them run their local-shard forwards (``ops/attention.py``,
+  ``ops/ffn.py``, ``ops/blocks.py``) with the collectives of
+  ``collectives.py``.
+
+The rules read the JAX layout of each parameter ([in, out] dense kernels,
+HWIO convs; :func:`~deepl_project_tpu_torch.training.optim.jax_layout`) and
+the placement is mapped back to the port's ([out, in], OIHW). One
+deviation: attention heads are never split, so an attention module whose
+head count the model axis does not divide keeps all four projections
+replicated (the JAX rule splits ``to_q/to_k/to_v`` whenever the width
+divides, which can cut a head in two; GSPMD copes, local-head attention
+cannot), and a ConvFFN is split whole or not at all. The results are the
+same; only the placement differs.
+
+:class:`Placement` carries the mesh's groups and the parameters'
+placements by name, for the steps (the data all-reduce), the optimizer
+(norms and Adafactor's moments over sharded dimensions) and checkpoints
+(whole tensors gathered on save and sliced on restore).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.distributed as dist
+from torch import nn
+from torch.nn.utils import parametrize
+
+from .collectives import all_gather_cat, all_reduce_sum, gather_from_group, rank_slice
+from .mesh import DATA_AXIS, MODEL_AXIS, Replicate, Shard, axis_size
+
+MODES = ("replicate", "fsdp", "tensor")
+FSDP_MIN_SIZE = 2 ** 16
+
+_COLUMN_PARALLEL = ("to_q", "to_k", "to_v", "proj_in")
+_ROW_PARALLEL = ("proj", "proj_out")
+_CONV_COLUMN = ("conv_0", "conv_2", "conv1")
+# The port's module names of the ConvFFN's convs (the reference's
+# nn.Sequential indices) -> the JAX package's.
+_JAX_CONV_NAMES = {"0": "conv_0", "2": "conv_1", "4": "conv_2"}
+
+
+def _jax_layout(name: str, shape) -> tuple[int, ...]:
+    from ..training.optim import jax_layout
+
+    return jax_layout(name, shape)
+
+
+def _parent(name: str) -> str:
+    parts = name.split(".")
+    if len(parts) >= 3 and parts[-3] == "conv" and parts[-2] in _JAX_CONV_NAMES:
+        return _JAX_CONV_NAMES[parts[-2]]
+    return parts[-2] if len(parts) >= 2 else ""
+
+
+def _tensor_axis(name: str, jax_shape: tuple, model_size: int) -> int | None:
+    """The JAX rule's sharded axis (in the JAX layout) under 'tensor'."""
+    leaf, parent = name.split(".")[-1], _parent(name)
+    kernel = leaf == "weight" and len(jax_shape) in (2, 4)
+    if kernel and len(jax_shape) == 2:
+        if parent in _COLUMN_PARALLEL and jax_shape[-1] % model_size == 0:
+            return 1
+        if parent in _ROW_PARALLEL and jax_shape[-2] % model_size == 0:
+            return 0
+    if kernel and len(jax_shape) == 4:
+        if parent in _CONV_COLUMN and jax_shape[-1] % model_size == 0:
+            return 3
+    if (leaf == "bias" and len(jax_shape) == 1 and parent in _COLUMN_PARALLEL + _CONV_COLUMN
+            and jax_shape[0] % model_size == 0):
+        return 0
+    return None
+
+
+def _fsdp_axis(jax_shape: tuple, model_size: int, min_size: int) -> int | None:
+    if math.prod(jax_shape) < min_size:
+        return None
+    for axis in sorted(range(len(jax_shape)), key=lambda i: -jax_shape[i]):
+        if jax_shape[axis] % model_size == 0 and jax_shape[axis] >= model_size:
+            return axis
+    return None
+
+
+def _unsplit_modules(module: nn.Module, model_size: int) -> list[str]:
+    """Name prefixes of the modules the port keeps replicated under
+    'tensor': attention whose heads the axis does not divide, and a ConvFFN
+    whose split parameters it does not all divide."""
+    from ..ops.attention import AttentionRoPE
+    from ..ops.ffn import ConvFFN
+
+    out = []
+    for name, m in module.named_modules():
+        if isinstance(m, AttentionRoPE) and (m.dim // m.head_dim) % model_size:
+            out.append(name + ".")
+        elif isinstance(m, ConvFFN):
+            dims = [m.proj_in.out_features, m.proj_out.in_features]
+            if isinstance(m.conv, nn.Sequential):
+                dims.append(m.conv[0].out_channels)
+            if any(d % model_size for d in dims):
+                out.append(name + ".")
+    return out
+
+
+def param_specs(module: nn.Module, mode: str = "replicate", model_size: int = 1,
+                fsdp_min_size: int | None = None, prefix: str = "") -> dict:
+    """The placement of each parameter of ``module`` by its state_dict key
+    (``prefix`` + name): ``Replicate()`` or ``Shard(dim)`` in the port's
+    layout, by the JAX package's ``param_specs`` rules (see the module
+    docstring for the one deviation)."""
+    if mode not in MODES:
+        raise ValueError(f"Unknown sharding mode: {mode!r}")
+    min_size = FSDP_MIN_SIZE if fsdp_min_size is None else fsdp_min_size
+    unsplit = _unsplit_modules(module, model_size) if mode == "tensor" else []
+    specs = {}
+    for name, p in module.named_parameters():
+        key = prefix + name
+        axis = None
+        if mode != "replicate" and model_size > 1:
+            axes = _jax_layout(key, p.shape)
+            jax_shape = tuple(p.shape[a] for a in axes)
+            if mode == "fsdp":
+                axis = _fsdp_axis(jax_shape, model_size, min_size)
+            elif not any(name.startswith(u) for u in unsplit):
+                axis = _tensor_axis(key, jax_shape, model_size)
+            axis = None if axis is None else axes[axis]
+        specs[key] = Replicate() if axis is None else Shard(axis)
+    return specs
+
+
+def canonical_name(name: str) -> str:
+    """A parameter's state_dict key without the parametrization's
+    ``parametrizations.<name>.original`` wrapping."""
+    if ".parametrizations." in name and name.endswith(".original"):
+        head, tail = name.split(".parametrizations.", 1)
+        return f"{head}.{tail[:-len('.original')]}"
+    return name
+
+
+class _GatherShard(nn.Module):
+    """FSDP's parametrization: the whole weight from this rank's slice."""
+
+    def __init__(self, dim: int, group):
+        super().__init__()
+        self.dim, self.group = dim, group
+
+    def forward(self, shard: torch.Tensor) -> torch.Tensor:
+        full = gather_from_group(shard, self.dim, self.group)
+        # CachedOperands keys derived operands on this storage and version.
+        full._gathered_from = shard
+        return full
+
+    def right_inverse(self, full: torch.Tensor) -> torch.Tensor:
+        return rank_slice(full, self.dim, self.group)
+
+
+def _owner(module: nn.Module, name: str) -> tuple[nn.Module, str]:
+    path, _, attr = name.rpartition(".")
+    return (module.get_submodule(path) if path else module), attr
+
+
+class Placement:
+    """The mesh's data and model groups and each parameter's placement
+    (``specs``) and whole shape (``full_shapes``) by canonical name, which
+    :func:`shard_params` fills; a name it does not hold is replicated."""
+
+    def __init__(self, mesh, mode: str = "replicate"):
+        self.mesh, self.mode = mesh, mode
+        self.data_group = mesh.get_group(DATA_AXIS)
+        self.model_group = mesh.get_group(MODEL_AXIS)
+        self.data_size = axis_size(mesh, DATA_AXIS)
+        self.model_size = axis_size(mesh, MODEL_AXIS)
+        self.data_rank = dist.get_rank(self.data_group)
+        self.model_rank = dist.get_rank(self.model_group)
+        self.specs: dict = {}
+        self.full_shapes: dict = {}
+
+    def dim(self, name: str) -> int | None:
+        spec = self.specs.get(canonical_name(name))
+        return spec.dim if isinstance(spec, Shard) else None
+
+    @property
+    def sharded(self) -> bool:
+        return any(isinstance(s, Shard) for s in self.specs.values())
+
+    def full_shape(self, name: str, local: torch.Tensor) -> tuple:
+        return tuple(self.full_shapes.get(canonical_name(name), local.shape))
+
+    def scatter(self, full: torch.Tensor, dim: int | None) -> torch.Tensor:
+        """This rank's slice along ``dim`` of a whole tensor (``full``
+        itself when None)."""
+        return full if dim is None else rank_slice(full, dim, self.model_group)
+
+    @torch.no_grad()
+    def gather(self, local: torch.Tensor, dim: int | None) -> torch.Tensor:
+        """The whole tensor from every model peer's slice along ``dim``
+        (collective over the model group; ``local`` itself when None)."""
+        return local if dim is None else all_gather_cat(local, dim, self.model_group)
+
+    def sum_sharded(self, value: torch.Tensor) -> torch.Tensor:
+        """An all-reduce (sum) of ``value`` over the model group."""
+        return all_reduce_sum(value, self.model_group)
+
+    def norm(self, tensors: list[torch.Tensor], names: list[str]) -> torch.Tensor:
+        """The global L2 norm of tensors placed as ``names``: the squares of
+        the sharded ones summed over the model group, the replicated ones
+        counted once."""
+        rep = [t for t, n in zip(tensors, names) if self.dim(n) is None]
+        shard = [t for t, n in zip(tensors, names) if self.dim(n) is not None]
+        zero = tensors[0].new_zeros((), dtype=torch.float32)
+        sq = torch.stack(torch._foreach_norm(rep)).square().sum() if rep else zero
+        if self.sharded:
+            part = torch.stack(torch._foreach_norm(shard)).square().sum() if shard else zero
+            sq = sq + self.sum_sharded(part)
+        return sq.sqrt()
+
+    def any_peer(self, flag: torch.Tensor) -> bool:
+        """Whether the 0-d bool ``flag`` holds on any model peer (itself
+        when nothing is sharded: the peers then hold the same values)."""
+        if not self.sharded:
+            return bool(flag)
+        t = flag.float()
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.model_group)
+        return bool(t)
+
+    @torch.no_grad()
+    def full_state(self, named, prefix: str = "") -> dict:
+        """{canonical name: whole tensor} of (name, local tensor) pairs placed
+        as ``prefix`` + name, gathered over the model group (every rank must
+        call it)."""
+        return {canonical_name(n): self.gather(t.detach(), self.dim(prefix + n))
+                for n, t in named}
+
+    @torch.no_grad()
+    def load_full(self, named, full: dict, prefix: str = "") -> None:
+        """Copy each whole tensor of ``full`` (keys: the canonical names of
+        ``named``, exactly) into this rank's slice."""
+        named = [(canonical_name(n), t) for n, t in named]
+        if set(full) != {n for n, _ in named}:
+            raise RuntimeError("state keys do not match the parameters: "
+                               f"{sorted(set(full) ^ {n for n, _ in named})[:8]}")
+        for n, t in named:
+            t.copy_(self.scatter(full[n], self.dim(prefix + n)))
+
+
+def shard_params(mesh, model: nn.Module, mode: str = "replicate",
+                 fsdp_min_size: int | None = None, prefix: str = "",
+                 placement: Placement | None = None) -> Placement:
+    """Place ``model``'s parameters (whole, identical on every rank) on the
+    mesh under ``mode``, in place, and return their :class:`Placement`
+    (``placement``, extended, when given: several modules under one).
+    'fsdp' registers the gathering parametrization on each split weight;
+    'tensor' replaces each split parameter by this rank's slice and hands
+    the model group to the modules that own them."""
+    model_size = axis_size(mesh, MODEL_AXIS)
+    specs = param_specs(model, mode, model_size, fsdp_min_size, prefix)
+    if placement is None:
+        placement = Placement(mesh, mode)
+    placement.specs.update(specs)
+    placement.full_shapes.update({prefix + n: tuple(p.shape)
+                                  for n, p in model.named_parameters()})
+    group = placement.model_group
+    for key, spec in specs.items():
+        if not isinstance(spec, Shard):
+            continue
+        owner, attr = _owner(model, key[len(prefix):])
+        if mode == "fsdp":
+            parametrize.register_parametrization(owner, attr, _GatherShard(spec.dim, group),
+                                                 unsafe=True)
+        else:
+            full = getattr(owner, attr)
+            setattr(owner, attr, nn.Parameter(rank_slice(full.detach(), spec.dim, group),
+                                              requires_grad=full.requires_grad))
+    if mode == "tensor":
+        from ..ops.attention import AttentionRoPE
+        from ..ops.blocks import ResBlock
+        from ..ops.ffn import ConvFFN
+
+        for name, m in model.named_modules():
+            if isinstance(m, (AttentionRoPE, ConvFFN, ResBlock)):
+                probe = {AttentionRoPE: "to_q.weight", ConvFFN: "proj_in.weight",
+                         ResBlock: "conv1.weight"}[type(m)]
+                if isinstance(specs.get(f"{prefix}{name}.{probe}"), Shard):
+                    m.model_group = group
+    return placement

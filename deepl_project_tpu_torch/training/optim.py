@@ -40,6 +40,16 @@ picks on the JAX layout of the parameter (:func:`jax_layout`), mapped to
 the port's.
 
 The update is in place on the parameters and on the gradients handed in.
+
+Over sharded parameters (``placement``, a ``parallel.Placement``: FSDP or
+tensor parallelism, each rank holding a slice of some parameters and their
+gradients), as the JAX chain computes on the global arrays: the non-finite
+check and the clip's global norm reduce over the model group (the squares
+of sharded gradients summed there, replicated ones counted once);
+Adafactor picks its factored dimensions on the whole shape and its row,
+column and RMS means sum over the model group where the dimension they
+reduce is split; ``state_dict`` gathers whole moments and
+``load_state_dict`` takes whole moments and keeps this rank's slices.
 """
 
 from __future__ import annotations
@@ -71,8 +81,10 @@ class _Chain:
 
     def __init__(self, named_params, schedule: Schedule, *, max_grad_norm: float = 1.0,
                  freeze_encoder: bool = False, nan_skip: bool = True,
-                 max_consecutive_errors: int = 100):
+                 max_consecutive_errors: int = 100, placement=None):
         self.names, self.params = map(list, zip(*named_params))
+        # A Placement with sharded parameters, else None (every tensor whole).
+        self.placement = placement if placement is not None and placement.sharded else None
         self.schedule = schedule
         self.max_grad_norm = max_grad_norm
         self.nan_skip = nan_skip
@@ -100,17 +112,37 @@ class _Chain:
         return (state.get("kind", "adamw") == self.kind
                 and self.saved_trainable_names(state) == self.trainable_names)
 
+    def _state_dim(self, key: str, name: str) -> int | None:
+        """The split dimension of state tensor ``key`` of parameter ``name``."""
+        return self.placement.dim(name)
+
     def state_dict(self) -> dict:
+        """The whole state (sharded moments gathered: a collective over the
+        model group, called on every rank)."""
+        state = self._state()
+        if self.placement is not None:
+            state = {key: {n: self.placement.gather(t, self._state_dim(key, n))
+                           for n, t in named.items()} for key, named in state.items()}
         return {"kind": self.kind, "count": self.count,
                 "notfinite_count": self.notfinite_count,
                 "total_notfinite": self.total_notfinite, "last_finite": self.last_finite,
-                **self._state()}
+                **state}
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
         for key in ("count", "notfinite_count", "total_notfinite", "last_finite"):
             setattr(self, key, state[key])
+        if self.placement is not None:
+            state = {key: ({n: self.placement.scatter(t, self._state_dim(key, n))
+                            for n, t in state[key].items()}
+                           if isinstance(state.get(key), dict) else state.get(key))
+                     for key in state}
         self._load(state)
+
+    def _norm(self, tensors: list[torch.Tensor], idx: list[int]) -> torch.Tensor:
+        if self.placement is None:
+            return torch.stack(torch._foreach_norm(tensors)).norm()
+        return self.placement.norm(tensors, [self.names[i] for i in idx])
 
     @torch.no_grad()
     def step(self, grads: list[torch.Tensor]) -> bool:
@@ -119,7 +151,10 @@ class _Chain:
         finite = True
         if self.nan_skip:
             amax = torch.stack(torch._foreach_norm(grads, float("inf")))
-            finite = bool(torch.isfinite(amax).all())
+            if self.placement is None:
+                finite = bool(torch.isfinite(amax).all())
+            else:
+                finite = not self.placement.any_peer(~torch.isfinite(amax).all())
         self.last_finite = finite
         if not finite:
             self.notfinite_count += 1
@@ -131,7 +166,7 @@ class _Chain:
 
         idx = [i for i, t in enumerate(self.trainable) if t]
         g = [grads[i] for i in idx]
-        norm = torch.stack(torch._foreach_norm(g)).norm()
+        norm = self._norm(g, idx)
         if bool(norm >= self.max_grad_norm):
             torch._foreach_div_(g, norm)
             torch._foreach_mul_(g, self.max_grad_norm)
@@ -258,7 +293,11 @@ class Adafactor(_Chain):
 
     def __init__(self, named_params, schedule: Schedule, **chain):
         super().__init__(named_params, schedule, **chain)
-        self.dims = [factored_dims(n, p.shape) for n, p in zip(self.names, self.params)]
+        pl = self.placement
+        self.full_shapes = [tuple(p.shape) if pl is None else pl.full_shape(n, p)
+                            for n, p in zip(self.names, self.params)]
+        self.split = [None if pl is None else pl.dim(n) for n in self.names]
+        self.dims = [factored_dims(n, shape) for n, shape in zip(self.names, self.full_shapes)]
         self.v_row, self.v_col, self.v = [], [], []
         with torch.no_grad():
             for p, t, d in zip(self.params, self.trainable, self.dims):
@@ -278,6 +317,23 @@ class Adafactor(_Chain):
                 if t is not None:
                     t.copy_(state[key][name])
 
+    def _state_dim(self, key: str, name: str) -> int | None:
+        i = self.names.index(name)
+        s, d = self.split[i], self.dims[i]
+        if key == "v" or s is None:
+            return s
+        dropped = d[1] if key == "v_row" else d[0]
+        return None if s == dropped else s - (s > dropped)
+
+    def _mean(self, t: torch.Tensor, dim: int | None, split: bool, n: int,
+              keepdim: bool = False) -> torch.Tensor:
+        """t.mean over ``dim`` (None: every element), ``n`` elements whole;
+        a sum over the model group where ``split``."""
+        if not split:
+            return t.mean() if dim is None else t.mean(dim=dim, keepdim=keepdim)
+        part = t.sum() if dim is None else t.sum(dim=dim, keepdim=keepdim)
+        return self.placement.sum_sharded(part) / n
+
     def _update(self, idx: list[int], grads: list[torch.Tensor], lr: float) -> None:
         # optax's decay schedule in fp32, at the 0-based count of this update.
         decay = 1.0 - torch.tensor(float(self.count), dtype=torch.float32) ** -_DECAY_RATE
@@ -285,18 +341,22 @@ class Adafactor(_Chain):
         decay = float(decay)
         for i in idx:
             g, p, d = grads[i], self.params[i], self.dims[i]
+            s, full = self.split[i], self.full_shapes[i]
             g2 = g * g + _EPS
             if d is not None:
                 row, col = d  # optax's d1, d0
-                v_row = self.v_row[i].mul_(decay).add_(g2.mean(dim=col), alpha=keep)
-                v_col = self.v_col[i].mul_(decay).add_(g2.mean(dim=row), alpha=keep)
+                v_row = self.v_row[i].mul_(decay).add_(
+                    self._mean(g2, col, s == col, full[col]), alpha=keep)
+                v_col = self.v_col[i].mul_(decay).add_(
+                    self._mean(g2, row, s == row, full[row]), alpha=keep)
                 reduced = row - 1 if row > col else row
-                row_factor = (v_row / v_row.mean(dim=reduced, keepdim=True)).pow(-0.5)
+                row_mean = self._mean(v_row, reduced, s == row, full[row], keepdim=True)
+                row_factor = (v_row / row_mean).pow(-0.5)
                 u = g * row_factor.unsqueeze(col) * v_col.pow(-0.5).unsqueeze(row)
             else:
                 v = self.v[i].mul_(decay).add_(g2, alpha=keep)
                 u = g * v.pow(-0.5)
-            rms = u.square().mean().sqrt()
+            rms = self._mean(u.square(), None, s is not None, int(np.prod(full))).sqrt()
             u = u / torch.clamp(rms / _BLOCK_RMS, min=1.0)
             p.add_(u, alpha=-lr)
 
@@ -310,15 +370,16 @@ def make_optimizer(named_params, learning_rate: float = 1e-4,
                    weight_decay: float = 0.0, max_grad_norm: float = 1.0,
                    freeze_encoder: bool = False, nan_skip: bool = True,
                    schedule: Schedule | None = None, mu_dtype: str | None = None,
-                   optimizer: str = "adamw") -> _Chain:
+                   optimizer: str = "adamw", placement=None) -> _Chain:
     """The training optimizer over ``named_params`` (name, tensor) pairs,
     with the JAX ``make_optimizer``'s arguments and defaults: ``AdamW`` or
     ``Adafactor`` (which takes no weight decay and ignores ``b1``, ``b2``
-    and ``mu_dtype``, as the JAX chain does)."""
+    and ``mu_dtype``, as the JAX chain does). ``placement``: the
+    parameters' ``parallel.Placement`` when some are sharded."""
     sched = schedule if schedule is not None else warmup_constant(learning_rate,
                                                                   warmup_steps)
     chain = dict(max_grad_norm=max_grad_norm, freeze_encoder=freeze_encoder,
-                 nan_skip=nan_skip)
+                 nan_skip=nan_skip, placement=placement)
     if optimizer == "adafactor":
         if weight_decay:
             # The JAX package's refusal: optax's adafactor decay is not

@@ -24,18 +24,34 @@
   each control: the warmup gate and ramp, the adaptive weight and its clamp,
   the disc loss floor, R1). Like the JAX step it takes the whole batch and
   ignores gradient accumulation.
+- Under a mesh (``placement``, a ``parallel.Placement``), each rank takes
+  its rows of the global batch (``parallel.shard_batch``: within each
+  microbatch) and the step computes what the JAX step computes on the
+  global batch: the gradients averaged over the data group in flat fp32
+  buckets (both updates of the GAN step too); the latent noise drawn for
+  the whole microbatch, each rank keeping its rows; the VF hinge on the
+  whole batch's similarity; the adaptive weight from the last layer's
+  gradients averaged over data; the disc loss floor on the global disc
+  loss; metrics averaged over data (``mu_absmax``: the maximum over data of
+  each microbatch, averaged); ``grad_norm`` over sharded gradients. Under
+  FSDP the gathered weights are made once per forward and backward
+  (``parametrize.cached``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
 import torch
 from torch import nn
+from torch.nn.utils import parametrize
 
 from ..losses.vae_loss import LossWeights, discriminator_loss, transvae_loss
 from ..models.transvae import adaptive_gan_weight, get_last_layer
+from ..parallel.collectives import all_reduce_mean_, reduce_metrics
+from ..parallel.sharding import canonical_name
 from .optim import _Chain
 
 
@@ -76,11 +92,32 @@ class TrainState:
 def named_trainables(model: torch.nn.Module, vf_proj: VFProj | None = None
                      ) -> list[tuple[str, torch.Tensor]]:
     """The parameters a step trains, by name: the model's, then
-    ``vf_proj.kernel`` and ``vf_proj.bias``."""
-    named = list(model.named_parameters())
+    ``vf_proj.kernel`` and ``vf_proj.bias``. An FSDP-split weight is its
+    local slice, under its state_dict key (``parallel.canonical_name``)."""
+    named = [(canonical_name(n), p) for n, p in model.named_parameters()]
     if vf_proj is not None:
-        named += [(f"vf_proj.{n}", p) for n, p in vf_proj.named_parameters()]
+        named += [(f"vf_proj.{canonical_name(n)}", p) for n, p in vf_proj.named_parameters()]
     return named
+
+
+def _gathered(placement):
+    """Under FSDP, each gathered weight made once per use of the context."""
+    if placement is not None and placement.mode == "fsdp":
+        return parametrize.cached()
+    return contextlib.nullcontext()
+
+
+def _rows(placement, rows: int) -> tuple[int, int] | None:
+    """(first, total) of this rank's ``rows`` in the whole (micro)batch."""
+    if placement is None:
+        return None
+    return placement.data_rank * rows, rows * placement.data_size
+
+
+def _reduce(placement, metrics: dict, max_keys=()) -> dict:
+    if placement is None:
+        return metrics
+    return reduce_metrics(metrics, placement.data_group, max_keys)
 
 
 def init_ema(model: torch.nn.Module, vf_proj: VFProj | None = None
@@ -108,20 +145,24 @@ def loss_and_metrics(model, images_nhwc: torch.Tensor, weights: LossWeights,
                      lpips_params: dict | None = None, sample: bool = True,
                      generator: torch.Generator | None = None,
                      disc_apply: Callable | None = None, teacher_fn: Callable | None = None,
-                     vf_proj: VFProj | None = None, perceptual_fn: Callable | None = None):
+                     vf_proj: VFProj | None = None, perceptual_fn: Callable | None = None,
+                     placement=None):
     """(total loss, metrics) for one batch of [B, H, W, 3] images in [0, 1]:
     the model sees them in its compute dtype, the loss in fp32.
     ``disc_apply`` (NCHW images in [0, 1] -> logits) gives the GAN term;
     ``teacher_fn`` (NCHW images -> features) and ``vf_proj`` the VF term;
-    ``perceptual_fn`` takes the LPIPS slot (``make_self_perceptual``)."""
+    ``perceptual_fn`` takes the LPIPS slot (``make_self_perceptual``).
+    ``placement``: the batch is this rank's rows (see the module docstring)."""
     target = images_nhwc.permute(0, 3, 1, 2)
     x = target.to(model.config.compute_dtype)
-    recon, mu, logvar = model(x, sample=sample, generator=generator)
+    recon, mu, logvar = model(x, sample=sample, generator=generator,
+                              noise_rows=_rows(placement, x.shape[0]))
     dino = teacher_fn(target) if teacher_fn is not None else None
     proj = (vf_proj.kernel, vf_proj.bias) if vf_proj is not None else None
     losses = transvae_loss(recon, target, mu, logvar, weights, lpips_params=lpips_params,
                            perceptual_fn=perceptual_fn, vf_proj=proj,
-                           dino_features=dino, disc_apply=disc_apply)
+                           dino_features=dino, disc_apply=disc_apply,
+                           data_group=None if placement is None else placement.data_group)
     metrics = dict(losses)
     metrics["recon_finite_frac"] = torch.isfinite(recon).float().mean()
     metrics["mu_absmax"] = mu.detach().abs().max().float()
@@ -132,11 +173,12 @@ def compute_grads(model, batch: torch.Tensor, weights: LossWeights,
                   lpips_params: dict | None = None, accum_steps: int = 1,
                   sample: bool = True, generator: torch.Generator | None = None,
                   teacher_fn: Callable | None = None, vf_proj: VFProj | None = None,
-                  perceptual_fn: Callable | None = None
+                  perceptual_fn: Callable | None = None, placement=None
                   ) -> tuple[list[torch.Tensor], dict]:
     """fp32 gradients (one per parameter of :func:`named_trainables`, in its
     order) averaged over ``accum_steps`` microbatches of ``batch``, and the
-    averaged metrics."""
+    averaged metrics. ``placement``: ``batch`` is this rank's rows, and the
+    gradients and metrics are averaged over the data group."""
     b = batch.shape[0]
     if b % accum_steps:
         raise ValueError(f"batch {b} does not split into {accum_steps} microbatches")
@@ -145,23 +187,36 @@ def compute_grads(model, batch: torch.Tensor, weights: LossWeights,
         p.grad = None
     micro = b // accum_steps
     sums: dict[str, torch.Tensor] = {}
+    maxima = []
     for i in range(accum_steps):
-        loss, metrics = loss_and_metrics(model, batch[i * micro:(i + 1) * micro],
-                                         weights, lpips_params, sample, generator,
-                                         teacher_fn=teacher_fn, vf_proj=vf_proj,
-                                         perceptual_fn=perceptual_fn)
-        loss.backward()
+        with _gathered(placement):
+            loss, metrics = loss_and_metrics(model, batch[i * micro:(i + 1) * micro],
+                                             weights, lpips_params, sample, generator,
+                                             teacher_fn=teacher_fn, vf_proj=vf_proj,
+                                             perceptual_fn=perceptual_fn, placement=placement)
+            loss.backward()
         for k, v in metrics.items():
             sums[k] = sums.get(k, 0.0) + v.detach().float()
+        maxima.append(metrics["mu_absmax"])
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
     for p in params:
         p.grad = None
     if accum_steps > 1:
         torch._foreach_mul_(grads, 1.0 / accum_steps)
-    return grads, {k: v / accum_steps for k, v in sums.items()}
+    metrics = {k: v / accum_steps for k, v in sums.items()}
+    if placement is not None:
+        all_reduce_mean_(grads, placement.data_group)
+        metrics["mu_absmax"] = torch.stack(maxima)
+        metrics = _reduce(placement, metrics, max_keys=("mu_absmax",))
+    return grads, metrics
 
 
-def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: list[torch.Tensor], placement=None,
+                names: list[str] | None = None) -> torch.Tensor:
+    """The L2 norm of all ``tensors``; with a ``placement``, of the whole
+    tensors that ``names`` place there."""
+    if placement is not None:
+        return placement.norm(tensors, names)
     return torch.stack(torch._foreach_norm(tensors)).norm()
 
 
@@ -169,19 +224,21 @@ def make_train_step(weights: LossWeights = LossWeights(),
                     lpips_params: dict | None = None, accum_steps: int = 1,
                     ema_decay: float | None = None, seed: int = 0,
                     sample: bool = True, teacher_fn: Callable | None = None,
-                    perceptual_fn: Callable | None = None) -> Callable:
+                    perceptual_fn: Callable | None = None, placement=None) -> Callable:
     """fn(state, batch) -> metrics: one optimizer step on ``batch``
-    ([B, H, W, 3] in [0, 1] on the model's device), updating ``state`` in
-    place. Metrics stay on the device (one host sync per step, the
-    optimizer's finiteness check)."""
+    ([B, H, W, 3] in [0, 1] on the model's device; with ``placement`` this
+    rank's rows of the global batch, ``parallel.shard_batch`` with
+    ``accum_steps``), updating ``state`` in place. Metrics stay on the
+    device (one host sync per step, the optimizer's finiteness check)."""
 
     def train_step(state: TrainState, batch: torch.Tensor) -> dict:
         model = state.model
         gen = step_generator(seed, state.step, batch.device)
         grads, metrics = compute_grads(model, batch, weights, lpips_params,
                                        accum_steps, sample, gen, teacher_fn,
-                                       state.vf_proj, perceptual_fn)
-        metrics["grad_norm"] = global_norm(grads)
+                                       state.vf_proj, perceptual_fn, placement)
+        metrics["grad_norm"] = global_norm(
+            grads, placement, [n for n, _ in named_trainables(model, state.vf_proj)])
         state.optimizer.step(grads)
         if ema_decay is not None:
             _ema_update(ema_decay, state.ema, named_trainables(model, state.vf_proj))
@@ -205,7 +262,7 @@ def gan_generator_grads(model, disc, batch: torch.Tensor, weights: LossWeights,
                         adaptive_weight: bool = False, adaptive_max: float = 1e4,
                         sample: bool = True, generator: torch.Generator | None = None,
                         teacher_fn: Callable | None = None, vf_proj: VFProj | None = None,
-                        perceptual_fn: Callable | None = None
+                        perceptual_fn: Callable | None = None, placement=None
                         ) -> tuple[list[torch.Tensor], dict]:
     """The generator's half of the GAN step: fp32 gradients of its loss for
     every parameter of :func:`named_trainables` (a frozen encoder's too, for
@@ -216,28 +273,40 @@ def gan_generator_grads(model, disc, batch: torch.Tensor, weights: LossWeights,
     pull while the discriminator warms up. With ``adaptive_weight`` the
     term is rescaled by VQGAN's rule, the norms of the gradients of l1 +
     lpips and of gan with respect to the decoder's last conv weight, taken
-    on the same graph: total = l1 + lpips + kl + vf + gan_scale * w * gan."""
+    on the same graph: total = l1 + lpips + kl + vf + gan_scale * w * gan.
+    ``placement``: ``batch`` is this rank's rows; the last layer's gradients,
+    the gradients and the metrics are averaged over the data group."""
     params = [p for _, p in named_trainables(model, vf_proj)]
-    total, metrics = loss_and_metrics(model, batch, weights, lpips_params, sample,
-                                      generator, disc_apply=disc, teacher_fn=teacher_fn,
-                                      vf_proj=vf_proj, perceptual_fn=perceptual_fn)
-    total = total - (1.0 - gan_scale) * metrics["gan"]
-    metrics["gan_scale"] = torch.tensor(gan_scale, dtype=torch.float32, device=batch.device)
-    if adaptive_weight and weights.gan > 0:
-        last = [get_last_layer(model)]
-        rec = metrics["l1"] + metrics["lpips"]
-        w = adaptive_gan_weight(_grads(rec, last, retain_graph=True)[0],
-                                _grads(metrics["gan"], last, retain_graph=True)[0],
-                                max_weight=adaptive_max)
-        total = rec + metrics["kl"] + metrics["vf"] + gan_scale * w * metrics["gan"]
-        metrics["adaptive_gan_weight"] = w
-    metrics["total"] = total
-    grads = _grads(total, params)
-    return grads, {k: v.detach().float() for k, v in metrics.items()}
+    with _gathered(placement):
+        total, metrics = loss_and_metrics(model, batch, weights, lpips_params, sample,
+                                          generator, disc_apply=disc, teacher_fn=teacher_fn,
+                                          vf_proj=vf_proj, perceptual_fn=perceptual_fn,
+                                          placement=placement)
+        total = total - (1.0 - gan_scale) * metrics["gan"]
+        metrics["gan_scale"] = torch.tensor(gan_scale, dtype=torch.float32,
+                                            device=batch.device)
+        if adaptive_weight and weights.gan > 0:
+            last = [get_last_layer(model)]
+            rec = metrics["l1"] + metrics["lpips"]
+            last_grads = [_grads(rec, last, retain_graph=True)[0],
+                          _grads(metrics["gan"], last, retain_graph=True)[0]]
+            if placement is not None:
+                all_reduce_mean_(last_grads, placement.data_group)
+            w = adaptive_gan_weight(*last_grads, max_weight=adaptive_max)
+            total = rec + metrics["kl"] + metrics["vf"] + gan_scale * w * metrics["gan"]
+            metrics["adaptive_gan_weight"] = w
+        metrics["total"] = total
+        grads = _grads(total, params)
+    metrics = {k: v.detach().float() for k, v in metrics.items()}
+    if placement is not None:
+        all_reduce_mean_(grads, placement.data_group)
+        metrics["mu_absmax"] = metrics["mu_absmax"][None]
+        metrics = _reduce(placement, metrics, max_keys=("mu_absmax",))
+    return grads, metrics
 
 
 def discriminator_grads(disc, real: torch.Tensor, fake: torch.Tensor,
-                        kind: str = "hinge", r1_gamma: float = 0.0
+                        kind: str = "hinge", r1_gamma: float = 0.0, placement=None
                         ) -> tuple[list[torch.Tensor], dict]:
     """The discriminator's half of the GAN step on NCHW fp32 images in [0, 1]:
     the gradients of its loss (``kind``, plus with ``r1_gamma`` the R1
@@ -245,7 +314,8 @@ def discriminator_grads(disc, real: torch.Tensor, fake: torch.Tensor,
     backward) for every parameter of ``disc``, and the metrics. ``disc_loss``
     is the loss before R1 (what the floor reads). One forward of the real
     images serves the loss and R1: the JAX step's two are the same function
-    of the same input."""
+    of the same input. ``placement``: the images are this rank's rows; the
+    gradients and the metrics are averaged over the data group."""
     params = list(disc.parameters())
     real = real.detach()
     if r1_gamma > 0:
@@ -260,7 +330,10 @@ def discriminator_grads(disc, real: torch.Tensor, fake: torch.Tensor,
         r1 = g.square().flatten(1).sum(dim=-1).mean()
         loss = loss + 0.5 * r1_gamma * r1
         metrics["disc_r1"] = r1.detach()
-    return _grads(loss, params), metrics
+    grads = _grads(loss, params)
+    if placement is not None:
+        all_reduce_mean_(grads, placement.data_group)
+    return grads, _reduce(placement, metrics)
 
 
 def make_gan_train_step(weights: LossWeights = LossWeights(),
@@ -270,7 +343,8 @@ def make_gan_train_step(weights: LossWeights = LossWeights(),
                         adaptive_max: float = 1e4, disc_loss_floor: float = 0.0,
                         r1_gamma: float = 0.0, seed: int = 0,
                         teacher_fn: Callable | None = None,
-                        perceptual_fn: Callable | None = None) -> Callable:
+                        perceptual_fn: Callable | None = None, placement=None,
+                        disc_placement=None) -> Callable:
     """fn(gen_state, disc_state, batch) -> metrics: one generator update and
     one discriminator update on ``batch`` ([B, H, W, 3] in [0, 1]), both
     states updated in place.
@@ -287,6 +361,9 @@ def make_gan_train_step(weights: LossWeights = LossWeights(),
     - ``disc_loss_floor``: while disc_loss is below it, D's gradients are
       multiplied by 0 and its optimizer still steps, so Adam's moments move
       D's parameters; mirrored from the JAX step, not fixed.
+    - ``placement`` / ``disc_placement`` (the generator's and the
+      discriminator's; the latter replicates every parameter): ``batch`` is
+      this rank's rows (see the module docstring).
     """
 
     def train_step(gen_state: TrainState, disc_state: TrainState,
@@ -298,8 +375,10 @@ def make_gan_train_step(weights: LossWeights = LossWeights(),
         grads, metrics = gan_generator_grads(
             model, disc, batch, weights, lpips_params, gan_scale, adaptive_weight,
             adaptive_max, generator=step_generator(seed, step, batch.device),
-            teacher_fn=teacher_fn, vf_proj=gen_state.vf_proj, perceptual_fn=perceptual_fn)
-        metrics["grad_norm"] = global_norm(grads)
+            teacher_fn=teacher_fn, vf_proj=gen_state.vf_proj, perceptual_fn=perceptual_fn,
+            placement=placement)
+        metrics["grad_norm"] = global_norm(
+            grads, placement, [n for n, _ in named_trainables(model, gen_state.vf_proj)])
         gen_state.optimizer.step(grads)
         del grads
         if ema_decay is not None:
@@ -307,12 +386,14 @@ def make_gan_train_step(weights: LossWeights = LossWeights(),
         gen_state.step += 1
 
         real = batch.permute(0, 3, 1, 2).float().contiguous()
-        with torch.no_grad():
+        with torch.no_grad(), _gathered(placement):
             recon = model(real.to(model.config.compute_dtype), sample=True,
-                          generator=step_generator(seed, step, batch.device))[0]
+                          generator=step_generator(seed, step, batch.device),
+                          noise_rows=_rows(placement, real.shape[0]))[0]
             fake = torch.sigmoid(recon.float())
         del recon
-        d_grads, d_metrics = discriminator_grads(disc, real, fake, disc_loss_kind, r1_gamma)
+        d_grads, d_metrics = discriminator_grads(disc, real, fake, disc_loss_kind, r1_gamma,
+                                                 disc_placement)
         if disc_loss_floor > 0:
             d_scale = (d_metrics["disc_loss"] >= disc_loss_floor).float()
             torch._foreach_mul_(d_grads, d_scale)

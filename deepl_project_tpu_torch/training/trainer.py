@@ -20,8 +20,20 @@ Stage 2 (``weights.gan > 0``): a PatchGAN discriminator with its own AdamW
 optimizer and step go in the checkpoint. A stage hand-off resumes as in the
 JAX trainer (:meth:`Trainer.maybe_resume`).
 
-Not ported yet (they raise): model parallelism (``mesh_model > 1``) and
-parameter sharding other than ``replicate`` (one device).
+Under a process group (torchrun; ``parallel.initialize_multihost``) the
+trainer builds the (data, 1, mesh_model) mesh over its ranks and places the
+parameters by ``param_sharding`` (``parallel.shard_params``: replicate,
+fsdp or tensor), as the JAX trainer does over its devices: each rank trains
+on its rows of every global batch (``fit`` takes the global batch and keeps
+the rank's rows, or takes them already split, [batch_size / data, ...]),
+the steps average gradients and metrics over the data group, validation
+splits each batch over data, and checkpoints hold whole tensors (gathered
+on save, which rank 0 writes; sliced on restore), so a checkpoint crosses
+placements and process counts both ways. A global batch that does not
+divide over data is refused with its divisor (the JAX trainer drops to a
+subset mesh). Without a process group nothing of this runs: one process,
+one device, ``mesh_model`` 1 (``param_sharding`` then places nothing, as
+in the JAX rules at a model axis of 1).
 """
 
 from __future__ import annotations
@@ -33,13 +45,16 @@ from typing import Any, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import TransVAEConfig
 from ..losses import (LossWeights, get_lpips_params, lpips_params_available,
                       make_self_perceptual)
 from ..models.discriminator import PatchDiscriminator, init_disc_weights
 from ..models.transvae import TransVAE, init_weights, resolve_device
-from ..utils.logging import MetricWriter, RunHistory, StepTimer
+from ..parallel import Placement, create_mesh, data_axis_size, shard_batch, shard_params
+from ..parallel.sharding import MODES
+from ..utils.logging import MetricWriter, RunHistory, StepTimer, is_primary
 from ..utils.metrics import psnr, ssim
 from .checkpoint import (checkpoint_metrics, latest_step, load_config, restore_checkpoint,
                          restore_model_params, save_checkpoint)
@@ -91,10 +106,6 @@ class TrainerConfig:
     skip_data_on_resume: bool = False
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not yet ported to deepl_project_tpu_torch")
-
-
 class Trainer:
     def __init__(self, model_config: TransVAEConfig, train_config: TrainerConfig,
                  teacher_fn=None, device=None):
@@ -104,8 +115,18 @@ class Trainer:
         cfg = train_config
         if cfg.perceptual not in ("vgg", "self"):
             raise ValueError(f"perceptual must be vgg|self, got {cfg.perceptual!r}")
-        if cfg.mesh_model > 1 or cfg.param_sharding != "replicate":
-            _not_ported("model parallelism and parameter sharding")
+        if cfg.param_sharding not in MODES:
+            raise ValueError(f"param_sharding must be one of {MODES}, got "
+                             f"{cfg.param_sharding!r}")
+        self.mesh = self.placement = self.disc_placement = None
+        if dist.is_initialized():
+            data = data_axis_size(cfg.batch_size, dist.get_world_size(), cfg.mesh_model)
+            self.mesh = create_mesh(data=data, model=cfg.mesh_model)
+            self.placement = Placement(self.mesh, cfg.param_sharding)
+            self.disc_placement = Placement(self.mesh)  # replicated
+        elif cfg.mesh_model > 1:
+            raise ValueError(f"mesh_model={cfg.mesh_model} needs that many ranks a model "
+                             "group: launch under torchrun (python -m torch.distributed.run)")
         if cfg.lr_schedule not in ("constant", "cosine"):
             raise ValueError(f"lr_schedule must be constant|cosine, got {cfg.lr_schedule!r}")
         self.model_config = model_config
@@ -140,7 +161,8 @@ class Trainer:
                 adaptive_max=cfg.gan_adaptive_max,
                 disc_loss_floor=cfg.gan_disc_loss_floor,
                 r1_gamma=cfg.gan_r1_gamma, seed=cfg.seed, teacher_fn=teacher_fn,
-                perceptual_fn=self.perceptual_fn)
+                perceptual_fn=self.perceptual_fn, placement=self.placement,
+                disc_placement=self.disc_placement)
 
             def gan_adapter(state, batch):
                 return gan_step(state, self._ensure_disc_state(), batch)
@@ -151,7 +173,8 @@ class Trainer:
                                            accum_steps=cfg.accum_steps,
                                            ema_decay=cfg.ema_decay or None,
                                            seed=cfg.seed, teacher_fn=teacher_fn,
-                                           perceptual_fn=self.perceptual_fn)
+                                           perceptual_fn=self.perceptual_fn,
+                                           placement=self.placement)
         self._best_psnr = float("-inf")
         self._best_raw_psnr = float("-inf")
 
@@ -182,7 +205,9 @@ class Trainer:
     def create_state(self) -> TrainState:
         """A model with weights drawn from ``seed`` on the device, with a
         teacher the VF projection (drawn next from the same generator), the
-        optimizer over both and (with ema_decay) the EMA shadow of both."""
+        optimizer over both and (with ema_decay) the EMA shadow of both.
+        Under a mesh every rank draws the whole weights, then keeps its
+        slices (``param_sharding``)."""
         with torch.device("meta"):
             model = TransVAE(self.model_config)
         model = model.to_empty(device=self.device)
@@ -193,10 +218,16 @@ class Trainer:
             vf_proj = make_vf_proj_params(self.model_config.latent_dim, self.dino_dim, gen,
                                           device=self.device)
         c = self.cfg
+        if self.mesh is not None:
+            shard_params(self.mesh, model, c.param_sharding, placement=self.placement)
+            if vf_proj is not None:
+                shard_params(self.mesh, vf_proj, c.param_sharding, prefix="vf_proj.",
+                             placement=self.placement)
         opt = make_optimizer(named_trainables(model, vf_proj), learning_rate=c.learning_rate,
                              warmup_steps=c.warmup_steps, max_grad_norm=c.max_grad_norm,
                              freeze_encoder=c.freeze_encoder, mu_dtype=c.mu_dtype,
-                             optimizer=c.optimizer, schedule=self._schedule())
+                             optimizer=c.optimizer, schedule=self._schedule(),
+                             placement=self.placement)
         return TrainState(step=0, model=model, optimizer=opt, vf_proj=vf_proj,
                           ema=init_ema(model, vf_proj) if c.ema_decay else None)
 
@@ -211,7 +242,8 @@ class Trainer:
             disc = disc.to_empty(device=self.device)
             init_disc_weights(disc, torch.Generator(device=self.device).manual_seed(c.seed + 1))
             opt = make_optimizer(disc.named_parameters(), learning_rate=c.learning_rate,
-                                 warmup_steps=0, max_grad_norm=c.max_grad_norm)
+                                 warmup_steps=0, max_grad_norm=c.max_grad_norm,
+                                 placement=self.disc_placement)
             self._disc_state = TrainState(step=0, model=disc, optimizer=opt)
         return self._disc_state
 
@@ -245,16 +277,19 @@ class Trainer:
                   "kind or trains other parameters); falling back to params/step-only "
                   "restore")
             full = False
-        state.model.load_state_dict(payload["model"], strict=True)
+        self._load_params(state.model, payload["model"])
         if state.vf_proj is not None and "vf_proj" in payload:
-            state.vf_proj.load_state_dict(payload["vf_proj"], strict=True)
+            self._load_params(state.vf_proj, payload["vf_proj"], "vf_proj.")
         state.step = int(payload["step"])
         if full:
             state.optimizer.load_state_dict(payload["optimizer"])
             if state.ema is not None:
-                with torch.no_grad():
-                    for n, t in state.ema.items():
-                        t.copy_(payload["ema"][n])
+                if self.placement is None:
+                    with torch.no_grad():
+                        for n, t in state.ema.items():
+                            t.copy_(payload["ema"][n])
+                else:
+                    self.placement.load_full(state.ema.items(), payload["ema"])
             if "disc_model" in payload:
                 disc = self._ensure_disc_state()
                 disc.model.load_state_dict(payload["disc_model"], strict=True)
@@ -275,23 +310,61 @@ class Trainer:
         print(f"[trainer] resumed from step {state.step} (epoch {meta['epoch']})")
         return state, meta["epoch"]
 
+    # -- placement ----------------------------------------------------------
+    def _load_params(self, module, saved: dict, prefix: str = "") -> None:
+        """A whole state_dict into ``module``, this rank's slices under a mesh."""
+        if self.placement is None:
+            module.load_state_dict(saved, strict=True)
+        else:
+            self.placement.load_full(named_trainables(module), saved, prefix)
+
+    def _whole(self, module, prefix: str = "") -> dict:
+        """``module``'s state_dict with whole tensors (gathered under a mesh:
+        every rank calls it)."""
+        if self.placement is None:
+            return module.state_dict()
+        return self.placement.full_state(named_trainables(module), prefix)
+
+    def _local_batch(self, batch: torch.Tensor, accum_steps: int) -> torch.Tensor:
+        """This rank's rows of a global batch; a batch already split passes."""
+        if self.mesh is None or self.placement.data_size == 1:
+            return batch
+        if batch.shape[0] == self.cfg.batch_size:
+            return shard_batch(self.mesh, batch, accum_steps)
+        if batch.shape[0] * self.placement.data_size == self.cfg.batch_size:
+            return batch
+        raise ValueError(f"batch of {batch.shape[0]} rows: neither the global batch "
+                         f"{self.cfg.batch_size} nor its share of "
+                         f"{self.placement.data_size} data ranks")
+
     # -- validation -------------------------------------------------------
     @torch.no_grad()
     def _metrics(self, model, val_batches) -> dict:
+        """Mean PSNR/SSIM over every image; under a mesh each data rank
+        scores its rows of each batch and the sums are reduced over data."""
         vals: dict[str, list] = {"psnr": [], "ssim": []}
         for batch in val_batches:
-            x = torch.as_tensor(np.asarray(batch)).to(self.device).permute(0, 3, 1, 2)
+            batch = np.asarray(batch)
+            if self.mesh is not None:
+                batch = shard_batch(self.mesh, batch)
+            x = torch.as_tensor(batch).to(self.device).permute(0, 3, 1, 2)
             recon = torch.sigmoid(model(x.to(model.config.compute_dtype))[0].float())
             vals["psnr"].append(psnr(recon, x).cpu())
             vals["ssim"].append(ssim(recon, x).cpu())
-        return {k: float(torch.cat(v).mean()) for k, v in vals.items()}
+        if self.mesh is None:
+            return {k: float(torch.cat(v).mean()) for k, v in vals.items()}
+        sums = torch.tensor([float(torch.cat(v).double().sum()) for v in vals.values()]
+                            + [float(sum(len(t) for t in vals["psnr"]))],
+                            dtype=torch.float64, device=self.device)
+        dist.all_reduce(sums, group=self.placement.data_group)
+        return {k: float(sums[i] / sums[-1]) for i, k in enumerate(vals)}
 
     def evaluate(self, state: TrainState, val_batches: list) -> dict:
         """Mean PSNR/SSIM over fixed validation batches; with EMA on, the
         shadow parameters are scored too (val_psnr_ema, ...)."""
         out = {f"val_{k}": v for k, v in self._metrics(state.model, val_batches).items()}
         if state.ema is not None:
-            params = dict(state.model.named_parameters())
+            params = dict(named_trainables(state.model))
             with torch.no_grad():
                 live = {n: p.detach().clone() for n, p in params.items()}
                 for n, p in params.items():
@@ -372,7 +445,9 @@ class Trainer:
                     batch = next(data_iter)
                 except StopIteration:
                     break
-                batch = torch.as_tensor(batch).to(self.device)
+                batch = torch.as_tensor(batch)
+                accum = 1 if self.use_gan else c.accum_steps
+                batch = self._local_batch(batch, accum).to(self.device)
                 metrics = self.step_fn(state, batch)
                 timer.tick(c.batch_size)
                 step = state.step
@@ -439,12 +514,13 @@ class Trainer:
         policy, not architecture."""
         ckpt_dir = os.path.join(self.cfg.output_dir,
                                 "checkpoints_best" if best else "checkpoints")
-        payload = {"model": state.model.state_dict(),
+        payload = {"model": self._whole(state.model),
                    "optimizer": state.optimizer.state_dict(), "step": state.step}
         if state.ema is not None:
-            payload["ema"] = state.ema
+            payload["ema"] = (state.ema if self.placement is None else
+                              self.placement.full_state(state.ema.items()))
         if state.vf_proj is not None:
-            payload["vf_proj"] = state.vf_proj.state_dict()
+            payload["vf_proj"] = self._whole(state.vf_proj, "vf_proj.")
         if self.use_gan and self._disc_state is not None:
             d = self._disc_state
             payload.update(disc_model=d.model.state_dict(),
@@ -452,8 +528,11 @@ class Trainer:
         saved_cfg = self.model_config
         if saved_cfg.attention_impl == "auto_train":
             saved_cfg = saved_cfg.replace(attention_impl="auto")
-        save_checkpoint(ckpt_dir, state.step, payload, epoch=epoch, config=saved_cfg,
-                        max_to_keep=1 if best else 3, metrics=val if best else None)
+        if is_primary():
+            save_checkpoint(ckpt_dir, state.step, payload, epoch=epoch, config=saved_cfg,
+                            max_to_keep=1 if best else 3, metrics=val if best else None)
+        if self.mesh is not None:
+            dist.barrier()
         tag = " (new best)" if best else ""
         print(f"[trainer] saved checkpoint at step {state.step}{tag}")
 

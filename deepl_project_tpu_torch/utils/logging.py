@@ -2,7 +2,9 @@
 scalars, the JSONL run record, step timing and profiler traces.
 
 ``MetricWriter`` writes TensorBoard event files with tensorboardX and does
-nothing where that package is absent, as the JAX package's does.
+nothing where that package is absent, as the JAX package's does. Under a
+process group, ``MetricWriter`` and ``RunHistory`` write on rank 0 only
+(the JAX package's ``process_index() == 0``).
 ``profiler_trace`` records ``torch.profiler`` (host, and the card where
 there is one) into a Chrome trace that TensorBoard's profile plugin and
 Perfetto read, where the JAX package records ``jax.profiler``.
@@ -18,12 +20,21 @@ import time
 from typing import Mapping
 
 
+def is_primary() -> bool:
+    """Rank 0 of the default process group, or a process without one."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 class MetricWriter:
     """Scalars to a TensorBoard log directory (tensorboardX); a no-op where
-    tensorboardX is not installed."""
+    tensorboardX is not installed, and on every rank but 0."""
 
     def __init__(self, log_dir: str):
         self._writer = None
+        if not is_primary():
+            return
         try:
             from tensorboardX import SummaryWriter
         except ImportError:
@@ -42,13 +53,17 @@ class MetricWriter:
 
 
 class RunHistory:
-    """Append-only JSONL run record (<output_dir>/history.jsonl)."""
+    """Append-only JSONL run record (<output_dir>/history.jsonl); a no-op
+    on every rank but 0."""
 
     def __init__(self, path: str):
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        self.path = path
+        self.path = path if is_primary() else None
+        if self.path is not None:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
 
     def append(self, step: int, metrics: Mapping[str, float], kind: str = "train") -> None:
+        if self.path is None:
+            return
         row = {"step": int(step), "kind": kind, "ts": time.time(),
                **{k: float(v) for k, v in metrics.items()}}
         with open(self.path, "a") as f:

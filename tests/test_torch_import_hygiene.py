@@ -4,10 +4,11 @@ In a fresh interpreter where ``import jax`` and ``import flax`` fail, every
 module of deepl_project_tpu_torch (found by walking the whole package, so new
 modules are covered as they come; the evaluation slice's are named) and
 chip_smoke.py must import, and none of deepl_project_tpu's modules may be
-loaded. The entry points (model factory, ``from_pretrained``, serving
-engine, trainer -- also with a VF teacher, remat and Adafactor -- the
-evaluate, generate, rope_extrapolation and smoke_test CLIs, the DiT factory
-and the train_dit and sample_dit CLIs) default to CUDA and refuse to
+loaded (the parallel slice's modules are named too). The entry points
+(model factory, ``from_pretrained``, serving engine, trainer -- also with a
+VF teacher, remat and Adafactor -- the evaluate, generate, rope_extrapolation
+and smoke_test CLIs, the DiT factory and the train_dit and sample_dit CLIs,
+and the train CLI as torchrun starts it) default to CUDA and refuse to
 continue on a machine without it.
 """
 
@@ -35,7 +36,8 @@ _PROBE = textwrap.dedent("""
              "data.datasets", "utils.inception", "utils.inception_spec",
              "utils.latent_metrics", "utils.logging", "utils.flops", "cli.smoke_test",
              "models.dit", "ops.moe", "training.diffusion", "cli.train_dit",
-             "cli.sample_dit"}
+             "cli.sample_dit", "parallel", "parallel.multihost", "parallel.mesh",
+             "parallel.collectives", "parallel.sharding"}
     assert named <= {n.split(".", 1)[1] for n in names}, named
     import chip_smoke
     bad = sorted(m for m in sys.modules
@@ -82,3 +84,36 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert out.returncode == 0, out.stderr
     n_modules, status = out.stdout.split()
     assert int(n_modules) >= 50 and status == "ok"
+
+
+_TORCHRUN_PROBE = textwrap.dedent("""
+    import sys, tempfile
+    sys.modules["jax"] = None
+    import torch
+    import torch.distributed as dist
+    torch.cuda.is_available = lambda: False
+    from deepl_project_tpu_torch.cli import train
+    out = tempfile.mkdtemp()
+    try:
+        train.main(["--data", "shapes", "--output_dir", out, "--mesh_model", "2",
+                    "--param_sharding", "tensor"])
+    except RuntimeError as e:
+        assert "device='cpu'" in str(e), e
+    else:
+        raise AssertionError("trained without CUDA")
+    assert not dist.is_initialized()
+    print("ok")
+""")
+
+
+def test_train_cli_under_torchrun_refuses_without_cuda(tmp_path):
+    """cli.train with torchrun's RANK / WORLD_SIZE / LOCAL_RANK / MASTER_*
+    set and CUDA hidden: the default device stays the card, so it raises
+    before it joins a process group, as the single-process path does."""
+    env = {**os.environ, "PYTHONPATH": REPO, "RANK": "0", "WORLD_SIZE": "2",
+           "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "2", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": "29500", "CUDA_VISIBLE_DEVICES": "", "TMPDIR": str(tmp_path)}
+    out = subprocess.run([sys.executable, "-c", _TORCHRUN_PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=30, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["ok"]

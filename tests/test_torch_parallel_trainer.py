@@ -1,0 +1,129 @@
+"""The port's parallel training through its entry points on gloo ranks,
+on the CPU (harness: tests/torch_parallel_jobs.py; one pool of rank
+processes for the file): the GAN step, checkpoints that cross placements
+and process counts, ``cli.train --mesh_model 2 --param_sharding tensor``
+as torchrun starts it, the mesh's coordinates against the JAX package's
+device layout, and the subset-mesh rule.
+
+Tolerances as in tests/test_torch_parallel_steps.py: losses 1e-6
+relative, parameters 1e-5 of the largest |parameter| (a parameter whose
+gradient is rounding noise, 2 x steps x lr); the adaptive GAN weight 1e-5
+relative; the disc-floor decisions equal; checkpoints restore bit-equal.
+"""
+
+import json
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import torch_parallel_jobs as J
+from deepl_project_tpu.parallel import create_mesh as jax_create_mesh
+from deepl_project_tpu_torch.parallel import data_axis_size
+
+torch.set_num_threads(1)
+DATA = J.batches(2, 4)
+
+
+@pytest.fixture(scope="module")
+def pool():
+    p = J.RankPool(4)
+    yield p
+    p.close()
+
+
+@pytest.mark.parametrize("mode, world", [("replicate", 2), ("tensor", 4)])
+def test_gan_step_matches_single_process(pool, tmp_path, mode, world):
+    """Two GAN steps (adaptive weight, R1, the disc loss floor at 2.0) at
+    data 2 (x model 2 under tensor): the generator's gradients, the losses,
+    the adaptive weight from the global last-layer gradients, the floor's
+    decision on the global disc loss (blocked, then through), and the
+    generator's and discriminator's parameters."""
+    ref = J.gan(None, 1, DATA)
+    assert [m["disc_update_scale"] for m in ref["metrics"]] == [0.0, 1.0]
+    got = pool.run(J.gan, world, tmp_path, mode, world // 2, DATA)
+    for r in got:
+        J.check_grads(ref["grads"], r["grads"])
+        for a, b in zip(ref["metrics"], r["metrics"], strict=True):
+            for k in ("total", "disc_loss", "disc_r1", "gan"):
+                assert abs(a[k] - b[k]) <= 1e-6 * abs(a[k]), (k, a[k], b[k])
+            w = a["adaptive_gan_weight"]
+            assert abs(w - b["adaptive_gan_weight"]) <= 1e-5 * w
+            assert a["disc_update_scale"] == b["disc_update_scale"]
+        J.check_params(ref["grads"], ref["params"], r["params"], 2)
+        err = max(float((v - r["disc"][k]).abs().max()) for k, v in ref["disc"].items())
+        assert err <= J.PARAM_TOL * J._max(ref["disc"]), err
+
+
+@pytest.mark.parametrize("mode", ["fsdp", "tensor"])
+def test_checkpoint_saved_under_sharding_resumes_in_one_process(pool, tmp_path, mode):
+    """Trainer.fit on model=2 writes one whole checkpoint (rank 0); a single
+    process resumes it: parameters, EMA and optimizer moments equal the
+    ranks' gathered state, bit for bit."""
+    out = str(tmp_path / "run")
+    ranks = pool.run(J.fit, 2, tmp_path, mode, 2, out, DATA)
+    single = J.fit("replicate", 1, out, DATA, resume_only=True)
+    assert single["step"] == ranks[0]["step"] == 2
+    for key in ("params", "ema"):
+        for k, v in ranks[0][key].items():
+            assert torch.equal(v, single[key][k]), (key, k)
+    for k, v in ranks[0]["optimizer"]["nu"].items():
+        assert torch.equal(v, single["optimizer"]["nu"][k]), k
+
+
+@pytest.mark.parametrize("mode", ["fsdp", "tensor"])
+def test_single_process_checkpoint_resumes_under_sharding(pool, tmp_path, mode):
+    """The reverse: a single process's checkpoint restored on data=1 x
+    model=2 gives every rank its slices of the same state."""
+    out = str(tmp_path / "run")
+    single = J.fit("replicate", 1, out, DATA)
+    for r in pool.run(J.fit, 2, tmp_path, mode, 2, out, DATA, True):
+        assert r["step"] == single["step"] == 2
+        for key in ("params", "ema"):
+            for k, v in single[key].items():
+                assert torch.equal(v, r[key][k]), (key, k)
+        for k, v in single["optimizer"]["mu"].items():
+            assert torch.equal(v, r["optimizer"]["mu"][k]), k
+
+
+def test_train_cli_tensor_parallel_under_torchrun(pool, tmp_path):
+    """cli.train --mesh_model 2 --param_sharding tensor on two gloo ranks
+    (RANK / WORLD_SIZE / LOCAL_RANK as torchrun sets them), two steps: no
+    'not yet ported', one history and one checkpoint, from rank 0."""
+    out = tmp_path / "cli"
+    argv = ["--device", "cpu", "--data", "shapes", "--resolution", "32", "--batch_size", "4",
+            "--num_epochs", "1", "--steps_per_epoch", "2", "--log_every", "1",
+            "--lpips_weight", "0", "--warmup_steps", "1", "--save_every_epochs", "1",
+            "--mesh_model", "2", "--param_sharding", "tensor", "--output_dir", str(out)]
+    assert pool.run(J.train_cli, 2, tmp_path, argv, 2) == [True, True]
+    rows = [json.loads(line) for line in open(out / "history.jsonl")]
+    assert [r["step"] for r in rows if r["kind"] == "train"] == [1, 2]
+    assert np.isfinite([r["total"] for r in rows]).all()
+    assert sorted(os.listdir(out / "checkpoints")) == ["ckpt_000000002.pt", "config.json"]
+    assert json.load(open(out / "run_args.json"))["args"]["param_sharding"] == "tensor"
+
+
+@pytest.mark.parametrize("data, model", [(4, 1), (2, 2), (1, 4)])
+def test_create_mesh_coordinates_match_jax(pool, tmp_path, data, model):
+    """Rank i's (data, context, model) coordinate is device i's place in the
+    JAX package's create_mesh over the first 4 devices."""
+    mesh = jax_create_mesh(data=data, model=model, devices=jax.devices()[:4])
+    where = {int(d.id): tuple(int(i) for i in idx)
+             for idx, d in np.ndenumerate(mesh.devices)}
+    ids = [int(d.id) for d in jax.devices()[:4]]
+    for rank, coord in pool.run(J.mesh_coordinates, 4, tmp_path, data, model):
+        assert coord == where[ids[rank]], (rank, coord)
+
+
+def test_subset_mesh_rule_is_a_refusal_naming_the_divisor():
+    """Where the JAX trainer drops to gcd(batch, devices / model) devices,
+    the port refuses and names the data axis and the subset it would take."""
+    assert data_axis_size(8, 4, 2) == 2
+    with pytest.raises(ValueError, match=r"multiple of 4.*launch 2 ranks"):
+        data_axis_size(6, 4, 1)
+    with pytest.raises(ValueError, match=r"multiple of 4.*launch 4 ranks"):
+        data_axis_size(6, 8, 2)
+    with pytest.raises(ValueError, match="not a multiple of mesh_model"):
+        data_axis_size(8, 3, 2)
