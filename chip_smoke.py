@@ -227,6 +227,28 @@ Phases (any failure exits non-zero and prints no result):
    Not in the defaults: refusals (two ranks on the card: NCCL's group and
    gloo's collectives on CUDA tensors, each accepted or refused, with the
    message).
+15. context (run before parallel): ring context parallelism on the one
+   card, large f16d32 at 1024px over a context axis of 2: first a probe of
+   gloo's point-to-point transfers of host and CUDA tensors (accepted or
+   refused, with the message); the flash kernels timed at the ring's local
+   shapes (CONTEXT_RING_SHAPES) beside their plain versions, SDPA and their
+   bounds; one process's fp32 and bf16 forward (b1) and stage-1 step (b2,
+   L1 + KL + LPIPS on random VGG, remat 'none', the global latent noise
+   handed in, AdamW); then two processes on the card over gloo (this
+   script under torchrun, --worker context; results in CONTEXT_DIR): (a)
+   the ring at CONTEXT_RING split 2 ways, forward and dq, dk, dv within
+   KERNEL_RTOL of one process's flash attention and of the plain ring
+   (ring_attention_reference; the plain partials' backward), 2 + 2 flash
+   launches and ring steps a rank, ms a call; (b) the no-grad forward,
+   each rank its 512 rows: the gathered reconstruction's mean abs error
+   against the fp32 forward within CONTEXT_MEAN_RATIO of one process's
+   bf16 forward's, 26 ring routes and 52 flash forwards a rank and no
+   other kernel (group_norm_silu included), peak; (c) the step on the same
+   weights, batch and noise: loss and grad norm within phase parallel's
+   bars of one process's, the parameters bit-identical across the ranks
+   after the update, 104 + 52 flash launches and as many ring steps a
+   rank, peak, ms and the bytes staged through host memory (gloo refuses
+   CUDA point-to-point: not a speed).
 
 Launches are checked against one table per resolution (256, 512, 1024px;
 launches_per_reconstruct; phase dit's tokenizer halves, tokenizer_launches). group_norm_silu's launches are checked on every
@@ -406,6 +428,27 @@ PARALLEL_GRAD_NORM_RTOL = 1e-2
 PARALLEL_ADAPTIVE_RTOL = 1e-2
 PARALLEL_GAN_ADAPTIVE_MAX = 1e4
 PARALLEL_GAN_FLOOR = 2.0
+# Phase context: large f16d32 at CONTEXT_RES split over a context axis of 2
+# (two processes on the card over gloo). (a) the ring alone at stage 2's
+# shape (B, N, heads); (b) the no-grad forward of CONTEXT_FWD_BATCH images,
+# whose gathered reconstruction must lie within CONTEXT_MEAN_RATIO of one
+# process's bf16 forward in mean abs error against one process's fp32 (the
+# serve phase's rule for a rounding change); (c) one stage-1 step at global
+# CONTEXT_STEP_BATCH against one process (phase parallel's bars). The
+# model's CONTEXT_SUBLAYERS attention sublayers (13 encoder, 13 decoder)
+# each run a ring of 2 steps; the flash kernels are held to their plain
+# versions and timed at the step's local ring shapes (stages 2-4,
+# CONTEXT_RING_SHAPES; the forward also at CONTEXT_FWD_BATCH), and the
+# two-rank ring is checked at CONTEXT_RING and at each of those shapes'
+# global N (CONTEXT_RING_CHECKED).
+CONTEXT_RES = 1024
+CONTEXT_RING = (1, 65536, 6)
+CONTEXT_FWD_BATCH = 1
+CONTEXT_STEP_BATCH = 2
+CONTEXT_MEAN_RATIO = 1.1
+CONTEXT_SUBLAYERS = 26
+CONTEXT_RING_SHAPES = ((2, 32768, 6), (2, 8192, 12), (2, 2048, 24))
+CONTEXT_RING_CHECKED = (CONTEXT_RING,) + tuple((b, 2 * n, h) for b, n, h in CONTEXT_RING_SHAPES)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CARD = ""
@@ -419,6 +462,12 @@ NORM_PATHS: dict = {}
 # Phase dit's paths ('dit_train', 'dit_sample', 'dit_b1') -> launches by
 # kernel name in that path's run.
 DIT_PATHS: dict = {}
+# Phase context's files (the ranks' results), its paths (each rank's
+# forward and step) -> launches by kernel name, and the flash kernels'
+# times at its ring shapes (the kernels line's ring_ms_by_shape).
+CONTEXT_DIR = os.path.join(ROOT, "outputs", "chip_smoke_context")
+CONTEXT_PATHS: dict = {}
+CONTEXT_RING_ROWS: dict = {}
 
 
 def fail(msg: str):
@@ -3368,6 +3417,34 @@ def refusal_worker(kind: str) -> None:
         torch.empty(2, device="cuda"), list(torch.ones(2 * world, device="cuda").chunk(world))))
 
 
+def p2p_probe_worker() -> None:
+    """Under torchrun, two ranks on the one card over gloo: one
+    batch_isend_irecv exchange of host tensors and one of CUDA tensors, each
+    accepted (with its values checked) or refused with the message."""
+    import torch
+    import torch.distributed as dist
+
+    from deepl_project_tpu_torch.parallel import initialize_multihost
+
+    initialize_multihost(backend="gloo", device="cuda:0", timeout_s=60)
+    rank = dist.get_rank()
+    for dev in ("cpu", "cuda"):
+        x = torch.arange(1 << 20, device=dev, dtype=torch.float32) * (rank + 1)
+        buf = torch.zeros_like(x)
+        try:
+            for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, 1 - rank),
+                                               dist.P2POp(dist.irecv, buf, 1 - rank)]):
+                req.wait()
+            torch.cuda.synchronize()
+            right = torch.equal(buf, x / (rank + 1) * (2 - rank))
+            print(f"RESULT gloo batch_isend_irecv {dev} rank {rank}: accepted, values "
+                  f"{'right' if right else 'WRONG'}", flush=True)
+        except Exception as e:  # noqa: BLE001 -- the refusal is what this probe records
+            print(f"RESULT gloo batch_isend_irecv {dev} rank {rank}: refused: "
+                  f"{type(e).__name__}: {' '.join(str(e).split())[:300]}", flush=True)
+            return
+
+
 def _torchrun(nproc: int, args: list, timeout: int) -> subprocess.CompletedProcess:
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", str(nproc), *args]
@@ -3695,14 +3772,494 @@ def phase_parallel(train_rows: list) -> None:
         del q, k, v, do, o, lse, hq, out
 
 
+# -- phase context -------------------------------------------------------------
+def _context_inputs(what: str, shape=CONTEXT_RING):
+    """Phase context's inputs, made from seeds on the card identically in
+    every process: 'ring' q, k, v, dO at ``shape`` (B, N, heads); 'images' the forward's
+    CONTEXT_FWD_BATCH images and 'batch' the step's CONTEXT_STEP_BATCH ([B, H,
+    W, 3] in [0, 1], shapes at CONTEXT_RES); 'noise' the step's global latent
+    noise [B, 32, H/16, W/16]; 'lpips' the random VGG."""
+    import numpy as np
+    import torch
+
+    from deepl_project_tpu_torch.data import make_dataset
+    from deepl_project_tpu_torch.losses.lpips import init_lpips_params
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    if what == "ring":
+        return [torch.randn(*shape, 64, generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(4)]
+    if what == "lpips":
+        return init_lpips_params(gen, "cuda")
+    if what == "noise":
+        side = CONTEXT_RES // 16
+        return torch.randn(CONTEXT_STEP_BATCH, 32, side, side, generator=gen, device="cuda")
+    n = CONTEXT_FWD_BATCH if what == "images" else CONTEXT_STEP_BATCH
+    return np.stack(list(make_dataset("shapes", resolution=CONTEXT_RES, num_samples=n,
+                                      seed=31 if what == "images" else 32)))
+
+
+def _context_model(**kw):
+    """Large f16d32 from seed 0 (fp32 parameters, bf16 compute unless
+    ``dtype`` says otherwise), the step's remat 'none'."""
+    from deepl_project_tpu_torch import create_transvae
+
+    return create_transvae("large", 16, 32, device="cuda", seed=0, remat=True,
+                           remat_policy="none", **kw)
+
+
+def _context_step(model, batch, placement=None, update: bool = True) -> dict:
+    """Phase context (c)'s step on ``model``: compute_grads of ``batch`` (L1 +
+    KL + LPIPS on the random VGG, the handed-in noise), the grad norm and,
+    with ``update``, an AdamW update; loss, grad norm, ms, peak and
+    launches, and under a placement the fingerprints of the updated
+    parameters."""
+    import torch
+
+    from deepl_project_tpu_torch.losses import LossWeights
+    from deepl_project_tpu_torch.parallel import collectives as col
+    from deepl_project_tpu_torch.parallel.ring_attention import reset_step_counts, step_counts
+    from deepl_project_tpu_torch.training.optim import make_optimizer
+    from deepl_project_tpu_torch.training.train_step import (compute_grads, global_norm,
+                                                             named_trainables)
+
+    named = named_trainables(model)
+    opt = (make_optimizer(named, learning_rate=1e-4, warmup_steps=0, placement=placement)
+           if update else None)
+    weights = LossWeights(l1=1.0, lpips=1.0, kl=1e-8, vf=0.0, gan=0.0)
+    lpips, noise = _context_inputs("lpips"), _context_inputs("noise")
+    model.train()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    reset_step_counts()
+    col.reset_staged_counts()
+    t0 = time.perf_counter()
+    grads, m = compute_grads(model, batch, weights, lpips, noise=[noise], placement=placement)
+    norm = global_norm(grads, placement, [n for n, _ in named])
+    if update:
+        opt.step(grads)
+    del grads
+    torch.cuda.synchronize()
+    row = {"ms": (time.perf_counter() - t0) * 1e3, "launches": launches_by_name(),
+           "ring_steps": step_counts(), "staged": col.staged_counts(),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "total": float(m["total"]), "grad_norm": float(norm),
+           "lpips": float(m["lpips"]), "applied": update and bool(opt.last_finite)}
+    if placement is not None and update:
+        row["fingerprint"] = _fingerprint([p for _, p in named])
+    return row
+
+
+def context_worker() -> None:
+    """A rank of phase context, started by torchrun: two processes on the
+    one card over gloo, a context axis of 2 (data 1). (a) the ring alone,
+    (b) the no-grad forward, (c) the stage-1 step; results in
+    CONTEXT_DIR/rank<r>.json, the forward's gathered reconstruction in
+    CONTEXT_DIR/recon_context.pt; any failure exits non-zero."""
+    import torch
+    import torch.distributed as dist
+
+    from deepl_project_tpu_torch.ops import attention as attn_mod
+    from deepl_project_tpu_torch.ops import resample as resample_mod
+    from deepl_project_tpu_torch.ops.hopper.flash_attention import (flash_backward,
+                                                                    flash_forward)
+    from deepl_project_tpu_torch.parallel import (context_parallel, create_mesh,
+                                                  initialize_multihost, shard_params,
+                                                  shard_rows)
+    from deepl_project_tpu_torch.parallel import collectives as col
+    from deepl_project_tpu_torch.parallel import halo as halo_mod
+    from deepl_project_tpu_torch.parallel.ring_attention import (
+        reset_step_counts, ring_attention, ring_attention_reference, step_counts)
+
+    initialize_multihost(backend="gloo", device="cuda:0")
+    rank = dist.get_rank()
+    mesh = create_mesh(data=1, context=2)
+    group = mesh.get_group("context")
+    out = {"staged_backend": dist.get_backend(group)}
+
+    def counts():
+        return {"launches": launches_by_name(), "ring_steps": step_counts(),
+                "staged": col.staged_counts()}
+
+    def reset():
+        reset_launches()
+        reset_step_counts()
+        col.reset_staged_counts()
+
+    # (a) The ring alone, against one process's flash attention on the whole
+    # N and against the plain ring: at stage 2's 1024px b1 shape (timed) and
+    # at each stage's b2 step shape (CONTEXT_RING_SHAPES' local N, twice).
+    scale = 64 ** -0.5
+    mine = lambda t: t.chunk(2, 1)[rank].contiguous()  # noqa: E731
+    err = lambda a, b: [(a.float() - b.float()).abs().max().item(),  # noqa: E731
+                        b.float().abs().max().item()]
+    out["ring"] = {}
+    for shape in CONTEXT_RING_CHECKED:
+        q, k, v, do = _context_inputs("ring", shape)
+        o_ref, lse = flash_forward(q, k, v, scale)
+        g_ref = flash_backward(q, k, v, o_ref, lse, do, scale)
+        local = [mine(t).requires_grad_(True) for t in (q, k, v)]
+        do = mine(do)
+        reset()
+        o = ring_attention(*local, scale, group)
+        grads = torch.autograd.grad(o, local, do)
+        torch.cuda.synchronize()
+        ring = {"counts": counts()}
+        ring["vs_flash"] = {"o": err(o, mine(o_ref)),
+                            **{n: err(g, mine(w)) for n, g, w in zip("qkv", grads, g_ref)}}
+        ref_o = ring_attention_reference(*[t.detach() for t in local], scale, group)
+        plain = [t.detach().clone().requires_grad_(True) for t in local]
+        plain_o = ring_attention(*plain, scale, group, plain=True)
+        plain_g = torch.autograd.grad(plain_o, plain, do)
+        ring["vs_plain"] = {"o": err(o, ref_o), "o_plain_partials": err(o, plain_o),
+                            **{n: err(g, w) for n, g, w in zip("qkv", grads, plain_g)}}
+        del q, k, v, o_ref, lse, g_ref, plain, plain_o, plain_g, ref_o, grads, o
+
+        def fwd_bwd():
+            out_ = ring_attention(*local, scale, group)
+            torch.autograd.grad(out_, local, do)
+
+        if shape == CONTEXT_RING:
+            dist.barrier()
+            ring["ms"] = cuda_time_ms(lambda: ring_attention(*local, scale, group), 5, 1)
+            dist.barrier()
+            ring["fwd_bwd_ms"] = cuda_time_ms(fwd_bwd, 3, 1)
+        out["ring"][str(shape)] = ring
+        del local, do
+        torch.cuda.empty_cache()
+
+    # (b) The no-grad forward at 1024px, this rank's rows.
+    model = _context_model(context_axis="context", attention_impl="auto_train")
+    x = torch.as_tensor(shard_rows(mesh, _context_inputs("images"))).to("cuda")
+    x = x.permute(0, 3, 1, 2).to(torch.bfloat16)
+    dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    attn_mod.reset_route_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad(), context_parallel(mesh):
+        recon = model.eval()(x)[0]
+    torch.cuda.synchronize()
+    out["forward"] = {"ms": (time.perf_counter() - t0) * 1e3, **counts(),
+                      "routes": attn_mod.route_counts(),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                      "norm_launches": norm_launches(), "rows": int(x.shape[2])}
+    whole = col.all_gather_cat(torch.sigmoid(recon.float()), 2, group)
+    if rank == 0:
+        torch.save(whole.cpu(), os.path.join(CONTEXT_DIR, "recon_context.pt"))
+    del recon, whole, x
+    torch.cuda.empty_cache()
+
+    # (c) One stage-1 step at global b2, this rank's rows of each image.
+    # First a planted fault, without the update: every halo row replaced by
+    # zeros (each convolution sees its neighbour's edge as the image's), to
+    # read how far it moves the loss and grad norm against (c)'s bars.
+    placement = shard_params(mesh, model, "replicate")
+    batch = torch.as_tensor(shard_rows(mesh, _context_inputs("batch"))).to("cuda")
+    exchange = halo_mod.exchange_rows
+
+    def zeroed(x, top, bottom, group_):
+        xp = exchange(x, top, bottom, group_)
+        keep = torch.ones(xp.shape[2], 1, dtype=xp.dtype, device=xp.device)
+        keep[:top] = 0
+        keep[xp.shape[2] - bottom:] = 0
+        return xp * keep
+
+    halo_mod.exchange_rows = resample_mod.exchange_rows = zeroed
+    try:
+        dist.barrier()
+        out["planted_zero_halo"] = _context_step(model, batch, placement, update=False)
+    finally:
+        halo_mod.exchange_rows = resample_mod.exchange_rows = exchange
+    torch.cuda.empty_cache()
+    dist.barrier()
+    row = _context_step(model, batch, placement)
+    fp = row.pop("fingerprint")
+    lo, hi = fp.clone(), fp.clone()
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    row["params_bit_identical"] = bool(torch.equal(lo, hi))
+    row["params_checked"] = int(fp.shape[0])
+    row["rows"] = int(batch.shape[1])
+    out["step"] = row
+    with open(os.path.join(CONTEXT_DIR, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _ring_partials_check(shape, gen, backward: bool) -> dict:
+    """The flash kernels as one rank's two-step ring runs them, in one
+    process at the local ``shape`` (B, N_local, heads): the local queries
+    against two chunks of N_local keys. Each step's partial (o, lse) from
+    the forward kernel and from its plain version on the same inputs; with
+    ``backward``, the merged o and lse (of the kernels' partials) handed to
+    the backward kernel and to its plain version at each step, as the ring's
+    backward hands them (an o and lse the kernel did not make itself).
+    {output: [max_abs_err, max |plain|]} over both steps."""
+    import torch
+
+    from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
+    from deepl_project_tpu_torch.parallel.ring_attention import _merge
+
+    scale, errs = 64 ** -0.5, {}
+    q, do, *kv = (torch.randn(*shape, 64, generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(6))
+
+    def hold(name, got, want):
+        e = (got.float() - want.float()).abs().max().item()
+        top = want.float().abs().max().item()
+        old = errs.get(name, [0.0, 0.0])
+        errs[name] = [max(old[0], e), max(old[1], top)]
+
+    o_acc = lse_acc = None
+    for k, v in (kv[:2], kv[2:]):
+        o_i, lse_i = fla.flash_forward(q, k, v, scale)
+        o_p, lse_p = fla.flash_forward_reference(q, k, v, scale)
+        hold("o", o_i, o_p)
+        hold("lse", lse_i, lse_p)
+        o_acc, lse_acc = ((o_i.float(), lse_i) if o_acc is None
+                          else _merge(o_acc, lse_acc, o_i, lse_i))
+        del o_p, lse_p
+    if backward:
+        o, lse = o_acc.to(q.dtype), lse_acc.contiguous()
+        for k, v in (kv[:2], kv[2:]):
+            for name, got, want in zip(("dq", "dk", "dv"),
+                                       fla.flash_backward(q, k, v, o, lse, do, scale),
+                                       fla.flash_backward_reference(q, k, v, o, lse, do, scale)):
+                hold(name, got, want)
+    return errs
+
+
+def _ring_kernel_rows() -> dict:
+    """The flash kernels at the ring's local shapes (each step: the local
+    queries against one visiting chunk of as many keys): held against their
+    plain versions as the ring runs them (:func:`_ring_partials_check`; the
+    forward also at the b1 forward's shapes), failing beyond KERNEL_RTOL of
+    max, then timed beside their plain versions, SDPA on the same local
+    shape and their bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    scale, rows = 64 ** -0.5, {}
+    for shape in CONTEXT_RING_SHAPES:
+        checks = [(shape, _ring_partials_check(shape, gen, backward=True))]
+        if CONTEXT_FWD_BATCH != shape[0]:
+            b1 = (CONTEXT_FWD_BATCH,) + shape[1:]
+            checks.append((b1, _ring_partials_check(b1, gen, backward=False)))
+        for at, errs in checks:
+            for name, (e, top) in errs.items():
+                log(f"context ring partial at {at} {name}: kernel vs plain max_abs_err {e:.3e} "
+                    f"(rel {e / top:.3e}, bound {KERNEL_RTOL:.3e})")
+                if not e <= KERNEL_RTOL * top:
+                    fail(f"context: the flash kernels' ring partial {name} at {at} differs "
+                         f"from the plain version")
+        errs = checks[0][1]
+        q, k, v, do = (torch.randn(*shape, 64, generator=gen, device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        o, lse = fla.flash_forward(q, k, v, scale)
+        hq = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+        sd = F.scaled_dot_product_attention(*hq)
+        for name, kern, plain, lib, outs in (
+                ("flash_attention_fwd", lambda: fla.flash_forward(q, k, v, scale),
+                 lambda: fla.flash_forward_reference(q, k, v, scale),
+                 lambda: F.scaled_dot_product_attention(*hq), ("o", "lse")),
+                ("flash_attention_bwd", lambda: fla.flash_backward(q, k, v, o, lse, do, scale),
+                 lambda: fla.flash_backward_reference(q, k, v, o, lse, do, scale),
+                 lambda: torch.autograd.grad(sd, hq, do.transpose(1, 2), retain_graph=True),
+                 ("dq", "dk", "dv"))):
+            flops, nbytes = flash_bound(name, *shape)
+            rows[f"{name} {shape}"] = {
+                "ms": cuda_time_ms(kern, 10), "plain_ms": cuda_time_ms(plain, 2, 1),
+                "library_ms": cuda_time_ms(lib, 10),
+                "bound_ms": max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3,
+                "bound_by": ("operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_HBM_BYTES
+                             else "bytes"),
+                "max_abs_err": max(errs[n][0] for n in outs),
+                "max_abs_err_by_output": {n: errs[n] for n in outs}}
+        del q, k, v, do, o, lse, hq, sd
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _context_probe() -> list:
+    """What gloo does with point-to-point transfers of CUDA tensors between
+    two ranks on the card (accepted or refused, with the message): the
+    reason the ring and the halo stage through host memory there."""
+    try:
+        proc = _torchrun(2, [os.path.join(ROOT, "chip_smoke.py"), "--worker",
+                             "refusal-gloo-p2p"], timeout=120)
+        text = proc.stdout + proc.stderr
+    except subprocess.TimeoutExpired as e:
+        text = f"TIMEOUT after 120 s: {(e.stdout or '')[-2000:]}"
+    lines = sorted({ln.strip()[ln.find("RESULT"):][:400] for ln in text.splitlines()
+                    if "RESULT" in ln or "TIMEOUT" in ln})
+    if not lines:
+        fail(f"context: the point-to-point probe recorded nothing:\n{text[-3000:]}")
+    return lines
+
+
+def phase_context() -> None:
+    """Ring context parallelism on the one card (PERF.md, section 6): two
+    processes over gloo, a context axis of 2, large f16d32 at 1024px.
+    (a) the ring alone at stage 2's shape and at each stage's b2 shape
+    against one process's flash attention and the plain ring; (b) the
+    no-grad forward against one process's fp32 and bf16 forwards; (c) a
+    planted fault's reading (halo rows zeroed), then the stage-1 step
+    against one process's. The flash kernels at the ring's local shapes
+    are held to their plain versions and timed in this process first."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        fail("context: a process group exists before phase context")
+    shutil.rmtree(CONTEXT_DIR, ignore_errors=True)
+    os.makedirs(CONTEXT_DIR)
+    for ln in _context_probe():
+        log(f"context: gloo point-to-point probe: {ln}")
+    t0 = time.time()
+    kernel_rows = _ring_kernel_rows()
+    for name, r in kernel_rows.items():
+        log(f"time context ring partial {name} (N_local queries x N_local keys): kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{CARD}]")
+    CONTEXT_RING_ROWS.update(kernel_rows)
+
+    # One process: the forward in fp32 (TF32 off) and in bf16, and the step.
+    images = torch.as_tensor(_context_inputs("images")).to("cuda").permute(0, 3, 1, 2)
+    recon = {}
+    for dtype in ("float32", "bfloat16"):
+        model = _context_model(dtype=dtype).eval()
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = dtype == "bfloat16"
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            recon[dtype] = torch.sigmoid(model(images.to(getattr(torch, dtype)))[0].float())
+        torch.backends.cudnn.allow_tf32 = tf32
+        log(f"context (b): one process's {dtype} forward at {CONTEXT_RES}px "
+            f"b{CONTEXT_FWD_BATCH}, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        del model
+        torch.cuda.empty_cache()
+    model = _context_model(attention_impl="auto_train")
+    batch = torch.as_tensor(_context_inputs("batch")).to("cuda")
+    one = _context_step(model, batch)
+    del model, batch, images
+    torch.cuda.empty_cache()
+    log(f"context (c): one process's step at {CONTEXT_RES}px b{CONTEXT_STEP_BATCH}: loss "
+        f"{one['total']:.6f}, grad norm {one['grad_norm']:.6f}, {one['ms']:.1f} ms, peak "
+        f"{one['peak_gib']:.2f} GiB, launches {one['launches']} [{CARD}]")
+
+    proc = _torchrun(2, [os.path.join(ROOT, "chip_smoke.py"), "--worker", "context"],
+                     timeout=900)
+    if proc.returncode != 0:
+        fail(f"context: the two ranks exited {proc.returncode}:\n"
+             f"{(proc.stdout + proc.stderr)[-6000:]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(CONTEXT_DIR, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    log(f"context: the two ranks took {time.time() - t0:.1f}s with the one-process runs")
+
+    # (a) The ring.
+    steps_want = {"forward": 2, "backward": 2}
+    want = {"flash_attention_fwd": 2, "flash_attention_bwd": 2}
+    for r, got in enumerate(ranks):
+        for shape in CONTEXT_RING_CHECKED:
+            a = got["ring"][str(shape)]
+            for which in ("vs_flash", "vs_plain"):
+                for name, (e, top) in a[which].items():
+                    log(f"context (a) rank {r} ring at {shape} {name} {which}: max_abs_err "
+                        f"{e:.3e} (rel {e / top:.3e}, bound {KERNEL_RTOL:.3e})")
+                    if not e <= KERNEL_RTOL * top:
+                        fail(f"context (a): the ring's {name} at {shape} differs from "
+                             f"{which[3:]}")
+            c = a["counts"]
+            timed = (f"{a['ms']:.3f} ms a forward, {a['fwd_bwd_ms']:.3f} ms forward + backward "
+                     f"(both ranks on the card at once), " if "ms" in a else "")
+            log(f"context (a) rank {r}: ring at {shape} split 2 ways: {timed}ring steps "
+                f"{c['ring_steps']}, launches {c['launches']}, host-staged transfers "
+                f"{c['staged']} over {got['staged_backend']} [{CARD}]")
+            if c["ring_steps"] != steps_want or c["launches"] != want:
+                fail(f"context (a) rank {r} at {shape}: ring steps {c['ring_steps']}, launches "
+                     f"{c['launches']}; want {steps_want} and {want}")
+
+    # (b) The forward.
+    got = torch.load(os.path.join(CONTEXT_DIR, "recon_context.pt"))
+    exact = recon["float32"].cpu()
+    e_ctx = (got - exact).abs()
+    e_one = (recon["bfloat16"].cpu() - exact).abs()
+    log(f"context (b): gathered 2-rank bf16 reconstruction vs one process's fp32: mean_abs "
+        f"{e_ctx.mean():.4e} max_abs {e_ctx.max():.4e}; one process's bf16: mean_abs "
+        f"{e_one.mean():.4e} max_abs {e_one.max():.4e} (ratio {e_ctx.mean() / e_one.mean():.3f}, "
+        f"bound {CONTEXT_MEAN_RATIO})")
+    if not (np.isfinite(got.numpy()).all() and e_ctx.mean() <= CONTEXT_MEAN_RATIO * e_one.mean()):
+        fail("context (b): the context forward is less accurate than one process's bf16 forward")
+    per_fwd = 2 * CONTEXT_SUBLAYERS  # two ring steps a sublayer
+    for r, g in enumerate(ranks):
+        f_ = g["forward"]
+        log(f"context (b) rank {r}: {f_['rows']} rows of {CONTEXT_RES}, {f_['ms']:.1f} ms, peak "
+            f"{f_['peak_gib']:.2f} GiB, routes {f_['routes']}, launches {f_['launches']}, "
+            f"ring steps {f_['ring_steps']}, staged {f_['staged']} [{CARD}]")
+        if (f_["routes"] != {"ring": CONTEXT_SUBLAYERS} or f_["norm_launches"]
+                or f_["launches"] != {"flash_attention_fwd": per_fwd}
+                or f_["ring_steps"] != {"forward": per_fwd}):
+            fail(f"context (b) rank {r}: routes {f_['routes']}, launches {f_['launches']}; want "
+                 f"{CONTEXT_SUBLAYERS} ring routes and {per_fwd} flash forwards only")
+        CONTEXT_PATHS[f"context_forward_rank{r}"] = f_["launches"]
+
+    # (c) The step.
+    for r, g in enumerate(ranks):
+        b = g["step"]
+        lr = abs(b["total"] - one["total"]) / abs(one["total"])
+        gr = abs(b["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+        log(f"context (c) rank {r}: {b['rows']} of {CONTEXT_RES} rows of b{CONTEXT_STEP_BATCH}: "
+            f"loss {b['total']:.6f} vs one process {one['total']:.6f} (rel {lr:.2e}, bound "
+            f"{PARALLEL_LOSS_RTOL}), grad norm {b['grad_norm']:.6f} vs {one['grad_norm']:.6f} "
+            f"(rel {gr:.2e}, bound {PARALLEL_GRAD_NORM_RTOL}), parameters bit-identical across "
+            f"ranks {b['params_bit_identical']} ({b['params_checked']} tensors), peak "
+            f"{b['peak_gib']:.2f} GiB (one process {one['peak_gib']:.2f}), step {b['ms']:.1f} ms "
+            f"(one process {one['ms']:.1f}; two ranks share the card and gloo stages through "
+            f"host memory: not a speed), launches {b['launches']}, ring steps "
+            f"{b['ring_steps']}, staged {b['staged']} [{CARD}]")
+        if lr > PARALLEL_LOSS_RTOL or gr > PARALLEL_GRAD_NORM_RTOL or not b["applied"]:
+            fail(f"context (c) rank {r}: loss or grad norm off the one process's (or skipped)")
+        if not b["params_bit_identical"]:
+            fail("context (c): the ranks' parameters differ after the update")
+        # Under remat 'none' each sublayer's ring runs in the forward and
+        # again in its recompute (2 steps each), and backward once.
+        want = {"flash_attention_fwd": 2 * per_fwd, "flash_attention_bwd": per_fwd}
+        if (b["launches"] != want
+                or b["ring_steps"] != {"forward": 2 * per_fwd, "backward": per_fwd}):
+            fail(f"context (c) rank {r}: launches {b['launches']}, ring steps "
+                 f"{b['ring_steps']}; want {want} and as many ring steps")
+        CONTEXT_PATHS[f"context_step_rank{r}"] = b["launches"]
+        # A reading, not a check: how far the planted fault lies from one
+        # process, beside the bars.
+        f_ = g["planted_zero_halo"]
+        log(f"context (c) rank {r}: planted fault (halo rows zeroed, no update): loss "
+            f"{f_['total']:.6f} (rel {abs(f_['total'] - one['total']) / abs(one['total']):.2e}, "
+            f"bar {PARALLEL_LOSS_RTOL}), grad norm {f_['grad_norm']:.6f} (rel "
+            f"{abs(f_['grad_norm'] - one['grad_norm']) / one['grad_norm']:.2e}, bar "
+            f"{PARALLEL_GRAD_NORM_RTOL}), {f_['ms']:.1f} ms [{CARD}]")
+    shutil.rmtree(CONTEXT_DIR, ignore_errors=True)
+
+
 def main():
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernels,grad,train,data,dit,gan,recipe,remat,serve,time,"
-                            "eval,quant,parallel")
-    ap.add_argument("--worker", choices=["dp", "refusal-nccl", "refusal-gloo"],
-                    help="run as a rank of phase parallel (started by torchrun)")
+                            "eval,quant,context,parallel")
+    ap.add_argument("--worker", choices=["dp", "context", "refusal-nccl", "refusal-gloo",
+                                         "refusal-gloo-p2p"],
+                    help="run as a rank of phase parallel or context (started by torchrun)")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--baseline", metavar="DIR", nargs="+", default=[],
                     help="checkouts whose wgmma kernels (WGMMA_KERNELS) are timed "
@@ -3712,6 +4269,10 @@ def main():
         sys.path.insert(0, ROOT)
         if args.worker == "dp":
             dp_worker()
+        elif args.worker == "context":
+            context_worker()
+        elif args.worker == "refusal-gloo-p2p":
+            p2p_probe_worker()
         else:
             refusal_worker(args.worker.split("-")[1])
         return
@@ -3800,7 +4361,11 @@ def main():
         del model
         torch.cuda.empty_cache()
     # The single-process phases above create no process group; phase
-    # parallel makes its own and ends it.
+    # context's ranks are processes of their own, and phase parallel makes
+    # its own group and ends it.
+    if "context" in phases:
+        with phase_clock("context"):
+            phase_context()
     if "parallel" in phases:
         with phase_clock("parallel"):
             phase_parallel(train_info["rows"])
@@ -3945,11 +4510,21 @@ def main():
                 row["group_norm_silu_by_shape"] = {
                     str(k[1:]): r for k, r in results.items() if k[0] == "group_norm_silu"}
             kernels.append(row)
-        # Phase dit's and phase parallel's paths, each driven with the counts
-        # set to 0 just before.
+        # Phase dit's, context's and parallel's paths, each driven with the
+        # counts set to 0 just before.
         for row in kernels:
             row.setdefault("launches_by_path", {}).update(
-                {p: c.get(row["name"], 0) for p, c in {**DIT_PATHS, **PARALLEL_PATHS}.items()})
+                {p: c.get(row["name"], 0)
+                 for p, c in {**DIT_PATHS, **CONTEXT_PATHS, **PARALLEL_PATHS}.items()})
+            # The ring's partials at the context step's local shapes: [kernel,
+            # plain, bound, SDPA] ms and the max abs error against the plain
+            # version as the ring runs them.
+            ring = {k.split(" ", 1)[1]: [r["ms"], r["plain_ms"], r["bound_ms"], r["library_ms"],
+                                         r["max_abs_err"]]
+                    for k, r in CONTEXT_RING_ROWS.items()
+                    if k.split(" ", 1)[0] == row["name"]}
+            if ring:
+                row["ring_ms_by_shape"] = ring
         print(json.dumps({"kernels": kernels}), flush=True)
     log(f"all phases passed in {time.time() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {

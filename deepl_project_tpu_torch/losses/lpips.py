@@ -12,6 +12,15 @@ PyTorch's OIHW layout (the file holds HWIO; :func:`load_lpips_params`
 transposes). Without the pretrained file the loss runs on random-init
 weights (:func:`init_lpips_params`), so training runs end to end; quality
 parity needs the real weights (``WEIGHTS.md``).
+
+Under an ambient context group (``parallel.context``; x and y are this
+rank's rows of each image) the VGG convs exchange halo rows
+(``parallel.halo``), the 2x2 max-pools are row-local (the local row count
+must be a multiple of 16, even at all four pools), and each image's
+distance is its equal-count local spatial means averaged over the group
+(``collectives.global_mean``: every rank holds the image's distance, and
+its gradient reaches this rank's rows unscaled, as the step's gradient
+average over the group expects).
 """
 
 from __future__ import annotations
@@ -23,6 +32,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel import context as cp
+from ..parallel.collectives import global_mean
+from ..parallel.halo import conv2d_rows
 from ..utils.convert import lpips_params_from_jax
 
 # VGG16 convolutional config: channel widths per conv layer, 'M' = 2x2 maxpool.
@@ -98,12 +110,14 @@ def _vgg_features(params: dict, x: torch.Tensor) -> list[torch.Tensor]:
     h = (x - shift) / scale
     taps = []
     idx = 0
+    state = cp.current()
     for c in _VGG16_CFG:
         if c == "M":
             h = F.max_pool2d(h, 2, 2)
             continue
-        h = F.relu(F.conv2d(h, params["conv"][f"w{idx}"], params["conv"][f"b{idx}"],
-                            padding=1))
+        w, b = params["conv"][f"w{idx}"], params["conv"][f"b{idx}"]
+        h = F.relu(F.conv2d(h, w, b, padding=1) if state is None
+                   else conv2d_rows(h, w, b, 1, (1, 1), 1, state))
         if idx in _TAP_AFTER_CONV:
             taps.append(h)
         idx += 1
@@ -116,6 +130,10 @@ def _unit_normalize(x: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
 
 def lpips(params: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """LPIPS distance per image: x, y NCHW in [-1, 1] -> [B] (fp32)."""
+    state = cp.current()
+    if state is not None and x.shape[2] % 16:
+        raise ValueError(f"LPIPS under context parallelism needs a multiple of 16 rows a "
+                         f"rank (its four 2x2 pools), got {x.shape[2]}")
     fx = _vgg_features(params, x.float())
     fy = _vgg_features(params, y.float())
     total = 0.0
@@ -123,4 +141,4 @@ def lpips(params: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         d = (_unit_normalize(a) - _unit_normalize(b)).square()
         d = (d * params["lin"][f"w{i}"].view(1, -1, 1, 1)).sum(dim=1)  # [B, H, W]
         total = total + d.mean(dim=(1, 2))
-    return total
+    return total if state is None else global_mean(total, state.group)

@@ -15,6 +15,13 @@ ConvFFNs or both); ``quantize.quantize_model`` fills it from a float model.
 ``remat`` (see :func:`enable_gradient_checkpointing`) checkpoints each block
 in training; ``dropout`` acts only in a call with ``deterministic=False``,
 which the training steps never make (as in the JAX package).
+
+``context_axis`` ('context'): under an ambient context group
+(``parallel.context.context_parallel(mesh)``) the model takes each image's
+rows of this rank (``parallel.shard_rows``) and computes its rows of the
+whole image's result, as the JAX model does under a mesh that shards rows
+over that axis; with no ambient group the field changes nothing. A model
+without the field refuses to run under an ambient group.
 """
 
 from __future__ import annotations
@@ -27,21 +34,14 @@ from torch import nn
 from ..config import TransVAEConfig, get_config
 from ..ops.layers import (Conv2d, init_conv_, init_linear_, init_small_conv_)
 from ..ops.norms import GroupNorm, gn_groups
+from ..parallel import context as cp
 from .decoder import TransVAEDecoder
 from .encoder import TransVAEEncoder
-
-# Config settings of the JAX package whose code paths are not ported yet.
-_NOT_PORTED = {"context_axis": None}
 
 
 class TransVAE(nn.Module):
     def __init__(self, cfg: TransVAEConfig, *, device=None):
         super().__init__()
-        for field, ok in _NOT_PORTED.items():
-            if getattr(cfg, field) != ok:
-                raise NotImplementedError(
-                    f"{field}={getattr(cfg, field)!r} is not yet ported to "
-                    f"deepl_project_tpu_torch")
         if cfg.scan_blocks:
             raise NotImplementedError(
                 "scan_blocks=True names the JAX package's stacked parameter layout; "
@@ -60,8 +60,31 @@ class TransVAE(nn.Module):
         self.latent_norm = (GroupNorm(gn_groups(final), final, **pkw)
                             if cfg.norm_latents else None)
 
+    def _context(self, rows: int | None = None):
+        """The ambient context state for this model (None without one);
+        raises where the model cannot run under it. ``rows``: the local row
+        count of an input image, which the downsample factor must divide."""
+        state = cp.current()
+        if state is None:
+            return None
+        cfg = self.config
+        if cfg.context_axis is None:
+            raise ValueError("an ambient context group shards the rows, but this model's "
+                             "config leaves context_axis unset: build it with "
+                             "context_axis='context'")
+        if cfg.quant is not None:
+            raise NotImplementedError("int8 under context parallelism is not ported")
+        f = 2 ** (cfg.num_stages - 1)
+        if rows is not None and rows % f:
+            raise ValueError(
+                f"an image of {rows * state.size} rows does not split over the context "
+                f"axis of {state.size} ranks and the downsample factor {f}: use a height "
+                f"that is a multiple of {state.size * f} (the JAX package pads instead)")
+        return state
+
     def encode(self, x: torch.Tensor, deterministic: bool = True):
         """x [B, C, H, W] -> (mu, logvar), each [B, D, H/f, W/f], unclamped."""
+        self._context(x.shape[2])
         h = self.encoder(x, deterministic)
         if self.latent_norm is not None:
             h = self.latent_norm(h)
@@ -69,6 +92,7 @@ class TransVAE(nn.Module):
 
     def decode(self, z: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
         """z [B, D, h, w] -> logits [B, C, h*f, w*f]."""
+        self._context()
         return self.decoder(z, deterministic)
 
     def reparameterize(self, mu: torch.Tensor, logvar: torch.Tensor,
@@ -82,31 +106,36 @@ class TransVAE(nn.Module):
         numbers, so a test hands both the same ``eps``. ``noise_rows``
         (first, total): the draw is the whole batch's, ``total`` rows, of
         which rows first.. are this batch's (data parallelism: every rank
-        draws what a single process would and keeps its own rows)."""
+        draws what a single process would and keeps its own rows). Under an
+        ambient context group the draw is the global latent's, its rows H/f
+        whole, of which this rank keeps its own (the JAX step's one global
+        draw). A given ``eps`` is that global draw too."""
         lo, hi = self.config.logvar_clip
         mu32 = mu.float()
         std = torch.exp(0.5 * logvar.float().clamp(lo, hi))
+        state = self._context()
+        b, d, h, w = std.shape
+        total, first = (b, 0) if noise_rows is None else (noise_rows[1], noise_rows[0])
+        height, row = (h, 0) if state is None else state.rows(h)
         if eps is None:
-            shape = std.shape if noise_rows is None else (noise_rows[1], *std.shape[1:])
-            eps = torch.randn(shape, generator=generator, device=std.device,
+            eps = torch.randn((total, d, height, w), generator=generator, device=std.device,
                               dtype=torch.float32)
-            if noise_rows is not None:
-                eps = eps[noise_rows[0]:noise_rows[0] + std.shape[0]]
-        return (mu32 + eps * std).to(mu.dtype)
+        eps = eps[first:first + b, :, row:row + h]
+        return (mu32 + eps.to(std.device) * std).to(mu.dtype)
 
     def forward(self, x: torch.Tensor, sample: bool = False,
                 generator: torch.Generator | None = None, deterministic: bool = True,
-                noise_rows: tuple[int, int] | None = None):
+                noise_rows: tuple[int, int] | None = None, eps: torch.Tensor | None = None):
         """(reconstruction logits, mu, logvar) with mu and logvar clamped;
         decodes the clamped mean, or with ``sample=True`` a sample of the
-        posterior drawn with ``generator`` (``noise_rows``: see
+        posterior drawn with ``generator`` (``noise_rows``, ``eps``: see
         :meth:`reparameterize`). ``deterministic=False`` turns the config's
         dropout on."""
         cfg = self.config
         mu, logvar = self.encode(x, deterministic)
         mu = mu.clamp(-cfg.mu_clip, cfg.mu_clip)
         logvar = logvar.clamp(*cfg.logvar_clip)
-        z = (self.reparameterize(mu, logvar, generator, noise_rows=noise_rows)
+        z = (self.reparameterize(mu, logvar, generator, eps, noise_rows)
              if sample else mu)
         return self.decode(z, deterministic), mu, logvar
 

@@ -22,10 +22,17 @@ Sublayer dispatch (``AttentionRoPE``), as in the JAX module:
   ``parallel.shard_params``): the composable path on this rank's heads
   (``to_q/to_k/to_v`` C -> C/m, the projection C/m -> C with its partial
   products summed over the group), whatever ``impl``: the sublayer kernels
-  are square, and their gates (``width``) refuse a local width.
+  are square, and their gates (``width``) refuse a local width;
+- under an ambient context group (``parallel.context``: the map's rows
+  split over it), whatever ``impl``: the composable path with the RoPE rows
+  of this rank's offset and the exact ring
+  (``parallel.ring_attention.context_parallel_attention``, the flash
+  kernels per ring step) in the place of :func:`core_attention`, as the JAX
+  module's gates keep its sublayer kernels out under context; on this
+  rank's heads under tensor parallelism too.
 
 :func:`route_counts` counts each forward's route by name ('sublayer',
-``'ln_qkv_rope'``, ``'composable'``, ``'local_heads'``).
+``'ln_qkv_rope'``, ``'composable'``, ``'local_heads'``, ``'ring'``).
 
 :func:`core_attention` picks the core by token count as ``core_attention``
 in the JAX package does, with the flash kernels
@@ -49,7 +56,9 @@ from .hopper.fused_attention_block import (fused_attention_sublayer,
                                            pack_proj, pack_qkv,
                                            sublayer_supported)
 from .hopper.small_attention import small_attention
+from ..parallel import context as cp
 from ..parallel.collectives import copy_to_group, reduce_from_group
+from ..parallel.ring_attention import context_parallel_attention
 from .layers import CachedOperands, Linear, matmul_f32
 from .norms import LayerNorm
 from .rope import apply_rope2d
@@ -200,7 +209,8 @@ class AttentionRoPE(CachedOperands, nn.Module):
         # explicit cores keep the composable path, as in the JAX module. The
         # kernels are square: a tensor-parallel head shard (q/k/v width C/m)
         # fails their gates and takes the local-heads route.
-        kernels = self.impl == "auto" and (self.dropout == 0.0 or deterministic)
+        kernels = (self.impl == "auto" and (self.dropout == 0.0 or deterministic)
+                   and cp.context_axis_size() == 1)
         width = self.to_q.weight.shape[0]
         if kernels and sublayer_supported(n, c, hd, x.dtype, width):
             _ROUTES["sublayer"] += 1
@@ -221,18 +231,32 @@ class AttentionRoPE(CachedOperands, nn.Module):
                     packed=self._packed_qkv() if x.is_cuda else None)
                 q, k, v = (t.reshape(b, n, nh, hd) for t in (q, k, v))
             else:
-                _ROUTES["composable"] += 1
+                _ROUTES["composable" if cp.context_axis_size() == 1 else "ring"] += 1
                 q = self.to_q(self.norm_q(xf)).reshape(b, n, nh, hd)
                 k = self.to_k(self.norm_k(xf)).reshape(b, n, nh, hd)
                 v = self.to_v(self.norm_v(xf)).reshape(b, n, nh, hd)
-                if self.use_rope:
-                    q = apply_rope2d(q, h, w, self.rope_pairing)
-                    k = apply_rope2d(k, h, w, self.rope_pairing)
-            out = core_attention(q, k, v, hd ** -0.5, self.impl)
+                q, k = self._rope(q, k, h, w)
+            out = self._core(q, k, v)
             out = self.proj(out.reshape(b, n, c))
             if self.dropout > 0.0 and not deterministic:
                 out = F.dropout(out, self.dropout)
         return out.reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+    def _rope(self, q, k, h, w):
+        """RoPE on q and k of an (h, w) map: under context, this rank's rows
+        of the global map's table."""
+        if not self.use_rope:
+            return q, k
+        state = cp.current()
+        height, first = (h, 0) if state is None else state.rows(h)
+        return (apply_rope2d(q, height, w, self.rope_pairing, first),
+                apply_rope2d(k, height, w, self.rope_pairing, first))
+
+    def _core(self, q, k, v):
+        """:func:`core_attention`, or under context the ring."""
+        if cp.context_axis_size() > 1:
+            return context_parallel_attention(q, k, v, self.head_dim ** -0.5)
+        return core_attention(q, k, v, self.head_dim ** -0.5, self.impl)
 
     def partial_heads(self, xf: torch.Tensor, h: int, w: int) -> torch.Tensor:
         """This rank's heads of the sublayer on tokens ``xf`` [B, N, C]:
@@ -240,7 +264,7 @@ class AttentionRoPE(CachedOperands, nn.Module):
         heads and the local projection (C/m -> C, no bias); summed over the
         model group this is the sublayer's output less the projection's
         bias. The composable route (the core takes its kernels by token
-        count)."""
+        count; under context, the ring on the local heads)."""
         b, n, c = xf.shape
         hd, group = self.head_dim, self.model_group
         width = self.to_q.weight.shape[0]
@@ -248,10 +272,8 @@ class AttentionRoPE(CachedOperands, nn.Module):
         q, k, v = (lin(copy_to_group(norm(xf), group)).reshape(b, n, width // hd, hd)
                    for lin, norm in ((self.to_q, self.norm_q), (self.to_k, self.norm_k),
                                      (self.to_v, self.norm_v)))
-        if self.use_rope:
-            q = apply_rope2d(q, h, w, self.rope_pairing)
-            k = apply_rope2d(k, h, w, self.rope_pairing)
-        out = core_attention(q, k, v, hd ** -0.5, self.impl)
+        q, k = self._rope(q, k, h, w)
+        out = self._core(q, k, v)
         return F.linear(out.reshape(b, n, width), self.proj.weight.to(xf.dtype))
 
     def _local_heads(self, xf, h, w, deterministic):

@@ -13,6 +13,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from ..parallel import context as cp
 from ..parallel.collectives import copy_to_group, gather_from_group
 from .attention import AttentionRoPE
 from .ffn import ConvFFN, StandardFFN
@@ -66,12 +67,17 @@ def run_block(block: nn.Module, x: torch.Tensor, *args, remat: bool = False,
     under ``remat`` when the call builds a graph: the block's activations are
     dropped after the forward, except the outputs that ``policy`` (from
     :func:`resolve_remat_policy`) keeps, and recomputed in the backward.
-    Dropout's global RNG state is restored for the recompute."""
+    Dropout's global RNG state is restored for the recompute, and so is the
+    ambient context group (``parallel.context``): the recompute runs its
+    halo exchanges, moment all-reduces and ring again, in the forward's
+    order on every rank."""
     if not (remat and torch.is_grad_enabled()):
         return block(x, *args)
     context_fn = (functools.partial(create_selective_checkpoint_contexts, policy)
                   if policy is not None else noop_context_fn)
-    return checkpoint(block, x, *args, use_reentrant=False, context_fn=context_fn)
+    state = cp.current()
+    fn = block if state is None else functools.partial(cp.call_in, state, block)
+    return checkpoint(fn, x, *args, use_reentrant=False, context_fn=context_fn)
 
 
 class ResBlock(nn.Module):

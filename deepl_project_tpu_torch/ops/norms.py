@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import context as cp
+from ..parallel.collectives import sum_over_group
 from .hopper import fused_norm
 
 
@@ -62,7 +64,10 @@ class GroupNorm(nn.Module):
 
     Statistics per (batch, group) over all spatial positions, fp32, from
     single-pass moments var = max(E[x^2] - E[x]^2, 0) as the JAX module
-    computes them.
+    computes them. Under an ambient context group (each rank holds its rows
+    of the map) the sums of x and x^2 are summed over the group, one fp32
+    all-reduce of [B, G, 2] (``collectives.sum_over_group``: its backward
+    sums every rank's gradient), over equal counts a rank.
     """
 
     def __init__(self, num_groups: int, dim: int, eps: float = 1e-5, *,
@@ -79,8 +84,14 @@ class GroupNorm(nn.Module):
         g = self.num_groups
         # [B, H*W, G, C/G]: a view for channels_last input.
         x32 = x.permute(0, 2, 3, 1).reshape(b, h * w, g, c // g).float()
-        m1 = x32.mean(dim=(1, 3), keepdim=True)
-        m2 = x32.square().mean(dim=(1, 3), keepdim=True)
+        state = cp.current()
+        if state is None:
+            m1 = x32.mean(dim=(1, 3), keepdim=True)
+            m2 = x32.square().mean(dim=(1, 3), keepdim=True)
+        else:
+            sums = torch.stack([x32.sum(dim=(1, 3)), x32.square().sum(dim=(1, 3))], -1)
+            moments = sum_over_group(sums, state.group) / (h * w * (c // g) * state.size)
+            m1, m2 = (moments[..., i].reshape(b, 1, g, 1) for i in range(2))
         var = torch.clamp(m2 - m1.square(), min=0.0)
         y = ((x32 - m1) * torch.rsqrt(var + self.eps)).reshape(b, h, w, c)
         y = y * self.weight.float() + self.bias.float()
@@ -98,8 +109,11 @@ def group_norm_silu(norm: GroupNorm, x: torch.Tensor) -> torch.Tensor:
     CUDA bf16 map (``fused_norm.group_norm_silu_supported``), the fused
     kernel pair, which rounds once to x's dtype after SiLU and raises on a
     map that is not channels_last; otherwise the two modules as the JAX
-    model runs them, rounding after the norm and again after SiLU."""
-    if FUSE_NORM_SILU and fused_norm.group_norm_silu_supported(x, norm.weight, norm.bias):
+    model runs them, rounding after the norm and again after SiLU. Under an
+    ambient context group the two modules run (the statistics' all-reduce
+    falls between the kernel pair's launches; not fused yet)."""
+    if (FUSE_NORM_SILU and cp.context_axis_size() == 1
+            and fused_norm.group_norm_silu_supported(x, norm.weight, norm.bias)):
         return fused_norm.group_norm_silu(x, norm.weight, norm.bias, norm.num_groups,
                                           norm.eps)
     return F.silu(norm(x))

@@ -23,7 +23,14 @@ By default each module runs the JAX package's exact fused forms (its
   conv, with the per-phase bias added to each (row, column) phase.
 
 With a flag off the literal op order runs (torch's pixel_(un)shuffle, whose
-channel order JAX's space_to_depth/depth_to_space reproduce). The module
+channel order JAX's space_to_depth/depth_to_space reproduce).
+
+Under an ambient context group (``parallel.context``: each rank holds its
+rows of the map) the 3x3 convs exchange halo rows (``ops.layers.Conv2d``);
+the DC convs, pixel_(un)shuffle and the nearest upsample are row-local for
+even local row counts and offsets; the fused up-conv reads one input row
+of halo a side and keeps the local 2 x rows (transposed-conv padding 3
+along H: output rows 3 .. 2h + 2 of the padded input's, the crop). The module
 tree (main_path.{0,2} / main_path.{1,3}, dc_conv) and its parameters are the
 reference's either way.
 """
@@ -34,6 +41,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import context as cp
+from ..parallel.halo import exchange_rows
 from .layers import CachedOperands, Conv2d
 
 # Taps of the 3x3 kernel that each of the fused up-conv's 4 rows (columns) sums.
@@ -107,8 +116,10 @@ class Upsample(CachedOperands, nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fuse_main:
             conv = self.main_path[1]
-            y = F.conv_transpose2d(x, self._up_kernel(x.dtype), conv.bias.to(x.dtype),
-                                   stride=2, padding=1)
+            state = cp.current()
+            xp, pad = (x, 1) if state is None else (exchange_rows(x, 1, 1, state.group), (3, 1))
+            y = F.conv_transpose2d(xp, self._up_kernel(x.dtype), conv.bias.to(x.dtype),
+                                   stride=2, padding=pad)
             y = self.main_path[3](F.silu(y))
         else:
             y = self.main_path(x)

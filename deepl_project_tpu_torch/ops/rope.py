@@ -67,11 +67,15 @@ def rope2d_tables(head_dim: int, height: int, width: int,
 
 
 def apply_rope2d(x: torch.Tensor, height: int, width: int,
-                 pairing: str = "reference") -> torch.Tensor:
-    """Apply the 2D rotary map to x [B, N, num_heads, head_dim], N = H*W,
-    in float32; returns x's shape and dtype."""
+                 pairing: str = "reference", first_row: int = 0) -> torch.Tensor:
+    """Apply the 2D rotary map to x [B, N, num_heads, head_dim], in float32;
+    returns x's shape and dtype. x holds N = rows * W tokens of rows
+    [first_row, first_row + rows) of a (height, width) grid: the whole grid
+    by default; under context parallelism this rank's rows, whose table is
+    the slice [first_row W, (first_row + rows) W) of the cached global one."""
     head_dim = x.shape[-1]
-    ca, sa, cb, sb = (t[:, None, :] for t in rope2d_tables(
+    rows = slice(first_row * width, first_row * width + x.shape[1])
+    ca, sa, cb, sb = (t[rows, None, :] for t in rope2d_tables(
         head_dim, height, width, pairing, x.device))
     x32 = x.float()
     x1 = x32[..., 0::2]

@@ -24,7 +24,17 @@ every peer:
   whose backward passes the gradient through unscaled, so that after the
   gradient all-reduce (a mean over data) each rank's rows carry the
   single-process gradient of a term that depends on the whole batch (the
-  VF hinge).
+  VF hinge);
+- :func:`sum_over_group`: all-reduce (sum) forward and backward -- a sum
+  that every rank then uses on rows of its own (context parallelism's
+  GroupNorm moments), whose gradient is the sum of every rank's.
+
+:func:`send_recv` is the point-to-point exchange of context parallelism
+(the halo rows, the ring's K/V chunks): one batch of sends and receives
+within a group. A gloo group given CUDA tensors stages them through host
+memory (gloo's transport refuses device pointers), an explicit branch on
+the group's backend counted in :func:`staged_counts` (the card's one
+device holds two ranks only over gloo); NCCL sends them as they are.
 
 :func:`all_gather_cat`, :func:`all_reduce_sum` and :func:`rank_slice` are
 the same collectives outside autograd (whole state from slices, sums of
@@ -34,6 +44,8 @@ flat fp32 buckets; :func:`reduce_metrics` averages logged metrics.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 import torch.distributed as dist
@@ -72,6 +84,17 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     x = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(x, group=group)
     return x
+
+
+class _SumOverGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group), None
 
 
 class _CopyToGroup(torch.autograd.Function):
@@ -163,6 +186,52 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 def global_mean(x: torch.Tensor, group) -> torch.Tensor:
     return _GlobalMean.apply(x, group)
+
+
+def sum_over_group(x: torch.Tensor, group) -> torch.Tensor:
+    return _SumOverGroup.apply(x, group)
+
+
+# 'batches' / 'bytes' -> host-staged point-to-point exchanges since the last
+# reset (a gloo group given CUDA tensors).
+_STAGED: collections.Counter = collections.Counter()
+
+
+def reset_staged_counts() -> None:
+    _STAGED.clear()
+
+
+def staged_counts() -> dict[str, int]:
+    return dict(_STAGED)
+
+
+def send_recv(sends, recvs, group) -> None:
+    """One batch of point-to-point transfers within ``group``: ``sends``
+    (tensor, peer) pairs and ``recvs`` (buffer, peer) pairs, peers by their
+    rank in the group; each buffer is filled in place when the call
+    returns. A gloo group given CUDA tensors sends host copies and copies
+    what it receives back."""
+    ops = sends + recvs
+    if not ops:
+        return
+    peer = lambda r: dist.get_global_rank(group, r)  # noqa: E731
+    if ops[0][0].is_cuda and dist.get_backend(group) == "gloo":
+        _STAGED["batches"] += 1
+        _STAGED["bytes"] += sum(t.numel() * t.element_size() for t, _ in ops)
+        out = [(t.contiguous().cpu(), r) for t, r in sends]
+        into = [(torch.empty(b.shape, dtype=b.dtype), b, r) for b, r in recvs]
+    else:
+        out = [(t.contiguous(), r) for t, r in sends]
+        into = [(b if b.is_contiguous() else torch.empty(b.shape, dtype=b.dtype, device=b.device),
+                 b, r) for b, r in recvs]
+    reqs = dist.batch_isend_irecv(
+        [dist.P2POp(dist.isend, t, peer(r), group) for t, r in out]
+        + [dist.P2POp(dist.irecv, buf, peer(r), group) for buf, _, r in into])
+    for req in reqs:
+        req.wait()
+    for buf, b, _ in into:
+        if buf is not b:
+            b.copy_(buf)
 
 
 def _buckets(tensors: list[torch.Tensor], limit: int):

@@ -30,9 +30,11 @@ cannot), and a ConvFFN is split whole or not at all. The results are the
 same; only the placement differs.
 
 :class:`Placement` carries the mesh's groups and the parameters'
-placements by name, for the steps (the data all-reduce), the optimizer
-(norms and Adafactor's moments over sharded dimensions) and checkpoints
-(whole tensors gathered on save and sliced on restore).
+placements by name, for the steps (the gradient all-reduce over the
+parameter peers), the optimizer (norms and Adafactor's moments over sharded
+dimensions) and checkpoints (whole tensors gathered over the model group on
+save, written by global rank 0, the first rank of the first peer group; sliced
+on restore).
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ from torch import nn
 from torch.nn.utils import parametrize
 
 from .collectives import all_gather_cat, all_reduce_sum, gather_from_group, rank_slice
-from .mesh import DATA_AXIS, MODEL_AXIS, Replicate, Shard, axis_size
+from .mesh import CONTEXT_AXIS, DATA_AXIS, MODEL_AXIS, Replicate, Shard, axis_size
 
 MODES = ("replicate", "fsdp", "tensor")
 FSDP_MIN_SIZE = 2 ** 16
@@ -175,19 +177,35 @@ def _owner(module: nn.Module, name: str) -> tuple[nn.Module, str]:
     return (module.get_submodule(path) if path else module), attr
 
 
+def _peer_group(mesh):
+    """The group of ranks that hold the same parameters: this rank's model
+    coordinate, every (data, context) coordinate. Every rank makes every
+    model coordinate's group, in order, as ``new_group`` requires."""
+    ranks = mesh.mesh.reshape(-1, mesh.mesh.shape[-1])  # [(data, context), model]
+    groups = [dist.new_group(ranks[:, m].tolist()) for m in range(ranks.shape[1])]
+    return groups[mesh.get_local_rank(MODEL_AXIS)]
+
+
 class Placement:
-    """The mesh's data and model groups and each parameter's placement
-    (``specs``) and whole shape (``full_shapes``) by canonical name, which
-    :func:`shard_params` fills; a name it does not hold is replicated."""
+    """The mesh's data, context and model groups, the group of parameter
+    peers (data x context: the ranks that hold the same parameters and
+    average their gradients; the data group itself at context 1), and each
+    parameter's placement (``specs``) and whole shape (``full_shapes``) by
+    canonical name, which :func:`shard_params` fills; a name it does not
+    hold is replicated."""
 
     def __init__(self, mesh, mode: str = "replicate"):
         self.mesh, self.mode = mesh, mode
         self.data_group = mesh.get_group(DATA_AXIS)
+        self.context_group = mesh.get_group(CONTEXT_AXIS)
         self.model_group = mesh.get_group(MODEL_AXIS)
         self.data_size = axis_size(mesh, DATA_AXIS)
+        self.context_size = axis_size(mesh, CONTEXT_AXIS)
         self.model_size = axis_size(mesh, MODEL_AXIS)
         self.data_rank = dist.get_rank(self.data_group)
         self.model_rank = dist.get_rank(self.model_group)
+        self.peer_group = (self.data_group if self.context_size == 1
+                           else _peer_group(mesh))
         self.specs: dict = {}
         self.full_shapes: dict = {}
 

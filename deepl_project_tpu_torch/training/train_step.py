@@ -36,6 +36,17 @@
   each microbatch, averaged); ``grad_norm`` over sharded gradients. Under
   FSDP the gathered weights are made once per forward and backward
   (``parametrize.cached``).
+- Under a placement whose mesh has a context axis of more than one rank
+  (context parallelism; stage 1 only), the batch is this rank's rows of
+  each image as well (``parallel.shard_rows``), the step runs under that
+  context group (``parallel.context_parallel``), the L1 and KL terms are
+  means over this rank's rows and LPIPS each image's distance
+  (``losses/lpips.py``), and the gradients and metrics are averaged over
+  the parameter peers (data x context): over equal shards, the gradient of
+  the global mean. The latent noise is the global draw, sliced
+  (``TransVAE.reparameterize``). What the JAX package's context tests do
+  not exercise is refused: the VF term, the self-perceptual term and the
+  GAN step (int8 models refuse in the model).
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ from torch.nn.utils import parametrize
 from ..losses.vae_loss import LossWeights, discriminator_loss, transvae_loss
 from ..models.transvae import adaptive_gan_weight, get_last_layer
 from ..parallel.collectives import all_reduce_mean_, reduce_metrics
+from ..parallel.context import context_parallel
 from ..parallel.sharding import canonical_name
 from .optim import _Chain
 
@@ -107,6 +119,18 @@ def _gathered(placement):
     return contextlib.nullcontext()
 
 
+def _context(placement):
+    """Under context parallelism the placement's context group, ambient."""
+    if placement is not None and placement.context_size > 1:
+        return context_parallel(placement.mesh)
+    return contextlib.nullcontext()
+
+
+def _refuse_context(placement, what: str) -> None:
+    if placement is not None and placement.context_size > 1:
+        raise NotImplementedError(f"{what} under context parallelism is not ported")
+
+
 def _rows(placement, rows: int) -> tuple[int, int] | None:
     """(first, total) of this rank's ``rows`` in the whole (micro)batch."""
     if placement is None:
@@ -117,7 +141,7 @@ def _rows(placement, rows: int) -> tuple[int, int] | None:
 def _reduce(placement, metrics: dict, max_keys=()) -> dict:
     if placement is None:
         return metrics
-    return reduce_metrics(metrics, placement.data_group, max_keys)
+    return reduce_metrics(metrics, placement.peer_group, max_keys)
 
 
 def init_ema(model: torch.nn.Module, vf_proj: VFProj | None = None
@@ -146,17 +170,19 @@ def loss_and_metrics(model, images_nhwc: torch.Tensor, weights: LossWeights,
                      generator: torch.Generator | None = None,
                      disc_apply: Callable | None = None, teacher_fn: Callable | None = None,
                      vf_proj: VFProj | None = None, perceptual_fn: Callable | None = None,
-                     placement=None):
+                     placement=None, noise: torch.Tensor | None = None):
     """(total loss, metrics) for one batch of [B, H, W, 3] images in [0, 1]:
     the model sees them in its compute dtype, the loss in fp32.
     ``disc_apply`` (NCHW images in [0, 1] -> logits) gives the GAN term;
     ``teacher_fn`` (NCHW images -> features) and ``vf_proj`` the VF term;
     ``perceptual_fn`` takes the LPIPS slot (``make_self_perceptual``).
-    ``placement``: the batch is this rank's rows (see the module docstring)."""
+    ``placement``: the batch is this rank's rows (see the module docstring).
+    ``noise``: the latent noise of the whole (micro)batch, in the place of a
+    draw from ``generator`` (``TransVAE.reparameterize``'s ``eps``)."""
     target = images_nhwc.permute(0, 3, 1, 2)
     x = target.to(model.config.compute_dtype)
     recon, mu, logvar = model(x, sample=sample, generator=generator,
-                              noise_rows=_rows(placement, x.shape[0]))
+                              noise_rows=_rows(placement, x.shape[0]), eps=noise)
     dino = teacher_fn(target) if teacher_fn is not None else None
     proj = (vf_proj.kernel, vf_proj.bias) if vf_proj is not None else None
     losses = transvae_loss(recon, target, mu, logvar, weights, lpips_params=lpips_params,
@@ -173,15 +199,23 @@ def compute_grads(model, batch: torch.Tensor, weights: LossWeights,
                   lpips_params: dict | None = None, accum_steps: int = 1,
                   sample: bool = True, generator: torch.Generator | None = None,
                   teacher_fn: Callable | None = None, vf_proj: VFProj | None = None,
-                  perceptual_fn: Callable | None = None, placement=None
+                  perceptual_fn: Callable | None = None, placement=None,
+                  noise: list[torch.Tensor] | None = None
                   ) -> tuple[list[torch.Tensor], dict]:
     """fp32 gradients (one per parameter of :func:`named_trainables`, in its
     order) averaged over ``accum_steps`` microbatches of ``batch``, and the
     averaged metrics. ``placement``: ``batch`` is this rank's rows, and the
-    gradients and metrics are averaged over the data group."""
+    gradients and metrics are averaged over the parameter peers (the data
+    group; data x context under context parallelism). ``noise``: one latent
+    noise tensor of each whole microbatch, in the place of the draws from
+    ``generator``."""
     b = batch.shape[0]
     if b % accum_steps:
         raise ValueError(f"batch {b} does not split into {accum_steps} microbatches")
+    if teacher_fn is not None and weights.vf > 0:
+        _refuse_context(placement, "the VF term")
+    if perceptual_fn is not None:
+        _refuse_context(placement, "the self-perceptual term")
     params = [p for _, p in named_trainables(model, vf_proj)]
     for p in params:
         p.grad = None
@@ -189,11 +223,12 @@ def compute_grads(model, batch: torch.Tensor, weights: LossWeights,
     sums: dict[str, torch.Tensor] = {}
     maxima = []
     for i in range(accum_steps):
-        with _gathered(placement):
+        with _gathered(placement), _context(placement):
             loss, metrics = loss_and_metrics(model, batch[i * micro:(i + 1) * micro],
                                              weights, lpips_params, sample, generator,
                                              teacher_fn=teacher_fn, vf_proj=vf_proj,
-                                             perceptual_fn=perceptual_fn, placement=placement)
+                                             perceptual_fn=perceptual_fn, placement=placement,
+                                             noise=None if noise is None else noise[i])
             loss.backward()
         for k, v in metrics.items():
             sums[k] = sums.get(k, 0.0) + v.detach().float()
@@ -205,7 +240,7 @@ def compute_grads(model, batch: torch.Tensor, weights: LossWeights,
         torch._foreach_mul_(grads, 1.0 / accum_steps)
     metrics = {k: v / accum_steps for k, v in sums.items()}
     if placement is not None:
-        all_reduce_mean_(grads, placement.data_group)
+        all_reduce_mean_(grads, placement.peer_group)
         metrics["mu_absmax"] = torch.stack(maxima)
         metrics = _reduce(placement, metrics, max_keys=("mu_absmax",))
     return grads, metrics
@@ -276,6 +311,7 @@ def gan_generator_grads(model, disc, batch: torch.Tensor, weights: LossWeights,
     on the same graph: total = l1 + lpips + kl + vf + gan_scale * w * gan.
     ``placement``: ``batch`` is this rank's rows; the last layer's gradients,
     the gradients and the metrics are averaged over the data group."""
+    _refuse_context(placement, "the GAN step")
     params = [p for _, p in named_trainables(model, vf_proj)]
     with _gathered(placement):
         total, metrics = loss_and_metrics(model, batch, weights, lpips_params, sample,

@@ -414,3 +414,15 @@ def test_rewrites_on_card(gen, name):
         torch.backends.cudnn.allow_tf32 = tf32
     for a, b in zip(*grads):
         assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+def test_ring_partials_take_the_flash_kernels_or_raise(gen):
+    """The ring's per-step partials on CUDA bf16 are the flash kernels; a
+    local shape they refuse raises instead of running the plain partial."""
+    from deepl_project_tpu_torch.parallel.ring_attention import _partials
+
+    q = torch.randn(1, 128, 2, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    assert _partials(q, False) == (fla.flash_forward, fla.flash_backward)
+    assert _partials(q, True) == (fla.flash_forward_reference, fla.flash_backward_reference)
+    with pytest.raises(ValueError, match="refuse"):
+        _partials(q[:, :100].contiguous(), False)

@@ -37,7 +37,8 @@ _PROBE = textwrap.dedent("""
              "utils.latent_metrics", "utils.logging", "utils.flops", "cli.smoke_test",
              "models.dit", "ops.moe", "training.diffusion", "cli.train_dit",
              "cli.sample_dit", "parallel", "parallel.multihost", "parallel.mesh",
-             "parallel.collectives", "parallel.sharding"}
+             "parallel.collectives", "parallel.sharding", "parallel.ring_attention",
+             "parallel.context", "parallel.halo", "parallel.dryrun"}
     assert named <= {n.split(".", 1)[1] for n in names}, named
     import chip_smoke
     bad = sorted(m for m in sys.modules

@@ -157,10 +157,23 @@ def test_seeded_init_is_reproducible_and_small_latent_heads():
     assert a.conv_mu.weight.detach().std() < 1e-3 < a.encoder.conv_in.weight.detach().std()
 
 
-@pytest.mark.parametrize("field,value", [("scan_blocks", True), ("context_axis", "context")])
+@pytest.mark.parametrize("field,value", [("scan_blocks", True)])
 def test_settings_not_yet_ported_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         TransVAE(get_config("tiny_f16d32", **MICRO, **{field: value}), device="meta")
+
+
+def test_context_axis_without_an_ambient_group_is_bit_equal():
+    # context_axis='context' is live only under an ambient context group
+    # (parallel.context_parallel), as the JAX field is only under a mesh that
+    # defines the axis: without one the forward is the model's own, bit for bit.
+    plain = create_transvae("tiny_f16d32", device="cpu", seed=3, **MICRO)
+    cp = create_transvae("tiny_f16d32", device="cpu", seed=3, context_axis="context", **MICRO)
+    x = torch.rand(2, 3, 32, 32, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for a, b in zip(plain(x, sample=True, generator=torch.Generator().manual_seed(1)),
+                        cp(x, sample=True, generator=torch.Generator().manual_seed(1))):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("scope", ["all", "resblock", "ffn"])

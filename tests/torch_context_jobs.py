@@ -1,0 +1,261 @@
+"""Rank jobs of the port's context-parallel tests
+(tests/test_torch_ring_attention.py, tests/test_torch_context_parallel.py),
+JAX-free: the ranks import only torch, deepl_project_tpu_torch and
+torch_parallel_jobs (whose RankPool runs them and whose micro model they
+build). Each job returns whole tensors (gathered over the ranks) so the test
+holds them to the JAX package's single-device results.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+import torch_parallel_jobs as J
+
+
+def _mesh(data: int, context: int, model: int = 1):
+    from deepl_project_tpu_torch.parallel import create_mesh
+
+    return create_mesh(data=data, context=context, model=model)
+
+
+def _chunk(x: np.ndarray, dim: int, group) -> torch.Tensor:
+    from deepl_project_tpu_torch.parallel.context import split_rows
+
+    return split_rows(torch.as_tensor(x), dist.get_rank(group), dist.get_world_size(group), dim)
+
+
+def _cat(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    from deepl_project_tpu_torch.parallel.collectives import all_gather_cat
+
+    return all_gather_cat(t.detach(), dim, group)
+
+
+def whole_rows(mesh, t: torch.Tensor, dim: int = 2) -> torch.Tensor:
+    """The whole batch from every rank's rows: along ``dim`` over the
+    context group, then along the batch over the data group."""
+    t = _cat(t, dim, mesh.get_group("context"))
+    return _cat(t, 0, mesh.get_group("data"))
+
+
+def ring(q, k, v, do, scale: float, dtype: str) -> dict:
+    """The ring over every rank on the token chunks of whole q, k, v
+    [B, N, h, d] (numpy fp32, cast to ``dtype``): the output of
+    ``ring_attention`` (plain partials on the CPU) and of
+    ``ring_attention_reference``, and ``ring_attention``'s dq, dk, dv for the
+    output gradient ``do``; each whole, with the ring steps counted."""
+    from deepl_project_tpu_torch.parallel.ring_attention import (
+        reset_step_counts, ring_attention, ring_attention_reference, step_counts)
+
+    group = dist.group.WORLD
+    dt = getattr(torch, dtype)
+    local = [_chunk(t, 1, group).to(dt).requires_grad_(True) for t in (q, k, v)]
+    reset_step_counts()
+    out = ring_attention(*local, scale, group)
+    grads = torch.autograd.grad(out, local, _chunk(do, 1, group).to(dt))
+    ref = ring_attention_reference(*[t.detach() for t in local], scale, group)
+    return {"out": _cat(out, 1, group), "ref": _cat(ref, 1, group),
+            "grads": [_cat(g, 1, group) for g in grads], "steps": step_counts()}
+
+
+def sequence_parallel(q, k, v, scale: float) -> torch.Tensor:
+    """``sequence_parallel_attention`` on whole tensors over the data axis
+    (every rank), the JAX test's call."""
+    from deepl_project_tpu_torch.parallel import create_mesh, sequence_parallel_attention
+
+    return sequence_parallel_attention(create_mesh(), *map(torch.as_tensor, (q, k, v)), scale)
+
+
+def halo_adjoint(x, g, top: int, bottom: int) -> tuple[float, float]:
+    """<halo(x), g> and <x, halo^T(g)> summed over the ranks, x [B, C, H, W]
+    and g [B, C, H + size (top + bottom), W] split by rows (g: each rank its
+    padded block)."""
+    from deepl_project_tpu_torch.parallel import exchange_rows
+    from deepl_project_tpu_torch.parallel.collectives import all_reduce_sum
+
+    group = dist.group.WORLD
+    xl = _chunk(x, 2, group).double().requires_grad_(True)
+    gl = _chunk(g, 2, group).double()
+    y = exchange_rows(xl, top, bottom, group)
+    (gx,) = torch.autograd.grad(y, xl, gl)
+    sums = torch.stack([(y * gl).sum(), (xl * gx).sum()]).detach()
+    lhs, rhs = all_reduce_sum(sums, group).tolist()
+    return lhs, rhs
+
+
+def convs(x, up_x, seed: int) -> dict:
+    """Each conv form under a context group of every rank against the whole
+    map's conv sliced to this rank's rows (max |difference| and max
+    |whole|, gathered): context_conv2d at stride 1 and 2, the fused up-conv
+    (and the literal up path it must equal), the depthwise ConvFFN conv, and
+    their input gradients."""
+    from deepl_project_tpu_torch.ops.layers import Conv2d, init_conv_
+    from deepl_project_tpu_torch.ops.resample import Upsample
+    from deepl_project_tpu_torch.parallel import context_parallel, create_mesh
+    from deepl_project_tpu_torch.parallel.context import split_rows
+
+    mesh = create_mesh(data=1, context=dist.get_world_size())
+    rank, size = dist.get_rank(), dist.get_world_size()
+    gen = torch.Generator().manual_seed(seed)
+    c = x.shape[1]
+    mods = {"conv3x3": Conv2d(c, c, 3, padding=1), "conv3x3_stride2": Conv2d(c, 8, 3, 2, 1),
+            "depthwise": Conv2d(c, c, 3, padding=1, groups=c),
+            "shortcut1x1": Conv2d(c, 8, 1)}
+    for m in mods.values():
+        init_conv_(m, gen)
+    up = Upsample(up_x.shape[1], 8)
+    for m in up.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            init_conv_(m, gen)
+    out = {}
+    cases = [(name, m, x) for name, m in mods.items()]
+    cases += [("up_fused", up, up_x), ("up_literal", up, up_x)]
+    for name, m, inp in cases:
+        if m is up:
+            up.fuse_main = name == "up_fused"
+        whole = torch.as_tensor(inp).requires_grad_(True)
+        want = m(whole)
+        (gw,) = torch.autograd.grad(want.square().sum(), whole)
+        local = split_rows(torch.as_tensor(inp), rank, size, 2).requires_grad_(True)
+        with context_parallel(mesh):
+            got = m(local)
+        (gl,) = torch.autograd.grad(got.square().sum(), local)
+        err = (got - split_rows(want.detach(), rank, size, 2)).abs().max()
+        gerr = (gl - split_rows(gw, rank, size, 2)).abs().max()
+        out[name] = [float(err), float(want.abs().max()), float(gerr), float(gw.abs().max())]
+    return out
+
+
+def norm_and_rope(x, q) -> dict:
+    """GroupNorm (and its input gradient) and RoPE under a context group of
+    every rank against the single-process modules, sliced."""
+    from deepl_project_tpu_torch.ops.norms import GroupNorm
+    from deepl_project_tpu_torch.ops.rope import apply_rope2d
+    from deepl_project_tpu_torch.parallel import context_parallel, create_mesh
+    from deepl_project_tpu_torch.parallel.context import split_rows
+
+    mesh = create_mesh(data=1, context=dist.get_world_size())
+    rank, size = dist.get_rank(), dist.get_world_size()
+    norm = GroupNorm(4, x.shape[1])
+    with torch.no_grad():
+        norm.weight.normal_(generator=torch.Generator().manual_seed(1))
+        norm.bias.normal_(generator=torch.Generator().manual_seed(2))
+    whole = torch.as_tensor(x).requires_grad_(True)
+    want = norm(whole)
+    w = torch.arange(want.numel(), dtype=want.dtype).reshape(want.shape).sin()
+    (gw,) = torch.autograd.grad((want * w).sum(), whole)
+    local = split_rows(torch.as_tensor(x), rank, size, 2).requires_grad_(True)
+    with context_parallel(mesh):
+        got = norm(local)
+    (gl,) = torch.autograd.grad((got * split_rows(w, rank, size, 2)).sum(), local)
+    # RoPE: q [B, H*W, heads, d] of an (H, W) grid; this rank's rows.
+    b, n, h, d = q.shape
+    height, width = x.shape[2], n // x.shape[2]
+    rq = apply_rope2d(torch.as_tensor(q), height, width)
+    mine = split_rows(torch.as_tensor(q).reshape(b, height, width, h, d), rank, size, 1)
+    lq = apply_rope2d(mine.reshape(b, -1, h, d), height, width, first_row=rank * height // size)
+    want_q = split_rows(rq.reshape(b, height, width, h, d), rank, size, 1).reshape(b, -1, h, d)
+    return {"norm": float((got - split_rows(want.detach(), rank, size, 2)).abs().max()),
+            "norm_grad": float((gl - split_rows(gw, rank, size, 2)).abs().max()),
+            "rope": float((lq - want_q).abs().max())}
+
+
+def _context_model(model_kw: dict, state: dict | None):
+    model = J.build_model(context_axis="context", **model_kw)
+    if state is not None:
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+    return model
+
+
+def forward(data: int, context: int, x, model_kw: dict, state: dict | None = None) -> dict:
+    """The micro model (``context_axis='context'``) on a (data, context)
+    mesh of every rank: this rank's rows of the [B, H, W, 3] batch ``x``,
+    the no-grad forward decoding the mean; recon and mu whole, the routes."""
+    from deepl_project_tpu_torch.ops import attention
+    from deepl_project_tpu_torch.parallel import context_parallel, shard_rows
+
+    mesh = _mesh(data, context)
+    model = _context_model(model_kw, state)
+    local = torch.as_tensor(shard_rows(mesh, x)).permute(0, 3, 1, 2)
+    attention.reset_route_counts()
+    with torch.no_grad(), context_parallel(mesh):
+        recon, mu, _ = model(local)
+    return {"recon": whole_rows(mesh, recon), "mu": whole_rows(mesh, mu),
+            "routes": attention.route_counts()}
+
+
+def step(data: int, context: int, model_size: int, accum: int, batch, noise: list,
+         weights: dict, model_kw: dict, state: dict | None = None, lpips: dict | None = None,
+         lr: float = 1e-2, mode: str = "replicate") -> dict:
+    """One stage-1 step of the micro model under a (data, context, model)
+    mesh of every rank (``model_size`` 0: one process, no mesh): the batch
+    [B, H, W, 3] and the whole latent noise of each microbatch handed in;
+    ``compute_grads`` then an SGD update p - lr g (the JAX test's
+    ``optax.sgd``). The loss, the gradients and the updated parameters, whole."""
+    from deepl_project_tpu_torch.parallel import shard_params, shard_rows
+    from deepl_project_tpu_torch.training.train_step import compute_grads, named_trainables
+
+    model = _context_model(model_kw, state)
+    mesh = placement = None
+    if model_size:
+        mesh = _mesh(data, context, model_size)
+        placement = shard_params(mesh, model, mode)
+    named = named_trainables(model)
+    local = torch.as_tensor(shard_rows(mesh, batch, accum))
+    lp = None if lpips is None else {g: {n: torch.as_tensor(t) for n, t in leaves.items()}
+                                     for g, leaves in lpips.items()}
+    grads, metrics = compute_grads(model, local, J._weights(**weights), lp, accum_steps=accum,
+                                   noise=[torch.as_tensor(e) for e in noise],
+                                   placement=placement)
+    with torch.no_grad():
+        for (_, p), g in zip(named, grads):
+            p.sub_(lr * g)
+    names = [n for n, _ in named]
+    whole = (lambda pairs: {n: t.detach().clone() for n, t in pairs}) if placement is None \
+        else placement.full_state
+    return {"loss": float(metrics["total"]), "grads": whole(zip(names, grads)),
+            "params": whole(named), "mu_absmax": float(metrics["mu_absmax"])}
+
+
+def step_reference(*args, **kw) -> dict:
+    return step(1, 1, 0, *args, **kw)
+
+
+def refusals(batch) -> dict:
+    """What context parallelism refuses on a context axis of every rank,
+    by the message each raises."""
+    from deepl_project_tpu_torch.losses import LossWeights
+    from deepl_project_tpu_torch.losses.lpips import init_lpips_params, lpips
+    from deepl_project_tpu_torch.models.discriminator import PatchDiscriminator
+    from deepl_project_tpu_torch.parallel import context_parallel, shard_params, shard_rows
+    from deepl_project_tpu_torch.training.train_step import compute_grads, gan_generator_grads
+
+    mesh = _mesh(1, dist.get_world_size())
+    out = {}
+
+    def message(name, fn):
+        try:
+            fn()
+        except (NotImplementedError, ValueError) as e:
+            out[name] = str(e)
+        else:
+            out[name] = "accepted"
+
+    model = _context_model({}, None)
+    placement = shard_params(mesh, model, "replicate")
+    local = torch.as_tensor(shard_rows(mesh, batch))
+    message("vf", lambda: compute_grads(model, local, LossWeights(vf=0.1, lpips=0.0, gan=0.0),
+                                        teacher_fn=J.stub_teacher, placement=placement))
+    disc = PatchDiscriminator(base_channels=8, num_layers=2, dtype=torch.float32)
+    message("gan", lambda: gan_generator_grads(model, disc, local, LossWeights(lpips=0.0),
+                                               placement=placement))
+    x = local.permute(0, 3, 1, 2)
+    with context_parallel(mesh):
+        message("int8", lambda: J.build_model(context_axis="context", quant="int8")(x))
+        message("height", lambda: model(x[:, :, : x.shape[2] - 4]))
+        message("unset", lambda: J.build_model()(x))
+        message("lpips", lambda: lpips(init_lpips_params(torch.Generator().manual_seed(0)),
+                                       x[:, :, :8], x[:, :, :8]))
+    return out
