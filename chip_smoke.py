@@ -249,6 +249,26 @@ Phases (any failure exits non-zero and prints no result):
    after the update, 104 + 52 flash launches and as many ring steps a
    rank, peak, ms and the bytes staged through host memory (gloo refuses
    CUDA point-to-point: not a speed).
+16. pipeline (run after context, before parallel): GPipe and Switch-MoE
+   expert parallelism of the latent DiT-L/2 (full width and depth, every
+   parameter random). The flash kernels at a pipeline stage's microbatch
+   (PIPE_FLASH) held against their plain versions and timed beside SDPA
+   (its backward) and their bounds. Then each run of PIPE_RUNS: one
+   process's no-grad forward and step (make_dit_train_step, AdamW) saved
+   to PIPE_DIR, then the run's ranks under torchrun over gloo (this script
+   with --worker pipeline-<run>): (a) bf16, pipe 2, 512px latents b32 in
+   8 microbatches, core 'pallas': exactly 96 flash forward + 96 backward
+   launches a rank a step (12 blocks x 8) and 96 forwards a no-grad
+   forward; (b) 4 experts, fp32, (data, pipe, expert) = (1, 2, 2), 256px
+   latents b16 in 4, no kernel launch. Each rank against one process: the
+   loss (PARALLEL_LOSS_RTOL), grad norm (PARALLEL_GRAD_NORM_RTOL), the
+   no-grad forward (KERNEL_RTOL of max), each block's gradient
+   (PIPE_BLOCK_GRAD_RTOL relative L2) and its update signs
+   (PIPE_UPDATE_AGREE), the microbatch runs; in (a) also a reading of an
+   fp32 twin's distance, the ranks' beside one process's. Logs peak memory,
+   step seconds and host-staged bytes a rank (not a speed). (c)
+   `python -m deepl_project_tpu_torch.parallel.dryrun --nproc 8`: phase 5
+   (pipe x expert on (2, 2, 2)) equal to the sequential step.
 
 Launches are checked against one table per resolution (256, 512, 1024px;
 launches_per_reconstruct; phase dit's tokenizer halves, tokenizer_launches). group_norm_silu's launches are checked on every
@@ -267,6 +287,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -450,6 +471,36 @@ CONTEXT_SUBLAYERS = 26
 CONTEXT_RING_SHAPES = ((2, 32768, 6), (2, 8192, 12), (2, 2048, 24))
 CONTEXT_RING_CHECKED = (CONTEXT_RING,) + tuple((b, 2 * n, h) for b, n, h in CONTEXT_RING_SHAPES)
 
+# Phase pipeline: the latent DiT-L/2 (hidden 1024, depth 24, 16 heads of
+# 64), full width and depth, bf16, every parameter random, one step of
+# rectified flow (AdamW 1e-4) pipelined over the ranks of one card on gloo.
+# (a) pipe 2 at 512px latents (32x32x32: N=256), global b32 in 8
+# microbatches, attention 'pallas': every block's core is the flash
+# forward and backward at PIPE_FLASH, 12 blocks x 8 microbatches a rank;
+# (b) (data, pipe, expert) = (1, 2, 2) with 4 Switch experts at 256px
+# latents (16x16: N=64, the plain core), global b16 in 4 microbatches, in
+# fp32: the router's argmax is discontinuous, so in bf16 the rounding of a
+# microbatch's products against the whole batch's could send a near-tie
+# token to another expert, a difference of routing and not of placement.
+# Each against one process's step on the same weights, t, noise and labels.
+PIPE_RUNS = {
+    "a": dict(mesh=(1, 2, 1), grid=32, batch=32, micro=8, impl="pallas", experts=0,
+              dtype="bfloat16"),
+    "b": dict(mesh=(1, 2, 2), grid=16, batch=16, micro=4, impl="auto", experts=4,
+              dtype="float32"),
+}
+PIPE_FLASH = (4, 256, 16)
+PIPE_SEED = 5
+PIPE_LR = 1e-4
+# A block's gradient against one process's (relative L2 over its tensors;
+# KERNEL_RTOL's two bf16 steps), and the share of its entries whose AdamW
+# update takes the one process's sign (the first step moves each entry by
+# ~lr sign(g), so an entry whose gradient lies within rounding of zero may
+# flip).
+PIPE_BLOCK_GRAD_RTOL = 2 ** -6
+PIPE_UPDATE_AGREE = 0.99
+PIPE_DRYRUN_NPROC = 8
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CARD = ""
 # Phase parallel's files: the (a) FileStore, the (b) ranks' results.
@@ -468,6 +519,11 @@ DIT_PATHS: dict = {}
 CONTEXT_DIR = os.path.join(ROOT, "outputs", "chip_smoke_context")
 CONTEXT_PATHS: dict = {}
 CONTEXT_RING_ROWS: dict = {}
+# Phase pipeline's files, its paths (each rank's forward and step) ->
+# launches by kernel name, and the flash kernels' rows at PIPE_FLASH.
+PIPE_DIR = os.path.join(ROOT, "outputs", "chip_smoke_pipeline")
+PIPE_PATHS: dict = {}
+PIPE_ROWS: dict = {}
 
 
 def fail(msg: str):
@@ -4251,15 +4307,352 @@ def phase_context() -> None:
     shutil.rmtree(CONTEXT_DIR, ignore_errors=True)
 
 
+def _pipe_cfg(run: dict):
+    from deepl_project_tpu_torch.models import get_dit_config
+
+    return get_dit_config("L", 2, attention_impl=run["impl"], pipeline_axis="pipe",
+                          pipeline_microbatches=run["micro"], moe_experts=run["experts"],
+                          dtype=run["dtype"])
+
+
+def _pipe_inputs(run: dict) -> tuple:
+    """The global batch of a run, made on the card from a seed identically in
+    every process: z0 [B, grid, grid, 32], labels, t, noise."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(PIPE_SEED + 1)
+    shape = (run["batch"], run["grid"], run["grid"], 32)
+    z0 = torch.randn(shape, generator=gen, device="cuda")
+    labels = torch.randint(0, 1000, (run["batch"],), generator=gen, device="cuda")
+    t = torch.sigmoid(torch.randn(run["batch"], generator=gen, device="cuda"))
+    return z0, labels, t, torch.randn(shape, generator=gen, device="cuda")
+
+
+def _pipe_run(run: dict, placement=None) -> tuple:
+    """One process's (placement None) or this rank's run: the model from
+    PIPE_SEED, its no-grad forward of the noised batch, then one
+    make_dit_train_step step. (row, forward output, {block parameter name:
+    (gradient, update)})."""
+    import torch
+
+    from deepl_project_tpu_torch.models import create_dit, perturb_zero_init
+    from deepl_project_tpu_torch.parallel import collectives as col
+    from deepl_project_tpu_torch.parallel import use_axes
+    from deepl_project_tpu_torch.parallel.pipeline import reset_run_counts, run_counts
+    from deepl_project_tpu_torch.training import TrainState, make_dit_train_step, make_optimizer
+    from deepl_project_tpu_torch.training.train_step import named_trainables
+
+    cfg = _pipe_cfg(run)
+    model = perturb_zero_init(create_dit(cfg, run["grid"], device="cuda", seed=PIPE_SEED,
+                                         placement=placement), PIPE_SEED)
+    z0, labels, t, noise = _pipe_inputs(run)
+    row = {"params": sum(p.numel() for p in model.parameters())}
+    tb = t[:, None, None, None]
+    mesh = None if placement is None else placement.mesh
+
+    def reset():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        reset_run_counts()
+        col.reset_staged_counts()
+        return time.perf_counter()
+
+    def counts(t0):
+        torch.cuda.synchronize()
+        return {"s": time.perf_counter() - t0, "launches": launches_by_name(),
+                "runs": run_counts(), "staged": col.staged_counts(),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+    t0 = reset()
+    with torch.no_grad(), use_axes(mesh):
+        v = model.eval()(((1.0 - tb) * z0 + tb * noise), t, labels).float()
+    row["forward"] = counts(t0)
+    named = named_trainables(model)
+    opt = make_optimizer(named, learning_rate=PIPE_LR, warmup_steps=0, placement=placement)
+    blocks = [(n, p) for n, p in named if n.startswith("block")]
+    before = [p.detach().clone() for _, p in blocks]
+    grads = {}
+    apply = opt.step
+
+    def step(gs):  # keep the block gradients the update sees
+        grads.update({n: gs[i].detach().clone() for i, (n, _) in enumerate(named)
+                      if n.startswith("block")})
+        return apply(gs)
+
+    opt.step = step
+    step_fn = make_dit_train_step(model.train(), placement=placement)
+    t0 = reset()
+    m = step_fn(TrainState(0, model, opt), z0, labels, t, noise)
+    row["step"] = counts(t0)
+    del opt.step  # the wrapper's cycle would keep the optimizer's state alive
+    row.update({k: float(x) for k, x in m.items()})
+    row["applied"] = bool(opt.last_finite)
+    out = {n: (grads[n], p.detach() - b) for (n, p), b in zip(blocks, before)}
+    return row, v, out
+
+
+def _rel_l2(pairs) -> float:
+    """sqrt(sum |a - b|^2 / sum |b|^2) over (a, b) pairs."""
+    d = sum(float((a.float() - b.float()).square().sum()) for a, b in pairs)
+    return (d / sum(float(b.float().square().sum()) for _, b in pairs)) ** 0.5
+
+
+def _by_block(names) -> dict:
+    out: dict = {}
+    for n in names:
+        out.setdefault(n.split(".")[0], []).append(n)
+    return out
+
+
+def _pipe_compare(ref: dict, mine: dict, placement) -> dict:
+    """Each block this rank holds against one process's: the relative L2 of
+    its gradient (over the block's tensors; an expert weight against the
+    matching slice), the share of its update entries of the same sign, and
+    where the reference has an fp32 twin's gradients, the relative L2 from
+    those."""
+    import torch
+
+    def theirs(x, name, like):
+        return placement.scatter(x.to(like.device), placement.dim(name))
+
+    out = {}
+    for blk, names in _by_block(mine).items():
+        rows = {"grad_rel": _rel_l2([(mine[n][0], theirs(ref["blocks"][n][0], n, mine[n][0]))
+                                     for n in names])}
+        agree = sum(int((torch.sign(mine[n][1])
+                         == theirs(ref["blocks"][n][1], n, mine[n][1]).to(torch.int8)).sum())
+                    for n in names)
+        rows["update_agree"] = agree / sum(mine[n][1].numel() for n in names)
+        if "fp32" in ref:
+            rows["fp32_rel"] = _rel_l2([(mine[n][0], theirs(ref["fp32"][n], n, mine[n][0]))
+                                        for n in names])
+        out[blk] = rows
+    return out
+
+
+def pipeline_worker(name: str) -> None:
+    """A rank of phase pipeline's run ``name``, started by torchrun: gloo on
+    the one card, the run's (data, pipe, expert) mesh; its forward and step
+    against the one process's (PIPE_DIR/ref_<name>.pt); results in
+    PIPE_DIR/<name>_rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from deepl_project_tpu_torch.parallel import (PipelinePlacement, create_dit_mesh,
+                                                  initialize_multihost)
+
+    initialize_multihost(backend="gloo", device="cuda:0")
+    run = PIPE_RUNS[name]
+    placement = PipelinePlacement(create_dit_mesh(*run["mesh"]))
+    row, v, mine = _pipe_run(run, placement)
+    ref = torch.load(os.path.join(PIPE_DIR, f"ref_{name}.pt"), map_location="cpu",
+                     mmap=True)
+    want = ref["forward"].to("cuda")
+    row["forward_err"] = [float((v - want).abs().max()), float(want.abs().max())]
+    if "forward_fp32" in ref:
+        row["forward_fp32_mean_err"] = float((v - ref["forward_fp32"].to("cuda")).abs().mean())
+    row["blocks"] = _pipe_compare(ref, mine, placement)
+    row["held"] = sorted({n.split(".")[0] for n in mine}, key=lambda b: int(b[5:]))
+    row["staged_backend"] = dist.get_backend(placement.pipe_group)
+    with open(os.path.join(PIPE_DIR, f"{name}_rank{dist.get_rank()}.json"), "w") as f:
+        json.dump(row, f)
+    dist.destroy_process_group()
+
+
+def _pipeline_kernel_rows() -> dict:
+    """The flash kernels at PIPE_FLASH, as a stage's blocks run them in run
+    (a): held against their plain versions on the same inputs (the backward
+    fed the kernel's own o and lse), failing beyond KERNEL_RTOL of max, then
+    timed beside their plain versions, SDPA (forward; its backward) and
+    their bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    scale, rows = 64 ** -0.5, {}
+    q, k, v, do = (torch.randn(*PIPE_FLASH, 64, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = fla.flash_forward(q, k, v, scale)
+    o_p, lse_p = fla.flash_forward_reference(q, k, v, scale)
+    errs = {"o": (o, o_p), "lse": (lse, lse_p)}
+    errs.update(zip(("dq", "dk", "dv"), zip(
+        fla.flash_backward(q, k, v, o, lse, do, scale),
+        fla.flash_backward_reference(q, k, v, o, lse, do, scale))))
+    errs = {n: [float((a.float() - b.float()).abs().max()), float(b.float().abs().max())]
+            for n, (a, b) in errs.items()}
+    for n, (e, top) in errs.items():
+        log(f"pipeline: flash at {PIPE_FLASH} {n}: kernel vs plain max_abs_err {e:.3e} "
+            f"(rel {e / top:.3e}, bound {KERNEL_RTOL:.3e})")
+        if not e <= KERNEL_RTOL * top:
+            fail(f"pipeline: the flash kernels' {n} at {PIPE_FLASH} differs from the plain "
+                 f"version")
+    hq = [x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)]
+    sd = F.scaled_dot_product_attention(*hq)
+    for name, kern, plain, lib, outs in (
+            ("flash_attention_fwd", lambda: fla.flash_forward(q, k, v, scale),
+             lambda: fla.flash_forward_reference(q, k, v, scale),
+             lambda: F.scaled_dot_product_attention(*hq), ("o", "lse")),
+            ("flash_attention_bwd", lambda: fla.flash_backward(q, k, v, o, lse, do, scale),
+             lambda: fla.flash_backward_reference(q, k, v, o, lse, do, scale),
+             lambda: torch.autograd.grad(sd, hq, do.transpose(1, 2), retain_graph=True),
+             ("dq", "dk", "dv"))):
+        flops, nbytes = flash_bound(name, *PIPE_FLASH)
+        rows[name] = {
+            "ms": cuda_time_ms(kern, 20), "plain_ms": cuda_time_ms(plain, 5, 1),
+            "library_ms": cuda_time_ms(lib, 20),
+            "bound_ms": max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3,
+            "bound_by": ("operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_HBM_BYTES
+                         else "bytes"),
+            "max_abs_err": max(errs[n][0] for n in outs)}
+    return rows
+
+
+def phase_pipeline() -> None:
+    """GPipe and expert parallelism of the latent DiT on the one card
+    (PERF.md, section 6): the flash kernels at PIPE_FLASH held to their
+    plain versions and timed; runs (a) and (b) of PIPE_RUNS, each one
+    process's step first, then the run's ranks under torchrun over gloo
+    (--worker pipeline-<run>); (c) the dry run's five phases on
+    PIPE_DRYRUN_NPROC processes. Every step time is gloo host staging with
+    all the ranks on one card: not a speed."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        fail("pipeline: a process group exists before phase pipeline")
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    os.makedirs(PIPE_DIR)
+    PIPE_ROWS.update(_pipeline_kernel_rows())
+    for name, r in PIPE_ROWS.items():
+        log(f"time pipeline {name} {PIPE_FLASH}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']}) [{CARD}]")
+    for name, run in PIPE_RUNS.items():
+        t0 = time.time()
+        one, v, blocks = _pipe_run(run)
+        ref = {"forward": v.cpu(),
+               "blocks": {n: (g.to(torch.bfloat16).cpu(), torch.sign(du).to(torch.int8).cpu())
+                          for n, (g, du) in blocks.items()}}
+        del v
+        if run["dtype"] == "bfloat16":
+            # A reading of bf16's own noise: an fp32 twin (the plain core,
+            # TF32 off) on the same weights and draws; one process's bf16
+            # gradients and forward against it, beside the ranks'.
+            torch.cuda.empty_cache()
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            _, v32, b32 = _pipe_run(dict(run, dtype="float32", impl="xla"))
+            torch.backends.cudnn.allow_tf32 = tf32
+            ref["fp32"] = {n: g.to(torch.bfloat16).cpu() for n, (g, _) in b32.items()}
+            ref["forward_fp32"] = v32.cpu()
+            one["fp32_rel"] = {blk: _rel_l2([(blocks[n][0], b32[n][0]) for n in ns])
+                               for blk, ns in _by_block(b32).items()}
+            one["forward_fp32_mean_err"] = float((ref["forward"] - ref["forward_fp32"])
+                                                 .abs().mean())
+            del v32, b32
+        torch.save(ref, os.path.join(PIPE_DIR, f"ref_{name}.pt"))
+        del blocks, ref
+        torch.cuda.empty_cache()
+        log(f"pipeline ({name}): one process: {one['params'] / 1e9:.3f} B parameters, loss "
+            f"{one['loss']:.6f}, grad norm {one['grad_norm']:.6f}, step "
+            f"{one['step']['s']:.2f} s, peak {one['step']['peak_gib']:.2f} GiB, launches "
+            f"{one['step']['launches']} [{CARD}]")
+        nproc = math.prod(run["mesh"])
+        proc = _torchrun(nproc, [os.path.join(ROOT, "chip_smoke.py"), "--worker",
+                                 f"pipeline-{name}"], timeout=600)
+        if proc.returncode != 0:
+            fail(f"pipeline ({name}): the {nproc} ranks exited {proc.returncode}:\n"
+                 f"{(proc.stdout + proc.stderr)[-6000:]}")
+        per_rank = run["micro"] * _pipe_cfg(run).depth // run["mesh"][1]
+        want = ({"flash_attention_fwd": per_rank, "flash_attention_bwd": per_rank}
+                if run["impl"] == "pallas" else {})
+        for r in range(nproc):
+            with open(os.path.join(PIPE_DIR, f"{name}_rank{r}.json")) as f:
+                got = json.load(f)
+            lr = abs(got["loss"] - one["loss"]) / abs(one["loss"])
+            gr = abs(got["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+            e, top = got["forward_err"]
+            worst_g = max(b["grad_rel"] for b in got["blocks"].values())
+            worst_u = min(b["update_agree"] for b in got["blocks"].values())
+            st = got["step"]
+            if "fp32_rel" in one:
+                # A reading, not a check: each block's gradient and the
+                # forward against the fp32 twin, the ranks' beside one
+                # process's bf16.
+                ratios = sorted(b["fp32_rel"] / one["fp32_rel"][blk]
+                                for blk, b in got["blocks"].items())
+                log(f"pipeline ({name}) rank {r}: against the fp32 twin: block gradients rel "
+                    f"L2 {min(b['fp32_rel'] for b in got['blocks'].values()):.3e}-"
+                    f"{max(b['fp32_rel'] for b in got['blocks'].values()):.3e} (one process's "
+                    f"bf16 {min(one['fp32_rel'][b] for b in got['blocks']):.3e}-"
+                    f"{max(one['fp32_rel'][b] for b in got['blocks']):.3e}; ratio "
+                    f"{ratios[0]:.3f}-{ratios[-1]:.3f}); forward mean abs err "
+                    f"{got['forward_fp32_mean_err']:.4e} (one process's bf16 "
+                    f"{one['forward_fp32_mean_err']:.4e}); gradient rel L2 from one process "
+                    f"by block {[round(got['blocks'][b]['grad_rel'], 5) for b in got['held']]}")
+            log(f"pipeline ({name}) rank {r} of mesh {run['mesh']} (data, pipe, expert): "
+                f"{got['params'] / 1e9:.3f} B parameters, blocks {got['held'][0]}..."
+                f"{got['held'][-1]}; loss {got['loss']:.6f} vs one process {one['loss']:.6f} "
+                f"(rel {lr:.2e}, bound {PARALLEL_LOSS_RTOL}), grad norm {got['grad_norm']:.6f} "
+                f"vs {one['grad_norm']:.6f} (rel {gr:.2e}, bound {PARALLEL_GRAD_NORM_RTOL}); "
+                f"no-grad forward max_abs_err {e:.3e} (rel {e / top:.3e}, bound "
+                f"{KERNEL_RTOL:.3e}); worst block gradient rel L2 {worst_g:.2e} (bound "
+                f"{PIPE_BLOCK_GRAD_RTOL}), update sign agreement {worst_u:.5f} (bound "
+                f"{PIPE_UPDATE_AGREE}); step {st['s']:.2f} s (gloo on one card: not a speed), "
+                f"peak {st['peak_gib']:.2f} GiB, forward {got['forward']['s']:.2f} s; launches "
+                f"step {st['launches']}, forward {got['forward']['launches']}; microbatch "
+                f"runs {st['runs']}; staged {st['staged']} over {got['staged_backend']} [{CARD}]")
+            if (lr > PARALLEL_LOSS_RTOL or gr > PARALLEL_GRAD_NORM_RTOL or not got["applied"]
+                    or not e <= KERNEL_RTOL * top or worst_g > PIPE_BLOCK_GRAD_RTOL
+                    or worst_u < PIPE_UPDATE_AGREE):
+                fail(f"pipeline ({name}) rank {r}: off the one process's step")
+            runs = {"forward": run["micro"], "backward": run["micro"]}
+            if (st["launches"] != want or st["runs"] != runs
+                    or got["forward"]["launches"] != {k: v for k, v in want.items()
+                                                      if k.endswith("fwd")}):
+                fail(f"pipeline ({name}) rank {r}: launches {st['launches']}, forward "
+                     f"{got['forward']['launches']}, runs {st['runs']}; want {want} and {runs}")
+            PIPE_PATHS[f"pipeline_{name}_step_rank{r}"] = st["launches"]
+            PIPE_PATHS[f"pipeline_{name}_forward_rank{r}"] = got["forward"]["launches"]
+        log(f"pipeline ({name}) took {time.time() - t0:.1f}s")
+        os.remove(os.path.join(PIPE_DIR, f"ref_{name}.pt"))
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "deepl_project_tpu_torch.parallel.dryrun",
+                           "--nproc", str(PIPE_DRYRUN_NPROC)], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600, env={**os.environ, "PYTHONPATH": ROOT})
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("dryrun")]
+    for ln in lines:
+        log(f"pipeline (c): {ln}")
+    if proc.returncode != 0 or not any(ln.startswith("dryrun PP+EP OK") for ln in lines):
+        fail(f"pipeline (c): the dry run on {PIPE_DRYRUN_NPROC} ranks exited "
+             f"{proc.returncode}:\n{(proc.stdout + proc.stderr)[-6000:]}")
+    log(f"pipeline (c): the dry run took {time.time() - t0:.1f}s [{CARD}]")
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    # The phases after this one need the card's memory back.
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2 ** 30
+    log(f"pipeline: {left:.3f} GiB left allocated after the phase")
+    if left > 1.0:
+        fail(f"pipeline: {left:.2f} GiB still allocated after the phase")
+
+
 def main():
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernels,grad,train,data,dit,gan,recipe,remat,serve,time,"
-                            "eval,quant,context,parallel")
+                            "eval,quant,context,pipeline,parallel")
     ap.add_argument("--worker", choices=["dp", "context", "refusal-nccl", "refusal-gloo",
-                                         "refusal-gloo-p2p"],
-                    help="run as a rank of phase parallel or context (started by torchrun)")
+                                         "refusal-gloo-p2p"]
+                    + [f"pipeline-{n}" for n in PIPE_RUNS],
+                    help="run as a rank of phase parallel, context or pipeline (started by "
+                         "torchrun)")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--baseline", metavar="DIR", nargs="+", default=[],
                     help="checkouts whose wgmma kernels (WGMMA_KERNELS) are timed "
@@ -4273,6 +4666,8 @@ def main():
             context_worker()
         elif args.worker == "refusal-gloo-p2p":
             p2p_probe_worker()
+        elif args.worker.startswith("pipeline-"):
+            pipeline_worker(args.worker.split("-", 1)[1])
         else:
             refusal_worker(args.worker.split("-")[1])
         return
@@ -4366,6 +4761,9 @@ def main():
     if "context" in phases:
         with phase_clock("context"):
             phase_context()
+    if "pipeline" in phases:
+        with phase_clock("pipeline"):
+            phase_pipeline()
     if "parallel" in phases:
         with phase_clock("parallel"):
             phase_parallel(train_info["rows"])
@@ -4510,12 +4908,20 @@ def main():
                 row["group_norm_silu_by_shape"] = {
                     str(k[1:]): r for k, r in results.items() if k[0] == "group_norm_silu"}
             kernels.append(row)
-        # Phase dit's, context's and parallel's paths, each driven with the
-        # counts set to 0 just before.
+        # Phase dit's, context's, pipeline's and parallel's paths, each
+        # driven with the counts set to 0 just before.
         for row in kernels:
             row.setdefault("launches_by_path", {}).update(
                 {p: c.get(row["name"], 0)
-                 for p, c in {**DIT_PATHS, **CONTEXT_PATHS, **PARALLEL_PATHS}.items()})
+                 for p, c in {**DIT_PATHS, **CONTEXT_PATHS, **PIPE_PATHS,
+                              **PARALLEL_PATHS}.items()})
+            # The flash kernels at the pipelined DiT-L/2's shape: [kernel,
+            # plain, bound, SDPA (its backward for flash_attention_bwd)] ms
+            # and the max abs error against the plain version.
+            if row["name"] in PIPE_ROWS:
+                r = PIPE_ROWS[row["name"]]
+                row["pipeline_ms_by_shape"] = {str(PIPE_FLASH): [
+                    r["ms"], r["plain_ms"], r["bound_ms"], r["library_ms"], r["max_abs_err"]]}
             # The ring's partials at the context step's local shapes: [kernel,
             # plain, bound, SDPA] ms and the max abs error against the plain
             # version as the ring runs them.

@@ -22,15 +22,25 @@ JAX package, and predicts the rectified-flow velocity (``training/diffusion.py``
 The module tree follows the JAX tree (``patch_embed``, ``t_embed.fc1``,
 ``y_embed.embedding``, ``block{i}.qkv``, ..., ``head``), so
 ``utils.convert.load_jax_dit_params`` loads a JAX tree with ``strict=True``.
-``scan_blocks`` and ``pipeline_axis`` are refused: the port's blocks are
-unrolled (the converter unstacks a scan-layout tree), and the pipeline is
-parallelism, not yet ported.
+``scan_blocks`` is refused: the port's blocks are unrolled (the converter
+unstacks a scan-layout tree).
+
+``pipeline_axis``: under an ambient group of that axis
+(``parallel.mesh.use_axes``) of more than one rank the blocks run as a
+GPipe pipeline (``parallel.pipeline.pipeline_apply``, each stage the blocks
+``PipelinePlacement.shard`` left it); without one they run one after
+another, as the JAX model falls back to its sequential scan. Either way a
+config with ``pipeline_axis`` keeps no router loss: the JAX model holds
+such a config's blocks in its scan layout, whose ``nn.scan`` carries only
+the params collection, so the sown ``moe_aux`` is dropped (a behaviour the
+port mirrors, ``training/diffusion.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import zlib
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +50,7 @@ from ..ops.attention import IMPLS, core_attention
 from ..ops.layers import Conv2d, Linear
 from ..ops.moe import ExpertLinear, SwitchFFN
 from ..ops.rope import apply_rope2d
+from ..parallel.mesh import ambient
 
 
 def _affine_free_norm(x: torch.Tensor, use_rms: bool, eps: float = 1e-6) -> torch.Tensor:
@@ -153,10 +164,12 @@ class LabelEmbedder(nn.Module):
                                                   dtype=param_dtype))
 
     def forward(self, labels: torch.Tensor, deterministic: bool = True,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                rows: tuple[int, int] | None = None) -> torch.Tensor:
         if not deterministic and self.dropout > 0.0:
-            drop = torch.rand(labels.shape, generator=generator,
-                              device=labels.device) < self.dropout
+            first, total = (0, labels.shape[0]) if rows is None else rows
+            u = torch.rand(total, generator=generator, device=labels.device)
+            drop = u[first:first + labels.shape[0]] < self.dropout
             labels = torch.where(drop, torch.full_like(labels, self.num_classes), labels)
         return self.embedding[labels]
 
@@ -185,7 +198,8 @@ class DiTBlock(nn.Module):
         self.proj = Linear(d, d, **kw)
         if cfg.moe_experts > 1:
             self.moe_ffn = SwitchFFN(d, hidden, cfg.moe_experts, cfg.moe_capacity_factor,
-                                     cfg.use_swiglu, cfg.moe_axis, device=device,
+                                     cfg.use_swiglu, cfg.moe_axis,
+                                     keep_aux=not cfg.pipeline_axis, device=device,
                                      param_dtype=cfg.params_dtype)
         else:
             if cfg.use_swiglu:
@@ -237,10 +251,6 @@ class DiT(nn.Module):
                 "scan_blocks=True names the JAX package's stacked parameter layout; the "
                 "port's DiT is unrolled. Build it with scan_blocks=False and load a "
                 "scan-layout tree with utils.convert.load_jax_dit_params, which unstacks it")
-        if cfg.pipeline_axis:
-            raise NotImplementedError(
-                f"pipeline_axis={cfg.pipeline_axis!r} is pipeline parallelism, not yet "
-                "ported to deepl_project_tpu_torch (ROADMAP.md Queue 1 item 6, parallelism)")
         if cfg.attention_impl not in IMPLS:
             raise NotImplementedError(f"attention impl {cfg.attention_impl!r} is not yet ported")
         self.config = cfg
@@ -259,14 +269,18 @@ class DiT(nn.Module):
         self.adaln_out = Linear(d, 2 * d, **kw)
         self.head = Linear(d, p * p * out_ch, **kw)
 
-    def blocks(self) -> list[DiTBlock]:
+    def blocks(self) -> list[DiTBlock | None]:
+        """The depth slots: a block, or None where a pipeline placement left
+        the block to another stage."""
         return [getattr(self, f"block{i}") for i in range(self.config.depth)]
 
     def forward(self, z: torch.Tensor, t: torch.Tensor, labels: torch.Tensor,
-                deterministic: bool = True,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                deterministic: bool = True, generator: torch.Generator | None = None,
+                label_rows: tuple[int, int] | None = None) -> torch.Tensor:
         """``generator`` draws the label dropout of a call with
-        ``deterministic=False``."""
+        ``deterministic=False``; ``label_rows`` = (first, total): these labels
+        are rows of a batch of ``total``, whose draws are made whole and
+        sliced (a data rank's share of the one-process draws)."""
         cfg = self.config
         dt = cfg.compute_dtype
         b, h, w, c = z.shape
@@ -281,9 +295,23 @@ class DiT(nn.Module):
         if not cfg.use_rope:
             x = x + self.pos_embed.to(dt)[None]
 
-        cond = self.t_embed(t, dt) + self.y_embed(labels, deterministic, generator).to(dt)
-        for block in self.blocks():
-            x = block(x, cond, (gh, gw))
+        cond = self.t_embed(t, dt) + self.y_embed(labels, deterministic, generator,
+                                                  label_rows).to(dt)
+        blocks = self.blocks()
+        pipe = ambient(cfg.pipeline_axis)
+        if pipe is not None:
+            from ..parallel.pipeline import pipeline_apply
+
+            x = pipeline_apply(lambda blk, xb, cb: blk(xb, cb, (gh, gw)), blocks, x, cond,
+                               group=pipe.group, num_microbatches=cfg.pipeline_microbatches)
+        elif None in blocks:
+            raise RuntimeError(
+                "this DiT holds the blocks of one pipeline stage (PipelinePlacement.shard): "
+                f"run it under its pipe group (parallel.mesh.use_axes, pipeline_axis="
+                f"{cfg.pipeline_axis!r})")
+        else:
+            for block in blocks:
+                x = block(x, cond, (gh, gw))
 
         # Final adaLN and linear head, zero-init (DiT's final layer).
         shift, scale = self.adaln_out(F.silu(cond)).chunk(2, dim=-1)
@@ -301,43 +329,86 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator) -> None:
     nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
+def _init_module(m: nn.Module, zero: set, small: set, generator) -> None:
+    """The JAX initializer of one module (see :func:`init_dit_weights`); an
+    expert weight held in part is drawn whole and sliced."""
+    if m in zero:
+        m.weight.zero_()
+    elif m in small:
+        nn.init.trunc_normal_(m.weight, std=0.02, a=-0.04, b=0.04, generator=generator)
+    elif isinstance(m, (nn.Linear, nn.Conv2d)):
+        _lecun_normal_(m.weight, m.weight[0].numel(), generator)
+    elif isinstance(m, ExpertLinear):  # fan_in per expert
+        w = m.weight
+        if m.total is not None and m.total != w.shape[0]:
+            w = w.new_empty((m.total,) + tuple(w.shape[1:]))
+        _lecun_normal_(w, w.shape[-1], generator)
+        if w is not m.weight:
+            m.weight.copy_(w[m.first:m.first + m.weight.shape[0]])
+    else:
+        return
+    if getattr(m, "bias", None) is not None:
+        m.bias.zero_()
+
+
 @torch.no_grad()
 def init_dit_weights(model: DiT, generator: torch.Generator | None = None) -> DiT:
     """The JAX initializers (their distributions, not their draws): adaLN,
     ``adaln_out`` and ``head`` zero, ``qkv`` and ``proj`` truncated
     normal(0.02), the label table and ``pos_embed`` normal(0.02), every
-    other kernel Flax's lecun normal; biases zero."""
-    zero = {model.adaln_out, model.head} | {blk.adaln for blk in model.blocks()}
-    small = {m for blk in model.blocks() for m in (blk.qkv, blk.proj)}
-    for m in model.modules():
-        if m in zero:
-            m.weight.zero_()
-        elif m in small:
-            nn.init.trunc_normal_(m.weight, std=0.02, a=-0.04, b=0.04, generator=generator)
-        elif isinstance(m, (nn.Linear, nn.Conv2d)):
-            _lecun_normal_(m.weight, m.weight[0].numel(), generator)
-        elif isinstance(m, ExpertLinear):  # fan_in per expert
-            _lecun_normal_(m.weight, m.weight.shape[-1], generator)
-        else:
-            continue
-        if getattr(m, "bias", None) is not None:
-            m.bias.zero_()
+    other kernel Flax's lecun normal; biases zero. A model placed by
+    ``PipelinePlacement.shard`` gets the whole model's values: each block
+    of another stage is drawn into a throwaway block and each expert weight
+    held in part is drawn whole, one at a time."""
+    cfg = model.config
+    device = model.head.weight.device
+    for child in model._modules.values():
+        if child is None:  # a block of another stage: its draws, thrown away
+            with torch.device("meta"):
+                child = DiTBlock(cfg)
+            child = child.to_empty(device=device)
+        zero = {model.adaln_out, model.head}
+        small = set()
+        if isinstance(child, DiTBlock):
+            zero.add(child.adaln)
+            small = {child.qkv, child.proj}
+        for m in child.modules():
+            _init_module(m, zero, small, generator)
     model.y_embed.embedding.normal_(0.0, 0.02, generator=generator)
-    if not model.config.use_rope:
+    if not cfg.use_rope:
         model.pos_embed.normal_(0.0, 0.02, generator=generator)
     return model
 
 
+@torch.no_grad()
+def perturb_zero_init(model: DiT, seed: int, std: float = 0.02) -> DiT:
+    """N(0, std^2) in the weights the JAX init zeroes (every block's adaLN,
+    ``adaln_out``, ``head``), so that every block shapes the output (at the
+    init the blocks start as the identity and the head at 0, and a loss
+    does not see them). Each weight is drawn from a generator seeded from
+    (seed, its name), so a pipeline stage draws the whole model's values."""
+    for name, p in model.named_parameters():
+        if name.endswith(("adaln.weight", "adaln_out.weight", "head.weight")):
+            gen = torch.Generator(device=p.device).manual_seed(
+                seed * 1_000_003 + zlib.crc32(name.encode()))
+            p.normal_(0.0, std, generator=gen)
+    return model
+
+
 def create_dit(cfg: DiTConfig, grid: int | tuple[int, int] = 16, *, device=None,
-               seed: int | None = 0) -> DiT:
+               seed: int | None = 0, placement=None) -> DiT:
     """A DiT on ``device`` (default CUDA) with weights drawn from a
     ``torch.Generator`` seeded with ``seed`` on that device (``seed=None``
-    leaves them uninitialised, for a checkpoint load)."""
+    leaves them uninitialised, for a checkpoint load). ``placement`` (a
+    ``parallel.PipelinePlacement``): only this rank's blocks and experts
+    are allocated, with the whole model's values."""
     from .transvae import resolve_device
 
     device = resolve_device(device)
     with torch.device("meta"):
         model = DiT(cfg, grid)
+    if placement is not None:
+        placement.shard(model)
     model = model.to_empty(device=device)
     if seed is not None:
         init_dit_weights(model, torch.Generator(device=device).manual_seed(seed))

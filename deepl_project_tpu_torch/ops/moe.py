@@ -11,8 +11,19 @@ p_e)`` (f the share of tokens routed to e, p the mean router probability)
 is kept on the module by each forward, where :func:`collect_aux_losses`
 takes it: the counterpart of the JAX module's sown 'losses' collection.
 
-``expert_axis`` is carried for the config and inert here: expert
-parallelism waits for the port's parallelism slice.
+Expert parallelism (the JAX module's ``_ep_constraint``): under an ambient
+group of the ``expert_axis`` (``parallel.mesh.use_axes``) of size ep, a
+module placed by :meth:`SwitchFFN.hold_experts` holds experts [r E/ep, (r +
+1) E/ep) and runs them on its slice of the dispatched tokens; the outputs
+are all-gathered along E before the combine. The tokens are replicated
+over the expert group in every JAX placement, so GSPMD's all-to-all is
+that slice and that all-gather: ``gather_from_group``, whose backward takes
+this rank's slice (the loss is the same on every rank of the group), and
+``copy_to_group`` on the tokens entering the dispatch, whose backward sums
+each rank's share of their gradient. Under an ambient ``data`` group the
+load-balance loss takes the global batch's f and p (``global_mean``), as
+GSPMD computes it. Without an ambient expert group a module holds every
+expert, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,13 +34,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import copy_to_group, gather_from_group, global_mean
+from ..parallel.mesh import DATA_AXIS, ambient
 from .layers import Linear
 
 
 class ExpertLinear(nn.Module):
     """E independent linears: ``weight`` [E, out, in], ``bias`` [E, out]
     (the JAX vmapped Dense's [E, in, out] kernel transposed per expert); x
-    [E, ..., in] -> [E, ..., out] in x's dtype."""
+    [E, ..., in] -> [E, ..., out] in x's dtype. Under expert parallelism
+    (``SwitchFFN.hold_experts``) experts [first, first + E) of ``total``."""
+
+    first = 0
+    total = None
 
     def __init__(self, num_experts: int, d_in: int, d_out: int, *, device=None,
                  dtype=torch.float32):
@@ -74,13 +91,47 @@ class SwitchFFN(nn.Module):
 
     def __init__(self, d: int, hidden: int, num_experts: int, capacity_factor: float = 1.25,
                  use_swiglu: bool = True, expert_axis: str | None = "expert", *,
-                 device=None, param_dtype=torch.float32):
+                 keep_aux: bool = True, device=None, param_dtype=torch.float32):
         super().__init__()
         self.num_experts, self.capacity_factor = num_experts, capacity_factor
         self.expert_axis = expert_axis
+        # False: the load-balance loss is not kept (the DiT's pipelined
+        # layout drops it, as JAX's scan layout drops the sown losses).
+        self.keep_aux = keep_aux
+        self.held = (0, num_experts)  # the experts [lo, hi) this module holds
         self.router = Linear(d, num_experts, device=device, dtype=torch.float32)
         self.experts = _Experts(num_experts, d, hidden, use_swiglu, device=device,
                                 dtype=param_dtype)
+
+    def hold_experts(self, rank: int, size: int) -> None:
+        """Keep only experts [rank E/size, (rank + 1) E/size) of the whole set,
+        in place (on the meta device too)."""
+        e = self.num_experts
+        if e % size:
+            raise ValueError(f"{e} experts do not split over an expert group of {size} ranks")
+        lo, hi = rank * e // size, (rank + 1) * e // size
+        for lin in self.experts.children():
+            lin.first, lin.total = lo, e
+            for name in ("weight", "bias"):
+                full = getattr(lin, name)
+                setattr(lin, name, nn.Parameter(full.detach()[lo:hi].clone(),
+                                                requires_grad=full.requires_grad))
+        self.held = (lo, hi)
+
+    def _expert_group(self):
+        """The ambient expert group (None without one), checked against the
+        experts this module holds."""
+        state = ambient(self.expert_axis)
+        e = self.num_experts
+        want = (0, e) if state is None else (state.rank * e // state.size,
+                                             (state.rank + 1) * e // state.size)
+        if self.held != want:
+            who = ("no expert group is ambient, so this rank runs" if state is None
+                   else f"rank {state.rank} of the ambient expert group runs")
+            raise RuntimeError(
+                f"this SwitchFFN holds experts [{self.held[0]}, {self.held[1]}) of {e}; {who} "
+                f"experts [{want[0]}, {want[1]}): place it with hold_experts under its group")
+        return None if state is None else state.group
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
@@ -99,10 +150,20 @@ class SwitchFFN(nn.Module):
         dispatch = (onehot * keep[..., None])[..., None] * pos_oh[:, :, None]
         combine = dispatch * gate[..., None, None]                     # [B, N, E, C]
 
-        self.aux_loss = e * (onehot.mean(dim=(0, 1)) * probs.mean(dim=(0, 1))).sum()
+        if self.keep_aux:
+            fp = torch.stack([onehot.mean(dim=(0, 1)), probs.mean(dim=(0, 1))])
+            data = ambient(DATA_AXIS)
+            if data is not None:
+                fp = global_mean(fp, data.group)
+            self.aux_loss = e * (fp[0] * fp[1]).sum()
 
-        xin = torch.einsum("bnec,bnd->ebcd", dispatch.to(x.dtype), x)
-        xout = self.experts(xin)                                       # [E, B, C, D]
+        group = self._expert_group()
+        lo, hi = self.held
+        xe = x if group is None else copy_to_group(x, group)
+        xin = torch.einsum("bnec,bnd->ebcd", dispatch[:, :, lo:hi].to(x.dtype), xe)
+        xout = self.experts(xin)                                       # [E_held, B, C, D]
+        if group is not None:
+            xout = gather_from_group(xout, 0, group)                   # [E, B, C, D]
         return torch.einsum("bnec,ebcd->bnd", combine.to(x.dtype), xout)
 
 

@@ -31,16 +31,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from .mesh import CONTEXT_AXIS, axis_size, shard_batch
+from .mesh import CONTEXT_AXIS, AxisState, axis_size, shard_batch
 
 
 @dataclasses.dataclass(frozen=True)
-class ContextState:
+class ContextState(AxisState):
     """The context group, this rank's coordinate on it and its size."""
-
-    group: object
-    rank: int
-    size: int
 
     def rows(self, local_rows: int) -> tuple[int, int]:
         """(global row count, this rank's first row) of a map of

@@ -1,7 +1,7 @@
 """Multi-rank training dry run over gloo (the port's counterpart of the JAX
 package's ``dryrun_multichip``):
 
-    python -m deepl_project_tpu_torch.parallel.dryrun [--nproc 4] [--device cpu]
+    python -m deepl_project_tpu_torch.parallel.dryrun [--nproc 4|8] [--device cpu]
 
 Starts ``nproc`` processes (a gloo group through a ``file://`` store in a
 temporary directory), each on a CUDA device (rank r on card r mod the card
@@ -15,7 +15,19 @@ under each strategy:
 2. DP x CP x TP: rows sharded over context = 2 (ring attention, halo
    exchanges, GroupNorm moments over the group), tensor parallelism kept;
 3. FSDP over model = 2;
-4. the three losses equal within 2e-3 * max(1, |loss|).
+4. the three losses equal within 2e-3 * max(1, |loss|);
+5. pipeline x expert parallelism of the latent DiT (the JAX phase's model:
+   DiT-S geometry at depth 4, width 64, 4 heads, fp32, 10 classes, no label
+   dropout, 2 Switch experts, 2 pipeline microbatches; 8x8x8 latents, b8,
+   AdamW 1e-3): one rectified-flow step under a (nproc / 4, 2, 2) mesh of
+   (data, pipe, expert), the blocks pipelined over pipe and the experts
+   split over expert, against the same step on one process (the config's
+   sequential fallback), loss within 1e-4 * max(1, |loss|) (the JAX
+   phase's bar) and the grad norm within the same bar. The JAX phase's
+   weights keep the init's zero adaLN and head, which makes its loss blind
+   to the blocks; here those weights are drawn too
+   (``models.dit.perturb_zero_init``), so the check reaches the pipeline.
+   Run at nproc >= 8 and nproc % 4 == 0, the JAX function's gate.
 
 With fewer than 4 ranks (or an odd count) the model and context axes are 1
 and phase 2 is skipped, as in the JAX function. On CUDA the convolutions
@@ -86,6 +98,58 @@ def _step(x_host: np.ndarray, data: int, context: int, model: int, mode: str,
             "mesh": {"data": data, "context": context, "model": model}}
 
 
+DIT_TOL = 1e-4
+
+
+def dit_phase(data: int, pipe: int, expert: int, device: torch.device) -> dict:
+    """Phase 5 under a (data, pipe, expert) mesh of every rank: the
+    pipelined, expert-parallel step's loss and grad norm and the sequential
+    step's (each rank runs the sequential one itself, as the JAX phase runs
+    it on one device); raises when they differ."""
+    from ..models import create_dit, get_dit_config, perturb_zero_init
+    from ..training import TrainState, make_dit_train_step, make_optimizer
+    from ..training.train_step import named_trainables
+    from .mesh import create_dit_mesh, shard_batch
+    from .pipeline import PipelinePlacement
+
+    cfg = get_dit_config("S").replace(
+        depth=4, hidden_dim=64, num_heads=4, dtype="float32", param_dtype="float32",
+        num_classes=10, class_dropout=0.0, moe_experts=2, pipeline_axis="pipe",
+        pipeline_microbatches=2)
+    grid, ch, batch = 8, 8, 8
+    cfg = cfg.replace(in_channels=ch)
+    rng = np.random.default_rng(1)
+    z0 = torch.as_tensor(rng.standard_normal((batch, grid, grid, ch)).astype(np.float32))
+    labels = torch.as_tensor(rng.integers(0, 10, batch))
+
+    def step(placement) -> dict:
+        # The same weights on every rank: drawn on the CPU, then moved.
+        model = perturb_zero_init(create_dit(cfg, grid, device="cpu", seed=0,
+                                             placement=placement), 0).to(device)
+        named = named_trainables(model)
+        opt = make_optimizer(named, learning_rate=1e-3, warmup_steps=0, b2=0.999,
+                             weight_decay=1e-4, max_grad_norm=float("inf"),
+                             placement=placement)
+        mesh = None if placement is None else placement.mesh
+        rows = lambda a: torch.as_tensor(shard_batch(mesh, a)).to(device)  # noqa: E731
+        m = make_dit_train_step(model, seed=2, placement=placement)(
+            TrainState(0, model, opt), rows(z0), rows(labels))
+        return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "keys": sorted(m)}
+
+    ref = step(None)
+    got = step(PipelinePlacement(create_dit_mesh(data, pipe, expert)))
+    tol = DIT_TOL * max(1.0, abs(ref["loss"]))
+    for key in ("loss", "grad_norm"):
+        if not (np.isfinite(got[key]) and abs(got[key] - ref[key])
+                <= DIT_TOL * max(1.0, abs(ref[key]))):
+            raise RuntimeError(f"dry run: PP+EP {key} {got[key]!r} != sequential "
+                               f"{ref[key]!r} (tol {tol:.2e})")
+    return {"mesh": {"data": data, "pipe": pipe, "expert": expert}, "loss": got["loss"],
+            "sequential_loss": ref["loss"], "grad_norm": got["grad_norm"],
+            "sequential_grad_norm": ref["grad_norm"], "keys": got["keys"], "tol": tol}
+
+
 def run(device=None) -> dict:
     """The dry run's phases on the ranks of the default process group, on
     ``device`` (default CUDA: card rank mod the card count; raises without
@@ -120,7 +184,15 @@ def run(device=None) -> dict:
                                f"(tol {tol:.2e})")
     lines.append(f"dryrun equality OK: {', '.join(f'{k}={v['total']:.6f}' for k, v in out.items())}"
                  f" (tol {tol:.2e})")
-    return {"losses": {k: v["total"] for k, v in out.items()}, "lines": lines}
+    losses = {k: v["total"] for k, v in out.items()}
+    if n >= 8 and n % 4 == 0:
+        d = dit_phase(n // 4, 2, 2, device)
+        losses["PPxEP"] = d["loss"]
+        lines.append(f"dryrun PP+EP OK: device={device} mesh={d['mesh']} loss={d['loss']:.6f} "
+                     f"(sequential {d['sequential_loss']:.6f}) grad_norm={d['grad_norm']:.6f} "
+                     f"(sequential {d['sequential_grad_norm']:.6f}) metrics {d['keys']} "
+                     f"(tol {d['tol']:.2e}, t=+{time.perf_counter() - t0:.1f}s)")
+    return {"losses": losses, "lines": lines}
 
 
 def _rank(rank: int, world: int, store: str, device: str, results) -> None:

@@ -1,15 +1,26 @@
 """The (data, context, model) mesh over the ranks of the default process
 group, and the rows of a batch that each rank takes (PyTorch port of
-``parallel/mesh.py``).
+``parallel/mesh.py``); the latent DiT's (data, pipe, expert) mesh and its
+ambient axes.
 
 Rank i sits where device i sits in the JAX package's
 ``np.array(devices).reshape(data, context, model)``: the model axis is
 innermost. The batch is sharded over ``data`` only, so the ranks of one
 model group (and of one context group) see the same rows.
+
+:func:`create_dit_mesh` is the JAX dry run's phase-5 mesh,
+``np.array(devices).reshape(data, pipe, expert)`` with ``expert``
+innermost; the batch is again sharded over ``data`` only, so the ranks of
+one pipe group and of one expert group see the same rows. :func:`use_axes`
+makes a mesh's axes ambient for a block, the port's counterpart of ``with
+jax.set_mesh(mesh):``; :func:`ambient` is the JAX package's
+``ambient_mesh_has_axis`` (the DiT reads its ``pipeline_axis``, the Switch
+FFN its ``expert_axis`` and the data axis).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -22,6 +33,9 @@ DATA_AXIS = "data"
 CONTEXT_AXIS = "context"
 MODEL_AXIS = "model"
 AXES = (DATA_AXIS, CONTEXT_AXIS, MODEL_AXIS)
+PIPE_AXIS = "pipe"
+EXPERT_AXIS = "expert"
+DIT_AXES = (DATA_AXIS, PIPE_AXIS, EXPERT_AXIS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,9 +66,65 @@ def create_mesh(data: int | None = None, model: int = 1, context: int = 1) -> De
         data = world // (model * context)
     if data * context * model != world:
         raise ValueError(f"mesh {data}x{context}x{model} != {world} ranks")
+    return _mesh((data, context, model), AXES)
+
+
+def _mesh(dims: tuple, names: tuple) -> DeviceMesh:
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    ranks = torch.arange(world).reshape(data, context, model)
-    return DeviceMesh(device_type, ranks, mesh_dim_names=AXES)
+    return DeviceMesh(device_type, torch.arange(math.prod(dims)).reshape(dims),
+                      mesh_dim_names=names)
+
+
+def create_dit_mesh(data: int | None = None, pipe: int = 1, expert: int = 1) -> DeviceMesh:
+    """A ``DeviceMesh`` of dims (data, pipe, expert) over every rank of the
+    default process group (``data`` defaults to world / (pipe * expert)):
+    the JAX dry run's ``reshape(n // 4, 2, 2)`` at pipe = expert = 2."""
+    world = dist.get_world_size()
+    if data is None:
+        if world % (pipe * expert):
+            raise ValueError(f"world size {world} does not split into pipe {pipe} x "
+                             f"expert {expert}")
+        data = world // (pipe * expert)
+    if data * pipe * expert != world:
+        raise ValueError(f"mesh {data}x{pipe}x{expert} != {world} ranks")
+    return _mesh((data, pipe, expert), DIT_AXES)
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisState:
+    """A mesh axis's group, this rank's coordinate on it and its size."""
+
+    group: object
+    rank: int
+    size: int
+
+
+def axis_state(mesh: DeviceMesh, axis: str) -> AxisState:
+    return AxisState(mesh.get_group(axis), mesh.get_local_rank(axis), axis_size(mesh, axis))
+
+
+_AMBIENT: dict[str, AxisState] = {}
+
+
+def ambient(axis: str | None) -> AxisState | None:
+    """The ambient group of mesh axis ``axis`` (:func:`use_axes`); None where
+    no ambient mesh defines it, or where it has one rank."""
+    return _AMBIENT.get(axis) if axis else None
+
+
+@contextlib.contextmanager
+def use_axes(mesh: DeviceMesh | None):
+    """Make every axis of more than one rank of ``mesh`` ambient for the
+    block (None: none; an enclosing block's other axes stay)."""
+    global _AMBIENT
+    saved = _AMBIENT
+    if mesh is not None:
+        _AMBIENT = {**saved, **{a: axis_state(mesh, a) for a in mesh.mesh_dim_names
+                                if axis_size(mesh, a) > 1}}
+    try:
+        yield
+    finally:
+        _AMBIENT = saved
 
 
 def axis_size(mesh: DeviceMesh, axis: str) -> int:

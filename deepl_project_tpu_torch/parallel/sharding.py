@@ -257,6 +257,15 @@ class Placement:
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.model_group)
         return bool(t)
 
+    def full_named(self, named: dict, dim_of) -> dict:
+        """{name: whole tensor} of a {name: local tensor} dict whose tensor
+        ``name`` is split along ``dim_of(name)`` (an optimizer's state)."""
+        return {n: self.gather(t, dim_of(n)) for n, t in named.items()}
+
+    def local_named(self, full: dict, names, dim_of) -> dict:
+        """This rank's slices of a whole {name: tensor} dict."""
+        return {n: self.scatter(full[n], dim_of(n)) for n in names}
+
     @torch.no_grad()
     def full_state(self, named, prefix: str = "") -> dict:
         """{canonical name: whole tensor} of (name, local tensor) pairs placed

@@ -19,6 +19,20 @@ initial ``z`` from the caller instead where given. The sampler's
 ``params`` (``dit_params`` where a function samples) is the DiT's weights:
 None for the module's own, or a state_dict (the EMA shadow), run through
 ``torch.func.functional_call``.
+
+Under a ``parallel.PipelinePlacement`` (the (data, pipe, expert) mesh of
+the JAX dry run's phase 5) the step takes this rank's rows of the global
+batch (``parallel.shard_batch``), makes the mesh's axes ambient (the blocks
+pipeline over ``pipe`` for a config with ``pipeline_axis``; the Switch
+FFN's experts split over ``expert``), draws t, the noise and the label
+dropout for the whole batch and keeps this rank's rows (so it computes
+what one process computes on the global batch), averages each gradient
+over the ranks that hold its parameter, takes the global grad norm with
+each parameter counted once, and lets the optimizer skip a non-finite step
+on every rank together. The port pipelines each data rank's own rows, so
+it needs the local rows to be a multiple of ``pipeline_microbatches``
+where JAX needs only the global batch to be one; it refuses otherwise and
+names the divisor.
 """
 
 from __future__ import annotations
@@ -32,6 +46,7 @@ from torch.func import functional_call
 
 from ..evaluation import _nchw, load_params
 from ..ops.moe import collect_aux_losses
+from ..parallel.mesh import use_axes
 from .train_step import (TrainState, _ema_update, _grads, global_norm, named_trainables,
                          step_generator)
 
@@ -70,27 +85,34 @@ def _apply(model, params: Mapping[str, torch.Tensor] | None, *args, **kw) -> tor
 def rectified_flow_loss(model, z0: torch.Tensor, labels: torch.Tensor,
                         generator: torch.Generator | None = None,
                         time_sampling: str = "logit_normal", *, t: torch.Tensor | None = None,
-                        noise: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+                        noise: torch.Tensor | None = None,
+                        rows: tuple[int, int] | None = None) -> tuple[torch.Tensor, dict]:
     """Flow-matching MSE on normalized latents z0 [B, h, w, C]: (loss,
-    metrics 'loss', 'v_norm' and, for a MoE model, 'moe_aux' and 'total').
-    t, the noise and the label dropout come from ``generator`` in that order
-    (t and the noise only where not given)."""
+    metrics 'loss', 'v_norm' and, for a MoE model without ``pipeline_axis``,
+    'moe_aux' and 'total'). t, the noise and the label dropout come from
+    ``generator`` in that order (t and the noise only where not given);
+    ``rows`` = (first, total): z0 is rows of a batch of ``total``, whose
+    draws are made whole and sliced."""
     b = z0.shape[0]
+    first, total = (0, b) if rows is None else rows
+    mine = slice(first, first + b)
     if t is None:
         if time_sampling == "logit_normal":
             # SD3 / LightningDiT: concentrates the steps at mid-noise levels.
-            t = torch.sigmoid(torch.randn(b, generator=generator, device=z0.device))
+            t = torch.sigmoid(torch.randn(total, generator=generator, device=z0.device))[mine]
         else:
-            t = torch.rand(b, generator=generator, device=z0.device)
+            t = torch.rand(total, generator=generator, device=z0.device)[mine]
     if noise is None:
-        noise = torch.randn(z0.shape, generator=generator, device=z0.device)
+        noise = torch.randn((total,) + tuple(z0.shape[1:]), generator=generator,
+                            device=z0.device)[mine]
     tb = t[:, None, None, None]
     z_t = (1.0 - tb) * z0 + tb * noise
     target = noise - z0
-    v = model(z_t, t, labels, deterministic=False, generator=generator)
+    v = model(z_t, t, labels, deterministic=False, generator=generator, label_rows=rows)
     loss = (v.float() - target).square().mean()
     metrics = {"loss": loss, "v_norm": v.square().mean().sqrt()}
-    if model.config.moe_experts > 1:
+    # A config with pipeline_axis keeps no router loss (models/dit.py).
+    if model.config.moe_experts > 1 and not model.config.pipeline_axis:
         aux = collect_aux_losses(model)
         metrics["moe_aux"] = aux
         loss = loss + model.config.moe_aux_weight * aux
@@ -98,23 +120,52 @@ def rectified_flow_loss(model, z0: torch.Tensor, labels: torch.Tensor,
     return loss, metrics
 
 
+def _check_rows(model, placement, rows: int) -> None:
+    """The port pipelines each data rank's own rows: refuse local rows that
+    the microbatches do not divide, naming the divisor of the global batch."""
+    cfg = model.config
+    m = cfg.pipeline_microbatches
+    if (cfg.pipeline_axis and placement.pipe_size > 1 and placement.data_size > 1
+            and rows % m):
+        raise ValueError(
+            f"the port pipelines each data rank's own rows: {rows} rows a rank (global "
+            f"batch {rows * placement.data_size}) do not split into pipeline_microbatches "
+            f"{m}; use a global batch that is a multiple of {m * placement.data_size} (the "
+            f"JAX package needs only a multiple of {m})")
+
+
 def make_dit_train_step(model, time_sampling: str = "logit_normal",
-                        ema_decay: float | None = None, seed: int = 0) -> Callable:
+                        ema_decay: float | None = None, seed: int = 0,
+                        placement=None) -> Callable:
     """fn(state, z0, labels, t=None, noise=None) -> metrics: one optimizer
     step (``state.optimizer``: ``make_optimizer(..., b2=0.95)``) on the
     NORMALIZED latent batch z0 [B, h, w, C], updating ``state`` in place,
     with ``grad_norm`` taken before the clip; with ``ema_decay`` the EMA
-    shadow (``state.ema``) follows. Metrics stay on the device."""
+    shadow (``state.ema``) follows. Metrics stay on the device.
+    ``placement`` (a ``parallel.PipelinePlacement``; the module docstring):
+    z0, labels, t and the noise are this rank's rows of the global batch."""
 
     def step(state: TrainState, z0: torch.Tensor, labels: torch.Tensor,
              t: torch.Tensor | None = None, noise: torch.Tensor | None = None) -> dict:
         gen = step_generator(seed, state.step, z0.device)
         named = named_trainables(model)
-        loss, metrics = rectified_flow_loss(model, z0, labels, gen, time_sampling,
-                                            t=t, noise=noise)
-        grads = _grads(loss, [p for _, p in named])
+        names = [n for n, _ in named]
+        rows = None
+        if placement is not None:
+            _check_rows(model, placement, z0.shape[0])
+            rows = placement.rows(z0.shape[0])
+        with use_axes(None if placement is None else placement.mesh):
+            loss, metrics = rectified_flow_loss(model, z0, labels, gen, time_sampling,
+                                                t=t, noise=noise, rows=rows)
+            grads = _grads(loss, [p for _, p in named])
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = global_norm(grads)
+        if placement is not None:
+            placement.average_grads(grads, names)
+            # v_norm is a root mean square: average its square.
+            metrics["v_norm"] = metrics["v_norm"].square()
+            metrics = placement.reduce_metrics(metrics)
+            metrics["v_norm"] = metrics["v_norm"].sqrt()
+        metrics["grad_norm"] = global_norm(grads, placement, names)
         state.optimizer.step(grads)
         if ema_decay is not None:
             _ema_update(ema_decay, state.ema, named)

@@ -43,9 +43,10 @@ The update is in place on the parameters and on the gradients handed in.
 
 Over sharded parameters (``placement``, a ``parallel.Placement``: FSDP or
 tensor parallelism, each rank holding a slice of some parameters and their
-gradients), as the JAX chain computes on the global arrays: the non-finite
-check and the clip's global norm reduce over the model group (the squares
-of sharded gradients summed there, replicated ones counted once);
+gradients; or a ``parallel.PipelinePlacement``: pipeline stages and
+experts), as the JAX chain computes on the global arrays: the non-finite
+check and the clip's global norm reduce over the placement's groups (the
+squares of sharded gradients summed there, replicated ones counted once);
 Adafactor picks its factored dimensions on the whole shape and its row,
 column and RMS means sum over the model group where the dimension they
 reduce is split; ``state_dict`` gathers whole moments and
@@ -121,8 +122,9 @@ class _Chain:
         model group, called on every rank)."""
         state = self._state()
         if self.placement is not None:
-            state = {key: {n: self.placement.gather(t, self._state_dim(key, n))
-                           for n, t in named.items()} for key, named in state.items()}
+            state = {key: self.placement.full_named(
+                named, lambda n, key=key: self._state_dim(key, n))
+                for key, named in state.items()}
         return {"kind": self.kind, "count": self.count,
                 "notfinite_count": self.notfinite_count,
                 "total_notfinite": self.total_notfinite, "last_finite": self.last_finite,
@@ -133,10 +135,10 @@ class _Chain:
         for key in ("count", "notfinite_count", "total_notfinite", "last_finite"):
             setattr(self, key, state[key])
         if self.placement is not None:
-            state = {key: ({n: self.placement.scatter(t, self._state_dim(key, n))
-                            for n, t in state[key].items()}
-                           if isinstance(state.get(key), dict) else state.get(key))
-                     for key in state}
+            own = self._state()
+            state = {key: (self.placement.local_named(
+                state[key], list(own[key]), lambda n, key=key: self._state_dim(key, n))
+                if key in own else state[key]) for key in state}
         self._load(state)
 
     def _norm(self, tensors: list[torch.Tensor], idx: list[int]) -> torch.Tensor:

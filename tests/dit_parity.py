@@ -71,3 +71,19 @@ def inputs(b: int = 2, grid: int = 8, c: int = 4, seed: int = 1):
 
 def torch_args(z, t, y):
     return torch.from_numpy(z), torch.from_numpy(t), torch.from_numpy(y).long()
+
+
+def phase5_cfg(**kw):
+    """The JAX dry run's phase-5 DiT (DiT-S geometry cut to depth 4, width
+    64, 4 heads, fp32, 10 classes, no label dropout) on 8-channel latents."""
+    return jax_get_dit_config("S").replace(
+        depth=4, hidden_dim=64, num_heads=4, dtype="float32", param_dtype="float32",
+        num_classes=10, class_dropout=0.0, in_channels=8, **kw)
+
+
+def jax_step_draws(rng, shape):
+    """t and the noise as the JAX ``make_dit_train_step`` draws them at step 0
+    (``fold_in(rng, 0)``, then ``rectified_flow_loss``'s split), numpy."""
+    t_rng, n_rng, _ = jax.random.split(jax.random.fold_in(rng, 0), 3)
+    t = jax.nn.sigmoid(jax.random.normal(t_rng, (shape[0],), jnp.float32))
+    return np.asarray(t), np.asarray(jax.random.normal(n_rng, shape, jnp.float32))

@@ -186,8 +186,13 @@ def test_torch_label_dropout_share():
 
 
 def test_torch_dit_refuses_scan_blocks_and_pipeline_axis():
+    """scan_blocks is refused; a pipeline_axis model builds (the pipeline is
+    ported), and one holding a single stage's blocks refuses to run outside
+    its pipe group."""
     cfg = port_cfg(jax_cfg())
     with pytest.raises(NotImplementedError, match="load_jax_dit_params"):
         DiT(dataclasses.replace(cfg, scan_blocks=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        DiT(dataclasses.replace(cfg, pipeline_axis="pipe"))
+    staged = DiT(dataclasses.replace(cfg, pipeline_axis="pipe"), 8)
+    staged.block1 = None  # what PipelinePlacement.shard leaves stage 0
+    with pytest.raises(RuntimeError, match="run it under its pipe group"):
+        staged(*torch_args(*inputs()))
