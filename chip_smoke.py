@@ -56,7 +56,10 @@ Phases (any failure exits non-zero and prints no result):
    + flash_attention_bwd_dkv pair behind the plain delta) are also built
    from each DIR's sources that exist and each build timed beside this
    tree's on the same inputs in turns (baseline, this tree, this tree,
-   baseline).
+   baseline). The sublayer kernels on one rank's heads at model 2
+   (LOCAL_SHAPES: ln_qkv_rope at W = C / 2 = 192 / 384 / 768, the partial
+   projection [C, W], attention_core on 6 and 12 heads), checked at b8 and
+   b4 and timed at b8 beside their plain versions, yardsticks and bounds.
 3. grad: the sublayer kernels' backward (their plain versions' VJP) at the
    stage-3 training shape: gradients of x, the LN affines and every weight
    on the kernel path against the plain path's.
@@ -220,8 +223,9 @@ Phases (any failure exits non-zero and prints no result):
    a stage-1 step, 18 + 6 a bf16 GAN step, none in fp32; 3 heads under
    tensor); peak memory.
    (c) The stage-2 attention sublayer's two head shards of model=2 (3 of 6
-   heads each, the composable route: the kernel gates refuse the local
-   width) summed against the whole sublayer (KERNEL_RTOL), their route
+   heads each, the composable route that training takes; phase serve_mesh
+   drives the no-grad kernel routes) summed against the whole sublayer
+   (KERNEL_RTOL), their route
    counts and flash launches at 3 heads; the flash kernels timed at 3 and
    6 heads (phase kernels checks them at FLASH_LOCAL_HEADS).
    Not in the defaults: refusals (two ranks on the card: NCCL's group and
@@ -270,6 +274,29 @@ Phases (any failure exits non-zero and prints no result):
    `python -m deepl_project_tpu_torch.parallel.dryrun --nproc 8`: phase 5
    (pipe x expert on (2, 2, 2)) equal to the sequential step.
 
+17. serve_mesh (run after serve): large f16d32 @256px with phase serve's
+   random weights (handed to the ranks in a checkpoint file) served by two
+   processes on the card over gloo (this script under torchrun, --worker
+   serve-mesh), cli.serve's own code building each placement of
+   SERVE_MESH_RUNS at --max_batch 8: (a) tensor, model 2, through
+   cli.serve.serve: rank 0 serves HTTP on port 0 (six concurrent requests,
+   four reconstruct b8 uint8, an encode b4 float16 and a decode b4, then one
+   b8 reconstruct alone) while rank 1 follows; (b) replicate, data 2: a b8
+   reconstruct (4 rows a rank), a batch of 3 (bucket 4: 2 rows a rank) and
+   one image (every rank whole); (c) fsdp, model 2: a b8 reconstruct. Each
+   response's shape, range and error against one process's fp32 twin
+   within MODEL_MEAN_RATIO / MODEL_MAX_RATIO of one process's plain bf16
+   path's; each rank's launches in the last reconstruct equal to
+   launches_per_local_reconstruct (a) or launches_per_reconstruct (b, c),
+   its routes local_sublayer / local_ln_qkv_rope only under tensor; peak
+   GiB, seconds and bytes staged a rank logged (not a speed); (d) one
+   process under torchrun on a (1, 1, 1) mesh, joined by cli.serve's own
+   join_mesh over NCCL (the backend of a multi-card deployment; headers
+   and payloads broadcast on the engine's stream), run beside the two
+   ranks: a reconstruct b8 uint8 and a b8 over HTTP, held to the same
+   rule, its launches to launches_per_reconstruct; the card's memory back
+   after the ranks.
+
 Launches are checked against one table per resolution (256, 512, 1024px;
 launches_per_reconstruct; phase dit's tokenizer halves, tokenizer_launches). group_norm_silu's launches are checked on every
 path against norm_table, derived from the module structure (norm_sites: two
@@ -291,6 +318,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -387,8 +415,11 @@ FLASH_SERVE_256 = (32, 4096, 6)
 FLASH_SERVE_512 = (2, 16384, 6)
 FLASH_SWEEP_1024 = (4, 65536, 6)
 # Forward only, checked: phase dit's b64 encode (its b16 and b8 decodes are
-# FLASH_TRAIN_CHECKED's and FLASH_TRAIN's shapes).
-FLASH_FWD_CHECKED = ((DIT_BATCH, 4096, 6),)
+# FLASH_TRAIN_CHECKED's and FLASH_TRAIN's shapes) and phase serve_mesh's
+# stage 2: tensor's b4 encode and decode on 3 heads a rank, replicate's
+# rows a rank (4 of a b8, 2 of a bucket of 4, 1) on 6 heads.
+SERVE_MESH_FLASH = ((4, 4096, 3), (4, 4096, 6), (1, 4096, 6))
+FLASH_FWD_CHECKED = ((DIT_BATCH, 4096, 6),) + SERVE_MESH_FLASH
 # small_attention at 512px stage 4, (batch, N, heads); group_norm_silu at the
 # large f16d32 ResBlock shapes (stages 0 and 1) at b32.
 SMALL_512 = (8, 1024, 24)
@@ -405,11 +436,12 @@ EVAL_CHUNKS = {256: 8, 512: 8, 1024: 4}
 # batches (a power of two up to 32: serve's requests of 2, 4 and 8, the
 # quant calibration's 4) and evaluate_model's 16, the GAN discriminator
 # update's and the self-perceptual target pass's 8, the sweep's chunk, phase
-# dit's encode and FID decode at 64 and its sample decodes at 8 and 16; at
+# dit's encode and FID decode at 64 and its sample decodes at 8 and 16, phase
+# serve_mesh's rows a rank (8, 4, 2, 1); at
 # 512px serve's and eval's b2 and the sweep's chunk; at 1024px the sweep's
 # chunk. Their maps (norm_checked_shapes) are checked only: the kernels'
 # grid (slabs, B) depends on B and H*W.
-NORM_PATH_BATCHES = {256: (2, 4, GAN_BATCH, REMAT_BATCH, EVAL_CHUNKS[256], 16, DIT_BATCH),
+NORM_PATH_BATCHES = {256: (1, 2, 4, GAN_BATCH, REMAT_BATCH, EVAL_CHUNKS[256], 16, DIT_BATCH),
                      512: (2, EVAL_CHUNKS[512]), 1024: (EVAL_CHUNKS[1024],)}
 # ln_qkv_rope's shapes in the sweep, (batch, N, C, height, width): stages 2-4
 # of a 512px chunk of 8 and of a 1024px chunk of 4.
@@ -524,6 +556,17 @@ CONTEXT_RING_ROWS: dict = {}
 PIPE_DIR = os.path.join(ROOT, "outputs", "chip_smoke_pipeline")
 PIPE_PATHS: dict = {}
 PIPE_ROWS: dict = {}
+# Phase serve_mesh: large f16d32 @256px (phase serve's random weights,
+# handed to the ranks in a checkpoint file) served by two processes on the
+# card over gloo (this script under torchrun, --worker serve-mesh), each
+# placement of SERVE_MESH_RUNS, (--mesh_sharding, --mesh_model), in turn
+# through cli.serve's own code, at --max_batch SERVE_MESH_BATCH, then one
+# process on a (1, 1, 1) mesh over NCCL (--worker serve-nccl); its files,
+# and its paths (each run a rank) -> launches by kernel name.
+SERVE_MESH_DIR = os.path.join(ROOT, "outputs", "chip_smoke_serve_mesh")
+SERVE_MESH_RUNS = (("tensor", 2), ("replicate", 1), ("fsdp", 2))
+SERVE_MESH_BATCH = 8
+SERVE_MESH_PATHS: dict = {}
 
 
 def fail(msg: str):
@@ -659,6 +702,40 @@ def launches_per_reconstruct(res: int = 256, forwards: int = 1,
     }
     norm = {} if model is None else norm_table(model, res, forwards)
     return tuple({k: v * forwards for k, v in d.items()} for d in table[res]) + (norm,)
+
+
+def launches_per_local_reconstruct(model, model_size: int, res: int = 256
+                                   ) -> tuple[dict, dict, dict, dict]:
+    """Launches of one rank in a reconstruct at ``res`` px of ``model`` with
+    its attention split over ``model_size`` ranks (tensor placement), in
+    kernel_launches' order, from the module structure: each attention
+    module of an encoder or decoder stage (N = (res / 2^i)^2 tokens, the
+    rank's heads of width W = C / model_size) runs at N <= 1024 the whole
+    local sublayer (ln_qkv_rope, attention_core, proj_bias_gemm at (N, W))
+    and above it ln_qkv_rope, the flash forward on W / 64 heads and the
+    partial projection; group_norm_silu at every site (norm_table: the
+    ResBlocks' maps are gathered whole before their norms)."""
+    from deepl_project_tpu_torch.ops.attention import AttentionRoPE
+
+    sub: dict = {}
+    flash: dict = {}
+    for part in ("encoder", "decoder"):
+        stages = getattr(model, part).stages
+        for i, stage in enumerate(stages):
+            side = res >> (i if part == "encoder" else len(stages) - 1 - i)
+            for block in stage:
+                attn = getattr(block, "attn", None)
+                if not isinstance(attn, AttentionRoPE):
+                    continue
+                n, w = side * side, attn.dim // model_size
+                whole = n <= 1024
+                for name in (("ln_qkv_rope", "attention_core", "proj_bias_gemm") if whole
+                             else ("ln_qkv_rope", "proj_bias_gemm")):
+                    sub[(name, n, w)] = sub.get((name, n, w), 0) + 1
+                if not whole:
+                    key = ("flash_attention_fwd", n, w // 64)
+                    flash[key] = flash.get(key, 0) + 1
+    return sub, flash, {}, norm_table(model, res)
 
 
 def norm_checked_shapes() -> list:
@@ -905,6 +982,119 @@ def phase_kernels():
 
 
 QKV_YARDSTICK = "two calls, one affine, no RoPE"
+# One rank's heads of large f16d32 @256px at model 2 (phase serve_mesh's
+# tensor placement), (batch, N, C, height, width): the heads' width W = C / 2
+# (stage 2's 192 pads each branch of ln_qkv_rope's weight to 256). Timed at
+# b8 (the reconstructs), checked at b4 too (the encode and the decode).
+LOCAL_SHAPES = ((8, 4096, 384, 64, 64), (8, 1024, 768, 32, 32), (8, 256, 1536, 16, 16))
+LOCAL_CHECKED_BATCHES = (4,)
+
+
+def local_bound(name, b, n, c, w):
+    """(flops, bytes) of a kernel on a rank's heads of width ``w``: each
+    input read once and each output written once (ln_qkv_rope's padding
+    is not work the function needs)."""
+    m = b * n
+    if name == "ln_qkv_rope":
+        return 2 * m * c * 3 * w, m * c * 2 + 3 * w * c * 2 + 6 * c * 4 + 4 * n * 32 * 4 + 3 * m * w * 2
+    if name == "attention_core":
+        return 4 * b * n * n * w, 4 * m * w * 2
+    return 2 * m * w * c, m * w * 2 + c * w * 2 + c * 4 + m * c * 2  # the partial projection
+
+
+def phase_local_kernels():
+    """The sublayer kernels on one rank's heads (LOCAL_SHAPES) against
+    their plain versions: ln_qkv_rope at W = C / 2, the partial projection
+    [C, W] (zero bias), attention_core on W / 64 heads (N <= 1024); each
+    timed beside its plain version, its yardstick (F.layer_norm + F.linear
+    on the [3W, C] weight; F.linear; SDPA) and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepl_project_tpu_torch.ops.hopper import fused_attention_block as fab
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    bf = torch.bfloat16
+    results = {}
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    def check(name, shape, got, ref):
+        got, ref = got.float(), ref.float()
+        if not bool(torch.isfinite(got).all()):
+            fail(f"{name} (B, N, C, W)={shape}: non-finite output")
+        err = (got - ref).abs().max().item()
+        top = ref.abs().max().item()
+        log(f"check {name} (B, N, C, W)={shape}: max_abs_err={err:.3e} max|plain|={top:.3e} "
+            f"rel={err / top:.3e} bound={KERNEL_RTOL * top:.3e} (rel {KERNEL_RTOL:.3e})")
+        if not err <= KERNEL_RTOL * top:
+            fail(f"{name} (B, N, C, W)={shape}: max_abs_err {err:.3e} > {KERNEL_RTOL * top:.3e}")
+        return err
+
+    scale = 64 ** -0.5
+    for b0, n, c, hh, ww in LOCAL_SHAPES:
+        w = c // 2
+        for b in (b0,) + LOCAL_CHECKED_BATCHES:
+            timed, shape = b == b0, (b, n, c, w)
+            x = randn(b, n, c, dtype=bf)
+            ln = tuple((1 + randn(c, scale=0.1), randn(c, scale=0.1)) for _ in range(3))
+            # The last rank's rows of whole [C, C] weights of std 2/sqrt(C).
+            wq, wk, wv = (randn(w, c, scale=2 / c ** 0.5) for _ in range(3))
+            wp = randn(c, w, scale=2 / c ** 0.5)
+            packed = fab.pack_qkv(ln, wq, wk, wv)
+            args = (x, ln, wq, wk, wv, hh, ww)
+            q, k, v = fab.ln_qkv_rope(*args, packed=packed)
+            torch.cuda.synchronize()
+            errs = {"ln_qkv_rope": max(check("ln_qkv_rope local", shape, t, r)
+                                       for t, r in zip((q, k, v), fab.qkv_rope_reference(*args)))}
+            wcat = torch.cat([wq, wk, wv]).to(bf)
+            g, bb = (t.to(bf) for t in ln[0])
+            # Each kernel's call, its plain version and its yardstick.
+            rec = {"ln_qkv_rope": (lambda: fab.ln_qkv_rope(*args, packed=packed),
+                                   lambda: fab.qkv_rope_reference(*args),
+                                   lambda: F.linear(F.layer_norm(x, (c,), g, bb), wcat))}
+            o = randn(b, n, w, dtype=bf)
+            wpk, bpk = fab.pack_proj(wp, None)
+            out = fab.proj_bias_gemm(o, wpk, bpk)
+            torch.cuda.synchronize()
+            errs["proj_bias_gemm"] = check("proj_bias_gemm partial", shape, out,
+                                           fab.proj_bias_reference(o, wp, None))
+            rec["proj_bias_gemm"] = (lambda: fab.proj_bias_gemm(o, wpk, bpk),
+                                     lambda: fab.proj_bias_reference(o, wp, None),
+                                     lambda: F.linear(o, wpk))
+            if n <= fab.MAX_SUBLAYER_TOKENS:
+                a = fab.attention_core(q, k, v, scale)
+                torch.cuda.synchronize()
+                errs["attention_core"] = check("attention_core local", shape, a,
+                                               fab.attention_core_reference(q, k, v, scale))
+                heads = [t.reshape(b, n, w // 64, 64).transpose(1, 2) for t in (q, k, v)]
+                rec["attention_core"] = (lambda: fab.attention_core(q, k, v, scale),
+                                         lambda: fab.attention_core_reference(q, k, v, scale),
+                                         lambda: F.scaled_dot_product_attention(*heads))
+            for name, err in errs.items():
+                key = (name + "_local", b0, n, c, w)
+                if not timed:
+                    results[key]["err"] = max(results[key]["err"], err)
+                    results[key]["checked_batches"].append(b)
+                    continue
+                kern, plain, yard = rec[name]
+                flops, nbytes = local_bound(name, b, n, c, w)
+                r = {"err": err, "checked_batches": [b], "flops": flops, "bytes": nbytes,
+                     "ms": cuda_time_ms(kern, 20), "plain_ms": cuda_time_ms(plain, 5),
+                     "yardstick_ms": cuda_time_ms(yard, 20),
+                     "bound_ms": max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3,
+                     "bound_by": ("operations" if flops / PEAK_BF16_FLOPS
+                                  >= nbytes / PEAK_HBM_BYTES else "bytes")}
+                log(f"time {name} local (B, N, C, W)={shape}: kernel {r['ms']:.4f} ms "
+                    f"({flops / r['ms'] / 1e9:.1f} TFLOP/s), plain {r['plain_ms']:.4f} ms, "
+                    f"yardstick {r['yardstick_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                    f"({r['bound_by']}; {flops:.4e} FLOP, {nbytes:.4e} B) [{CARD}]")
+                results[key] = r
+            del x, args, packed, q, k, v, o, out, rec
+            torch.cuda.empty_cache()
+    return results
 
 
 def qkv_yardstick_ms(x, ln, w, iters=20):
@@ -1432,17 +1622,24 @@ def phase_baseline(dirs):
         ref = torch.cat(fab.qkv_rope_reference(x, ln, wq, wk, wv, hh, ww), dim=-1)
         ptrs = [t.data_ptr() for t in (x, w, gbt, *tables)]
         tail = (b * n, n, c, 1, stream)
+        # This tree's launcher takes the heads' width W (= C here); a DIR's
+        # launcher has it where its source declares it.
         change = launch(build.launcher("ln_qkv_rope"), *ptrs, xhat.data_ptr(),
-                        out.data_ptr(), *tail)
+                        out.data_ptr(), b * n, n, c, c, 1, stream)
         for d, (csrc, names) in srcs.items():
             if "ln_qkv_rope" not in names:
                 continue
-            if os.path.exists(os.path.join(csrc, "tile_mma.cuh")):
+            with open(os.path.join(csrc, "ln_qkv_rope.cu")) as f:
+                takes_w = re.search(r"ln_qkv_rope_launch\([^)]*\bint W\b", f.read())
+            if takes_w:
+                base = launch(build.launcher("ln_qkv_rope", csrc), *ptrs, xhat.data_ptr(),
+                              out.data_ptr(), b * n, n, c, c, 1, stream)
+            elif os.path.exists(os.path.join(csrc, "tile_mma.cuh")):
                 base = launch(build.launcher("ln_qkv_rope", csrc, [P] * 8 + [I] * 4 + [P]),
                               *ptrs, out.data_ptr(), *tail)
             else:
-                base = launch(build.launcher("ln_qkv_rope", csrc), *ptrs, xhat.data_ptr(),
-                              out.data_ptr(), *tail)
+                base = launch(build.launcher("ln_qkv_rope", csrc, [P] * 9 + [I] * 4 + [P]),
+                              *ptrs, xhat.data_ptr(), out.data_ptr(), *tail)
             turns("ln_qkv_rope", (b, n, c), d, {"baseline": base, "change": change}, [out],
                   [ref], 2 * b * n * c * 3 * c)
         del x, out, ref, xhat
@@ -2873,6 +3070,404 @@ def phase_serve(model):
             and ek.max() <= MODEL_MAX_RATIO * ep.max()):
         fail("reconstruct: the kernel path is less accurate than the plain bf16 path")
     return counts
+
+
+def serve_mesh_requests(imgs, lat) -> dict:
+    """Phase serve_mesh's requests by run, (key, op, array, dtype): (a)
+    phase serve's mix at b <= 8, sent at once over HTTP, then one b8
+    reconstruct alone (its launches counted); (b) that reconstruct, an odd
+    batch of 3 (bucket 4) and one image; (c) that reconstruct; (d) the
+    first of (a) and that reconstruct. A key names the same request in
+    every run."""
+    import numpy as np
+
+    b8 = ("b8", "reconstruct", imgs[:8], None)
+    tensor = ([(f"a{i}", "reconstruct", imgs[8 * i:8 * i + 8], "uint8") for i in range(4)]
+              + [("encode", "encode", imgs[:4].astype(np.float32) / 255.0, "float16"),
+                 ("decode", "decode", lat, None), b8])
+    return {"tensor": tensor,
+            "replicate": [b8, ("b3", "reconstruct", imgs[:3], None),
+                          ("b1", "reconstruct", imgs[:1], None)],
+            "fsdp": [b8], "nccl": [tensor[0], b8]}
+
+
+def _count_groups(engine, groups: list) -> None:
+    """Record each group a mesh engine runs on this rank: its bucket, the
+    rows this rank computes, host seconds (device synced), launches by
+    shape, attention routes and bytes staged through host memory."""
+    import torch
+
+    from deepl_project_tpu_torch.ops import attention as attn_mod
+    from deepl_project_tpu_torch.parallel import collectives as col
+    from deepl_project_tpu_torch.parallel import serving_rows
+
+    run = engine._group
+
+    def counted(op, payload, out_dtype, keep=True):
+        torch.cuda.synchronize()
+        reset_launches()
+        attn_mod.reset_route_counts()
+        col.reset_staged_counts()
+        t0 = time.perf_counter()
+        out = run(op, payload, out_dtype, keep)
+        torch.cuda.synchronize()
+        rows = serving_rows(engine.mesh, payload.shape[0])
+        groups.append({"op": op, "dtype": out_dtype, "bucket": int(payload.shape[0]),
+                       "rows": int(payload.shape[0] if rows is None else len(rows)),
+                       "s": time.perf_counter() - t0,
+                       "launches": [sorted([list(k), v] for k, v in d.items())
+                                    for d in kernel_launches()],
+                       "routes": attn_mod.route_counts(), "staged": col.staged_counts()})
+        return out
+
+    engine._group = counted
+
+
+def _serve_http(engine, server, requests) -> dict:
+    """Rank 0 of run (a): all but the last request at once over HTTP, then
+    the last alone, from a client thread, while this thread runs cli.serve's
+    run_server; the server shuts down after them and stop() releases the
+    follower."""
+    import io
+    import urllib.request
+
+    import numpy as np
+
+    from deepl_project_tpu_torch.cli import serve as serve_cli
+
+    port = server.server_address[1]
+    outs, errors = {}, []
+
+    def post(key, op, arr, dtype):
+        buf = io.BytesIO()
+        np.save(buf, arr)
+        url = f"http://127.0.0.1:{port}/{op}" + (f"?dtype={dtype}" if dtype else "")
+        try:
+            with urllib.request.urlopen(url, data=buf.getvalue(), timeout=600) as r:
+                outs[key] = np.load(io.BytesIO(r.read()))
+        except Exception as e:  # noqa: BLE001 -- raised below, after the server stops
+            errors.append(f"{key}: {type(e).__name__}: {e}")
+
+    def client():
+        try:
+            threads = [threading.Thread(target=post, args=r) for r in requests[:-1]]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            post(*requests[-1])
+        finally:
+            server.shutdown()
+
+    threading.Thread(target=client, daemon=True).start()
+    serve_cli.run_server(engine, server)
+    if errors:
+        raise RuntimeError("serve_mesh (a): requests failed: " + "; ".join(errors))
+    return outs
+
+
+def serve_mesh_worker() -> None:
+    """A rank of phase serve_mesh, started by torchrun: two processes on the
+    card over gloo (NCCL refuses two ranks on one device). Each run of
+    SERVE_MESH_RUNS builds cli.serve's engine from the checkpoint file on a
+    fresh mesh: (a) through cli.serve.serve (rank 0 serves HTTP, rank 1
+    follows), (b) and (c) through cli.serve.build_engine (rank 0 runs the
+    requests, rank 1 follows). Writes each rank's groups and peak memory to
+    SERVE_MESH_DIR/rank<r>.json and rank 0's responses to out_<run>.npz;
+    any failure exits non-zero."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from deepl_project_tpu_torch.cli import serve as serve_cli
+    from deepl_project_tpu_torch.parallel import create_mesh, initialize_multihost
+
+    initialize_multihost(backend="gloo", device="cuda:0")
+    rank = dist.get_rank()
+    inputs = np.load(os.path.join(SERVE_MESH_DIR, "inputs.npz"))
+    requests = serve_mesh_requests(inputs["imgs"], inputs["lat"])
+    report = {}
+    for sharding, model_size in SERVE_MESH_RUNS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        args = serve_cli.build_parser().parse_args([
+            "--checkpoint", os.path.join(SERVE_MESH_DIR, "model.pt"), "--device", "cuda:0",
+            "--max_batch", str(SERVE_MESH_BATCH), "--batch_window_ms", "50", "--port", "0",
+            "--mesh_model", str(model_size), "--mesh_sharding", sharding])
+        t0 = time.perf_counter()
+        mesh = create_mesh(model=model_size)
+        if sharding == "tensor":
+            engine, server = serve_cli.serve(args, mesh)
+        else:
+            engine, server = serve_cli.build_engine(args, mesh), None
+        built_s = time.perf_counter() - t0
+        groups: list = []
+        _count_groups(engine, groups)
+        outs = {}
+        if rank != 0:
+            engine.follow()
+        elif server is not None:
+            outs = _serve_http(engine, server, requests[sharding])
+        else:
+            outs = {key: engine.run(op, arr, dt) for key, op, arr, dt in requests[sharding]}
+            engine.stop()
+        torch.cuda.synchronize()
+        pl = engine.placement
+        report[sharding] = {"groups": groups, "built_s": built_s,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                        "split": sum(pl.dim(n) is not None for n in pl.specs),
+                        "mesh": engine.stats()["mesh"]}
+        if rank == 0:
+            np.savez(os.path.join(SERVE_MESH_DIR, f"out_{sharding}.npz"), **outs)
+        del engine, server, mesh, pl
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(SERVE_MESH_DIR, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+
+
+def serve_nccl_worker() -> None:
+    """Run (d) of phase serve_mesh, started by torchrun as one process:
+    cli.serve's own join_mesh (NCCL on the card) and serve on the (1, 1, 1)
+    mesh, so the engine's headers and payloads go over NCCL on its stream;
+    its requests over HTTP. Writes SERVE_MESH_DIR/nccl.json and
+    out_nccl.npz; any failure exits non-zero."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from deepl_project_tpu_torch.cli import serve as serve_cli
+
+    inputs = np.load(os.path.join(SERVE_MESH_DIR, "inputs.npz"))
+    requests = serve_mesh_requests(inputs["imgs"], inputs["lat"])["nccl"]
+    args = serve_cli.build_parser().parse_args([
+        "--checkpoint", os.path.join(SERVE_MESH_DIR, "model.pt"), "--device", "cuda",
+        "--max_batch", str(SERVE_MESH_BATCH), "--batch_window_ms", "50", "--port", "0",
+        "--mesh_model", "1", "--mesh_sharding", "tensor"])
+    mesh = serve_cli.join_mesh(args)
+    engine, server = serve_cli.serve(args, mesh)
+    groups: list = []
+    _count_groups(engine, groups)
+    outs = _serve_http(engine, server, requests)
+    torch.cuda.synchronize()
+    report = {"groups": groups, "backend": dist.get_backend(), "wire": str(engine._wire),
+              "mesh": engine.stats()["mesh"],
+              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    np.savez(os.path.join(SERVE_MESH_DIR, "out_nccl.npz"), **outs)
+    with open(os.path.join(SERVE_MESH_DIR, "nccl.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+
+
+def phase_serve_mesh(model) -> None:
+    """Serving on a mesh of two processes on the one card (PERF.md, section
+    6): one process's responses (the kernel path, the plain bf16 path, the
+    fp32 twin) to every request of serve_mesh_requests, then the ranks of
+    serve_mesh_worker; each response held to phase serve's rule against the
+    fp32 twin, each rank's launches and routes to their tables. Every time
+    is gloo host staging with both ranks on one card: not a speed."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from deepl_project_tpu_torch.models import TransVAE
+    from deepl_project_tpu_torch.ops.attention import AttentionRoPE
+    from deepl_project_tpu_torch.serving import InferenceEngine
+
+    if dist.is_initialized():
+        fail("serve_mesh: a process group exists before the phase")
+    shutil.rmtree(SERVE_MESH_DIR, ignore_errors=True)
+    os.makedirs(SERVE_MESH_DIR)
+    cfg = model.config
+    rng = np.random.default_rng(7)
+    imgs = rng.integers(0, 256, (32, 256, 256, 3), dtype=np.uint8)
+    lat = rng.standard_normal((4, 16, 16, cfg.latent_dim)).astype(np.float32)
+    np.savez(os.path.join(SERVE_MESH_DIR, "inputs.npz"), imgs=imgs, lat=lat)
+    t0 = time.time()
+    torch.save({"model_state_dict": {k: v.cpu() for k, v in model.state_dict().items()},
+                "config": {"variant": cfg.variant.split("_")[0], "compression_ratio": 16,
+                           "latent_dim": cfg.latent_dim}},
+               os.path.join(SERVE_MESH_DIR, "model.pt"))
+    log(f"serve_mesh: weights written for the ranks in {time.time() - t0:.1f}s")
+    requests = serve_mesh_requests(imgs, lat)
+    unique = {key: (op, arr, dt) for run in requests.values() for key, op, arr, dt in run}
+
+    # One process on the same weights: the kernel path, the plain bf16 path
+    # (plain attention, GroupNorm and SiLU) and the fp32 twin (TF32 off).
+    engine = InferenceEngine(model, max_batch=SERVE_MESH_BATCH)
+    one = {k: engine.run(*r) for k, r in unique.items()}
+    attn = [m for m in model.modules() if isinstance(m, AttentionRoPE)]
+    for m in attn:
+        m.impl = "xla"
+    set_fused_norm(False)
+    plain = {k: engine.run(*r) for k, r in unique.items()}
+    for m in attn:
+        m.impl = cfg.attention_impl
+    set_fused_norm(True)
+    with torch.device("meta"):
+        twin = TransVAE(cfg.replace(dtype="float32"))
+    twin = twin.to_empty(device="cuda").eval()
+    twin.load_state_dict(model.state_dict())
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    exact_engine = InferenceEngine(twin, max_batch=SERVE_MESH_BATCH)
+    exact = {k: exact_engine.run(*r) for k, r in unique.items()}
+    torch.backends.cudnn.allow_tf32 = tf32
+    del twin, exact_engine, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    free0, alloc0 = torch.cuda.mem_get_info()[0], torch.cuda.memory_allocated()
+
+    # Run (d) beside the two ranks (it shares nothing with them but the
+    # card; its output goes to a file, so no pipe fills while it waits).
+    t0 = time.time()
+    nccl_log = os.path.join(SERVE_MESH_DIR, "nccl.log")
+    with open(nccl_log, "w") as out:
+        nccl_proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", os.path.join(ROOT, "chip_smoke.py"), "--worker",
+             "serve-nccl"], cwd=ROOT, stdout=out, stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, "PYTHONPATH": ROOT})
+    try:
+        proc = _torchrun(2, [os.path.join(ROOT, "chip_smoke.py"), "--worker", "serve-mesh"],
+                         timeout=900)
+        ranks_s = time.time() - t0
+        if proc.returncode != 0:
+            fail(f"serve_mesh: the two ranks exited {proc.returncode}:\n"
+                 f"{(proc.stdout + proc.stderr)[-6000:]}")
+        nccl_rc = nccl_proc.wait(timeout=300)
+    finally:
+        if nccl_proc.poll() is None:  # torchrun passes SIGTERM on to its worker
+            nccl_proc.terminate()
+            try:
+                nccl_proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                nccl_proc.kill()
+    nccl_s = time.time() - t0
+    with open(nccl_log) as f:
+        nccl_out = f.read()
+    if nccl_rc != 0:
+        fail(f"serve_mesh (nccl): the process exited {nccl_rc}:\n{nccl_out[-6000:]}")
+    for line in (proc.stdout + nccl_out).splitlines():
+        if line.startswith("[serve]"):
+            log(f"serve_mesh rank output: {line}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(SERVE_MESH_DIR, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    with open(os.path.join(SERVE_MESH_DIR, "nccl.json")) as f:
+        nccl = json.load(f)
+
+    def table(entry) -> tuple:
+        return tuple({tuple(k): v for k, v in d} for d in entry)
+
+    def check_outs(name: str) -> None:
+        outs = np.load(os.path.join(SERVE_MESH_DIR, f"out_{name}.npz"))
+        for key, op, arr, dt in requests[name]:
+            got = outs[key]
+            want = ((arr.shape[0], 16, 16, cfg.latent_dim) if op == "encode"
+                    else (arr.shape[0], 256, 256, 3))
+            kind = {"uint8": np.uint8, "float16": np.float16, None: np.float32}[dt]
+            if got.shape != want or got.dtype != kind:
+                fail(f"serve_mesh ({name}) {key}: {got.shape} {got.dtype}, want {want} {kind}")
+            g = got.astype(np.float32)
+            if not np.isfinite(g).all():
+                fail(f"serve_mesh ({name}) {key}: non-finite output")
+            if op != "encode" and not (g.min() >= 0 and g.max() <= (255 if dt == "uint8" else 1)):
+                fail(f"serve_mesh ({name}) {key}: output outside its range")
+            ref = exact[key].astype(np.float32)
+            em, ep = np.abs(g - ref), np.abs(plain[key].astype(np.float32) - ref)
+            d1 = np.abs(g - one[key].astype(np.float32)).max()
+            log(f"serve_mesh ({name}) {key} {op} b{arr.shape[0]} dtype={dt}: vs fp32 max_abs "
+                f"{em.max():.3e} mean_abs {em.mean():.3e}; one process's plain bf16 max_abs "
+                f"{ep.max():.3e} mean_abs {ep.mean():.3e} (bounds x{MODEL_MAX_RATIO} / "
+                f"x{MODEL_MEAN_RATIO}); vs one process's kernel path max_abs {d1:.3e}")
+            if not (em.mean() <= MODEL_MEAN_RATIO * ep.mean()
+                    and em.max() <= MODEL_MAX_RATIO * ep.max()):
+                fail(f"serve_mesh ({name}) {key}: less accurate than one process's plain bf16")
+
+    def launch_totals(groups) -> dict:
+        total: dict = {}
+        for g in groups:
+            for d in g["launches"]:
+                for k, v in d:
+                    total[k[0]] = total.get(k[0], 0) + v
+        return total
+
+    want_one = launches_per_reconstruct(256, model=model)
+    want_local = launches_per_local_reconstruct(model, 2)
+    routes_one = {"sublayer": 20, "ln_qkv_rope": 6}
+    routes_local = {"local_sublayer": 20, "local_ln_qkv_rope": 6}
+    for sharding, model_size in SERVE_MESH_RUNS:
+        check_outs(sharding)
+        for r, rep_ in enumerate(ranks):
+            run = rep_[sharding]
+            groups = run["groups"]
+            if len(groups) != len(requests[sharding]) or run["mesh"] != {
+                    "data": 2 // model_size, "context": 1, "model": model_size}:
+                fail(f"serve_mesh ({sharding}) rank {r}: {len(groups)} groups on mesh "
+                     f"{run['mesh']}; want {len(requests[sharding])}")
+            if (run["split"] > 0) != (sharding != "replicate"):
+                fail(f"serve_mesh ({sharding}) rank {r}: {run['split']} tensors split")
+            for i, grp in enumerate(groups):
+                if grp["op"] != "reconstruct":
+                    continue
+                got_t = table(grp["launches"])
+                routes = grp["routes"]
+                last = sharding != "tensor" or i == len(groups) - 1
+                want_t = want_local if sharding == "tensor" else want_one
+                if last and got_t != want_t:
+                    fail(f"serve_mesh ({sharding}) rank {r} group {i}: launches {got_t} != "
+                         f"{want_t}")
+                if routes != (routes_local if sharding == "tensor" else routes_one):
+                    fail(f"serve_mesh ({sharding}) rank {r} group {i}: routes {routes}")
+            if sharding == "tensor" and any(set(g["routes"]) - set(routes_local)
+                                            for g in groups):
+                fail(f"serve_mesh (tensor) rank {r}: a group took another route: "
+                     f"{[g['routes'] for g in groups]}")
+            if sharding == "replicate" and [g["rows"] for g in groups] != [4, 2, 1]:
+                fail(f"serve_mesh (replicate) rank {r}: rows {[g['rows'] for g in groups]}; "
+                     "want [4, 2, 1] (b8 split, 3 placed by its bucket 4, 1 whole)")
+            recon = [g for g in groups if g["op"] == "reconstruct"]
+            staged = [g["staged"].get("collective_bytes", 0) for g in recon]
+            log(f"serve_mesh ({sharding}, model {model_size}) rank {r}: "
+                f"{run['split']} tensors split, built in {run['built_s']:.1f}s, peak "
+                f"{run['peak_gib']:.2f} GiB; reconstruct groups (bucket, rows a rank, s, "
+                f"staged bytes): {[(g['bucket'], g['rows'], round(g['s'], 3), b) for g, b in zip(recon, staged)]}; "
+                f"routes {recon[-1]['routes']}; last reconstruct's launches "
+                f"{table(recon[-1]['launches'])} (gloo on one card: not a speed) [{CARD}]")
+            SERVE_MESH_PATHS[f"serve_mesh_{sharding}_rank{r}"] = launch_totals(groups)
+    # (d): the NCCL wire of one process on a (1, 1, 1) mesh.
+    check_outs("nccl")
+    groups = nccl["groups"]
+    if (nccl["backend"] != "nccl" or not nccl["wire"].startswith("cuda")
+            or nccl["mesh"] != {"data": 1, "context": 1, "model": 1}
+            or len(groups) != len(requests["nccl"])):
+        fail(f"serve_mesh (nccl): backend {nccl['backend']}, wire {nccl['wire']}, mesh "
+             f"{nccl['mesh']}, {len(groups)} groups; want nccl, cuda, (1, 1, 1), "
+             f"{len(requests['nccl'])}")
+    if table(groups[-1]["launches"]) != want_one:
+        fail(f"serve_mesh (nccl): launches {table(groups[-1]['launches'])} != {want_one}")
+    if any(g["routes"] != routes_one for g in groups):
+        fail(f"serve_mesh (nccl): routes {[g['routes'] for g in groups]}")
+    log(f"serve_mesh (nccl, model 1): peak {nccl['peak_gib']:.2f} GiB; reconstruct groups "
+        f"(bucket, s): {[(g['bucket'], round(g['s'], 3)) for g in groups]}; process "
+        f"{nccl_s:.1f}s, beside the two ranks [{CARD}]")
+    SERVE_MESH_PATHS["serve_mesh_nccl_rank0"] = launch_totals(groups)
+    log(f"serve_mesh: the two ranks took {ranks_s:.1f}s")
+    shutil.rmtree(SERVE_MESH_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free1, alloc1 = torch.cuda.mem_get_info()[0], torch.cuda.memory_allocated()
+    log(f"serve_mesh: card memory free {free0 / 2**30:.2f} GiB before the ranks, "
+        f"{free1 / 2**30:.2f} after; this process {alloc0 / 2**30:.2f} / "
+        f"{alloc1 / 2**30:.2f} GiB allocated")
+    if free1 < free0 - 2 ** 30 or alloc1 > alloc0 + 2 ** 30:
+        fail("serve_mesh: the card's memory was not returned after the ranks")
 
 
 def set_rewrites(model, on: bool) -> None:
@@ -4646,13 +5241,13 @@ def main():
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,kernels,grad,train,data,dit,gan,recipe,remat,serve,time,"
-                            "eval,quant,context,pipeline,parallel")
-    ap.add_argument("--worker", choices=["dp", "context", "refusal-nccl", "refusal-gloo",
-                                         "refusal-gloo-p2p"]
+                    default="build,kernels,grad,train,data,dit,gan,recipe,remat,serve,"
+                            "serve_mesh,time,eval,quant,context,pipeline,parallel")
+    ap.add_argument("--worker", choices=["dp", "context", "serve-mesh", "serve-nccl",
+                                         "refusal-nccl", "refusal-gloo", "refusal-gloo-p2p"]
                     + [f"pipeline-{n}" for n in PIPE_RUNS],
-                    help="run as a rank of phase parallel, context or pipeline (started by "
-                         "torchrun)")
+                    help="run as a rank of phase parallel, context, pipeline or serve_mesh "
+                         "(started by torchrun)")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--baseline", metavar="DIR", nargs="+", default=[],
                     help="checkouts whose wgmma kernels (WGMMA_KERNELS) are timed "
@@ -4664,6 +5259,10 @@ def main():
             dp_worker()
         elif args.worker == "context":
             context_worker()
+        elif args.worker == "serve-mesh":
+            serve_mesh_worker()
+        elif args.worker == "serve-nccl":
+            serve_nccl_worker()
         elif args.worker == "refusal-gloo-p2p":
             p2p_probe_worker()
         elif args.worker.startswith("pipeline-"):
@@ -4697,6 +5296,7 @@ def main():
             results.update(phase_kernels())
             results.update(phase_flash_kernels())
             results.update(phase_eval_kernels())
+            results.update(phase_local_kernels())
             if args.baseline:
                 baseline = phase_baseline(args.baseline)
     if "grad" in phases:
@@ -4737,13 +5337,16 @@ def main():
     counts = {}
     model = None
     evaluated = {}
-    if phases & {"serve", "time", "eval", "quant"}:
+    if phases & {"serve", "serve_mesh", "time", "eval", "quant"}:
         from deepl_project_tpu_torch import create_transvae
 
         model = create_transvae("large", 16, 32, device="cuda", seed=0)
         if "serve" in phases:
             with phase_clock("serve"):
                 counts = phase_serve(model)
+        if "serve_mesh" in phases:
+            with phase_clock("serve_mesh"):
+                phase_serve_mesh(model)
         if "time" in phases:
             with phase_clock("time"):
                 phase_time(model, args.profile)
@@ -4795,10 +5398,17 @@ def main():
                 "sweep_ms_by_shape": {str(k[1:]): [v["ms"], v["yardstick_ms"], v["bound_ms"]]
                                       for k, v in results.items() if k[0] == "ln_qkv_rope_sweep"},
             } if name == "ln_qkv_rope" else {}
+            # One rank's heads at model 2 (phase serve_mesh): [kernel, plain,
+            # yardstick (F.layer_norm + F.linear; F.linear; SDPA), bound] ms
+            # and the max abs error by (B, N, C, W).
+            local = {k: r for k, r in results.items() if k[0] == name + "_local"}
+            extra["local_ms_by_shape"] = {
+                str(k[1:]): [r["ms"], r["plain_ms"], r["yardstick_ms"], r["bound_ms"], r["err"]]
+                for k, r in local.items()}
             kernels.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": counts.get(name, 0),
-                "max_abs_err": max(r["err"] for r in rows.values()),
+                "max_abs_err": max(r["err"] for r in [*rows.values(), *local.values()]),
                 "ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
                 "bound_by": ("operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_HBM_BYTES
                              else "bytes"),
@@ -4908,12 +5518,12 @@ def main():
                 row["group_norm_silu_by_shape"] = {
                     str(k[1:]): r for k, r in results.items() if k[0] == "group_norm_silu"}
             kernels.append(row)
-        # Phase dit's, context's, pipeline's and parallel's paths, each
-        # driven with the counts set to 0 just before.
+        # Phase dit's, serve_mesh's, context's, pipeline's and parallel's
+        # paths, each driven with the counts set to 0 just before.
         for row in kernels:
             row.setdefault("launches_by_path", {}).update(
                 {p: c.get(row["name"], 0)
-                 for p, c in {**DIT_PATHS, **CONTEXT_PATHS, **PIPE_PATHS,
+                 for p, c in {**DIT_PATHS, **SERVE_MESH_PATHS, **CONTEXT_PATHS, **PIPE_PATHS,
                               **PARALLEL_PATHS}.items()})
             # The flash kernels at the pipelined DiT-L/2's shape: [kernel,
             # plain, bound, SDPA (its backward for flash_attention_bwd)] ms

@@ -1,5 +1,6 @@
 """Serving CLI: batched TransVAE inference over HTTP (npy payloads) on one
-CUDA device, bf16 or int8 (PyTorch port of ``cli/serve.py``).
+CUDA device or a mesh of them, bf16 or int8 (PyTorch port of
+``cli/serve.py``).
 
 Usage:
   python -m deepl_project_tpu_torch.cli.serve --checkpoint model.pt --port 8471
@@ -12,14 +13,26 @@ Usage:
 (``quantize.quantize_model``) at ``--quantize_scope``, calibrated on 8
 synthetic shapes images (two batches of 4) at ``--warmup_resolution`` or
 256px; ``--quantize`` unset serves the float model (:func:`resolve_quantize`).
-Multi-device meshes are not ported yet: ``--mesh_model > 1`` exits with a
-message.
+
+On a mesh, under torchrun (one process a rank; the process group joined
+with ``parallel.initialize_multihost``, NCCL on CUDA, gloo with ``--device
+cpu``), the ranks form a (data, 1, ``--mesh_model``) mesh and
+``--mesh_sharding`` places the parameters (int8: replicated). Only global
+rank 0 binds the port; the other ranks follow it
+(``InferenceEngine.follow``):
+
+  python -m torch.distributed.run --standalone --nproc_per_node 4 \
+      -m deepl_project_tpu_torch.cli.serve --variant huge --mesh_model 2 \
+      --mesh_sharding tensor --param_dtype bfloat16
+
+``--mesh_model > 1`` outside torchrun exits with a message.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import threading
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -53,7 +66,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_request_mb", type=int, default=64)
     p.add_argument("--max_queue", type=int, default=256)
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="tensor-parallel serving: not yet ported (must be 1)")
+                   help="multi-device serving (under torchrun): tensor-parallel "
+                        "axis size; the remaining ranks form a data axis that "
+                        "fans batches out (1 = single device)")
+    p.add_argument("--mesh_sharding", default="tensor",
+                   choices=["tensor", "fsdp", "replicate"],
+                   help="param placement on the serving mesh")
     p.add_argument("--quantize", default=None, choices=["int8", "none"],
                    help="post-training int8 quantization of the served model "
                         "at --quantize_scope. Unset: 'none' (resolve_quantize; "
@@ -95,8 +113,9 @@ def quantize_for_serving(model, scope: str, resolution: int):
     return quantize_model(model, [np.stack(imgs[j:j + 4]) for j in (0, 4)], scope=scope)
 
 
-def build_engine(args):
-    """Model + InferenceEngine from parsed arguments."""
+def build_engine(args, mesh=None):
+    """Model + InferenceEngine from parsed arguments, on ``mesh`` (a
+    (data, 1, model) mesh of a joined process group) when given."""
     import torch
 
     from ..models import create_transvae, resolve_device
@@ -124,21 +143,42 @@ def build_engine(args):
         model = quantize_for_serving(model, args.quantize_scope, res)
         print(f"[serve] int8-quantized scope={args.quantize_scope} (calibrated on "
               f"synthetic batches at {res}px)")
+    sharding = args.mesh_sharding
+    if mesh is not None:
+        if quantize == "int8":
+            # The int8 modules hold buffers, not the parameters the tensor
+            # and FSDP placements split: replicate them.
+            sharding = "replicate"
+        print(f"[serve] multi-chip mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} "
+              f"params={sharding}")
     return InferenceEngine(model, max_batch=args.max_batch,
                            batch_window_ms=args.batch_window_ms,
-                           max_queue=args.max_queue)
+                           max_queue=args.max_queue, mesh=mesh, param_sharding=sharding)
 
 
-def main(argv=None):
-    args = build_parser().parse_args(argv)
-    if bool(args.tls_cert) != bool(args.tls_key):
-        raise SystemExit("--tls_cert and --tls_key must be given together")
-    if args.mesh_model > 1:
-        raise SystemExit("--mesh_model > 1: not yet ported to deepl_project_tpu_torch")
+def join_mesh(args):
+    """Under torchrun: join the process group (this rank's device into
+    ``args.device``) and return the (data, 1, ``--mesh_model``) mesh; None
+    outside it."""
+    from ..parallel import create_mesh, initialize_multihost, under_torchrun
 
+    if not under_torchrun():
+        return None
+    args.device = str(initialize_multihost(device=args.device)["device"])
+    return create_mesh(model=args.mesh_model)
+
+
+def serve(args, mesh=None):
+    """(engine, server): the engine built (on ``mesh``, whose process group
+    the caller has joined) and warmed; on global rank 0 (or without a mesh)
+    its dispatcher started and an HTTP server bound to it (not yet
+    serving), elsewhere None for the server: that rank calls
+    ``engine.follow()``."""
     from ..serving import make_http_server
 
-    engine = build_engine(args)
+    engine = build_engine(args, mesh)
+    if mesh is not None and engine.rank != 0:
+        return engine, None
     if args.warmup_resolution:
         ops = tuple(o for o in args.warmup_ops.split(",") if o)
         dts = tuple(None if d in ("float32", "") else d
@@ -154,14 +194,53 @@ def main(argv=None):
                               tls_cert=args.tls_cert, tls_key=args.tls_key)
     scheme = "https" if args.tls_cert else "http"
     print(f"[serve] {engine.model.config.variant} on {scheme}://{args.host}:"
-          f"{args.port} (device {engine.stats()['device']}, "
-          f"auth {'on' if token else 'off'})")
+          f"{server.server_address[1]} (device {engine.stats()['device']}, "
+          f"auth {'on' if token else 'off'})", flush=True)
+    return engine, server
+
+
+def run_server(engine, server) -> None:
+    """Serve until interrupted, or until a mesh engine fails (then exit
+    non-zero: its followers may be inside a collective); stop the engine."""
+    def watch():
+        while not done.wait(1.0):
+            if engine.failed is not None:
+                server.shutdown()
+                return
+
+    done = threading.Event()
+    threading.Thread(target=watch, daemon=True).start()
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
+        done.set()
+        server.server_close()
         engine.stop()
+    if engine.failed is not None:
+        raise SystemExit(f"[serve] the mesh engine failed: {engine.failed}")
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    if bool(args.tls_cert) != bool(args.tls_key):
+        raise SystemExit("--tls_cert and --tls_key must be given together")
+    from ..parallel import under_torchrun
+
+    if args.mesh_model > 1 and not under_torchrun():
+        raise SystemExit(f"--mesh_model {args.mesh_model} needs a model group of that many "
+                         "ranks: launch under torchrun (python -m torch.distributed.run)")
+    mesh = join_mesh(args)
+    engine, server = serve(args, mesh)
+    if server is None:
+        engine.follow()
+    else:
+        run_server(engine, server)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -9,12 +9,21 @@
 //                 rope(bf16(xt_k[m] @ Wk[:, perm])) | bf16(xt_v[m] @ Wv) ]
 //   xt_i[m]   = bf16(bf16((x[m] - mean_m) * rstd_m) * g_i + b_i)
 //
-// x [M, C] bf16 (M = B*N tokens), w [3C, C] bf16 (rows: q and k output
-// channels permuted per head to [evens | odds], then v), gb [6, C] fp32
-// (gq, bq, gk, bk, gv, bv), RoPE tables [N, 32] fp32, out [M, 3C] bf16,
-// xhat [M, C] bf16 scratch. C % 128 == 0; M need not be a multiple of the
-// tile. head_dim is 64: column j of a head's even half pairs with j + 32,
-// which lies in the same thread's accumulators.
+// x [M, C] bf16 (M = B*N tokens), w [3Wp, C] bf16 (rows: q and k output
+// channels permuted per head to [evens | odds], then v, each branch padded
+// with zero rows from W to Wp), gb [6, C] fp32 (gq, bq, gk, bk, gv, bv),
+// RoPE tables [N, 32] fp32, out [M, 3W] bf16, xhat [M, C] bf16 scratch.
+// C % 128 == 0; M need not be a multiple of the tile. head_dim is 64: column
+// j of a head's even half pairs with j + 32, which lies in the same thread's
+// accumulators.
+//
+// W is the width of the heads computed: C for the whole layer, C / m for one
+// rank's heads under tensor parallelism (W % 64 == 0, W <= C). A 128-column
+// tile must lie in one branch (its LN affine and whether RoPE applies are
+// the branch's), so each branch is padded to Wp = W rounded up to 128: the
+// pad rows of w are zero and the epilogue stores no 64-column box past W.
+// At W % 128 == 64 (W = 192: stage 2 of large at m = 2) that costs a third
+// more GEMM work than the 3W columns need; elsewhere Wp = W.
 //
 // Bound on an H100: at the main path's shapes (large@256, b32) the GEMM does
 // 2*M*C*3C = 116 GFLOP against about 0.4 GB of traffic, near the ridge of the
@@ -126,7 +135,7 @@ __global__ __launch_bounds__(kThreads, 1) void ln_qkv_rope_kernel(
     __grid_constant__ const CUtensorMap tm_out,
     const float* __restrict__ gb, const float* __restrict__ ca, const float* __restrict__ sa,
     const float* __restrict__ cb, const float* __restrict__ sb, int M, int N, int C,
-    int use_rope) {
+    int W, int use_rope) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   unsigned char* staging = smem + STAGES * kStageBytes;  // kOutBytes a consumer
@@ -134,7 +143,8 @@ __global__ __launch_bounds__(kThreads, 1) void ln_qkv_rope_kernel(
   uint64_t* empty = full + STAGES;
 
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
-  const int tiles_n = 3 * C / BN;
+  const int Wp = (W + BN - 1) / BN * BN;  // a branch's padded width
+  const int tiles_n = 3 * Wp / BN;
   const int tiles = (M + BM - 1) / BM * tiles_n;
   const int KT = C / BK;
 
@@ -184,7 +194,7 @@ __global__ __launch_bounds__(kThreads, 1) void ln_qkv_rope_kernel(
     uint32_t ph = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int m0 = t / tiles_n * BM, n0 = t % tiles_n * BN;
-      const int branch = n0 / C;  // 0 = q, 1 = k, 2 = v
+      const int branch = n0 / Wp;  // 0 = q, 1 = k, 2 = v
       const float* g = gb + 2 * branch * C + lc * 8;  // this thread's columns
       int prev = 0;
       for (int kt = 0; kt < KT; ++kt) {
@@ -286,9 +296,11 @@ __global__ __launch_bounds__(kThreads, 1) void ln_qkv_rope_kernel(
         fence_proxy_async();
         named_bar_sync(1 + wg, 128);
         if (tid == 0) {
-          const int rr = m0 + wg * 128 + h * 64;
-          tma_store_2d(&tm_out, stg, n0, rr);
-          tma_store_2d(&tm_out, stg + 8192, n0 + 64, rr);
+          // The tile's first column within its branch; a tile starts below
+          // W (Wp - W < 128), its second 64-column box may be padding.
+          const int rr = m0 + wg * 128 + h * 64, col = n0 - branch * Wp;
+          tma_store_2d(&tm_out, stg, branch * W + col, rr);
+          if (col + 64 < W) tma_store_2d(&tm_out, stg + 8192, branch * W + col + 64, rr);
           bulk_commit();
         }
       }
@@ -297,12 +309,10 @@ __global__ __launch_bounds__(kThreads, 1) void ln_qkv_rope_kernel(
   }
 }
 
-}  // namespace
-
-extern "C" int ln_qkv_rope_launch(const void* x, const void* w, const void* gb,
-                                  const void* ca, const void* sa, const void* cb,
-                                  const void* sb, void* xhat, void* out, int M, int N,
-                                  int C, int use_rope, void* stream) {
+int launch(const void* x, const void* w, const void* gb, const void* ca, const void* sa,
+           const void* cb, const void* sb, void* xhat, void* out, int M, int N, int C, int W,
+           int use_rope, void* stream) {
+  if (C % 128 || W % 64 || W <= 0 || W > C) return (int)cudaErrorInvalidValue;
   static bool smem_ok = false;
   if (!smem_ok) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -311,21 +321,32 @@ extern "C" int ln_qkv_rope_launch(const void* x, const void* w, const void* gb,
     smem_ok = true;
   }
   // Maps are encoded on every call: the operands' addresses change.
+  const int Wp = (W + BN - 1) / BN * BN;
   CUtensorMap tm_xhat, tm_w, tm_out;
   const cuuint64_t dims_x[2] = {(cuuint64_t)C, (cuuint64_t)M};
-  const cuuint64_t dims_w[2] = {(cuuint64_t)C, (cuuint64_t)(3 * C)};
-  const cuuint64_t dims_o[2] = {(cuuint64_t)(3 * C), (cuuint64_t)M};
+  const cuuint64_t dims_w[2] = {(cuuint64_t)C, (cuuint64_t)(3 * Wp)};
+  const cuuint64_t dims_o[2] = {(cuuint64_t)(3 * W), (cuuint64_t)M};
   int e = hopper::make_map_bf16(&tm_xhat, xhat, 2, dims_x, (uint64_t)C * 2, 0, BM);
   if (e == 0) e = hopper::make_map_bf16(&tm_w, w, 2, dims_w, (uint64_t)C * 2, 0, BN);
-  if (e == 0) e = hopper::make_map_bf16(&tm_out, out, 2, dims_o, (uint64_t)C * 6, 0, 64);
+  if (e == 0) e = hopper::make_map_bf16(&tm_out, out, 2, dims_o, (uint64_t)W * 6, 0, 64);
   if (e != 0) return e;
   cudaStream_t st = (cudaStream_t)stream;
   ln_hat_kernel<<<(M + 7) / 8, 256, 0, st>>>((const bf16*)x, (bf16*)xhat, M, C);
-  const int tiles = (M + BM - 1) / BM * (3 * C / BN);
+  const int tiles = (M + BM - 1) / BM * (3 * Wp / BN);
   const int sms = hopper::sm_count();
   const int grid = sms > 0 && sms < tiles ? sms : tiles;
   ln_qkv_rope_kernel<<<grid, kThreads, kSmemBytes, st>>>(
       tm_xhat, tm_w, tm_out, (const float*)gb, (const float*)ca,
-      (const float*)sa, (const float*)cb, (const float*)sb, M, N, C, use_rope);
+      (const float*)sa, (const float*)cb, (const float*)sb, M, N, C, W, use_rope);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// W = C for the whole layer; C / m for one rank's heads.
+extern "C" int ln_qkv_rope_launch(const void* x, const void* w, const void* gb,
+                                  const void* ca, const void* sa, const void* cb,
+                                  const void* sb, void* xhat, void* out, int M, int N,
+                                  int C, int W, int use_rope, void* stream) {
+  return launch(x, w, gb, ca, sa, cb, sb, xhat, out, M, N, C, W, use_rope, stream);
 }

@@ -19,10 +19,16 @@ Sublayer dispatch (``AttentionRoPE``), as in the JAX module:
   float32): the composable path -- plain LayerNorms and linears,
   ``apply_rope2d``, :func:`core_attention`, the projection;
 - under tensor parallelism (``model_group`` set by
-  ``parallel.shard_params``): the composable path on this rank's heads
-  (``to_q/to_k/to_v`` C -> C/m, the projection C/m -> C with its partial
-  products summed over the group), whatever ``impl``: the sublayer kernels
-  are square, and their gates (``width``) refuse a local width;
+  ``parallel.shard_params``): this rank's heads (``to_q/to_k/to_v`` C ->
+  W = C/m, the projection W -> C with its partial products summed over the
+  group, then its bias once). With ``impl='auto'`` and no gradient
+  (serving) where the kernels' gates hold at width W: where
+  ``sublayer_supported(..., W)`` holds (N <= 1024) the whole local sublayer
+  on the kernels (``hopper.fused_attention_block.local_sublayer``: route
+  ``local_sublayer``), elsewhere (stage 2, N=4096) ``ln_qkv_rope`` ->
+  :func:`core_attention` -> the partial projection on ``proj_bias_gemm``
+  (route ``local_ln_qkv_rope``); otherwise (training, other widths,
+  float32) the composable path on the local heads (route ``local_heads``);
 - under an ambient context group (``parallel.context``: the map's rows
   split over it), whatever ``impl``: the composable path with the RoPE rows
   of this rank's offset and the exact ring
@@ -32,7 +38,8 @@ Sublayer dispatch (``AttentionRoPE``), as in the JAX module:
   rank's heads under tensor parallelism too.
 
 :func:`route_counts` counts each forward's route by name ('sublayer',
-``'ln_qkv_rope'``, ``'composable'``, ``'local_heads'``, ``'ring'``).
+``'ln_qkv_rope'``, ``'composable'``, ``'local_sublayer'``,
+``'local_ln_qkv_rope'``, ``'local_heads'``, ``'ring'``).
 
 :func:`core_attention` picks the core by token count as ``core_attention``
 in the JAX package does, with the flash kernels
@@ -53,7 +60,7 @@ from torch import nn
 from .hopper.flash_attention import flash_attention, flash_supported
 from .hopper.fused_attention_block import (fused_attention_sublayer,
                                            kernel_supported, ln_qkv_rope,
-                                           pack_proj, pack_qkv,
+                                           local_sublayer, pack_proj, pack_qkv,
                                            sublayer_supported)
 from .hopper.small_attention import small_attention
 from ..parallel import context as cp
@@ -196,8 +203,12 @@ class AttentionRoPE(CachedOperands, nn.Module):
 
     def _packed_proj(self):
         """The projection's kernel operands (bf16 weight, fp32 bias), cast
-        once and rebuilt when either parameter changes."""
+        once and rebuilt when either parameter changes. Under tensor
+        parallelism the partial projection's: this rank's [C, W] columns and
+        a zero bias (the bias is added once, after the sum)."""
         wp, bp = self.proj.weight, self.proj.bias
+        if self.model_group is not None:
+            return self._cached("proj_partial", (wp,), lambda: pack_proj(wp, None))
         return self._cached("proj", (wp, bp), lambda: pack_proj(wp, bp))
 
     def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
@@ -206,13 +217,14 @@ class AttentionRoPE(CachedOperands, nn.Module):
         nh = c // hd
         xf = x.permute(0, 2, 3, 1).reshape(b, n, c)
         # The sublayer kernels serve inference ('auto'); training and the
-        # explicit cores keep the composable path, as in the JAX module. The
-        # kernels are square: a tensor-parallel head shard (q/k/v width C/m)
-        # fails their gates and takes the local-heads route.
+        # explicit cores keep the composable path, as in the JAX module. A
+        # tensor-parallel head shard (q/k/v width W = C/m) takes the local
+        # routes (module docstring).
         kernels = (self.impl == "auto" and (self.dropout == 0.0 or deterministic)
                    and cp.context_axis_size() == 1)
-        width = self.to_q.weight.shape[0]
-        if kernels and sublayer_supported(n, c, hd, x.dtype, width):
+        if self.model_group is not None:
+            out = self._local_heads(xf, h, w, deterministic, kernels)
+        elif kernels and sublayer_supported(n, c, hd, x.dtype):
             _ROUTES["sublayer"] += 1
             ln, wq, wk, wv = self._qkv_args()
             out = fused_attention_sublayer(
@@ -220,10 +232,8 @@ class AttentionRoPE(CachedOperands, nn.Module):
                 self.rope_pairing, hd, self.use_rope,
                 packed=self._packed_qkv() if x.is_cuda else None,
                 packed_proj=self._packed_proj() if x.is_cuda else None)
-        elif self.model_group is not None:
-            out = self._local_heads(xf, h, w, deterministic)
         else:
-            if kernels and kernel_supported(n, c, hd, x.dtype, width):
+            if kernels and kernel_supported(n, c, hd, x.dtype):
                 _ROUTES["ln_qkv_rope"] += 1
                 q, k, v = ln_qkv_rope(
                     xf, *self._qkv_args(), h, w, self.rope_pairing, hd,
@@ -276,8 +286,41 @@ class AttentionRoPE(CachedOperands, nn.Module):
         out = self._core(q, k, v)
         return F.linear(out.reshape(b, n, width), self.proj.weight.to(xf.dtype))
 
-    def _local_heads(self, xf, h, w, deterministic):
+    def local_kernel_heads(self, xf: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        """This rank's heads on the sublayer kernels (no gradient): the
+        partial products of :meth:`partial_heads`, through
+        ``local_sublayer`` where ``sublayer_supported(..., W)`` holds, else
+        ``ln_qkv_rope`` -> :func:`core_attention` -> the partial projection
+        on ``proj_bias_gemm``. The caller checks the kernels' gate
+        (``kernel_supported(..., W)``)."""
+        b, n, c = xf.shape
+        hd, width = self.head_dim, self.to_q.weight.shape[0]
+        ln, wq, wk, wv = self._qkv_args()
+        core = None
+        if sublayer_supported(n, c, hd, xf.dtype, width):
+            _ROUTES["local_sublayer"] += 1
+        else:
+            _ROUTES["local_ln_qkv_rope"] += 1
+
+            def core(q, k, v):
+                q, k, v = (t.reshape(b, n, width // hd, hd) for t in (q, k, v))
+                return self._core(q, k, v).reshape(b, n, width)
+
+        cuda = xf.is_cuda
+        return local_sublayer(xf, ln, wq, wk, wv, self.proj.weight, h, w, self.rope_pairing,
+                              hd, self.use_rope, packed=self._packed_qkv() if cuda else None,
+                              packed_proj=self._packed_proj() if cuda else None, core=core)
+
+    def _local_heads(self, xf, h, w, deterministic, kernels):
         if self.dropout > 0.0 and not deterministic:
             raise NotImplementedError("dropout under tensor parallelism is not ported")
-        out = reduce_from_group(self.partial_heads(xf, h, w), self.model_group)
+        width = self.to_q.weight.shape[0]
+        # The local kernels have no backward: a forward that builds a graph
+        # takes the composable route.
+        if (kernels and not torch.is_grad_enabled()
+                and kernel_supported(xf.shape[1], xf.shape[2], self.head_dim, xf.dtype, width)):
+            part = self.local_kernel_heads(xf, h, w)
+        else:
+            part = self.partial_heads(xf, h, w)
+        out = reduce_from_group(part, self.model_group)
         return out + self.proj.bias.to(xf.dtype)

@@ -32,7 +32,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # kernel name -> argtypes of <name>_launch (pointers and the stream as c_void_p).
 SIGNATURES = {
-    "ln_qkv_rope": [_P] * 9 + [_I] * 4 + [_P],
+    "ln_qkv_rope": [_P] * 9 + [_I] * 5 + [_P],
     "attention_core": [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P],
     "proj_bias_gemm": [_P] * 4 + [_I] * 3 + [_P],
     "flash_attention_fwd": [_P] * 5 + [_I] * 7 + [ctypes.c_float, _P],

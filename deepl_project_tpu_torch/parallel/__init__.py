@@ -14,7 +14,7 @@ from .context import context_axis_size, context_parallel, shard_rows
 from .halo import context_conv2d, exchange_rows
 from .mesh import (CONTEXT_AXIS, DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS, Replicate,
                    Shard, ambient, batch_rows, create_dit_mesh, create_mesh, data_axis_size,
-                   replicated, shard_batch, use_axes)
+                   replicated, serving_rows, shard_batch, use_axes)
 from .multihost import host_shard_info, initialize_multihost, under_torchrun
 from .pipeline import PipelinePlacement, pipeline_apply, stage_range
 from .ring_attention import (context_parallel_attention, ring_attention,
@@ -32,6 +32,6 @@ __all__ = [
     "shard_rows", "exchange_rows", "context_conv2d",
     "ring_attention", "ring_attention_reference", "ring_shift", "context_parallel_attention",
     "sequence_parallel_attention", "PIPE_AXIS", "EXPERT_AXIS", "create_dit_mesh", "use_axes",
-    "ambient", "pipeline_apply", "stage_range", "PipelinePlacement",
+    "ambient", "pipeline_apply", "stage_range", "PipelinePlacement", "serving_rows",
 ]
 

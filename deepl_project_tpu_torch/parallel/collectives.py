@@ -34,7 +34,9 @@ every peer:
 within a group. A gloo group given CUDA tensors stages them through host
 memory (gloo's transport refuses device pointers), an explicit branch on
 the group's backend counted in :func:`staged_counts` (the card's one
-device holds two ranks only over gloo); NCCL sends them as they are.
+device holds two ranks only over gloo); NCCL sends them as they are. The
+collectives of CUDA tensors over a gloo group, which gloo itself copies
+through host memory, are counted there too (their results' bytes).
 
 :func:`all_gather_cat`, :func:`all_reduce_sum` and :func:`rank_slice` are
 the same collectives outside autograd (whole state from slices, sums of
@@ -58,12 +60,22 @@ def _size(group) -> int:
     return dist.get_world_size(group)
 
 
+def _count_staged(out: torch.Tensor, group) -> None:
+    """Count a collective's result ``out`` as staged where gloo copies it
+    through host memory (a CUDA tensor on a gloo group)."""
+    if out.is_cuda and dist.get_backend(group) == "gloo":
+        _STAGED["collectives"] += 1
+        _STAGED["collective_bytes"] += out.numel() * out.element_size()
+
+
 def all_gather_cat(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """Every rank's ``x`` of ``group``, concatenated along ``dim``."""
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(_size(group))]
     dist.all_gather(parts, x, group=group)
-    return torch.cat(parts, dim)
+    out = torch.cat(parts, dim)
+    _count_staged(out, group)
+    return out
 
 
 def rank_slice(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -83,6 +95,7 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of every rank's ``x`` over ``group`` (a new tensor)."""
     x = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(x, group=group)
+    _count_staged(x, group)
     return x
 
 
@@ -192,8 +205,9 @@ def sum_over_group(x: torch.Tensor, group) -> torch.Tensor:
     return _SumOverGroup.apply(x, group)
 
 
-# 'batches' / 'bytes' -> host-staged point-to-point exchanges since the last
-# reset (a gloo group given CUDA tensors).
+# 'batches' / 'bytes' -> host-staged point-to-point exchanges, 'collectives'
+# / 'collective_bytes' -> all-gathers and all-reduces of CUDA tensors over
+# gloo, since the last reset.
 _STAGED: collections.Counter = collections.Counter()
 
 

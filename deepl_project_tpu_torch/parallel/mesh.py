@@ -11,7 +11,9 @@ model group (and of one context group) see the same rows.
 :func:`create_dit_mesh` is the JAX dry run's phase-5 mesh,
 ``np.array(devices).reshape(data, pipe, expert)`` with ``expert``
 innermost; the batch is again sharded over ``data`` only, so the ranks of
-one pipe group and of one expert group see the same rows. :func:`use_axes`
+one pipe group and of one expert group see the same rows. :func:`serving_rows`
+places a bucketed serving batch on the (data, context, model) mesh.
+:func:`use_axes`
 makes a mesh's axes ambient for a block, the port's counterpart of ``with
 jax.set_mesh(mesh):``; :func:`ambient` is the JAX package's
 ``ambient_mesh_has_axis`` (the DiT reads its ``pipeline_axis``, the Switch
@@ -183,3 +185,15 @@ def shard_batch(mesh: DeviceMesh | None, batch, accum_steps: int = 1):
     if isinstance(batch, torch.Tensor):
         return batch[torch.as_tensor(rows, device=batch.device)]
     return batch[rows]
+
+
+def serving_rows(mesh: DeviceMesh, batch_size: int) -> np.ndarray | None:
+    """The rows of a bucketed serving batch that this rank computes (the JAX
+    engine's ``_batch_sharding``): its data coordinate's block
+    (:func:`batch_rows`) when the bucketed size divides the data axis, else
+    None: every rank computes the whole batch (model-parallel compute only,
+    e.g. one request of a giant variant)."""
+    data = axis_size(mesh, DATA_AXIS)
+    if data > 1 and batch_size % data == 0:
+        return batch_rows(batch_size, data_coordinate(mesh), data)
+    return None

@@ -16,6 +16,38 @@ reconstruct:
 - Outputs are encoded on the device (uint8 or float16) before the copy.
 - Payloads are raw ``.npy`` in and out, NHWC like the JAX engine's.
 
+On a mesh (``mesh``: ``parallel.create_mesh``'s (data, context=1, model)
+over the ranks of a process group, one process a rank, as torchrun starts
+them), the constructor places the parameters with ``parallel.shard_params``
+(``param_sharding``: 'tensor', the default, 'fsdp' or 'replicate'). Global
+rank 0 owns the HTTP front end, the queue, the dispatcher and the fetch
+thread; every other rank runs :meth:`InferenceEngine.follow`. For each
+group it runs, rank 0 validates the batch, then broadcasts a header (op,
+output encoding, uint8 input, bucketed shape) and the bucketed payload over
+the default group; every rank takes its rows (``parallel.serving_rows``:
+a block of the bucketed batch where its size divides ``data``, else the
+whole batch) and runs the forward, so that every collective of the model
+runs on every rank in the same order; the outputs are gathered over the
+data group and rank 0 keeps the first rows. ``stop()`` on rank 0
+broadcasts a stop header, on which the followers leave ``follow()``; an
+idle dispatcher broadcasts a heartbeat header every ``HEARTBEAT_S``
+seconds, so an idle follower never reaches the process group's timeout. The headers and payloads travel on the host
+over gloo and on the engine's stream over NCCL, where the payload stays
+on the device for the forward.
+
+The collective rule: on each rank exactly one thread issues collectives
+at a time, and the same sequence on every rank. On rank 0 that is the
+dispatcher while it runs (``run`` / ``warmup`` from any other thread then
+raise), or the one caller of ``run`` / ``warmup`` while it is stopped (a
+second concurrent caller raises); on a follower the caller of ``follow``.
+A failure is not carried on: any collective of rank 0 that raises (a
+group's header, payload or forward, a heartbeat, the stop header) leaves
+the engine failed (``failed``): the dispatcher fails the queued requests
+and leaves its loop, every later request raises and no stop header is
+sent. One on a follower raises out of ``follow``. A rank that leaves
+breaks the others' next collective; the process group's timeout bounds
+the ranks left waiting in one.
+
 Endpoints:
   GET  /healthz      -> JSON status
   POST /encode       -> npy [B,H,W,3] in [0,1] (or uint8) -> npy mu [B,h,w,D]
@@ -25,6 +57,7 @@ Endpoints:
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import queue
@@ -33,6 +66,12 @@ import time
 
 import numpy as np
 import torch
+
+OPS = ("encode", "decode", "reconstruct")
+ENCODINGS = (None, "uint8", "float16")
+# Header op codes besides the index of an op in OPS.
+_STOP, _HEARTBEAT = -1, -2
+HEARTBEAT_S = 30.0
 
 
 def _next_pow2(n: int, cap: int) -> int:
@@ -59,11 +98,27 @@ class _Pending:
 
 
 class InferenceEngine:
-    """Dynamic batcher around one TransVAE model (eval mode, inference only)."""
+    """Dynamic batcher around one TransVAE model (eval mode, inference
+    only); on a ``mesh``, one rank's part of it (module docstring)."""
 
     def __init__(self, model, max_batch: int = 32, batch_window_ms: float = 3.0,
-                 max_queue: int = 256):
+                 max_queue: int = 256, mesh=None, param_sharding: str = "tensor"):
         self.model = model.eval()
+        self.mesh, self.placement = mesh, None
+        if mesh is not None:
+            import torch.distributed as dist
+
+            from .parallel.sharding import shard_params
+
+            self.placement = shard_params(mesh, self.model, param_sharding)
+            self.rank = dist.get_rank()
+            # Broadcasts of the headers and payloads: NCCL takes CUDA
+            # tensors only; gloo host tensors (no staging).
+            self._wire = (next(model.parameters()).device
+                          if dist.get_backend() == "nccl" else torch.device("cpu"))
+        self._collective = threading.Lock()
+        self._released = False  # rank 0 sent the stop header
+        self.failed: str | None = None
         self.device = next(model.parameters()).device
         self.stream = (torch.cuda.Stream(self.device)
                        if self.device.type == "cuda" else None)
@@ -108,7 +163,8 @@ class InferenceEngine:
 
     def run_async(self, op: str, arr: np.ndarray, out_dtype: str | None = None) -> _Pending:
         """Enqueue one bucketed batch; returns a handle whose ``numpy()``
-        waits for the result (padded rows included)."""
+        waits for the result (padded rows included). On a mesh, rank 0 only:
+        the batch is validated, broadcast and computed on every rank."""
         b = arr.shape[0]
         bb = _next_pow2(b, self.max_batch)
         assert bb >= b, (b, self.max_batch)
@@ -116,18 +172,10 @@ class InferenceEngine:
             arr = np.concatenate([arr, np.zeros((bb - b,) + arr.shape[1:], arr.dtype)])
         if arr.dtype != np.uint8:
             arr = np.asarray(arr, np.float32)
+        if self.mesh is not None:
+            return self._lead(op, arr, out_dtype)
         self._warm.add((op, out_dtype, arr.dtype == np.uint8) + arr.shape)
-        with torch.inference_mode():
-            if self.stream is None:
-                return _Pending(self._compute(op, torch.from_numpy(arr), out_dtype))
-            with torch.cuda.stream(self.stream):
-                x = torch.from_numpy(arr).to(self.device, non_blocking=True)
-                y = self._compute(op, x, out_dtype)
-                host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
-                host.copy_(y, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record(self.stream)
-            return _Pending(host, event)
+        return self._group(op, torch.from_numpy(arr), out_dtype)
 
     def run(self, op: str, arr: np.ndarray, out_dtype: str | None = None) -> np.ndarray:
         """Run one already-batched array (pads to the bucket; splits batches
@@ -137,6 +185,143 @@ class InferenceEngine:
             return np.concatenate([self.run(op, arr[i:i + self.max_batch], out_dtype)
                                    for i in range(0, b, self.max_batch)], axis=0)
         return self.run_async(op, arr, out_dtype).numpy()[:b]
+
+    # -- the ranks of a mesh ----------------------------------------------
+    def validate(self, op: str, arr: np.ndarray, out_dtype: str | None) -> None:
+        """Raise ValueError for a request the model would refuse: on a mesh
+        rank 0 checks it before anything goes out to the followers."""
+        cfg = self.model.config
+        if op not in OPS:
+            raise ValueError(f"unknown op {op!r}")
+        if out_dtype not in ENCODINGS:
+            raise ValueError(f"bad dtype {out_dtype!r}")
+        if op == "encode" and out_dtype == "uint8":
+            raise ValueError("encode supports dtype=float16 only")
+        channels = cfg.latent_dim if op == "decode" else 3
+        if arr.ndim != 4 or arr.shape[-1] != channels or 0 in arr.shape:
+            raise ValueError(f"{op} takes [B, H, W, {channels}] arrays, got {arr.shape}")
+        f = 1 if op == "decode" else cfg.compression_ratio
+        if arr.shape[1] % f or arr.shape[2] % f:
+            raise ValueError(f"{op}: H and W must be multiples of {f}, got {arr.shape}")
+
+    def _check_caller(self) -> None:
+        if self.rank != 0:
+            raise RuntimeError("on a mesh only global rank 0 runs requests; the other "
+                               "ranks follow()")
+        if self._thread is not None and threading.current_thread() is not self._thread:
+            raise RuntimeError("on a mesh only the dispatcher issues collectives while it "
+                               "runs: submit() the request, or stop() the dispatcher")
+
+    @contextlib.contextmanager
+    def _collectives(self, wait: bool = False):
+        """Hold this rank's right to issue collectives (``wait``: block for
+        it, else refuse a second caller). Anything raised inside leaves the
+        engine failed: the followers may be inside one of its collectives,
+        so nothing more goes out."""
+        if not self._collective.acquire(blocking=wait):
+            raise RuntimeError("on a mesh one thread issues collectives at a time: run() "
+                               "and warmup() take one caller while the dispatcher is stopped")
+        try:
+            if self.failed is not None:
+                raise RuntimeError(f"the mesh engine failed: {self.failed}")
+            yield
+        except BaseException as e:
+            if self.failed is None:
+                self.failed = f"{type(e).__name__}: {e}"
+            raise
+        finally:
+            self._collective.release()
+
+    def _broadcast(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (rank 0's) broadcast over the default group: a host tensor
+        over gloo, a device tensor on the engine's stream over NCCL."""
+        import torch.distributed as dist
+
+        with self._on_wire():
+            wire = t.to(self._wire)
+            dist.broadcast(wire, 0)
+        return wire
+
+    def _on_wire(self):
+        """The stream the broadcasts (and a read of their result) run on."""
+        return (torch.cuda.stream(self.stream) if self._wire.type == "cuda"
+                else contextlib.nullcontext())
+
+    def _send_header(self, op: int, out_dtype: str | None = None, uint8: bool = False,
+                     shape: tuple = (0, 0, 0, 0)) -> None:
+        self._broadcast(torch.tensor([op, ENCODINGS.index(out_dtype), int(uint8), *shape],
+                                     dtype=torch.int64))
+
+    def _lead(self, op: str, arr: np.ndarray, out_dtype: str | None) -> _Pending:
+        """Rank 0's side of one group: validate, send the header and the
+        payload, run the group (:meth:`_group`)."""
+        self._check_caller()
+        self.validate(op, arr, out_dtype)
+        with self._collectives():
+            self._send_header(OPS.index(op), out_dtype, arr.dtype == np.uint8, arr.shape)
+            self._warm.add((op, out_dtype, arr.dtype == np.uint8) + arr.shape)
+            return self._group(op, self._broadcast(torch.from_numpy(arr)), out_dtype)
+
+    def _group(self, op: str, payload: torch.Tensor, out_dtype: str | None,
+                keep: bool = True) -> _Pending | None:
+        """One group on this rank: on a mesh its rows of the bucketed
+        payload, the forward, the outputs gathered over the data group; with
+        ``keep`` (one process, or rank 0 of a mesh) a handle to them on the
+        host."""
+        from torch.nn.utils import parametrize
+
+        from .parallel.collectives import all_gather_cat
+        from .parallel.mesh import serving_rows
+
+        rows = None if self.mesh is None else serving_rows(self.mesh, payload.shape[0])
+        # The collectives run on the engine's stream: gloo stages CUDA
+        # tensors through the host on the current stream, and an NCCL
+        # payload arrived on it. parametrize.cached: an FSDP weight is
+        # gathered once a forward, not at each read (the sublayer route
+        # reads q/k/v and the projection for the kernels' operands and for
+        # their cache keys).
+        on_stream = (torch.cuda.stream(self.stream) if self.stream is not None
+                     else contextlib.nullcontext())
+        with torch.inference_mode(), parametrize.cached(), on_stream:
+            if rows is not None:
+                payload = payload[torch.from_numpy(rows).to(payload.device)]
+            y = self._compute(op, payload.to(self.device, non_blocking=True), out_dtype)
+            if rows is not None:
+                y = all_gather_cat(y, 0, self.placement.data_group)
+            if not keep:
+                return None
+            if self.stream is None:
+                return _Pending(y)
+            host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+            host.copy_(y, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        return _Pending(host, event)
+
+    def follow(self) -> None:
+        """A follower's loop (every rank but global rank 0): run each group
+        rank 0 broadcasts until its stop header. Raises on any failure."""
+        if self.mesh is None or self.rank == 0:
+            raise RuntimeError("follow() runs on the ranks of a mesh other than rank 0")
+        while True:
+            with self._on_wire():
+                head = self._broadcast(torch.zeros(7, dtype=torch.int64)).tolist()
+            if head[0] == _STOP:
+                break
+            if head[0] == _HEARTBEAT:
+                continue
+            payload = self._broadcast(torch.zeros(
+                head[3:], dtype=torch.uint8 if head[2] else torch.float32))
+            self._group(OPS[head[0]], payload, ENCODINGS[head[1]], keep=False)
+        if self.stream is not None:
+            self.stream.synchronize()
+
+    def _heartbeat(self) -> None:
+        """Broadcast a heartbeat header from the idle dispatcher, so that a
+        follower waiting for the next header stays within the process
+        group's timeout."""
+        with self._collectives(wait=True):
+            self._send_header(_HEARTBEAT)
 
     # -- dynamic batching -------------------------------------------------
     def submit(self, op: str, arr: np.ndarray, out_dtype: str | None = None) -> np.ndarray:
@@ -151,16 +336,24 @@ class InferenceEngine:
                  for i in range(0, arr.shape[0], self.max_batch)], axis=0)
         ev = threading.Event()
         slot: dict = {}
+        if self.failed is not None:
+            raise RuntimeError(f"the mesh engine failed: {self.failed}")
         try:
             self._queue.put_nowait(((op, out_dtype), arr, ev, slot))
         except queue.Full:
             raise EngineOverloaded(f"request queue full ({self._queue.maxsize})") from None
+        if self.failed is not None:
+            # The dispatcher may have failed the queue before this request
+            # went in: it leaves its loop once failed is set.
+            self._fail_queued(f"the mesh engine failed: {self.failed}")
         ev.wait()
         if "error" in slot:
             raise RuntimeError(slot["error"])
         return slot["result"]
 
     def start(self):
+        if self.mesh is not None and self.rank != 0:
+            raise RuntimeError("on a mesh only global rank 0 runs the dispatcher")
         self._stop.clear()
         self._fetch_q = queue.Queue(maxsize=2)  # bounded in-flight pipeline
         self._thread = threading.Thread(target=self._dispatch_loop, daemon=True)
@@ -178,24 +371,41 @@ class InferenceEngine:
             self._fetch_thread.join(timeout=5)
             self._fetch_thread = None
         # Fail requests still queued, or their submit() callers block forever.
+        self._fail_queued("engine stopped")
+        # The followers leave follow(), once; a failed engine sends nothing.
+        if (self.mesh is not None and self.rank == 0 and not self._released
+                and self.failed is None):
+            self._released = True
+            with self._collectives(wait=True):
+                self._send_header(_STOP)
+
+    def _fail_queued(self, error: str) -> None:
         while True:
             try:
                 _, _, ev, slot = self._queue.get_nowait()
             except queue.Empty:
-                break
-            slot["error"] = "engine stopped"
+                return
+            slot["error"] = error
             ev.set()
 
     def _dispatch_loop(self):
         carried = None  # an incompatible request heads the NEXT group
-        while not self._stop.is_set():
+        last = time.monotonic()
+        while not self._stop.is_set() and self.failed is None:
             if carried is not None:
                 first, carried = carried, None
             else:
                 try:
                     first = self._queue.get(timeout=0.1)
                 except queue.Empty:
+                    if self.mesh is not None and time.monotonic() - last > HEARTBEAT_S:
+                        try:
+                            self._heartbeat()
+                        except Exception:  # noqa: BLE001 -- failed is set: leave the loop
+                            break
+                        last = time.monotonic()
                     continue
+            last = time.monotonic()
             group = [first]
             (op, out_dtype), arr0 = first[0], first[1]
             deadline = time.monotonic() + self.batch_window_s
@@ -225,9 +435,13 @@ class InferenceEngine:
                 for _, _, ev, slot in group:
                     slot["error"] = f"{type(e).__name__}: {e}"
                     ev.set()
-        if carried is not None:  # stop() raced a carried request: fail it
-            carried[3]["error"] = "engine stopped"
+        error = ("engine stopped" if self.failed is None
+                 else f"the mesh engine failed: {self.failed}")
+        if carried is not None:  # stop() or a failure raced a carried request
+            carried[3]["error"] = error
             carried[2].set()
+        if self.failed is not None:
+            self._fail_queued(error)
 
     def _fetch_loop(self):
         while True:
@@ -277,7 +491,9 @@ class InferenceEngine:
     def stats(self) -> dict:
         dev = (torch.cuda.get_device_name(self.device) if self.device.type == "cuda"
                else str(self.device))
-        return {"device": dev, "variant": self.model.config.variant,
+        mesh = (None if self.mesh is None else
+                dict(zip(self.mesh.mesh_dim_names, self.mesh.mesh.shape)))
+        return {"device": dev, "mesh": mesh, "variant": self.model.config.variant,
                 "warm_shapes": sorted("/".join(map(str, k)) for k in list(self._warm)),
                 "max_batch": self.max_batch}
 

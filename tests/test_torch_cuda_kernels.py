@@ -88,6 +88,34 @@ def test_ln_qkv_rope_kernel_edges(gen, b, n, c, h, w, pairing, use_rope, offset)
         _close(g, r)
 
 
+@pytest.mark.parametrize("b,n,c,width,h,w", [
+    (2, 1024, 384, 192, 32, 32),   # W % 128 == 64: each branch padded to 256
+    (2, 256, 768, 384, 16, 16),    # W % 128 == 0
+    (1, 4096, 384, 192, 64, 64),   # stage 2 of large at m = 2: ln_qkv_rope + flash
+    (2, 256, 256, 64, 16, 16),     # one head a rank (m = 4)
+])
+def test_local_heads_kernels_match_plain(gen, b, n, c, width, h, w):
+    # One rank's heads: its rows of wq/wk/wv, its columns of the projection.
+    x, ln, (wq, wk, wv, wp), _ = _sublayer_args(gen, b, n, c, h, w)
+    rows = slice(c - width, c)  # the last rank's heads
+    lw = [t[rows] for t in (wq, wk, wv)] + [wp[:, rows]]
+    got = fab.ln_qkv_rope(x, ln, *lw[:3], h, w)
+    for g, r in zip(got, fab.qkv_rope_reference(x, ln, *lw[:3], h, w)):
+        assert g.shape == (b, n, width)
+        _close(g, r)
+    core = None if n <= fab.MAX_SUBLAYER_TOKENS else (
+        lambda q, k, v: fla.flash_attention(*(t.reshape(b, n, width // 64, 64) for t in (q, k, v)),
+                                            64 ** -0.5).reshape(b, n, width))
+    fab.reset_launch_counts()
+    part = fab.local_sublayer(x, ln, *lw, h, w, core=core)
+    want = {"ln_qkv_rope": 1, "proj_bias_gemm": 1}
+    if core is None:
+        want["attention_core"] = 1
+    assert fab.launch_counts() == want
+    assert part.shape == (b, n, c)
+    _close(part, fab.local_sublayer_reference(x, ln, *lw, h, w))
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     x, ln, (wq, wk, wv, wp), bp = _sublayer_args(gen, 1, 256, 128, 16, 16)
     with pytest.raises(ValueError):

@@ -137,9 +137,19 @@ def test_row_filter_decodes_only_the_ranks_files(tmp_path, monkeypatch):
 
 
 def test_kernel_gates_refuse_a_local_head_width():
+    # The sublayer kernels take one rank's heads under tensor parallelism:
+    # whole heads of 64 within C; other widths and fp32 are refused with
+    # their reasons.
     bf = torch.bfloat16
     assert fab.kernel_supported(4096, 384, 64, bf)
-    assert fab.kernel_supported(4096, 384, 64, bf, width=384)
-    assert not fab.kernel_supported(4096, 384, 64, bf, width=192)
+    for width in (384, 192, 64):
+        assert fab.kernel_supported(4096, 384, 64, bf, width=width)
+    assert "width 96" in fab.kernel_refusal(4096, 384, 64, bf, width=96)
+    assert "width 768" in fab.kernel_refusal(4096, 384, 64, bf, width=768)
+    assert "bf16" in fab.kernel_refusal(4096, 384, 64, torch.float32, width=192)
     assert fab.sublayer_supported(256, 1536, 64, bf)
-    assert not fab.sublayer_supported(256, 1536, 64, bf, width=768)
+    assert fab.sublayer_supported(256, 1536, 64, bf, width=768)
+    assert fab.sublayer_supported(1024, 768, 64, bf, width=384)
+    assert "N=4096" in fab.sublayer_refusal(4096, 384, 64, bf, width=192)
+    assert "width 96" in fab.sublayer_refusal(256, 1536, 64, bf, width=96)
+    assert fab.proj_supported(384, bf, 192) and not fab.proj_supported(384, bf, 96)
