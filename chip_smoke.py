@@ -252,17 +252,37 @@ Phases (any failure exits non-zero and prints no result):
    bars of one process's, the parameters bit-identical across the ranks
    after the update, 104 + 52 flash launches and as many ring steps a
    rank, peak, ms and the bytes staged through host memory (gloo refuses
-   CUDA point-to-point: not a speed).
+   CUDA point-to-point: not a speed). Before (c), each kind of halo conv
+   (CONTEXT_HALO_MAP: 3x3, the stride-2 downsample, the fused upsample,
+   LPIPS's VGG conv, the int8 QConv2d) against the whole map's conv sliced,
+   forward and input gradient, fp32 without TF32 within CONTEXT_HALO_RTOL
+   of max (int8 bit-equal), and the same with every halo row zeroed, which
+   must fail it. After (c): (d) one GAN step at CONTEXT_GAN_RES b2 (VF
+   through the stub teacher, the self-perceptual term from a frozen random
+   twin, the adaptive weight, R1 and the disc loss floor) against one
+   process's, in bf16 (260 + 104 flash launches and as many ring steps a
+   rank) and in fp32 without TF32 at 256px b1 (CONTEXT_GAN_RUNS): in both
+   vf_proj's gradient within PIPE_BLOCK_GRAD_RTOL relative L2, the floor's
+   decision the same, both models bit-identical across the ranks after
+   the update; in fp32 the loss and grad norm within phase parallel's bars
+   and the adaptive weight within PARALLEL_ADAPTIVE_RTOL (in bf16 they are
+   logged beside those bars); (e) the int8 model (scope CONTEXT_INT8_SCOPE) under the group:
+   the fp32 calibration within CONTEXT_AMAX_RTOL of one process's on the
+   whole image at every site, the bf16 int8 forward's gathered
+   reconstruction's mean abs error against one process's fp32 forward
+   within CONTEXT_MEAN_RATIO of one process's int8 forward's, 52 flash
+   forwards a rank and no other kernel. The flash kernels are also held
+   and timed at (d)'s local ring shapes (CONTEXT_GAN_RING_SHAPES).
 16. pipeline (run after context, before parallel): GPipe and Switch-MoE
-   expert parallelism of the latent DiT-L/2 (full width and depth, every
-   parameter random). The flash kernels at a pipeline stage's microbatch
+   expert parallelism of the latent DiT-L/2 (full width, depth cut to
+   PIPE_DEPTH, every parameter random). The flash kernels at a pipeline stage's microbatch
    (PIPE_FLASH) held against their plain versions and timed beside SDPA
    (its backward) and their bounds. Then each run of PIPE_RUNS: one
    process's no-grad forward and step (make_dit_train_step, AdamW) saved
    to PIPE_DIR, then the run's ranks under torchrun over gloo (this script
    with --worker pipeline-<run>): (a) bf16, pipe 2, 512px latents b32 in
-   8 microbatches, core 'pallas': exactly 96 flash forward + 96 backward
-   launches a rank a step (12 blocks x 8) and 96 forwards a no-grad
+   8 microbatches, core 'pallas': exactly 48 flash forward + 48 backward
+   launches a rank a step (6 blocks x 8) and 48 forwards a no-grad
    forward; (b) 4 experts, fp32, (data, pipe, expert) = (1, 2, 2), 256px
    latents b16 in 4, no kernel launch. Each rank against one process: the
    loss (PARALLEL_LOSS_RTOL), grad norm (PARALLEL_GRAD_NORM_RTOL), the
@@ -502,13 +522,57 @@ CONTEXT_MEAN_RATIO = 1.1
 CONTEXT_SUBLAYERS = 26
 CONTEXT_RING_SHAPES = ((2, 32768, 6), (2, 8192, 12), (2, 2048, 24))
 CONTEXT_RING_CHECKED = (CONTEXT_RING,) + tuple((b, 2 * n, h) for b, n, h in CONTEXT_RING_SHAPES)
+# Phase context's halo conv check: an fp32 map [B, C, H, W] split over the
+# two ranks' rows; each conv within CONTEXT_HALO_RTOL of max of the whole
+# map's conv sliced (forward and input gradient; the int8 conv bit-equal).
+CONTEXT_HALO_MAP = (1, 128, 128, 128)
+CONTEXT_HALO_RTOL = 1e-5
+# Phase context (d): one GAN step of large f16d32 at CONTEXT_GAN_RES, global
+# b CONTEXT_GAN_BATCH (each rank its 256 rows of both images), bf16, remat
+# 'none', on the two ranks and on one process from the same weights, batch
+# and latent noise: L1, the self-perceptual term of a frozen random twin
+# (seed 1) in the LPIPS slot, VF 0.1 through the stub teacher (DINOv2 is
+# not on the card's machine) and vf_proj, GAN 0.1 with the adaptive weight
+# (unclamped), R1 (CONTEXT_GAN_R1) and the disc loss floor
+# (CONTEXT_GAN_FLOOR, under the untrained hinge loss of ~2, so D updates).
+# Every context rank runs the teacher and the discriminator on the gathered
+# images. Ring steps a rank: the encoder's 13 sublayers run 7 times forward
+# (the generator's forward and its recompute, the fresh reconstruction,
+# the twin on the reconstruction and on the target, the twin's recompute in
+# the adaptive weight's backward and in the step's) and 3 times backward,
+# the decoder's 13 three times forward and once backward; 2 steps each.
+CONTEXT_GAN_RES = 512
+CONTEXT_GAN_BATCH = 2
+CONTEXT_GAN_R1 = 10.0
+CONTEXT_GAN_FLOOR = 0.6
+CONTEXT_ENC_SUBLAYERS = 13
+CONTEXT_GAN_RING_SHAPES = ((2, 8192, 6), (2, 2048, 12), (2, 512, 24))
+# (d)'s runs, (key, dtype, batch, resolution): the bf16 step drives the
+# flash kernels; its fp32 twin without TF32 (the plain ring partials), at
+# full width but b1 at 256px so that two ranks fit on the card (at 512px
+# b1 one process peaks at 51.8 GiB), holds the loss, grad norm and
+# adaptive weight to the bars. In bf16 the GAN step's rounding moves them by percents (one
+# process against its own fp32 step, and two ranks against one process:
+# phase parallel, PERF.md), as it does in the JAX package
+# (tests/gan_step_parity.py's bf16_gaps); bf16 holds the rest.
+CONTEXT_GAN_RUNS = (("gan", "bfloat16", CONTEXT_GAN_BATCH, CONTEXT_GAN_RES),
+                    ("gan_fp32", "float32", 1, 256))
+# Phase context (e): the int8 model at CONTEXT_RES b1 (the forward's image),
+# calibrated and run under the group. Its calibration in fp32 without TF32
+# (bf16 rounds a site's maximum to 2^-8, above the bar) within
+# CONTEXT_AMAX_RTOL of one process's on the whole image; the bf16 int8
+# model quantized under the group from the bf16 calibration, as cli.serve
+# calibrates.
+CONTEXT_INT8_SCOPE = "all"
+CONTEXT_AMAX_RTOL = 1e-3
 
-# Phase pipeline: the latent DiT-L/2 (hidden 1024, depth 24, 16 heads of
-# 64), full width and depth, bf16, every parameter random, one step of
-# rectified flow (AdamW 1e-4) pipelined over the ranks of one card on gloo.
+# Phase pipeline: the latent DiT-L/2 (hidden 1024, 16 heads of 64), full
+# width, depth cut from 24 to PIPE_DEPTH (to keep the script's time; every
+# block is alike), bf16, every parameter random, one step of rectified flow
+# (AdamW 1e-4) pipelined over the ranks of one card on gloo.
 # (a) pipe 2 at 512px latents (32x32x32: N=256), global b32 in 8
 # microbatches, attention 'pallas': every block's core is the flash
-# forward and backward at PIPE_FLASH, 12 blocks x 8 microbatches a rank;
+# forward and backward at PIPE_FLASH, 6 blocks x 8 microbatches a rank;
 # (b) (data, pipe, expert) = (1, 2, 2) with 4 Switch experts at 256px
 # latents (16x16: N=64, the plain core), global b16 in 4 microbatches, in
 # fp32: the router's argmax is discontinuous, so in bf16 the rounding of a
@@ -521,6 +585,7 @@ PIPE_RUNS = {
     "b": dict(mesh=(1, 2, 2), grid=16, batch=16, micro=4, impl="auto", experts=4,
               dtype="float32"),
 }
+PIPE_DEPTH = 12
 PIPE_FLASH = (4, 256, 16)
 PIPE_SEED = 5
 PIPE_LR = 1e-4
@@ -4452,11 +4517,12 @@ def _context_inputs(what: str, shape=CONTEXT_RING):
 
 def _context_model(**kw):
     """Large f16d32 from seed 0 (fp32 parameters, bf16 compute unless
-    ``dtype`` says otherwise), the step's remat 'none'."""
+    ``dtype`` says otherwise), the step's remat 'none'; ``kw`` over
+    these."""
     from deepl_project_tpu_torch import create_transvae
 
-    return create_transvae("large", 16, 32, device="cuda", seed=0, remat=True,
-                           remat_policy="none", **kw)
+    return create_transvae("large", 16, 32, device="cuda",
+                           **{"seed": 0, "remat": True, "remat_policy": "none", **kw})
 
 
 def _context_step(model, batch, placement=None, update: bool = True) -> dict:
@@ -4502,24 +4568,279 @@ def _context_step(model, batch, placement=None, update: bool = True) -> dict:
     return row
 
 
+@contextlib.contextmanager
+def _planted_zero_halo():
+    """For the block, every halo exchange of the model (convs, the fused
+    upsample, the int8 convs) replaces the rows it adds by zeros: each
+    convolution then sees its neighbour's edge as the image's (the planted
+    fault)."""
+    import torch
+
+    from deepl_project_tpu_torch.ops import quant as quant_mod
+    from deepl_project_tpu_torch.ops import resample as resample_mod
+    from deepl_project_tpu_torch.parallel import halo as halo_mod
+
+    exchange = halo_mod.exchange_rows
+
+    def zeroed(x, top, bottom, group_):
+        xp = exchange(x, top, bottom, group_)
+        keep = torch.ones(xp.shape[2], 1, dtype=xp.dtype, device=xp.device)
+        keep[:top] = 0
+        keep[xp.shape[2] - bottom:] = 0
+        return xp * keep
+
+    halo_mod.exchange_rows = resample_mod.exchange_rows = quant_mod.exchange_rows = zeroed
+    try:
+        yield
+    finally:
+        halo_mod.exchange_rows = resample_mod.exchange_rows = quant_mod.exchange_rows = exchange
+
+
+def _halo_convs(mesh) -> dict:
+    """Each kind of halo conv of the model under ``mesh``'s context group on
+    this rank's rows of a seeded CONTEXT_HALO_MAP map (identical on every
+    rank), against the whole map's conv sliced to those rows: the 3x3
+    stride-1 conv, the stride-2 downsample conv, the fused upsample (its
+    transposed conv's halo), LPIPS's VGG conv (``conv2d_rows``), in fp32
+    without TF32, forward and input gradient for a seeded cotangent; the
+    int8 ``QConv2d`` on the bf16 map, forward. {name: [max |err|, max
+    |whole|, max |grad err|, max |whole grad|]}; the int8 conv's errors
+    must be exactly 0."""
+    import torch
+
+    from deepl_project_tpu_torch.ops.layers import Conv2d, init_conv_
+    from deepl_project_tpu_torch.ops.quant import QConv2d, quantize_weight
+    from deepl_project_tpu_torch.ops.resample import Upsample
+    from deepl_project_tpu_torch.parallel import context_parallel
+    from deepl_project_tpu_torch.parallel.context import split_rows
+    from deepl_project_tpu_torch.parallel.halo import conv2d_rows
+
+    group = mesh.get_group("context")
+    rank, size = torch.distributed.get_rank(group), torch.distributed.get_world_size(group)
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    b, c, h, w = CONTEXT_HALO_MAP
+    whole = torch.randn(b, c, h, w, generator=gen, device="cuda")
+    mods = {"conv3x3": Conv2d(c, c, 3, padding=1, device="cuda"),
+            "downsample_stride2": Conv2d(c, c, 3, stride=2, padding=1, device="cuda"),
+            "upsample_fused": Upsample(c, c, device="cuda")}
+    for m in mods.values():
+        for conv in m.modules():
+            if isinstance(conv, torch.nn.Conv2d):
+                init_conv_(conv, gen)
+    vgg_w = torch.randn(c, c, 3, 3, generator=gen, device="cuda") * (2.0 / (9 * c)) ** 0.5
+    vgg_b = torch.randn(c, generator=gen, device="cuda") * 0.1
+
+    def lpips_vgg(x):
+        from deepl_project_tpu_torch.parallel import context as cp
+
+        st = cp.current()
+        if st is None:
+            return torch.nn.functional.conv2d(x, vgg_w, vgg_b, padding=1)
+        return conv2d_rows(x, vgg_w, vgg_b, 1, (1, 1), 1, st)
+
+    mods["lpips_vgg"] = lpips_vgg
+    out = {}
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, m in mods.items():
+            x = whole.clone().requires_grad_(True)
+            want = m(x)
+            cot = torch.randn(want.shape, generator=gen, device="cuda")
+            (gw,) = torch.autograd.grad((want * cot).sum(), x)
+            local = split_rows(whole, rank, size, 2).requires_grad_(True)
+            with context_parallel(mesh):
+                got = m(local)
+            (gl,) = torch.autograd.grad((got * split_rows(cot, rank, size, 2)).sum(), local)
+            out[name] = [(got - split_rows(want.detach(), rank, size, 2)).abs().max().item(),
+                         want.abs().max().item(),
+                         (gl - split_rows(gw, rank, size, 2)).abs().max().item(),
+                         gw.abs().max().item()]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    q = QConv2d(c, c, 3, device="cuda")
+    wq, ws = quantize_weight(torch.randn(c, 3, 3, c, generator=gen, device="cuda"), axis=0)
+    with torch.no_grad():
+        q.kernel_q.copy_(wq)
+        q.kernel_scale.copy_(ws)
+        q.act_scale.fill_(float(whole.abs().max()) / 127)
+        q.bias.normal_(generator=gen)
+        xb = whole.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        want = split_rows(q(xb), rank, size, 2)
+        with context_parallel(mesh):
+            got = q(split_rows(xb, rank, size, 2))
+    out["int8_qconv"] = [(got.float() - want.float()).abs().max().item(),
+                         want.float().abs().max().item(), 0.0, 0.0]
+    return out
+
+
+def _context_gan(mesh=None, dtype: str = "bfloat16", batch: int = CONTEXT_GAN_BATCH,
+                 res: int = CONTEXT_GAN_RES) -> dict:
+    """Phase context (d)'s GAN step in ``dtype`` (fp32: TF32 off) on the
+    first ``batch`` images at ``res``: under ``mesh``'s context group
+    on this rank's rows, else on one process. Its metrics, vf_proj.kernel's
+    gradient as the step applied it (fp32, CPU), ms, peak, launches, ring
+    steps, staged bytes; under a mesh the fingerprints of both models'
+    parameters after the update."""
+    import numpy as np
+    import torch
+
+    from deepl_project_tpu_torch.data import make_dataset
+    from deepl_project_tpu_torch.losses import LossWeights, make_self_perceptual
+    from deepl_project_tpu_torch.losses.teachers import make_stub_teacher
+    from deepl_project_tpu_torch.models.discriminator import PatchDiscriminator, init_disc_weights
+    from deepl_project_tpu_torch.parallel import Placement, shard_params, shard_rows
+    from deepl_project_tpu_torch.parallel import collectives as col
+    from deepl_project_tpu_torch.parallel.ring_attention import reset_step_counts, step_counts
+    from deepl_project_tpu_torch.training.optim import make_optimizer
+    from deepl_project_tpu_torch.training.train_step import (TrainState, make_gan_train_step,
+                                                             make_vf_proj_params,
+                                                             named_trainables)
+
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
+    model = _context_model(context_axis="context", attention_impl="auto_train", dtype=dtype)
+    twin = _context_model(context_axis="context", seed=1, remat=False, dtype=dtype)
+    teacher = make_stub_teacher(device="cuda")
+    vf_proj = make_vf_proj_params(32, teacher.feature_dim, gen(41), device="cuda")
+    disc = PatchDiscriminator(dtype=getattr(torch, dtype), device="cuda")
+    init_disc_weights(disc, gen(42))
+    placement = disc_placement = None
+    if mesh is not None:
+        placement = shard_params(mesh, model, "replicate")
+        shard_params(mesh, vf_proj, "replicate", prefix="vf_proj.", placement=placement)
+        disc_placement = Placement(mesh)
+    named = named_trainables(model, vf_proj)
+    g = TrainState(0, model, make_optimizer(named, learning_rate=1e-4, warmup_steps=0,
+                                            placement=placement), vf_proj=vf_proj)
+    d = TrainState(0, disc, make_optimizer(disc.named_parameters(), learning_rate=1e-4,
+                                           warmup_steps=0, placement=disc_placement))
+    kept, apply = {}, g.optimizer.step
+
+    def keep(grads):  # the gradients the step hands its optimizer
+        kept["vf_kernel"] = grads[[n for n, _ in named].index("vf_proj.kernel")].float().cpu()
+        return apply(grads)
+
+    g.optimizer.step = keep
+    step = make_gan_train_step(
+        LossWeights(l1=1.0, lpips=1.0, kl=1e-8, vf=0.1, gan=0.1), adaptive_weight=True,
+        adaptive_max=PARALLEL_GAN_ADAPTIVE_MAX, disc_loss_floor=CONTEXT_GAN_FLOOR,
+        r1_gamma=CONTEXT_GAN_R1, seed=0, teacher_fn=teacher,
+        perceptual_fn=make_self_perceptual(twin), placement=placement,
+        disc_placement=disc_placement)
+    images = np.stack(list(make_dataset("shapes", resolution=res,
+                                        num_samples=CONTEXT_GAN_BATCH, seed=33)))[:batch]
+    batch = torch.as_tensor(shard_rows(mesh, images)).to("cuda")
+    model.train()
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    if dtype == "float32":
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    reset_step_counts()
+    col.reset_staged_counts()
+    t0 = time.perf_counter()
+    try:
+        m = step(g, d, batch)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        del g.optimizer.step  # the wrapper's cycle would keep the models alive
+    row = {"ms": (time.perf_counter() - t0) * 1e3, "launches": launches_by_name(),
+           "ring_steps": step_counts(), "staged": col.staged_counts(),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "rows": int(batch.shape[1]),
+           "vf_kernel": kept["vf_kernel"], **{k: float(v) for k, v in m.items()}}
+    if mesh is not None:
+        row["fingerprint_gen"] = _fingerprint([p for _, p in named])
+        row["fingerprint_disc"] = _fingerprint(list(disc.parameters()))
+    return row
+
+
+def _context_int8(mesh=None) -> tuple:
+    """Phase context (e) under ``mesh``'s context group on this rank's rows
+    of the forward's image, else on one process: the fp32 model's
+    calibration without TF32 ({module: {site: amax}}), then the bf16
+    model's ``quantize_model`` (scope CONTEXT_INT8_SCOPE, calibrated on the
+    same rows) and its no-grad forward, timed with its launches, ring steps,
+    routes, norm launches, staged bytes and peak. (row, sigmoid of the
+    reconstruction in fp32 (this rank's rows), amax)."""
+    import torch
+
+    from deepl_project_tpu_torch.ops import attention as attn_mod
+    from deepl_project_tpu_torch.parallel import collectives as col
+    from deepl_project_tpu_torch.parallel import context_parallel, shard_rows
+    from deepl_project_tpu_torch.parallel.ring_attention import reset_step_counts, step_counts
+    from deepl_project_tpu_torch.quantize import calibrate_amax, quantize_model
+
+    rows = shard_rows(mesh, _context_inputs("images"))
+    ambient = (lambda: context_parallel(mesh)) if mesh is not None else contextlib.nullcontext
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        f32 = _context_model(context_axis="context", dtype="float32").eval()
+        with ambient():
+            amax = calibrate_amax(f32, [rows])
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    del f32
+    torch.cuda.empty_cache()
+    calib_s = time.perf_counter() - t0
+    model = _context_model(context_axis="context", attention_impl="auto_train").eval()
+    with ambient():
+        qmodel = quantize_model(model, [rows], CONTEXT_INT8_SCOPE)
+    del model
+    torch.cuda.empty_cache()
+    x = torch.as_tensor(rows).to("cuda").permute(0, 3, 1, 2).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    reset_step_counts()
+    col.reset_staged_counts()
+    attn_mod.reset_route_counts()
+    t1 = time.perf_counter()
+    with torch.no_grad(), ambient():
+        recon = torch.sigmoid(qmodel(x)[0].float())
+    torch.cuda.synchronize()
+    row = {"ms": (time.perf_counter() - t1) * 1e3, "launches": launches_by_name(),
+           "ring_steps": step_counts(), "routes": attn_mod.route_counts(),
+           "norm_launches": norm_launches(), "staged": col.staged_counts(),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "rows": int(x.shape[2]),
+           "calibration_s": calib_s, "quantized": qmodel.config.quant_scope}
+    amax = {n: {k: float(v) for k, v in sites.items()} for n, sites in amax.items()}
+    return row, recon, amax
+
+
+def _same_on_every_rank(fp) -> tuple[bool, int]:
+    """Whether the fingerprints ``fp`` ([n, 2], ``_fingerprint``) agree on
+    every rank, and n."""
+    import torch
+    import torch.distributed as dist
+
+    lo, hi = fp.clone(), fp.clone()
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    return bool(torch.equal(lo, hi)), int(fp.shape[0])
+
+
 def context_worker() -> None:
     """A rank of phase context, started by torchrun: two processes on the
     one card over gloo, a context axis of 2 (data 1). (a) the ring alone,
-    (b) the no-grad forward, (c) the stage-1 step; results in
-    CONTEXT_DIR/rank<r>.json, the forward's gathered reconstruction in
-    CONTEXT_DIR/recon_context.pt; any failure exits non-zero."""
+    (b) the no-grad forward, the halo convs, (c) the stage-1 step, (d) the
+    GAN step, (e) the int8 model; results in CONTEXT_DIR/rank<r>.json, the
+    gathered reconstructions in CONTEXT_DIR/recon_context.pt and
+    recon_int8_context.pt, (d)'s vf_proj gradient in vf_kernel_context.pt;
+    any failure exits non-zero."""
     import torch
     import torch.distributed as dist
 
     from deepl_project_tpu_torch.ops import attention as attn_mod
-    from deepl_project_tpu_torch.ops import resample as resample_mod
     from deepl_project_tpu_torch.ops.hopper.flash_attention import (flash_backward,
                                                                     flash_forward)
     from deepl_project_tpu_torch.parallel import (context_parallel, create_mesh,
                                                   initialize_multihost, shard_params,
                                                   shard_rows)
     from deepl_project_tpu_torch.parallel import collectives as col
-    from deepl_project_tpu_torch.parallel import halo as halo_mod
     from deepl_project_tpu_torch.parallel.ring_attention import (
         reset_step_counts, ring_attention, ring_attention_reference, step_counts)
 
@@ -4603,38 +4924,52 @@ def context_worker() -> None:
     del recon, whole, x
     torch.cuda.empty_cache()
 
+    # Each kind of halo conv against the whole map's, then with the halo
+    # rows zeroed (which must fail the same bars).
+    t0 = time.time()
+    out["halo"] = _halo_convs(mesh)
+    with _planted_zero_halo():
+        out["halo_zeroed"] = _halo_convs(mesh)
+    out["halo_s"] = time.time() - t0
+    torch.cuda.empty_cache()
+
     # (c) One stage-1 step at global b2, this rank's rows of each image.
-    # First a planted fault, without the update: every halo row replaced by
-    # zeros (each convolution sees its neighbour's edge as the image's), to
-    # read how far it moves the loss and grad norm against (c)'s bars.
     placement = shard_params(mesh, model, "replicate")
     batch = torch.as_tensor(shard_rows(mesh, _context_inputs("batch"))).to("cuda")
-    exchange = halo_mod.exchange_rows
-
-    def zeroed(x, top, bottom, group_):
-        xp = exchange(x, top, bottom, group_)
-        keep = torch.ones(xp.shape[2], 1, dtype=xp.dtype, device=xp.device)
-        keep[:top] = 0
-        keep[xp.shape[2] - bottom:] = 0
-        return xp * keep
-
-    halo_mod.exchange_rows = resample_mod.exchange_rows = zeroed
-    try:
-        dist.barrier()
-        out["planted_zero_halo"] = _context_step(model, batch, placement, update=False)
-    finally:
-        halo_mod.exchange_rows = resample_mod.exchange_rows = exchange
-    torch.cuda.empty_cache()
     dist.barrier()
     row = _context_step(model, batch, placement)
     fp = row.pop("fingerprint")
-    lo, hi = fp.clone(), fp.clone()
-    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
-    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
-    row["params_bit_identical"] = bool(torch.equal(lo, hi))
-    row["params_checked"] = int(fp.shape[0])
+    row["params_bit_identical"], row["params_checked"] = _same_on_every_rank(fp)
     row["rows"] = int(batch.shape[1])
     out["step"] = row
+    del model, batch, placement
+    torch.cuda.empty_cache()
+
+    # (d) One GAN step: bf16 at CONTEXT_GAN_RES b2, its fp32 twin.
+    for key, dtype, b, res in CONTEXT_GAN_RUNS:
+        dist.barrier()
+        t0 = time.time()
+        row = _context_gan(mesh, dtype, b, res)
+        for which in ("gen", "disc"):
+            fp = row.pop(f"fingerprint_{which}")
+            row[f"{which}_bit_identical"], row[f"{which}_checked"] = _same_on_every_rank(fp)
+        vf_kernel = row.pop("vf_kernel")
+        if rank == 0:
+            torch.save(vf_kernel, os.path.join(CONTEXT_DIR, f"vf_kernel_{key}.pt"))
+        row["s"] = time.time() - t0
+        out[key] = row
+        torch.cuda.empty_cache()
+
+    # (e) The int8 model at CONTEXT_RES b1.
+    dist.barrier()
+    t0 = time.time()
+    row, recon, amax = _context_int8(mesh)
+    whole = col.all_gather_cat(recon, 2, group)
+    if rank == 0:
+        torch.save(whole.cpu(), os.path.join(CONTEXT_DIR, "recon_int8_context.pt"))
+    del recon, whole
+    row["s"], row["amax"] = time.time() - t0, amax
+    out["int8"] = row
     with open(os.path.join(CONTEXT_DIR, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
@@ -4685,9 +5020,10 @@ def _ring_partials_check(shape, gen, backward: bool) -> dict:
 
 def _ring_kernel_rows() -> dict:
     """The flash kernels at the ring's local shapes (each step: the local
-    queries against one visiting chunk of as many keys): held against their
-    plain versions as the ring runs them (:func:`_ring_partials_check`; the
-    forward also at the b1 forward's shapes), failing beyond KERNEL_RTOL of
+    queries against one visiting chunk of as many keys; (c)'s and (d)'s):
+    held against their plain versions as the ring runs them
+    (:func:`_ring_partials_check`; the forward also at the b1 forward's
+    shapes, which (e) runs too), failing beyond KERNEL_RTOL of
     max, then timed beside their plain versions, SDPA on the same local
     shape and their bounds."""
     import torch
@@ -4697,9 +5033,9 @@ def _ring_kernel_rows() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     scale, rows = 64 ** -0.5, {}
-    for shape in CONTEXT_RING_SHAPES:
+    for shape in CONTEXT_RING_SHAPES + CONTEXT_GAN_RING_SHAPES:
         checks = [(shape, _ring_partials_check(shape, gen, backward=True))]
-        if CONTEXT_FWD_BATCH != shape[0]:
+        if CONTEXT_FWD_BATCH != shape[0] and shape in CONTEXT_RING_SHAPES:
             b1 = (CONTEXT_FWD_BATCH,) + shape[1:]
             checks.append((b1, _ring_partials_check(b1, gen, backward=False)))
         for at, errs in checks:
@@ -4759,10 +5095,15 @@ def phase_context() -> None:
     processes over gloo, a context axis of 2, large f16d32 at 1024px.
     (a) the ring alone at stage 2's shape and at each stage's b2 shape
     against one process's flash attention and the plain ring; (b) the
-    no-grad forward against one process's fp32 and bf16 forwards; (c) a
-    planted fault's reading (halo rows zeroed), then the stage-1 step
-    against one process's. The flash kernels at the ring's local shapes
-    are held to their plain versions and timed in this process first."""
+    no-grad forward against one process's fp32 and bf16 forwards; each
+    kind of halo conv against the whole map's, and the same with the halo
+    rows zeroed (which must fail); (c) the stage-1 step against one
+    process's; (d) a GAN step at CONTEXT_GAN_RES with VF, the
+    self-perceptual term, the adaptive weight, R1 and the floor against one
+    process's, in bf16 and in fp32 (CONTEXT_GAN_RUNS); (e) the int8 model's
+    calibration and forward against one process's. The flash kernels at
+    the ring's local shapes are held to their plain versions and timed in
+    this process first."""
     import shutil
 
     import numpy as np
@@ -4798,6 +5139,14 @@ def phase_context() -> None:
             f"b{CONTEXT_FWD_BATCH}, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         del model
         torch.cuda.empty_cache()
+    t1 = time.time()
+    one_int8, one_int8_recon, one_amax = _context_int8()
+    one_int8_recon = one_int8_recon.cpu()
+    torch.cuda.empty_cache()
+    log(f"context (e): one process's int8 ({CONTEXT_INT8_SCOPE}) forward at {CONTEXT_RES}px "
+        f"b{CONTEXT_FWD_BATCH}: {one_int8['ms']:.1f} ms, peak {one_int8['peak_gib']:.2f} GiB, "
+        f"fp32 calibration {one_int8['calibration_s']:.1f} s; all {time.time() - t1:.1f} s "
+        f"[{CARD}]")
     model = _context_model(attention_impl="auto_train")
     batch = torch.as_tensor(_context_inputs("batch")).to("cuda")
     one = _context_step(model, batch)
@@ -4806,6 +5155,16 @@ def phase_context() -> None:
     log(f"context (c): one process's step at {CONTEXT_RES}px b{CONTEXT_STEP_BATCH}: loss "
         f"{one['total']:.6f}, grad norm {one['grad_norm']:.6f}, {one['ms']:.1f} ms, peak "
         f"{one['peak_gib']:.2f} GiB, launches {one['launches']} [{CARD}]")
+    one_gan = {}
+    for key, dtype, b, res in CONTEXT_GAN_RUNS:
+        t1 = time.time()
+        o = one_gan[key] = _context_gan(None, dtype, b, res)
+        torch.cuda.empty_cache()
+        log(f"context (d): one process's {dtype} GAN step at {res}px b{b}: loss "
+            f"{o['total']:.6f}, grad norm {o['grad_norm']:.6f}, adaptive weight "
+            f"{o['adaptive_gan_weight']:.6f}, disc loss {o['disc_loss']:.6f}, {o['ms']:.1f} ms, "
+            f"peak {o['peak_gib']:.2f} GiB, launches {o['launches']}; "
+            f"{time.time() - t1:.1f} s with the set-up [{CARD}]")
 
     proc = _torchrun(2, [os.path.join(ROOT, "chip_smoke.py"), "--worker", "context"],
                      timeout=900)
@@ -4891,21 +5250,126 @@ def phase_context() -> None:
             fail(f"context (c) rank {r}: launches {b['launches']}, ring steps "
                  f"{b['ring_steps']}; want {want} and as many ring steps")
         CONTEXT_PATHS[f"context_step_rank{r}"] = b["launches"]
-        # A reading, not a check: how far the planted fault lies from one
-        # process, beside the bars.
-        f_ = g["planted_zero_halo"]
-        log(f"context (c) rank {r}: planted fault (halo rows zeroed, no update): loss "
-            f"{f_['total']:.6f} (rel {abs(f_['total'] - one['total']) / abs(one['total']):.2e}, "
-            f"bar {PARALLEL_LOSS_RTOL}), grad norm {f_['grad_norm']:.6f} (rel "
-            f"{abs(f_['grad_norm'] - one['grad_norm']) / one['grad_norm']:.2e}, bar "
-            f"{PARALLEL_GRAD_NORM_RTOL}), {f_['ms']:.1f} ms [{CARD}]")
+
+    # The halo convs, and the planted fault, which must fail their bars.
+    for r, g in enumerate(ranks):
+        log(f"context halo convs rank {r}: {g['halo_s']:.1f} s with the planted fault")
+        for name, (e, top, ge, gtop) in g["halo"].items():
+            bitwise = name == "int8_qconv"
+            log(f"context halo conv rank {r} {name}: max_abs_err {e:.3e} (rel {e / top:.3e}), "
+                f"input grad {ge:.3e} (rel {ge / max(gtop, 1e-30):.3e}), bound "
+                f"{'bit-equal' if bitwise else CONTEXT_HALO_RTOL}")
+            ok = e == 0.0 if bitwise else (e <= CONTEXT_HALO_RTOL * top
+                                           and ge <= CONTEXT_HALO_RTOL * gtop)
+            if not ok:
+                fail(f"context: the halo conv {name} differs from the whole map's on rank {r}")
+    for name in ranks[0]["halo_zeroed"]:
+        readings = [g["halo_zeroed"][name] for g in ranks]
+        caught = any(e > (0.0 if name == "int8_qconv" else CONTEXT_HALO_RTOL * top)
+                     or ge > CONTEXT_HALO_RTOL * gtop for e, top, ge, gtop in readings)
+        log(f"context halo conv {name} with the halo rows zeroed (planted): rel err by rank "
+            f"{[f'{e / top:.3e}' for e, top, _, _ in readings]}, grad "
+            f"{[f'{ge / max(gtop, 1e-30):.3e}' for _, _, ge, gtop in readings]}: "
+            f"{'caught' if caught else 'NOT caught'}")
+        if not caught:
+            fail(f"context: the halo check of {name} passes with zeroed halo rows")
+
+    # (d) The GAN step: bf16 (the kernels' path) and its fp32 twin. Every
+    # problem of (d) and (e) is reported before the phase fails.
+    problems = []
+    enc = CONTEXT_ENC_SUBLAYERS
+    dec = CONTEXT_SUBLAYERS - enc
+    steps = {"forward": 2 * (7 * enc + 3 * dec), "backward": 2 * (3 * enc + dec)}
+    for key, dtype, bsz, res in CONTEXT_GAN_RUNS:
+        ref = one_gan[key]
+        got_vf = torch.load(os.path.join(CONTEXT_DIR, f"vf_kernel_{key}.pt"))
+        vf_err = float((got_vf - ref["vf_kernel"]).norm() / ref["vf_kernel"].norm())
+        # fp32 takes the plain ring partials: no kernel launches.
+        want = ({"flash_attention_fwd": steps["forward"], "flash_attention_bwd": steps["backward"]}
+                if dtype == "bfloat16" else {})
+        held = dtype == "float32"
+        for r, g in enumerate(ranks):
+            b = g[key]
+            rel = {k: abs(b[k] - ref[k]) / abs(ref[k])
+                   for k in ("total", "grad_norm", "adaptive_gan_weight", "disc_loss")}
+            how = "bound" if held else "bar (fp32 only)"
+            log(f"context (d) {dtype} rank {r}: {b['rows']} of {res} rows of "
+                f"b{bsz}: loss {b['total']:.6f} vs one process {ref['total']:.6f} (rel "
+                f"{rel['total']:.2e}, {how} {PARALLEL_LOSS_RTOL}), grad norm "
+                f"{b['grad_norm']:.6f} vs {ref['grad_norm']:.6f} (rel {rel['grad_norm']:.2e}, "
+                f"{how} {PARALLEL_GRAD_NORM_RTOL}), adaptive weight "
+                f"{b['adaptive_gan_weight']:.6f} vs {ref['adaptive_gan_weight']:.6f} (rel "
+                f"{rel['adaptive_gan_weight']:.2e}, {how} {PARALLEL_ADAPTIVE_RTOL}), "
+                f"vf_proj.kernel gradient rel L2 {vf_err:.2e} (bound "
+                f"{PIPE_BLOCK_GRAD_RTOL:.3e}), disc loss {b['disc_loss']:.6f} vs "
+                f"{ref['disc_loss']:.6f} (rel {rel['disc_loss']:.2e}), disc update "
+                f"{b['disc_update_scale']} vs {ref['disc_update_scale']}, vf {b['vf']:.6f} vs "
+                f"{ref['vf']:.6f}, self-perceptual {b['lpips']:.6f} vs {ref['lpips']:.6f}, R1 "
+                f"{b['disc_r1']:.4f} vs {ref['disc_r1']:.4f}; generator bit-identical across "
+                f"ranks {b['gen_bit_identical']} ({b['gen_checked']} tensors), discriminator "
+                f"{b['disc_bit_identical']} ({b['disc_checked']}); peak {b['peak_gib']:.2f} GiB "
+                f"(one process {ref['peak_gib']:.2f}), step {b['ms']:.1f} ms (one process "
+                f"{ref['ms']:.1f}; not a speed), {b['s']:.1f} s with the set-up, launches "
+                f"{b['launches']} (want {want}), ring steps {b['ring_steps']} (want {steps}), "
+                f"staged {b['staged']} [{CARD}]")
+            if held and (rel["total"] > PARALLEL_LOSS_RTOL
+                         or rel["grad_norm"] > PARALLEL_GRAD_NORM_RTOL
+                         or rel["adaptive_gan_weight"] > PARALLEL_ADAPTIVE_RTOL):
+                problems.append(f"(d) {dtype} rank {r}: loss, grad norm or adaptive weight off "
+                                f"the one process's")
+            if vf_err > PIPE_BLOCK_GRAD_RTOL or b["disc_update_scale"] != ref["disc_update_scale"]:
+                problems.append(f"(d) {dtype} rank {r}: vf_proj's gradient or the floor's "
+                                f"decision differs from the one process's")
+            if not (b["gen_bit_identical"] and b["disc_bit_identical"]):
+                problems.append(f"(d) {dtype}: the ranks' parameters differ after the update")
+            if b["launches"] != want or b["ring_steps"] != steps:
+                problems.append(f"(d) {dtype} rank {r}: launches {b['launches']}, ring steps "
+                                f"{b['ring_steps']}; want {want} and {steps}")
+            if dtype == "bfloat16":
+                CONTEXT_PATHS[f"context_gan_rank{r}"] = b["launches"]
+
+    # (e) The int8 model.
+    got = torch.load(os.path.join(CONTEXT_DIR, "recon_int8_context.pt"))
+    e_ctx = (got - exact).abs()
+    e_one = (one_int8_recon - exact).abs()
+    log(f"context (e): gathered 2-rank int8 ({CONTEXT_INT8_SCOPE}) reconstruction vs one "
+        f"process's fp32: mean_abs {e_ctx.mean():.4e} max_abs {e_ctx.max():.4e}; one process's "
+        f"int8: mean_abs {e_one.mean():.4e} max_abs {e_one.max():.4e} (ratio "
+        f"{e_ctx.mean() / e_one.mean():.3f}, bound {CONTEXT_MEAN_RATIO})")
+    if not (np.isfinite(got.numpy()).all() and e_ctx.mean() <= CONTEXT_MEAN_RATIO * e_one.mean()):
+        problems.append("(e): the int8 model under context is less accurate than on one "
+                        "process")
+    for r, g in enumerate(ranks):
+        q = g["int8"]
+        worst = max((abs(v - one_amax[m][k]) / one_amax[m][k], f"{m}.{k}")
+                    for m, sites in q["amax"].items() for k, v in sites.items())
+        log(f"context (e) rank {r}: fp32 calibration at {sum(map(len, q['amax'].values()))} "
+            f"sites, largest rel difference from one process's {worst[0]:.3e} at {worst[1]} "
+            f"(bound {CONTEXT_AMAX_RTOL}); int8 forward {q['rows']} rows of {CONTEXT_RES}, "
+            f"{q['ms']:.1f} ms (one process {one_int8['ms']:.1f}), peak {q['peak_gib']:.2f} "
+            f"GiB, routes {q['routes']}, launches {q['launches']}, ring steps "
+            f"{q['ring_steps']}, staged {q['staged']}, {q['s']:.1f} s with calibration "
+            f"({q['calibration_s']:.1f} s fp32) [{CARD}]")
+        if set(q["amax"]) != set(one_amax) or worst[0] > CONTEXT_AMAX_RTOL:
+            problems.append(f"(e) rank {r}: the calibration under context is off the whole "
+                            f"image's")
+        if (q["routes"] != {"ring": CONTEXT_SUBLAYERS} or q["norm_launches"]
+                or q["launches"] != {"flash_attention_fwd": per_fwd}
+                or q["ring_steps"] != {"forward": per_fwd}):
+            problems.append(f"(e) rank {r}: routes {q['routes']}, launches {q['launches']}; "
+                            f"want {CONTEXT_SUBLAYERS} ring routes and {per_fwd} flash forwards "
+                            f"only")
+        CONTEXT_PATHS[f"context_int8_rank{r}"] = q["launches"]
+    if problems:
+        fail("context: " + "; ".join(problems))
     shutil.rmtree(CONTEXT_DIR, ignore_errors=True)
 
 
 def _pipe_cfg(run: dict):
     from deepl_project_tpu_torch.models import get_dit_config
 
-    return get_dit_config("L", 2, attention_impl=run["impl"], pipeline_axis="pipe",
+    return get_dit_config("L", 2, depth=PIPE_DEPTH, attention_impl=run["impl"],
+                          pipeline_axis="pipe",
                           pipeline_microbatches=run["micro"], moe_experts=run["experts"],
                           dtype=run["dtype"])
 

@@ -9,17 +9,24 @@
 - VF alignment to a frozen teacher through an eagerly created projection.
 - :func:`make_self_perceptual`: the perceptual term from a trained model's
   own frozen encoder, in the LPIPS slot.
+- Under an ambient context group (``parallel.context``: every tensor is
+  this rank's rows of each image) the L1 and KL terms are means over the
+  rank's rows, LPIPS and the self-perceptual distance each image's local
+  mean averaged over the group, and the VF and GAN terms read each image's
+  gathered rows (``context.whole_rows``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import context as cp
 from ..parallel.collectives import global_mean
 from .lpips import lpips as lpips_distance
 
@@ -108,6 +115,11 @@ def make_self_perceptual(model: torch.nn.Module, frozen_state: dict | None = Non
     instead of keeping its activations beside the trained model's. The
     target's side runs under no grad.
 
+    Under an ambient context group the encoder runs context-parallel on the
+    rank's rows (``model`` must be built with ``context_axis``; otherwise
+    it raises), the recompute under the same group, and each image's
+    distance is its local-row mean averaged over the group (as LPIPS).
+
     Returns fn(recon [B, 3, H, W] in [0, 1], target) -> [B] distances."""
     if frozen_state is not None:
         model.load_state_dict(frozen_state, strict=True)
@@ -119,13 +131,18 @@ def make_self_perceptual(model: torch.nn.Module, frozen_state: dict | None = Non
         return f / (f.norm(dim=1, keepdim=True) + 1e-8)
 
     def fn(recon_img: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        state = cp.current()
         if torch.is_grad_enabled() and recon_img.requires_grad:
-            fr = checkpoint(feats, recon_img, use_reentrant=False)
+            # The recompute runs in the backward, which may run outside the
+            # caller's block.
+            run = feats if state is None else functools.partial(cp.call_in, state, feats)
+            fr = checkpoint(run, recon_img, use_reentrant=False)
         else:
             fr = feats(recon_img)
         with torch.no_grad():
             ft = feats(target)
-        return (fr - ft).square().mean(dim=(1, 2, 3))
+        d = (fr - ft).square().mean(dim=(1, 2, 3))
+        return d if state is None else global_mean(d, state.group)
 
     return fn
 
@@ -148,7 +165,9 @@ def transvae_loss(
     fp32. ``perceptual_fn`` (images in [0, 1] -> [B] distances) replaces the
     VGG-LPIPS term when given. ``data_group``: the VF hinge reads the whole
     batch's similarity (the other terms are means of this rank's rows, which
-    the gradient all-reduce averages)."""
+    the gradient all-reduce averages). Under an ambient context group the
+    VF term takes each image's whole ``mu`` and the discriminator each whole
+    reconstruction (``dino_features`` must be the whole images' too)."""
     zero = torch.zeros((), device=recon_logits.device)
     losses: dict[str, torch.Tensor] = {}
 
@@ -171,13 +190,13 @@ def transvae_loss(
                     if weights.kl > 0 else zero)
 
     if weights.vf > 0 and dino_features is not None and vf_proj is not None:
-        losses["vf"] = vf_loss(mu, dino_features, *vf_proj,
+        losses["vf"] = vf_loss(cp.whole_rows(mu), dino_features, *vf_proj,
                                data_group=data_group) * weights.vf
     else:
         losses["vf"] = zero
 
     if weights.gan > 0 and disc_apply is not None:
-        losses["gan"] = gan_generator_loss(disc_apply(recon_img)) * weights.gan
+        losses["gan"] = gan_generator_loss(disc_apply(cp.whole_rows(recon_img))) * weights.gan
     else:
         losses["gan"] = zero
 

@@ -21,7 +21,9 @@ which the training steps never make (as in the JAX package).
 rows of this rank (``parallel.shard_rows``) and computes its rows of the
 whole image's result, as the JAX model does under a mesh that shards rows
 over that axis; with no ambient group the field changes nothing. A model
-without the field refuses to run under an ambient group.
+without the field refuses to run under an ambient group. An int8 model
+(``quant='int8'``) runs under the group as the float one does: its convs
+exchange halo rows of their float input before they quantize.
 """
 
 from __future__ import annotations
@@ -72,8 +74,6 @@ class TransVAE(nn.Module):
             raise ValueError("an ambient context group shards the rows, but this model's "
                              "config leaves context_axis unset: build it with "
                              "context_axis='context'")
-        if cfg.quant is not None:
-            raise NotImplementedError("int8 under context parallelism is not ported")
         f = 2 ** (cfg.num_stages - 1)
         if rows is not None and rows % f:
             raise ValueError(

@@ -24,13 +24,24 @@ reduction axis last and contiguous (``[N, K]`` for a dense layer,
 Calibration: modules built with ``calibrate=True`` record the running
 maximum of |x| at each quantization site (:func:`record_amax`, the
 counterpart of ``sow_amax``) in their ``amax`` dict.
+
+Under an ambient context group (``parallel.context``: each map is this
+rank's rows) a :class:`QConv2d` taller than one row exchanges halo rows of
+its float input with its neighbours before it quantizes (exact: the
+quantization is elementwise and 0 quantizes to 0) and convolves with no
+padding along H; :func:`record_amax` takes each site's maximum over the
+group, so calibration returns what the whole images give.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import context as cp
+from ..parallel.halo import exchange_rows
 
 QMAX = 127.0
 # torch._int_mm on CUDA takes only M > 16 rows.
@@ -75,13 +86,18 @@ def int_mm(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor | None = None) ->
     return torch._int_mm(a, w.t(), out=out)
 
 
-def int_conv(xq: torch.Tensor, kq: torch.Tensor) -> torch.Tensor:
-    """Stride-1 'SAME' convolution of int8 NHWC ``xq`` [B, H, W, C] with
-    ``kq`` [N, kh, kw, C] (odd kh, kw): int32 [B, H, W, N], as int8 im2col
-    plus :func:`int_mm`, in chunks of images."""
-    b, h, w, c = xq.shape
+def int_conv(xq: torch.Tensor, kq: torch.Tensor, row_padding: int | None = None
+             ) -> torch.Tensor:
+    """Stride-1 convolution of int8 NHWC ``xq`` [B, H, W, C] with ``kq``
+    [N, kh, kw, C] (odd kh, kw), 'SAME' along W and ``row_padding`` zero
+    rows above and below along H ('SAME', kh // 2, by default; 0 for rows
+    that already carry their halo): int32 [B, H + 2 row_padding - kh + 1,
+    W, N], as int8 im2col plus :func:`int_mm`, in chunks of images."""
+    b, hi, w, c = xq.shape
     n, kh, kw, _ = kq.shape
-    ph, pw = kh // 2, kw // 2
+    ph = kh // 2 if row_padding is None else row_padding
+    pw = kw // 2
+    h = hi + 2 * ph - kh + 1
     k = kh * kw * c
     acc = torch.empty(b * h * w, n, dtype=torch.int32, device=xq.device)
     per = max(1, _IM2COL_BYTES // (h * w * k))
@@ -114,9 +130,11 @@ def qmatmul(x, kq, kscale, act_scale, bias=None, out_dtype=torch.bfloat16):
     return y.view(*x.shape[:-1], kq.shape[0])
 
 
-def qconv(x, kq, kscale, act_scale, bias=None, out_dtype=torch.bfloat16):
-    """NHWC int8 convolution (stride 1, 'SAME'), dequantized to ``out_dtype``."""
-    return _dequant(int_conv(quantize_act(x, act_scale), kq), act_scale, kscale,
+def qconv(x, kq, kscale, act_scale, bias=None, out_dtype=torch.bfloat16,
+          row_padding: int | None = None):
+    """NHWC int8 convolution (stride 1, 'SAME'; ``row_padding``: see
+    :func:`int_conv`), dequantized to ``out_dtype``."""
+    return _dequant(int_conv(quantize_act(x, act_scale), kq, row_padding), act_scale, kscale,
                     bias, out_dtype)
 
 
@@ -145,7 +163,9 @@ class QConv2d(nn.Module):
     """Int8 stride-1 'SAME' convolution of an NCHW map (``QConv``): buffers
     ``kernel_q`` [out, kh, kw, in] int8, ``kernel_scale`` [out],
     ``act_scale`` [] and ``bias`` [out], fp32; the output in the input's
-    dtype, channels-last in memory."""
+    dtype, channels-last in memory. Under an ambient context group a kernel
+    taller than one row first exchanges kh // 2 halo rows a side (module
+    docstring)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, *, device=None):
         super().__init__()
@@ -153,14 +173,21 @@ class QConv2d(nn.Module):
                       out_channels, True, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        state, half, rows = cp.current(), self.kernel_q.shape[1] // 2, None
+        if state is not None and half:
+            x, rows = exchange_rows(x, half, half, state.group), 0
         y = qconv(x.permute(0, 2, 3, 1), self.kernel_q, self.kernel_scale, self.act_scale,
-                  self.bias, out_dtype=x.dtype)
+                  self.bias, out_dtype=x.dtype, row_padding=rows)
         return y.permute(0, 3, 1, 2)
 
 
 def record_amax(module: nn.Module, name: str, x: torch.Tensor) -> None:
     """Fold max|x| (fp32) into ``module.amax[name]``: the running maximum of
-    a quantization site over the calibration batches."""
+    a quantization site over the calibration batches (under an ambient
+    context group, over every rank's rows)."""
     v = x.detach().float().abs().amax()
+    state = cp.current()
+    if state is not None:
+        dist.all_reduce(v, op=dist.ReduceOp.MAX, group=state.group)
     old = module.amax.get(name)
     module.amax[name] = v if old is None else torch.maximum(old, v)

@@ -13,7 +13,19 @@ each map, h = H / C. The model's modules read the ambient state
 - every GroupNorm sums its moments over the group (``ops/norms.py``);
 - RoPE reads the rows of the global (H, W) table (``ops/rope.py``);
 - attention runs the exact ring over the group
-  (``parallel/ring_attention.py``).
+  (``parallel/ring_attention.py``);
+- an int8 convolution exchanges halo rows of its float input before it
+  quantizes (``ops/quant.py``), and calibration takes each site's maximum
+  over the group.
+
+The training steps' terms that read whole images gather each image's rows
+(:func:`whole_rows`): the VF teacher and the VF term (its resize to the
+teacher's grid reads across rank boundaries), and the discriminator, in
+the generator's loss and in its own update. Every context rank computes
+those terms whole, the same value on each. The L1 and KL terms are means
+over this rank's rows; LPIPS and the self-perceptual distance each image's
+mean over its local rows, averaged over the group. Within the GAN step
+the fresh reconstruction for the discriminator runs under the group too.
 
 Every map in the model is the same fraction of its global map, so the
 global row count and this rank's first row follow from the local row count
@@ -31,6 +43,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .collectives import gather_from_group
 from .mesh import CONTEXT_AXIS, AxisState, axis_size, shard_batch
 
 
@@ -91,6 +104,20 @@ def call_in(state: ContextState | None, fn, *args, **kwargs):
     recompute runs in the backward, outside the caller's block."""
     with use(state):
         return fn(*args, **kwargs)
+
+
+def whole_rows(x: torch.Tensor) -> torch.Tensor:
+    """Each image's whole rows of this rank's NCHW rows ``x`` (H on dim 2),
+    gathered over the ambient context group; ``x`` itself without one.
+    Every rank then computes the same whole-image term from them. The
+    backward reduce-scatters, so this rank's rows receive C times their
+    share of that term's gradient; averaged over the parameter peers (data
+    x context) as the steps average, the term's gradient counts once, as
+    the row-local means' do."""
+    state = current()
+    if state is None:
+        return x
+    return gather_from_group(x, 2, state.group, reduce_grad=True)
 
 
 def split_rows(images, rank: int, size: int, dim: int = 1):

@@ -37,16 +37,20 @@
   FSDP the gathered weights are made once per forward and backward
   (``parametrize.cached``).
 - Under a placement whose mesh has a context axis of more than one rank
-  (context parallelism; stage 1 only), the batch is this rank's rows of
-  each image as well (``parallel.shard_rows``), the step runs under that
-  context group (``parallel.context_parallel``), the L1 and KL terms are
-  means over this rank's rows and LPIPS each image's distance
-  (``losses/lpips.py``), and the gradients and metrics are averaged over
-  the parameter peers (data x context): over equal shards, the gradient of
-  the global mean. The latent noise is the global draw, sliced
-  (``TransVAE.reparameterize``). What the JAX package's context tests do
-  not exercise is refused: the VF term, the self-perceptual term and the
-  GAN step (int8 models refuse in the model).
+  (context parallelism), the batch is this rank's rows of each image as
+  well (``parallel.shard_rows``), the step runs under that context group
+  (``parallel.context_parallel``), the L1 and KL terms are means over this
+  rank's rows and LPIPS and the self-perceptual term each image's distance
+  (``losses/lpips.py``, ``losses/vae_loss.py``). The VF teacher, the VF
+  term and the discriminator read each image's rows gathered from the group
+  (``context.whole_rows``), so every context rank computes them whole; the
+  gather's backward reduce-scatters. The gradients and metrics are averaged
+  over the parameter peers (data x context): over equal shards, the
+  gradient of the global loss. The GAN step's last-layer gradients and both
+  updates' gradients are averaged over the peers too; its discriminator
+  update runs on the gathered real and fresh images, and the fresh
+  reconstruction under the context group. The latent noise is the global
+  draw, sliced (``TransVAE.reparameterize``).
 """
 
 from __future__ import annotations
@@ -61,8 +65,8 @@ from torch.nn.utils import parametrize
 
 from ..losses.vae_loss import LossWeights, discriminator_loss, transvae_loss
 from ..models.transvae import adaptive_gan_weight, get_last_layer
-from ..parallel.collectives import all_reduce_mean_, reduce_metrics
-from ..parallel.context import context_parallel
+from ..parallel.collectives import all_gather_cat, all_reduce_mean_, reduce_metrics
+from ..parallel.context import context_parallel, whole_rows
 from ..parallel.sharding import canonical_name
 from .optim import _Chain
 
@@ -126,11 +130,6 @@ def _context(placement):
     return contextlib.nullcontext()
 
 
-def _refuse_context(placement, what: str) -> None:
-    if placement is not None and placement.context_size > 1:
-        raise NotImplementedError(f"{what} under context parallelism is not ported")
-
-
 def _rows(placement, rows: int) -> tuple[int, int] | None:
     """(first, total) of this rank's ``rows`` in the whole (micro)batch."""
     if placement is None:
@@ -183,7 +182,7 @@ def loss_and_metrics(model, images_nhwc: torch.Tensor, weights: LossWeights,
     x = target.to(model.config.compute_dtype)
     recon, mu, logvar = model(x, sample=sample, generator=generator,
                               noise_rows=_rows(placement, x.shape[0]), eps=noise)
-    dino = teacher_fn(target) if teacher_fn is not None else None
+    dino = teacher_fn(whole_rows(target)) if teacher_fn is not None else None
     proj = (vf_proj.kernel, vf_proj.bias) if vf_proj is not None else None
     losses = transvae_loss(recon, target, mu, logvar, weights, lpips_params=lpips_params,
                            perceptual_fn=perceptual_fn, vf_proj=proj,
@@ -212,10 +211,6 @@ def compute_grads(model, batch: torch.Tensor, weights: LossWeights,
     b = batch.shape[0]
     if b % accum_steps:
         raise ValueError(f"batch {b} does not split into {accum_steps} microbatches")
-    if teacher_fn is not None and weights.vf > 0:
-        _refuse_context(placement, "the VF term")
-    if perceptual_fn is not None:
-        _refuse_context(placement, "the self-perceptual term")
     params = [p for _, p in named_trainables(model, vf_proj)]
     for p in params:
         p.grad = None
@@ -310,10 +305,9 @@ def gan_generator_grads(model, disc, batch: torch.Tensor, weights: LossWeights,
     lpips and of gan with respect to the decoder's last conv weight, taken
     on the same graph: total = l1 + lpips + kl + vf + gan_scale * w * gan.
     ``placement``: ``batch`` is this rank's rows; the last layer's gradients,
-    the gradients and the metrics are averaged over the data group."""
-    _refuse_context(placement, "the GAN step")
+    the gradients and the metrics are averaged over the parameter peers."""
     params = [p for _, p in named_trainables(model, vf_proj)]
-    with _gathered(placement):
+    with _gathered(placement), _context(placement):
         total, metrics = loss_and_metrics(model, batch, weights, lpips_params, sample,
                                           generator, disc_apply=disc, teacher_fn=teacher_fn,
                                           vf_proj=vf_proj, perceptual_fn=perceptual_fn,
@@ -327,7 +321,7 @@ def gan_generator_grads(model, disc, batch: torch.Tensor, weights: LossWeights,
             last_grads = [_grads(rec, last, retain_graph=True)[0],
                           _grads(metrics["gan"], last, retain_graph=True)[0]]
             if placement is not None:
-                all_reduce_mean_(last_grads, placement.data_group)
+                all_reduce_mean_(last_grads, placement.peer_group)
             w = adaptive_gan_weight(*last_grads, max_weight=adaptive_max)
             total = rec + metrics["kl"] + metrics["vf"] + gan_scale * w * metrics["gan"]
             metrics["adaptive_gan_weight"] = w
@@ -335,7 +329,7 @@ def gan_generator_grads(model, disc, batch: torch.Tensor, weights: LossWeights,
         grads = _grads(total, params)
     metrics = {k: v.detach().float() for k, v in metrics.items()}
     if placement is not None:
-        all_reduce_mean_(grads, placement.data_group)
+        all_reduce_mean_(grads, placement.peer_group)
         metrics["mu_absmax"] = metrics["mu_absmax"][None]
         metrics = _reduce(placement, metrics, max_keys=("mu_absmax",))
     return grads, metrics
@@ -350,14 +344,20 @@ def discriminator_grads(disc, real: torch.Tensor, fake: torch.Tensor,
     backward) for every parameter of ``disc``, and the metrics. ``disc_loss``
     is the loss before R1 (what the floor reads). One forward of the real
     images serves the loss and R1: the JAX step's two are the same function
-    of the same input. ``placement``: the images are this rank's rows; the
-    gradients and the metrics are averaged over the data group."""
+    of the same input. ``placement``: the images are this rank's rows; under
+    a context axis each image's rows are gathered first (every context rank
+    runs the discriminator on the whole images; the R1 leaf is the gathered
+    real). The gradients and the metrics are averaged over the parameter
+    peers, which also keeps the discriminator bit-identical on every rank."""
     params = list(disc.parameters())
-    real = real.detach()
+    real, fake = real.detach(), fake.detach()
+    if placement is not None and placement.context_size > 1:
+        real = all_gather_cat(real, 2, placement.context_group)
+        fake = all_gather_cat(fake, 2, placement.context_group)
     if r1_gamma > 0:
         real.requires_grad_(True)
     real_logits = disc(real)
-    fake_logits = disc(fake.detach())
+    fake_logits = disc(fake)
     loss = discriminator_loss(real_logits, fake_logits, kind)
     metrics = {"disc_loss": loss.detach(), "disc_real_mean": real_logits.detach().mean(),
                "disc_fake_mean": fake_logits.detach().mean()}
@@ -368,7 +368,7 @@ def discriminator_grads(disc, real: torch.Tensor, fake: torch.Tensor,
         metrics["disc_r1"] = r1.detach()
     grads = _grads(loss, params)
     if placement is not None:
-        all_reduce_mean_(grads, placement.data_group)
+        all_reduce_mean_(grads, placement.peer_group)
     return grads, _reduce(placement, metrics)
 
 
@@ -422,7 +422,7 @@ def make_gan_train_step(weights: LossWeights = LossWeights(),
         gen_state.step += 1
 
         real = batch.permute(0, 3, 1, 2).float().contiguous()
-        with torch.no_grad(), _gathered(placement):
+        with torch.no_grad(), _gathered(placement), _context(placement):
             recon = model(real.to(model.config.compute_dtype), sample=True,
                           generator=step_generator(seed, step, batch.device),
                           noise_rows=_rows(placement, real.shape[0]))[0]

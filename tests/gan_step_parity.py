@@ -17,7 +17,8 @@ the hinge and leaky-ReLU kinks make the JAX step itself sensitive (at lr
 1e-2, 1e-7 relative noise in its starting weights moves its own third
 step's grad norm by ~0.6% and its fake-logit mean by ~13%; at this file's
 lr 1e-3 by ~2e-6). ``PYTHONPATH=. python tests/gan_step_parity.py`` prints
-each case's largest errors and that self-move.
+each case's largest errors and that self-move, and (``bf16_gaps``) how far
+each package's bf16 GAN step lies from its own fp32 step on each batch.
 
 Set-up choices that keep the comparison exact:
 - The latent noise is taken out: ``logvar_clip`` is (-80, 20) and
@@ -239,6 +240,55 @@ def run_case(case: str, shared: dict) -> dict:
     return worst
 
 
+# The bf16 comparison's options: the adaptive weight unclamped and R1 (as
+# chip_smoke.py's two-rank GAN step runs them).
+BF16_OPTS = dict(adaptive_weight=True, adaptive_max=1e4, r1_gamma=10.0)
+BF16_KEYS = ("grad_norm", "total", "adaptive_gan_weight", "disc_loss")
+
+
+def _one_step(package: str, dtype: str, shared: dict, batch) -> dict:
+    """One GAN step (BF16_OPTS) from the shared weights on ``batch`` with
+    the model and the discriminator computing in ``dtype``, in the JAX
+    package or the port; its metrics."""
+    micro = {**shared["micro"], "dtype": dtype}
+    if package == "jax":
+        jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+        gen_tx = jax_make_optimizer(LR, 0, max_grad_norm=CLIP)
+        disc_tx = jax_make_optimizer(LR, 0, max_grad_norm=CLIP)
+        step = jax_make_gan_train_step(JaxTransVAE(jax_get_config(VARIANT, **micro)),
+                                       JaxPatchDiscriminator(dtype=jdt), gen_tx, disc_tx,
+                                       JaxLossWeights(**WEIGHTS), **BF16_OPTS)
+        copy = lambda t: jax.tree_util.tree_map(jnp.array, t)  # noqa: E731
+        g = init_train_state({"model": copy(shared["params"])}, gen_tx)
+        d = init_train_state({"model": copy(shared["dparams"])}, disc_tx)
+        metrics = step(g, d, jnp.asarray(batch), jax.random.PRNGKey(0))[2]
+    else:
+        model = TransVAE(get_config(VARIANT, **micro), device="cpu")
+        load_jax_params(model, jax.tree_util.tree_map(np.asarray, shared["params"]))
+        disc = PatchDiscriminator(dtype=getattr(torch, dtype), device="cpu")
+        load_jax_disc_params(disc, jax.tree_util.tree_map(np.asarray, shared["dparams"]))
+        g = TrainState(0, model, make_optimizer(model.named_parameters(), LR, 0,
+                                                max_grad_norm=CLIP))
+        d = TrainState(0, disc, make_optimizer(disc.named_parameters(), LR, 0,
+                                               max_grad_norm=CLIP))
+        metrics = _port_step(BF16_OPTS)(g, d, torch.from_numpy(batch))
+    return {k: float(metrics[k]) for k in BF16_KEYS}
+
+
+def bf16_gaps(shared: dict) -> list[dict]:
+    """For each shared batch, one GAN step from the shared weights in bf16
+    and in fp32 in each package: {package: {metric: |bf16 - fp32| / |fp32|}}
+    -- how far each package's bf16 step lies from its own fp32 step."""
+    rows = []
+    for batch in shared["batches"]:
+        row = {}
+        for package in ("jax", "port"):
+            f32, b16 = (_one_step(package, dt, shared, batch) for dt in ("float32", "bfloat16"))
+            row[package] = {k: abs(b16[k] - f32[k]) / abs(f32[k]) for k in BF16_KEYS}
+        rows.append(row)
+    return rows
+
+
 def jax_self_move(shared: dict, lr: float = LR, noise: float = 1e-7) -> list[dict]:
     """The JAX step against itself: per step of case adaptive_off at ``lr``,
     the relative move of grad_norm and disc_fake_mean when the starting
@@ -274,3 +324,5 @@ if __name__ == "__main__":
         print(case, run_case(case, shared))
     for lr in (LR, 1e-2):
         print(f"JAX self-move under 1e-7 weight noise, lr {lr}", jax_self_move(shared, lr))
+    for i, row in enumerate(bf16_gaps(shared)):
+        print(f"batch {i}: bf16 step against the same package's fp32 step", row)

@@ -1,6 +1,6 @@
 """Rank jobs of the port's context-parallel tests
-(tests/test_torch_ring_attention.py, tests/test_torch_context_parallel.py),
-JAX-free: the ranks import only torch, deepl_project_tpu_torch and
+(tests/test_torch_ring_attention.py, tests/test_torch_context_parallel.py,
+tests/test_torch_context_terms.py), JAX-free: the ranks import only torch, deepl_project_tpu_torch and
 torch_parallel_jobs (whose RankPool runs them and whose micro model they
 build). Each job returns whole tensors (gathered over the ranks) so the test
 holds them to the JAX package's single-device results.
@@ -224,13 +224,17 @@ def step_reference(*args, **kw) -> dict:
 
 
 def refusals(batch) -> dict:
-    """What context parallelism refuses on a context axis of every rank,
-    by the message each raises."""
-    from deepl_project_tpu_torch.losses import LossWeights
+    """What context parallelism accepts and refuses on a context axis of
+    every rank, by the message each raises ('accepted' where it runs): the
+    VF term, the self-perceptual term, the GAN step and an int8 model run;
+    a height the downsample factor does not split, a model without
+    ``context_axis`` and LPIPS on fewer than 16 rows a rank raise."""
+    from deepl_project_tpu_torch.losses import LossWeights, make_self_perceptual
     from deepl_project_tpu_torch.losses.lpips import init_lpips_params, lpips
     from deepl_project_tpu_torch.models.discriminator import PatchDiscriminator
     from deepl_project_tpu_torch.parallel import context_parallel, shard_params, shard_rows
-    from deepl_project_tpu_torch.training.train_step import compute_grads, gan_generator_grads
+    from deepl_project_tpu_torch.training.train_step import (compute_grads, gan_generator_grads,
+                                                             make_vf_proj_params)
 
     mesh = _mesh(1, dist.get_world_size())
     out = {}
@@ -245,9 +249,14 @@ def refusals(batch) -> dict:
 
     model = _context_model({}, None)
     placement = shard_params(mesh, model, "replicate")
+    vf_proj = make_vf_proj_params(4, 8, torch.Generator().manual_seed(7))
     local = torch.as_tensor(shard_rows(mesh, batch))
     message("vf", lambda: compute_grads(model, local, LossWeights(vf=0.1, lpips=0.0, gan=0.0),
-                                        teacher_fn=J.stub_teacher, placement=placement))
+                                        teacher_fn=J.stub_teacher, vf_proj=vf_proj,
+                                        placement=placement))
+    frozen = make_self_perceptual(_context_model({}, None))
+    message("perceptual", lambda: compute_grads(model, local, LossWeights(gan=0.0),
+                                                perceptual_fn=frozen, placement=placement))
     disc = PatchDiscriminator(base_channels=8, num_layers=2, dtype=torch.float32)
     message("gan", lambda: gan_generator_grads(model, disc, local, LossWeights(lpips=0.0),
                                                placement=placement))
@@ -259,3 +268,176 @@ def refusals(batch) -> dict:
         message("lpips", lambda: lpips(init_lpips_params(torch.Generator().manual_seed(0)),
                                        x[:, :, :8], x[:, :, :8]))
     return out
+
+
+# -- the terms that read whole images, the GAN step and int8 -------------------
+def term_step(data: int, context: int, batch, noise, weights: dict, model_kw: dict,
+              state: dict, vf: dict | None = None, teacher: dict | None = None,
+              perceptual: dict | None = None, lr: float = 1e-2) -> dict:
+    """One stage-1 step of the micro model with the VF term (``teacher``:
+    ``make_stub_teacher``'s arguments, its projection included; ``vf``: the
+    projection's kernel and bias) or the self-perceptual term
+    (``perceptual``: the frozen net's model_kw and state) under a (data,
+    context) mesh of every rank: the batch and the whole latent noise handed
+    in, ``compute_grads`` then p - lr g. The metrics, the grad norm, the
+    gradients and the updated parameters, whole."""
+    from deepl_project_tpu_torch.losses import make_self_perceptual
+    from deepl_project_tpu_torch.losses.teachers import make_stub_teacher
+    from deepl_project_tpu_torch.parallel import shard_params, shard_rows
+    from deepl_project_tpu_torch.training.train_step import (VFProj, compute_grads,
+                                                             global_norm, named_trainables)
+
+    model = _context_model(model_kw, state)
+    vf_proj = None
+    if vf is not None:
+        vf_proj = VFProj(*vf["kernel"].shape)
+        vf_proj.load_state_dict({k: torch.as_tensor(v) for k, v in vf.items()})
+    mesh = _mesh(data, context)
+    placement = shard_params(mesh, model, "replicate")
+    if vf_proj is not None:
+        shard_params(mesh, vf_proj, "replicate", prefix="vf_proj.", placement=placement)
+    tfn = None if teacher is None else make_stub_teacher(**teacher)
+    pfn = None
+    if perceptual is not None:
+        pfn = make_self_perceptual(_context_model(perceptual["model_kw"], perceptual["state"]))
+    named = named_trainables(model, vf_proj)
+    names = [n for n, _ in named]
+    local = torch.as_tensor(shard_rows(mesh, batch))
+    grads, metrics = compute_grads(model, local, J._weights(**weights), teacher_fn=tfn,
+                                   vf_proj=vf_proj, perceptual_fn=pfn, placement=placement,
+                                   noise=[torch.as_tensor(noise)])
+    norm = global_norm(grads, placement, names)
+    with torch.no_grad():
+        for (_, p), g in zip(named, grads):
+            p.sub_(lr * g)
+
+    def whole(pairs):
+        return {n: t.numpy() for n, t in placement.full_state(pairs).items()}
+
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "grad_norm": float(norm),
+            "grads": whole(zip(names, grads)), "params": whole(named)}
+
+
+def perceptual_distance(data: int, context: int, recon, target, model_kw: dict,
+                        state: dict) -> dict:
+    """``make_self_perceptual``'s distances of this rank's rows of the NCHW
+    batches ``recon`` and ``target`` under a (data, context) mesh of every
+    rank, the frozen net built with ``context_axis``, and the gradient of
+    their sum by ``recon``, taken after the context block is left (the
+    checkpointed encoder's recompute must find the group again); both
+    whole."""
+    from deepl_project_tpu_torch.losses import make_self_perceptual
+    from deepl_project_tpu_torch.parallel import context_parallel, shard_rows
+
+    mesh = _mesh(data, context)
+    fn = make_self_perceptual(_context_model(model_kw, state))
+    local = torch.as_tensor(shard_rows(mesh, recon, dim=2)).requires_grad_(True)
+    with context_parallel(mesh):
+        d = fn(local, torch.as_tensor(shard_rows(mesh, target, dim=2)))
+    d.sum().backward()
+    return {"distances": _cat(d.detach(), 0, mesh.get_group("data")),
+            "grad": whole_rows(mesh, local.grad)}
+
+
+def gan_step(data: int, context: int, batch, gen: dict, vf: dict, disc: dict, teacher: dict,
+             model_kw: dict, weights: dict, opts: dict, lr: float, clip: float) -> dict:
+    """One ``make_gan_train_step`` of the micro model (its state ``gen``,
+    the VF projection ``vf``), a PatchGAN (state ``disc``) and the stub
+    teacher under a (data, context) mesh of every rank: AdamW at ``lr``
+    clipped at ``clip`` for both (the harness of
+    tests/gan_step_parity.py), the step's options ``opts``. The metrics and
+    the updated generator (whole) and discriminator parameters (this
+    rank's copy)."""
+    from deepl_project_tpu_torch.losses.teachers import make_stub_teacher
+    from deepl_project_tpu_torch.models.discriminator import PatchDiscriminator
+    from deepl_project_tpu_torch.parallel import Placement, shard_params, shard_rows
+    from deepl_project_tpu_torch.training.optim import make_optimizer
+    from deepl_project_tpu_torch.training.train_step import (TrainState, VFProj,
+                                                             make_gan_train_step,
+                                                             named_trainables)
+
+    model = _context_model(model_kw, gen)
+    vf_proj = VFProj(*vf["kernel"].shape)
+    vf_proj.load_state_dict({k: torch.as_tensor(v) for k, v in vf.items()})
+    d = PatchDiscriminator(dtype=torch.float32)
+    d.load_state_dict({k: torch.as_tensor(v) for k, v in disc.items()})
+    mesh = _mesh(data, context)
+    placement = shard_params(mesh, model, "replicate")
+    shard_params(mesh, vf_proj, "replicate", prefix="vf_proj.", placement=placement)
+    disc_placement = Placement(mesh)
+    named = named_trainables(model, vf_proj)
+    g = TrainState(0, model, make_optimizer(named, lr, 0, max_grad_norm=clip,
+                                            placement=placement), vf_proj=vf_proj)
+    ds = TrainState(0, d, make_optimizer(d.named_parameters(), lr, 0, max_grad_norm=clip,
+                                         placement=disc_placement))
+    step = make_gan_train_step(J._weights(**weights), seed=0,
+                               teacher_fn=make_stub_teacher(**teacher), placement=placement,
+                               disc_placement=disc_placement, **opts)
+    metrics = step(g, ds, torch.as_tensor(shard_rows(mesh, batch)))
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "params": {n: t.numpy() for n, t in placement.full_state(named).items()},
+            "disc": {n: p.detach().numpy().copy() for n, p in d.named_parameters()}}
+
+
+def int8(data: int, context: int, calib: list, x, model_kw: dict, state: dict,
+         scopes=("all", "resblock", "ffn")) -> dict:
+    """Int8 post-training quantization under a (data, context) mesh of
+    every rank (each data rank calibrating on its context rows of the whole
+    calibration batches): ``calibrate_amax``
+    of the micro float model on this rank's rows of ``calib``, then for
+    each scope ``quantize_model`` and the no-grad forward of this rank's
+    rows of ``x`` (decoding the mean). The amax, each scope's int8 state
+    dict and its reconstruction, whole."""
+    from deepl_project_tpu_torch.parallel import context_parallel, shard_rows
+    from deepl_project_tpu_torch.parallel.context import split_rows
+    from deepl_project_tpu_torch.quantize import calibrate_amax, quantize_model
+
+    mesh = _mesh(data, context)
+    crank = dist.get_rank(mesh.get_group("context"))
+    model = _context_model(model_kw, state).eval()
+    rows = [split_rows(torch.as_tensor(b), crank, context, 1) for b in calib]
+    with context_parallel(mesh):
+        amax = calibrate_amax(model, rows)
+    out = {"amax": {m: {k: float(v) for k, v in s.items()} for m, s in amax.items()},
+           "scopes": {}}
+    local = torch.as_tensor(shard_rows(mesh, x)).permute(0, 3, 1, 2)
+    for scope in scopes:
+        with context_parallel(mesh):
+            qmodel = quantize_model(model, rows, scope)
+        with torch.no_grad(), context_parallel(mesh):
+            recon = qmodel(local)[0]
+        out["scopes"][scope] = {
+            "state": {k: v.numpy() for k, v in qmodel.state_dict().items()},
+            "recon": whole_rows(mesh, recon)}
+    return out
+
+
+def qconv_rows(x, kernel: int, seed: int) -> dict:
+    """An int8 ``QConv2d`` (``kernel`` x ``kernel``, int8 weights and
+    scales from a seeded float conv) under a context group of every rank,
+    on this rank's rows of the bf16 map ``x``, against the whole map's int8
+    conv sliced to those rows: whether they are bit-equal, the largest
+    difference and the output's shape."""
+    from deepl_project_tpu_torch.ops.quant import QConv2d, quantize_weight
+    from deepl_project_tpu_torch.parallel import context_parallel
+    from deepl_project_tpu_torch.parallel.context import split_rows
+
+    mesh = _mesh(1, dist.get_world_size())
+    rank, size = dist.get_rank(), dist.get_world_size()
+    gen = torch.Generator().manual_seed(seed)
+    cin, cout = x.shape[1], 8
+    conv = QConv2d(cin, cout, kernel)
+    wq, ws = quantize_weight(torch.randn(cout, kernel, kernel, cin, generator=gen), axis=0)
+    with torch.no_grad():
+        conv.kernel_q.copy_(wq)
+        conv.kernel_scale.copy_(ws)
+        conv.act_scale.fill_(0.02)
+        conv.bias.copy_(torch.randn(cout, generator=gen))
+    whole = torch.as_tensor(x).to(torch.bfloat16)
+    with torch.no_grad():
+        want = split_rows(conv(whole), rank, size, 2)
+        with context_parallel(mesh):
+            got = conv(split_rows(whole, rank, size, 2))
+    return {"equal": bool(torch.equal(got, want)),
+            "err": float((got.float() - want.float()).abs().max()),
+            "shape": tuple(got.shape)}
