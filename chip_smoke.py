@@ -316,6 +316,26 @@ Phases (any failure exits non-zero and prints no result):
    ranks: a reconstruct b8 uint8 and a b8 over HTTP, held to the same
    rule, its launches to launches_per_reconstruct; the card's memory back
    after the ranks.
+18. scan (run after quant, with phase serve's weights): the scan layout
+   (scan_blocks: each stage's blocks one BlockStack of stacked parameters).
+   (a) The weights stacked by ops.stack.to_scanned_params (no second init);
+   a b32 reconstruct at 256px of each layout through InferenceEngine, the
+   rewrites and the fused norm on: max |scan - unrolled| within KERNEL_RTOL
+   of max|unrolled| (0 expected), each one's launches equal to
+   launches_per_reconstruct(256) of the unrolled model, the two timed in
+   turns. (b) One stage-1 step of each layout (SCAN_STEP_BATCH =
+   SCAN_STEP_ACCUM x 8, L1 + KL, 'auto_train', remat 'none', AdamW) from
+   the same weights and batch under torch.use_deterministic_algorithms(True)
+   after one warm-up: loss within SCAN_LOSS_RTOL and grad norm within
+   SCAN_GRAD_NORM_RTOL (bit-equality logged), exactly 12 flash forward and
+   12 deterministic flash backward launches each and no other kernel; ms in
+   turns and peak GiB. (c) python -m deepl_project_tpu_torch.cli.train
+   --variant large --gradient_checkpointing --scan_blocks --optimizer
+   adafactor --data synthetic, SCAN_CLI_STEPS steps at b SCAN_CLI_BATCH:
+   finite losses, 12 + 6 flash launches a step, a checkpoint of stacked keys
+   whose config.json says scan_blocks, reloaded through load_config
+   (model_from_checkpoint) into an InferenceEngine and one b8 reconstruct
+   with launches_per_reconstruct(256)'s launches.
 
 Launches are checked against one table per resolution (256, 512, 1024px;
 launches_per_reconstruct; phase dit's tokenizer halves, tokenizer_launches). group_norm_silu's launches are checked on every
@@ -632,6 +652,22 @@ SERVE_MESH_DIR = os.path.join(ROOT, "outputs", "chip_smoke_serve_mesh")
 SERVE_MESH_RUNS = (("tensor", 2), ("replicate", 1), ("fsdp", 2))
 SERVE_MESH_BATCH = 8
 SERVE_MESH_PATHS: dict = {}
+# Phase scan: large f16d32 in the scan layout (scan_blocks, ops/stack.py).
+# (a) phase serve's weights stacked by ops.stack.to_scanned_params, a b32
+# reconstruct at 256px with the rewrites and the fused norm on; (b) a
+# stage-1 step, SCAN_STEP_BATCH images in SCAN_STEP_ACCUM microbatches (L1
+# + KL, attention 'auto_train', remat 'none', AdamW) under
+# torch.use_deterministic_algorithms(True) on both layouts from the same
+# weights and batch, held to PERF.md section 2's step bars; (c) the README's
+# big-model command on the port for SCAN_CLI_STEPS steps at b SCAN_CLI_BATCH
+# (its checkpoint, in SCAN_DIR, served and deleted). Its paths -> launches by
+# kernel name in that path's run.
+SCAN_DIR = os.path.join(ROOT, "outputs", "chip_smoke_scan")
+SCAN_STEP_BATCH, SCAN_STEP_ACCUM = 16, 2
+SCAN_LOSS_RTOL, SCAN_GRAD_NORM_RTOL = 1e-3, 1e-2
+SCAN_CLI_STEPS, SCAN_CLI_BATCH = 3, 8
+SCAN_RECON_REPS = 3
+SCAN_PATHS: dict = {}
 
 
 def fail(msg: str):
@@ -3968,6 +4004,213 @@ def phase_quant(model, profile: bool):
 
 
 # -- phase parallel ------------------------------------------------------------
+def phase_scan(model) -> None:
+    """The scan layout on large f16d32 (phase 18): phase serve's weights
+    stacked, its reconstruct and a deterministic stage-1 step against the
+    unrolled model's, then the README's big-model command. The steps move
+    ``model``'s weights: run it after every other phase that reads them."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from deepl_project_tpu_torch.cli import train as train_cli
+    from deepl_project_tpu_torch.data import make_dataset
+    from deepl_project_tpu_torch.evaluation import model_from_checkpoint
+    from deepl_project_tpu_torch.losses import LossWeights
+    from deepl_project_tpu_torch.models import TransVAE
+    from deepl_project_tpu_torch.ops.stack import (BlockStack, from_scanned_params,
+                                                   to_scanned_params)
+    from deepl_project_tpu_torch.serving import InferenceEngine
+    from deepl_project_tpu_torch.training import (load_config, make_optimizer,
+                                                  restore_model_params)
+    from deepl_project_tpu_torch.training.train_step import (TrainState, compute_grads,
+                                                             make_train_step,
+                                                             named_trainables)
+
+    cfg = model.config
+    # A copy of its own: the unstacked tensors (stem, resamples, heads) are
+    # not shared with ``model``, whose step in (b) moves them.
+    with torch.device("meta"):
+        scan = TransVAE(cfg.replace(scan_blocks=True))
+    scan = scan.to_empty(device="cuda").eval()
+    scan.load_state_dict(to_scanned_params(model.state_dict(), cfg), strict=True)
+    stacks = [m for m in scan.modules() if isinstance(m, BlockStack)]
+    log(f"scan: {len(stacks)} stage stacks of depths {[m.depth for m in stacks]}, "
+        f"e.g. encoder.stages.4.scan.block.attn.to_q.weight "
+        f"{tuple(scan.encoder.stages[4].scan.block.attn.to_q.weight.shape)}")
+
+    # (a) The reconstruct, b32 @256px, each layout with the counters set to
+    # 0 just before and read just after.
+    imgs = np.random.default_rng(3).random((32, 256, 256, 3), dtype=np.float32)
+    engines = {"unrolled": InferenceEngine(model, max_batch=32),
+               "scan": InferenceEngine(scan, max_batch=32)}
+    want = launches_per_reconstruct(256, model=model)
+    outs = {}
+    for name, engine in engines.items():
+        engine.run("reconstruct", imgs)  # warm: operand caches, cuDNN plans
+        reset_launches()
+        outs[name] = engine.run("reconstruct", imgs)
+        got = kernel_launches()
+        by_name = launches_by_name()
+        if got != want:
+            fail(f"scan (a): {name} launches per reconstruct {got} != {want}")
+        if name == "scan":
+            SCAN_PATHS["scan_reconstruct"] = by_name
+            NORM_PATHS["scan: one 256px reconstruct of the scan layout, b32"] = got[3]
+    top = float(np.abs(outs["unrolled"]).max())
+    err = float(np.abs(outs["scan"] - outs["unrolled"]).max())
+    log(f"scan (a): reconstruct b32 @256px, scan vs unrolled max_abs={err:.3e} = "
+        f"{err / top:.3e} of max|unrolled| (bar {KERNEL_RTOL:.3e}; bit-equal: "
+        f"{bool(np.array_equal(outs['scan'], outs['unrolled']))}); launches of each = "
+        f"launches_per_reconstruct(256): {SCAN_PATHS['scan_reconstruct']}")
+    if not err <= KERNEL_RTOL * top:
+        fail("scan (a): the scan layout's reconstruct differs from the unrolled model's")
+    times: dict = {"unrolled": [], "scan": []}
+    for name in ("unrolled", "scan", "scan", "unrolled"):
+        t = time.perf_counter()
+        for _ in range(SCAN_RECON_REPS):
+            engines[name].run("reconstruct", imgs)
+        times[name].append((time.perf_counter() - t) / SCAN_RECON_REPS * 1e3)
+    log(f"time scan (a) reconstruct b32 @256px bf16 in turns (unrolled, scan, scan, "
+        f"unrolled; {SCAN_RECON_REPS} a turn): unrolled "
+        f"{[round(v, 2) for v in times['unrolled']]} ms, scan "
+        f"{[round(v, 2) for v in times['scan']]} ms [{CARD}]")
+    del engines, outs
+    # ``model`` is not used again: its card memory goes to the steps, and so
+    # do the bf16 serving operands cached in ``scan``'s modules.
+    for m in [*model.modules(), *scan.modules()]:
+        m.__dict__.pop("_operand_cache", None)
+    model.to("cpu")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) One deterministic stage-1 step of each layout, every one from the
+    # same weights (``start``, restored into the stacks before each) and
+    # batch. The step models' parameters are ``scan``'s: the scan model's
+    # the stacks themselves, the unrolled model's views of their slices.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    weights = LossWeights(l1=1.0, lpips=0.0, kl=1e-8, vf=0.0, gan=0.0)
+    batch = torch.as_tensor(np.stack(list(make_dataset(
+        "synthetic", resolution=256, num_samples=SCAN_STEP_BATCH, seed=11)))).to("cuda")
+    step_fn = make_train_step(weights, accum_steps=SCAN_STEP_ACCUM, seed=0)
+    start = {k: v.to("cpu") for k, v in scan.state_dict().items()}
+
+    def step_model(layout_cfg, sd):
+        with torch.device("meta"):
+            m = TransVAE(layout_cfg.replace(attention_impl="auto_train"))
+        m.load_state_dict(sd, strict=True, assign=True)
+        return m.train()
+
+    models = {"unrolled": step_model(cfg, from_scanned_params(scan.state_dict(), cfg)),
+              "scan": step_model(scan.config, scan.state_dict(keep_vars=True))}
+    log(f"scan (b): {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated before "
+        f"the steps")
+    per_step = SCAN_STEP_ACCUM * 6  # stage 2's 3 + 3 blocks a microbatch
+    results, step_ms = {"unrolled": [], "scan": []}, {"unrolled": [], "scan": []}
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        # A warm-up of each (no update): cuDNN and cuBLAS plans, the allocator.
+        for m in models.values():
+            compute_grads(m, batch, weights, accum_steps=SCAN_STEP_ACCUM, sample=False)
+        for name in ("unrolled", "scan", "scan", "unrolled"):
+            m = models[name]
+            scan.load_state_dict(start)
+            state = TrainState(step=0, model=m, optimizer=make_optimizer(
+                named_trainables(m), learning_rate=1e-4, warmup_steps=0))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t = time.perf_counter()
+            metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            step_ms[name].append((time.perf_counter() - t) * 1e3)
+            counts = launches_by_name()
+            if counts != {"flash_attention_fwd": per_step, "flash_attention_bwd_det": per_step}:
+                fail(f"scan (b): {name} step launched {counts}, want {per_step} flash forward "
+                     f"and {per_step} deterministic flash backward and no other kernel")
+            check_norms(f"scan (b): {name} stage-1 step (graph-building forwards)", {})
+            results[name].append((metrics["total"].item(), metrics["grad_norm"].item(),
+                                  torch.cuda.max_memory_allocated() / 2 ** 30))
+            del state, metrics
+    finally:
+        torch.use_deterministic_algorithms(was)
+    # The row of flash_attention_bwd.cu counts both of its launchers.
+    SCAN_PATHS["scan_step"] = {"flash_attention_fwd": per_step, "flash_attention_bwd": per_step}
+    (lu, gu, pu), (ls, gs, ps) = results["unrolled"][0], results["scan"][0]
+    same = len({r[:2] for rs in results.values() for r in rs}) == 1
+    log(f"scan (b): stage-1 step {SCAN_STEP_BATCH} = {SCAN_STEP_ACCUM} x "
+        f"{SCAN_STEP_BATCH // SCAN_STEP_ACCUM} deterministic: loss unrolled {lu!r} scan {ls!r} "
+        f"(rel {abs(ls - lu) / abs(lu):.3e}, bar {SCAN_LOSS_RTOL}); grad norm {gu!r} / {gs!r} "
+        f"(rel {abs(gs - gu) / gu:.3e}, bar {SCAN_GRAD_NORM_RTOL}); all four steps' loss and "
+        f"grad norm bit-equal: {same}; {per_step} flash forward + {per_step} deterministic "
+        f"backward launches each, no other kernel")
+    log(f"time scan (b) stage-1 step large f16d32 @256 batch {SCAN_STEP_BATCH} "
+        f"({SCAN_STEP_ACCUM} x {SCAN_STEP_BATCH // SCAN_STEP_ACCUM}), AdamW, deterministic, in "
+        f"turns (unrolled, scan, scan, unrolled): unrolled "
+        f"{[round(v, 1) for v in step_ms['unrolled']]} ms, scan "
+        f"{[round(v, 1) for v in step_ms['scan']]} ms; peak memory unrolled {pu:.2f} GiB, "
+        f"scan {ps:.2f} GiB [{CARD}]")
+    if not (abs(ls - lu) <= SCAN_LOSS_RTOL * abs(lu) and abs(gs - gu) <= SCAN_GRAD_NORM_RTOL * gu):
+        fail("scan (b): the scan layout's step differs from the unrolled model's")
+    del models, scan, batch, start
+    torch.cuda.empty_cache()
+
+    # (c) The README's big-model command on the port.
+    shutil.rmtree(SCAN_DIR, ignore_errors=True)
+    argv = ["--variant", "large", "--gradient_checkpointing", "--scan_blocks",
+            "--optimizer", "adafactor", "--data", "synthetic",
+            "--batch_size", str(SCAN_CLI_BATCH), "--num_epochs", "1",
+            "--steps_per_epoch", str(SCAN_CLI_STEPS), "--warmup_steps", "1",
+            "--log_every", "1", "--save_every_epochs", "1", "--output_dir", SCAN_DIR]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t = time.time()
+    train_cli.main(argv)
+    cli_s = time.time() - t
+    counts = launches_by_name()
+    cli_want = {"flash_attention_fwd": 12 * SCAN_CLI_STEPS, "flash_attention_bwd": 6 * SCAN_CLI_STEPS}
+    if counts != cli_want:
+        fail(f"scan (c): cli.train launched {counts}, want {cli_want} (remat recomputes each "
+             f"block's forward) and no other kernel")
+    check_norms("scan (c): cli.train --scan_blocks (graph-building forwards)", {})
+    SCAN_PATHS["scan_cli_train"] = counts
+    rows = _history(SCAN_DIR)
+    losses = [r["total"] for r in rows]
+    if len(losses) != SCAN_CLI_STEPS or not np.isfinite(losses).all():
+        fail(f"scan (c): losses {losses}")
+    ckpt = os.path.join(SCAN_DIR, "checkpoints")
+    saved = restore_model_params(ckpt)
+    stacked = [k for k in saved if ".scan.block." in k]
+    if not (load_config(ckpt).scan_blocks and stacked
+            and not any(".stages.4.0." in k for k in saved)):
+        fail(f"scan (c): the checkpoint is not in the scan layout ({len(stacked)} stacked keys)")
+    del saved
+    log(f"scan (c): cli.train {' '.join(argv)}: losses {[round(v, 5) for v in losses]}, "
+        f"grad_norm {[round(r['grad_norm'], 4) for r in rows]}, {counts}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, {cli_s:.1f}s with the "
+        f"build and the checkpoint; {len(stacked)} stacked keys [{CARD}]")
+    loaded = model_from_checkpoint(ckpt, "cuda")
+    engine = InferenceEngine(loaded, max_batch=SCAN_CLI_BATCH)
+    reset_launches()
+    out = engine.run("reconstruct", np.random.default_rng(4).integers(
+        0, 256, (SCAN_CLI_BATCH, 256, 256, 3), dtype=np.uint8), "uint8")
+    got = kernel_launches()
+    SCAN_PATHS["scan_cli_reconstruct"] = launches_by_name()
+    if got != want:
+        fail(f"scan (c): launches of the reloaded checkpoint's reconstruct {got} != {want}")
+    NORM_PATHS["scan: the cli.train checkpoint's 256px reconstruct, b8"] = got[3]
+    if out.shape != (SCAN_CLI_BATCH, 256, 256, 3) or out.dtype != np.uint8:
+        fail(f"scan (c): reconstruct of the reloaded checkpoint: {out.shape} {out.dtype}")
+    log(f"scan (c): the checkpoint reloaded through load_config ({type(loaded).__name__}, "
+        f"scan_blocks={loaded.config.scan_blocks}) served a b{SCAN_CLI_BATCH} reconstruct, "
+        f"launches {SCAN_PATHS['scan_cli_reconstruct']}")
+    del loaded, engine
+    shutil.rmtree(SCAN_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def _fingerprint(params) -> "torch.Tensor":
     """Two int64 checksums of each parameter's bits ([n, 2] on the CPU):
     the sum of its int32 words and their sum weighted by position mod
@@ -5706,7 +5949,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernels,grad,train,data,dit,gan,recipe,remat,serve,"
-                            "serve_mesh,time,eval,quant,context,pipeline,parallel")
+                            "serve_mesh,time,eval,quant,scan,context,pipeline,parallel")
     ap.add_argument("--worker", choices=["dp", "context", "serve-mesh", "serve-nccl",
                                          "refusal-nccl", "refusal-gloo", "refusal-gloo-p2p"]
                     + [f"pipeline-{n}" for n in PIPE_RUNS],
@@ -5801,7 +6044,7 @@ def main():
     counts = {}
     model = None
     evaluated = {}
-    if phases & {"serve", "serve_mesh", "time", "eval", "quant"}:
+    if phases & {"serve", "serve_mesh", "time", "eval", "quant", "scan"}:
         from deepl_project_tpu_torch import create_transvae
 
         model = create_transvae("large", 16, 32, device="cuda", seed=0)
@@ -5820,6 +6063,9 @@ def main():
         if "quant" in phases:
             with phase_clock("quant"):
                 phase_quant(model, args.profile)
+        if "scan" in phases:
+            with phase_clock("scan"):
+                phase_scan(model)
         del model
         torch.cuda.empty_cache()
     # The single-process phases above create no process group; phase
@@ -5982,13 +6228,13 @@ def main():
                 row["group_norm_silu_by_shape"] = {
                     str(k[1:]): r for k, r in results.items() if k[0] == "group_norm_silu"}
             kernels.append(row)
-        # Phase dit's, serve_mesh's, context's, pipeline's and parallel's
-        # paths, each driven with the counts set to 0 just before.
+        # Phase dit's, serve_mesh's, context's, pipeline's, parallel's and
+        # scan's paths, each driven with the counts set to 0 just before.
         for row in kernels:
             row.setdefault("launches_by_path", {}).update(
                 {p: c.get(row["name"], 0)
                  for p, c in {**DIT_PATHS, **SERVE_MESH_PATHS, **CONTEXT_PATHS, **PIPE_PATHS,
-                              **PARALLEL_PATHS}.items()})
+                              **PARALLEL_PATHS, **SCAN_PATHS}.items()})
             # The flash kernels at the pipelined DiT-L/2's shape: [kernel,
             # plain, bound, SDPA (its backward for flash_attention_bwd)] ms
             # and the max abs error against the plain version.

@@ -15,6 +15,10 @@ Usage:
   # Gradient checkpointing and Adafactor (batch 16 in one microbatch)
   python -m deepl_project_tpu_torch.cli.train --variant large \
       --gradient_checkpointing --optimizer adafactor --batch_size 16 ...
+  # The big-model recipe: each stage's blocks in the stacked (scan) layout,
+  # whose Adafactor clips a stage's stacked update as one block
+  python -m deepl_project_tpu_torch.cli.train --variant large \
+      --gradient_checkpointing --scan_blocks --optimizer adafactor ...
   # Stage 2: GAN finetune with a frozen encoder, resuming the stage-1
   # checkpoint in the same --output_dir (the GAN term needs --gan_weight > 0)
   python -m deepl_project_tpu_torch.cli.train --variant large --use_gan \
@@ -42,7 +46,10 @@ JAX CLI keeps 'dots' (``CLI_REMAT_POLICY``). A path's images decode on
 ``--num_workers`` threads (-1: min(cpu_count, 16)) and repeat over epochs;
 with --eval_every_steps the validation batches are the source's first
 batches (for a folder, the first training images: the JAX CLI's choice).
---scan_blocks is not ported yet: it exits non-zero with "not yet ported".
+--scan_blocks holds each stage's blocks in the JAX package's stacked layout
+(``ops.stack``; its checkpoints keep that layout and serve as they are);
+with --param_sharding fsdp or tensor it exits non-zero with "not yet
+ported" (replicate data parallelism runs).
 """
 
 from __future__ import annotations
@@ -84,7 +91,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--norm_latents", action="store_true", default=True,
                    help="GroupNorm before the latent heads")
     p.add_argument("--no_norm_latents", dest="norm_latents", action="store_false")
-    p.add_argument("--scan_blocks", action="store_true", help="not yet ported")
+    p.add_argument("--scan_blocks", action="store_true",
+                   help="each stage's blocks as one stack of parameters with a "
+                        "leading depth axis (the JAX scan layout)")
     p.add_argument("--attention_impl", default="auto_train",
                    choices=["auto", "auto_train", "xla", "xla_chunked", "pallas"],
                    help="attention dispatch; 'auto_train' takes the flash "
@@ -194,7 +203,9 @@ def source_kwargs(data: str, num_workers: int) -> dict:
 
 def unported_flags(args: argparse.Namespace) -> list[str]:
     """The flags set to what the port cannot do yet."""
-    return ["--scan_blocks"] if args.scan_blocks else []
+    if args.scan_blocks and args.param_sharding != "replicate":
+        return [f"--scan_blocks with --param_sharding {args.param_sharding}"]
+    return []
 
 
 def main(argv=None):
@@ -228,7 +239,8 @@ def main(argv=None):
                            remat=args.gradient_checkpointing,
                            remat_policy=CLI_REMAT_POLICY,
                            norm_latents=args.norm_latents,
-                           attention_impl=args.attention_impl)
+                           attention_impl=args.attention_impl,
+                           scan_blocks=args.scan_blocks)
     weights = LossWeights(l1=args.l1_weight, lpips=args.lpips_weight,
                           kl=args.kl_weight, vf=args.vf_weight,
                           gan=args.gan_weight if args.use_gan else 0.0)

@@ -4,7 +4,8 @@ with an Upsample between stages, and a final GroupNorm -> SiLU -> 3x3 conv.
 
 Output contract: unbounded logits; apply a sigmoid for [0, 1] images.
 Gradient checkpointing as in the encoder (``remat``, ``remat_resample``:
-the Upsamples). The final GroupNorm -> SiLU goes through
+the Upsamples), and so is ``scan_blocks`` (stage i stacks ``depths``
+reversed, as the JAX decoder). The final GroupNorm -> SiLU goes through
 ``norms.group_norm_silu``, as the ResBlocks' do.
 """
 
@@ -14,11 +15,11 @@ import torch
 from torch import nn
 
 from ..config import TransVAEConfig
-from ..ops.blocks import ResBlock, TransVAEBlock, resolve_remat_policy, run_block
+from ..ops.blocks import resolve_remat_policy, run_block
 from ..ops.layers import Conv2d
 from ..ops.norms import GroupNorm, gn_groups, group_norm_silu
 from ..ops.resample import Upsample
-from .encoder import resblock_kwargs, transformer_kwargs
+from .encoder import run_stage, stage
 
 
 class TransVAEDecoder(nn.Module):
@@ -35,13 +36,8 @@ class TransVAEDecoder(nn.Module):
         self.stages = nn.ModuleList()
         self.upsamples = nn.ModuleList()
         for i in range(cfg.num_stages):
-            if i >= n_transformer:
-                blocks = [ResBlock(dims[i], dims[i], **resblock_kwargs(cfg), **kw)
-                          for _ in range(depths[i])]
-            else:
-                blocks = [TransVAEBlock(**transformer_kwargs(cfg, dims[i]), **kw)
-                          for _ in range(depths[i])]
-            self.stages.append(nn.ModuleList(blocks))
+            self.stages.append(stage(cfg, i >= n_transformer, dims[i], depths[i],
+                                     self.remat_policy, kw))
             if i < cfg.num_stages - 1:
                 self.upsamples.append(Upsample(dims[i], dims[i + 1],
                                                cfg.use_dc_path, **kw))
@@ -53,10 +49,8 @@ class TransVAEDecoder(nn.Module):
         cfg = self.config
         z = z.to(cfg.compute_dtype).contiguous(memory_format=torch.channels_last)
         h = self.conv_in(z)
-        for i, stage in enumerate(self.stages):
-            for block in stage:
-                args = () if isinstance(block, ResBlock) else (deterministic,)
-                h = run_block(block, h, *args, remat=cfg.remat, policy=self.remat_policy)
+        for i, blocks in enumerate(self.stages):
+            h = run_stage(blocks, h, deterministic, cfg, self.remat_policy)
             if i < len(self.upsamples):
                 h = run_block(self.upsamples[i], h, remat=cfg.remat and cfg.remat_resample)
         return self.conv_out(group_norm_silu(self.norm_out, h))

@@ -5,7 +5,11 @@ Downsample between every pair of stages.
 ``remat``: each block runs through ``torch.utils.checkpoint`` under the
 config's ``remat_policy`` in a forward that builds a graph; with
 ``remat_resample`` the Downsamples too, saving nothing (the JAX
-``nn.remat(Downsample)`` has no policy)."""
+``nn.remat(Downsample)`` has no policy).
+
+``scan_blocks``: each stage is one ``ops.stack.BlockStack`` of its
+``depths[i]`` blocks (stacked parameters under ``stages.{i}.scan.block``),
+the JAX package's ``stage{i}_blocks``; ``stage`` builds either layout."""
 
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from ..config import TransVAEConfig
 from ..ops.blocks import ResBlock, TransVAEBlock, resolve_remat_policy, run_block
 from ..ops.layers import Conv2d
 from ..ops.resample import Downsample
+from ..ops.stack import BlockStack
 
 
 def transformer_kwargs(cfg: TransVAEConfig, dim: int) -> dict:
@@ -34,6 +39,30 @@ def resblock_kwargs(cfg: TransVAEConfig) -> dict:
                 quant=cfg.quant if cfg.quant_scope in ("all", "resblock") else None)
 
 
+def stage(cfg: TransVAEConfig, cnn: bool, dim: int, depth: int, policy, kw: dict
+          ) -> nn.Module:
+    """A stage of ``depth`` ResBlocks (``cnn``) or TransVAE blocks of width
+    ``dim``: a ModuleList, or under ``scan_blocks`` a BlockStack (the
+    ResBlocks take no ``deterministic``, as JAX's ``pass_deterministic``)."""
+    cls, kwargs = ((ResBlock, dict(in_channels=dim, out_channels=dim, **resblock_kwargs(cfg)))
+                   if cnn else (TransVAEBlock, transformer_kwargs(cfg, dim)))
+    if cfg.scan_blocks:
+        return BlockStack(cls, {**kwargs, **kw}, depth, remat=cfg.remat, policy=policy,
+                          pass_deterministic=not cnn, device=kw["device"])
+    return nn.ModuleList([cls(**kwargs, **kw) for _ in range(depth)])
+
+
+def run_stage(blocks: nn.Module, h: torch.Tensor, deterministic: bool, cfg: TransVAEConfig,
+              policy) -> torch.Tensor:
+    """A stage's blocks on ``h`` in order (each checkpointed under ``remat``)."""
+    if isinstance(blocks, BlockStack):
+        return blocks(h, deterministic)
+    for block in blocks:
+        args = () if isinstance(block, ResBlock) else (deterministic,)
+        h = run_block(block, h, *args, remat=cfg.remat, policy=policy)
+    return h
+
+
 class TransVAEEncoder(nn.Module):
     def __init__(self, cfg: TransVAEConfig, *, device=None):
         super().__init__()
@@ -46,13 +75,8 @@ class TransVAEEncoder(nn.Module):
         self.stages = nn.ModuleList()
         self.downsamples = nn.ModuleList()
         for i in range(cfg.num_stages):
-            if i < cfg.num_cnn_stages:
-                blocks = [ResBlock(dims[i], dims[i], **resblock_kwargs(cfg), **kw)
-                          for _ in range(cfg.depths[i])]
-            else:
-                blocks = [TransVAEBlock(**transformer_kwargs(cfg, dims[i]), **kw)
-                          for _ in range(cfg.depths[i])]
-            self.stages.append(nn.ModuleList(blocks))
+            self.stages.append(stage(cfg, i < cfg.num_cnn_stages, dims[i], cfg.depths[i],
+                                     self.remat_policy, kw))
             if i < cfg.num_stages - 1:
                 self.downsamples.append(Downsample(dims[i], dims[i + 1],
                                                    cfg.use_dc_path, **kw))
@@ -62,10 +86,8 @@ class TransVAEEncoder(nn.Module):
         cfg = self.config
         x = x.to(cfg.compute_dtype).contiguous(memory_format=torch.channels_last)
         h = self.conv_in(x)
-        for i, stage in enumerate(self.stages):
-            for block in stage:
-                args = () if isinstance(block, ResBlock) else (deterministic,)
-                h = run_block(block, h, *args, remat=cfg.remat, policy=self.remat_policy)
+        for i, blocks in enumerate(self.stages):
+            h = run_stage(blocks, h, deterministic, cfg, self.remat_policy)
             if i < len(self.downsamples):
                 h = run_block(self.downsamples[i], h, remat=cfg.remat and cfg.remat_resample)
         return h

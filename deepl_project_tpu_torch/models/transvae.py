@@ -24,6 +24,13 @@ over that axis; with no ambient group the field changes nothing. A model
 without the field refuses to run under an ambient group. An int8 model
 (``quant='int8'``) runs under the group as the float one does: its convs
 exchange halo rows of their float input before they quantize.
+
+``scan_blocks``: each stage's blocks are one ``ops.stack.BlockStack``, the
+JAX package's stacked layout (``stages.{i}.scan.block.*`` with a leading
+depth axis; ``ops.stack.to_scanned_params`` / ``from_scanned_params``
+convert state_dicts). The forward, the gradients and the seeded init are the
+unrolled model's, bit for bit. Not yet ported: int8 (refused as in JAX) and
+an ambient context group.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from torch import nn
 from ..config import TransVAEConfig, get_config
 from ..ops.layers import (Conv2d, init_conv_, init_linear_, init_small_conv_)
 from ..ops.norms import GroupNorm, gn_groups
+from ..ops.stack import BlockStack
 from ..parallel import context as cp
 from .decoder import TransVAEDecoder
 from .encoder import TransVAEEncoder
@@ -44,14 +52,13 @@ from .encoder import TransVAEEncoder
 class TransVAE(nn.Module):
     def __init__(self, cfg: TransVAEConfig, *, device=None):
         super().__init__()
-        if cfg.scan_blocks:
-            raise NotImplementedError(
-                "scan_blocks=True names the JAX package's stacked parameter layout; "
-                "the port's model is unrolled. Build it with scan_blocks=False and "
-                "load a scan-layout tree with utils.convert.load_jax_params "
-                "(from_scanned_params unrolls it)")
         if cfg.quant not in (None, "int8"):
             raise ValueError(f"quant must be None or 'int8', got {cfg.quant!r}")
+        if cfg.quant and cfg.scan_blocks:
+            # The JAX package's refusal (quantize.quantize_model).
+            raise ValueError("quant='int8' does not support scan_blocks param "
+                             "layouts; rebuild the checkpoint with "
+                             "scan_blocks=False (ops/stack.py converters).")
         self.config = cfg
         self.encoder = TransVAEEncoder(cfg, device=device)
         self.decoder = TransVAEDecoder(cfg, device=device)
@@ -74,6 +81,10 @@ class TransVAE(nn.Module):
             raise ValueError("an ambient context group shards the rows, but this model's "
                              "config leaves context_axis unset: build it with "
                              "context_axis='context'")
+        if cfg.scan_blocks:
+            raise NotImplementedError(
+                "scan_blocks under an ambient context group is not yet ported: build the "
+                "model with scan_blocks=False (ops.stack.from_scanned_params converts)")
         f = 2 ** (cfg.num_stages - 1)
         if rows is not None and rows % f:
             raise ValueError(
@@ -140,12 +151,27 @@ class TransVAE(nn.Module):
         return self.decode(z, deterministic), mu, logvar
 
 
+def _unrolled_modules(module: nn.Module):
+    """``module.modules()``, with each BlockStack's descendants replaced by
+    those of its blocks in order (``BlockStack.unrolled``: views of the
+    stacks' slices): the unrolled model's module order."""
+    yield module
+    for child in module.children():
+        if isinstance(child, BlockStack):
+            for j in range(child.depth):
+                yield from child.unrolled(j).modules()
+        else:
+            yield from _unrolled_modules(child)
+
+
 @torch.no_grad()
 def init_weights(model: TransVAE, generator: torch.Generator | None = None) -> TransVAE:
     """The JAX package's initializers: Kaiming fan-out normal convs,
     truncated-normal(0.02) linears, unit norm scales, zero biases, and a
-    small-variance init of the latent heads."""
-    for m in model.modules():
+    small-variance init of the latent heads. A ``scan_blocks`` model takes
+    the draws of the unrolled model from the same generator, slice j of a
+    stack those of block j."""
+    for m in _unrolled_modules(model):
         if isinstance(m, nn.Linear):
             init_linear_(m, generator)
         elif isinstance(m, nn.Conv2d):
@@ -198,8 +224,10 @@ def from_pretrained(model_name: str, checkpoint_dir: str | None = None, device=N
     ``checkpoint_dir`` first; else ``$DEEPL_PRETRAINED_DIR/<model_name>``
     where that directory exists; each a checkpoint directory of the port's
     trainer (``training/checkpoint.py``; its EMA parameters where it has
-    them, as the JAX package restores). Without either the weights are
-    random, drawn from seed 0. On ``device`` (default CUDA), in eval mode."""
+    them, as the JAX package restores; a ``scan_blocks`` checkpoint loads into
+    an unrolled model and back, ``utils.convert.in_model_layout``). Without
+    either the weights are random, drawn from seed 0. On ``device`` (default
+    CUDA), in eval mode."""
     parts = model_name.split("-")
     if len(parts) < 3:
         raise ValueError(f"Bad model name {model_name!r}; want transvae-<variant>-f<f>d<d>")
@@ -214,10 +242,11 @@ def from_pretrained(model_name: str, checkpoint_dir: str | None = None, device=N
                             seed=0 if checkpoint_dir is None else None, **kw)
     if checkpoint_dir is not None:
         from ..training.checkpoint import restore_model_params
+        from ..utils.convert import in_model_layout
 
         device = next(model.parameters()).device
-        model.load_state_dict(restore_model_params(checkpoint_dir, map_location=device),
-                              strict=True)
+        saved = restore_model_params(checkpoint_dir, map_location=device)
+        model.load_state_dict(in_model_layout(model, saved), strict=True)
     return model
 
 

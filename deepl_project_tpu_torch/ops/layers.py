@@ -10,7 +10,9 @@ exchanges halo rows with its neighbours first (``parallel.halo``).
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -48,13 +50,33 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
+# The depth slice that a stage stack's iteration runs (ops.stack), per
+# thread; None outside one.
+_DEPTH = threading.local()
+
+
+@contextlib.contextmanager
+def depth_slice(j: int):
+    """Run the enclosed forward as slice ``j`` of a stage stack: the cached
+    operands of its modules are kept per slice."""
+    outer = getattr(_DEPTH, "index", None)
+    _DEPTH.index = j
+    try:
+        yield
+    finally:
+        _DEPTH.index = outer
+
+
 class CachedOperands:
     """Mixin for modules whose forward reads tensors derived from their
     parameters (cast, packed or folded weights): made once and rebuilt when
     any of the parameters changes (another storage, or an in-place update,
     its ``_version``). A weight that FSDP gathers (``_gathered_from``: new
     storage at each use) is keyed on the slice it was gathered from, so a
-    reused allocation never hits a stale operand."""
+    reused allocation never hits a stale operand. A module that a stage
+    stack runs on each of its depth slices (ops.stack) keeps one entry a
+    slice: the slices are views of one stack, so an in-place update of the
+    stack (their shared ``_version``) remakes every slice's."""
 
     def _cached(self, name, params, make, differentiable: bool = False):
         """``make()`` under no_grad, cached per parameter version. With
@@ -66,11 +88,12 @@ class CachedOperands:
         key = tuple((src.data_ptr(), src._version)
                     for src in (getattr(p, "_gathered_from", p) for p in params))
         store = self.__dict__.setdefault("_operand_cache", {})
-        hit = store.get(name)
+        slot = (name, getattr(_DEPTH, "index", None))
+        hit = store.get(slot)
         if hit is None or hit[0] != key:
             with torch.no_grad():
                 hit = (key, make())
-            store[name] = hit
+            store[slot] = hit
         return hit[1]
 
 

@@ -128,6 +128,11 @@ def param_specs(module: nn.Module, mode: str = "replicate", model_size: int = 1,
     docstring for the one deviation)."""
     if mode not in MODES:
         raise ValueError(f"Unknown sharding mode: {mode!r}")
+    if mode != "replicate" and model_size > 1 and any(
+            ".scan.block." in n for n, _ in module.named_parameters()):
+        raise NotImplementedError(
+            f"param_sharding={mode!r} of a scan_blocks model is not yet ported: "
+            "replicate it, or build it with scan_blocks=False")
     min_size = FSDP_MIN_SIZE if fsdp_min_size is None else fsdp_min_size
     unsplit = _unsplit_modules(module, model_size) if mode == "tensor" else []
     specs = {}

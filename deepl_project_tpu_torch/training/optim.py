@@ -258,12 +258,18 @@ def jax_layout(name: str, shape) -> tuple[int, ...]:
     (``port.permute(axes)`` has the JAX shape): 4-D ``.weight``s are convs,
     [O, I, kh, kw] here and [kh, kw, I, O] there; 2-D ``.weight``s are
     linears, [O, I] here and [I, O] there; every other parameter (norm
-    scales, biases, ``vf_proj.kernel``) has one layout in both."""
-    if name.endswith(".weight") and len(shape) == 4:
-        return (2, 3, 1, 0)
-    if name.endswith(".weight") and len(shape) == 2:
-        return (1, 0)
-    return tuple(range(len(shape)))
+    scales, biases, ``vf_proj.kernel``) has one layout in both. A stage
+    stack's parameter (``.scan.block.`` in its name, ``scan_blocks``) keeps
+    its leading depth axis first, as the JAX stacked leaf does, and maps the
+    others by the same rules."""
+    lead = 1 if ".scan.block." in name else 0
+    nd = len(shape) - lead
+    axes = tuple(range(nd))
+    if name.endswith(".weight") and nd == 4:
+        axes = (2, 3, 1, 0)
+    elif name.endswith(".weight") and nd == 2:
+        axes = (1, 0)
+    return tuple(range(lead)) + tuple(a + lead for a in axes)
 
 
 def factored_dims(name: str, shape):

@@ -1,8 +1,8 @@
 """Weights from the JAX package's param pytrees into the port: the model's
 (the port's own copy of
 ``deepl_project_tpu/utils/convert.py::params_to_torch_state_dict``, which
-also takes the int8 tree of ``quantize.quantize_params`` and, through
-:func:`from_scanned_params`, the ``scan_blocks`` layout), the PatchGAN
+also takes the int8 tree of ``quantize.quantize_params`` and the
+``scan_blocks`` layout), the PatchGAN
 discriminator's (:func:`disc_params_to_torch_state_dict`), LPIPS's
 (:func:`lpips_params_from_jax`) and a trainer's {'model', 'vf_proj'} tree
 (:func:`load_jax_train_params`; ``vf_proj`` keeps its layout, kernel [D, C]
@@ -13,7 +13,10 @@ The JAX tree (numpy leaves) maps onto the reference's state_dict layout,
 which is the port's: HWIO conv kernels -> OIHW, [in, out] dense kernels ->
 [out, in], ``scale`` -> ``weight``, stage{i}_block{j} -> stages.i.j,
 down{i}/up{i} -> downsamples.i/upsamples.i with the reference's
-nn.Sequential indices, conv_0/1/2 -> conv.0/2/4, conv_dw -> conv. Int8
+nn.Sequential indices, conv_0/1/2 -> conv.0/2/4, conv_dw -> conv; in the
+``scan_blocks`` layout stage{i}_blocks/scan/block -> stages.i.scan.block,
+each leaf's leading depth axis kept and its other axes mapped as above
+(``ops.stack`` converts the state_dict between the layouts). Int8
 leaves keep their names, their kernels output channels first (HWIO ``kernel_q``
 -> [out, kh, kw, in], [in, out] ``kernel_q``/``w_head_q``/``w_fold_q`` ->
 [out, in]), as ``ops/quant.py`` stores them.
@@ -25,6 +28,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from ..ops.stack import from_scanned_params, is_scanned, to_scanned_params
 
 
 def _seq_name(sub: str, name: str) -> str:
@@ -41,25 +46,14 @@ _INT8_PLAIN = ("kernel_scale", "act_scale", "w_head_scale", "w_fold_scale",
                "act_scale_y", "act_scale_z2", "b0", "b_fold")
 
 
-def from_scanned_params(params: Mapping[str, Any], depths) -> dict:
-    """The JAX ``scan_blocks`` layout (``stage{i}_blocks/scan/block`` with a
-    leading depth axis) unrolled into ``stage{i}_block{j}``, for the encoder
-    (``depths``) and the decoder (``depths`` reversed); numpy leaves (the
-    port's copy of ``ops/stack.py::from_scanned_params``)."""
-    def take(node, j):
-        if isinstance(node, Mapping):
-            return {k: take(v, j) for k, v in node.items()}
-        return np.asarray(node)[j]
-
-    out = dict(params)
-    for top, ds in (("encoder", tuple(depths)), ("decoder", tuple(reversed(depths)))):
-        sub = dict(out[top])
-        for i, d in enumerate(ds):
-            stacked = sub.pop(f"stage{i}_blocks")["scan"]["block"]
-            for j in range(d):
-                sub[f"stage{i}_block{j}"] = take(stacked, j)
-        out[top] = sub
-    return out
+def _move(a: np.ndarray, lead: int, conv_axes) -> np.ndarray:
+    """A kernel's axes in the port's order: a 4-D one permuted by
+    ``conv_axes``, a 2-D one transposed, the ``lead`` leading (depth) axes
+    kept."""
+    nd = a.ndim - lead
+    axes = conv_axes if nd == 4 else (1, 0)
+    return np.ascontiguousarray(
+        np.transpose(a, tuple(range(lead)) + tuple(x + lead for x in axes)))
 
 
 def params_to_torch_state_dict(params: Mapping[str, Any]) -> dict:
@@ -80,18 +74,15 @@ def params_to_torch_state_dict(params: Mapping[str, Any]) -> dict:
     out: dict[str, np.ndarray] = {}
     for path, tensor in flat.items():
         leaf = path[-1]
+        lead = 1 if "scan" in path else 0  # a stacked leaf's depth axis
         if leaf == "kernel":
-            torch_leaf = "weight"
-            tensor = (np.ascontiguousarray(np.transpose(tensor, (3, 2, 0, 1)))
-                      if tensor.ndim == 4 else np.ascontiguousarray(tensor.T))
+            torch_leaf, tensor = "weight", _move(tensor, lead, (3, 2, 0, 1))
         elif leaf == "scale":
             torch_leaf = "weight"
         elif leaf == "kernel_q":
-            torch_leaf = leaf
-            tensor = (np.ascontiguousarray(np.transpose(tensor, (3, 0, 1, 2)))
-                      if tensor.ndim == 4 else np.ascontiguousarray(tensor.T))
+            torch_leaf, tensor = leaf, _move(tensor, lead, (3, 0, 1, 2))
         elif leaf in ("w_head_q", "w_fold_q"):
-            torch_leaf, tensor = leaf, np.ascontiguousarray(tensor.T)
+            torch_leaf, tensor = leaf, _move(tensor, lead, None)
         elif leaf == "bias" or leaf in _INT8_PLAIN:
             torch_leaf = leaf
         else:
@@ -99,7 +90,9 @@ def params_to_torch_state_dict(params: Mapping[str, Any]) -> dict:
 
         mods = []
         for name in path[:-1]:
-            if name.startswith("stage") and "_block" in name:
+            if name.startswith("stage") and name.endswith("_blocks"):
+                mods += ["stages", name[5:-7]]
+            elif name.startswith("stage") and "_block" in name:
                 i, j = name[5:].split("_block")
                 mods += ["stages", i, j]
             elif name.startswith("down"):
@@ -119,14 +112,27 @@ def params_to_torch_state_dict(params: Mapping[str, Any]) -> dict:
     return out
 
 
+def in_model_layout(model: torch.nn.Module, state_dict: Mapping[str, Any]) -> Mapping:
+    """``state_dict`` in the block layout of ``model`` (a TransVAE's
+    ``config.scan_blocks``): stacked for a ``scan_blocks`` model, unrolled
+    for another (``ops.stack``); as it is for a model without the field."""
+    cfg = getattr(model, "config", None)
+    scan = getattr(cfg, "scan_blocks", False)
+    if is_scanned(state_dict) and not scan:
+        return from_scanned_params(state_dict, cfg)
+    if scan and not is_scanned(state_dict):
+        return to_scanned_params(state_dict, cfg)
+    return state_dict
+
+
 @torch.no_grad()
 def load_state_dict(model: torch.nn.Module, state_dict: Mapping[str, Any]):
-    """Load a state_dict (tensors or numpy arrays) into ``model`` with
-    ``strict=True``, each tensor in the dtype and on the device of the
-    parameter it replaces."""
+    """Load a state_dict (tensors or numpy arrays, either block layout:
+    :func:`in_model_layout`) into ``model`` with ``strict=True``, each
+    tensor in the dtype and on the device of the parameter it replaces."""
     own = model.state_dict()
     sd = {}
-    for k, v in state_dict.items():
+    for k, v in in_model_layout(model, state_dict).items():
         t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
         sd[k] = t.to(device=own[k].device, dtype=own[k].dtype) if k in own else t
     model.load_state_dict(sd, strict=True)
@@ -138,10 +144,10 @@ quantized_params_to_torch_state_dict = params_to_torch_state_dict
 
 
 def load_jax_params(model: torch.nn.Module, params_np: Mapping[str, Any]):
-    """Load the JAX package's param pytree (numpy leaves; float, int8 or in
-    the ``scan_blocks`` layout) into ``model``."""
-    if any(k.endswith("_blocks") for k in params_np["encoder"]):
-        params_np = from_scanned_params(params_np, model.config.depths)
+    """Load the JAX package's param pytree (numpy leaves; float, int8, either
+    layout) into ``model``, in the model's layout: a ``scan_blocks`` tree
+    unrolled for an unrolled model, an unrolled one stacked for a
+    ``scan_blocks`` model."""
     return load_state_dict(model, params_to_torch_state_dict(params_np))
 
 
@@ -186,7 +192,8 @@ def load_jax_disc_params(disc: torch.nn.Module, params_np: Mapping[str, Any]):
 
 def load_reference_checkpoint(model: torch.nn.Module, path: str):
     """Load a reference-layout ``.pt`` file (``{'model_state_dict': ...}`` as
-    ``scripts/export_to_torch.py`` writes it, or a bare state_dict)."""
+    ``scripts/export_to_torch.py`` writes it, or a bare state_dict; either
+    block layout)."""
     raw = torch.load(path, map_location="cpu", weights_only=True)
     sd = raw.get("model_state_dict", raw) if isinstance(raw, dict) else raw
     return load_state_dict(model, {k.replace("module.", ""): v for k, v in sd.items()})

@@ -38,7 +38,8 @@ _PROBE = textwrap.dedent("""
              "models.dit", "ops.moe", "training.diffusion", "cli.train_dit",
              "cli.sample_dit", "parallel", "parallel.multihost", "parallel.mesh",
              "parallel.collectives", "parallel.sharding", "parallel.ring_attention",
-             "parallel.context", "parallel.halo", "parallel.dryrun", "parallel.pipeline"}
+             "parallel.context", "parallel.halo", "parallel.dryrun", "parallel.pipeline",
+             "ops.stack"}
     assert named <= {n.split(".", 1)[1] for n in names}, named
     import chip_smoke
     bad = sorted(m for m in sys.modules
