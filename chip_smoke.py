@@ -166,8 +166,10 @@ Phases (any failure exits non-zero and prints no result):
    InceptionV3 (seeded random params, fp32 with TF32 off) at b32 256 -> 299px
    timed beside its bound, its first 4 images against the CPU fp32 path
    (INCEPTION_RTOL), rFID of the originals against themselves (~0) and
-   against the trained model's reconstructions; pool_latents over the
-   folder, latent_diagnostics, linear_probe on the 4 class labels;
+   against the trained model's reconstructions (its scipy sqrtm in a thread
+   and cli.smoke_test in a process of its own, both beside what follows);
+   pool_latents over the folder, latent_diagnostics, linear_probe on the 4
+   class labels;
    from_pretrained('transvae-large-f16d32') through DEEPL_PRETRAINED_DIR,
    its reconstruct bit-equal to model_from_checkpoint's; python -m
    deepl_project_tpu_torch.cli.smoke_test exiting 0. Deletes its folder and
@@ -221,7 +223,17 @@ Phases (any failure exits non-zero and prints no result):
    grad norm within the bars; the parameters every rank holds whole
    bit-identical across ranks (checksums); flash launches a rank (12 + 6
    a stage-1 step, 18 + 6 a bf16 GAN step, none in fp32; 3 heads under
-   tensor); peak memory.
+   tensor); peak memory. The FSDP and tensor runs' scan-layout twins
+   (fsdp_scan, tensor_scan: the seed's weights stacked, the same rows) are
+   held to those bars against one process and against their unrolled
+   twin on each rank (launches equal, bit-equality logged, grad norm and
+   each block's first moment within the PARALLEL_SCAN_* bars). (d) `cli.train
+   --variant large --scan_blocks --param_sharding tensor --mesh_model 2
+   --gradient_checkpointing --optimizer adafactor` (the README's big-model
+   recipe) on (b)'s two ranks after its runs (cli.train takes their gloo
+   group), SCAN_TP_STEPS steps at global b SCAN_TP_BATCH: finite losses,
+   12 + 6 flash launches a rank a step, its checkpoint holding whole
+   stacks.
    (c) The stage-2 attention sublayer's two head shards of model=2 (3 of 6
    heads each, the composable route that training takes; phase serve_mesh
    drives the no-grad kernel routes) summed against the whole sublayer
@@ -232,7 +244,8 @@ Phases (any failure exits non-zero and prints no result):
    gloo's collectives on CUDA tensors, each accepted or refused, with the
    message).
 15. context (run before parallel): ring context parallelism on the one
-   card, large f16d32 at 1024px over a context axis of 2: first a probe of
+   card, large f16d32 (depth cut to CONTEXT_DEPTHS) at 1024px over a
+   context axis of 2: first a probe of
    gloo's point-to-point transfers of host and CUDA tensors (accepted or
    refused, with the message); the flash kernels timed at the ring's local
    shapes (CONTEXT_RING_SHAPES) beside their plain versions, SDPA and their
@@ -246,11 +259,14 @@ Phases (any failure exits non-zero and prints no result):
    launches and ring steps a rank, ms a call; (b) the no-grad forward,
    each rank its 512 rows: the gathered reconstruction's mean abs error
    against the fp32 forward within CONTEXT_MEAN_RATIO of one process's
-   bf16 forward's, 26 ring routes and 52 flash forwards a rank and no
-   other kernel (group_norm_silu included), peak; (c) the step on the same
+   bf16 forward's, 12 ring routes and 24 flash forwards a rank and no
+   other kernel (group_norm_silu included), peak; then the same forward on
+   the scan layout (the seed's weights stacked): its gathered
+   reconstruction within KERNEL_RTOL of max of the unrolled one's
+   (bit-equality logged), the same routes, launches and ring steps; (c) the step on the same
    weights, batch and noise: loss and grad norm within phase parallel's
    bars of one process's, the parameters bit-identical across the ranks
-   after the update, 104 + 52 flash launches and as many ring steps a
+   after the update, 48 + 24 flash launches and as many ring steps a
    rank, peak, ms and the bytes staged through host memory (gloo refuses
    CUDA point-to-point: not a speed). Before (c), each kind of halo conv
    (CONTEXT_HALO_MAP: 3x3, the stride-2 downsample, the fused upsample,
@@ -260,8 +276,9 @@ Phases (any failure exits non-zero and prints no result):
    must fail it. After (c): (d) one GAN step at CONTEXT_GAN_RES b2 (VF
    through the stub teacher, the self-perceptual term from a frozen random
    twin, the adaptive weight, R1 and the disc loss floor) against one
-   process's, in bf16 (260 + 104 flash launches and as many ring steps a
-   rank) and in fp32 without TF32 at 256px b1 (CONTEXT_GAN_RUNS): in both
+   process's, in bf16 (120 + 48 flash launches and as many ring steps a
+   rank) and in fp32 without TF32, cuDNN deterministic, at 256px b1
+   (CONTEXT_GAN_RUNS): in both
    vf_proj's gradient within PIPE_BLOCK_GRAD_RTOL relative L2, the floor's
    decision the same, both models bit-identical across the ranks after
    the update; in fp32 the loss and grad norm within phase parallel's bars
@@ -270,7 +287,7 @@ Phases (any failure exits non-zero and prints no result):
    the fp32 calibration within CONTEXT_AMAX_RTOL of one process's on the
    whole image at every site, the bf16 int8 forward's gathered
    reconstruction's mean abs error against one process's fp32 forward
-   within CONTEXT_MEAN_RATIO of one process's int8 forward's, 52 flash
+   within CONTEXT_MEAN_RATIO of one process's int8 forward's, 24 flash
    forwards a rank and no other kernel. The flash kernels are also held
    and timed at (d)'s local ring shapes (CONTEXT_GAN_RING_SHAPES).
 16. pipeline (run after context, before parallel): GPipe and Switch-MoE
@@ -281,8 +298,8 @@ Phases (any failure exits non-zero and prints no result):
    process's no-grad forward and step (make_dit_train_step, AdamW) saved
    to PIPE_DIR, then the run's ranks under torchrun over gloo (this script
    with --worker pipeline-<run>): (a) bf16, pipe 2, 512px latents b32 in
-   8 microbatches, core 'pallas': exactly 48 flash forward + 48 backward
-   launches a rank a step (6 blocks x 8) and 48 forwards a no-grad
+   8 microbatches, core 'pallas': exactly 16 flash forward + 16 backward
+   launches a rank a step (2 blocks x 8) and 16 forwards a no-grad
    forward; (b) 4 experts, fp32, (data, pipe, expert) = (1, 2, 2), 256px
    latents b16 in 4, no kernel launch. Each rank against one process: the
    loss (PARALLEL_LOSS_RTOL), grad norm (PARALLEL_GRAD_NORM_RTOL), the
@@ -291,8 +308,14 @@ Phases (any failure exits non-zero and prints no result):
    (PIPE_UPDATE_AGREE), the microbatch runs; in (a) also a reading of an
    fp32 twin's distance, the ranks' beside one process's. Logs peak memory,
    step seconds and host-staged bytes a rank (not a speed). (c)
-   `python -m deepl_project_tpu_torch.parallel.dryrun --nproc 8`: phase 5
-   (pipe x expert on (2, 2, 2)) equal to the sequential step.
+   `python -m deepl_project_tpu_torch.parallel.dryrun --nproc 8`, started
+   after the kernel timings and run beside (a) and (b): phase 5 (pipe x
+   expert on (2, 2, 2)) equal to the sequential step. Runs (a)
+   and (b) hold the blocks stacked (pipeline_axis: blocks.block.<path>
+   [depth, ...]) and each stage its consecutive slices; each block's
+   gradient is its slice of the stack. Then one process's DiT-L/2 of run
+   (a) built with scan_blocks and unrolled from the same seed: the no-grad
+   forward bit-equal, PIPE_DEPTH flash forwards each.
 
 17. serve_mesh (run after serve): large f16d32 @256px with phase serve's
    random weights (handed to the ranks in a checkpoint file) served by two
@@ -314,8 +337,13 @@ Phases (any failure exits non-zero and prints no result):
    join_mesh over NCCL (the backend of a multi-card deployment; headers
    and payloads broadcast on the engine's stream), run beside the two
    ranks: a reconstruct b8 uint8 and a b8 over HTTP, held to the same
-   rule, its launches to launches_per_reconstruct; the card's memory back
-   after the ranks.
+   rule, its launches to launches_per_reconstruct; (e) tensor_scan: the
+   same weights in the scan layout (a scan_blocks checkpoint) under
+   'tensor' at model 2 through cli.serve.build_engine, the b8
+   reconstruct, held to the same rule, the same
+   launches and routes as (a) (the sublayer kernels on a rank's heads
+   inside the stacks), bit-equality with (a)'s responses logged; the
+   card's memory back after the ranks.
 18. scan (run after quant, with phase serve's weights): the scan layout
    (scan_blocks: each stage's blocks one BlockStack of stacked parameters).
    (a) The weights stacked by ops.stack.to_scanned_params (no second init);
@@ -335,7 +363,12 @@ Phases (any failure exits non-zero and prints no result):
    finite losses, 12 + 6 flash launches a step, a checkpoint of stacked keys
    whose config.json says scan_blocks, reloaded through load_config
    (model_from_checkpoint) into an InferenceEngine and one b8 reconstruct
-   with launches_per_reconstruct(256)'s launches.
+   with launches_per_reconstruct(256)'s launches. (d) The extrapolation
+   sweep of that checkpoint at SCAN_SWEEP (256, 512px; EVAL_IMAGES images
+   in chunks of EVAL_CHUNKS) against the same weights unrolled: one chunk's
+   logits within KERNEL_RTOL of max (bit-equality logged), each layout's
+   launches launches_per_reconstruct(res) (512px: 12 small_attention
+   launches a chunk, stage 4 inside its stack).
 
 Launches are checked against one table per resolution (256, 512, 1024px;
 launches_per_reconstruct; phase dit's tokenizer halves, tokenizer_launches). group_norm_silu's launches are checked on every
@@ -518,6 +551,16 @@ PAIR_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 PARALLEL_BATCH = 8
 PARALLEL_LOSS_RTOL = 1e-3
 PARALLEL_GRAD_NORM_RTOL = 1e-2
+# A scan-layout twin (fsdp_scan, tensor_scan) against its unrolled run on
+# the same rank: grad norm within PARALLEL_SCAN_GRAD_NORM_RTOL, and each
+# block's first moment after the step (_moment_stats: by the unrolled
+# name, a stack's slice j as block j) within PARALLEL_SCAN_SLICE_RTOL in
+# its sum of squares and, over its norm, in its position-weighted sum (on
+# the card <= 5.5e-3 apart, from the flash backward's run-dependent dq; two
+# slices or two ranks' shards swapped move the latter by 0.36-0.89 in the
+# micro model on the CPU).
+PARALLEL_SCAN_GRAD_NORM_RTOL = 1e-3
+PARALLEL_SCAN_SLICE_RTOL = 3e-2
 PARALLEL_ADAPTIVE_RTOL = 1e-2
 PARALLEL_GAN_ADAPTIVE_MAX = 1e4
 PARALLEL_GAN_FLOOR = 2.0
@@ -528,7 +571,7 @@ PARALLEL_GAN_FLOOR = 2.0
 # process's bf16 forward in mean abs error against one process's fp32 (the
 # serve phase's rule for a rounding change); (c) one stage-1 step at global
 # CONTEXT_STEP_BATCH against one process (phase parallel's bars). The
-# model's CONTEXT_SUBLAYERS attention sublayers (13 encoder, 13 decoder)
+# model's CONTEXT_SUBLAYERS attention sublayers (half encoder, half decoder)
 # each run a ring of 2 steps; the flash kernels are held to their plain
 # versions and timed at the step's local ring shapes (stages 2-4,
 # CONTEXT_RING_SHAPES; the forward also at CONTEXT_FWD_BATCH), and the
@@ -539,7 +582,12 @@ CONTEXT_RING = (1, 65536, 6)
 CONTEXT_FWD_BATCH = 1
 CONTEXT_STEP_BATCH = 2
 CONTEXT_MEAN_RATIO = 1.1
-CONTEXT_SUBLAYERS = 26
+# The phase's large f16d32: full width, the depth of each stage cut from
+# (3, 3, 3, 4, 6) to CONTEXT_DEPTHS to keep the script's time (since PR 20;
+# two blocks a transformer stage keep a stack of depth 2 in the scan
+# layout's forward).
+CONTEXT_DEPTHS = (1, 1, 2, 2, 2)
+CONTEXT_SUBLAYERS = 2 * sum(CONTEXT_DEPTHS[2:])
 CONTEXT_RING_SHAPES = ((2, 32768, 6), (2, 8192, 12), (2, 2048, 24))
 CONTEXT_RING_CHECKED = (CONTEXT_RING,) + tuple((b, 2 * n, h) for b, n, h in CONTEXT_RING_SHAPES)
 # Phase context's halo conv check: an fp32 map [B, C, H, W] split over the
@@ -556,20 +604,20 @@ CONTEXT_HALO_RTOL = 1e-5
 # (unclamped), R1 (CONTEXT_GAN_R1) and the disc loss floor
 # (CONTEXT_GAN_FLOOR, under the untrained hinge loss of ~2, so D updates).
 # Every context rank runs the teacher and the discriminator on the gathered
-# images. Ring steps a rank: the encoder's 13 sublayers run 7 times forward
+# images. Ring steps a rank: the encoder's sublayers run 7 times forward
 # (the generator's forward and its recompute, the fresh reconstruction,
 # the twin on the reconstruction and on the target, the twin's recompute in
 # the adaptive weight's backward and in the step's) and 3 times backward,
-# the decoder's 13 three times forward and once backward; 2 steps each.
+# the decoder's three times forward and once backward; 2 steps each.
 CONTEXT_GAN_RES = 512
 CONTEXT_GAN_BATCH = 2
 CONTEXT_GAN_R1 = 10.0
 CONTEXT_GAN_FLOOR = 0.6
-CONTEXT_ENC_SUBLAYERS = 13
+CONTEXT_ENC_SUBLAYERS = sum(CONTEXT_DEPTHS[2:])
 CONTEXT_GAN_RING_SHAPES = ((2, 8192, 6), (2, 2048, 12), (2, 512, 24))
 # (d)'s runs, (key, dtype, batch, resolution): the bf16 step drives the
-# flash kernels; its fp32 twin without TF32 (the plain ring partials), at
-# full width but b1 at 256px so that two ranks fit on the card (at 512px
+# flash kernels; its fp32 twin without TF32 and with cuDNN's deterministic
+# algorithms (the plain ring partials), at full width but b1 at 256px so that two ranks fit on the card (at 512px
 # b1 one process peaks at 51.8 GiB), holds the loss, grad norm and
 # adaptive weight to the bars. In bf16 the GAN step's rounding moves them by percents (one
 # process against its own fp32 step, and two ranks against one process:
@@ -587,12 +635,13 @@ CONTEXT_INT8_SCOPE = "all"
 CONTEXT_AMAX_RTOL = 1e-3
 
 # Phase pipeline: the latent DiT-L/2 (hidden 1024, 16 heads of 64), full
-# width, depth cut from 24 to PIPE_DEPTH (to keep the script's time; every
+# width, depth cut from 24 to PIPE_DEPTH (12 in PRs 18-19, 4 since PR 20;
+# to keep the script's time; every
 # block is alike), bf16, every parameter random, one step of rectified flow
 # (AdamW 1e-4) pipelined over the ranks of one card on gloo.
 # (a) pipe 2 at 512px latents (32x32x32: N=256), global b32 in 8
 # microbatches, attention 'pallas': every block's core is the flash
-# forward and backward at PIPE_FLASH, 6 blocks x 8 microbatches a rank;
+# forward and backward at PIPE_FLASH, 2 blocks x 8 microbatches a rank;
 # (b) (data, pipe, expert) = (1, 2, 2) with 4 Switch experts at 256px
 # latents (16x16: N=64, the plain core), global b16 in 4 microbatches, in
 # fp32: the router's argmax is discontinuous, so in bf16 the rounding of a
@@ -605,7 +654,7 @@ PIPE_RUNS = {
     "b": dict(mesh=(1, 2, 2), grid=16, batch=16, micro=4, impl="auto", experts=4,
               dtype="float32"),
 }
-PIPE_DEPTH = 12
+PIPE_DEPTH = 4
 PIPE_FLASH = (4, 256, 16)
 PIPE_SEED = 5
 PIPE_LR = 1e-4
@@ -649,7 +698,10 @@ PIPE_ROWS: dict = {}
 # process on a (1, 1, 1) mesh over NCCL (--worker serve-nccl); its files,
 # and its paths (each run a rank) -> launches by kernel name.
 SERVE_MESH_DIR = os.path.join(ROOT, "outputs", "chip_smoke_serve_mesh")
-SERVE_MESH_RUNS = (("tensor", 2), ("replicate", 1), ("fsdp", 2))
+# (name, --mesh_sharding, --mesh_model, checkpoint file): tensor_scan serves
+# the same weights stacked (a scan_blocks checkpoint) under 'tensor'.
+SERVE_MESH_RUNS = (("tensor", "tensor", 2, "model.pt"), ("replicate", "replicate", 1, "model.pt"),
+                   ("fsdp", "fsdp", 2, "model.pt"), ("tensor_scan", "tensor", 2, "model_scan.pt"))
 SERVE_MESH_BATCH = 8
 SERVE_MESH_PATHS: dict = {}
 # Phase scan: large f16d32 in the scan layout (scan_blocks, ops/stack.py).
@@ -667,6 +719,8 @@ SCAN_STEP_BATCH, SCAN_STEP_ACCUM = 16, 2
 SCAN_LOSS_RTOL, SCAN_GRAD_NORM_RTOL = 1e-3, 1e-2
 SCAN_CLI_STEPS, SCAN_CLI_BATCH = 3, 8
 SCAN_RECON_REPS = 3
+# (d) the extrapolation sweep of (c)'s checkpoint at these resolutions.
+SCAN_SWEEP = (256, 512)
 SCAN_PATHS: dict = {}
 
 
@@ -2654,14 +2708,65 @@ def phase_data():
     recon = torch.from_numpy(reconstruct(model, None, images[:INCEPTION_BATCH])).permute(0, 3, 1, 2)
     real_f = feats.double().cpu().numpy()
     fake_f = inc.inception_features(params, recon.to("cuda")).double().cpu().numpy()
-    t = time.time()
-    same, rfid = fid_from_features(real_f, real_f), fid_from_features(real_f, fake_f)
+    del params, cpu_params, feats, x, recon
+    # The rFIDs' scipy sqrtm (host only) in a thread, and cli.smoke_test (a
+    # process of its own, the tiny model), beside sections 5 and 6; both
+    # are read at the end of the phase.
+    fid: dict = {}
+
+    def fid_job():
+        t0 = time.time()
+        try:
+            fid["same"] = fid_from_features(real_f, real_f)
+            fid["rfid"] = fid_from_features(real_f, fake_f)
+        except Exception as e:  # noqa: BLE001 -- failed below, in the phase's thread
+            fid["error"] = repr(e)
+        fid["s"] = time.time() - t0
+
+    fid_thread = threading.Thread(target=fid_job, daemon=True)
+    fid_thread.start()
+    t_smoke = time.time()
+    smoke_log = os.path.join(out_dir, "smoke_test.log")
+    with open(smoke_log, "w") as f:
+        smoke = subprocess.Popen([sys.executable, "-m", "deepl_project_tpu_torch.cli.smoke_test"],
+                                 cwd=ROOT, stdout=f, stderr=subprocess.STDOUT, text=True)
+    try:
+        _data_tail(model, images, items, decoder, ckpt, out_dir, lm, from_pretrained,
+                   reconstruct)
+        smoke.wait(timeout=600)
+    finally:
+        if smoke.poll() is None:
+            smoke.kill()
+            smoke.wait()
+    with open(smoke_log) as f:
+        smoke_out = f.read()
+    fid_thread.join(timeout=600)
+    if "error" in fid or "rfid" not in fid:
+        fail(f"data: rFID failed: {fid}")
+    same, rfid = fid["same"], fid["rfid"]
     log(f"data: InceptionV3 rFID (random params) originals vs originals {same:.3e}, vs the "
-        f"reconstructions {rfid:.4f} ({INCEPTION_BATCH} images; {time.time() - t:.1f}s "
-        f"of scipy sqrtm on the host)")
+        f"reconstructions {rfid:.4f} ({INCEPTION_BATCH} images; {fid['s']:.1f}s of scipy "
+        f"sqrtm on the host, beside sections 5 and 6)")
     if not (abs(same) < 1e-3 and np.isfinite(rfid) and rfid > 0):
         fail(f"data: rFID {same} / {rfid}")
-    del params, cpu_params, feats, x, recon
+    if smoke.returncode != 0:
+        fail(f"data: cli.smoke_test exited {smoke.returncode}:\n{smoke_out}")
+    last = [ln for ln in smoke_out.splitlines() if "checks passed" in ln]
+    log(f"data: cli.smoke_test on the card: {last[-1] if last else smoke_out[-300:]} in "
+        f"{time.time() - t_smoke:.1f}s (beside sections 5 and 6)")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return train_counts, {"decoder": decoder, "step_ms_in_turns": turns,
+                          "inception_ms": ms, "inception_bound_ms": bound_ms}
+
+
+def _data_tail(model, images, items, decoder, ckpt, out_dir, lm, from_pretrained,
+               reconstruct) -> None:
+    """Phase data's sections 5 and 6: the latent diagnostics and linear
+    probe, and from_pretrained against model_from_checkpoint's model."""
+    import tempfile
+
+    import numpy as np
+    import torch
 
     # 5. Latent diagnostics and the linear probe on the class labels (numbers
     # of random-init weights trained 5 steps: they mean nothing yet).
@@ -2677,7 +2782,7 @@ def phase_data():
         f"{int(keep.sum())} labelled images, {DATA_CLASSES} classes: {probe}")
 
     # 6. from_pretrained through DEEPL_PRETRAINED_DIR, bit-equal to the
-    # checkpoint's model; then the smoke-test CLI on the card.
+    # checkpoint's model.
     registry = tempfile.mkdtemp(dir=out_dir)
     os.symlink(ckpt, os.path.join(registry, "transvae-large-f16d32"))
     old = os.environ.get("DEEPL_PRETRAINED_DIR")
@@ -2696,18 +2801,8 @@ def phase_data():
              f"(max abs {np.abs(a - b).max():.3e})")
     log("data: from_pretrained('transvae-large-f16d32') via DEEPL_PRETRAINED_DIR: "
         "reconstruct of 8 images bit-equal to model_from_checkpoint's")
-    del named, model
+    del named
     torch.cuda.empty_cache()
-    t = time.time()
-    smoke = subprocess.run([sys.executable, "-m", "deepl_project_tpu_torch.cli.smoke_test"],
-                           cwd=ROOT, capture_output=True, text=True, timeout=600)
-    if smoke.returncode != 0:
-        fail(f"data: cli.smoke_test exited {smoke.returncode}:\n{smoke.stdout}\n{smoke.stderr}")
-    log(f"data: cli.smoke_test on the card: {smoke.stdout.strip().splitlines()[-1]} in "
-        f"{time.time() - t:.1f}s")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    return train_counts, {"decoder": decoder, "step_ms_in_turns": turns,
-                          "inception_ms": ms, "inception_bound_ms": bound_ms}
 
 
 def launches_by_name() -> dict:
@@ -3178,8 +3273,8 @@ def serve_mesh_requests(imgs, lat) -> dict:
     phase serve's mix at b <= 8, sent at once over HTTP, then one b8
     reconstruct alone (its launches counted); (b) that reconstruct, an odd
     batch of 3 (bucket 4) and one image; (c) that reconstruct; (d) the
-    first of (a) and that reconstruct. A key names the same request in
-    every run."""
+    first of (a) and that reconstruct; (e) that reconstruct on the scan
+    checkpoint. A key names the same request in every run."""
     import numpy as np
 
     b8 = ("b8", "reconstruct", imgs[:8], None)
@@ -3189,7 +3284,7 @@ def serve_mesh_requests(imgs, lat) -> dict:
     return {"tensor": tensor,
             "replicate": [b8, ("b3", "reconstruct", imgs[:3], None),
                           ("b1", "reconstruct", imgs[:1], None)],
-            "fsdp": [b8], "nccl": [tensor[0], b8]}
+            "fsdp": [b8], "nccl": [tensor[0], b8], "tensor_scan": [b8]}
 
 
 def _count_groups(engine, groups: list) -> None:
@@ -3288,16 +3383,16 @@ def serve_mesh_worker() -> None:
     inputs = np.load(os.path.join(SERVE_MESH_DIR, "inputs.npz"))
     requests = serve_mesh_requests(inputs["imgs"], inputs["lat"])
     report = {}
-    for sharding, model_size in SERVE_MESH_RUNS:
+    for name, sharding, model_size, checkpoint in SERVE_MESH_RUNS:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         args = serve_cli.build_parser().parse_args([
-            "--checkpoint", os.path.join(SERVE_MESH_DIR, "model.pt"), "--device", "cuda:0",
+            "--checkpoint", os.path.join(SERVE_MESH_DIR, checkpoint), "--device", "cuda:0",
             "--max_batch", str(SERVE_MESH_BATCH), "--batch_window_ms", "50", "--port", "0",
             "--mesh_model", str(model_size), "--mesh_sharding", sharding])
         t0 = time.perf_counter()
         mesh = create_mesh(model=model_size)
-        if sharding == "tensor":
+        if name == "tensor":
             engine, server = serve_cli.serve(args, mesh)
         else:
             engine, server = serve_cli.build_engine(args, mesh), None
@@ -3308,18 +3403,19 @@ def serve_mesh_worker() -> None:
         if rank != 0:
             engine.follow()
         elif server is not None:
-            outs = _serve_http(engine, server, requests[sharding])
+            outs = _serve_http(engine, server, requests[name])
         else:
-            outs = {key: engine.run(op, arr, dt) for key, op, arr, dt in requests[sharding]}
+            outs = {key: engine.run(op, arr, dt) for key, op, arr, dt in requests[name]}
             engine.stop()
         torch.cuda.synchronize()
         pl = engine.placement
-        report[sharding] = {"groups": groups, "built_s": built_s,
+        report[name] = {"groups": groups, "built_s": built_s,
                         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                         "split": sum(pl.dim(n) is not None for n in pl.specs),
+                        "stacked": sum(".scan.block." in n for n in pl.specs),
                         "mesh": engine.stats()["mesh"]}
         if rank == 0:
-            np.savez(os.path.join(SERVE_MESH_DIR, f"out_{sharding}.npz"), **outs)
+            np.savez(os.path.join(SERVE_MESH_DIR, f"out_{name}.npz"), **outs)
         del engine, server, mesh, pl
         gc.collect()
         torch.cuda.empty_cache()
@@ -3388,10 +3484,18 @@ def phase_serve_mesh(model) -> None:
     lat = rng.standard_normal((4, 16, 16, cfg.latent_dim)).astype(np.float32)
     np.savez(os.path.join(SERVE_MESH_DIR, "inputs.npz"), imgs=imgs, lat=lat)
     t0 = time.time()
-    torch.save({"model_state_dict": {k: v.cpu() for k, v in model.state_dict().items()},
-                "config": {"variant": cfg.variant.split("_")[0], "compression_ratio": 16,
-                           "latent_dim": cfg.latent_dim}},
+    from deepl_project_tpu_torch.ops.stack import to_scanned_params
+
+    host = {k: v.cpu() for k, v in model.state_dict().items()}
+    spec = {"variant": cfg.variant.split("_")[0], "compression_ratio": 16,
+            "latent_dim": cfg.latent_dim}
+    torch.save({"model_state_dict": host, "config": spec},
                os.path.join(SERVE_MESH_DIR, "model.pt"))
+    # Run (e)'s checkpoint: the same weights in the scan layout.
+    torch.save({"model_state_dict": to_scanned_params(host, cfg),
+                "config": {**spec, "scan_blocks": True}},
+               os.path.join(SERVE_MESH_DIR, "model_scan.pt"))
+    del host
     log(f"serve_mesh: weights written for the ranks in {time.time() - t0:.1f}s")
     requests = serve_mesh_requests(imgs, lat)
     unique = {key: (op, arr, dt) for run in requests.values() for key, op, arr, dt in run}
@@ -3503,15 +3607,17 @@ def phase_serve_mesh(model) -> None:
     want_local = launches_per_local_reconstruct(model, 2)
     routes_one = {"sublayer": 20, "ln_qkv_rope": 6}
     routes_local = {"local_sublayer": 20, "local_ln_qkv_rope": 6}
-    for sharding, model_size in SERVE_MESH_RUNS:
-        check_outs(sharding)
+    for name, sharding, model_size, _ in SERVE_MESH_RUNS:
+        check_outs(name)
         for r, rep_ in enumerate(ranks):
-            run = rep_[sharding]
+            run = rep_[name]
             groups = run["groups"]
-            if len(groups) != len(requests[sharding]) or run["mesh"] != {
+            if len(groups) != len(requests[name]) or run["mesh"] != {
                     "data": 2 // model_size, "context": 1, "model": model_size}:
-                fail(f"serve_mesh ({sharding}) rank {r}: {len(groups)} groups on mesh "
-                     f"{run['mesh']}; want {len(requests[sharding])}")
+                fail(f"serve_mesh ({name}) rank {r}: {len(groups)} groups on mesh "
+                     f"{run['mesh']}; want {len(requests[name])}")
+            if (run["stacked"] > 0) != name.endswith("_scan"):
+                fail(f"serve_mesh ({name}) rank {r}: {run['stacked']} stacked parameters")
             if (run["split"] > 0) != (sharding != "replicate"):
                 fail(f"serve_mesh ({sharding}) rank {r}: {run['split']} tensors split")
             for i, grp in enumerate(groups):
@@ -3522,10 +3628,10 @@ def phase_serve_mesh(model) -> None:
                 last = sharding != "tensor" or i == len(groups) - 1
                 want_t = want_local if sharding == "tensor" else want_one
                 if last and got_t != want_t:
-                    fail(f"serve_mesh ({sharding}) rank {r} group {i}: launches {got_t} != "
+                    fail(f"serve_mesh ({name}) rank {r} group {i}: launches {got_t} != "
                          f"{want_t}")
                 if routes != (routes_local if sharding == "tensor" else routes_one):
-                    fail(f"serve_mesh ({sharding}) rank {r} group {i}: routes {routes}")
+                    fail(f"serve_mesh ({name}) rank {r} group {i}: routes {routes}")
             if sharding == "tensor" and any(set(g["routes"]) - set(routes_local)
                                             for g in groups):
                 fail(f"serve_mesh (tensor) rank {r}: a group took another route: "
@@ -3535,13 +3641,21 @@ def phase_serve_mesh(model) -> None:
                      "want [4, 2, 1] (b8 split, 3 placed by its bucket 4, 1 whole)")
             recon = [g for g in groups if g["op"] == "reconstruct"]
             staged = [g["staged"].get("collective_bytes", 0) for g in recon]
-            log(f"serve_mesh ({sharding}, model {model_size}) rank {r}: "
+            log(f"serve_mesh ({name}: {sharding}, model {model_size}) rank {r}: "
                 f"{run['split']} tensors split, built in {run['built_s']:.1f}s, peak "
                 f"{run['peak_gib']:.2f} GiB; reconstruct groups (bucket, rows a rank, s, "
                 f"staged bytes): {[(g['bucket'], g['rows'], round(g['s'], 3), b) for g, b in zip(recon, staged)]}; "
                 f"routes {recon[-1]['routes']}; last reconstruct's launches "
                 f"{table(recon[-1]['launches'])} (gloo on one card: not a speed) [{CARD}]")
-            SERVE_MESH_PATHS[f"serve_mesh_{sharding}_rank{r}"] = launch_totals(groups)
+            SERVE_MESH_PATHS[f"serve_mesh_{name}_rank{r}"] = launch_totals(groups)
+    # (e) against (a): the scan checkpoint's responses and the unrolled one's.
+    scan_outs = np.load(os.path.join(SERVE_MESH_DIR, "out_tensor_scan.npz"))
+    flat_outs = np.load(os.path.join(SERVE_MESH_DIR, "out_tensor.npz"))
+    for key, _, arr, dt in requests["tensor_scan"]:
+        a, b = scan_outs[key].astype(np.float32), flat_outs[key].astype(np.float32)
+        log(f"serve_mesh (tensor_scan) {key} b{arr.shape[0]} dtype={dt}: the scan "
+            f"checkpoint's response vs the unrolled one's under tensor: max_abs "
+            f"{np.abs(a - b).max():.3e}, bit-equal {bool(np.array_equal(a, b))}")
     # (d): the NCCL wire of one process on a (1, 1, 1) mesh.
     check_outs("nccl")
     groups = nccl["groups"]
@@ -4015,8 +4129,8 @@ def phase_scan(model) -> None:
     import torch
 
     from deepl_project_tpu_torch.cli import train as train_cli
-    from deepl_project_tpu_torch.data import make_dataset
-    from deepl_project_tpu_torch.evaluation import model_from_checkpoint
+    from deepl_project_tpu_torch.data import batch_iterator, make_dataset
+    from deepl_project_tpu_torch.evaluation import model_from_checkpoint, resize_images
     from deepl_project_tpu_torch.losses import LossWeights
     from deepl_project_tpu_torch.models import TransVAE
     from deepl_project_tpu_torch.ops.stack import (BlockStack, from_scanned_params,
@@ -4206,7 +4320,53 @@ def phase_scan(model) -> None:
     log(f"scan (c): the checkpoint reloaded through load_config ({type(loaded).__name__}, "
         f"scan_blocks={loaded.config.scan_blocks}) served a b{SCAN_CLI_BATCH} reconstruct, "
         f"launches {SCAN_PATHS['scan_cli_reconstruct']}")
-    del loaded, engine
+    del engine
+
+    # (d) The extrapolation sweep of that checkpoint at 256 and 512px (512px
+    # stage 4 is small_attention's: row 6 inside a stack), against the same
+    # weights unrolled, each resolution's launches counted alone.
+    from deepl_project_tpu_torch.evaluation import extrapolation_sweep
+    from deepl_project_tpu_torch.utils.convert import load_state_dict
+
+    with torch.device("meta"):
+        flat = TransVAE(loaded.config.replace(scan_blocks=False))
+    flat = load_state_dict(flat.to_empty(device="cuda"), loaded.state_dict()).eval()
+    imgs = next(batch_iterator(make_dataset("shapes", resolution=SCAN_SWEEP[-1]), EVAL_IMAGES))
+    for res in SCAN_SWEEP:
+        chunk = EVAL_CHUNKS[res]
+        rows, recon = {}, {}
+        for name, m in (("unrolled", flat), ("scan", loaded)):
+            extrapolation_sweep(m, None, imgs[:chunk], (res,), chunk=chunk)  # warm
+            reset_launches()
+            t = time.perf_counter()
+            rows[name] = extrapolation_sweep(m, None, imgs, (res,), chunk=chunk)[res]
+            torch.cuda.synchronize()
+            rows[name]["s"] = time.perf_counter() - t
+            rows[name]["launches"] = kernel_launches()
+            with torch.inference_mode():
+                x = resize_images(torch.as_tensor(imgs[:chunk]).permute(0, 3, 1, 2).to("cuda"),
+                                  res)
+                recon[name] = m(x.to(m.config.compute_dtype), sample=False)[0].float()
+        want = launches_per_reconstruct(res, forwards=EVAL_IMAGES // chunk, model=flat)
+        err = (recon["scan"] - recon["unrolled"]).abs().max().item()
+        top = recon["unrolled"].abs().max().item()
+        u, sc = rows["unrolled"], rows["scan"]
+        log(f"scan (d): sweep {res}px of the cli.train checkpoint ({EVAL_IMAGES} images, chunk "
+            f"{chunk}): psnr scan {sc['mean']!r} / unrolled {u['mean']!r}; one chunk's logits "
+            f"max_abs {err:.3e} (rel {err / top:.3e}, bound {KERNEL_RTOL:.3e}), bit-equal "
+            f"{bool(torch.equal(recon['scan'], recon['unrolled']))}; {sc['s']:.3f} / "
+            f"{u['s']:.3f} s; launches scan {sc['launches']} [{CARD}]")
+        if (not err <= KERNEL_RTOL * top or sc["launches"] != want
+                or u["launches"] != want):
+            fail(f"scan (d): the scan sweep at {res}px differs from the unrolled one (launches "
+                 f"scan {sc['launches']}, unrolled {u['launches']}, want {want})")
+        NORM_PATHS[f"scan: sweep {res}px of the scan checkpoint, {EVAL_IMAGES} images"] = \
+            sc["launches"][3]
+        SCAN_PATHS[f"scan_sweep_{res}"] = {
+            k[0]: sum(v for kk, v in d.items() if kk[0] == k[0])
+            for d in sc["launches"] for k in d}
+        del recon
+    del loaded, flat
     shutil.rmtree(SCAN_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
 
@@ -4226,11 +4386,89 @@ def _fingerprint(params) -> "torch.Tensor":
     return torch.stack(rows).cpu()
 
 
-def _dp_configs(dtype: str):
-    """Phase parallel (b)'s model in ``dtype``, trainers' configs and batch:
-    large f16d32 @256 under remat 'none', a global batch of PARALLEL_BATCH;
-    stage 1 (L1 + LPIPS + KL) and one GAN step (frozen encoder, the
-    adaptive weight unclamped, R1, a floor near the initial disc loss)."""
+def _position_stats(t, whole_shape, dim, offset) -> "torch.Tensor":
+    """[sum t^2, sum t h(i)] in fp64 of a part of a whole tensor of
+    ``whole_shape``: i each entry's row-major index in the whole, h(i) =
+    frac(43758.5453 sin(12.9898 i)) - 0.5 a hash of it; the part is the
+    whole's slice [offset, offset + t.shape[dim]) along ``dim`` (None:
+    the whole)."""
+    import torch
+
+    idx = torch.zeros((), dtype=torch.float64, device=t.device)
+    stride = 1
+    for k in reversed(range(t.ndim)):
+        a = torch.arange(t.shape[k], dtype=torch.float64, device=t.device)
+        a = a + (offset if k == dim else 0)
+        idx = idx + (a * stride).reshape([-1 if j == k else 1 for j in range(t.ndim)])
+        stride *= whole_shape[k]
+    g = t.detach().double()
+    h = torch.frac(torch.sin(idx * 12.9898) * 43758.5453).abs() - 0.5
+    return torch.stack([g.square().sum(), (g * h).sum()])
+
+
+def _moment_stats(trainer, state) -> dict:
+    """Phase parallel (b): _position_stats of each parameter's AdamW first
+    moment after the step ((1 - b1) times its clipped gradient), by its
+    unrolled name (a stack's slice j under block j's), each whole tensor's
+    the sum of the model peers' parts (a collective over the model group)."""
+    import torch
+    import torch.distributed as dist
+
+    pl, opt = trainer.placement, state.optimizer
+    names, parts = [], []
+    for n, m in zip(opt.names, opt.mu):
+        if m is None:
+            continue
+        d, whole = pl.dim(n), pl.full_shape(n, m)
+        offset = 0 if d is None else pl.model_rank * m.shape[d]
+        mine = d is not None or pl.model_rank == 0  # a replicated tensor counted once
+        if ".scan.block." not in n:
+            names.append(n)
+            parts.append(_position_stats(m, whole, d, offset) if mine
+                         else m.new_zeros(2, dtype=torch.float64))
+            continue
+        depth = whole[0]
+        for j in range(depth):
+            names.append(n.replace(".scan.block.", f".{j}."))
+            if d == 0:  # the depth axis split: this rank holds slices [offset, ...)
+                held = offset <= j < offset + m.shape[0]
+                parts.append(_position_stats(m[j - offset], whole[1:], None, 0) if held
+                             else m.new_zeros(2, dtype=torch.float64))
+            else:
+                parts.append(_position_stats(m[j], whole[1:], None if d is None else d - 1,
+                                             offset) if mine
+                             else m.new_zeros(2, dtype=torch.float64))
+    stats = torch.stack(parts).cpu()
+    dist.all_reduce(stats, group=pl.model_group)
+    return {n: v.tolist() for n, v in zip(names, stats)}
+
+
+def _slice_gap(got: dict, want: dict) -> tuple[float, float, str]:
+    """The largest gaps of _moment_stats ``got`` from ``want`` (the same
+    names): sums of squares relative, weighted sums over the norm; and
+    the name where the larger lies."""
+    if set(got) != set(want):
+        return float("inf"), float("inf"), sorted(set(got) ^ set(want))[0]
+    sq = wsum = 0.0
+    where = ""
+    for n, (a2, a1) in got.items():
+        b2, b1 = want[n]
+        if b2 == 0.0:
+            e2 = e1 = 0.0 if a2 == 0.0 else float("inf")
+        else:
+            e2, e1 = abs(a2 - b2) / b2, abs(a1 - b1) / b2 ** 0.5
+        if max(e2, e1) > max(sq, wsum):
+            where = n
+        sq, wsum = max(sq, e2), max(wsum, e1)
+    return sq, wsum, where
+
+
+def _dp_configs(dtype: str, scan: bool = False):
+    """Phase parallel (b)'s model in ``dtype`` (``scan``: the scan layout,
+    scan_blocks), trainers' configs and batch: large f16d32 @256 under
+    remat 'none', a global batch of PARALLEL_BATCH; stage 1 (L1 + LPIPS +
+    KL) and one GAN step (frozen encoder, the adaptive weight unclamped,
+    R1, a floor near the initial disc loss)."""
     import numpy as np
 
     from deepl_project_tpu_torch import get_config
@@ -4239,7 +4477,7 @@ def _dp_configs(dtype: str):
     from deepl_project_tpu_torch.training import TrainerConfig
 
     cfg = get_config("large", 16, 32, norm_latents=True, attention_impl="auto_train",
-                     remat=True, remat_policy="none", dtype=dtype)
+                     remat=True, remat_policy="none", dtype=dtype, scan_blocks=scan)
     common = dict(batch_size=PARALLEL_BATCH, accum_steps=1, warmup_steps=2, num_epochs=1,
                   steps_per_epoch=1, seed=0,
                   output_dir=os.path.join(ROOT, "outputs", "chip_smoke_parallel_b"))
@@ -4257,10 +4495,17 @@ def _dp_configs(dtype: str):
 # Phase parallel (b)'s runs: (name, step, param_sharding, mesh_model). The
 # single process runs the steps; the two ranks each of these. gan_fp32 is
 # the GAN step in fp32 with TF32 off (the plain attention core and norms:
-# no kernel takes fp32).
+# no kernel takes fp32). A name ending in _scan: the scan layout's twin of
+# the run without it (the same seed's weights, stacked, and rows), held to
+# that run as to one process.
 DP_RUNS = (("stage1", "stage1", "replicate", 1), ("gan", "gan", "replicate", 1),
            ("gan_fp32", "gan_fp32", "replicate", 1),
-           ("fsdp", "stage1", "fsdp", 2), ("tensor", "stage1", "tensor", 2))
+           ("fsdp", "stage1", "fsdp", 2), ("tensor", "stage1", "tensor", 2),
+           ("fsdp_scan", "stage1", "fsdp", 2), ("tensor_scan", "stage1", "tensor", 2))
+# Phase parallel (d), cli.train --scan_blocks --param_sharding tensor
+# --mesh_model 2 on (b)'s two ranks: its steps, global batch and output.
+SCAN_TP_STEPS, SCAN_TP_BATCH = 2, 4
+SCAN_TP_DIR = os.path.join(ROOT, "outputs", "chip_smoke_scan_tp")
 
 
 def _dp_steps(runs) -> dict:
@@ -4282,7 +4527,8 @@ def _dp_steps(runs) -> dict:
     out = {}
     for name, step, mode, model in runs:
         fp32 = step == "gan_fp32"
-        cfg, stage1, gan, batch = _dp_configs("float32" if fp32 else "bfloat16")
+        cfg, stage1, gan, batch = _dp_configs("float32" if fp32 else "bfloat16",
+                                              scan=name.endswith("_scan"))
         tc = dataclasses.replace(stage1 if step == "stage1" else gan, param_sharding=mode,
                                  mesh_model=model)
         # True fp32: cuDNN's convolutions default to TF32 (cuBLAS's products
@@ -4310,6 +4556,8 @@ def _dp_steps(runs) -> dict:
                 trainer._disc_state.model.parameters())
             row["fingerprint"] = _fingerprint(whole + disc)
             row["sharded"] = sum(pl.dim(n) is not None for n, _ in named_trainables(state.model))
+            if mode != "replicate":
+                row["moments"] = _moment_stats(trainer, state)
         out[name] = row
         del trainer, state, local, m
         torch.cuda.empty_cache()
@@ -4318,10 +4566,11 @@ def _dp_steps(runs) -> dict:
 
 
 def dp_worker() -> None:
-    """A rank of phase parallel (b), started by torchrun: two processes on
-    the one card over gloo (CUDA tensors; NCCL refuses two ranks on one
-    device), each of DP_RUNS. Writes its results to
-    PARALLEL_DIR/rank<r>.json; any failure exits non-zero."""
+    """A rank of phase parallel (b) and (d), started by torchrun: two
+    processes on the one card over gloo (CUDA tensors; NCCL refuses two
+    ranks on one device), each of DP_RUNS, then _scan_cli_run. Writes its
+    results to PARALLEL_DIR/rank<r>.json and scan_cli_rank<r>.json; any
+    failure exits non-zero."""
     import torch
     import torch.distributed as dist
 
@@ -4339,7 +4588,38 @@ def dp_worker() -> None:
         row["params_checked"] = int(fp.shape[0])
     with open(os.path.join(PARALLEL_DIR, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
+    torch.cuda.empty_cache()
+    _scan_cli_run(rank)
     dist.destroy_process_group()
+
+
+def _scan_cli_run(rank: int) -> None:
+    """Phase parallel (d) on this rank of dp_worker's gloo group (NCCL
+    refuses two ranks on one device; cli.train takes a group already
+    joined): ``cli.train --variant large --scan_blocks --param_sharding
+    tensor --mesh_model 2`` with the README big-model recipe's remat and
+    Adafactor (whose factored moments keep the checkpoint small) on cuda:0
+    for SCAN_TP_STEPS steps at global b SCAN_TP_BATCH. Writes this rank's
+    launches, peak and seconds to PARALLEL_DIR/scan_cli_rank<r>.json."""
+    import torch
+
+    from deepl_project_tpu_torch.cli import train as train_cli
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    train_cli.main(["--variant", "large", "--scan_blocks", "--param_sharding", "tensor",
+                    "--mesh_model", "2", "--gradient_checkpointing", "--optimizer", "adafactor",
+                    "--data", "synthetic",
+                    "--batch_size", str(SCAN_TP_BATCH), "--num_epochs", "1",
+                    "--steps_per_epoch", str(SCAN_TP_STEPS), "--warmup_steps", "1",
+                    "--log_every", "1", "--save_every_epochs", "1", "--device", "cuda:0",
+                    "--output_dir", SCAN_TP_DIR])
+    torch.cuda.synchronize()
+    row = {"s": time.time() - t0, "launches": launches_by_name(),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    with open(os.path.join(PARALLEL_DIR, f"scan_cli_rank{rank}.json"), "w") as f:
+        json.dump(row, f)
 
 
 def refusal_worker(kind: str) -> None:
@@ -4434,15 +4714,19 @@ def _dp_compare() -> tuple[dict, list]:
     """One process's steps of DP_RUNS, then two ranks on the card (torchrun,
     ``--worker dp``): (one process's rows by step, each rank's rows by run
     name)."""
+    import shutil
+
     import torch
 
     ref = _dp_steps([(step, step, "replicate", 1)
                      for step in dict.fromkeys(r[1] for r in DP_RUNS)])
     torch.cuda.empty_cache()
+    shutil.rmtree(SCAN_TP_DIR, ignore_errors=True)
     for r in range(2):
-        path = os.path.join(PARALLEL_DIR, f"rank{r}.json")
-        if os.path.exists(path):
-            os.remove(path)
+        for name in (f"rank{r}.json", f"scan_cli_rank{r}.json"):
+            path = os.path.join(PARALLEL_DIR, name)
+            if os.path.exists(path):
+                os.remove(path)
     proc = _torchrun(2, [os.path.join(ROOT, "chip_smoke.py"), "--worker", "dp"], timeout=900)
     if proc.returncode != 0:
         fail(f"parallel (b): the two ranks exited {proc.returncode}:\n"
@@ -4475,7 +4759,7 @@ def phase_parallel(train_rows: list) -> None:
     from deepl_project_tpu_torch.parallel import all_reduce_mean_, initialize_multihost
     from deepl_project_tpu_torch.parallel.collectives import BUCKET_NUMEL
     from deepl_project_tpu_torch.training import Trainer, TrainerConfig
-    from deepl_project_tpu_torch.training.checkpoint import load_config
+    from deepl_project_tpu_torch.training.checkpoint import load_config, restore_model_params
     from deepl_project_tpu_torch.training.train_step import (compute_grads, global_norm,
                                                              named_trainables, step_generator)
 
@@ -4652,7 +4936,63 @@ def phase_parallel(train_rows: list) -> None:
                          "floor decision differs (or the weight sits at its clamp)")
             if b["launches"]:
                 PARALLEL_PATHS[f"parallel_gloo_rank{r}_{name}"] = b["launches"]
+            if name.endswith("_scan"):
+                # The scan layout against the unrolled run of its placement.
+                u = got[name[:-len("_scan")]]
+                slr = abs(b["total"] - u["total"]) / abs(u["total"])
+                sgr = abs(b["grad_norm"] - u["grad_norm"]) / u["grad_norm"]
+                sq, wsum, where = _slice_gap(b["moments"], u["moments"])
+                log(f"parallel (b) {name} rank {r}: scan layout vs the unrolled {mode} run: "
+                    f"loss {b['total']!r} / {u['total']!r} (rel {slr:.2e}, bit-equal "
+                    f"{b['total'] == u['total']}; bound {PARALLEL_LOSS_RTOL}), grad norm "
+                    f"{b['grad_norm']!r} / {u['grad_norm']!r} (rel {sgr:.2e}, bit-equal "
+                    f"{b['grad_norm'] == u['grad_norm']}; bound "
+                    f"{PARALLEL_SCAN_GRAD_NORM_RTOL}), first moments of {len(u['moments'])} "
+                    f"tensors (each stack's slices as blocks): largest gap {sq:.2e} in the sum "
+                    f"of squares, {wsum:.2e} of the norm in the position-weighted sum (at "
+                    f"{where}; bound {PARALLEL_SCAN_SLICE_RTOL}), "
+                    f"{b['sharded']} / {u['sharded']} tensors split, peak {b['peak_gib']:.2f} / "
+                    f"{u['peak_gib']:.2f} GiB, launches {b['launches']} / {u['launches']} "
+                    f"[{CARD}]")
+                if (slr > PARALLEL_LOSS_RTOL or sgr > PARALLEL_SCAN_GRAD_NORM_RTOL
+                        or max(sq, wsum) > PARALLEL_SCAN_SLICE_RTOL
+                        or b["launches"] != u["launches"]):
+                    fail(f"parallel (b) {name} rank {r}: the scan layout's step is off the "
+                         f"unrolled {mode} step's")
     log(f"parallel (b): two processes over gloo took {time.time() - t0:.1f}s")
+
+    # (d) cli.train in the scan layout under tensor parallelism, run by the
+    # same two ranks after (b); its checkpoint's whole stacks read back.
+    rows = _history(SCAN_TP_DIR)
+    losses = [r["total"] for r in rows]
+    if [r["step"] for r in rows] != list(range(1, SCAN_TP_STEPS + 1)) or not np.isfinite(
+            losses).all():
+        fail(f"parallel (d): cli.train rows {rows}")
+    ckpt = os.path.join(SCAN_TP_DIR, "checkpoints")
+    saved = restore_model_params(ckpt, map_location="cpu")
+    stacked = {k: tuple(v.shape) for k, v in saved.items() if ".scan.block." in k}
+    key = "encoder.stages.2.scan.block.attn.to_q.weight"
+    if not (load_config(ckpt).scan_blocks and stacked and stacked.get(key) == (3, 384, 384)):
+        fail(f"parallel (d): the checkpoint holds {len(stacked)} stacked keys, {key} "
+             f"{stacked.get(key)}; want whole stacks (3, 384, 384)")
+    want = {"flash_attention_fwd": 12 * SCAN_TP_STEPS, "flash_attention_bwd": 6 * SCAN_TP_STEPS}
+    for r in range(2):
+        with open(os.path.join(PARALLEL_DIR, f"scan_cli_rank{r}.json")) as f:
+            got = json.load(f)
+        log(f"parallel (d) rank {r}: cli.train --variant large --scan_blocks --param_sharding "
+            f"tensor --mesh_model 2 --gradient_checkpointing --optimizer adafactor, "
+            f"{SCAN_TP_STEPS} steps at global "
+            f"b{SCAN_TP_BATCH}: losses {[round(v, 5) for v in losses]}, launches "
+            f"{got['launches']} (want {want}: stage 2's 3 + 3 blocks on 3 of 6 heads, their "
+            f"recompute and backward), peak {got['peak_gib']:.2f} GiB, {got['s']:.1f}s with "
+            f"the start-up and the checkpoint (gloo on one card: not a speed) [{CARD}]")
+        if got["launches"] != want:
+            fail(f"parallel (d) rank {r}: launches {got['launches']} != {want}")
+        PARALLEL_PATHS[f"parallel_scan_cli_tensor_rank{r}"] = got["launches"]
+    log(f"parallel (d): {len(stacked)} whole stacks in the checkpoint (e.g. {key} "
+        f"{stacked[key]})")
+    del saved
+    shutil.rmtree(SCAN_TP_DIR, ignore_errors=True)
     shutil.rmtree(os.path.join(ROOT, "outputs", "chip_smoke_parallel_b"), ignore_errors=True)
 
     # (c) The tensor-parallel attention sublayer at stage 2 (C=384, 6 heads),
@@ -4759,13 +5099,14 @@ def _context_inputs(what: str, shape=CONTEXT_RING):
 
 
 def _context_model(**kw):
-    """Large f16d32 from seed 0 (fp32 parameters, bf16 compute unless
-    ``dtype`` says otherwise), the step's remat 'none'; ``kw`` over
-    these."""
+    """Large f16d32 at CONTEXT_DEPTHS from seed 0 (fp32 parameters, bf16
+    compute unless ``dtype`` says otherwise), the step's remat 'none'; ``kw``
+    over these."""
     from deepl_project_tpu_torch import create_transvae
 
     return create_transvae("large", 16, 32, device="cuda",
-                           **{"seed": 0, "remat": True, "remat_policy": "none", **kw})
+                           **{"seed": 0, "remat": True, "remat_policy": "none",
+                              "depths": CONTEXT_DEPTHS, **kw})
 
 
 def _context_step(model, batch, placement=None, update: bool = True) -> dict:
@@ -4974,9 +5315,15 @@ def _context_gan(mesh=None, dtype: str = "bfloat16", batch: int = CONTEXT_GAN_BA
                                         num_samples=CONTEXT_GAN_BATCH, seed=33)))[:batch]
     batch = torch.as_tensor(shard_rows(mesh, images)).to("cuda")
     model.train()
-    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
     if dtype == "float32":
+        # The fp32 twin is the held reading: no TF32, and cuDNN's
+        # deterministic algorithms, so that a run's own noise does not enter
+        # the one-process / two-rank gap (the PatchGAN's instance norms
+        # amplify rounding, PERF.md section 6, PR 18).
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -4987,7 +5334,8 @@ def _context_gan(mesh=None, dtype: str = "bfloat16", batch: int = CONTEXT_GAN_BA
         m = step(g, d, batch)
         torch.cuda.synchronize()
     finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
         del g.optimizer.step  # the wrapper's cycle would keep the models alive
     row = {"ms": (time.perf_counter() - t0) * 1e3, "launches": launches_by_name(),
            "ring_steps": step_counts(), "staged": col.staged_counts(),
@@ -5164,7 +5512,29 @@ def context_worker() -> None:
     whole = col.all_gather_cat(torch.sigmoid(recon.float()), 2, group)
     if rank == 0:
         torch.save(whole.cpu(), os.path.join(CONTEXT_DIR, "recon_context.pt"))
-    del recon, whole, x
+    del recon, whole
+
+    # (b) again on the scan layout: the seed's weights stacked (scan_blocks
+    # draws the unrolled model's values), the same rows.
+    scan = _context_model(context_axis="context", attention_impl="auto_train",
+                          scan_blocks=True)
+    dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    attn_mod.reset_route_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad(), context_parallel(mesh):
+        recon = scan.eval()(x)[0]
+    torch.cuda.synchronize()
+    out["forward_scan"] = {"ms": (time.perf_counter() - t0) * 1e3, **counts(),
+                           "routes": attn_mod.route_counts(),
+                           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                           "norm_launches": norm_launches()}
+    whole = col.all_gather_cat(torch.sigmoid(recon.float()), 2, group)
+    if rank == 0:
+        torch.save(whole.cpu(), os.path.join(CONTEXT_DIR, "recon_context_scan.pt"))
+    del recon, whole, x, scan
     torch.cuda.empty_cache()
 
     # Each kind of halo conv against the whole map's, then with the halo
@@ -5466,6 +5836,24 @@ def phase_context() -> None:
             fail(f"context (b) rank {r}: routes {f_['routes']}, launches {f_['launches']}; want "
                  f"{CONTEXT_SUBLAYERS} ring routes and {per_fwd} flash forwards only")
         CONTEXT_PATHS[f"context_forward_rank{r}"] = f_["launches"]
+        # The scan layout's forward: the unrolled one's launches and ring steps.
+        s_ = g["forward_scan"]
+        log(f"context (b) rank {r} scan layout: {s_['ms']:.1f} ms, peak {s_['peak_gib']:.2f} "
+            f"GiB, routes {s_['routes']}, launches {s_['launches']}, ring steps "
+            f"{s_['ring_steps']}, staged {s_['staged']} [{CARD}]")
+        if (s_["routes"] != f_["routes"] or s_["launches"] != f_["launches"]
+                or s_["ring_steps"] != f_["ring_steps"] or s_["norm_launches"]):
+            fail(f"context (b) rank {r}: the scan layout's forward launched {s_['launches']}, "
+                 f"routes {s_['routes']}, ring steps {s_['ring_steps']}; the unrolled one's "
+                 f"{f_['launches']}, {f_['routes']}, {f_['ring_steps']}")
+        CONTEXT_PATHS[f"context_forward_scan_rank{r}"] = s_["launches"]
+    got_scan = torch.load(os.path.join(CONTEXT_DIR, "recon_context_scan.pt"))
+    e_scan = (got_scan - got).abs().max().item()
+    log(f"context (b): the scan layout's gathered reconstruction vs the unrolled one's: "
+        f"max_abs {e_scan:.3e} (bound {KERNEL_RTOL:.3e} of max), bit-equal "
+        f"{bool(torch.equal(got_scan, got))}")
+    if not e_scan <= KERNEL_RTOL * got.abs().max().item():
+        fail("context (b): the scan layout's context forward differs from the unrolled one's")
 
     # (c) The step.
     for r, g in enumerate(ranks):
@@ -5672,14 +6060,14 @@ def _pipe_run(run: dict, placement=None) -> tuple:
     row["forward"] = counts(t0)
     named = named_trainables(model)
     opt = make_optimizer(named, learning_rate=PIPE_LR, warmup_steps=0, placement=placement)
-    blocks = [(n, p) for n, p in named if n.startswith("block")]
+    blocks = [(n, p) for n, p in named if n.startswith("blocks.block.")]
     before = [p.detach().clone() for _, p in blocks]
     grads = {}
     apply = opt.step
 
     def step(gs):  # keep the block gradients the update sees
         grads.update({n: gs[i].detach().clone() for i, (n, _) in enumerate(named)
-                      if n.startswith("block")})
+                      if n.startswith("blocks.block.")})
         return apply(gs)
 
     opt.step = step
@@ -5690,7 +6078,10 @@ def _pipe_run(run: dict, placement=None) -> tuple:
     del opt.step  # the wrapper's cycle would keep the optimizer's state alive
     row.update({k: float(x) for k, x in m.items()})
     row["applied"] = bool(opt.last_finite)
-    out = {n: (grads[n], p.detach() - b) for (n, p), b in zip(blocks, before)}
+    # The stacks (this stage's slices) by the unrolled block they hold.
+    held = model.blocks.held
+    out = {f"block{held.start + j}.{n[len('blocks.block.'):]}": (grads[n][j], (p.detach() - b)[j])
+           for (n, p), b in zip(blocks, before) for j in range(len(held))}
     return row, v, out
 
 
@@ -5715,8 +6106,9 @@ def _pipe_compare(ref: dict, mine: dict, placement) -> dict:
     those."""
     import torch
 
-    def theirs(x, name, like):
-        return placement.scatter(x.to(like.device), placement.dim(name))
+    def theirs(x, name, like):  # one block's tensor: its experts on dim 0
+        dim = 0 if ".experts." in name and placement.expert_size > 1 else None
+        return placement.scatter(x.to(like.device), dim)
 
     out = {}
     for blk, names in _by_block(mine).items():
@@ -5812,14 +6204,51 @@ def _pipeline_kernel_rows() -> dict:
     return rows
 
 
+def _pipe_scan_forward() -> None:
+    """One process's DiT-L/2 of run (a) built with scan_blocks (no pipeline
+    axis: its slices one after another) and unrolled, from the same seed:
+    the no-grad forward bit-equal, the same launches."""
+    import torch
+
+    from deepl_project_tpu_torch.models import create_dit, perturb_zero_init
+
+    run = PIPE_RUNS["a"]
+    z0, labels, t, noise = _pipe_inputs(run)
+    tb = t[:, None, None, None]
+    outs, launches = {}, {}
+    for name, kw in (("unrolled", {}), ("scan", {"scan_blocks": True})):
+        cfg = _pipe_cfg(run).replace(pipeline_axis=None, **kw)
+        model = perturb_zero_init(create_dit(cfg, run["grid"], device="cuda",
+                                             seed=PIPE_SEED), PIPE_SEED).eval()
+        reset_launches()
+        with torch.no_grad():
+            outs[name] = model((1.0 - tb) * z0 + tb * noise, t, labels)
+        torch.cuda.synchronize()
+        launches[name] = launches_by_name()
+        del model
+        torch.cuda.empty_cache()
+    err = (outs["scan"] - outs["unrolled"]).abs().max().item()
+    same = bool(torch.equal(outs["scan"], outs["unrolled"]))
+    want = {"flash_attention_fwd": PIPE_DEPTH}
+    log(f"pipeline: one process's DiT-L/2 (depth {PIPE_DEPTH}) forward, scan_blocks vs "
+        f"unrolled, b{run['batch']} at {run['grid']}x{run['grid']} latents: max_abs {err:.3e}, "
+        f"bit-equal {same}; launches {launches['scan']} / {launches['unrolled']} [{CARD}]")
+    if not same or launches["scan"] != want or launches["unrolled"] != want:
+        fail(f"pipeline: the scan DiT's forward is not the unrolled one's (launches "
+             f"{launches}, want {want} each)")
+    PIPE_PATHS["pipeline_scan_dit_forward"] = launches["scan"]
+
+
 def phase_pipeline() -> None:
     """GPipe and expert parallelism of the latent DiT on the one card
     (PERF.md, section 6): the flash kernels at PIPE_FLASH held to their
     plain versions and timed; runs (a) and (b) of PIPE_RUNS, each one
     process's step first, then the run's ranks under torchrun over gloo
     (--worker pipeline-<run>); (c) the dry run's five phases on
-    PIPE_DRYRUN_NPROC processes. Every step time is gloo host staging with
-    all the ranks on one card: not a speed."""
+    PIPE_DRYRUN_NPROC processes, started first and run beside (a) and (b)
+    (it shares nothing with them but the card and the host). Every step
+    time is gloo host staging with all the ranks on one card: not a
+    speed."""
     import shutil
 
     import torch
@@ -5829,11 +6258,43 @@ def phase_pipeline() -> None:
         fail("pipeline: a process group exists before phase pipeline")
     shutil.rmtree(PIPE_DIR, ignore_errors=True)
     os.makedirs(PIPE_DIR)
+    # The kernels' times first, with nothing else on the card.
     PIPE_ROWS.update(_pipeline_kernel_rows())
     for name, r in PIPE_ROWS.items():
         log(f"time pipeline {name} {PIPE_FLASH}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
             f"ms ({r['bound_by']}) [{CARD}]")
+    t_dry = time.time()
+    dry_log = os.path.join(PIPE_DIR, "dryrun.log")
+    with open(dry_log, "w") as out:
+        dry = subprocess.Popen([sys.executable, "-m", "deepl_project_tpu_torch.parallel.dryrun",
+                                "--nproc", str(PIPE_DRYRUN_NPROC)], cwd=ROOT, stdout=out,
+                               stderr=subprocess.STDOUT, text=True,
+                               env={**os.environ, "PYTHONPATH": ROOT})
+    try:
+        _pipeline_runs(dry, dry_log, t_dry)
+    finally:
+        if dry.poll() is None:
+            dry.terminate()
+            try:
+                dry.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                dry.kill()
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    # The phases after this one need the card's memory back.
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2 ** 30
+    log(f"pipeline: {left:.3f} GiB left allocated after the phase")
+    if left > 1.0:
+        fail(f"pipeline: {left:.2f} GiB still allocated after the phase")
+
+
+def _pipeline_runs(dry, dry_log: str, t_dry: float) -> None:
+    """Phase pipeline's checks while the dry run ``dry`` (writing to
+    ``dry_log``, started at ``t_dry``) runs beside them; its result last."""
+    import torch
+
     for name, run in PIPE_RUNS.items():
         t0 = time.time()
         one, v, blocks = _pipe_run(run)
@@ -5923,25 +6384,18 @@ def phase_pipeline() -> None:
             PIPE_PATHS[f"pipeline_{name}_forward_rank{r}"] = got["forward"]["launches"]
         log(f"pipeline ({name}) took {time.time() - t0:.1f}s")
         os.remove(os.path.join(PIPE_DIR, f"ref_{name}.pt"))
-    t0 = time.time()
-    proc = subprocess.run([sys.executable, "-m", "deepl_project_tpu_torch.parallel.dryrun",
-                           "--nproc", str(PIPE_DRYRUN_NPROC)], cwd=ROOT, capture_output=True,
-                          text=True, timeout=600, env={**os.environ, "PYTHONPATH": ROOT})
-    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("dryrun")]
+    _pipe_scan_forward()
+    rc = dry.wait(timeout=600)
+    with open(dry_log) as f:
+        text = f.read()
+    lines = [ln for ln in text.splitlines() if ln.startswith("dryrun")]
     for ln in lines:
         log(f"pipeline (c): {ln}")
-    if proc.returncode != 0 or not any(ln.startswith("dryrun PP+EP OK") for ln in lines):
-        fail(f"pipeline (c): the dry run on {PIPE_DRYRUN_NPROC} ranks exited "
-             f"{proc.returncode}:\n{(proc.stdout + proc.stderr)[-6000:]}")
-    log(f"pipeline (c): the dry run took {time.time() - t0:.1f}s [{CARD}]")
-    shutil.rmtree(PIPE_DIR, ignore_errors=True)
-    # The phases after this one need the card's memory back.
-    gc.collect()
-    torch.cuda.empty_cache()
-    left = torch.cuda.memory_allocated() / 2 ** 30
-    log(f"pipeline: {left:.3f} GiB left allocated after the phase")
-    if left > 1.0:
-        fail(f"pipeline: {left:.2f} GiB still allocated after the phase")
+    if rc != 0 or not any(ln.startswith("dryrun PP+EP OK") for ln in lines):
+        fail(f"pipeline (c): the dry run on {PIPE_DRYRUN_NPROC} ranks exited {rc}:\n"
+             f"{text[-6000:]}")
+    log(f"pipeline (c): the dry run took {time.time() - t_dry:.1f}s beside (a) and (b) "
+        f"[{CARD}]")
 
 
 def main():

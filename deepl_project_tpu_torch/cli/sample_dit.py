@@ -54,6 +54,7 @@ def main(argv=None):
     from ..models.transvae import resolve_device
     from ..training import LatentStats, generate_images
     from ..training.checkpoint import restore_checkpoint
+    from ..utils.convert import load_state_dict
     from ..utils.image import save_grid, save_image
     from .train_dit import load_tokenizer
 
@@ -65,11 +66,12 @@ def main(argv=None):
 
     raw, meta = restore_checkpoint(args.checkpoint, map_location=device)
     inner = raw["state"]
+    # Either block layout loads into the sidecar config's (utils.convert).
     if args.use_ema and inner.get("ema"):
-        dit.load_state_dict(inner["ema"], strict=True)
+        load_state_dict(dit, inner["ema"])
         src = "ema"
     else:
-        dit.load_state_dict(inner["model"], strict=True)
+        load_state_dict(dit, inner["model"])
         src = "live"
     dit.eval()
     stats = LatentStats(mean=raw["latent_mean"], std=raw["latent_std"])

@@ -47,9 +47,8 @@ JAX CLI keeps 'dots' (``CLI_REMAT_POLICY``). A path's images decode on
 with --eval_every_steps the validation batches are the source's first
 batches (for a folder, the first training images: the JAX CLI's choice).
 --scan_blocks holds each stage's blocks in the JAX package's stacked layout
-(``ops.stack``; its checkpoints keep that layout and serve as they are);
-with --param_sharding fsdp or tensor it exits non-zero with "not yet
-ported" (replicate data parallelism runs).
+(``ops.stack``; its checkpoints keep that layout and serve as they are),
+under every --param_sharding.
 """
 
 from __future__ import annotations
@@ -201,20 +200,10 @@ def source_kwargs(data: str, num_workers: int) -> dict:
     return {"repeat": True, "num_workers": workers}
 
 
-def unported_flags(args: argparse.Namespace) -> list[str]:
-    """The flags set to what the port cannot do yet."""
-    if args.scan_blocks and args.param_sharding != "replicate":
-        return [f"--scan_blocks with --param_sharding {args.param_sharding}"]
-    return []
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.config:
         load_yaml_config(args.config, args)
-    bad = unported_flags(args)
-    if bad:
-        sys.exit(f"not yet ported to deepl_project_tpu_torch: {', '.join(bad)}")
     if args.mesh_model > 1 and not under_torchrun():
         sys.exit(f"--mesh_model {args.mesh_model} needs a model group of that many ranks: "
                  "launch under torchrun (python -m torch.distributed.run)")

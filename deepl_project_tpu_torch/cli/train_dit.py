@@ -128,6 +128,7 @@ def main(argv=None):
                             make_optimizer, save_checkpoint)
     from ..training.checkpoint import latest_step, restore_checkpoint
     from ..training.train_step import init_ema
+    from ..utils.convert import load_state_dict, resume_in_model_layout
     from ..utils.logging import RunHistory
 
     device = resolve_device(args.device)
@@ -203,10 +204,13 @@ def main(argv=None):
     if args.resume and latest_step(args.output_dir) is not None:
         raw, meta = restore_checkpoint(args.output_dir, map_location=device)
         inner = raw["state"]
-        dit.load_state_dict(inner["model"], strict=True)
-        state.optimizer.load_state_dict(inner["optimizer"])
+        # A checkpoint of either block layout (the stacked one of a
+        # scan_blocks / pipeline_axis config, or the unrolled one).
+        load_state_dict(dit, inner["model"])
+        saved_opt, saved_ema = resume_in_model_layout(dit, inner["optimizer"], inner.get("ema"))
+        state.optimizer.load_state_dict(saved_opt)  # AdamW: converts in either layout
         if use_ema:
-            state.ema = inner["ema"]
+            state.ema = dict(saved_ema)
         state.step = int(inner["step"])
         stats = LatentStats(mean=raw["latent_mean"], std=raw["latent_std"])
         start_step = int(meta["step"])

@@ -22,34 +22,44 @@ JAX package, and predicts the rectified-flow velocity (``training/diffusion.py``
 The module tree follows the JAX tree (``patch_embed``, ``t_embed.fc1``,
 ``y_embed.embedding``, ``block{i}.qkv``, ..., ``head``), so
 ``utils.convert.load_jax_dit_params`` loads a JAX tree with ``strict=True``.
-``scan_blocks`` is refused: the port's blocks are unrolled (the converter
-unstacks a scan-layout tree).
+
+The stacked layout: with ``scan_blocks`` or ``pipeline_axis`` the blocks
+are one ``ops.stack.BlockStack`` whose state_dict keys are
+``blocks.block.<path>`` [depth, ...], one-to-one with JAX's
+``blocks/block/...`` (JAX holds them so under the same two fields); the
+forward runs the slices in order and computes what the unrolled blocks
+compute, bit for bit. :func:`stack_dit_params` / :func:`unstack_dit_params`
+convert a state_dict between the layouts (``utils.convert.in_model_layout``
+does it on load).
 
 ``pipeline_axis``: under an ambient group of that axis
-(``parallel.mesh.use_axes``) of more than one rank the blocks run as a
-GPipe pipeline (``parallel.pipeline.pipeline_apply``, each stage the blocks
-``PipelinePlacement.shard`` left it); without one they run one after
-another, as the JAX model falls back to its sequential scan. Either way a
-config with ``pipeline_axis`` keeps no router loss: the JAX model holds
-such a config's blocks in its scan layout, whose ``nn.scan`` carries only
-the params collection, so the sown ``moe_aux`` is dropped (a behaviour the
-port mirrors, ``training/diffusion.py``).
+(``parallel.mesh.use_axes``) of more than one rank the stack runs as a
+GPipe pipeline (``parallel.pipeline.pipeline_apply``, each stage the
+consecutive slices ``PipelinePlacement.shard`` left it); without one the
+slices run one after another, as the JAX model falls back to its sequential
+scan. The stacked layout keeps no router loss: the JAX model's ``nn.scan``
+carries only the params collection, so the sown ``moe_aux`` is dropped (a
+behaviour the port mirrors, ``training/diffusion.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import re
 import zlib
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 from ..ops.attention import IMPLS, core_attention
 from ..ops.layers import Conv2d, Linear
 from ..ops.moe import ExpertLinear, SwitchFFN
 from ..ops.rope import apply_rope2d
+from ..ops.stack import BlockStack
 from ..parallel.mesh import ambient
 
 
@@ -103,6 +113,12 @@ class DiTConfig:
     @property
     def params_dtype(self) -> torch.dtype:
         return getattr(torch, self.param_dtype)
+
+    @property
+    def stacked(self) -> bool:
+        """Whether the blocks are held in the stacked layout (JAX's
+        ``scan_blocks or pipeline_axis``)."""
+        return bool(self.scan_blocks or self.pipeline_axis)
 
     def replace(self, **kw) -> "DiTConfig":
         return dataclasses.replace(self, **kw)
@@ -199,7 +215,7 @@ class DiTBlock(nn.Module):
         if cfg.moe_experts > 1:
             self.moe_ffn = SwitchFFN(d, hidden, cfg.moe_experts, cfg.moe_capacity_factor,
                                      cfg.use_swiglu, cfg.moe_axis,
-                                     keep_aux=not cfg.pipeline_axis, device=device,
+                                     keep_aux=not cfg.stacked, device=device,
                                      param_dtype=cfg.params_dtype)
         else:
             if cfg.use_swiglu:
@@ -246,11 +262,6 @@ class DiT(nn.Module):
 
     def __init__(self, cfg: DiTConfig, grid: int | tuple[int, int] = 16, *, device=None):
         super().__init__()
-        if cfg.scan_blocks:
-            raise NotImplementedError(
-                "scan_blocks=True names the JAX package's stacked parameter layout; the "
-                "port's DiT is unrolled. Build it with scan_blocks=False and load a "
-                "scan-layout tree with utils.convert.load_jax_dit_params, which unstacks it")
         if cfg.attention_impl not in IMPLS:
             raise NotImplementedError(f"attention impl {cfg.attention_impl!r} is not yet ported")
         self.config = cfg
@@ -263,15 +274,18 @@ class DiT(nn.Module):
         self.t_embed = TimestepEmbedder(d, device=device, param_dtype=cfg.params_dtype)
         self.y_embed = LabelEmbedder(cfg.num_classes, d, cfg.class_dropout, device=device,
                                      param_dtype=cfg.params_dtype)
-        for i in range(cfg.depth):
-            self.add_module(f"block{i}", DiTBlock(cfg, device=device))
+        if cfg.stacked:
+            self.blocks = BlockStack(DiTBlock, {"cfg": cfg}, cfg.depth, path="block",
+                                     device=device)
+        else:
+            for i in range(cfg.depth):
+                self.add_module(f"block{i}", DiTBlock(cfg, device=device))
         out_ch = cfg.in_channels * (2 if cfg.learn_sigma else 1)
         self.adaln_out = Linear(d, 2 * d, **kw)
         self.head = Linear(d, p * p * out_ch, **kw)
 
-    def blocks(self) -> list[DiTBlock | None]:
-        """The depth slots: a block, or None where a pipeline placement left
-        the block to another stage."""
+    def unrolled_blocks(self) -> list[DiTBlock]:
+        """The blocks of the unrolled layout, in order."""
         return [getattr(self, f"block{i}") for i in range(self.config.depth)]
 
     def forward(self, z: torch.Tensor, t: torch.Tensor, labels: torch.Tensor,
@@ -297,21 +311,17 @@ class DiT(nn.Module):
 
         cond = self.t_embed(t, dt) + self.y_embed(labels, deterministic, generator,
                                                   label_rows).to(dt)
-        blocks = self.blocks()
-        pipe = ambient(cfg.pipeline_axis)
-        if pipe is not None:
+        if not cfg.stacked:
+            for block in self.unrolled_blocks():
+                x = block(x, cond, (gh, gw))
+        elif (pipe := ambient(cfg.pipeline_axis)) is not None:
             from ..parallel.pipeline import pipeline_apply
 
-            x = pipeline_apply(lambda blk, xb, cb: blk(xb, cb, (gh, gw)), blocks, x, cond,
-                               group=pipe.group, num_microbatches=cfg.pipeline_microbatches)
-        elif None in blocks:
-            raise RuntimeError(
-                "this DiT holds the blocks of one pipeline stage (PipelinePlacement.shard): "
-                f"run it under its pipe group (parallel.mesh.use_axes, pipeline_axis="
-                f"{cfg.pipeline_axis!r})")
+            run = functools.partial(_block_slice, self.blocks.template, (gh, gw))
+            x = pipeline_apply(run, self.blocks.stacks(), x, cond, group=pipe.group,
+                               num_microbatches=cfg.pipeline_microbatches)
         else:
-            for block in blocks:
-                x = block(x, cond, (gh, gw))
+            x = self.blocks(x, cond, (gh, gw))
 
         # Final adaLN and linear head, zero-init (DiT's final layer).
         shift, scale = self.adaln_out(F.silu(cond)).chunk(2, dim=-1)
@@ -320,6 +330,61 @@ class DiT(nn.Module):
         out_ch = out.shape[-1] // (p * p)
         out = out.reshape(b, gh, gw, p, p, out_ch).permute(0, 1, 3, 2, 4, 5)
         return out.reshape(b, h, w, out_ch).float()
+
+
+def _block_slice(block: DiTBlock, grid: tuple[int, int], params: dict, x: torch.Tensor,
+                 cond: torch.Tensor) -> torch.Tensor:
+    """``block`` on one slice's tensors of the stacked layout."""
+    return functional_call(block, params, (x, cond, grid))
+
+
+_UNROLLED = re.compile(r"^block(\d+)\.(.*)$")
+_STACKED = "blocks.block."
+
+
+def is_stacked_dit(sd) -> bool:
+    """Whether a DiT state_dict holds the stacked layout."""
+    return any(k.startswith(_STACKED) for k in sd)
+
+
+def stack_dit_params(sd, depth: int) -> dict:
+    """An unrolled DiT state_dict (``block{i}.<path>``, tensors or numpy
+    arrays) in the stacked layout (``blocks.block.<path>`` [depth, ...]), in
+    the place of block 0's keys; a new dict."""
+    from ..ops.stack import _stack
+
+    parts: dict[str, list] = {}
+    out = {}
+    for k, v in sd.items():
+        hit = _UNROLLED.match(k)
+        if hit is None:
+            out[k] = v
+            continue
+        rest = hit.group(2)
+        if rest not in parts:
+            parts[rest] = [None] * depth
+            out[_STACKED + rest] = None
+        parts[rest][int(hit.group(1))] = v
+    for rest, vs in parts.items():
+        if any(v is None for v in vs):
+            raise KeyError(f"{rest} is missing in some of the {depth} blocks")
+        out[_STACKED + rest] = _stack(vs)
+    return out
+
+
+def unstack_dit_params(sd) -> dict:
+    """Inverse of :func:`stack_dit_params`: each ``blocks.block.<path>``
+    split into ``block{i}.<path>`` (views of its slices), in block order."""
+    stacked = {k[len(_STACKED):]: v for k, v in sd.items() if k.startswith(_STACKED)}
+    out = {}
+    for k, v in sd.items():
+        if not k.startswith(_STACKED):
+            out[k] = v
+        elif k[len(_STACKED):] == next(iter(stacked)):
+            depth = len(v)
+            out.update({f"block{i}.{rest}": s[i] for i in range(depth)
+                        for rest, s in stacked.items()})
+    return out
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator) -> None:
@@ -357,16 +422,16 @@ def init_dit_weights(model: DiT, generator: torch.Generator | None = None) -> Di
     ``adaln_out`` and ``head`` zero, ``qkv`` and ``proj`` truncated
     normal(0.02), the label table and ``pos_embed`` normal(0.02), every
     other kernel Flax's lecun normal; biases zero. A model placed by
-    ``PipelinePlacement.shard`` gets the whole model's values: each block
-    of another stage is drawn into a throwaway block and each expert weight
-    held in part is drawn whole, one at a time."""
+    ``PipelinePlacement.shard`` gets the whole model's values: the stacked
+    layout draws each block whole into a throwaway block and keeps what
+    it holds (its stage's slices, its experts), and an unrolled block's
+    expert weight held in part is drawn whole."""
     cfg = model.config
     device = model.head.weight.device
     for child in model._modules.values():
-        if child is None:  # a block of another stage: its draws, thrown away
-            with torch.device("meta"):
-                child = DiTBlock(cfg)
-            child = child.to_empty(device=device)
+        if isinstance(child, BlockStack):
+            _init_stack(child, cfg, device, generator)
+            continue
         zero = {model.adaln_out, model.head}
         small = set()
         if isinstance(child, DiTBlock):
@@ -380,18 +445,49 @@ def init_dit_weights(model: DiT, generator: torch.Generator | None = None) -> Di
     return model
 
 
+def _init_stack(stack: BlockStack, cfg: DiTConfig, device, generator) -> None:
+    """Block j's draws of the unrolled model, one block at a time, into
+    slice j of the stacks where this module holds it (a pipeline stage's
+    slices; a held expert range on the experts' axis, 1 of a stack)."""
+    held = stack.held
+    lo, hi = stack.template.moe_ffn.held if cfg.moe_experts > 1 else (0, 0)
+    stacks = stack.stacks()
+    for j in range(cfg.depth):
+        with torch.device("meta"):
+            block = DiTBlock(cfg)
+        block = block.to_empty(device=device)
+        for m in block.modules():
+            _init_module(m, {block.adaln}, {block.qkv, block.proj}, generator)
+        if j not in held:
+            continue
+        for name, t in block.state_dict().items():
+            if ".experts." in name:
+                t = t[lo:hi]
+            stacks[name][j - held.start].copy_(t)
+
+
 @torch.no_grad()
 def perturb_zero_init(model: DiT, seed: int, std: float = 0.02) -> DiT:
     """N(0, std^2) in the weights the JAX init zeroes (every block's adaLN,
     ``adaln_out``, ``head``), so that every block shapes the output (at the
     init the blocks start as the identity and the head at 0, and a loss
     does not see them). Each weight is drawn from a generator seeded from
-    (seed, its name), so a pipeline stage draws the whole model's values."""
+    (seed, its unrolled name), so a pipeline stage draws the whole model's
+    values and a stacked model the unrolled one's."""
+    def draw(p, name):
+        gen = torch.Generator(device=p.device).manual_seed(
+            seed * 1_000_003 + zlib.crc32(name.encode()))
+        p.normal_(0.0, std, generator=gen)
+
     for name, p in model.named_parameters():
-        if name.endswith(("adaln.weight", "adaln_out.weight", "head.weight")):
-            gen = torch.Generator(device=p.device).manual_seed(
-                seed * 1_000_003 + zlib.crc32(name.encode()))
-            p.normal_(0.0, std, generator=gen)
+        if not name.endswith(("adaln.weight", "adaln_out.weight", "head.weight")):
+            continue
+        if name.startswith(_STACKED):  # slice j as the unrolled block{j}'s
+            held = model.blocks.held
+            for j in held:
+                draw(p[j - held.start], f"block{j}.{name[len(_STACKED):]}")
+        else:
+            draw(p, name)
     return model
 
 

@@ -42,21 +42,21 @@ def resblock_kwargs(cfg: TransVAEConfig) -> dict:
 def stage(cfg: TransVAEConfig, cnn: bool, dim: int, depth: int, policy, kw: dict
           ) -> nn.Module:
     """A stage of ``depth`` ResBlocks (``cnn``) or TransVAE blocks of width
-    ``dim``: a ModuleList, or under ``scan_blocks`` a BlockStack (the
-    ResBlocks take no ``deterministic``, as JAX's ``pass_deterministic``)."""
+    ``dim``: a ModuleList, or under ``scan_blocks`` a BlockStack."""
     cls, kwargs = ((ResBlock, dict(in_channels=dim, out_channels=dim, **resblock_kwargs(cfg)))
                    if cnn else (TransVAEBlock, transformer_kwargs(cfg, dim)))
     if cfg.scan_blocks:
         return BlockStack(cls, {**kwargs, **kw}, depth, remat=cfg.remat, policy=policy,
-                          pass_deterministic=not cnn, device=kw["device"])
+                          device=kw["device"])
     return nn.ModuleList([cls(**kwargs, **kw) for _ in range(depth)])
 
 
 def run_stage(blocks: nn.Module, h: torch.Tensor, deterministic: bool, cfg: TransVAEConfig,
               policy) -> torch.Tensor:
-    """A stage's blocks on ``h`` in order (each checkpointed under ``remat``)."""
+    """A stage's blocks on ``h`` in order (each checkpointed under ``remat``);
+    the ResBlocks take no ``deterministic``, as JAX's ``pass_deterministic``."""
     if isinstance(blocks, BlockStack):
-        return blocks(h, deterministic)
+        return blocks(h, *(() if isinstance(blocks.template, ResBlock) else (deterministic,)))
     for block in blocks:
         args = () if isinstance(block, ResBlock) else (deterministic,)
         h = run_block(block, h, *args, remat=cfg.remat, policy=policy)

@@ -29,8 +29,12 @@ exchange halo rows of their float input before they quantize.
 JAX package's stacked layout (``stages.{i}.scan.block.*`` with a leading
 depth axis; ``ops.stack.to_scanned_params`` / ``from_scanned_params``
 convert state_dicts). The forward, the gradients and the seeded init are the
-unrolled model's, bit for bit. Not yet ported: int8 (refused as in JAX) and
-an ambient context group.
+unrolled model's, bit for bit, also under an ambient context group (the
+halo convs, GroupNorm moments, RoPE rows and the ring run inside the
+stack's iterations, and a checkpointed iteration's recompute runs under
+the same group) and on a mesh (``parallel.shard_params``: FSDP gathers a
+stack whole once a forward, tensor parallelism splits every slice). Int8
+is refused, as in JAX.
 """
 
 from __future__ import annotations
@@ -81,10 +85,6 @@ class TransVAE(nn.Module):
             raise ValueError("an ambient context group shards the rows, but this model's "
                              "config leaves context_axis unset: build it with "
                              "context_axis='context'")
-        if cfg.scan_blocks:
-            raise NotImplementedError(
-                "scan_blocks under an ambient context group is not yet ported: build the "
-                "model with scan_blocks=False (ops.stack.from_scanned_params converts)")
         f = 2 ** (cfg.num_stages - 1)
         if rows is not None and rows % f:
             raise ValueError(

@@ -103,9 +103,10 @@ class SwitchFFN(nn.Module):
         self.experts = _Experts(num_experts, d, hidden, use_swiglu, device=device,
                                 dtype=param_dtype)
 
-    def hold_experts(self, rank: int, size: int) -> None:
+    def hold_experts(self, rank: int, size: int, axis: int = 0) -> None:
         """Keep only experts [rank E/size, (rank + 1) E/size) of the whole set,
-        in place (on the meta device too)."""
+        in place (on the meta device too); ``axis``: the experts' axis of
+        the weights (1 in a stack, behind its depth axis)."""
         e = self.num_experts
         if e % size:
             raise ValueError(f"{e} experts do not split over an expert group of {size} ranks")
@@ -114,7 +115,7 @@ class SwitchFFN(nn.Module):
             lin.first, lin.total = lo, e
             for name in ("weight", "bias"):
                 full = getattr(lin, name)
-                setattr(lin, name, nn.Parameter(full.detach()[lo:hi].clone(),
+                setattr(lin, name, nn.Parameter(full.detach().narrow(axis, lo, hi - lo).clone(),
                                                 requires_grad=full.requires_grad))
         self.held = (lo, hi)
 

@@ -29,26 +29,36 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from ..parallel.collectives import gather_from_group, rank_slice
 from .blocks import run_block
 from .layers import depth_slice
 
 
 class BlockStack(nn.Module):
     """``depth`` blocks of ``block_cls(**block_kwargs)`` with stacked
-    parameters under ``scan.block``. The forward runs the blocks in order,
-    each through ``run_block`` (so ``remat`` checkpoints each iteration under
-    ``policy``, as ``nn.remat(Body)`` inside the JAX scan does), passing
-    ``deterministic`` on to blocks that take it (``pass_deterministic``:
-    the TransVAE blocks, not the ResBlocks)."""
+    parameters under ``path`` (``scan.block``: the TransVAE stages; the
+    DiT's is ``block``, JAX's ``blocks/block``). The forward runs the blocks
+    in order on ``h``, each through ``run_block`` (so ``remat`` checkpoints
+    each iteration under ``policy``, as ``nn.remat(Body)`` inside the JAX
+    scan does), passing the forward's other arguments on to every block.
+
+    Placed stacks: a stack that FSDP splits holds this rank's slice and is
+    gathered whole once per forward (:meth:`hold_shard`, :meth:`stacks`),
+    before the iterations, as XLA gathers the stacked leaf before its scan;
+    a tensor-parallel stack holds this rank's slice of every block, which
+    the modules' local-shard forwards take as it is; a pipeline stage holds
+    its consecutive slices (:meth:`hold_slices`)."""
 
     def __init__(self, block_cls: type, block_kwargs: dict, depth: int, *,
-                 remat: bool = False, policy=None, pass_deterministic: bool = True,
-                 device=None):
+                 remat: bool = False, policy=None, path: str = "scan.block", device=None):
         super().__init__()
-        self.depth = depth
+        self.depth = depth  # the whole stack's depth
+        self.held = range(depth)  # the slices this module holds
         self.remat, self.policy = remat, policy
-        self.pass_deterministic = pass_deterministic
+        self.path = path
         self._make = functools.partial(block_cls, **{**block_kwargs, "device": "meta"})
+        # {name in the block: (dim, group)} of the stacks FSDP split.
+        self._shards: dict[str, tuple] = {}
         block = self._make()
         for module in block.modules():
             for store in (module._parameters, module._buffers):
@@ -60,34 +70,91 @@ class BlockStack(nn.Module):
                                    if isinstance(t, nn.Parameter) else stacked)
         # One module of the block's class holds the stacks; each iteration
         # calls it on views of one slice.
-        self.scan = nn.Module()
-        self.scan.block = block
+        holder = self
+        *outer, last = path.split(".")
+        for name in outer:
+            holder.add_module(name, nn.Module())
+            holder = getattr(holder, name)
+        holder.add_module(last, block)
 
-    def _stacks(self) -> dict[str, torch.Tensor]:
-        block = self.scan.block
+    @property
+    def template(self) -> nn.Module:
+        """The module that holds the stacks."""
+        return self.get_submodule(self.path)
+
+    def _named(self) -> dict[str, torch.Tensor]:
+        block = self.template
         return {**dict(block.named_parameters()), **dict(block.named_buffers())}
+
+    def hold_shard(self, name: str, dim: int, group) -> None:
+        """Keep this rank's slice along ``dim`` over ``group`` of stack
+        ``name`` (its name in the block) and gather it whole in each forward:
+        FSDP's placement of a stack (``parallel.shard_params``)."""
+        owner, attr = _owner(self.template, name)
+        full = getattr(owner, attr)
+        setattr(owner, attr, nn.Parameter(rank_slice(full.detach(), dim, group),
+                                          requires_grad=full.requires_grad))
+        self._shards[name] = (dim, group)
+
+    def hold_slices(self, slices: range) -> None:
+        """Keep slices ``slices`` (consecutive) of every stack, in place (on
+        the meta device too): a pipeline stage's part."""
+        for name, t in self._named().items():
+            owner, attr = _owner(self.template, name)
+            part = t.detach()[slices.start:slices.stop].clone()
+            setattr(owner, attr, nn.Parameter(part, requires_grad=t.requires_grad)
+                    if isinstance(t, nn.Parameter) else part)
+        self.held = range(self.held.start + slices.start, self.held.start + slices.stop)
+
+    def stacks(self) -> dict[str, torch.Tensor]:
+        """{name in the block: stack} of the held slices, whole along every
+        other axis: an FSDP-split stack gathered over its group (one
+        collective a stack and forward; its backward keeps this rank's slice
+        of the gradient)."""
+        out = self._named()
+        for name, (dim, group) in self._shards.items():
+            full = gather_from_group(out[name], dim, group)
+            # CachedOperands keys derived operands on the shard's storage
+            # and version (a gathered stack is new storage at each use).
+            full._gathered_from = out[name]
+            out[name] = full
+        return out
 
     def unrolled(self, j: int) -> nn.Module:
         """Block ``j`` as a module of its own class whose parameters and
         buffers are views of slice ``j`` of the stacks: what it writes in
-        place reaches the stacks (the seeded init)."""
+        place reaches the stacks (the seeded init, before any placement)."""
         with torch.device("meta"):
             block = self._make()
-        block.load_state_dict({n: t[j] for n, t in self._stacks().items()},
+        block.load_state_dict({n: t[j] for n, t in self._named().items()},
                               strict=True, assign=True)
         return block
 
-    def forward(self, h: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
-        stacks = self._stacks()
+    def forward(self, h: torch.Tensor, *args) -> torch.Tensor:
+        """The blocks in order on ``h``; ``args`` go to every block."""
+        if len(self.held) != self.depth:
+            raise RuntimeError(
+                f"this stack holds slices [{self.held.start}, {self.held.stop}) of "
+                f"{self.depth}, one pipeline stage's (PipelinePlacement.shard): run it "
+                f"under its pipe group (parallel.mesh.use_axes)")
         # One unbind per stack and forward: its backward stacks the slices'
         # gradients once (indexing would add a zero stack per slice).
-        slices = {n: t.unbind(0) for n, t in stacks.items()}
-        args = (deterministic,) if self.pass_deterministic else ()
+        slices = {}
+        for n, t in self.stacks().items():
+            slices[n] = t.unbind(0)
+            src = getattr(t, "_gathered_from", None)
+            for s in slices[n] if src is not None else ():
+                s._gathered_from = src
         for j in range(self.depth):
-            step = functools.partial(_run_slice, self.scan.block,
+            step = functools.partial(_run_slice, self.template,
                                      {n: s[j] for n, s in slices.items()}, j)
             h = run_block(step, h, *args, remat=self.remat, policy=self.policy)
         return h
+
+
+def _owner(module: nn.Module, name: str) -> tuple[nn.Module, str]:
+    path, _, attr = name.rpartition(".")
+    return (module.get_submodule(path) if path else module), attr
 
 
 def _run_slice(block: nn.Module, tensors: dict, j: int, x: torch.Tensor, *args):

@@ -6,10 +6,10 @@ package's ``dryrun_multichip``):
 Starts ``nproc`` processes (a gloo group through a ``file://`` store in a
 temporary directory), each on a CUDA device (rank r on card r mod the card
 count; several ranks share a card) unless ``--device cpu`` asks for the
-CPU, and runs one training step of the same tiny model
-(three stages, CNN + CNN + transformer at head width 64, fp32, remat
-'dots', two microbatches, L1 + KL) from the same weights, batch and noise
-under each strategy:
+CPU, and runs one training step of the same tiny model, the JAX dry run's
+config (three stages, CNN + CNN + transformer at head width 64, fp32, the
+scan layout, remat 'dots', two microbatches, L1 + KL), from the same
+weights, batch and noise under each strategy:
 
 1. DP x TP: data = nproc / 2, tensor-parallel parameters over model = 2;
 2. DP x CP x TP: rows sharded over context = 2 (ring attention, halo
@@ -19,8 +19,9 @@ under each strategy:
 5. pipeline x expert parallelism of the latent DiT (the JAX phase's model:
    DiT-S geometry at depth 4, width 64, 4 heads, fp32, 10 classes, no label
    dropout, 2 Switch experts, 2 pipeline microbatches; 8x8x8 latents, b8,
-   AdamW 1e-3): one rectified-flow step under a (nproc / 4, 2, 2) mesh of
-   (data, pipe, expert), the blocks pipelined over pipe and the experts
+   AdamW 1e-3; its ``pipeline_axis`` holds the blocks stacked, as JAX's):
+   one rectified-flow step under a (nproc / 4, 2, 2) mesh of (data, pipe,
+   expert), the stack's slices pipelined over pipe and the experts
    split over expert, against the same step on one process (the config's
    sequential fallback), loss within 1e-4 * max(1, |loss|) (the JAX
    phase's bar) and the grad norm within the same bar. The JAX phase's
@@ -58,8 +59,8 @@ def _config():
     from ..config import get_config
 
     return get_config("tiny_f16d32", dtype="float32", attention_impl="xla").replace(
-        depths=(1, 1, 1), base_dims=(32, 32, 128), latent_dim=8, head_dim=64, remat=True,
-        remat_policy="dots")
+        depths=(1, 1, 1), base_dims=(32, 32, 128), latent_dim=8, head_dim=64, scan_blocks=True,
+        remat=True, remat_policy="dots")
 
 
 def _step(x_host: np.ndarray, data: int, context: int, model: int, mode: str,

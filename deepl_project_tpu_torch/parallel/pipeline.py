@@ -10,9 +10,11 @@ stage's result over ``'pipe'``, and autodiff writes the backward. Here
 each stage is a process and the schedule is written out both ways
 (:class:`_Pipeline`, a ``torch.autograd.Function``):
 
-- Stage s holds blocks [s depth/P, (s + 1) depth/P) (:func:`stage_range`,
-  the counterpart of ``stage_sharding``; :meth:`PipelinePlacement.shard`
-  drops every other block from a model, so a stage allocates only its own).
+- Stage s holds slices [s depth/P, (s + 1) depth/P) of the stacked block
+  params (:func:`stage_range`, the counterpart of ``stage_sharding``'s
+  P('pipe') on the leading axis; :meth:`PipelinePlacement.shard` keeps
+  only those slices of the DiT's stacks, so a stage allocates only its
+  own), and runs them in order in each tick (JAX's ``_stage_apply``).
 - The batch splits into M contiguous microbatches (``x.reshape(m, b // m,
   ...)``). At tick t stage s runs microbatch t - s with *that microbatch's*
   conditioning, and its output goes to stage s + 1 by
@@ -44,18 +46,19 @@ Where the trouble lies, and what the Function does about it:
   wrong here). The input x feeds stage 0 only: its gradient is broadcast
   from stage 0, so the layers before the pipeline get it on every rank.
 - *Explicit parameter lists.* The training steps take gradients with
-  ``torch.autograd.grad`` on named parameters: the stage's block
-  parameters are inputs of the Function, so the loss reaches them on the
-  rank that owns them, and the Function returns their gradients summed
-  over the microbatches.
+  ``torch.autograd.grad`` on named parameters: the stage's stacks are
+  inputs of the Function, so the loss reaches them on the rank that owns
+  them, and the Function returns their gradients summed over the
+  microbatches.
 
 The collectives inside the blocks (expert parallelism's, ``ops/moe.py``)
 run in the local graphs, microbatch by microbatch in the schedule's order
 on every rank of an expert group (the ranks of one stage).
 
 :class:`PipelinePlacement` places the DiT on a ``create_dit_mesh`` mesh:
-blocks over ``pipe``, the Switch FFN's experts over ``expert`` (dim 0 of
-each expert weight), everything else whole on every rank. Each gradient is
+the stacked blocks' slices over ``pipe``, the Switch FFN's experts over
+``expert`` (the experts' axis of each expert weight: 1 in a stack, 0 in an
+unrolled block), everything else whole on every rank. Each gradient is
 averaged over the ranks that hold its parameter (the non-block parameters
 over every rank, a stage's dense block parameters over data x expert, the
 experts over data: equal to the mean over data, since the other ranks of
@@ -100,32 +103,34 @@ def stage_range(depth: int, stage: int, num_stages: int) -> range:
     return range(stage * per, (stage + 1) * per)
 
 
-def _leaves(blocks) -> list[torch.Tensor]:
-    """The tensors of ``blocks`` that require grad: a module's parameters,
-    or the tensors of a (nested) dict or list."""
-    out = []
-    for blk in blocks:
-        if isinstance(blk, nn.Module):
-            out += [p for p in blk.parameters() if p.requires_grad]
-        else:
-            out += [t for t in torch.utils._pytree.tree_leaves(blk)
-                    if isinstance(t, torch.Tensor) and t.requires_grad]
-    return out
+def _leaves(stacked) -> list[torch.Tensor]:
+    """The tensors of the (nested dict or list) ``stacked`` that require
+    grad."""
+    return [t for t in torch.utils._pytree.tree_leaves(stacked)
+            if isinstance(t, torch.Tensor) and t.requires_grad]
+
+
+def _slices(stacked) -> list:
+    """The per-block pytrees of ``stacked`` (one unbind a leaf)."""
+    leaves, spec = torch.utils._pytree.tree_flatten(stacked)
+    parts = [t.unbind(0) for t in leaves]
+    return [torch.utils._pytree.tree_unflatten([p[j] for p in parts], spec)
+            for j in range(len(parts[0]))]
 
 
 class _Schedule:
-    """One pipeline call's blocks, group and shapes."""
+    """One pipeline call's stacks, group and shapes."""
 
-    def __init__(self, block_fn: BlockFn, blocks: list, group, m: int):
-        self.block_fn, self.blocks, self.group, self.m = block_fn, blocks, group, m
+    def __init__(self, block_fn: BlockFn, stacked, group, m: int):
+        self.block_fn, self.stacked, self.group, self.m = block_fn, stacked, group, m
         self.size, self.stage = dist.get_world_size(group), dist.get_rank(group)
 
     def peer(self, stage: int) -> int:
         return dist.get_global_rank(self.group, stage)
 
     def run(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        for blk in self.blocks:
-            x = self.block_fn(blk, x, cond)
+        for params in _slices(self.stacked):
+            x = self.block_fn(params, x, cond)
         return x
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor, graphs: list | None):
@@ -174,7 +179,7 @@ class _Pipeline(torch.autograd.Function):
     def backward(ctx, dy):
         sched, graphs = ctx.sched, ctx.graphs
         m, p, s = sched.m, sched.size, sched.stage
-        params = _leaves(sched.blocks)
+        params = _leaves(sched.stacked)
         need_x, need_c = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
         dys = dy.reshape(m, -1, *dy.shape[1:])
         dxs = [None] * m
@@ -219,45 +224,46 @@ class _Pipeline(torch.autograd.Function):
         return (dx, dcond, None, *dparams)
 
 
-def pipeline_apply(block_fn: BlockFn, stage_blocks, x: torch.Tensor, cond: torch.Tensor, *,
+def pipeline_apply(block_fn: BlockFn, stacked, x: torch.Tensor, cond: torch.Tensor, *,
                    group, num_microbatches: int = 8) -> torch.Tensor:
     """Run a stack of identical blocks as a P-stage pipeline over ``group``
     (P its size, stage s this rank's place in it).
 
-    ``block_fn(block, x [B', N, D], cond [B', D]) -> [B', N, D]``: one block.
-    ``stage_blocks``: the stack's ``depth`` slots; this stage's blocks in
-    slots [s depth/P, (s + 1) depth/P) (a module, or a dict or list of
-    tensors), anything (None) elsewhere. ``x`` [B, N, D] and ``cond`` [B,
-    D] are the same on every rank of the group; B % num_microbatches == 0.
-    Returns [B, N, D], the same on every rank; differentiable in x, cond and
-    the stage's block parameters."""
-    size, stage = dist.get_world_size(group), dist.get_rank(group)
-    depth = len(stage_blocks)
-    mine = stage_range(depth, stage, size)
+    ``block_fn(params_one_block, x [B', N, D], cond [B', D]) -> [B', N,
+    D]``: one block. ``stacked``: this stage's part of the stack, a pytree
+    (dict or list) of tensors whose leading axis holds its slices
+    :func:`stage_range` (what ``PipelinePlacement.shard`` leaves a model,
+    and what JAX's ``shard_map`` hands each stage). ``x`` [B, N, D] and
+    ``cond`` [B, D] are the same on every rank of the group; B %
+    num_microbatches == 0. Returns [B, N, D], the same on every rank;
+    differentiable in x, cond and the stage's stacks."""
     if x.shape[0] % num_microbatches:
         raise ValueError(f"batch {x.shape[0]} not divisible by "
                          f"num_microbatches {num_microbatches}")
-    blocks = [stage_blocks[i] for i in mine]
-    if any(b is None for b in blocks):
-        raise ValueError(f"stage {stage} of {size} holds no block in slots "
-                         f"[{mine.start}, {mine.stop}) of its stack")
-    sched = _Schedule(block_fn, blocks, group, num_microbatches)
-    params = _leaves(blocks)
+    sched = _Schedule(block_fn, stacked, group, num_microbatches)
+    params = _leaves(stacked)
     if not torch.is_grad_enabled() or not (x.requires_grad or cond.requires_grad or params):
         with torch.no_grad():
             return sched.forward(x, cond, None)
     return _Pipeline.apply(x, cond, sched, *params)
 
 
-_BLOCK = re.compile(r"^block(\d+)\.(.*)$")
+_STACKED = "blocks.block."
+_UNROLLED = re.compile(r"^block(\d+)\.")
+
+
+def _stage_param(name: str) -> bool:
+    """Whether ``name`` is a block's parameter (stacked or unrolled)."""
+    return name.startswith(_STACKED) or _UNROLLED.match(name) is not None
 
 
 class PipelinePlacement:
     """The latent DiT on a (data, pipe, expert) mesh (``create_dit_mesh``):
     its groups, and each parameter's kind by name -- ``replicated`` (every
     rank holds it whole), ``stage`` (a block's dense parameter: the ranks of
-    one pipe coordinate hold it) or ``expert`` (an expert weight: this
-    rank's slice along dim 0, over the expert group). :meth:`shard` places
+    one pipe coordinate hold it, a stack its stage's slices) or ``expert``
+    (an expert weight: this rank's slice along the experts' axis, over the
+    expert group). :meth:`shard` places
     a model and fills the kinds; the optimizer and the steps read the
     rest (the interface of ``sharding.Placement``)."""
 
@@ -287,24 +293,27 @@ class PipelinePlacement:
 
     def shard(self, model: nn.Module) -> nn.Module:
         """Place a ``models.dit.DiT`` (materialised or on the meta device)
-        in place: the blocks of other stages dropped (their slots None), each
-        Switch FFN holding this rank's experts. Returns the model."""
+        in place: a stacked model (``pipeline_axis`` or ``scan_blocks``)
+        keeps this stage's slices of its stacks; each Switch FFN holds this
+        rank's experts. Returns the model."""
         from ..ops.moe import SwitchFFN
 
         cfg = model.config
         self.depth = cfg.depth
         self.full_shapes.update({n: tuple(p.shape) for n, p in model.named_parameters()})
-        mine = self.stage_range(cfg.depth)
-        for i in range(cfg.depth):
-            if i not in mine:
-                setattr(model, f"block{i}", None)
+        if self.pipe_size > 1:
+            if not cfg.stacked:
+                raise ValueError("a pipeline placement needs the stacked layout: build the "
+                                 "DiT with pipeline_axis (or scan_blocks)")
+            model.blocks.hold_slices(self.stage_range(cfg.depth))
         if self.expert_size > 1:
             for m in model.modules():
                 if isinstance(m, SwitchFFN):
-                    m.hold_experts(self.expert_rank, self.expert_size)
+                    m.hold_experts(self.expert_rank, self.expert_size,
+                                   axis=1 if cfg.stacked else 0)
         for name, p in model.named_parameters():
             self.kinds[name] = ("expert" if ".experts." in name and self.expert_size > 1
-                                else "stage" if _BLOCK.match(name) else "replicated")
+                                else "stage" if _stage_param(name) else "replicated")
         return model
 
     def kind(self, name: str) -> str:
@@ -312,7 +321,14 @@ class PipelinePlacement:
 
     # -- the optimizer's interface ----------------------------------------
     def dim(self, name: str) -> int | None:
-        return 0 if self.kind(name) == "expert" else None
+        """The experts' axis of an expert weight this rank holds in part."""
+        if self.kind(name) != "expert":
+            return None
+        return 1 if name.startswith(_STACKED) else 0
+
+    def _staged(self, name: str) -> bool:
+        """Whether ``name`` is a stack this rank holds a pipe stage's part of."""
+        return self.pipe_size > 1 and name.startswith(_STACKED)
 
     @property
     def sharded(self) -> bool:
@@ -322,6 +338,8 @@ class PipelinePlacement:
         return tuple(self.full_shapes.get(name, local.shape))
 
     def scatter(self, full: torch.Tensor, dim: int | None) -> torch.Tensor:
+        """This rank's experts of a whole tensor along ``dim`` (``full``
+        itself when None)."""
         if dim is None:
             return full
         n = full.shape[dim] // self.expert_size
@@ -362,24 +380,14 @@ class PipelinePlacement:
 
     def full_named(self, named: dict, dim_of=None) -> dict:
         """{name: whole tensor} of the whole model from this rank's (name,
-        tensor) dict: the experts gathered over the expert group, each
-        block slot filled from the stage that holds it (collective over
-        every rank; the stages hold the same block structure, so their
-        names pair by position)."""
+        tensor) dict: the experts gathered over the expert group, then each
+        stack's stage slices over the pipe group in stage order: whole
+        stacks (collective over every rank)."""
         dim_of = dim_of or self.dim
-        out, per = {}, None
+        out = {}
         for name, t in named.items():
             t = self.gather(t.detach(), dim_of(name))
-            hit = _BLOCK.match(name)
-            if hit is None or self.pipe_size == 1:
-                out[name] = t
-                continue
-            per = per or len(self.stage_range(self.depth))
-            j = int(hit.group(1)) - self.pipe_rank * per
-            parts = [torch.empty_like(t) for _ in range(self.pipe_size)]
-            dist.all_gather(parts, t.contiguous(), group=self.pipe_group)
-            for s, part in enumerate(parts):
-                out[f"block{s * per + j}.{hit.group(2)}"] = part
+            out[name] = all_gather_cat(t, 0, self.pipe_group) if self._staged(name) else t
         return out
 
     def local_named(self, full: dict, names, dim_of=None) -> dict:
@@ -388,7 +396,14 @@ class PipelinePlacement:
         missing = [n for n in names if n not in full]
         if missing:
             raise RuntimeError(f"the state lacks this rank's parameters: {missing[:8]}")
-        return {n: self.scatter(full[n], dim_of(n)) for n in names}
+        out = {}
+        for n in names:
+            t = full[n]
+            if self._staged(n):
+                mine = self.stage_range(t.shape[0])
+                t = t[mine.start:mine.stop]
+            out[n] = self.scatter(t, dim_of(n))
+        return out
 
     @torch.no_grad()
     def full_state(self, named, prefix: str = "") -> dict:

@@ -9,7 +9,10 @@ the port's own copy).
   in the JAX layout); a ``torch.nn.utils.parametrize`` parametrization
   all-gathers the whole weight at each use, and its backward keeps this
   rank's slice of the gradient (every model peer holds it whole: they see
-  the same rows).
+  the same rows). The rule reads a ``scan_blocks`` stack's whole shape, its
+  depth axis one more axis; the stack is gathered whole once a forward
+  (``ops.stack.BlockStack.hold_shard``), as XLA gathers the stacked leaf
+  before its scan.
 - ``tensor``: Megatron-style. Column parallel (output split): ``to_q``,
   ``to_k``, ``to_v``, ``proj_in``; row parallel (input split): ``proj``,
   ``proj_out``; column convolutions: the ConvFFN's ``conv_0`` and
@@ -17,7 +20,8 @@ the port's own copy).
   ``conv1``; biases of column layers split with them. The modules that own
   them run their local-shard forwards (``ops/attention.py``,
   ``ops/ffn.py``, ``ops/blocks.py``) with the collectives of
-  ``collectives.py``.
+  ``collectives.py``. A ``scan_blocks`` stack's leading depth axis is never
+  split: each slice is this rank's part of one block.
 
 The rules read the JAX layout of each parameter ([in, out] dense kernels,
 HWIO convs; :func:`~deepl_project_tpu_torch.training.optim.jax_layout`) and
@@ -74,24 +78,35 @@ def _parent(name: str) -> str:
 
 
 def _tensor_axis(name: str, jax_shape: tuple, model_size: int) -> int | None:
-    """The JAX rule's sharded axis (in the JAX layout) under 'tensor'."""
+    """The JAX rule's sharded axis (in the JAX layout) under 'tensor'. A
+    name with a ``scan`` component (a TransVAE stage stack) carries a
+    leading depth axis, never split: the rule reads the axes after it, as
+    JAX's ``stacked``. The DiT's stacks (``blocks.block``) hold no such
+    component, and JAX's rule reads their whole shape, which matches no
+    case: they stay replicated, here as there."""
     leaf, parent = name.split(".")[-1], _parent(name)
-    kernel = leaf == "weight" and len(jax_shape) in (2, 4)
-    if kernel and len(jax_shape) == 2:
-        if parent in _COLUMN_PARALLEL and jax_shape[-1] % model_size == 0:
-            return 1
-        if parent in _ROW_PARALLEL and jax_shape[-2] % model_size == 0:
-            return 0
-    if kernel and len(jax_shape) == 4:
-        if parent in _CONV_COLUMN and jax_shape[-1] % model_size == 0:
-            return 3
-    if (leaf == "bias" and len(jax_shape) == 1 and parent in _COLUMN_PARALLEL + _CONV_COLUMN
-            and jax_shape[0] % model_size == 0):
-        return 0
-    return None
+    stacked = 1 if "scan" in name.split(".") else 0
+    shape = jax_shape[stacked:]
+    kernel = leaf == "weight" and len(shape) in (2, 4)
+    axis = None
+    if kernel and len(shape) == 2:
+        if parent in _COLUMN_PARALLEL and shape[-1] % model_size == 0:
+            axis = 1
+        elif parent in _ROW_PARALLEL and shape[-2] % model_size == 0:
+            axis = 0
+    elif kernel and len(shape) == 4:
+        if parent in _CONV_COLUMN and shape[-1] % model_size == 0:
+            axis = 3
+    elif (leaf == "bias" and len(shape) == 1 and parent in _COLUMN_PARALLEL + _CONV_COLUMN
+          and shape[0] % model_size == 0):
+        axis = 0
+    return None if axis is None else stacked + axis
 
 
 def _fsdp_axis(jax_shape: tuple, model_size: int, min_size: int) -> int | None:
+    """JAX's FSDP rule on the whole JAX-layout shape (a stack's depth axis
+    included: it is one more axis there, and the size threshold counts the
+    whole stack)."""
     if math.prod(jax_shape) < min_size:
         return None
     for axis in sorted(range(len(jax_shape)), key=lambda i: -jax_shape[i]):
@@ -128,11 +143,6 @@ def param_specs(module: nn.Module, mode: str = "replicate", model_size: int = 1,
     docstring for the one deviation)."""
     if mode not in MODES:
         raise ValueError(f"Unknown sharding mode: {mode!r}")
-    if mode != "replicate" and model_size > 1 and any(
-            ".scan.block." in n for n, _ in module.named_parameters()):
-        raise NotImplementedError(
-            f"param_sharding={mode!r} of a scan_blocks model is not yet ported: "
-            "replicate it, or build it with scan_blocks=False")
     min_size = FSDP_MIN_SIZE if fsdp_min_size is None else fsdp_min_size
     unsplit = _unsplit_modules(module, model_size) if mode == "tensor" else []
     specs = {}
@@ -297,9 +307,12 @@ def shard_params(mesh, model: nn.Module, mode: str = "replicate",
     """Place ``model``'s parameters (whole, identical on every rank) on the
     mesh under ``mode``, in place, and return their :class:`Placement`
     (``placement``, extended, when given: several modules under one).
-    'fsdp' registers the gathering parametrization on each split weight;
-    'tensor' replaces each split parameter by this rank's slice and hands
-    the model group to the modules that own them."""
+    'fsdp' registers the gathering parametrization on each split weight,
+    or, for a stage stack's, has its ``ops.stack.BlockStack`` hold this
+    rank's slice and gather it once a forward; 'tensor' replaces each split
+    parameter by this rank's slice and hands the model group to the modules
+    that own them (a stack's template modules too: each slice is then this
+    rank's part of one block)."""
     model_size = axis_size(mesh, MODEL_AXIS)
     specs = param_specs(model, mode, model_size, fsdp_min_size, prefix)
     if placement is None:
@@ -308,11 +321,18 @@ def shard_params(mesh, model: nn.Module, mode: str = "replicate",
     placement.full_shapes.update({prefix + n: tuple(p.shape)
                                   for n, p in model.named_parameters()})
     group = placement.model_group
+    from ..ops.stack import BlockStack
+
+    stacks = {f"{prefix}{n + '.' if n else ''}{m.path}.": m for n, m in model.named_modules()
+              if isinstance(m, BlockStack)}
     for key, spec in specs.items():
         if not isinstance(spec, Shard):
             continue
         owner, attr = _owner(model, key[len(prefix):])
-        if mode == "fsdp":
+        head = next((h for h in stacks if key.startswith(h)), None)
+        if mode == "fsdp" and head is not None:
+            stacks[head].hold_shard(key[len(head):], spec.dim, group)
+        elif mode == "fsdp":
             parametrize.register_parametrization(owner, attr, _GatherShard(spec.dim, group),
                                                  unsafe=True)
         else:

@@ -88,7 +88,7 @@ def rectified_flow_loss(model, z0: torch.Tensor, labels: torch.Tensor,
                         noise: torch.Tensor | None = None,
                         rows: tuple[int, int] | None = None) -> tuple[torch.Tensor, dict]:
     """Flow-matching MSE on normalized latents z0 [B, h, w, C]: (loss,
-    metrics 'loss', 'v_norm' and, for a MoE model without ``pipeline_axis``,
+    metrics 'loss', 'v_norm' and, for a MoE model in the unrolled layout,
     'moe_aux' and 'total'). t, the noise and the label dropout come from
     ``generator`` in that order (t and the noise only where not given);
     ``rows`` = (first, total): z0 is rows of a batch of ``total``, whose
@@ -111,8 +111,9 @@ def rectified_flow_loss(model, z0: torch.Tensor, labels: torch.Tensor,
     v = model(z_t, t, labels, deterministic=False, generator=generator, label_rows=rows)
     loss = (v.float() - target).square().mean()
     metrics = {"loss": loss, "v_norm": v.square().mean().sqrt()}
-    # A config with pipeline_axis keeps no router loss (models/dit.py).
-    if model.config.moe_experts > 1 and not model.config.pipeline_axis:
+    # The stacked layout (scan_blocks or pipeline_axis) keeps no router
+    # loss (models/dit.py).
+    if model.config.moe_experts > 1 and not model.config.stacked:
         aux = collect_aux_losses(model)
         metrics["moe_aux"] = aux
         loss = loss + model.config.moe_aux_weight * aux

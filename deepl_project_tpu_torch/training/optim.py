@@ -55,6 +55,8 @@ reduce is split; ``state_dict`` gathers whole moments and
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
@@ -68,6 +70,8 @@ _DECAY_RATE = 0.8
 _EPS = 1e-30
 _MIN_DIM_TO_FACTOR = 128
 _BLOCK_RMS = 1.0
+# A stack's parameter: a TransVAE stage's or the DiT's (leading depth axis).
+_STACKED = re.compile(r"(^|\.)(scan\.block|blocks\.block)\.")
 
 
 def _is_frozen(name: str) -> bool:
@@ -258,17 +262,21 @@ def jax_layout(name: str, shape) -> tuple[int, ...]:
     (``port.permute(axes)`` has the JAX shape): 4-D ``.weight``s are convs,
     [O, I, kh, kw] here and [kh, kw, I, O] there; 2-D ``.weight``s are
     linears, [O, I] here and [I, O] there; every other parameter (norm
-    scales, biases, ``vf_proj.kernel``) has one layout in both. A stage
-    stack's parameter (``.scan.block.`` in its name, ``scan_blocks``) keeps
-    its leading depth axis first, as the JAX stacked leaf does, and maps the
-    others by the same rules."""
-    lead = 1 if ".scan.block." in name else 0
+    scales, biases, ``vf_proj.kernel``) has one layout in both. A stack's
+    parameter (a TransVAE stage's ``.scan.block.``, the DiT's
+    ``blocks.block.``) keeps its leading depth axis first, as the JAX
+    stacked leaf does, and maps the others by the same rules; so does a
+    stacked expert weight ([depth, E, out, in] here, [depth, E, in, out]
+    there)."""
+    lead = 1 if _STACKED.search(name) else 0
     nd = len(shape) - lead
     axes = tuple(range(nd))
-    if name.endswith(".weight") and nd == 4:
+    if name.endswith(".weight") and nd == 4 and ".experts." not in name:
         axes = (2, 3, 1, 0)
     elif name.endswith(".weight") and nd == 2:
         axes = (1, 0)
+    elif name.endswith(".weight") and ".experts." in name:  # [E, out, in] per slice
+        axes = (0, 2, 1)
     return tuple(range(lead)) + tuple(a + lead for a in axes)
 
 

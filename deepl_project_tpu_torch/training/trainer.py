@@ -260,7 +260,12 @@ class Trainer:
         model, the step and vf_proj when both have it: the optimizer stays
         fresh (its warmup starts again), the EMA shadow restarts from the
         restored parameters and the discriminator starts at step 0. A
-        checkpoint without disc_step restores D at step 0."""
+        checkpoint without disc_step restores D at step 0. A checkpoint of
+        the other block layout (``scan_blocks``) restores its parameters,
+        EMA and AdamW moments converted; its Adafactor state does not
+        (``utils.convert.resume_in_model_layout``)."""
+        from ..utils.convert import resume_in_model_layout
+
         ckpt_dir = os.path.join(self.cfg.output_dir, "checkpoints")
         if latest_step(ckpt_dir) is None:
             return state, 0
@@ -272,24 +277,26 @@ class Trainer:
         if self.use_gan and "disc_model" in keys:
             live |= {"disc_model", "disc_optimizer"} | ({"disc_step"} & keys)
         full = keys == live
-        if full and not state.optimizer.trains_as(payload["optimizer"]):
+        saved_opt, saved_ema = resume_in_model_layout(state.model, payload.get("optimizer", {}),
+                                                      payload.get("ema"))
+        if full and (saved_opt is None or not state.optimizer.trains_as(saved_opt)):
             print("[trainer] structured restore failed (the saved optimizer is another "
-                  "kind or trains other parameters); falling back to params/step-only "
-                  "restore")
+                  "kind, trains other parameters or is Adafactor of the other block "
+                  "layout); falling back to params/step-only restore")
             full = False
         self._load_params(state.model, payload["model"])
         if state.vf_proj is not None and "vf_proj" in payload:
             self._load_params(state.vf_proj, payload["vf_proj"], "vf_proj.")
         state.step = int(payload["step"])
         if full:
-            state.optimizer.load_state_dict(payload["optimizer"])
+            state.optimizer.load_state_dict(saved_opt)
             if state.ema is not None:
                 if self.placement is None:
                     with torch.no_grad():
                         for n, t in state.ema.items():
-                            t.copy_(payload["ema"][n])
+                            t.copy_(saved_ema[n])
                 else:
-                    self.placement.load_full(state.ema.items(), payload["ema"])
+                    self.placement.load_full(state.ema.items(), saved_ema)
             if "disc_model" in payload:
                 disc = self._ensure_disc_state()
                 disc.model.load_state_dict(payload["disc_model"], strict=True)
@@ -312,7 +319,12 @@ class Trainer:
 
     # -- placement ----------------------------------------------------------
     def _load_params(self, module, saved: dict, prefix: str = "") -> None:
-        """A whole state_dict into ``module``, this rank's slices under a mesh."""
+        """A whole state_dict into ``module``, this rank's slices under a mesh;
+        a checkpoint of the other block layout (``scan_blocks``) converted
+        (``utils.convert.in_model_layout``)."""
+        from ..utils.convert import in_model_layout
+
+        saved = in_model_layout(module, saved)
         if self.placement is None:
             module.load_state_dict(saved, strict=True)
         else:

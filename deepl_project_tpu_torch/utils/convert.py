@@ -7,7 +7,8 @@ discriminator's (:func:`disc_params_to_torch_state_dict`), LPIPS's
 (:func:`lpips_params_from_jax`) and a trainer's {'model', 'vf_proj'} tree
 (:func:`load_jax_train_params`; ``vf_proj`` keeps its layout, kernel [D, C]
 and bias [C], as the port's ``vf_loss`` computes latent @ kernel), and the
-latent DiT's (:func:`dit_params_to_torch_state_dict`).
+latent DiT's (:func:`dit_params_to_torch_state_dict`; either layout, as
+:func:`in_model_layout` converts TransVAE's).
 
 The JAX tree (numpy leaves) maps onto the reference's state_dict layout,
 which is the port's: HWIO conv kernels -> OIHW, [in, out] dense kernels ->
@@ -113,16 +114,41 @@ def params_to_torch_state_dict(params: Mapping[str, Any]) -> dict:
 
 
 def in_model_layout(model: torch.nn.Module, state_dict: Mapping[str, Any]) -> Mapping:
-    """``state_dict`` in the block layout of ``model`` (a TransVAE's
-    ``config.scan_blocks``): stacked for a ``scan_blocks`` model, unrolled
-    for another (``ops.stack``); as it is for a model without the field."""
+    """``state_dict`` in the block layout of ``model``: stacked for a
+    TransVAE with ``scan_blocks`` or a stacked DiT (``scan_blocks`` or
+    ``pipeline_axis``), unrolled for another (``ops.stack``,
+    ``models.dit``); as it is for a model without the field."""
+    from ..models.dit import DiT, is_stacked_dit, stack_dit_params, unstack_dit_params
+
     cfg = getattr(model, "config", None)
+    if isinstance(model, DiT):
+        if is_stacked_dit(state_dict) and not cfg.stacked:
+            return unstack_dit_params(state_dict)
+        if cfg.stacked and not is_stacked_dit(state_dict):
+            return stack_dit_params(state_dict, cfg.depth)
+        return state_dict
     scan = getattr(cfg, "scan_blocks", False)
     if is_scanned(state_dict) and not scan:
         return from_scanned_params(state_dict, cfg)
     if scan and not is_scanned(state_dict):
         return to_scanned_params(state_dict, cfg)
     return state_dict
+
+
+def resume_in_model_layout(model: torch.nn.Module, optimizer: Mapping[str, Any],
+                           ema: Mapping[str, Any] | None) -> tuple[dict | None, Mapping | None]:
+    """A checkpoint's optimizer state and EMA shadow in the block layout of
+    ``model`` (:func:`in_model_layout`; the trainers' one rule on resume).
+    The EMA and AdamW's moments are per-element and convert exactly. An
+    Adafactor state of the other layout comes back None: its moments are
+    factored on the saved layout's shapes, so the caller starts the
+    optimizer afresh."""
+    moments = [k for k, v in optimizer.items() if isinstance(v, Mapping)]
+    out = {k: in_model_layout(model, v) if k in moments else v for k, v in optimizer.items()}
+    switched = any(out[k] is not optimizer[k] for k in moments)
+    if switched and optimizer.get("kind", "adamw") == "adafactor":
+        out = None
+    return out, None if ema is None else in_model_layout(model, ema)
 
 
 @torch.no_grad()
@@ -213,33 +239,15 @@ def lpips_params_from_jax(tree: Mapping[str, Any]) -> dict:
     return out
 
 
-def _unstack_dit_blocks(params: Mapping[str, Any]) -> dict:
-    """The DiT's scan layout (``blocks/block/...``, a leading depth axis on
-    every leaf) unrolled into ``block{i}``; a flat tree as it is."""
-    if "blocks" not in params:
-        return dict(params)
-
-    def take(node, i):
-        if isinstance(node, Mapping):
-            return {k: take(v, i) for k, v in node.items()}
-        return np.asarray(node)[i]
-
-    def first_leaf(node):
-        return first_leaf(next(iter(node.values()))) if isinstance(node, Mapping) else node
-
-    out = dict(params)
-    stacked = out.pop("blocks")["block"]
-    for i in range(np.shape(first_leaf(stacked))[0]):
-        out[f"block{i}"] = take(stacked, i)
-    return out
-
-
 def dit_params_to_torch_state_dict(params: Mapping[str, Any]) -> dict:
     """The JAX DiT's params (numpy or array leaves; flat ``block{i}`` or the
-    scan layout) as the port's state_dict of numpy arrays: module paths
-    joined with '.', Dense kernels [in, out] -> ``weight`` [out, in], the
-    HWIO patch conv -> OIHW, MoE expert kernels [E, in, out] -> [E, out,
-    in]; biases, ``embedding`` and ``pos_embed`` as they are."""
+    stacked ``blocks/block`` layout, which stays stacked: ``blocks.block.
+    <path>`` with its leading depth axis) as the port's state_dict of numpy
+    arrays: module paths joined with '.', Dense kernels [in, out] ->
+    ``weight`` [out, in], the HWIO patch conv -> OIHW, MoE expert kernels
+    [E, in, out] -> [E, out, in]; biases, ``embedding`` and ``pos_embed`` as
+    they are. The depth axis is read from the path (JAX's ``"scan" in
+    names`` does not see this tree's)."""
     out: dict[str, np.ndarray] = {}
 
     def walk(node, path):
@@ -251,16 +259,20 @@ def dit_params_to_torch_state_dict(params: Mapping[str, Any]) -> dict:
         leaf = path[-1]
         if leaf == "kernel":
             leaf = "weight"
-            a = np.transpose(a, {2: (1, 0), 3: (0, 2, 1), 4: (3, 2, 0, 1)}[a.ndim])
+            lead = 1 if path[0] == "blocks" else 0  # the stack's depth axis
+            axes = {2: (1, 0), 3: (0, 2, 1), 4: (3, 2, 0, 1)}[a.ndim - lead]
+            a = np.transpose(a, tuple(range(lead)) + tuple(x + lead for x in axes))
         elif leaf not in ("bias", "embedding", "pos_embed"):
             raise ValueError(f"Unexpected DiT param {'.'.join(path)}")
         out[".".join(path[:-1] + (leaf,))] = np.ascontiguousarray(a)
 
-    walk(_unstack_dit_blocks(params), ())
+    walk(params, ())
     return out
 
 
 def load_jax_dit_params(model: torch.nn.Module, params_np: Mapping[str, Any]):
-    """Load the JAX DiT's param tree (flat or scan layout) into the port's
-    ``models.dit.DiT`` with ``strict=True``."""
+    """Load the JAX DiT's param tree (flat or stacked) into the port's
+    ``models.dit.DiT`` with ``strict=True``, in the model's layout
+    (:func:`in_model_layout`): a stacked tree into a stacked model as it
+    is, unstacked for an unrolled one, and the other way round."""
     return load_state_dict(model, dit_params_to_torch_state_dict(params_np))

@@ -186,13 +186,15 @@ def test_torch_label_dropout_share():
 
 
 def test_torch_dit_refuses_scan_blocks_and_pipeline_axis():
-    """scan_blocks is refused; a pipeline_axis model builds (the pipeline is
-    ported), and one holding a single stage's blocks refuses to run outside
-    its pipe group."""
+    """scan_blocks and pipeline_axis are accepted: each holds the blocks in
+    the stacked layout (``blocks.block.<path>`` [depth, ...]); a model
+    holding a single stage's slices refuses to run outside its pipe group."""
     cfg = port_cfg(jax_cfg())
-    with pytest.raises(NotImplementedError, match="load_jax_dit_params"):
-        DiT(dataclasses.replace(cfg, scan_blocks=True))
+    for kw in ({"scan_blocks": True}, {"pipeline_axis": "pipe"}):
+        pm = DiT(dataclasses.replace(cfg, **kw), 8)
+        assert pm.state_dict()["blocks.block.qkv.weight"].shape == (2, 192, 64)
+        assert not any(k.startswith("block0") for k in pm.state_dict())
     staged = DiT(dataclasses.replace(cfg, pipeline_axis="pipe"), 8)
-    staged.block1 = None  # what PipelinePlacement.shard leaves stage 0
+    staged.blocks.hold_slices(range(0, 1))  # what PipelinePlacement.shard leaves stage 0
     with pytest.raises(RuntimeError, match="run it under its pipe group"):
         staged(*torch_args(*inputs()))

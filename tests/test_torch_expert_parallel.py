@@ -158,20 +158,26 @@ def test_torch_pipe_expert_step_matches_one_process(pool, tmp_path, jax_pipe_exp
             for k, v in named.items():
                 top = float(v.abs().max())
                 assert float((r["opt"][key][k] - v).abs().max()) <= 1e-4 * top + 1e-30, (key, k)
-    # Two experts of four a rank; under the pipeline two blocks a stage.
+    # Two experts of four a rank; under the pipeline two slices of the stack
+    # a stage (its experts' axis is 1).
     up = "moe_ffn.experts.up.weight"
     for r in got:
+        if pipelined:
+            assert r["slices"] == ((0, 2), (2, 4))[r is got[2] or r is got[3]]
+            assert r["held"][f"blocks.block.{up}"][:2] == (2, 2)
+            continue
         held = {n.split(".")[0] for n in r["held"] if n.startswith("block")}
-        assert held == ({"block0", "block1"}, {"block2", "block3"})[
-            r is got[2] or r is got[3]] if pipelined else len(held) == 4
+        assert r["slices"] is None and len(held) == 4
         assert all(r["held"][f"{b}.{up}"][0] == 2 for b in held)
 
 
-@pytest.mark.parametrize("kw", [PIPE, {}], ids=["pipeline_axis", "none"])
+@pytest.mark.parametrize("kw", [PIPE, {}, {"scan_blocks": True}],
+                         ids=["pipeline_axis", "none", "scan_blocks"])
 def test_torch_moe_aux_dropped_under_the_pipeline_in_both_packages(kw):
     """JAX's pipelined DiT (a 2-device pipe mesh) reports no router loss;
-    nor does the port's config with ``pipeline_axis``; without it both
-    report 'moe_aux' and 'total'."""
+    nor does the port's config with ``pipeline_axis``, nor either package's
+    with ``scan_blocks`` (the stacked layout: ``nn.scan`` carries only the
+    params); without them both report 'moe_aux' and 'total'."""
     from deepl_project_tpu_torch.models import DiT, DiTConfig
     from deepl_project_tpu_torch.training import rectified_flow_loss
 

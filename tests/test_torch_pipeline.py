@@ -46,7 +46,7 @@ from deepl_project_tpu.models.dit import DiT as JaxDiT
 from deepl_project_tpu.parallel.pipeline import pipeline_apply as jax_pipeline_apply
 from deepl_project_tpu.training.diffusion import make_dit_train_step as jax_make_dit_train_step
 from deepl_project_tpu_torch.models import DiT, DiTConfig
-from deepl_project_tpu_torch.utils.convert import dit_params_to_torch_state_dict
+from deepl_project_tpu_torch.utils.convert import dit_params_to_torch_state_dict, load_state_dict
 
 from dit_parity import jax_step_draws, phase5_cfg, random_params
 
@@ -103,6 +103,7 @@ def test_torch_pipeline_apply_gradients_match_jax(pool, tmp_path):
     assert len(got) == 4 and got[0]["world"] == 4
     seen = set()
     for r in got:
+        assert r["others_zero"]
         np.testing.assert_allclose(r["dx"].numpy(), np.asarray(gx), rtol=2e-4, atol=2e-5)
         np.testing.assert_allclose(r["dcond"].numpy(), np.asarray(gc), rtol=2e-4, atol=2e-5)
         for (i, k), g in r["blocks"].items():
@@ -139,7 +140,7 @@ def test_torch_pipelined_dit_forward_matches_jax(pool, tmp_path, jax_dit_forward
     z, t, y = PJ.dit_inputs()
     got = pool.run(PJ.dit_forward, 4, tmp_path, _port_kw(cfg), sd, z, t, y, 4)
     assert [r["world"] for r in got] == [4] * 4
-    assert [r["blocks"] for r in got] == [1] * 4  # one block a stage
+    assert [r["slices"] for r in got] == [(s, s + 1) for s in range(4)]  # a slice a stage
     for r in got:
         np.testing.assert_allclose(r["v"].numpy(), want, rtol=2e-4, atol=2e-4)
     # No pipe group: the config's blocks run one after another, exactly the
@@ -148,8 +149,7 @@ def test_torch_pipelined_dit_forward_matches_jax(pool, tmp_path, jax_dit_forward
     with torch.no_grad():
         outs = []
         for kw in (_port_kw(cfg), {**_port_kw(cfg), "pipeline_axis": None}):
-            m = DiT(DiTConfig(**kw), PJ.GRID)
-            m.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+            m = load_state_dict(DiT(DiTConfig(**kw), PJ.GRID), sd)  # stacked, unrolled
             outs.append(m(*args))
     assert torch.equal(outs[0], outs[1])
     np.testing.assert_allclose(outs[0].numpy(), want, rtol=2e-4, atol=2e-4)
@@ -194,11 +194,9 @@ def test_torch_dp_pp_dit_step_matches_jax(pool, tmp_path, jax_dp_pp_step):
         for k, g in want_g.items():
             np.testing.assert_allclose(r["grads"][k].numpy(), g, rtol=1e-4,
                                        atol=1e-5 * np.abs(g).max(), err_msg=k)
-    # Each stage holds its own two blocks.
-    assert {n.split(".")[0] for n in got[0]["held"] if n.startswith("block")} == {
-        "block0", "block1"}
-    assert {n.split(".")[0] for n in got[1]["held"] if n.startswith("block")} == {
-        "block2", "block3"}
+    # Each stage holds its own two slices of every stack.
+    assert [r["slices"] for r in got] == [(0, 2), (2, 4), (0, 2), (2, 4)]  # rank = 2 d + p
+    assert all(r["held"]["blocks.block.qkv.weight"][0] == 2 for r in got)
 
 
 @pytest.mark.parametrize("mesh", [(2, 2, 1), (1, 2, 2)])
@@ -207,9 +205,14 @@ def test_torch_staged_dit_init_and_whole_checkpoint(pool, tmp_path, mesh):
     got = pool.run(PJ.staged_init, 4, tmp_path, _port_kw(cfg), *mesh)
     assert [r["world"] for r in got] == [4] * 4
     assert all(r["equal"] and r["full_equal"] and r["round_trip"] for r in got)
-    # A stage allocates its two blocks only.
-    assert all({n.split(".")[0] for n in r["names"] if n.startswith("block")}
-               in ({"block0", "block1"}, {"block2", "block3"}) for r in got)
+    # A stage allocates its two slices only (and two experts of four at
+    # expert 2: the experts' axis of a stack is 1).
+    stages = ([(0, 2), (2, 4)] * 2 if mesh == (2, 2, 1)  # rank = 2 d + p
+              else [(0, 2), (0, 2), (2, 4), (2, 4)])    # rank = 2 p + e
+    assert [r["slices"] for r in got] == stages
+    experts = 4 // mesh[2]
+    assert all(r["shapes"]["blocks.block.moe_ffn.experts.up.weight"][:2] == (2, experts)
+               for r in got)
 
 
 def test_torch_local_rows_refusal(pool, tmp_path, jax_dp_pp_step):

@@ -21,7 +21,8 @@ three stages, two blocks a stage, so every stack has a depth of 2.
   by what JAX's two differ by.
 - The operand cache keeps one fold per depth slice; a Trainer checkpoint in
   the scan layout reloads, converts to the unrolled model, serves, and is
-  refused by int8 quantization with JAX's message; the train CLI runs
+  refused by int8 quantization with JAX's message; a Trainer of the other
+  layout resumes it with its EMA and AdamW moments; the train CLI runs
   ``--scan_blocks --gradient_checkpointing --optimizer adafactor``.
 
 Tolerances: forward fp32 atol 5e-4 + rtol 1e-4, bf16 0.05 x max|ref| (as
@@ -55,7 +56,7 @@ from deepl_project_tpu_torch import create_transvae, get_config
 from deepl_project_tpu_torch.cli import train as train_cli
 from deepl_project_tpu_torch.losses import LossWeights
 from deepl_project_tpu_torch.models import TransVAE, enable_gradient_checkpointing
-from deepl_project_tpu_torch.ops.stack import (BlockStack, from_scanned_params,
+from deepl_project_tpu_torch.ops.stack import (BlockStack, from_scanned_params, is_scanned,
                                                stack_stage_params, to_scanned_params,
                                                unstack_stage_params)
 from deepl_project_tpu_torch.training import make_optimizer
@@ -417,6 +418,44 @@ def test_trainer_checkpoint_reloads_converts_and_serves(tmp_path):
         quantize_model(scan, [images])
 
 
+@pytest.mark.parametrize("optimizer,scan_first", [("adamw", True), ("adamw", False),
+                                                   ("adafactor", True)])
+def test_trainer_resumes_the_other_layout_with_its_ema(tmp_path, optimizer, scan_first):
+    """A checkpoint resumed by a Trainer of the other block layout: its EMA
+    and AdamW's moments are converted, not reset; Adafactor's factored
+    state is not carried over, so the optimizer starts afresh and the EMA
+    restarts from the restored parameters (the stage hand-off's rule)."""
+    from deepl_project_tpu_torch.data import batch_iterator, make_dataset
+    from deepl_project_tpu_torch.training import Trainer, TrainerConfig
+    from deepl_project_tpu_torch.utils.convert import in_model_layout
+
+    cfg = get_config(VARIANT, **MICRO, scan_blocks=scan_first)
+    tc = TrainerConfig(batch_size=2, warmup_steps=1, num_epochs=1, steps_per_epoch=1,
+                       log_every=1, resolution=32, output_dir=str(tmp_path),
+                       weights=LossWeights(gan=0.0), save_every_epochs=1, seed=1,
+                       ema_decay=0.9, optimizer=optimizer)
+    first = Trainer(cfg, tc, device="cpu")
+    done = first.fit(batch_iterator(make_dataset("shapes", resolution=32, num_samples=4), 2),
+                     state=first.create_state())
+    other = Trainer(cfg.replace(scan_blocks=not scan_first), tc, device="cpu")
+    state, _ = other.maybe_resume(other.create_state())
+    assert state.step == 1 and is_scanned(state.ema) == (not scan_first)
+    params = dict(named_trainables(state.model))
+    if optimizer == "adafactor":
+        assert state.optimizer.count == 0
+        assert all(torch.equal(state.ema[k], params[k]) for k in params)
+        return
+    ema = in_model_layout(state.model, done.ema)
+    assert set(state.ema) == set(ema) and not all(torch.equal(ema[k], params[k]) for k in ema)
+    assert all(torch.equal(state.ema[k], v) for k, v in ema.items())
+    saved, got = done.optimizer.state_dict(), state.optimizer.state_dict()
+    assert got["count"] == saved["count"] == 1
+    for key in ("mu", "nu"):
+        want = in_model_layout(state.model, saved[key])
+        assert set(got[key]) == set(want)
+        assert all(torch.equal(got[key][k], v) for k, v in want.items())
+
+
 def test_train_cli_runs_the_big_model_flags(tmp_path, monkeypatch):
     monkeypatch.setattr(train_cli, "get_config",
                         lambda *a, **kw: get_config(VARIANT, **{**kw, **MICRO}))
@@ -434,11 +473,15 @@ def test_train_cli_runs_the_big_model_flags(tmp_path, monkeypatch):
 
 
 def test_placements_and_context_of_the_scan_layout(monkeypatch):
-    """Replicated placements take a scan model as they are (data parallelism
-    does not depend on the layout); FSDP and tensor placements of the
-    stacks, and an ambient context group, are not yet ported and say so."""
+    """Every placement takes a scan model: replicated as it is, and under
+    FSDP and tensor parallelism by the JAX rules on the stacked shapes
+    (tests/test_torch_scan_parallel.py holds them to JAX's and runs them);
+    a stack's depth axis is never split under 'tensor'. An ambient context
+    group is accepted, and refused only for what it refuses in an unrolled
+    model (here the height the context size does not split)."""
     from deepl_project_tpu_torch.models import transvae
-    from deepl_project_tpu_torch.parallel.mesh import Replicate
+    from deepl_project_tpu_torch.parallel.context import ContextState
+    from deepl_project_tpu_torch.parallel.mesh import Replicate, Shard
     from deepl_project_tpu_torch.parallel.sharding import param_specs
 
     with torch.device("meta"):
@@ -448,8 +491,11 @@ def test_placements_and_context_of_the_scan_layout(monkeypatch):
     assert set(specs) == {n for n, _ in scan.named_parameters()}
     assert all(isinstance(s, Replicate) for s in specs.values())
     for mode in ("fsdp", "tensor"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            param_specs(scan, mode, model_size=2)
-    monkeypatch.setattr(transvae.cp, "current", lambda: object())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        scan.decode(torch.zeros(1, 4, 2, 2, device="meta"))
+        specs = param_specs(scan, mode, model_size=2, fsdp_min_size=1024)
+        stacked = {k: s for k, s in specs.items() if ".scan.block." in k}
+        assert any(isinstance(s, Shard) for s in stacked.values()), mode
+        if mode == "tensor":
+            assert all(s.dim != 0 for s in stacked.values() if isinstance(s, Shard))
+    monkeypatch.setattr(transvae.cp, "current", lambda: ContextState(None, 0, 2))
+    with pytest.raises(ValueError, match="multiple of 8"):  # 2 ranks x downsample 4
+        scan.encode(torch.zeros(1, 3, 18, 16, device="meta"))

@@ -242,18 +242,16 @@ def test_checkpoint_interop_and_synthetic_data(tmp_path, micro_pair):
             assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
 
 
-# --scan_blocks with an FSDP placement is not ported (under a launcher too);
-# a model axis needs its ranks, which only a launcher (torchrun) starts: a
-# single process refuses it and says so.
-@pytest.mark.parametrize("flags", [["--scan_blocks", "--param_sharding", "fsdp"],
+# A model axis needs its ranks, which only a launcher (torchrun) starts: a
+# single process refuses it and says so, with the scan layout as without it
+# (--scan_blocks trains under every --param_sharding:
+# tests/test_torch_scan_parallel.py runs it under tensor parallelism).
+@pytest.mark.parametrize("flags", [["--scan_blocks", "--param_sharding", "fsdp",
+                                    "--mesh_model", "2"],
                                    ["--mesh_model", "2"],
                                    ["--param_sharding", "fsdp", "--mesh_model", "2"]])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, flags):
-    scan = "--scan_blocks" in flags
-    if scan:
-        monkeypatch.setattr(train_cli, "under_torchrun", lambda: True)
-    message = "not yet ported" if scan else "launch under torchrun"
-    with pytest.raises(SystemExit, match=message):
+    with pytest.raises(SystemExit, match="launch under torchrun"):
         train_cli.main(["--output_dir", str(tmp_path), "--device", "cpu", *flags])
 
 

@@ -163,9 +163,11 @@ def norm_and_rope(x, q) -> dict:
 
 
 def _context_model(model_kw: dict, state: dict | None):
+    from deepl_project_tpu_torch.utils.convert import load_state_dict
+
     model = J.build_model(context_axis="context", **model_kw)
-    if state is not None:
-        model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+    if state is not None:  # either block layout, into the model's
+        load_state_dict(model, {k: torch.as_tensor(v) for k, v in state.items()})
     return model
 
 

@@ -278,12 +278,12 @@ def forward_tensor(model_size, data) -> dict:
     return {"recon": recon, "mu": mu, "routes": attention.route_counts()}
 
 
-def gan(mode, model_size, data, steps=2, floor=2.0) -> dict:
+def gan(mode, model_size, data, steps=2, floor=2.0, dtype="float32") -> dict:
     """``steps`` GAN steps (adaptive weight, R1, the disc loss floor: at 2.0
     the hinge loss at init, ~1.98 then ~2.01, blocks the first update and
-    lets the second through) of the micro model and a PatchGAN; the
-    generator's gradients on the first batch (before any step), the
-    metrics and the final parameters whole."""
+    lets the second through) of the micro model computing in ``dtype`` and
+    a PatchGAN; the generator's gradients on the first batch (before any
+    step), the metrics and the final parameters whole."""
     from deepl_project_tpu_torch.models.discriminator import (PatchDiscriminator,
                                                               init_disc_weights)
     from deepl_project_tpu_torch.parallel import Placement, shard_batch
@@ -293,7 +293,7 @@ def gan(mode, model_size, data, steps=2, floor=2.0) -> dict:
                                                              make_gan_train_step,
                                                              named_trainables, step_generator)
 
-    model = build_model()
+    model = build_model(dtype=dtype)
     disc = PatchDiscriminator(base_channels=8, num_layers=2, dtype=torch.float32)
     init_disc_weights(disc, torch.Generator().manual_seed(5))
     placement, mesh = _place(model, mode, model_size)

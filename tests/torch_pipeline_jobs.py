@@ -54,41 +54,46 @@ def mlp_block(p: dict, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
 def mlp_pipeline(params: dict, x: np.ndarray, cond: np.ndarray, micro: int,
                  grads: bool) -> dict:
     """pipeline_apply over every rank (one stage each) of the MLP stack whose
-    stacked numpy ``params`` are [depth, d, d]: y, and with ``grads`` the
-    gradients of mean(y^2) in x, cond and this stage's blocks (by slot)."""
+    stacked numpy ``params`` are [depth, d, d], each stage handed its
+    slices (as JAX's shard_map hands it its part): y, and with ``grads``
+    the gradients of mean(y^2) in x, cond and this stage's blocks (by
+    slot), taken in the whole stack."""
     from deepl_project_tpu_torch.parallel import pipeline_apply, stage_range
 
     group = dist.group.WORLD
     depth = params["w1"].shape[0]
     mine = stage_range(depth, dist.get_rank(group), dist.get_world_size(group))
-    slots = [None] * depth
-    for i in mine:
-        slots[i] = {k: torch.tensor(v[i], requires_grad=True) for k, v in params.items()}
+    stacked = {k: torch.tensor(v, requires_grad=True) for k, v in params.items()}
+    part = {k: v[mine.start:mine.stop] for k, v in stacked.items()}
     xt = torch.tensor(x, requires_grad=True)
     ct = torch.tensor(cond, requires_grad=True)
-    y = pipeline_apply(mlp_block, slots, xt, ct, group=group, num_microbatches=micro)
+    y = pipeline_apply(mlp_block, part, xt, ct, group=group, num_microbatches=micro)
     out = {"world": _world(), "y": y.detach()}
     if grads:
-        leaves = [slots[i][k] for i in mine for k in ("w1", "w2")]
-        got = torch.autograd.grad(y.square().mean(), [xt, ct] + leaves)
+        got = torch.autograd.grad(y.square().mean(), [xt, ct, stacked["w1"], stacked["w2"]])
         out["dx"], out["dcond"] = got[0], got[1]
-        out["blocks"] = {(i, k): g for (i, k), g in zip(
-            [(i, k) for i in mine for k in ("w1", "w2")], got[2:])}
+        out["blocks"] = {(i, k): g[i] for i in mine for k, g in zip(("w1", "w2"), got[2:])}
+        # The other stages' slices get no gradient here.
+        out["others_zero"] = all(bool((g[i] == 0).all()) for i in range(depth)
+                                 if i not in mine for g in got[2:])
     return out
 
 
 def refusals() -> dict:
-    """pipeline_apply's refusals on three ranks: depth 8 over 3 stages, and
-    batch 8 in 3 microbatches (depth 6)."""
-    from deepl_project_tpu_torch.parallel import pipeline_apply
+    """A pipeline's refusals on three ranks: depth 8 over 3 stages
+    (``stage_range``, which picks a stage's slices), and batch 8 in 3
+    microbatches (``pipeline_apply``; depth 6)."""
+    from deepl_project_tpu_torch.parallel import pipeline_apply, stage_range
 
     group = dist.group.WORLD
+    rank, size = dist.get_rank(group), dist.get_world_size(group)
     x, c = torch.zeros(8, 4, 2), torch.zeros(8, 2)
     out = {"world": _world()}
     for key, depth, micro in (("depth", 8, 4), ("batch", 6, 3)):
         try:
-            pipeline_apply(lambda p, x, c: x, [{}] * depth, x, c, group=group,
-                           num_microbatches=micro)
+            mine = stage_range(depth, rank, size)
+            pipeline_apply(lambda p, x, c: x, {"w": torch.zeros(len(mine), 1)}, x, c,
+                           group=group, num_microbatches=micro)
         except ValueError as e:
             out[key] = str(e)
     return out
@@ -98,12 +103,20 @@ def refusals() -> dict:
 def _dit(cfg_kw: dict, sd: dict | None, placement=None, seed: int | None = None):
     from deepl_project_tpu_torch.models import DiT, DiTConfig, create_dit
 
+    from deepl_project_tpu_torch.utils.convert import load_state_dict
+
     cfg = DiTConfig(**cfg_kw)
     if sd is None:
         return create_dit(cfg, 8, device="cpu", seed=seed, placement=placement)
-    model = DiT(cfg, 8)
-    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
+    model = load_state_dict(DiT(cfg, 8), sd)  # either layout into the model's
     return model if placement is None else placement.shard(model)
+
+
+def _slices(model) -> tuple | None:
+    """The (first, stop) slices of the stack a stacked DiT holds."""
+    if not model.config.stacked:
+        return None
+    return (model.blocks.held.start, model.blocks.held.stop)
 
 
 def _placement(data: int, pipe: int, expert: int):
@@ -121,7 +134,7 @@ def dit_forward(cfg_kw: dict, sd: dict, z, t, y, pipe: int, expert: int = 1) -> 
     model = _dit(cfg_kw, sd, pl)
     with torch.no_grad(), use_axes(pl.mesh):
         v = model(torch.from_numpy(z), torch.from_numpy(t), torch.from_numpy(y).long())
-    return {"world": _world(), "v": v, "blocks": sum(b is not None for b in model.blocks())}
+    return {"world": _world(), "v": v, "slices": _slices(model)}
 
 
 def dit_step(cfg_kw: dict, sd: dict, z0, labels, t, noise, mesh: tuple | None,
@@ -157,7 +170,8 @@ def dit_step(cfg_kw: dict, sd: dict, z0, labels, t, noise, mesh: tuple | None,
     return {"world": _world(), "metrics": {k: float(v) for k, v in m.items()},
             "params": {k: v.detach().clone() for k, v in whole(dict(named)).items()},
             "grads": whole(grads), "opt": {k: v for k, v in state.items() if isinstance(v, dict)},
-            "runs": run_counts(), "held": {n: tuple(p.shape) for n, p in named}}
+            "runs": run_counts(), "held": {n: tuple(p.shape) for n, p in named},
+            "slices": _slices(model)}
 
 
 def staged_init(cfg_kw: dict, data: int, pipe: int, expert: int) -> dict:
@@ -170,12 +184,13 @@ def staged_init(cfg_kw: dict, data: int, pipe: int, expert: int) -> dict:
     pl = _placement(data, pipe, expert)
     whole = dict(_dit(cfg_kw, None, seed=3).named_parameters())
     part = _dit(cfg_kw, None, pl, seed=3)
-    equal = all(torch.equal(p, pl.scatter(whole[n], pl.dim(n)))
-                for n, p in part.named_parameters())
+    mine = pl.local_named(whole, list(dict(part.named_parameters())))
+    equal = all(torch.equal(p, mine[n]) for n, p in part.named_parameters())
     full = pl.full_state(named_trainables(part))
     fresh = _dit(cfg_kw, None, _placement(data, pipe, expert), seed=9)
     pl.load_full(named_trainables(fresh), full)
-    return {"world": _world(), "equal": equal, "names": sorted(dict(part.named_parameters())),
+    return {"world": _world(), "equal": equal, "slices": _slices(part),
+            "shapes": {n: tuple(p.shape) for n, p in part.named_parameters()},
             "full_equal": set(full) == set(whole) and all(torch.equal(full[n], whole[n])
                                                           for n in whole),
             "round_trip": all(torch.equal(p, q) for p, q in
@@ -222,13 +237,17 @@ def rows_refusal(cfg_kw: dict, sd: dict, z0, labels) -> dict:
     pl = _placement(2, 2, 1)
     model = _dit(cfg_kw, sd, pl)
     state = TrainState(0, model, make_optimizer(named_trainables(model), placement=pl))
+    error = None
     try:
         make_dit_train_step(model, placement=pl)(
             state, torch.as_tensor(shard_batch(pl.mesh, z0)),
             torch.as_tensor(shard_batch(pl.mesh, labels)).long())
     except ValueError as e:
-        return {"world": _world(), "error": str(e), "step": state.step}
-    return {"world": _world(), "error": None, "step": state.step}
+        error = str(e)
+    # The refusal comes before any collective: no rank leaves the group
+    # while another still sets up the placement's groups.
+    dist.barrier()
+    return {"world": _world(), "error": error, "step": state.step}
 
 
 def bf16_forward(cfg_kw: dict, sd: dict, z, t, y, mesh: tuple) -> dict:
