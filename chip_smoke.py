@@ -63,6 +63,15 @@ Phases (any failure exits non-zero and prints no result):
 3. grad: the sublayer kernels' backward (their plain versions' VJP) at the
    stage-3 training shape: gradients of x, the LN affines and every weight
    on the kernel path against the plain path's.
+3b. fold_thin (phase_fold_thin; no kernel of the port): (b)
+   AttentionRoPE(fuse_qkv=True) at the three stage shapes (FOLD_SHAPES, b8,
+   bf16) on the composable route against fuse_qkv=False, forward and
+   backward, each against an fp32 run (the fold within MODEL_MEAN_RATIO /
+   MODEL_MAX_RATIO of the unfolded route's error), the two timed in turns;
+   (c) ThinConv3x3 at large f16d32's boundary convs (3 -> 192 im2col,
+   192 -> 3 tap-major; b32, 256^2, bf16, NCHW and channels_last) within
+   KERNEL_RTOL of F.conv2d, timed in turns beside that cuDNN call and its
+   bound.
 4. train: large f16d32 (fp32 params from a seed, bf16 compute) trained by
    Trainer.fit on synthetic 256px images, batch 16 as 2 microbatches of 8,
    L1 + LPIPS (random VGG) + KL, AdamW with warmup, a checkpoint at the
@@ -120,6 +129,15 @@ Phases (any failure exits non-zero and prints no result):
    on), the module flags toggled, then the same with the fused GroupNorm ->
    SiLU (ops.norms.FUSE_NORM_SILU) on and off; train times the step with
    the rewrites on and off the same way after its fit with --profile.
+   (a) The b32 reconstruct with every AttentionRoPE at impl 'fused'
+   (fused_impl_reconstruct): its launches (counters set to 0 just before,
+   read just after) the sublayer kernels of launches_per_reconstruct(256)
+   with no flash and no small_attention launch (stage 2's core is the
+   plain chunked one), routes sublayer 20 and ln_qkv_rope 6; each sublayer
+   on 'auto''s input: stages 3-4 bit-equal to 'auto''s, stage 2 within
+   KERNEL_RTOL of max; 4 images against the fp32 twin within
+   MODEL_MEAN_RATIO / MODEL_MAX_RATIO of 'auto''s error; 'auto' and
+   'fused' timed in turns.
 10. eval: evaluate_model at 256px on the shapes source (2 batches of 16, LPIPS
    and vgg_rfid on random VGG); extrapolation_sweep at 256/512/1024px on 8
    shapes images made at 1024px (chunks of 8, 8 and 4), with the launch
@@ -226,8 +244,13 @@ Phases (any failure exits non-zero and prints no result):
    tensor); peak memory. The FSDP and tensor runs' scan-layout twins
    (fsdp_scan, tensor_scan: the seed's weights stacked, the same rows) are
    held to those bars against one process and against their unrolled
-   twin on each rank (launches equal, bit-equality logged, grad norm and
-   each block's first moment within the PARALLEL_SCAN_* bars). (d) `cli.train
+   twin on each rank: the ranks step those four runs
+   (PARALLEL_DETERMINISTIC) under torch.use_deterministic_algorithms
+   (warn_only: any op without a deterministic version is logged; the
+   flash backward's deterministic launcher), and each twin's loss and
+   launches equal its unrolled run's, the tensor twin's grad norm and each
+   block's first moment bit-equal too (PARALLEL_SCAN_BIT_EQUAL), the FSDP
+   twin's within the PARALLEL_SCAN_* bars. (d) `cli.train
    --variant large --scan_blocks --param_sharding tensor --mesh_model 2
    --gradient_checkpointing --optimizer adafactor` (the README's big-model
    recipe) on (b)'s two ranks after its runs (cli.train takes their gloo
@@ -552,15 +575,22 @@ PARALLEL_BATCH = 8
 PARALLEL_LOSS_RTOL = 1e-3
 PARALLEL_GRAD_NORM_RTOL = 1e-2
 # A scan-layout twin (fsdp_scan, tensor_scan) against its unrolled run on
-# the same rank: grad norm within PARALLEL_SCAN_GRAD_NORM_RTOL, and each
-# block's first moment after the step (_moment_stats: by the unrolled
-# name, a stack's slice j as block j) within PARALLEL_SCAN_SLICE_RTOL in
-# its sum of squares and, over its norm, in its position-weighted sum (on
-# the card <= 5.5e-3 apart, from the flash backward's run-dependent dq; two
-# slices or two ranks' shards swapped move the latter by 0.36-0.89 in the
-# micro model on the CPU).
-PARALLEL_SCAN_GRAD_NORM_RTOL = 1e-3
-PARALLEL_SCAN_SLICE_RTOL = 3e-2
+# the same rank, both stepped deterministic (PARALLEL_DETERMINISTIC): the
+# loss bit-equal; the twins of PARALLEL_SCAN_BIT_EQUAL bit-equal in the
+# grad norm and each block's first moment after the step (_moment_stats:
+# by the unrolled name, a stack's slice j as block j) too; the others' grad
+# norm within PARALLEL_SCAN_GRAD_NORM_RTOL and first moments within
+# PARALLEL_SCAN_SLICE_RTOL in their sums of squares and, over the norm, in
+# their position-weighted sums. On an H100 80GB HBM3 (700 W) the tensor
+# twin reads bit-equal and the FSDP twin 7.4e-8 (grad norm) and 2.0e-7
+# (moments) apart: FSDP sums a split stack's squares in another grouping.
+# Without
+# the deterministic flash backward they read up to 4.2e-5 and 5.5e-3
+# apart (its run-dependent dq order); two slices or two ranks' shards
+# swapped move the moments by 0.36-0.89 in the micro model on the CPU.
+PARALLEL_SCAN_BIT_EQUAL = ("tensor_scan",)
+PARALLEL_SCAN_GRAD_NORM_RTOL = 1e-6
+PARALLEL_SCAN_SLICE_RTOL = 1e-5
 PARALLEL_ADAPTIVE_RTOL = 1e-2
 PARALLEL_GAN_ADAPTIVE_MAX = 1e4
 PARALLEL_GAN_FLOOR = 2.0
@@ -722,6 +752,16 @@ SCAN_RECON_REPS = 3
 # (d) the extrapolation sweep of (c)'s checkpoint at these resolutions.
 SCAN_SWEEP = (256, 512)
 SCAN_PATHS: dict = {}
+# Phase fold_thin: (b) the folded QKV at the three stage shapes (N, C), b
+# FOLD_BATCH, FOLD_REPS calls a turn; (c) ThinConv3x3 at large f16d32's
+# boundary convs (name, Ci, Co), b THIN_BATCH at 256^2.
+FOLD_SHAPES = ((4096, 384), (1024, 768), (256, 1536))
+FOLD_BATCH = 8
+FOLD_REPS = 5
+THIN_CONVS = (("encoder conv_in", 3, 192), ("decoder conv_out", 192, 3))
+THIN_BATCH = 32
+# Phase time (a)'s path: one reconstruct at attention 'fused'.
+TIME_PATHS: dict = {}
 
 
 def fail(msg: str):
@@ -3719,6 +3759,255 @@ def in_turns(setter, fn, label: str, reps: int, what: str = "rewrites") -> dict:
 
 
 
+def set_attention_impl(model, impl: str) -> None:
+    """Every AttentionRoPE of ``model`` at attention ``impl``."""
+    from deepl_project_tpu_torch.ops.attention import AttentionRoPE
+
+    for m in model.modules():
+        if isinstance(m, AttentionRoPE):
+            m.impl = impl
+
+
+def fused_impl_reconstruct(model) -> None:
+    """Phase time (a): the b32 256px reconstruct with every AttentionRoPE at
+    impl 'fused' (the JAX package's value: the sublayer kernels where their
+    gates hold, the plain core elsewhere) against 'auto' on the same
+    weights and images. The 'fused' run's launches (counters set to 0 just
+    before, read just after): the sublayer kernels of
+    launches_per_reconstruct(256), no flash and no small_attention launch,
+    routes sublayer 20 and ln_qkv_rope 6. Each sublayer run at 'fused' on
+    the input it had at 'auto': stages 3-4 (N <= 1024) bit-equal, stage 2
+    (the plain core in the place of the flash forward) within KERNEL_RTOL
+    of max (phase kernels' bar for the flash kernels against the plain
+    core). The reconstruct of 4 images against the fp32 twin: 'fused''s
+    error within MODEL_MEAN_RATIO / MODEL_MAX_RATIO of 'auto''s (phase
+    serve's rule for a rounding change: two bf16 paths of this random
+    model differ by ~0.14 at some pixel, PERF.md). Then the two timed in
+    turns. The model is left at 'auto'."""
+    import numpy as np
+    import torch
+
+    from deepl_project_tpu_torch.models import TransVAE
+    from deepl_project_tpu_torch.ops import attention as attn_mod
+    from deepl_project_tpu_torch.ops.attention import AttentionRoPE
+    from deepl_project_tpu_torch.serving import InferenceEngine
+
+    engine = InferenceEngine(model, max_batch=32)
+    imgs = np.random.default_rng(21).random((32, 256, 256, 3), dtype=np.float32)
+    kept = []
+
+    def keep(mod, args, out):
+        kept.append((mod, args[0].clone(), out.clone()))
+
+    set_attention_impl(model, "auto")
+    engine.run("reconstruct", imgs)  # warm
+    hooks = [m.register_forward_hook(keep) for m in model.modules()
+             if isinstance(m, AttentionRoPE)]
+    try:
+        auto = engine.run("reconstruct", imgs)
+    finally:
+        for h in hooks:
+            h.remove()
+    set_attention_impl(model, "fused")
+    engine.run("reconstruct", imgs)  # warm
+    reset_launches()
+    attn_mod.reset_route_counts()
+    fused = engine.run("reconstruct", imgs)
+    got, routes = kernel_launches(), attn_mod.route_counts()
+    TIME_PATHS["reconstruct_fused"] = launches_by_name()
+    sub, _, _, norm = launches_per_reconstruct(256, model=model)
+    if got != (sub, {}, {}, norm) or routes != {"sublayer": 20, "ln_qkv_rope": 6}:
+        fail(f"time (a): 'fused' reconstruct launches {got}, routes {routes}; want "
+             f"{(sub, {}, {}, norm)} and sublayer 20, ln_qkv_rope 6")
+    NORM_PATHS["time (a): one 256px reconstruct at attention 'fused', b32"] = got[3]
+    same, stage2 = 0, []
+    with torch.inference_mode():
+        for mod, x, y in kept:
+            out = mod(x)
+            if x.shape[2] * x.shape[3] <= 1024:
+                same += bool(torch.equal(out, y))
+            else:
+                stage2.append(float((out.float() - y.float()).abs().max())
+                              / float(y.float().abs().max()))
+    n_small = sum(x.shape[2] * x.shape[3] <= 1024 for _, x, _ in kept)
+    del kept
+    # 'auto', 'fused' and the fp32 twin (plain paths, TF32 off) on 4 images.
+    with torch.device("meta"):
+        twin = TransVAE(model.config.replace(dtype="float32"))
+    twin = twin.to_empty(device="cuda").eval()
+    twin.load_state_dict(model.state_dict())
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    exact = InferenceEngine(twin).run("reconstruct", imgs[:4])
+    torch.backends.cudnn.allow_tf32 = tf32
+    del twin
+    ea, ef = np.abs(auto[:4] - exact), np.abs(fused[:4] - exact)
+    log(f"time (a): reconstruct b32 @256px at attention 'fused' vs 'auto': launches "
+        f"{TIME_PATHS['reconstruct_fused']} (no flash, no small_attention), routes {routes}; "
+        f"{same} of {n_small} stage-3/4 sublayers bit-equal to 'auto''s on its input; the "
+        f"{len(stage2)} stage-2 sublayers (plain core vs flash) within "
+        f"{max(stage2, default=float('inf')):.3e} of max (bar {KERNEL_RTOL:.3e}); reconstruct "
+        f"'fused' vs 'auto' max_abs {np.abs(fused - auto).max():.3e}; b4 vs fp32: 'fused' "
+        f"mean_abs {ef.mean():.3e} max_abs {ef.max():.3e}, 'auto' mean_abs {ea.mean():.3e} "
+        f"max_abs {ea.max():.3e} (bounds x{MODEL_MEAN_RATIO} / x{MODEL_MAX_RATIO}) [{CARD}]")
+    if n_small != 20 or same != n_small or len(stage2) != 6:
+        fail("time (a): a stage-3/4 sublayer at 'fused' differs from 'auto''s")
+    if max(stage2) > KERNEL_RTOL:
+        fail("time (a): a stage-2 sublayer at 'fused' is off 'auto''s")
+    if not (ef.mean() <= MODEL_MEAN_RATIO * ea.mean() and ef.max() <= MODEL_MAX_RATIO * ea.max()):
+        fail("time (a): the 'fused' reconstruct is less accurate than the 'auto' one")
+    recon = lambda: engine.run("reconstruct", imgs)  # noqa: E731
+    turns = in_turns(lambda on: set_attention_impl(model, "auto" if on else "fused"), recon,
+                     "reconstruct b=32 @256px", 2, "attention 'auto' (off: 'fused')")
+    on, off = min(turns["on_ms"]), min(turns["off_ms"])
+    log(f"time (a): reconstruct b=32 @256px: 'auto' {on:.2f} ms ({32 / on * 1e3:.2f} img/s), "
+        f"'fused' {off:.2f} ms ({32 / off * 1e3:.2f} img/s), best of each: {off / on:.4f}x "
+        f"[{CARD}]")
+
+
+def _timed_in_turns(fns: dict, reps: int) -> dict:
+    """cuda_time_ms of each of two ``fns`` (name -> fn) in turns (first,
+    second, second, first), ``reps`` calls a turn: name -> [ms, ms]."""
+    a, b = fns
+    times = {a: [], b: []}
+    for name in (a, b, b, a):
+        times[name].append(cuda_time_ms(fns[name], reps, warmup=1))
+    return times
+
+
+def phase_fold_thin() -> None:
+    """Phase fold_thin: (b) AttentionRoPE(fuse_qkv=True) at the three
+    stage shapes (FOLD_SHAPES, b FOLD_BATCH, bf16) on the composable
+    route (impl 'auto_train': the flash kernels at N = 4096, the plain
+    core below), forward and backward, against fuse_qkv=False on the same
+    weights and inputs: each one's output and input gradient against an
+    fp32 run (the plain core), the fold's mean and max error within
+    MODEL_MEAN_RATIO / MODEL_MAX_RATIO of the unfolded route's (a rounding
+    change), the parameters' gradients' errors logged; ms of each
+    (forward, and forward + backward) in turns. (c) ThinConv3x3 at large
+    f16d32's boundary convs (THIN_CONVS, b THIN_BATCH, 256^2, bf16), on an
+    NCHW and a channels_last input: each form (im2col for 3 -> 192,
+    tap-major for 192 -> 3) within KERNEL_RTOL of max|F.conv2d| on the same
+    bf16 weights, the output in the input's memory format; ms in turns
+    beside that cuDNN call and the bound (max of operations / 989 TFLOP/s
+    and bytes / 3.35 TB/s). Evidence only: the model calls neither."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepl_project_tpu_torch.ops.attention import AttentionRoPE
+    from deepl_project_tpu_torch.ops.thin_conv import ThinConv3x3
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+
+    def randn(*shape, scale=1.0, shift=0.0, dtype=torch.float32):
+        return (torch.randn(*shape, device="cuda", generator=gen) * scale + shift).to(dtype)
+
+    # (b) The folded QKV.
+    for n, c in FOLD_SHAPES:
+        side = math.isqrt(n)
+        mods = {f: AttentionRoPE(c, 64, impl="auto_train", fuse_qkv=f, device="cuda")
+                for f in (False, True)}
+        with torch.no_grad():
+            # Weights N(0, 1/C); LayerNorm scales 1 + N(0, 0.01), biases N(0, 0.01).
+            for name, p in mods[False].named_parameters():
+                shift = 1.0 if name.startswith("norm_") and name.endswith("weight") else 0.0
+                p.copy_(randn(*p.shape, scale=c ** -0.5) if p.dim() == 2
+                        else randn(*p.shape, scale=0.1, shift=shift))
+        mods[True].load_state_dict(mods[False].state_dict())
+        x = randn(FOLD_BATCH, c, side, side, dtype=torch.bfloat16)
+        ct = randn(FOLD_BATCH, c, side, side, dtype=torch.bfloat16)
+
+        def run(m, dtype):
+            m.zero_grad(set_to_none=True)
+            xr = x.detach().to(dtype).requires_grad_(True)
+            y = m(xr)
+            y.backward(ct.to(dtype))
+            grads = {k: p.grad.float() for k, p in m.named_parameters()}
+            return y.detach().float(), xr.grad.float(), grads
+
+        y32, dx32, g32 = run(mods[False], torch.float32)
+        errs = {}
+        for fuse, m in mods.items():
+            y, dx, g = run(m, torch.bfloat16)
+            errs[fuse] = {"y": ((y - y32).abs().mean().item(), (y - y32).abs().max().item()),
+                          "dx": ((dx - dx32).abs().mean().item(),
+                                 (dx - dx32).abs().max().item()),
+                          "params_max": max((g[k] - g32[k]).abs().max().item()
+                                            / g32[k].abs().max().item() for k in g32)}
+        del y32, dx32, g32
+
+        def fwd(m):
+            with torch.no_grad():
+                m(x)
+
+        def fwd_bwd(m):
+            xr = x.detach().requires_grad_(True)
+            m(xr).backward(ct)
+
+        fwd_ms = _timed_in_turns({"unfolded": lambda: fwd(mods[False]),
+                                  "folded": lambda: fwd(mods[True])}, FOLD_REPS)
+        step_ms = _timed_in_turns({"unfolded": lambda: fwd_bwd(mods[False]),
+                                   "folded": lambda: fwd_bwd(mods[True])}, FOLD_REPS)
+        u, f = errs[False], errs[True]
+        log(f"fold_thin (b): AttentionRoPE fuse_qkv at (B, N, C)=({FOLD_BATCH}, {n}, {c}) bf16, "
+            f"impl 'auto_train' (composable), against fp32: output mean/max abs error "
+            f"folded {f['y'][0]:.3e}/{f['y'][1]:.3e}, unfolded {u['y'][0]:.3e}/{u['y'][1]:.3e}; "
+            f"input gradient folded {f['dx'][0]:.3e}/{f['dx'][1]:.3e}, unfolded "
+            f"{u['dx'][0]:.3e}/{u['dx'][1]:.3e} (bars {MODEL_MEAN_RATIO}x / "
+            f"{MODEL_MAX_RATIO}x the unfolded's); parameter gradients' largest error over "
+            f"max|grad| folded {f['params_max']:.3e}, unfolded {u['params_max']:.3e}; in turns "
+            f"(unfolded, folded, folded, unfolded; {FOLD_REPS} calls a turn): forward "
+            f"unfolded {[round(v, 4) for v in fwd_ms['unfolded']]} ms, folded "
+            f"{[round(v, 4) for v in fwd_ms['folded']]} ms; forward + backward unfolded "
+            f"{[round(v, 4) for v in step_ms['unfolded']]} ms, folded "
+            f"{[round(v, 4) for v in step_ms['folded']]} ms [{CARD}]")
+        for key in ("y", "dx"):
+            if not (f[key][0] <= MODEL_MEAN_RATIO * u[key][0]
+                    and f[key][1] <= MODEL_MAX_RATIO * u[key][1]):
+                fail(f"fold_thin (b): the folded QKV's {key} at N={n}, C={c} is further from "
+                     f"fp32 than the unfolded route's")
+        del mods, x, ct
+
+    # (c) The thin convs.
+    for name, ci, co in THIN_CONVS:
+        conv = ThinConv3x3(ci, co, device="cuda")
+        with torch.no_grad():
+            conv.weight.copy_(randn(*conv.weight.shape, scale=(2.0 / (9 * co)) ** 0.5))
+            conv.bias.copy_(randn(co, scale=0.1))
+        wb, bb = conv.weight.to(torch.bfloat16), conv.bias.to(torch.bfloat16)
+        x = randn(THIN_BATCH, ci, 256, 256, dtype=torch.bfloat16)
+        m = THIN_BATCH * 256 * 256
+        flops = 2 * m * 9 * ci * co
+        nbytes = m * (ci + co) * 2 + 9 * ci * co * 2 + co * 4
+        bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+        form = "im2col" if ci <= 32 else "tap-major"
+        for layout in ("nchw", "channels_last"):
+            fmt = torch.channels_last if layout == "channels_last" else torch.contiguous_format
+            xl = x.contiguous(memory_format=fmt)
+            with torch.no_grad():
+                y = conv(xl)
+                ref = F.conv2d(xl, wb, bb, padding=1)
+                err = (y.float() - ref.float()).abs().max().item()
+                top = ref.float().abs().max().item()
+                in_format = y.is_contiguous(memory_format=fmt)
+                del y, ref
+                ms = _timed_in_turns({"cudnn": lambda: F.conv2d(xl, wb, bb, padding=1),
+                                      form: lambda: conv(xl)}, 10)
+            log(f"fold_thin (c): ThinConv3x3 {name} {ci} -> {co} ({form}) at "
+                f"({THIN_BATCH}, {ci}, 256, 256) bf16 {layout}: max_abs={err:.3e} = "
+                f"{err / top:.3e} of max|F.conv2d| (bar {KERNEL_RTOL:.3e}), output in the "
+                f"input's format {in_format}; in turns (cuDNN, {form}, {form}, cuDNN; 10 calls "
+                f"a turn): {form} {[round(v, 4) for v in ms[form]]} ms, cuDNN "
+                f"{[round(v, 4) for v in ms['cudnn']]} ms, bound {bound_ms:.4f} ms (by "
+                f"{'operations' if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_HBM_BYTES else 'bytes'}"
+                f") [{CARD}]")
+            if not err <= KERNEL_RTOL * top or not in_format:
+                fail(f"fold_thin (c): ThinConv3x3 {name} ({layout}) is off F.conv2d")
+            del xl
+        del conv, x
+    torch.cuda.empty_cache()
+
+
 # -- phase 4 -------------------------------------------------------------
 def phase_time(model, profile: bool):
     import numpy as np
@@ -3753,6 +4042,7 @@ def phase_time(model, profile: bool):
         set_fused_norm(False)
         _profile(recon, "reconstruct_b32_plain_norm")
         set_fused_norm(True)
+    fused_impl_reconstruct(model)
     return step
 
 
@@ -4502,6 +4792,10 @@ DP_RUNS = (("stage1", "stage1", "replicate", 1), ("gan", "gan", "replicate", 1),
            ("gan_fp32", "gan_fp32", "replicate", 1),
            ("fsdp", "stage1", "fsdp", 2), ("tensor", "stage1", "tensor", 2),
            ("fsdp_scan", "stage1", "fsdp", 2), ("tensor_scan", "stage1", "tensor", 2))
+# The runs the ranks step under torch.use_deterministic_algorithms (the
+# deterministic flash backward; warn_only, the ops without a deterministic
+# version recorded): the scan twins and their unrolled runs.
+PARALLEL_DETERMINISTIC = ("fsdp", "tensor", "fsdp_scan", "tensor_scan")
 # Phase parallel (d), cli.train --scan_blocks --param_sharding tensor
 # --mesh_model 2 on (b)'s two ranks: its steps, global batch and output.
 SCAN_TP_STEPS, SCAN_TP_BATCH = 2, 4
@@ -4516,6 +4810,7 @@ def _dp_steps(runs) -> dict:
     and under a process group the fingerprints of the parameters every rank
     holds whole after the update."""
     import dataclasses
+    import warnings
 
     import torch
 
@@ -4540,10 +4835,22 @@ def _dp_steps(runs) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        t0 = time.perf_counter()
-        m = trainer.step_fn(state, local)
-        torch.cuda.synchronize()
-        row = {"ms": (time.perf_counter() - t0) * 1e3, "launches": launches_by_name(),
+        det = trainer.mesh is not None and name in PARALLEL_DETERMINISTIC
+        was = torch.are_deterministic_algorithms_enabled()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(det, warn_only=True)
+            try:
+                t0 = time.perf_counter()
+                m = trainer.step_fn(state, local)
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                torch.use_deterministic_algorithms(was)
+        row = {"ms": step_ms, "launches": launches_by_name(), "deterministic": det,
+               "nondeterministic_ops": sorted({str(w.message).split(" does not")[0]
+                                               for w in caught
+                                               if "deterministic" in str(w.message)}),
                "flash_heads": sorted({h for (_, _, h) in fla.launch_counts_by_shape()}),
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                "rows": int(local.shape[0]),
@@ -4576,6 +4883,9 @@ def dp_worker() -> None:
 
     from deepl_project_tpu_torch.parallel import initialize_multihost
 
+    # cuBLAS's deterministic workspace, set before its first use
+    # (PARALLEL_DETERMINISTIC's runs).
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     info = initialize_multihost(backend="gloo", device="cuda:0")
     rank = info["process_index"]
     out = _dp_steps(DP_RUNS)
@@ -4910,9 +5220,11 @@ def phase_parallel(train_rows: list) -> None:
             # Stage 2's 6 sublayers (3 heads a rank under tensor): forward, its
             # recompute under remat, (GAN) the discriminator update's fresh
             # forward; one backward.
+            bwd = "flash_attention_bwd_det" if b["deterministic"] else "flash_attention_bwd"
             want = ({} if step == "gan_fp32" else
-                    {"flash_attention_fwd": 12 if step == "stage1" else 18,
-                     "flash_attention_bwd": 6})
+                    {"flash_attention_fwd": 12 if step == "stage1" else 18, bwd: 6})
+            if b["deterministic"] != (name in PARALLEL_DETERMINISTIC):
+                fail(f"parallel (b) {name} rank {r}: deterministic {b['deterministic']}")
             heads = [3] if mode == "tensor" else [6]
             if ({k: v for k, v in b["launches"].items() if k.startswith("flash")} != want
                     or b["flash_heads"] != (heads if want else [])
@@ -4935,27 +5247,35 @@ def phase_parallel(train_rows: list) -> None:
                     fail(f"parallel (b) {name}: the adaptive weight, the disc loss or the "
                          "floor decision differs (or the weight sits at its clamp)")
             if b["launches"]:
-                PARALLEL_PATHS[f"parallel_gloo_rank{r}_{name}"] = b["launches"]
+                # The row of flash_attention_bwd.cu counts both of its launchers.
+                PARALLEL_PATHS[f"parallel_gloo_rank{r}_{name}"] = {
+                    k.removesuffix("_det"): v for k, v in b["launches"].items()}
             if name.endswith("_scan"):
                 # The scan layout against the unrolled run of its placement.
                 u = got[name[:-len("_scan")]]
                 slr = abs(b["total"] - u["total"]) / abs(u["total"])
                 sgr = abs(b["grad_norm"] - u["grad_norm"]) / u["grad_norm"]
                 sq, wsum, where = _slice_gap(b["moments"], u["moments"])
-                log(f"parallel (b) {name} rank {r}: scan layout vs the unrolled {mode} run: "
-                    f"loss {b['total']!r} / {u['total']!r} (rel {slr:.2e}, bit-equal "
-                    f"{b['total'] == u['total']}; bound {PARALLEL_LOSS_RTOL}), grad norm "
+                exact = name in PARALLEL_SCAN_BIT_EQUAL
+                norm_bar, slice_bar = ((0.0, 0.0) if exact else
+                                       (PARALLEL_SCAN_GRAD_NORM_RTOL, PARALLEL_SCAN_SLICE_RTOL))
+                nondet = sorted(set(b["nondeterministic_ops"]) | set(u["nondeterministic_ops"]))
+                log(f"parallel (b) {name} rank {r}: scan layout vs the unrolled {mode} run, "
+                    f"both deterministic (ops without a deterministic version: "
+                    f"{nondet or 'none'}): loss {b['total']!r} / {u['total']!r} (rel "
+                    f"{slr:.2e}, bit-equal "
+                    f"{b['total'] == u['total']}; held bit-equal), grad norm "
                     f"{b['grad_norm']!r} / {u['grad_norm']!r} (rel {sgr:.2e}, bit-equal "
                     f"{b['grad_norm'] == u['grad_norm']}; bound "
-                    f"{PARALLEL_SCAN_GRAD_NORM_RTOL}), first moments of {len(u['moments'])} "
+                    f"{norm_bar or 'bit-equal'}), first moments of {len(u['moments'])} "
                     f"tensors (each stack's slices as blocks): largest gap {sq:.2e} in the sum "
                     f"of squares, {wsum:.2e} of the norm in the position-weighted sum (at "
-                    f"{where}; bound {PARALLEL_SCAN_SLICE_RTOL}), "
+                    f"{where or 'none'}; bit-equal {sq == 0.0 and wsum == 0.0}; bound "
+                    f"{slice_bar or 'bit-equal'}), "
                     f"{b['sharded']} / {u['sharded']} tensors split, peak {b['peak_gib']:.2f} / "
                     f"{u['peak_gib']:.2f} GiB, launches {b['launches']} / {u['launches']} "
                     f"[{CARD}]")
-                if (slr > PARALLEL_LOSS_RTOL or sgr > PARALLEL_SCAN_GRAD_NORM_RTOL
-                        or max(sq, wsum) > PARALLEL_SCAN_SLICE_RTOL
+                if (b["total"] != u["total"] or sgr > norm_bar or max(sq, wsum) > slice_bar
                         or b["launches"] != u["launches"]):
                     fail(f"parallel (b) {name} rank {r}: the scan layout's step is off the "
                          f"unrolled {mode} step's")
@@ -6402,7 +6722,7 @@ def main():
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,kernels,grad,train,data,dit,gan,recipe,remat,serve,"
+                    default="build,kernels,grad,fold_thin,train,data,dit,gan,recipe,remat,serve,"
                             "serve_mesh,time,eval,quant,scan,context,pipeline,parallel")
     ap.add_argument("--worker", choices=["dp", "context", "serve-mesh", "serve-nccl",
                                          "refusal-nccl", "refusal-gloo", "refusal-gloo-p2p"]
@@ -6463,6 +6783,9 @@ def main():
     if "grad" in phases:
         with phase_clock("grad"):
             phase_grad()
+    if "fold_thin" in phases:
+        with phase_clock("fold_thin"):
+            phase_fold_thin()
     train_counts, stage1_ckpt, train_info = {}, None, {}
     for later in ("gan", "remat", "parallel"):
         if later in phases and "train" not in phases:
@@ -6682,13 +7005,14 @@ def main():
                 row["group_norm_silu_by_shape"] = {
                     str(k[1:]): r for k, r in results.items() if k[0] == "group_norm_silu"}
             kernels.append(row)
-        # Phase dit's, serve_mesh's, context's, pipeline's, parallel's and
-        # scan's paths, each driven with the counts set to 0 just before.
+        # Phase dit's, serve_mesh's, context's, pipeline's, parallel's,
+        # scan's and time's paths, each driven with the counts set to 0 just
+        # before.
         for row in kernels:
             row.setdefault("launches_by_path", {}).update(
                 {p: c.get(row["name"], 0)
                  for p, c in {**DIT_PATHS, **SERVE_MESH_PATHS, **CONTEXT_PATHS, **PIPE_PATHS,
-                              **PARALLEL_PATHS, **SCAN_PATHS}.items()})
+                              **PARALLEL_PATHS, **SCAN_PATHS, **TIME_PATHS}.items()})
             # The flash kernels at the pipelined DiT-L/2's shape: [kernel,
             # plain, bound, SDPA (its backward for flash_attention_bwd)] ms
             # and the max abs error against the plain version.

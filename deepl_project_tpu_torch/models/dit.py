@@ -263,7 +263,7 @@ class DiT(nn.Module):
     def __init__(self, cfg: DiTConfig, grid: int | tuple[int, int] = 16, *, device=None):
         super().__init__()
         if cfg.attention_impl not in IMPLS:
-            raise NotImplementedError(f"attention impl {cfg.attention_impl!r} is not yet ported")
+            raise ValueError(f"unknown attention impl {cfg.attention_impl!r}; one of {IMPLS}")
         self.config = cfg
         d, p = cfg.hidden_dim, cfg.patch_size
         kw = dict(device=device, dtype=cfg.params_dtype)

@@ -15,9 +15,18 @@ Sublayer dispatch (``AttentionRoPE``), as in the JAX module:
   N=4096; 512px stage 4, N=1024 at C=1536): the ``ln_qkv_rope`` kernel, then
   :func:`core_attention`, then the projection as a plain matmul (the JAX
   package also leaves it to XLA);
+- ``impl='fused'``: the kernel routes of ``'auto'`` where their gates hold,
+  and :func:`core_attention` then takes the plain core (stage 2 at 256px:
+  ``ln_qkv_rope``, then the plain chunked core, not the flash forward), as
+  the JAX package's ``'fused'`` lets its two sublayer kernels run and falls
+  through its ``core_attention`` to plain XLA;
 - every other case (``auto_train``, ``xla``, ``pallas``, other head widths,
-  float32): the composable path -- plain LayerNorms and linears,
-  ``apply_rope2d``, :func:`core_attention`, the projection;
+  float32, ``fuse_qkv``): the composable path -- plain LayerNorms and
+  linears, ``apply_rope2d``, :func:`core_attention`, the projection. With
+  ``fuse_qkv`` its three LayerNorms and Q/K/V products are one
+  shared-statistics normalisation and one [C, 3C] product whose weight
+  folds the norms' affines in (``diag(g_i) W_i``, bias ``b_i W_i``; the
+  same parameters), and both kernel routes are off, as in the JAX module;
 - under tensor parallelism (``model_group`` set by
   ``parallel.shard_params``): this rank's heads (``to_q/to_k/to_v`` C ->
   W = C/m, the projection W -> C with its partial products summed over the
@@ -81,7 +90,7 @@ def reset_route_counts() -> None:
 def route_counts() -> dict[str, int]:
     return dict(_ROUTES)
 
-IMPLS = ("auto", "auto_train", "xla", "xla_chunked", "pallas", "pallas_small")
+IMPLS = ("auto", "auto_train", "fused", "xla", "xla_chunked", "pallas", "pallas_small")
 
 # Token-count bands of the JAX package's core_attention.
 _XLA_FULL_SOFTMAX_MAX_TOKENS = 2048
@@ -135,7 +144,8 @@ def core_impl(n: int, impl: str, kernels_ok: bool) -> str:
     ``_PALLAS_MIN_TOKENS`` (``_PALLAS_MIN_TOKENS_TRAIN`` for 'auto_train') on,
     the flash kernel. ``kernels_ok`` (``flash_supported``: CUDA, bf16,
     head_dim 64, N % 64 == 0) stands where the JAX package asks for a TPU.
-    Any other ``impl`` is returned as it is."""
+    Any other ``impl`` is returned as it is ('fused' then takes the plain
+    core in :func:`core_attention`, as the JAX package's does)."""
     if impl not in ("auto", "auto_train"):
         return impl
     min_pallas = _PALLAS_MIN_TOKENS_TRAIN if impl == "auto_train" else _PALLAS_MIN_TOKENS
@@ -167,17 +177,20 @@ class AttentionRoPE(CachedOperands, nn.Module):
     """Multi-head global attention on an NCHW feature map. ``dropout`` acts
     on the output projection in a call with ``deterministic=False``, which
     also keeps the sublayer kernels out (the JAX gates' ``dropout == 0.0 or
-    deterministic``)."""
+    deterministic``). ``fuse_qkv`` folds the three QKV LayerNorms' affines
+    into one product (module docstring); the model does not set it, as the
+    JAX model does not."""
 
     def __init__(self, dim: int, head_dim: int = 64, use_rope: bool = True,
                  rope_pairing: str = "reference", impl: str = "auto", *,
-                 dropout: float = 0.0, device=None, param_dtype=torch.float32):
+                 fuse_qkv: bool = False, dropout: float = 0.0, device=None,
+                 param_dtype=torch.float32):
         super().__init__()
         if impl not in IMPLS:
-            raise NotImplementedError(f"attention impl {impl!r} is not yet ported")
+            raise ValueError(f"unknown attention impl {impl!r}; one of {IMPLS}")
         self.dim, self.head_dim = dim, head_dim
         self.use_rope, self.rope_pairing, self.impl = use_rope, rope_pairing, impl
-        self.dropout = dropout
+        self.fuse_qkv, self.dropout = fuse_qkv, dropout
         kw = dict(device=device, dtype=param_dtype)
         self.norm_q = LayerNorm(dim, **kw)
         self.norm_k = LayerNorm(dim, **kw)
@@ -216,11 +229,12 @@ class AttentionRoPE(CachedOperands, nn.Module):
         n, hd = h * w, self.head_dim
         nh = c // hd
         xf = x.permute(0, 2, 3, 1).reshape(b, n, c)
-        # The sublayer kernels serve inference ('auto'); training and the
-        # explicit cores keep the composable path, as in the JAX module. A
-        # tensor-parallel head shard (q/k/v width W = C/m) takes the local
-        # routes (module docstring).
-        kernels = (self.impl == "auto" and (self.dropout == 0.0 or deterministic)
+        # The sublayer kernels serve inference ('auto', 'fused'); training,
+        # the explicit cores and the folded QKV keep the composable path, as
+        # in the JAX module. A tensor-parallel head shard (q/k/v width
+        # W = C/m) takes the local routes (module docstring).
+        kernels = (self.impl in ("auto", "fused") and not self.fuse_qkv
+                   and (self.dropout == 0.0 or deterministic)
                    and cp.context_axis_size() == 1)
         if self.model_group is not None:
             out = self._local_heads(xf, h, w, deterministic, kernels)
@@ -242,15 +256,60 @@ class AttentionRoPE(CachedOperands, nn.Module):
                 q, k, v = (t.reshape(b, n, nh, hd) for t in (q, k, v))
             else:
                 _ROUTES["composable" if cp.context_axis_size() == 1 else "ring"] += 1
-                q = self.to_q(self.norm_q(xf)).reshape(b, n, nh, hd)
-                k = self.to_k(self.norm_k(xf)).reshape(b, n, nh, hd)
-                v = self.to_v(self.norm_v(xf)).reshape(b, n, nh, hd)
+                q, k, v = (t.reshape(b, n, nh, hd) for t in self._qkv(xf))
                 q, k = self._rope(q, k, h, w)
             out = self._core(q, k, v)
             out = self.proj(out.reshape(b, n, c))
             if self.dropout > 0.0 and not deterministic:
                 out = F.dropout(out, self.dropout)
         return out.reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+    def _qkv(self, xf: torch.Tensor, group=None) -> tuple:
+        """The composable route's q, k, v [B, N, W] (W: ``to_q``'s rows,
+        this rank's heads under tensor parallelism): the three LayerNorms
+        and bias-free products, or with ``fuse_qkv`` one shared-statistics
+        normalisation in fp32, x-hat cast to x's dtype, and the folded
+        product (fp32 accumulation, the folded bias added in fp32, one
+        cast). ``group``: the model group over which the input's gradient
+        is summed (``copy_to_group``)."""
+        if not self.fuse_qkv:
+            pairs = ((self.to_q, self.norm_q), (self.to_k, self.norm_k), (self.to_v, self.norm_v))
+            if group is None:
+                return tuple(lin(norm(xf)) for lin, norm in pairs)
+            return tuple(lin(copy_to_group(norm(xf), group)) for lin, norm in pairs)
+        b, n, c = xf.shape
+        x32 = xf.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+        xhat = ((x32 - mean) * torch.rsqrt(var + self.norm_q.eps)).to(xf.dtype)
+        if group is not None:
+            xhat = copy_to_group(xhat, group)
+        weight, bias = self._folded_qkv(xf.dtype, group)
+        qkv = (matmul_f32(xhat.reshape(b * n, c), weight.t()) + bias).to(xf.dtype)
+        return qkv.reshape(b, n, -1).chunk(3, dim=-1)
+
+    def _folded_qkv(self, dtype: torch.dtype, group=None):
+        """The folded QKV operands of the current parameters: the [3W, C]
+        weight (row block i: ``W_i`` scaled by norm i's ``g`` on its input
+        axis, in fp32, then cast to ``dtype``) and the fp32 [3W] bias
+        (``W_i b_i``). Cached per parameter version; a call that autograd
+        records folds under autograd. Under tensor parallelism (``group``)
+        each rank folds its own rows, so the whole LayerNorm affines'
+        gradients are summed over the group (``copy_to_group``), as the
+        unfolded route sums the normalised input's."""
+        ln, wq, wk, wv = self._qkv_args()
+        params = [t for pair in ln for t in pair] + [wq, wk, wv]
+
+        def fold():
+            ws = (wq, wk, wv)
+            affines = ln if group is None else tuple(
+                (copy_to_group(g, group), copy_to_group(bb, group)) for g, bb in ln)
+            weight = torch.cat([wi.float() * g.float() for (g, _), wi in zip(affines, ws)])
+            bias = torch.cat([F.linear(bb.float(), wi.float())
+                              for (_, bb), wi in zip(affines, ws)])
+            return weight.to(dtype), bias
+
+        return self._cached(f"fused_qkv_{dtype}", params, fold, differentiable=True)
 
     def _rope(self, q, k, h, w):
         """RoPE on q and k of an (h, w) map: under context, this rank's rows
@@ -270,18 +329,18 @@ class AttentionRoPE(CachedOperands, nn.Module):
 
     def partial_heads(self, xf: torch.Tensor, h: int, w: int) -> torch.Tensor:
         """This rank's heads of the sublayer on tokens ``xf`` [B, N, C]:
-        LayerNorms, the local q/k/v (C -> C/m), RoPE, the core on the local
-        heads and the local projection (C/m -> C, no bias); summed over the
-        model group this is the sublayer's output less the projection's
-        bias. The composable route (the core takes its kernels by token
-        count; under context, the ring on the local heads)."""
+        LayerNorms, the local q/k/v (C -> C/m; with ``fuse_qkv`` the fold of
+        this rank's rows of each W_i, exact since the fold is row by row),
+        RoPE, the core on the local heads and the local projection (C/m ->
+        C, no bias); summed over the model group this is the sublayer's
+        output less the projection's bias. The composable route (the core
+        takes its kernels by token count; under context, the ring on the
+        local heads)."""
         b, n, c = xf.shape
         hd, group = self.head_dim, self.model_group
         width = self.to_q.weight.shape[0]
         _ROUTES["local_heads"] += 1
-        q, k, v = (lin(copy_to_group(norm(xf), group)).reshape(b, n, width // hd, hd)
-                   for lin, norm in ((self.to_q, self.norm_q), (self.to_k, self.norm_k),
-                                     (self.to_v, self.norm_v)))
+        q, k, v = (t.reshape(b, n, width // hd, hd) for t in self._qkv(xf, group))
         q, k = self._rope(q, k, h, w)
         out = self._core(q, k, v)
         return F.linear(out.reshape(b, n, width), self.proj.weight.to(xf.dtype))

@@ -3,8 +3,9 @@ scalars, the JSONL run record, step timing and profiler traces.
 
 ``MetricWriter`` writes TensorBoard event files with tensorboardX and does
 nothing where that package is absent, as the JAX package's does. Under a
-process group, ``MetricWriter`` and ``RunHistory`` write on rank 0 only
-(the JAX package's ``process_index() == 0``).
+process group, ``MetricWriter`` (unless ``only_primary=False``) and
+``RunHistory`` write on rank 0 only (the JAX package's
+``process_index() == 0``).
 ``profiler_trace`` records ``torch.profiler`` (host, and the card where
 there is one) into a Chrome trace that TensorBoard's profile plugin and
 Perfetto read, where the JAX package records ``jax.profiler``.
@@ -28,12 +29,13 @@ def is_primary() -> bool:
 
 
 class MetricWriter:
-    """Scalars to a TensorBoard log directory (tensorboardX); a no-op where
-    tensorboardX is not installed, and on every rank but 0."""
+    """Scalars and images to a TensorBoard log directory (tensorboardX); a
+    no-op without a ``log_dir``, where tensorboardX is not installed, and
+    with ``only_primary`` on every rank but 0."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str | None, only_primary: bool = True):
         self._writer = None
-        if not is_primary():
+        if log_dir is None or (only_primary and not is_primary()):
             return
         try:
             from tensorboardX import SummaryWriter
@@ -46,6 +48,15 @@ class MetricWriter:
             return
         for name, value in metrics.items():
             self._writer.add_scalar(f"{prefix}/{name}", float(value), step)
+
+    def image(self, step: int, tag: str, image) -> None:
+        """One [H, W, C] image under ``tag``."""
+        if self._writer is not None:
+            self._writer.add_image(tag, image, step, dataformats="HWC")
+
+    def flush(self) -> None:
+        if self._writer is not None:
+            self._writer.flush()
 
     def close(self) -> None:
         if self._writer is not None:

@@ -135,6 +135,5 @@ def test_dispatch_bands():
     q = torch.zeros(1, 4096, 2, 64, dtype=torch.bfloat16)
     assert not fla.flash_supported(q)
     assert tattn._PALLAS_MIN_TOKENS_TRAIN == 4096 and tattn._XLA_FULL_SOFTMAX_MAX_TOKENS == 2048
-    assert set(tattn.IMPLS) >= {"auto", "auto_train", "xla", "pallas"}
-    with pytest.raises(NotImplementedError):
-        tattn.AttentionRoPE(64, impl="fused")
+    assert set(tattn.IMPLS) >= {"auto", "auto_train", "fused", "xla", "pallas"}
+    assert tattn.AttentionRoPE(64, impl="fused").impl == "fused"

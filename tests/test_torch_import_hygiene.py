@@ -39,7 +39,7 @@ _PROBE = textwrap.dedent("""
              "cli.sample_dit", "parallel", "parallel.multihost", "parallel.mesh",
              "parallel.collectives", "parallel.sharding", "parallel.ring_attention",
              "parallel.context", "parallel.halo", "parallel.dryrun", "parallel.pipeline",
-             "ops.stack"}
+             "ops.stack", "ops.thin_conv"}
     assert named <= {n.split(".", 1)[1] for n in names}, named
     import chip_smoke
     bad = sorted(m for m in sys.modules

@@ -5,6 +5,10 @@
   prefix, as JAX writes them) and the epoch averages, read back from the
   event file (TFRecord framing, ``Event`` protos; TensorBoard's own reader
   imports TensorFlow, seconds here) and compared with history.jsonl.
+- ``MetricWriter`` against a stand-in ``tensorboardX`` (its calls
+  recorded): scalars, an HWC image, flush and close, as the JAX writer
+  makes them; nothing without a ``log_dir``, and off rank 0 only with
+  ``only_primary=False``.
 - ``DEEPL_DEBUG_NANS`` turns on autograd's anomaly mode for the run and
   restores it; ``profiler_trace`` writes a trace; ``StepTimer`` skips its
   warmup.
@@ -18,6 +22,8 @@
 import json
 import os
 import struct
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -33,7 +39,8 @@ from deepl_project_tpu_torch.data import batch_iterator, make_dataset
 from deepl_project_tpu_torch.losses import LossWeights
 from deepl_project_tpu_torch.training import Trainer, TrainerConfig
 from deepl_project_tpu_torch.utils import flops
-from deepl_project_tpu_torch.utils.logging import StepTimer, profiler_trace
+from deepl_project_tpu_torch.utils import logging as logging_mod
+from deepl_project_tpu_torch.utils.logging import MetricWriter, StepTimer, profiler_trace
 
 torch.set_num_threads(2)
 # tiny_f8d16 at depth 1, narrow; latent_dim from the name (16).
@@ -87,6 +94,45 @@ def test_fit_writes_tensorboard_scalars(tmp_path):
     keys = [k for k in train[0] if k not in ("step", "kind", "ts")]
     assert set(scalars) == ({f"train/{k}" for k in keys} | {f"train/epoch_avg/{k}" for k in keys}
                     | {"train/val_psnr", "train/val_ssim"})
+
+
+def test_metric_writer_calls_the_summary_writer_as_jax_does(tmp_path, monkeypatch):
+    calls = []
+
+    class SummaryWriter:
+        def __init__(self, log_dir):
+            calls.append(("init", log_dir))
+
+        def __getattr__(self, name):
+            return lambda *args, **kw: calls.append((name, args, kw))
+
+    monkeypatch.setitem(sys.modules, "tensorboardX",
+                        types.SimpleNamespace(SummaryWriter=SummaryWriter))
+    image = np.zeros((4, 6, 3), np.uint8)
+    writer = MetricWriter(str(tmp_path))
+    writer.scalars(3, {"loss": np.float32(0.5)}, prefix="val")
+    writer.image(3, "recon", image)
+    writer.flush()
+    writer.close()
+    assert calls[:2] == [("init", str(tmp_path)), ("add_scalar", ("val/loss", 0.5, 3), {})]
+    (name, args, kw), *rest = calls[2:]
+    assert name == "add_image" and args[0] == "recon" and args[1] is image
+    assert args[2] == 3 and kw == {"dataformats": "HWC"}
+    assert [c[0] for c in rest] == ["flush", "close"]
+    # No log_dir: no writer, every call a no-op.
+    calls.clear()
+    quiet = MetricWriter(None)
+    quiet.scalars(1, {"a": 1.0})
+    quiet.image(1, "x", image)
+    quiet.flush()
+    quiet.close()
+    assert calls == []
+    # Off rank 0: nothing unless only_primary=False.
+    monkeypatch.setattr(logging_mod, "is_primary", lambda: False)
+    MetricWriter(str(tmp_path)).scalars(1, {"a": 1.0})
+    assert calls == []
+    MetricWriter(str(tmp_path), only_primary=False).flush()
+    assert [c[0] for c in calls] == ["init", "flush"]
 
 
 def test_debug_nans_turns_on_anomaly_mode(tmp_path, monkeypatch):

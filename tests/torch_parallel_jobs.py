@@ -197,19 +197,25 @@ stub_teacher.feature_dim = 8
 
 
 def train(mode, model_size, accum, data, steps=2, weights=None, opt=None,
-          teacher=False, model_kw=None) -> dict:
+          teacher=False, model_kw=None, fuse_qkv=False) -> dict:
     """``steps`` optimizer steps of the micro model on global batches
     ``data`` (the first step's gradients by ``compute_grads`` first); under
     ``mode`` on the process group's ranks, else on one process. Returns the
     first gradients and the final parameters whole, and every step's
-    metrics. ``model_kw``: config fields over the micro model's."""
+    metrics. ``model_kw``: config fields over the micro model's;
+    ``fuse_qkv``: every attention module folds its QKV LayerNorms."""
     from deepl_project_tpu_torch.parallel import shard_batch
     from deepl_project_tpu_torch.training.optim import make_optimizer
     from deepl_project_tpu_torch.training.train_step import (
         TrainState, compute_grads, make_train_step, make_vf_proj_params, named_trainables,
         step_generator)
 
+    from deepl_project_tpu_torch.ops.attention import AttentionRoPE
+
     model = build_model(**(model_kw or {}))
+    for m in model.modules():
+        if isinstance(m, AttentionRoPE):
+            m.fuse_qkv = fuse_qkv
     vf_proj = (make_vf_proj_params(4, 8, torch.Generator().manual_seed(7)) if teacher
                else None)
     placement, mesh = _place(model, mode, model_size, vf_proj)
