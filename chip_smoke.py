@@ -25,7 +25,8 @@ Phases (any failure exits non-zero and prints no result):
    a run-dependent order allow, and twice more under
    torch.use_deterministic_algorithms(True), where the deterministic
    launcher must give bit-equal results; its time and memory are logged) at
-   the training microbatch (8 images, 6 heads, N=4096), the forward also at
+   the training microbatch (8 images, 6 heads, N=4096; also timed at phase
+   recipe's and remat's, FLASH_TRAIN_TIMED), the forward also at
    512px serving (2 images, N=16384), at 256px serving batch 32 against the
    plain chunked core (the inference dispatch's evidence) and at the 1024px
    sweep's stage 2 (4 images, N=65536); small_attention
@@ -179,13 +180,14 @@ Phases (any failure exits non-zero and prints no result):
    tensorboardX is installed; the same step fed by the folder pipeline and
    by synthetic batches in turns (folder, synthetic, synthetic, folder; 3
    steps a turn); one step under utils.logging.profiler_trace (its trace
-   written); cli.evaluate --data <folder> --rfid (2 batches of 16; vgg_rfid
-   without the Inception weights) with launches as two 256px reconstructs;
-   InceptionV3 (seeded random params, fp32 with TF32 off) at b32 256 -> 299px
-   timed beside its bound, its first 4 images against the CPU fp32 path
-   (INCEPTION_RTOL), rFID of the originals against themselves (~0) and
-   against the trained model's reconstructions (its scipy sqrtm in a thread
-   and cli.smoke_test in a process of its own, both beside what follows);
+   written); InceptionV3 (seeded random params, fp32 with TF32 off) at b32
+   256 -> 299px timed beside its bound, its first 4 images against the CPU
+   fp32 path (INCEPTION_RTOL), rFID of the originals against themselves (~0)
+   and against the trained model's reconstructions (its scipy sqrtm in a
+   process on FID_BLAS_THREADS BLAS threads and cli.smoke_test in another,
+   started after the Inception timing, both beside what follows);
+   cli.evaluate --data <folder> --rfid (2 batches of 16; vgg_rfid without
+   the Inception weights) with launches as two 256px reconstructs;
    pool_latents over the folder, latent_diagnostics, linear_probe on the 4
    class labels;
    from_pretrained('transvae-large-f16d32') through DEEPL_PRETRAINED_DIR,
@@ -224,13 +226,17 @@ Phases (any failure exits non-zero and prints no result):
    rows; the plain and the distributed compute_grads on the same weights,
    batch and noise (loss within PARALLEL_LOSS_RTOL, grad norm within
    PARALLEL_GRAD_NORM_RTOL; bit-equality logged), the two steps in turns
-   and the gradient all-reduce alone; then `python -m torch.distributed.run
-   --nproc_per_node 1 -m deepl_project_tpu_torch.cli.train` for 3 steps,
-   its checkpoint resumed by one process (step and optimizer count 3). The
-   process group is destroyed before (b). (b) Two processes on the card
+   and the gradient all-reduce alone; the process group is destroyed
+   before (b). `python -m torch.distributed.run --nproc_per_node 1 -m
+   deepl_project_tpu_torch.cli.train` for PARALLEL_CLI_STEPS steps at
+   global b PARALLEL_CLI_BATCH (2 microbatches), started beside (b)'s
+   ranks once they are past PARALLEL_CLI_AFTER, its checkpoint resumed by
+   one process (step and optimizer count PARALLEL_CLI_STEPS). (b) Two processes on the card
    over gloo (this script under torchrun, --worker dp; NCCL refuses two
    ranks on one device), each run of DP_RUNS against one process on the
-   same weights and global batch of PARALLEL_BATCH under remat 'none':
+   same weights and global batch of PARALLEL_BATCH under remat 'none' (the
+   stage-1 runs and their one process at PARALLEL_STEP_DEPTHS, the GAN
+   runs at full depth; one process's steps run beside the ranks):
    replicate stage 1 (2 x 4) and GAN, in bf16 and in fp32 without TF32
    (the adaptive weight, unclamped, within PARALLEL_ADAPTIVE_RTOL, the
    global disc loss within PARALLEL_LOSS_RTOL, the same decision of a floor
@@ -239,9 +245,10 @@ Phases (any failure exits non-zero and prints no result):
    FSDP and tensor
    parallel stage 1 at model 2 (each rank all 8 rows); stage-1 loss and
    grad norm within the bars; the parameters every rank holds whole
-   bit-identical across ranks (checksums); flash launches a rank (12 + 6
-   a stage-1 step, 18 + 6 a bf16 GAN step, none in fp32; 3 heads under
-   tensor); peak memory. The FSDP and tensor runs' scan-layout twins
+   bit-identical across ranks (checksums); flash launches a rank (2 + 1 a
+   stage-2 sublayer a stage-1 step: 8 + 4 at PARALLEL_STEP_DEPTHS; 18 + 6
+   a bf16 GAN step, none in fp32; 3 heads under tensor); peak memory.
+   The FSDP and tensor runs' scan-layout twins
    (fsdp_scan, tensor_scan: the seed's weights stacked, the same rows) are
    held to those bars against one process and against their unrolled
    twin on each rank: the ranks step those four runs
@@ -265,16 +272,18 @@ Phases (any failure exits non-zero and prints no result):
    6 heads (phase kernels checks them at FLASH_LOCAL_HEADS).
    Not in the defaults: refusals (two ranks on the card: NCCL's group and
    gloo's collectives on CUDA tensors, each accepted or refused, with the
-   message).
+   message); gan_cut ((b)'s GAN runs, bf16 and fp32, two ranks against one
+   process with both cut to PARALLEL_STEP_DEPTHS: the adaptive weight's
+   gap in each dtype logged, the fp32 twin held to (b)'s bars).
 15. context (run before parallel): ring context parallelism on the one
    card, large f16d32 (depth cut to CONTEXT_DEPTHS) at 1024px over a
-   context axis of 2: first a probe of
-   gloo's point-to-point transfers of host and CUDA tensors (accepted or
-   refused, with the message); the flash kernels timed at the ring's local
+   context axis of 2: first the flash kernels timed at the ring's local
    shapes (CONTEXT_RING_SHAPES) beside their plain versions, SDPA and their
-   bounds; one process's fp32 and bf16 forward (b1) and stage-1 step (b2,
+   bounds; then, beside each other, a probe of gloo's point-to-point
+   transfers of host and CUDA tensors (accepted or refused, with the
+   message), one process's fp32 and bf16 forward (b1) and stage-1 step (b2,
    L1 + KL + LPIPS on random VGG, remat 'none', the global latent noise
-   handed in, AdamW); then two processes on the card over gloo (this
+   handed in, AdamW), and two processes on the card over gloo (this
    script under torchrun, --worker context; results in CONTEXT_DIR): (a)
    the ring at CONTEXT_RING split 2 ways, forward and dq, dk, dv within
    KERNEL_RTOL of one process's flash attention and of the plain ring
@@ -343,10 +352,11 @@ Phases (any failure exits non-zero and prints no result):
 17. serve_mesh (run after serve): large f16d32 @256px with phase serve's
    random weights (handed to the ranks in a checkpoint file) served by two
    processes on the card over gloo (this script under torchrun, --worker
-   serve-mesh), cli.serve's own code building each placement of
-   SERVE_MESH_RUNS at --max_batch 8: (a) tensor, model 2, through
-   cli.serve.serve: rank 0 serves HTTP on port 0 (six concurrent requests,
-   four reconstruct b8 uint8, an encode b4 float16 and a decode b4, then one
+   serve-mesh-<i>: the runs of SERVE_MESH_GROUPS[i], the two groups on two
+   ranks each, beside each other), cli.serve's own code building each
+   placement of SERVE_MESH_RUNS at --max_batch 8: (a) tensor, model 2, through
+   cli.serve.serve: rank 0 serves HTTP on port 0 (four concurrent requests,
+   two reconstruct b8 uint8, an encode b4 float16 and a decode b4, then one
    b8 reconstruct alone) while rank 1 follows; (b) replicate, data 2: a b8
    reconstruct (4 rows a rank), a batch of 3 (bucket 4: 2 rows a rank) and
    one image (every rank whole); (c) fsdp, model 2: a b8 reconstruct. Each
@@ -360,8 +370,10 @@ Phases (any failure exits non-zero and prints no result):
    join_mesh over NCCL (the backend of a multi-card deployment; headers
    and payloads broadcast on the engine's stream), run beside the two
    ranks: a reconstruct b8 uint8 and a b8 over HTTP, held to the same
-   rule, its launches to launches_per_reconstruct; (e) tensor_scan: the
-   same weights in the scan layout (a scan_blocks checkpoint) under
+   rule, its launches to launches_per_reconstruct; one process's responses
+   are computed beside the ranks; (e) tensor_scan: the
+   same weights in the scan layout (a scan_blocks checkpoint, written
+   while (a)-(c) run) under
    'tensor' at model 2 through cli.serve.build_engine, the b8
    reconstruct, held to the same rule, the same
    launches and routes as (a) (the sublayer kernels on a rank's heads
@@ -482,6 +494,18 @@ DATA_TURN_STEPS = 3
 INCEPTION_BATCH = 32
 INCEPTION_CHECKED = 4
 INCEPTION_RTOL = 1e-5
+# The rFIDs' sqrtm: a process of its own with its BLAS on FID_BLAS_THREADS
+# threads, reading the features from the file named by its argument and
+# printing {"same", "rfid", "s"}.
+FID_BLAS_THREADS = 2
+FID_JOB = ("import json, sys, time\n"
+           "import numpy as np\n"
+           "from deepl_project_tpu_torch.utils.fid import fid_from_features\n"
+           "f = np.load(sys.argv[1])\n"
+           "t = time.time()\n"
+           "out = {'same': fid_from_features(f['real'], f['real']),\n"
+           "       'rfid': fid_from_features(f['real'], f['fake'])}\n"
+           "print(json.dumps({**out, 's': time.time() - t}))\n")
 # Phase dit: the latent DiT-B/2 (hidden 768, depth 12, 12 heads; RMSNorm,
 # SwiGLU, RoPE) trained by cli.train_dit on large f16d32 @256 latents (16 x
 # 16 x 32) of a labelled image folder at the CLI's batch of 64, then sampled
@@ -502,11 +526,15 @@ DIT_TIMED_STEPS = 5  # the b64 step on ready latents: median of steps 2-5
 # 256px serving at batch 32 (stage 2), 512px serving at batch 2 and the
 # 1024px sweep's chunk of 4 (stage 2).
 FLASH_TRAIN = (8, 4096, 6)
-# The other training shapes, checked only: phase recipe's microbatch of 2,
+# The other training shapes, checked: phase recipe's microbatch of 2,
 # phase remat's fit at batch 16, and stage 2's local heads under tensor
 # parallelism at model=2 (3 of 6; phase parallel (c)).
 FLASH_LOCAL_HEADS = (8, 4096, 3)
 FLASH_TRAIN_CHECKED = ((2, 4096, 6), (16, 4096, 6), FLASH_LOCAL_HEADS)
+# The first two also timed beside their plain versions, SDPA and its
+# backward (the kernels line's train_ms_by_shape); the local heads are
+# timed in phase parallel (c).
+FLASH_TRAIN_TIMED = FLASH_TRAIN_CHECKED[:2]
 FLASH_SERVE_256 = (32, 4096, 6)
 FLASH_SERVE_512 = (2, 16384, 6)
 FLASH_SWEEP_1024 = (4, 65536, 6)
@@ -572,6 +600,20 @@ PAIR_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 # (in bf16 one process at b8 lies percents from fp32 in grad norm where
 # the ranks do not; PERF.md).
 PARALLEL_BATCH = 8
+# (b)'s stage-1 runs (stage1, fsdp, tensor and the scan twins) and their
+# one-process twin run large f16d32 cut in depth to PARALLEL_STEP_DEPTHS
+# (two blocks a transformer stage keep a stack of depth 2 in the scan
+# twins), to keep the script's time; the GAN runs keep the full depth:
+# cut to these depths one process's bf16 GAN step and the bf16 ranks' part
+# by more than PARALLEL_ADAPTIVE_RTOL in the adaptive weight (phase
+# gan_cut, not in the defaults, reads it beside the fp32 twin).
+PARALLEL_STEP_DEPTHS = (1, 1, 2, 2, 2)
+# (a)'s cli.train under torchrun: its global batch (in 2 microbatches, ~30
+# GiB) and steps, its checkpoint resumed by one process. It starts once both
+# of (b)'s ranks are past PARALLEL_CLI_AFTER, their last run that holds
+# more than ~15 GiB a rank, and runs beside the rest of (b) and (d).
+PARALLEL_CLI_BATCH, PARALLEL_CLI_STEPS = 4, 2
+PARALLEL_CLI_AFTER = "gan_fp32"
 PARALLEL_LOSS_RTOL = 1e-3
 PARALLEL_GRAD_NORM_RTOL = 1e-2
 # A scan-layout twin (fsdp_scan, tensor_scan) against its unrolled run on
@@ -722,16 +764,20 @@ PIPE_PATHS: dict = {}
 PIPE_ROWS: dict = {}
 # Phase serve_mesh: large f16d32 @256px (phase serve's random weights,
 # handed to the ranks in a checkpoint file) served by two processes on the
-# card over gloo (this script under torchrun, --worker serve-mesh), each
-# placement of SERVE_MESH_RUNS, (--mesh_sharding, --mesh_model), in turn
-# through cli.serve's own code, at --max_batch SERVE_MESH_BATCH, then one
-# process on a (1, 1, 1) mesh over NCCL (--worker serve-nccl); its files,
-# and its paths (each run a rank) -> launches by kernel name.
+# card over gloo (this script under torchrun, --worker serve-mesh-<i>), each
+# placement of SERVE_MESH_RUNS, (--mesh_sharding, --mesh_model), in turn in
+# its group of SERVE_MESH_GROUPS through cli.serve's own code, at --max_batch
+# SERVE_MESH_BATCH, then one process on a (1, 1, 1) mesh over NCCL (--worker
+# serve-nccl); its files, and its paths (each run a rank) -> launches by
+# kernel name.
 SERVE_MESH_DIR = os.path.join(ROOT, "outputs", "chip_smoke_serve_mesh")
 # (name, --mesh_sharding, --mesh_model, checkpoint file): tensor_scan serves
 # the same weights stacked (a scan_blocks checkpoint) under 'tensor'.
 SERVE_MESH_RUNS = (("tensor", "tensor", 2, "model.pt"), ("replicate", "replicate", 1, "model.pt"),
                    ("fsdp", "fsdp", 2, "model.pt"), ("tensor_scan", "tensor", 2, "model_scan.pt"))
+# The runs' two groups, each on two ranks of its own torchrun, the groups
+# beside each other (--worker serve-mesh-<i>; ~8 GiB a rank).
+SERVE_MESH_GROUPS = (("tensor",), ("replicate", "fsdp", "tensor_scan"))
 SERVE_MESH_BATCH = 8
 SERVE_MESH_PATHS: dict = {}
 # Phase scan: large f16d32 in the scan layout (scan_blocks, ops/stack.py).
@@ -1441,7 +1487,35 @@ def phase_flash_kernels():
             row = results[(name, *FLASH_TRAIN)]
             row["err"] = max(row["err"], err)
             row["checked_shapes"].append(shape)
-        del q, k, v, do, o, lse, got, ref
+        del got, ref
+        if shape in FLASH_TRAIN_TIMED:
+            heads = [t.transpose(1, 2) for t in (q, k, v)]
+            hq = [t.detach().requires_grad_(True) for t in heads]
+            out = F.scaled_dot_product_attention(*hq)
+            g = do.transpose(1, 2)
+            timed = {
+                "flash_attention_fwd": (
+                    cuda_time_ms(lambda: fla.flash_forward(q, k, v, scale), 10),
+                    cuda_time_ms(lambda: fla.flash_forward_reference(q, k, v, scale), 2),
+                    cuda_time_ms(lambda: F.scaled_dot_product_attention(*heads), 10)),
+                "flash_attention_bwd": (
+                    cuda_time_ms(lambda: fla.flash_backward(q, k, v, o, lse, do, scale), 10),
+                    cuda_time_ms(
+                        lambda: fla.flash_backward_reference(q, k, v, o, lse, do, scale), 2),
+                    cuda_time_ms(lambda: torch.autograd.grad(out, hq, g, retain_graph=True),
+                                 10))}
+            for name, (ms, plain_ms, library_ms) in timed.items():
+                flops, nbytes = flash_bound(name, *shape)
+                bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+                results[("flash_train_timed", name, *shape)] = {
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "library_ms": library_ms}
+                log(f"time {name} (B, N, h)={shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                    f"ms, {'SDPA' if name.endswith('fwd') else 'SDPA backward'} "
+                    f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({flops:.4e} FLOP, "
+                    f"{nbytes:.4e} B) [{CARD}]")
+            del heads, hq, out, g
+        del q, k, v, do, o, lse
     # Forward-only paths (phase dit's b64 encode): the forward checked.
     for shape in FLASH_FWD_CHECKED:
         q, k, v, _ = inputs(*shape)
@@ -2540,9 +2614,9 @@ def phase_data():
     """Training and evaluation of large f16d32 on a folder of images (the
     data slice's user path): the decoder probe, the folder written and its
     decode timed, cli.train on it (5 steps, one validation pass), its steps
-    in turns with synthetic ones, a step under profiler_trace,
-    cli.evaluate --rfid over the folder, InceptionV3 on the card against its
-    fp32 CPU path, the latent diagnostics and linear probe, from_pretrained
+    in turns with synthetic ones, a step under profiler_trace, InceptionV3
+    on the card against its fp32 CPU path, cli.evaluate --rfid over the
+    folder, the latent diagnostics and linear probe, from_pretrained
     against model_from_checkpoint, and cli.smoke_test."""
     import shutil
     import tempfile
@@ -2561,7 +2635,6 @@ def phase_data():
     from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
     from deepl_project_tpu_torch.utils import inception as inc
     from deepl_project_tpu_torch.utils import latent_metrics as lm
-    from deepl_project_tpu_torch.utils.fid import fid_from_features
     from deepl_project_tpu_torch.utils.logging import profiler_trace
 
     out_dir = os.path.join(ROOT, "outputs", "chip_smoke_data")
@@ -2680,120 +2753,119 @@ def phase_data():
         f"{DATA_TURN_STEPS} a turn): folder {turns['folder']} ms, synthetic "
         f"{turns['synthetic']} ms; medians {folder_ms:.1f} / {synth_ms:.1f} ms "
         f"({folder_ms / synth_ms:.4f}x) [{CARD}]")
-    batch = next(feeds["folder"])
-    trace_dir = os.path.join(out_dir, "trace")
-    with profiler_trace(trace_dir):
-        trainer.step_fn(state, batch)
-        torch.cuda.synchronize()
-    traces = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
-    if len(traces) != 1 or os.path.getsize(os.path.join(trace_dir, traces[0])) == 0:
-        fail(f"data: profiler_trace wrote {os.listdir(trace_dir)}")
-    log(f"data: profiler_trace of one step wrote {traces[0]} "
-        f"({os.path.getsize(os.path.join(trace_dir, traces[0])) / 2 ** 20:.1f} MiB)")
-    made.clear()
-    del feeds, trainer, state, batch
-    train_counts = {k: counts.get(k, 0) for k in ("flash_attention_fwd", "flash_attention_bwd")}
-    torch.cuda.empty_cache()
-
-    # 4. cli.evaluate over the folder with --rfid (vgg_rfid without the
-    # Inception weights): 2 batches of 16 through the inference kernels.
-    reset_launches()
-    t = time.time()
-    metrics = evaluate_cli.main(["--checkpoint", ckpt, "--data", data, "--rfid",
-                                 "--batch_size", "16", "--num_batches", "2", "--save_grids", "1",
-                                 "--output_dir", os.path.join(out_dir, "eval")])
-    eval_s = time.time() - t
-    want = launches_per_reconstruct(256, forwards=2, model=meta)
-    if kernel_launches() != want:
-        fail(f"data: cli.evaluate launched {kernel_launches()}, want {want}")
-    NORM_PATHS["data: cli.evaluate, 2 batches of 16"] = kernel_launches()[3]
-    key = "rfid" if inc.inception_params_available() else "vgg_rfid"
-    flat = [metrics[k][s] for k in ("psnr", "ssim", "lpips") for s in ("mean", "min", "max")]
-    if metrics["num_images"] != 32 or not np.isfinite(flat + [metrics.get(key, np.nan)]).all():
-        fail(f"data: cli.evaluate gave {metrics}")
-    log(f"data: cli.evaluate --data <folder> --rfid (32 images): psnr "
-        f"{metrics['psnr']['mean']:.4f} dB, ssim {metrics['ssim']['mean']:.5f}, lpips "
-        f"{metrics['lpips']['mean']:.5f}, {key} {metrics[key]:.4f}; launches as "
-        f"launches_per_reconstruct(256) x 2; {eval_s:.1f}s incl. the checkpoint load [{CARD}]")
-
-    # InceptionV3 on the card: seeded random params, b32 at 256px (resized to
-    # 299 inside), against its fp32 CPU path on the first images.
-    model = model_from_checkpoint(ckpt, "cuda")
-    items = list(image_folder_dataset(folder, 256, shuffle=False, with_labels=True)
-                 if decoder else make_dataset("shapes", 256, with_labels=True,
-                                              num_samples=written["files"]))
-    images = np.stack([x for x, _ in items])
-    x = torch.from_numpy(images[:INCEPTION_BATCH]).permute(0, 3, 1, 2).to("cuda")
-    params = inc.init_inception_params(device="cuda")
-    feats = inc.inception_features(params, x)
-    cpu_params = {k: v.cpu() for k, v in params.items()}
-    plain = inc.inception_features(cpu_params, x[:INCEPTION_CHECKED].cpu())
-    err = (feats[:INCEPTION_CHECKED].cpu() - plain).abs().max().item()
-    scale = plain.abs().max().item()
-    ms = cuda_time_ms(lambda: inc.inception_features(params, x), 10)
-    from torch.utils.flop_counter import FlopCounterMode
-
-    with FlopCounterMode(display=False) as fc:
-        inc.inception_features(params, x[:1])
-    flops = fc.get_total_flops() * INCEPTION_BATCH
-    nbytes = 4 * (x.numel() + sum(p.numel() for p in params.values()) + feats.numel())
-    bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
-    log(f"data: InceptionV3 (fp32, TF32 off) b{INCEPTION_BATCH} 256 -> 299px: {ms:.3f} ms, "
-        f"{INCEPTION_BATCH / ms * 1e3:.1f} img/s, {flops / INCEPTION_BATCH / 1e9:.3f} GFLOP "
-        f"an image, bound {bound_ms:.3f} ms ({bound_ms / ms:.1%}); first "
-        f"{INCEPTION_CHECKED} images vs the fp32 CPU path max abs {err:.3e} (max |f| "
-        f"{scale:.3e}, rel {err / scale:.3e}, bound {INCEPTION_RTOL}) [{CARD}]")
-    if not (torch.isfinite(feats).all() and err <= INCEPTION_RTOL * scale):
-        fail("data: InceptionV3 on the card disagrees with its fp32 CPU path")
-    recon = torch.from_numpy(reconstruct(model, None, images[:INCEPTION_BATCH])).permute(0, 3, 1, 2)
-    real_f = feats.double().cpu().numpy()
-    fake_f = inc.inception_features(params, recon.to("cuda")).double().cpu().numpy()
-    del params, cpu_params, feats, x, recon
-    # The rFIDs' scipy sqrtm (host only) in a thread, and cli.smoke_test (a
-    # process of its own, the tiny model), beside sections 5 and 6; both
-    # are read at the end of the phase.
-    fid: dict = {}
-
-    def fid_job():
-        t0 = time.time()
-        try:
-            fid["same"] = fid_from_features(real_f, real_f)
-            fid["rfid"] = fid_from_features(real_f, fake_f)
-        except Exception as e:  # noqa: BLE001 -- failed below, in the phase's thread
-            fid["error"] = repr(e)
-        fid["s"] = time.time() - t0
-
-    fid_thread = threading.Thread(target=fid_job, daemon=True)
-    fid_thread.start()
-    t_smoke = time.time()
-    smoke_log = os.path.join(out_dir, "smoke_test.log")
-    with open(smoke_log, "w") as f:
-        smoke = subprocess.Popen([sys.executable, "-m", "deepl_project_tpu_torch.cli.smoke_test"],
-                                 cwd=ROOT, stdout=f, stderr=subprocess.STDOUT, text=True)
+    smoke = fid = None
     try:
+        batch = next(feeds["folder"])
+        trace_dir = os.path.join(out_dir, "trace")
+        with profiler_trace(trace_dir):
+            trainer.step_fn(state, batch)
+            torch.cuda.synchronize()
+        traces = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+        if len(traces) != 1 or os.path.getsize(os.path.join(trace_dir, traces[0])) == 0:
+            fail(f"data: profiler_trace wrote {os.listdir(trace_dir)}")
+        log(f"data: profiler_trace of one step wrote {traces[0]} "
+            f"({os.path.getsize(os.path.join(trace_dir, traces[0])) / 2 ** 20:.1f} MiB)")
+        made.clear()
+        del feeds, trainer, state, batch
+        train_counts = {k: counts.get(k, 0)
+                        for k in ("flash_attention_fwd", "flash_attention_bwd")}
+        torch.cuda.empty_cache()
+
+        # InceptionV3 on the card: seeded random params, b32 at 256px (resized
+        # to 299 inside), against its fp32 CPU path on the first images.
+        model = model_from_checkpoint(ckpt, "cuda")
+        items = list(image_folder_dataset(folder, 256, shuffle=False, with_labels=True)
+                     if decoder else make_dataset("shapes", 256, with_labels=True,
+                                                  num_samples=written["files"]))
+        images = np.stack([x for x, _ in items])
+        x = torch.from_numpy(images[:INCEPTION_BATCH]).permute(0, 3, 1, 2).to("cuda")
+        params = inc.init_inception_params(device="cuda")
+        feats = inc.inception_features(params, x)
+        cpu_params = {k: v.cpu() for k, v in params.items()}
+        plain = inc.inception_features(cpu_params, x[:INCEPTION_CHECKED].cpu())
+        err = (feats[:INCEPTION_CHECKED].cpu() - plain).abs().max().item()
+        scale = plain.abs().max().item()
+        ms = cuda_time_ms(lambda: inc.inception_features(params, x), 10)
+        # cli.smoke_test, a process of its own on the tiny model, runs beside
+        # the rest of the phase (after the last timed call); read at the end.
+        smoke = Beside([sys.executable, "-m", "deepl_project_tpu_torch.cli.smoke_test"],
+                       os.path.join(out_dir, "smoke_test.log"))
+        from torch.utils.flop_counter import FlopCounterMode
+
+        with FlopCounterMode(display=False) as fc:
+            inc.inception_features(params, x[:1])
+        flops = fc.get_total_flops() * INCEPTION_BATCH
+        nbytes = 4 * (x.numel() + sum(p.numel() for p in params.values()) + feats.numel())
+        bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+        log(f"data: InceptionV3 (fp32, TF32 off) b{INCEPTION_BATCH} 256 -> 299px: {ms:.3f} "
+            f"ms, "
+            f"{INCEPTION_BATCH / ms * 1e3:.1f} img/s, {flops / INCEPTION_BATCH / 1e9:.3f} GFLOP "
+            f"an image, bound {bound_ms:.3f} ms ({bound_ms / ms:.1%}); first "
+            f"{INCEPTION_CHECKED} images vs the fp32 CPU path max abs {err:.3e} (max |f| "
+            f"{scale:.3e}, rel {err / scale:.3e}, bound {INCEPTION_RTOL}) [{CARD}]")
+        if not (torch.isfinite(feats).all() and err <= INCEPTION_RTOL * scale):
+            fail("data: InceptionV3 on the card disagrees with its fp32 CPU path")
+        recon = torch.from_numpy(reconstruct(model, None, images[:INCEPTION_BATCH]))
+        recon = recon.permute(0, 3, 1, 2)
+        real_f = feats.double().cpu().numpy()
+        fake_f = inc.inception_features(params, recon.to("cuda")).double().cpu().numpy()
+        del params, cpu_params, feats, x, recon
+        # The rFIDs' scipy sqrtm (host only) in a process of its own, its BLAS
+        # on FID_BLAS_THREADS threads (more spin on the cores that section 4
+        # and the smoke test need), beside section 4 and sections 5 and 6.
+        feats_path = os.path.join(out_dir, "fid_features.npz")
+        np.savez(feats_path, real=real_f, fake=fake_f)
+        blas = {k: str(FID_BLAS_THREADS)
+                for k in ("OPENBLAS_NUM_THREADS", "OMP_NUM_THREADS", "MKL_NUM_THREADS")}
+        fid = Beside([sys.executable, "-c", FID_JOB, feats_path],
+                     os.path.join(out_dir, "fid.log"), env=blas)
+        # 4. cli.evaluate over the folder with --rfid (vgg_rfid without the
+        # Inception weights): 2 batches of 16 through the inference kernels.
+        reset_launches()
+        t = time.time()
+        metrics = evaluate_cli.main(["--checkpoint", ckpt, "--data", data, "--rfid",
+                                     "--batch_size", "16", "--num_batches", "2",
+                                     "--save_grids", "1",
+                                     "--output_dir", os.path.join(out_dir, "eval")])
+        eval_s = time.time() - t
+        want = launches_per_reconstruct(256, forwards=2, model=meta)
+        if kernel_launches() != want:
+            fail(f"data: cli.evaluate launched {kernel_launches()}, want {want}")
+        NORM_PATHS["data: cli.evaluate, 2 batches of 16"] = kernel_launches()[3]
+        key = "rfid" if inc.inception_params_available() else "vgg_rfid"
+        flat = [metrics[k][s] for k in ("psnr", "ssim", "lpips") for s in ("mean", "min", "max")]
+        if (metrics["num_images"] != 32
+                or not np.isfinite(flat + [metrics.get(key, np.nan)]).all()):
+            fail(f"data: cli.evaluate gave {metrics}")
+        log(f"data: cli.evaluate --data <folder> --rfid (32 images): psnr "
+            f"{metrics['psnr']['mean']:.4f} dB, ssim {metrics['ssim']['mean']:.5f}, lpips "
+            f"{metrics['lpips']['mean']:.5f}, {key} {metrics[key]:.4f}; launches as "
+            f"launches_per_reconstruct(256) x 2; {eval_s:.1f}s incl. the checkpoint load "
+            f"[{CARD}]")
         _data_tail(model, images, items, decoder, ckpt, out_dir, lm, from_pretrained,
                    reconstruct)
-        smoke.wait(timeout=600)
+        smoke_rc, smoke_out = smoke.wait(timeout=600)
+        fid_rc, fid_out = fid.wait(timeout=600)
     finally:
-        if smoke.poll() is None:
-            smoke.kill()
-            smoke.wait()
-    with open(smoke_log) as f:
-        smoke_out = f.read()
-    fid_thread.join(timeout=600)
-    if "error" in fid or "rfid" not in fid:
-        fail(f"data: rFID failed: {fid}")
+        for run in (smoke, fid):
+            if run is not None:
+                run.stop()
+    rows = [ln for ln in fid_out.splitlines() if ln.startswith("{")]
+    if fid_rc != 0 or not rows:
+        fail(f"data: rFID failed:\n{fid_out[-3000:]}")
+    fid = json.loads(rows[-1])
     same, rfid = fid["same"], fid["rfid"]
     log(f"data: InceptionV3 rFID (random params) originals vs originals {same:.3e}, vs the "
         f"reconstructions {rfid:.4f} ({INCEPTION_BATCH} images; {fid['s']:.1f}s of scipy "
-        f"sqrtm on the host, beside sections 5 and 6)")
+        f"sqrtm on the host in a process on {FID_BLAS_THREADS} BLAS threads, beside sections "
+        f"4, 5 and 6)")
     if not (abs(same) < 1e-3 and np.isfinite(rfid) and rfid > 0):
         fail(f"data: rFID {same} / {rfid}")
-    if smoke.returncode != 0:
-        fail(f"data: cli.smoke_test exited {smoke.returncode}:\n{smoke_out}")
+    if smoke_rc != 0:
+        fail(f"data: cli.smoke_test exited {smoke_rc}:\n{smoke_out}")
     last = [ln for ln in smoke_out.splitlines() if "checks passed" in ln]
     log(f"data: cli.smoke_test on the card: {last[-1] if last else smoke_out[-300:]} in "
-        f"{time.time() - t_smoke:.1f}s (beside sections 5 and 6)")
+        f"{smoke.s:.1f}s (beside the rFID's sqrtm and sections 4, 5 and 6)")
     shutil.rmtree(out_dir, ignore_errors=True)
     return train_counts, {"decoder": decoder, "step_ms_in_turns": turns,
                           "inception_ms": ms, "inception_bound_ms": bound_ms}
@@ -3309,16 +3381,17 @@ def phase_serve(model):
 
 
 def serve_mesh_requests(imgs, lat) -> dict:
-    """Phase serve_mesh's requests by run, (key, op, array, dtype): (a)
-    phase serve's mix at b <= 8, sent at once over HTTP, then one b8
-    reconstruct alone (its launches counted); (b) that reconstruct, an odd
-    batch of 3 (bucket 4) and one image; (c) that reconstruct; (d) the
-    first of (a) and that reconstruct; (e) that reconstruct on the scan
-    checkpoint. A key names the same request in every run."""
+    """Phase serve_mesh's requests by run, (key, op, array, dtype): (a) two
+    b8 reconstructs (uint8), a b4 encode and a b4 decode, sent at once over
+    HTTP, then one b8 reconstruct alone (its launches counted); (b) that
+    reconstruct, an odd batch of 3 (bucket 4) and one image; (c) that
+    reconstruct; (d) the first of (a) and that reconstruct; (e) that
+    reconstruct on the scan checkpoint. A key names the same request in
+    every run."""
     import numpy as np
 
     b8 = ("b8", "reconstruct", imgs[:8], None)
-    tensor = ([(f"a{i}", "reconstruct", imgs[8 * i:8 * i + 8], "uint8") for i in range(4)]
+    tensor = ([(f"a{i}", "reconstruct", imgs[8 * i:8 * i + 8], "uint8") for i in range(2)]
               + [("encode", "encode", imgs[:4].astype(np.float32) / 255.0, "float16"),
                  ("decode", "decode", lat, None), b8])
     return {"tensor": tensor,
@@ -3402,15 +3475,16 @@ def _serve_http(engine, server, requests) -> dict:
     return outs
 
 
-def serve_mesh_worker() -> None:
+def serve_mesh_worker(group: int) -> None:
     """A rank of phase serve_mesh, started by torchrun: two processes on the
     card over gloo (NCCL refuses two ranks on one device). Each run of
-    SERVE_MESH_RUNS builds cli.serve's engine from the checkpoint file on a
-    fresh mesh: (a) through cli.serve.serve (rank 0 serves HTTP, rank 1
-    follows), (b) and (c) through cli.serve.build_engine (rank 0 runs the
-    requests, rank 1 follows). Writes each rank's groups and peak memory to
-    SERVE_MESH_DIR/rank<r>.json and rank 0's responses to out_<run>.npz;
-    any failure exits non-zero."""
+    SERVE_MESH_RUNS in SERVE_MESH_GROUPS[group] builds cli.serve's engine
+    from the checkpoint file on a fresh mesh: (a) through cli.serve.serve
+    (rank 0 serves HTTP, rank 1 follows), (b), (c) and (e) through
+    cli.serve.build_engine (rank 0 runs the requests, rank 1 follows).
+    Writes each rank's groups and peak memory to
+    SERVE_MESH_DIR/rank<r>_<group>.json and rank 0's responses to
+    out_<run>.npz; any failure exits non-zero."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3424,10 +3498,18 @@ def serve_mesh_worker() -> None:
     requests = serve_mesh_requests(inputs["imgs"], inputs["lat"])
     report = {}
     for name, sharding, model_size, checkpoint in SERVE_MESH_RUNS:
+        if name not in SERVE_MESH_GROUPS[group]:
+            continue
+        path = os.path.join(SERVE_MESH_DIR, checkpoint)
+        deadline = time.time() + 300
+        while not os.path.exists(path):  # run (e)'s file is written beside runs (a)-(c)
+            if time.time() > deadline:
+                raise FileNotFoundError(path)
+            time.sleep(0.5)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         args = serve_cli.build_parser().parse_args([
-            "--checkpoint", os.path.join(SERVE_MESH_DIR, checkpoint), "--device", "cuda:0",
+            "--checkpoint", path, "--device", "cuda:0",
             "--max_batch", str(SERVE_MESH_BATCH), "--batch_window_ms", "50", "--port", "0",
             "--mesh_model", str(model_size), "--mesh_sharding", sharding])
         t0 = time.perf_counter()
@@ -3459,7 +3541,7 @@ def serve_mesh_worker() -> None:
         del engine, server, mesh, pl
         gc.collect()
         torch.cuda.empty_cache()
-    with open(os.path.join(SERVE_MESH_DIR, f"rank{rank}.json"), "w") as f:
+    with open(os.path.join(SERVE_MESH_DIR, f"rank{rank}_{group}.json"), "w") as f:
         json.dump(report, f)
     dist.destroy_process_group()
 
@@ -3531,79 +3613,80 @@ def phase_serve_mesh(model) -> None:
             "latent_dim": cfg.latent_dim}
     torch.save({"model_state_dict": host, "config": spec},
                os.path.join(SERVE_MESH_DIR, "model.pt"))
-    # Run (e)'s checkpoint: the same weights in the scan layout.
-    torch.save({"model_state_dict": to_scanned_params(host, cfg),
-                "config": {**spec, "scan_blocks": True}},
-               os.path.join(SERVE_MESH_DIR, "model_scan.pt"))
-    del host
     log(f"serve_mesh: weights written for the ranks in {time.time() - t0:.1f}s")
     requests = serve_mesh_requests(imgs, lat)
     unique = {key: (op, arr, dt) for run in requests.values() for key, op, arr, dt in run}
-
-    # One process on the same weights: the kernel path, the plain bf16 path
-    # (plain attention, GroupNorm and SiLU) and the fp32 twin (TF32 off).
-    engine = InferenceEngine(model, max_batch=SERVE_MESH_BATCH)
-    one = {k: engine.run(*r) for k, r in unique.items()}
-    attn = [m for m in model.modules() if isinstance(m, AttentionRoPE)]
-    for m in attn:
-        m.impl = "xla"
-    set_fused_norm(False)
-    plain = {k: engine.run(*r) for k, r in unique.items()}
-    for m in attn:
-        m.impl = cfg.attention_impl
-    set_fused_norm(True)
-    with torch.device("meta"):
-        twin = TransVAE(cfg.replace(dtype="float32"))
-    twin = twin.to_empty(device="cuda").eval()
-    twin.load_state_dict(model.state_dict())
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    exact_engine = InferenceEngine(twin, max_batch=SERVE_MESH_BATCH)
-    exact = {k: exact_engine.run(*r) for k, r in unique.items()}
-    torch.backends.cudnn.allow_tf32 = tf32
-    del twin, exact_engine, engine
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    free0, alloc0 = torch.cuda.mem_get_info()[0], torch.cuda.memory_allocated()
+    free0, reserved0 = torch.cuda.mem_get_info()[0], torch.cuda.memory_reserved()
 
-    # Run (d) beside the two ranks (it shares nothing with them but the
-    # card; its output goes to a file, so no pipe fills while it waits).
-    t0 = time.time()
-    nccl_log = os.path.join(SERVE_MESH_DIR, "nccl.log")
-    with open(nccl_log, "w") as out:
-        nccl_proc = subprocess.Popen(
-            [sys.executable, "-m", "torch.distributed.run", "--standalone",
-             "--nproc_per_node", "1", os.path.join(ROOT, "chip_smoke.py"), "--worker",
-             "serve-nccl"], cwd=ROOT, stdout=out, stderr=subprocess.STDOUT, text=True,
-            env={**os.environ, "PYTHONPATH": ROOT})
-    try:
-        proc = _torchrun(2, [os.path.join(ROOT, "chip_smoke.py"), "--worker", "serve-mesh"],
-                         timeout=900)
-        ranks_s = time.time() - t0
-        if proc.returncode != 0:
-            fail(f"serve_mesh: the two ranks exited {proc.returncode}:\n"
-                 f"{(proc.stdout + proc.stderr)[-6000:]}")
-        nccl_rc = nccl_proc.wait(timeout=300)
-    finally:
-        if nccl_proc.poll() is None:  # torchrun passes SIGTERM on to its worker
-            nccl_proc.terminate()
-            try:
-                nccl_proc.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                nccl_proc.kill()
-    nccl_s = time.time() - t0
-    with open(nccl_log) as f:
-        nccl_out = f.read()
+    # The two ranks and run (d) start now (run (d) shares nothing with them
+    # but the card); one process's responses to the same requests are
+    # computed beside them: the kernel path, the plain bf16 path (plain
+    # attention, GroupNorm and SiLU) and the fp32 twin (TF32 off). The card
+    # holds all four processes (~8 GiB a rank).
+    with contextlib.ExitStack() as stack:
+        groups_run = [stack.enter_context(_beside_torchrun(
+            2, f"serve-mesh-{i}", os.path.join(SERVE_MESH_DIR, f"ranks_{i}.log")))
+            for i in range(len(SERVE_MESH_GROUPS))]
+        nccl_run = stack.enter_context(_beside_torchrun(
+            1, "serve-nccl", os.path.join(SERVE_MESH_DIR, "nccl.log")))
+        # Run (e)'s checkpoint, the same weights in the scan layout, written
+        # while runs (a)-(c) go on (the ranks wait for the file).
+        t1 = time.time()
+        part = os.path.join(SERVE_MESH_DIR, "model_scan.pt.part")
+        torch.save({"model_state_dict": to_scanned_params(host, cfg),
+                    "config": {**spec, "scan_blocks": True}}, part)
+        os.replace(part, os.path.join(SERVE_MESH_DIR, "model_scan.pt"))
+        del host
+        log(f"serve_mesh: the scan layout's weights written in {time.time() - t1:.1f}s, "
+            f"beside the ranks")
+        t1 = time.time()
+        engine = InferenceEngine(model, max_batch=SERVE_MESH_BATCH)
+        one = {k: engine.run(*r) for k, r in unique.items()}
+        attn = [m for m in model.modules() if isinstance(m, AttentionRoPE)]
+        for m in attn:
+            m.impl = "xla"
+        set_fused_norm(False)
+        plain = {k: engine.run(*r) for k, r in unique.items()}
+        for m in attn:
+            m.impl = cfg.attention_impl
+        set_fused_norm(True)
+        with torch.device("meta"):
+            twin = TransVAE(cfg.replace(dtype="float32"))
+        twin = twin.to_empty(device="cuda").eval()
+        twin.load_state_dict(model.state_dict())
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        exact_engine = InferenceEngine(twin, max_batch=SERVE_MESH_BATCH)
+        exact = {k: exact_engine.run(*r) for k, r in unique.items()}
+        torch.backends.cudnn.allow_tf32 = tf32
+        del twin, exact_engine, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        alloc0 = torch.cuda.memory_allocated()
+        one_s = time.time() - t1
+        text = ""
+        for i, run in enumerate(groups_run):
+            rc, out = run.wait(timeout=900)
+            if rc != 0:
+                fail(f"serve_mesh: the two ranks of {SERVE_MESH_GROUPS[i]} exited {rc}:\n"
+                     f"{out[-6000:]}")
+            text += out
+        nccl_rc, nccl_out = nccl_run.wait(timeout=300)
     if nccl_rc != 0:
         fail(f"serve_mesh (nccl): the process exited {nccl_rc}:\n{nccl_out[-6000:]}")
-    for line in (proc.stdout + nccl_out).splitlines():
+    nccl_s, ranks_s = nccl_run.s, [run.s for run in groups_run]
+    log(f"serve_mesh: one process's responses took {one_s:.1f}s beside the ranks")
+    for line in (text + nccl_out).splitlines():
         if line.startswith("[serve]"):
             log(f"serve_mesh rank output: {line}")
-    ranks = []
+    ranks = [{}, {}]
     for r in range(2):
-        with open(os.path.join(SERVE_MESH_DIR, f"rank{r}.json")) as f:
-            ranks.append(json.load(f))
+        for i in range(len(SERVE_MESH_GROUPS)):
+            with open(os.path.join(SERVE_MESH_DIR, f"rank{r}_{i}.json")) as f:
+                ranks[r].update(json.load(f))
     with open(os.path.join(SERVE_MESH_DIR, "nccl.json")) as f:
         nccl = json.load(f)
 
@@ -3713,15 +3796,21 @@ def phase_serve_mesh(model) -> None:
         f"(bucket, s): {[(g['bucket'], round(g['s'], 3)) for g in groups]}; process "
         f"{nccl_s:.1f}s, beside the two ranks [{CARD}]")
     SERVE_MESH_PATHS["serve_mesh_nccl_rank0"] = launch_totals(groups)
-    log(f"serve_mesh: the two ranks took {ranks_s:.1f}s")
+    log(f"serve_mesh: the two ranks of each group of runs took "
+        f"{', '.join(f'{g}: {t:.1f}s' for g, t in zip(SERVE_MESH_GROUPS, ranks_s))}, the "
+        f"groups beside each other")
     shutil.rmtree(SERVE_MESH_DIR, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     free1, alloc1 = torch.cuda.mem_get_info()[0], torch.cuda.memory_allocated()
+    # What this process reserved meanwhile (the engines' cached operands, as
+    # one process's responses ran beside the ranks) is not the ranks'.
+    grown = torch.cuda.memory_reserved() - reserved0
     log(f"serve_mesh: card memory free {free0 / 2**30:.2f} GiB before the ranks, "
-        f"{free1 / 2**30:.2f} after; this process {alloc0 / 2**30:.2f} / "
-        f"{alloc1 / 2**30:.2f} GiB allocated")
-    if free1 < free0 - 2 ** 30 or alloc1 > alloc0 + 2 ** 30:
+        f"{free1 / 2**30:.2f} after, {grown / 2**30:.2f} GiB of it reserved by this process "
+        f"meanwhile; this process {alloc0 / 2**30:.2f} / {alloc1 / 2**30:.2f} GiB allocated "
+        f"after its responses / after the ranks")
+    if free1 < free0 - grown - 2 ** 30 or alloc1 > alloc0 + 2 ** 30:
         fail("serve_mesh: the card's memory was not returned after the ranks")
 
 
@@ -4753,12 +4842,13 @@ def _slice_gap(got: dict, want: dict) -> tuple[float, float, str]:
     return sq, wsum, where
 
 
-def _dp_configs(dtype: str, scan: bool = False):
+def _dp_configs(dtype: str, scan: bool = False, depths=None):
     """Phase parallel (b)'s model in ``dtype`` (``scan``: the scan layout,
-    scan_blocks), trainers' configs and batch: large f16d32 @256 under
-    remat 'none', a global batch of PARALLEL_BATCH; stage 1 (L1 + LPIPS +
-    KL) and one GAN step (frozen encoder, the adaptive weight unclamped,
-    R1, a floor near the initial disc loss)."""
+    scan_blocks; ``depths``: cut to these, else full depth), trainers'
+    configs and batch: large f16d32 @256 under remat 'none', a global batch
+    of PARALLEL_BATCH; stage 1 (L1 + LPIPS + KL) and one GAN step (frozen
+    encoder, the adaptive weight unclamped, R1, a floor near the initial
+    disc loss)."""
     import numpy as np
 
     from deepl_project_tpu_torch import get_config
@@ -4766,8 +4856,9 @@ def _dp_configs(dtype: str, scan: bool = False):
     from deepl_project_tpu_torch.losses import LossWeights
     from deepl_project_tpu_torch.training import TrainerConfig
 
+    cut = {"depths": tuple(depths)} if depths else {}
     cfg = get_config("large", 16, 32, norm_latents=True, attention_impl="auto_train",
-                     remat=True, remat_policy="none", dtype=dtype, scan_blocks=scan)
+                     remat=True, remat_policy="none", dtype=dtype, scan_blocks=scan, **cut)
     common = dict(batch_size=PARALLEL_BATCH, accum_steps=1, warmup_steps=2, num_epochs=1,
                   steps_per_epoch=1, seed=0,
                   output_dir=os.path.join(ROOT, "outputs", "chip_smoke_parallel_b"))
@@ -4792,6 +4883,13 @@ DP_RUNS = (("stage1", "stage1", "replicate", 1), ("gan", "gan", "replicate", 1),
            ("gan_fp32", "gan_fp32", "replicate", 1),
            ("fsdp", "stage1", "fsdp", 2), ("tensor", "stage1", "tensor", 2),
            ("fsdp_scan", "stage1", "fsdp", 2), ("tensor_scan", "stage1", "tensor", 2))
+# Each step's depths (a step not named: full depth), the ranks' and one
+# process's alike.
+DP_DEPTHS = {"stage1": PARALLEL_STEP_DEPTHS}
+# Phase gan_cut (not in the defaults): (b)'s GAN runs with their steps cut
+# to PARALLEL_STEP_DEPTHS, two ranks against one process.
+GAN_CUT_RUNS = tuple(r for r in DP_RUNS if r[1].startswith("gan"))
+GAN_CUT_DEPTHS = {step: PARALLEL_STEP_DEPTHS for _, step, _, _ in GAN_CUT_RUNS}
 # The runs the ranks step under torch.use_deterministic_algorithms (the
 # deterministic flash backward; warn_only, the ops without a deterministic
 # version recorded): the scan twins and their unrolled runs.
@@ -4802,13 +4900,21 @@ SCAN_TP_STEPS, SCAN_TP_BATCH = 2, 4
 SCAN_TP_DIR = os.path.join(ROOT, "outputs", "chip_smoke_scan_tp")
 
 
-def _dp_steps(runs) -> dict:
+def _dp_marker(name: str, rank: int) -> str:
+    """The file a rank of (b) writes once its run ``name`` is done."""
+    return os.path.join(PARALLEL_DIR, f"done_{name}_rank{rank}")
+
+
+def _dp_steps(runs, depths=DP_DEPTHS, rank=None) -> dict:
     """One step of _dp_configs() from the seed's weights for each of
-    ``runs`` (DP_RUNS' rows; without a process group the single process):
-    the step's loss, grad norm, the GAN step's adaptive weight, disc loss
-    and floor decision, peak memory, launches by kernel and flash launches by heads,
-    and under a process group the fingerprints of the parameters every rank
-    holds whole after the update."""
+    ``runs`` (DP_RUNS' rows; without a process group the single process;
+    ``rank``: this rank's _dp_marker written after each run), each step at
+    its ``depths`` (full where not named): the step's loss,
+    grad norm, the GAN step's adaptive weight, disc loss and floor
+    decision, peak memory, launches by kernel and flash launches by heads,
+    the run's seconds with its build, and under a process group the
+    fingerprints of the parameters every rank holds whole after the
+    update."""
     import dataclasses
     import warnings
 
@@ -4821,9 +4927,11 @@ def _dp_steps(runs) -> dict:
 
     out = {}
     for name, step, mode, model in runs:
+        t_run = time.time()
         fp32 = step == "gan_fp32"
         cfg, stage1, gan, batch = _dp_configs("float32" if fp32 else "bfloat16",
-                                              scan=name.endswith("_scan"))
+                                              scan=name.endswith("_scan"),
+                                              depths=depths.get(step))
         tc = dataclasses.replace(stage1 if step == "stage1" else gan, param_sharding=mode,
                                  mesh_model=model)
         # True fp32: cuDNN's convolutions default to TF32 (cuBLAS's products
@@ -4865,19 +4973,24 @@ def _dp_steps(runs) -> dict:
             row["sharded"] = sum(pl.dim(n) is not None for n, _ in named_trainables(state.model))
             if mode != "replicate":
                 row["moments"] = _moment_stats(trainer, state)
+        row["depths"] = list(cfg.depths)
+        row["s"] = time.time() - t_run
         out[name] = row
         del trainer, state, local, m
         torch.cuda.empty_cache()
+        if rank is not None:
+            open(_dp_marker(name, rank), "w").close()
     torch.backends.cudnn.allow_tf32 = True
     return out
 
 
-def dp_worker() -> None:
+def dp_worker(gan_cut: bool = False) -> None:
     """A rank of phase parallel (b) and (d), started by torchrun: two
     processes on the one card over gloo (CUDA tensors; NCCL refuses two
     ranks on one device), each of DP_RUNS, then _scan_cli_run. Writes its
     results to PARALLEL_DIR/rank<r>.json and scan_cli_rank<r>.json; any
-    failure exits non-zero."""
+    failure exits non-zero. ``gan_cut``: a rank of phase gan_cut, each of
+    GAN_CUT_RUNS at GAN_CUT_DEPTHS, to gan_cut_rank<r>.json."""
     import torch
     import torch.distributed as dist
 
@@ -4888,7 +5001,8 @@ def dp_worker() -> None:
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     info = initialize_multihost(backend="gloo", device="cuda:0")
     rank = info["process_index"]
-    out = _dp_steps(DP_RUNS)
+    out = (_dp_steps(GAN_CUT_RUNS, GAN_CUT_DEPTHS, rank) if gan_cut
+           else _dp_steps(DP_RUNS, rank=rank))
     for row in out.values():
         fp = row.pop("fingerprint")
         lo, hi = fp.clone(), fp.clone()
@@ -4896,10 +5010,12 @@ def dp_worker() -> None:
         dist.all_reduce(hi, op=dist.ReduceOp.MAX)
         row["params_bit_identical"] = bool(torch.equal(lo, hi))
         row["params_checked"] = int(fp.shape[0])
-    with open(os.path.join(PARALLEL_DIR, f"rank{rank}.json"), "w") as f:
+    with open(os.path.join(PARALLEL_DIR, f"{'gan_cut_' if gan_cut else ''}rank{rank}.json"),
+              "w") as f:
         json.dump(out, f)
     torch.cuda.empty_cache()
-    _scan_cli_run(rank)
+    if not gan_cut:
+        _scan_cli_run(rank)
     dist.destroy_process_group()
 
 
@@ -4994,11 +5110,65 @@ def p2p_probe_worker() -> None:
             return
 
 
+def _torchrun_cmd(nproc: int, args: list) -> list:
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(nproc), *args]
+
+
 def _torchrun(nproc: int, args: list, timeout: int) -> subprocess.CompletedProcess:
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", str(nproc), *args]
-    return subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout,
-                          env={**os.environ, "PYTHONPATH": ROOT})
+    return subprocess.run(_torchrun_cmd(nproc, args), cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout, env={**os.environ, "PYTHONPATH": ROOT})
+
+
+class Beside:
+    """A torchrun (or any command) started in the background, its output to
+    ``log_path``, while this process works beside it; wait() returns its
+    exit code and output. Leaving the block stops it if it still runs
+    (torchrun passes SIGTERM on to its workers), so a failure here leaves
+    no process behind."""
+
+    def __init__(self, cmd: list, log_path: str, env: dict | None = None):
+        self.log_path = log_path
+        self.t0 = time.time()
+        with open(log_path, "w") as out:
+            self.proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT,
+                                         text=True,
+                                         env={**os.environ, "PYTHONPATH": ROOT, **(env or {})})
+        # The seconds it ran (s), stamped when it ends, not when it is waited for.
+        self._ended = threading.Thread(target=self._stamp, daemon=True)
+        self._ended.start()
+
+    def _stamp(self) -> None:
+        self.proc.wait()
+        self.s = time.time() - self.t0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+
+    def wait(self, timeout: int) -> tuple[int, str]:
+        rc = self.proc.wait(timeout=timeout)
+        self._ended.join()
+        with open(self.log_path) as f:
+            return rc, f.read()
+
+
+def _beside_torchrun(nproc: int, worker: str, log_path: str) -> Beside:
+    """This script's ``--worker`` on ``nproc`` torchrun ranks, in the
+    background."""
+    return Beside(_torchrun_cmd(nproc, [os.path.join(ROOT, "chip_smoke.py"), "--worker",
+                                        worker]), log_path)
 
 
 def phase_refusals() -> None:
@@ -5020,42 +5190,61 @@ def phase_refusals() -> None:
             fail(f"collective probe {kind}: no result recorded:\n{text[-3000:]}")
 
 
-def _dp_compare() -> tuple[dict, list]:
-    """One process's steps of DP_RUNS, then two ranks on the card (torchrun,
-    ``--worker dp``): (one process's rows by step, each rank's rows by run
-    name)."""
+def _dp_compare(gan_cut: bool = False, start=None) -> tuple[dict, list, Beside | None]:
+    """Two ranks on the card (torchrun, ``--worker dp``; ``gan_cut``:
+    ``dp-gan-cut``, GAN_CUT_RUNS at GAN_CUT_DEPTHS) and beside them one
+    process's steps of the same runs, its largest first while the ranks
+    start and run their smallest; ``start()`` is called (its Beside
+    started) once both ranks are past PARALLEL_CLI_AFTER: (one process's
+    rows by step, each rank's rows by run name, that Beside)."""
     import shutil
 
     import torch
 
-    ref = _dp_steps([(step, step, "replicate", 1)
-                     for step in dict.fromkeys(r[1] for r in DP_RUNS)])
-    torch.cuda.empty_cache()
+    runs, depths, prefix = ((GAN_CUT_RUNS, GAN_CUT_DEPTHS, "gan_cut_") if gan_cut
+                            else (DP_RUNS, DP_DEPTHS, ""))
     shutil.rmtree(SCAN_TP_DIR, ignore_errors=True)
     for r in range(2):
-        for name in (f"rank{r}.json", f"scan_cli_rank{r}.json"):
-            path = os.path.join(PARALLEL_DIR, name)
+        for path in [os.path.join(PARALLEL_DIR, f"{prefix}rank{r}.json"),
+                     os.path.join(PARALLEL_DIR, f"scan_cli_rank{r}.json"),
+                     *(_dp_marker(name, r) for name, _, _, _ in runs)]:
             if os.path.exists(path):
                 os.remove(path)
-    proc = _torchrun(2, [os.path.join(ROOT, "chip_smoke.py"), "--worker", "dp"], timeout=900)
-    if proc.returncode != 0:
-        fail(f"parallel (b): the two ranks exited {proc.returncode}:\n"
-             f"{(proc.stdout + proc.stderr)[-6000:]}")
+    worker = "dp-gan-cut" if gan_cut else "dp"
+    log_path = os.path.join(PARALLEL_DIR, f"{prefix}ranks.log")
+    with _beside_torchrun(2, worker, log_path) as ranks_run:
+        t0 = time.time()
+        steps = list(dict.fromkeys(r[1] for r in runs))[::-1]
+        ref = _dp_steps([(step, step, "replicate", 1) for step in steps], depths)
+        torch.cuda.empty_cache()
+        one_s = time.time() - t0
+        started = None
+        if start is not None:
+            files = [_dp_marker(PARALLEL_CLI_AFTER, r) for r in range(2)]
+            while ranks_run.proc.poll() is None and not all(map(os.path.exists, files)):
+                time.sleep(1)
+            started = start()
+        rc, text = ranks_run.wait(timeout=900)
+    if rc != 0:
+        fail(f"parallel (b): the two ranks exited {rc}:\n{text[-6000:]}")
+    log(f"parallel (b): one process's steps ({', '.join(steps)}) took {one_s:.1f}s beside the "
+        f"two ranks, which took {ranks_run.s:.1f}s")
     ranks = []
     for r in range(2):
-        with open(os.path.join(PARALLEL_DIR, f"rank{r}.json")) as f:
+        with open(os.path.join(PARALLEL_DIR, f"{prefix}rank{r}.json")) as f:
             ranks.append(json.load(f))
-    return ref, ranks
+    return ref, ranks, started
 
 
 def phase_parallel(train_rows: list) -> None:
     """Parallel training on the one card (PERF.md, section 6):
     (a) world size 1 over NCCL in this process, against phase train's rows,
-    the step in turns with the plain one, and cli.train under torchrun with
-    its checkpoint resumed by one process; (b) two processes over gloo
-    against one process; (c) the tensor-parallel attention sublayer's two
-    head shards (composable route, flash at 3 heads) against the whole
-    sublayer. The process group is gone when the phase ends."""
+    the step in turns with the plain one, and cli.train under torchrun
+    (beside (b)'s ranks) with its checkpoint resumed by one process;
+    (b) two processes over gloo against one process; (c) the
+    tensor-parallel attention sublayer's two head shards (composable route,
+    flash at 3 heads) against the whole sublayer. The process group is gone
+    when the phase ends."""
     import shutil
 
     import numpy as np
@@ -5157,43 +5346,51 @@ def phase_parallel(train_rows: list) -> None:
     torch.cuda.empty_cache()
     shutil.rmtree(out_dir, ignore_errors=True)
 
-    # cli.train under torchrun (one process), resumed by a single process.
+    # (b) Two processes on the one card over gloo against one process:
+    # data parallel (stage 1 and GAN), FSDP and tensor parallel (stage 1).
+    # (a)'s cli.train under torchrun (one process over NCCL) starts once the
+    # ranks are past PARALLEL_CLI_AFTER and runs beside the rest of (b) and
+    # (d); its checkpoint is then resumed by a single process.
     run_dir = os.path.join(ROOT, "outputs", "chip_smoke_torchrun")
     shutil.rmtree(run_dir, ignore_errors=True)
     t0 = time.time()
-    proc = _torchrun(1, ["-m", "deepl_project_tpu_torch.cli.train", "--variant", "large",
-                         "--data", "synthetic", "--batch_size", "16", "--accum_steps", "2",
-                         "--num_epochs", "1", "--steps_per_epoch", "3", "--log_every", "1",
-                         "--warmup_steps", "2", "--save_every_epochs", "1",
-                         "--output_dir", run_dir], timeout=600)
-    if proc.returncode != 0:
-        fail(f"parallel (a): torchrun cli.train exited {proc.returncode}:\n"
-             f"{(proc.stdout + proc.stderr)[-4000:]}")
+    with contextlib.ExitStack() as stack:
+        def start_cli() -> Beside:
+            return stack.enter_context(Beside(_torchrun_cmd(1, [
+                "-m", "deepl_project_tpu_torch.cli.train", "--variant", "large",
+                "--data", "synthetic", "--batch_size", str(PARALLEL_CLI_BATCH),
+                "--accum_steps", "2", "--num_epochs", "1",
+                "--steps_per_epoch", str(PARALLEL_CLI_STEPS), "--log_every", "1",
+                "--warmup_steps", "2", "--save_every_epochs", "1", "--output_dir", run_dir]),
+                os.path.join(PARALLEL_DIR, "cli_train.log")))
+
+        ref, ranks, cli = _dp_compare(start=start_cli)
+        rc, text = cli.wait(timeout=600)
+    if rc != 0:
+        fail(f"parallel (a): torchrun cli.train exited {rc}:\n{text[-4000:]}")
     ckpt = os.path.join(run_dir, "checkpoints")
     run_rows = _history(run_dir)
-    if [r["step"] for r in run_rows] != [1, 2, 3] or not np.isfinite(
+    steps = list(range(1, PARALLEL_CLI_STEPS + 1))
+    if [r["step"] for r in run_rows] != steps or not np.isfinite(
             [r["total"] for r in run_rows]).all():
         fail(f"parallel (a): torchrun cli.train rows {run_rows}")
     resumer = Trainer(load_config(ckpt).replace(attention_impl="auto_train"),
-                      TrainerConfig(batch_size=16, accum_steps=2, output_dir=run_dir,
-                                    weights=LossWeights(gan=0.0)), device="cuda")
+                      TrainerConfig(batch_size=PARALLEL_CLI_BATCH, accum_steps=2,
+                                    output_dir=run_dir, weights=LossWeights(gan=0.0)),
+                      device="cuda")
     if resumer.mesh is not None:
         fail("parallel (a): the single-process resume built a mesh")
     state, _ = resumer.maybe_resume(resumer.create_state())
-    if state.step != 3 or state.optimizer.count != 3:
+    if state.step != steps[-1] or state.optimizer.count != steps[-1]:
         fail(f"parallel (a): resumed step {state.step}, optimizer count "
-             f"{state.optimizer.count}; want 3 and 3")
-    log(f"parallel (a): torchrun --nproc_per_node 1 cli.train, 3 steps, losses "
-        f"{[round(r['total'], 5) for r in run_rows]}, checkpoint resumed by one process at "
-        f"step 3 with its optimizer ({time.time() - t0:.1f}s)")
+             f"{state.optimizer.count}; want {steps[-1]} and {steps[-1]}")
+    log(f"parallel (a): torchrun --nproc_per_node 1 cli.train, {steps[-1]} steps at b"
+        f"{PARALLEL_CLI_BATCH}, losses {[round(r['total'], 5) for r in run_rows]}, "
+        f"checkpoint resumed by one process at step {steps[-1]} with its optimizer "
+        f"({cli.s:.1f}s, beside (b)'s ranks from their {PARALLEL_CLI_AFTER} run on)")
     del state, resumer
     torch.cuda.empty_cache()
     shutil.rmtree(run_dir, ignore_errors=True)
-
-    # (b) Two processes on the one card over gloo against one process:
-    # data parallel (stage 1 and GAN), FSDP and tensor parallel (stage 1).
-    t0 = time.time()
-    ref, ranks = _dp_compare()
     for name, step, mode, model in DP_RUNS:
         a = ref[step]
         for r, got in enumerate(ranks):
@@ -5202,14 +5399,18 @@ def phase_parallel(train_rows: list) -> None:
             gr = abs(b["grad_norm"] - a["grad_norm"]) / a["grad_norm"]
             held = "not held in bf16, " if step == "gan" else ""
             loss_bar = PARALLEL_ADAPTIVE_RTOL if step == "gan_fp32" else PARALLEL_LOSS_RTOL
-            log(f"parallel (b) {name} ({mode}, model {model}) rank {r}: {b['rows']} of "
-                f"{PARALLEL_BATCH} rows, {b['sharded']} tensors split, loss {b['total']:.6f} vs "
+            if b["depths"] != a["depths"]:
+                fail(f"parallel (b) {name}: depths {b['depths']}, one process {a['depths']}")
+            log(f"parallel (b) {name} ({mode}, model {model}, depths {b['depths']}) rank {r}: "
+                f"{b['rows']} of {PARALLEL_BATCH} rows, {b['sharded']} tensors split, loss "
+                f"{b['total']:.6f} vs "
                 f"one process {a['total']:.6f} (rel {lr:.2e}, {held}bound {loss_bar}), "
                 f"grad norm {b['grad_norm']:.6f} vs {a['grad_norm']:.6f} (rel {gr:.2e}, {held}"
                 f"bound {PARALLEL_GRAD_NORM_RTOL}), the whole parameters bit-identical across ranks "
                 f"{b['params_bit_identical']} ({b['params_checked']} tensors), peak "
                 f"{b['peak_gib']:.2f} GiB (one process {a['peak_gib']:.2f}), first step, "
-                f"warm-up included, {b['ms']:.1f} ms (one process {a['ms']:.1f}), launches "
+                f"warm-up included, {b['ms']:.1f} ms (one process {a['ms']:.1f}), the run with "
+                f"its build {b['s']:.1f}s (one process {a['s']:.1f}s), launches "
                 f"{b['launches']}, flash at {b['flash_heads']} heads [{CARD}]")
             if step != "gan" and (lr > loss_bar or gr > PARALLEL_GRAD_NORM_RTOL):
                 fail(f"parallel (b) {name} rank {r}: loss or grad norm off the one process's")
@@ -5217,12 +5418,13 @@ def phase_parallel(train_rows: list) -> None:
                 fail(f"parallel (b) {name}: the ranks' whole parameters differ after the update")
             if (mode == "replicate") != (b["sharded"] == 0):
                 fail(f"parallel (b) {name}: {b['sharded']} tensors split under {mode}")
-            # Stage 2's 6 sublayers (3 heads a rank under tensor): forward, its
-            # recompute under remat, (GAN) the discriminator update's fresh
-            # forward; one backward.
+            # Stage 2's sublayers (6 at full depth; 3 heads a rank under
+            # tensor): forward, its recompute under remat, (GAN) the
+            # discriminator update's fresh forward; one backward.
             bwd = "flash_attention_bwd_det" if b["deterministic"] else "flash_attention_bwd"
+            sub = 2 * b["depths"][2]
             want = ({} if step == "gan_fp32" else
-                    {"flash_attention_fwd": 12 if step == "stage1" else 18, bwd: 6})
+                    {"flash_attention_fwd": (2 if step == "stage1" else 3) * sub, bwd: sub})
             if b["deterministic"] != (name in PARALLEL_DETERMINISTIC):
                 fail(f"parallel (b) {name} rank {r}: deterministic {b['deterministic']}")
             heads = [3] if mode == "tensor" else [6]
@@ -5389,6 +5591,36 @@ def phase_parallel(train_rows: list) -> None:
                 f"plain {plain[i]:.4f} ms, SDPA {library[i]:.4f} ms, bound {bounds[i]:.4f} ms "
                 f"[{CARD}]")
         del q, k, v, do, o, lse, hq, out
+
+
+def phase_gan_cut() -> None:
+    """Not in the defaults: phase parallel (b)'s GAN step in bf16 and its
+    fp32 twin (TF32 off) with the model cut to PARALLEL_STEP_DEPTHS, two
+    gloo ranks against one process at the same depths. Logs how far the
+    ranks' adaptive weight, loss, grad norm and disc loss lie from one
+    process's in each dtype; fails only where the fp32 twin misses (b)'s
+    bars (in bf16 they are the reading)."""
+    os.makedirs(PARALLEL_DIR, exist_ok=True)
+    ref, ranks, _ = _dp_compare(gan_cut=True)
+    for name, step, _, _ in GAN_CUT_RUNS:
+        a = ref[step]
+        for r, got in enumerate(ranks):
+            b = got[name]
+            rel = {k: abs(b[k] - a[k]) / abs(a[k])
+                   for k in ("adaptive_gan_weight", "total", "grad_norm", "disc_loss")}
+            log(f"gan_cut {name} depths {b['depths']} rank {r}: adaptive weight "
+                f"{b['adaptive_gan_weight']:.5f} vs one process {a['adaptive_gan_weight']:.5f} "
+                f"(rel {rel['adaptive_gan_weight']:.2e}; (b)'s bar {PARALLEL_ADAPTIVE_RTOL}), "
+                f"loss {b['total']:.6f} vs {a['total']:.6f} (rel {rel['total']:.2e}), grad norm "
+                f"{b['grad_norm']:.6f} vs {a['grad_norm']:.6f} (rel {rel['grad_norm']:.2e}; "
+                f"bar {PARALLEL_GRAD_NORM_RTOL}), disc loss {b['disc_loss']:.6f} vs "
+                f"{a['disc_loss']:.6f} (rel {rel['disc_loss']:.2e}; bar {PARALLEL_LOSS_RTOL}), "
+                f"floor decision {b['disc_update_scale']} vs {a['disc_update_scale']} [{CARD}]")
+            if step == "gan_fp32" and (rel["adaptive_gan_weight"] > PARALLEL_ADAPTIVE_RTOL
+                                       or rel["total"] > PARALLEL_ADAPTIVE_RTOL
+                                       or rel["grad_norm"] > PARALLEL_GRAD_NORM_RTOL
+                                       or rel["disc_loss"] > PARALLEL_LOSS_RTOL):
+                fail(f"gan_cut {name} rank {r}: the fp32 twin is off the one process's step")
 
 
 # -- phase context -------------------------------------------------------------
@@ -6006,16 +6238,16 @@ def _ring_kernel_rows() -> dict:
     return rows
 
 
-def _context_probe() -> list:
+def _context_probe(probe: Beside) -> list:
     """What gloo does with point-to-point transfers of CUDA tensors between
     two ranks on the card (accepted or refused, with the message): the
-    reason the ring and the halo stage through host memory there."""
+    reason the ring and the halo stage through host memory there. ``probe``:
+    this script's ``--worker refusal-gloo-p2p`` on two ranks."""
     try:
-        proc = _torchrun(2, [os.path.join(ROOT, "chip_smoke.py"), "--worker",
-                             "refusal-gloo-p2p"], timeout=120)
-        text = proc.stdout + proc.stderr
-    except subprocess.TimeoutExpired as e:
-        text = f"TIMEOUT after 120 s: {(e.stdout or '')[-2000:]}"
+        _, text = probe.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        with open(probe.log_path) as f:
+            text = f"TIMEOUT after 120 s: {f.read()[-2000:]}"
     lines = sorted({ln.strip()[ln.find("RESULT"):][:400] for ln in text.splitlines()
                     if "RESULT" in ln or "TIMEOUT" in ln})
     if not lines:
@@ -6023,41 +6255,13 @@ def _context_probe() -> list:
     return lines
 
 
-def phase_context() -> None:
-    """Ring context parallelism on the one card (PERF.md, section 6): two
-    processes over gloo, a context axis of 2, large f16d32 at 1024px.
-    (a) the ring alone at stage 2's shape and at each stage's b2 shape
-    against one process's flash attention and the plain ring; (b) the
-    no-grad forward against one process's fp32 and bf16 forwards; each
-    kind of halo conv against the whole map's, and the same with the halo
-    rows zeroed (which must fail); (c) the stage-1 step against one
-    process's; (d) a GAN step at CONTEXT_GAN_RES with VF, the
-    self-perceptual term, the adaptive weight, R1 and the floor against one
-    process's, in bf16 and in fp32 (CONTEXT_GAN_RUNS); (e) the int8 model's
-    calibration and forward against one process's. The flash kernels at
-    the ring's local shapes are held to their plain versions and timed in
-    this process first."""
-    import shutil
-
-    import numpy as np
+def _context_one_process() -> dict:
+    """Phase context's one-process runs: the forward in fp32 (TF32 off) and
+    in bf16, the int8 model, the step and the GAN steps; their results and
+    the seconds they took."""
     import torch
-    import torch.distributed as dist
 
-    if dist.is_initialized():
-        fail("context: a process group exists before phase context")
-    shutil.rmtree(CONTEXT_DIR, ignore_errors=True)
-    os.makedirs(CONTEXT_DIR)
-    for ln in _context_probe():
-        log(f"context: gloo point-to-point probe: {ln}")
     t0 = time.time()
-    kernel_rows = _ring_kernel_rows()
-    for name, r in kernel_rows.items():
-        log(f"time context ring partial {name} (N_local queries x N_local keys): kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{CARD}]")
-    CONTEXT_RING_ROWS.update(kernel_rows)
-
-    # One process: the forward in fp32 (TF32 off) and in bf16, and the step.
     images = torch.as_tensor(_context_inputs("images")).to("cuda").permute(0, 3, 1, 2)
     recon = {}
     for dtype in ("float32", "bfloat16"):
@@ -6098,17 +6302,62 @@ def phase_context() -> None:
             f"{o['adaptive_gan_weight']:.6f}, disc loss {o['disc_loss']:.6f}, {o['ms']:.1f} ms, "
             f"peak {o['peak_gib']:.2f} GiB, launches {o['launches']}; "
             f"{time.time() - t1:.1f} s with the set-up [{CARD}]")
+    return {"recon": recon, "int8": one_int8, "int8_recon": one_int8_recon, "amax": one_amax,
+            "step": one, "gan": one_gan, "s": time.time() - t0}
 
-    proc = _torchrun(2, [os.path.join(ROOT, "chip_smoke.py"), "--worker", "context"],
-                     timeout=900)
-    if proc.returncode != 0:
-        fail(f"context: the two ranks exited {proc.returncode}:\n"
-             f"{(proc.stdout + proc.stderr)[-6000:]}")
+
+def phase_context() -> None:
+    """Ring context parallelism on the one card (PERF.md, section 6): two
+    processes over gloo, a context axis of 2, large f16d32 at 1024px.
+    (a) the ring alone at stage 2's shape and at each stage's b2 shape
+    against one process's flash attention and the plain ring; (b) the
+    no-grad forward against one process's fp32 and bf16 forwards; each
+    kind of halo conv against the whole map's, and the same with the halo
+    rows zeroed (which must fail); (c) the stage-1 step against one
+    process's; (d) a GAN step at CONTEXT_GAN_RES with VF, the
+    self-perceptual term, the adaptive weight, R1 and the floor against one
+    process's, in bf16 and in fp32 (CONTEXT_GAN_RUNS); (e) the int8 model's
+    calibration and forward against one process's. The flash kernels at
+    the ring's local shapes are held to their plain versions and timed in
+    this process first."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        fail("context: a process group exists before phase context")
+    shutil.rmtree(CONTEXT_DIR, ignore_errors=True)
+    os.makedirs(CONTEXT_DIR)
+    # The kernels' times first, with nothing else on the card.
+    kernel_rows = _ring_kernel_rows()
+    for name, r in kernel_rows.items():
+        log(f"time context ring partial {name} (N_local queries x N_local keys): kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{CARD}]")
+    CONTEXT_RING_ROWS.update(kernel_rows)
+    # The two ranks and the point-to-point probe run beside one process's
+    # runs (the card holds both: one process's largest, the b2 step, peaks
+    # at ~30 GiB, a rank's at ~18).
+    with _beside_torchrun(2, "context", os.path.join(CONTEXT_DIR, "ranks.log")) as ranks_run, \
+            _beside_torchrun(2, "refusal-gloo-p2p",
+                             os.path.join(CONTEXT_DIR, "probe.log")) as probe:
+        one = _context_one_process()
+        for ln in _context_probe(probe):
+            log(f"context: gloo point-to-point probe: {ln}")
+        rc, text = ranks_run.wait(timeout=900)
+    if rc != 0:
+        fail(f"context: the two ranks exited {rc}:\n{text[-6000:]}")
     ranks = []
     for r in range(2):
         with open(os.path.join(CONTEXT_DIR, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
-    log(f"context: the two ranks took {time.time() - t0:.1f}s with the one-process runs")
+    log(f"context: the two ranks took {ranks_run.s:.1f}s, one process's runs "
+        f"{one['s']:.1f}s beside them")
+    recon, one_int8, one_int8_recon, one_amax, one_gan = (
+        one["recon"], one["int8"], one["int8_recon"], one["amax"], one["gan"])
+    one = one["step"]
 
     # (a) The ring.
     steps_want = {"forward": 2, "backward": 2}
@@ -6612,99 +6861,112 @@ def phase_pipeline() -> None:
 
 def _pipeline_runs(dry, dry_log: str, t_dry: float) -> None:
     """Phase pipeline's checks while the dry run ``dry`` (writing to
-    ``dry_log``, started at ``t_dry``) runs beside them; its result last."""
+    ``dry_log``, started at ``t_dry``) runs beside them; its result last.
+    Each run's ranks start once one process's step of that run is saved,
+    and run beside the next run's one process and ranks."""
     import torch
 
-    for name, run in PIPE_RUNS.items():
-        t0 = time.time()
-        one, v, blocks = _pipe_run(run)
-        ref = {"forward": v.cpu(),
-               "blocks": {n: (g.to(torch.bfloat16).cpu(), torch.sign(du).to(torch.int8).cpu())
-                          for n, (g, du) in blocks.items()}}
-        del v
-        if run["dtype"] == "bfloat16":
-            # A reading of bf16's own noise: an fp32 twin (the plain core,
-            # TF32 off) on the same weights and draws; one process's bf16
-            # gradients and forward against it, beside the ranks'.
+    started = {}
+    with contextlib.ExitStack() as stack:
+        for name, run in PIPE_RUNS.items():
+            t0 = time.time()
+            one, v, blocks = _pipe_run(run)
+            ref = {"forward": v.cpu(),
+                   "blocks": {n: (g.to(torch.bfloat16).cpu(),
+                                  torch.sign(du).to(torch.int8).cpu())
+                              for n, (g, du) in blocks.items()}}
+            del v
+            if run["dtype"] == "bfloat16":
+                # A reading of bf16's own noise: an fp32 twin (the plain core,
+                # TF32 off) on the same weights and draws; one process's bf16
+                # gradients and forward against it, beside the ranks'.
+                torch.cuda.empty_cache()
+                tf32 = torch.backends.cudnn.allow_tf32
+                torch.backends.cudnn.allow_tf32 = False
+                _, v32, b32 = _pipe_run(dict(run, dtype="float32", impl="xla"))
+                torch.backends.cudnn.allow_tf32 = tf32
+                ref["fp32"] = {n: g.to(torch.bfloat16).cpu() for n, (g, _) in b32.items()}
+                ref["forward_fp32"] = v32.cpu()
+                one["fp32_rel"] = {blk: _rel_l2([(blocks[n][0], b32[n][0]) for n in ns])
+                                   for blk, ns in _by_block(b32).items()}
+                one["forward_fp32_mean_err"] = float((ref["forward"] - ref["forward_fp32"])
+                                                     .abs().mean())
+                del v32, b32
+            torch.save(ref, os.path.join(PIPE_DIR, f"ref_{name}.pt"))
+            del blocks, ref
             torch.cuda.empty_cache()
-            tf32 = torch.backends.cudnn.allow_tf32
-            torch.backends.cudnn.allow_tf32 = False
-            _, v32, b32 = _pipe_run(dict(run, dtype="float32", impl="xla"))
-            torch.backends.cudnn.allow_tf32 = tf32
-            ref["fp32"] = {n: g.to(torch.bfloat16).cpu() for n, (g, _) in b32.items()}
-            ref["forward_fp32"] = v32.cpu()
-            one["fp32_rel"] = {blk: _rel_l2([(blocks[n][0], b32[n][0]) for n in ns])
-                               for blk, ns in _by_block(b32).items()}
-            one["forward_fp32_mean_err"] = float((ref["forward"] - ref["forward_fp32"])
-                                                 .abs().mean())
-            del v32, b32
-        torch.save(ref, os.path.join(PIPE_DIR, f"ref_{name}.pt"))
-        del blocks, ref
-        torch.cuda.empty_cache()
-        log(f"pipeline ({name}): one process: {one['params'] / 1e9:.3f} B parameters, loss "
-            f"{one['loss']:.6f}, grad norm {one['grad_norm']:.6f}, step "
-            f"{one['step']['s']:.2f} s, peak {one['step']['peak_gib']:.2f} GiB, launches "
-            f"{one['step']['launches']} [{CARD}]")
-        nproc = math.prod(run["mesh"])
-        proc = _torchrun(nproc, [os.path.join(ROOT, "chip_smoke.py"), "--worker",
-                                 f"pipeline-{name}"], timeout=600)
-        if proc.returncode != 0:
-            fail(f"pipeline ({name}): the {nproc} ranks exited {proc.returncode}:\n"
-                 f"{(proc.stdout + proc.stderr)[-6000:]}")
-        per_rank = run["micro"] * _pipe_cfg(run).depth // run["mesh"][1]
-        want = ({"flash_attention_fwd": per_rank, "flash_attention_bwd": per_rank}
-                if run["impl"] == "pallas" else {})
-        for r in range(nproc):
-            with open(os.path.join(PIPE_DIR, f"{name}_rank{r}.json")) as f:
-                got = json.load(f)
-            lr = abs(got["loss"] - one["loss"]) / abs(one["loss"])
-            gr = abs(got["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
-            e, top = got["forward_err"]
-            worst_g = max(b["grad_rel"] for b in got["blocks"].values())
-            worst_u = min(b["update_agree"] for b in got["blocks"].values())
-            st = got["step"]
-            if "fp32_rel" in one:
-                # A reading, not a check: each block's gradient and the
-                # forward against the fp32 twin, the ranks' beside one
-                # process's bf16.
-                ratios = sorted(b["fp32_rel"] / one["fp32_rel"][blk]
-                                for blk, b in got["blocks"].items())
-                log(f"pipeline ({name}) rank {r}: against the fp32 twin: block gradients rel "
-                    f"L2 {min(b['fp32_rel'] for b in got['blocks'].values()):.3e}-"
-                    f"{max(b['fp32_rel'] for b in got['blocks'].values()):.3e} (one process's "
-                    f"bf16 {min(one['fp32_rel'][b] for b in got['blocks']):.3e}-"
-                    f"{max(one['fp32_rel'][b] for b in got['blocks']):.3e}; ratio "
-                    f"{ratios[0]:.3f}-{ratios[-1]:.3f}); forward mean abs err "
-                    f"{got['forward_fp32_mean_err']:.4e} (one process's bf16 "
-                    f"{one['forward_fp32_mean_err']:.4e}); gradient rel L2 from one process "
-                    f"by block {[round(got['blocks'][b]['grad_rel'], 5) for b in got['held']]}")
-            log(f"pipeline ({name}) rank {r} of mesh {run['mesh']} (data, pipe, expert): "
-                f"{got['params'] / 1e9:.3f} B parameters, blocks {got['held'][0]}..."
-                f"{got['held'][-1]}; loss {got['loss']:.6f} vs one process {one['loss']:.6f} "
-                f"(rel {lr:.2e}, bound {PARALLEL_LOSS_RTOL}), grad norm {got['grad_norm']:.6f} "
-                f"vs {one['grad_norm']:.6f} (rel {gr:.2e}, bound {PARALLEL_GRAD_NORM_RTOL}); "
-                f"no-grad forward max_abs_err {e:.3e} (rel {e / top:.3e}, bound "
-                f"{KERNEL_RTOL:.3e}); worst block gradient rel L2 {worst_g:.2e} (bound "
-                f"{PIPE_BLOCK_GRAD_RTOL}), update sign agreement {worst_u:.5f} (bound "
-                f"{PIPE_UPDATE_AGREE}); step {st['s']:.2f} s (gloo on one card: not a speed), "
-                f"peak {st['peak_gib']:.2f} GiB, forward {got['forward']['s']:.2f} s; launches "
-                f"step {st['launches']}, forward {got['forward']['launches']}; microbatch "
-                f"runs {st['runs']}; staged {st['staged']} over {got['staged_backend']} [{CARD}]")
-            if (lr > PARALLEL_LOSS_RTOL or gr > PARALLEL_GRAD_NORM_RTOL or not got["applied"]
-                    or not e <= KERNEL_RTOL * top or worst_g > PIPE_BLOCK_GRAD_RTOL
-                    or worst_u < PIPE_UPDATE_AGREE):
-                fail(f"pipeline ({name}) rank {r}: off the one process's step")
-            runs = {"forward": run["micro"], "backward": run["micro"]}
-            if (st["launches"] != want or st["runs"] != runs
-                    or got["forward"]["launches"] != {k: v for k, v in want.items()
-                                                      if k.endswith("fwd")}):
-                fail(f"pipeline ({name}) rank {r}: launches {st['launches']}, forward "
-                     f"{got['forward']['launches']}, runs {st['runs']}; want {want} and {runs}")
-            PIPE_PATHS[f"pipeline_{name}_step_rank{r}"] = st["launches"]
-            PIPE_PATHS[f"pipeline_{name}_forward_rank{r}"] = got["forward"]["launches"]
-        log(f"pipeline ({name}) took {time.time() - t0:.1f}s")
-        os.remove(os.path.join(PIPE_DIR, f"ref_{name}.pt"))
-    _pipe_scan_forward()
+            log(f"pipeline ({name}): one process: {one['params'] / 1e9:.3f} B parameters, loss "
+                f"{one['loss']:.6f}, grad norm {one['grad_norm']:.6f}, step "
+                f"{one['step']['s']:.2f} s, peak {one['step']['peak_gib']:.2f} GiB, launches "
+                f"{one['step']['launches']} [{CARD}]")
+            nproc = math.prod(run["mesh"])
+            started[name] = (one, t0, stack.enter_context(_beside_torchrun(
+                nproc, f"pipeline-{name}", os.path.join(PIPE_DIR, f"{name}_ranks.log"))))
+        _pipe_scan_forward()
+        for name, run in PIPE_RUNS.items():
+            one, t0, ranks_run = started[name]
+            nproc = math.prod(run["mesh"])
+            rc, text = ranks_run.wait(timeout=600)
+            if rc != 0:
+                fail(f"pipeline ({name}): the {nproc} ranks exited {rc}:\n{text[-6000:]}")
+            per_rank = run["micro"] * _pipe_cfg(run).depth // run["mesh"][1]
+            want = ({"flash_attention_fwd": per_rank, "flash_attention_bwd": per_rank}
+                    if run["impl"] == "pallas" else {})
+            for r in range(nproc):
+                with open(os.path.join(PIPE_DIR, f"{name}_rank{r}.json")) as f:
+                    got = json.load(f)
+                lr = abs(got["loss"] - one["loss"]) / abs(one["loss"])
+                gr = abs(got["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+                e, top = got["forward_err"]
+                worst_g = max(b["grad_rel"] for b in got["blocks"].values())
+                worst_u = min(b["update_agree"] for b in got["blocks"].values())
+                st = got["step"]
+                if "fp32_rel" in one:
+                    # A reading, not a check: each block's gradient and the
+                    # forward against the fp32 twin, the ranks' beside one
+                    # process's bf16.
+                    ratios = sorted(b["fp32_rel"] / one["fp32_rel"][blk]
+                                    for blk, b in got["blocks"].items())
+                    log(f"pipeline ({name}) rank {r}: against the fp32 twin: block gradients rel "
+                        f"L2 {min(b['fp32_rel'] for b in got['blocks'].values()):.3e}-"
+                        f"{max(b['fp32_rel'] for b in got['blocks'].values()):.3e} (one process's "
+                        f"bf16 {min(one['fp32_rel'][b] for b in got['blocks']):.3e}-"
+                        f"{max(one['fp32_rel'][b] for b in got['blocks']):.3e}; ratio "
+                        f"{ratios[0]:.3f}-{ratios[-1]:.3f}); forward mean abs err "
+                        f"{got['forward_fp32_mean_err']:.4e} (one process's bf16 "
+                        f"{one['forward_fp32_mean_err']:.4e}); gradient rel L2 from one process "
+                        f"by block "
+                        f"{[round(got['blocks'][b]['grad_rel'], 5) for b in got['held']]}")
+                log(f"pipeline ({name}) rank {r} of mesh {run['mesh']} (data, pipe, expert): "
+                    f"{got['params'] / 1e9:.3f} B parameters, blocks {got['held'][0]}..."
+                    f"{got['held'][-1]}; loss {got['loss']:.6f} vs one process {one['loss']:.6f} "
+                    f"(rel {lr:.2e}, bound {PARALLEL_LOSS_RTOL}), grad norm "
+                    f"{got['grad_norm']:.6f} vs {one['grad_norm']:.6f} (rel {gr:.2e}, bound "
+                    f"{PARALLEL_GRAD_NORM_RTOL}); "
+                    f"no-grad forward max_abs_err {e:.3e} (rel {e / top:.3e}, bound "
+                    f"{KERNEL_RTOL:.3e}); worst block gradient rel L2 {worst_g:.2e} (bound "
+                    f"{PIPE_BLOCK_GRAD_RTOL}), update sign agreement {worst_u:.5f} (bound "
+                    f"{PIPE_UPDATE_AGREE}); step {st['s']:.2f} s (gloo on one card: not a speed), "
+                    f"peak {st['peak_gib']:.2f} GiB, forward {got['forward']['s']:.2f} s; "
+                    f"launches step {st['launches']}, forward {got['forward']['launches']}; "
+                    f"microbatch runs {st['runs']}; staged {st['staged']} over "
+                    f"{got['staged_backend']} [{CARD}]")
+                if (lr > PARALLEL_LOSS_RTOL or gr > PARALLEL_GRAD_NORM_RTOL or not got["applied"]
+                        or not e <= KERNEL_RTOL * top or worst_g > PIPE_BLOCK_GRAD_RTOL
+                        or worst_u < PIPE_UPDATE_AGREE):
+                    fail(f"pipeline ({name}) rank {r}: off the one process's step")
+                runs = {"forward": run["micro"], "backward": run["micro"]}
+                if (st["launches"] != want or st["runs"] != runs
+                        or got["forward"]["launches"] != {k: v for k, v in want.items()
+                                                          if k.endswith("fwd")}):
+                    fail(f"pipeline ({name}) rank {r}: launches {st['launches']}, forward "
+                         f"{got['forward']['launches']}, runs {st['runs']}; want {want} and "
+                         f"{runs}")
+                PIPE_PATHS[f"pipeline_{name}_step_rank{r}"] = st["launches"]
+                PIPE_PATHS[f"pipeline_{name}_forward_rank{r}"] = got["forward"]["launches"]
+            log(f"pipeline ({name}) took {time.time() - t0:.1f}s, its ranks {ranks_run.s:.1f}s "
+                f"(beside the other run's)")
+            os.remove(os.path.join(PIPE_DIR, f"ref_{name}.pt"))
     rc = dry.wait(timeout=600)
     with open(dry_log) as f:
         text = f.read()
@@ -6724,8 +6986,9 @@ def main():
     ap.add_argument("--phases",
                     default="build,kernels,grad,fold_thin,train,data,dit,gan,recipe,remat,serve,"
                             "serve_mesh,time,eval,quant,scan,context,pipeline,parallel")
-    ap.add_argument("--worker", choices=["dp", "context", "serve-mesh", "serve-nccl",
+    ap.add_argument("--worker", choices=["dp", "dp-gan-cut", "context", "serve-nccl",
                                          "refusal-nccl", "refusal-gloo", "refusal-gloo-p2p"]
+                    + [f"serve-mesh-{i}" for i in range(len(SERVE_MESH_GROUPS))]
                     + [f"pipeline-{n}" for n in PIPE_RUNS],
                     help="run as a rank of phase parallel, context, pipeline or serve_mesh "
                          "(started by torchrun)")
@@ -6736,12 +6999,12 @@ def main():
     args = ap.parse_args()
     if args.worker:
         sys.path.insert(0, ROOT)
-        if args.worker == "dp":
-            dp_worker()
+        if args.worker.startswith("dp"):
+            dp_worker(gan_cut=args.worker == "dp-gan-cut")
         elif args.worker == "context":
             context_worker()
-        elif args.worker == "serve-mesh":
-            serve_mesh_worker()
+        elif args.worker.startswith("serve-mesh-"):
+            serve_mesh_worker(int(args.worker.rsplit("-", 1)[1]))
         elif args.worker == "serve-nccl":
             serve_nccl_worker()
         elif args.worker == "refusal-gloo-p2p":
@@ -6860,6 +7123,9 @@ def main():
     if "refusals" in phases:
         with phase_clock("refusals"):
             phase_refusals()
+    if "gan_cut" in phases:
+        with phase_clock("gan_cut"):
+            phase_gan_cut()
 
     if results:
         want = launches_per_reconstruct()[0] if counts else {}
@@ -6923,6 +7189,11 @@ def main():
                 "also_replaces": "deepl_project_tpu/ops/pallas/flash_attention.py:218",
                 "dq_rerun_max_abs_diff": r["rerun_max_abs_diff"],
                 "deterministic_ms": r["det_ms"], "deterministic_peak_gib": r["det_peak_gib"]}
+            # Phase recipe's and remat's microbatches: [kernel, plain, bound,
+            # SDPA (its backward for flash_attention_bwd)] ms.
+            extra["train_ms_by_shape"] = {
+                str(k[2:]): [v["ms"], v["plain_ms"], v["bound_ms"], v["library_ms"]]
+                for k, v in results.items() if k[:2] == ("flash_train_timed", name)}
             kernels.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": train_counts.get(name, 0),

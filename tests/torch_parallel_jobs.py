@@ -7,7 +7,12 @@ spawn) and runs each job on the first ``world`` of them: every rank joins a
 fresh gloo process group through a ``file://`` store under the test's
 ``tmp_path`` (no TCP port, so concurrent test workers never clash), runs
 the job function named by module and name, and leaves the group. A rank's
-exception fails the job with its traceback.
+exception fails the job with its traceback. Each job carries its number and
+each answer the same number back, so a job reads only its own ranks'
+answers. A job whose ranks do not all answer within JOB_TIMEOUT_S of the
+last answer, or whose rank process dies, fails with what the ranks said,
+and the pool's processes are stopped and started anew before the next job:
+a rank still busy with (or stuck in) a failed job never serves the next.
 
 Each job has a single-process twin in this module (``*_reference``): the
 same micro model (fp32, seeded), batches and step on one process, which the
@@ -20,6 +25,7 @@ import importlib
 import itertools
 import os
 import queue
+import time
 import traceback
 
 import numpy as np
@@ -38,22 +44,27 @@ SEED = 1
 # nothing): proj_in / proj_out / the FFN 1x1 convs and the larger convs.
 FSDP_MIN = 1024
 JOB_TIMEOUT_S = 120
+# A rank process's start (spawn, imports) before it takes its first job.
+START_TIMEOUT_S = 120
 
 
 def _worker(rank: int, jobs, results) -> None:
     torch.set_num_threads(1)
+    results.put((None, rank, True, None))  # started
     while True:
         job = jobs.get()
         if job is None:
             return
-        module, name, world, store, args = job
+        job_id, module, name, world, store, args = job
         try:
             dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                                     world_size=world)
             out = getattr(importlib.import_module(module), name)(*args)
-            results.put((rank, True, out))
         except BaseException:  # noqa: BLE001 -- handed to the test
-            results.put((rank, False, traceback.format_exc()))
+            results.put((job_id, rank, False, traceback.format_exc()))
+        else:
+            results.put((job_id, rank, True, out))
+            _leave_together()
         finally:
             if dist.is_initialized():
                 dist.destroy_process_group()
@@ -61,31 +72,90 @@ def _worker(rank: int, jobs, results) -> None:
                 os.environ.pop(key, None)
 
 
+def _leave_together() -> None:
+    """Hold this rank's group until every rank is past its job. A rank that
+    left while a peer still connected a group of the job (the default one,
+    or a DeviceMesh's subgroups) failed the peer's connect ("Connection
+    closed by peer"), and a third rank then waited for that peer's share of
+    another subgroup until the store timed out."""
+    if not dist.is_initialized():  # the job left the group itself
+        return
+    try:
+        dist.barrier()
+    except RuntimeError:
+        pass  # a peer left the group in its job (a failed follower): nothing to hold
+
+
 class RankPool:
     """``size`` rank processes, started once, running jobs of 1..size ranks."""
 
     def __init__(self, size: int = 4):
+        self.size = size
+        self._ids = itertools.count()
+        self._start()
+
+    def _start(self) -> None:
+        """Start the rank processes on fresh queues and wait until each has
+        started."""
         ctx = mp.get_context("spawn")
-        self.jobs = [ctx.Queue() for _ in range(size)]
+        self.jobs = [ctx.Queue() for _ in range(self.size)]
         self.results = ctx.Queue()
         self.procs = [ctx.Process(target=_worker, args=(r, self.jobs[r], self.results),
-                                  daemon=True) for r in range(size)]
+                                  daemon=True) for r in range(self.size)]
         for p in self.procs:
             p.start()
-        self._ids = itertools.count()
+        started = set()
+        deadline = time.monotonic() + START_TIMEOUT_S
+        while len(started) < self.size:
+            try:
+                _, rank, _, _ = self.results.get(timeout=max(deadline - time.monotonic(), 0))
+            except queue.Empty:
+                self._stop()
+                raise TimeoutError(f"ranks {sorted(set(range(self.size)) - started)} did not "
+                                   f"start within {START_TIMEOUT_S} s") from None
+            started.add(rank)
+
+    def _stop(self) -> None:
+        """Kill the rank processes and drop their queues (a queue a killed
+        process wrote to may be left half written)."""
+        for p in self.procs:
+            p.kill()
+        for p in self.procs:
+            p.join()
+        for q in (*self.jobs, self.results):
+            q.cancel_join_thread()
+            q.close()
 
     def run(self, fn, world: int, tmp_path, *args) -> list:
         """``fn(*args)`` on ranks 0..world-1; their results in rank order."""
-        store = os.path.join(str(tmp_path), f"store_{next(self._ids)}")
+        job = next(self._ids)
+        store = os.path.join(str(tmp_path), f"store_{job}")
         for r in range(world):
-            self.jobs[r].put((fn.__module__, fn.__name__, world, store, args))
+            self.jobs[r].put((job, fn.__module__, fn.__name__, world, store, args))
         out = [None] * world
         errors = []
-        for _ in range(world):
+        waiting = set(range(world))
+        deadline = time.monotonic() + JOB_TIMEOUT_S
+        while waiting:
             try:
-                rank, ok, value = self.results.get(timeout=JOB_TIMEOUT_S)
+                got, rank, ok, value = self.results.get(
+                    timeout=min(0.25, max(deadline - time.monotonic(), 0)))
             except queue.Empty:
-                raise TimeoutError(f"{fn.__name__}: ranks did not answer") from None
+                dead = {r: self.procs[r].exitcode for r in sorted(waiting)
+                        if not self.procs[r].is_alive()}
+                if not dead and time.monotonic() < deadline:
+                    continue
+                self._stop()
+                self._start()
+                why = (f"rank processes exited {dead}" if dead
+                       else f"no answer within {JOB_TIMEOUT_S} s")
+                raise TimeoutError(
+                    "\n".join([f"{fn.__name__}: ranks {sorted(waiting)} did not answer ({why}; "
+                               "the pool's ranks were started anew)", *errors]))
+            if got != job or rank not in waiting:  # an answer of an earlier job
+                continue
+            waiting.discard(rank)
+            deadline = time.monotonic() + JOB_TIMEOUT_S
             if ok:
                 out[rank] = value
             else:
@@ -101,6 +171,15 @@ class RankPool:
             p.join(timeout=10)
             if p.is_alive():
                 p.kill()
+
+
+def answer(tag, delay: float = 0.0, exit_rank: int | None = None) -> tuple:
+    """The harness's own job: (tag, rank, pid) after ``delay`` seconds; the
+    process of rank ``exit_rank`` exits instead of answering."""
+    if dist.get_rank() == exit_rank:
+        os._exit(3)
+    time.sleep(delay)
+    return tag, dist.get_rank(), os.getpid()
 
 
 # -- tolerances ----------------------------------------------------------------
