@@ -263,7 +263,24 @@ Phases (any failure exits non-zero and prints no result):
    recipe) on (b)'s two ranks after its runs (cli.train takes their gloo
    group), SCAN_TP_STEPS steps at global b SCAN_TP_BATCH: finite losses,
    12 + 6 flash launches a rank a step, its checkpoint holding whole
-   stacks.
+   stacks. (e) cli.train on the JAX trainer's subset mesh: (b)'s two ranks
+   after (d) at global --batch_size SUBSET_BATCH (gcd(3, 2) = 1 data rank:
+   rank 0 trains, rank 1 is left out), large f16d32 at PARALLEL_STEP_DEPTHS
+   with remat, SUBSET_STEPS steps under torch.use_deterministic_algorithms,
+   each rank its own --output_dir: losses and grad norms within (b)'s bars
+   of one process's cli.train of the same flags (--worker subset-one,
+   started beside (a)'s cli.train; bit-equality logged), the flash launches
+   of rank 0 (8 + 4 a step) equal to one process's, the left-out rank
+   saying so, launching nothing and writing nothing (its directory empty)
+   and the torchrun exiting 0. (f) A tensor-parallel (model 2) train-mode
+   forward of the same model at dropout DROPOUT_P (no grad, b
+   DROPOUT_BATCH, torch.manual_seed(DROPOUT_SEED)) on the two ranks after
+   (e): both ranks' reconstructions bit-identical, every dropout mask
+   equal on both ranks and to one process's at the same seed (sha256),
+   the dropped share within 0.01 of p, the L1 distance to the input within
+   PARALLEL_LOSS_RTOL of one process's, the attention on the local heads'
+   route; ops.layers.dropout (its seed broadcast over the group) and
+   F.dropout timed at DROPOUT_TIMED.
    (c) The stage-2 attention sublayer's two head shards of model=2 (3 of 6
    heads each, the composable route that training takes; phase serve_mesh
    drives the no-grad kernel routes) summed against the whole sublayer
@@ -527,10 +544,11 @@ DIT_TIMED_STEPS = 5  # the b64 step on ready latents: median of steps 2-5
 # 1024px sweep's chunk of 4 (stage 2).
 FLASH_TRAIN = (8, 4096, 6)
 # The other training shapes, checked: phase recipe's microbatch of 2,
-# phase remat's fit at batch 16, and stage 2's local heads under tensor
-# parallelism at model=2 (3 of 6; phase parallel (c)).
+# phase remat's fit at batch 16, stage 2's local heads under tensor
+# parallelism at model=2 (3 of 6; phase parallel (c)) and phase parallel
+# (e)'s batch of 3 on the subset mesh's one rank (SUBSET_BATCH).
 FLASH_LOCAL_HEADS = (8, 4096, 3)
-FLASH_TRAIN_CHECKED = ((2, 4096, 6), (16, 4096, 6), FLASH_LOCAL_HEADS)
+FLASH_TRAIN_CHECKED = ((2, 4096, 6), (16, 4096, 6), FLASH_LOCAL_HEADS, (3, 4096, 6))
 # The first two also timed beside their plain versions, SDPA and its
 # backward (the kernels line's train_ms_by_shape); the local heads are
 # timed in phase parallel (c).
@@ -539,11 +557,12 @@ FLASH_SERVE_256 = (32, 4096, 6)
 FLASH_SERVE_512 = (2, 16384, 6)
 FLASH_SWEEP_1024 = (4, 65536, 6)
 # Forward only, checked: phase dit's b64 encode (its b16 and b8 decodes are
-# FLASH_TRAIN_CHECKED's and FLASH_TRAIN's shapes) and phase serve_mesh's
+# FLASH_TRAIN_CHECKED's and FLASH_TRAIN's shapes), phase serve_mesh's
 # stage 2: tensor's b4 encode and decode on 3 heads a rank, replicate's
-# rows a rank (4 of a b8, 2 of a bucket of 4, 1) on 6 heads.
+# rows a rank (4 of a b8, 2 of a bucket of 4, 1) on 6 heads, and phase
+# parallel (f)'s tensor-parallel dropout forward at b2 (DROPOUT_BATCH) on 3.
 SERVE_MESH_FLASH = ((4, 4096, 3), (4, 4096, 6), (1, 4096, 6))
-FLASH_FWD_CHECKED = ((DIT_BATCH, 4096, 6),) + SERVE_MESH_FLASH
+FLASH_FWD_CHECKED = ((DIT_BATCH, 4096, 6),) + SERVE_MESH_FLASH + ((2, 4096, 3),)
 # small_attention at 512px stage 4, (batch, N, heads); group_norm_silu at the
 # large f16d32 ResBlock shapes (stages 0 and 1) at b32.
 SMALL_512 = (8, 1024, 24)
@@ -614,6 +633,27 @@ PARALLEL_STEP_DEPTHS = (1, 1, 2, 2, 2)
 # more than ~15 GiB a rank, and runs beside the rest of (b) and (d).
 PARALLEL_CLI_BATCH, PARALLEL_CLI_STEPS = 4, 2
 PARALLEL_CLI_AFTER = "gan_fp32"
+# (e) cli.train on a subset mesh: (b)'s two ranks (after (d)) at global
+# --batch_size SUBSET_BATCH, which the data axis of 2 does not divide: the
+# JAX trainer's subset mesh of gcd(3, 2) = 1 data rank, rank 0; rank 1 is
+# left out. Large f16d32 cut to PARALLEL_STEP_DEPTHS with remat ('none', as
+# (b)), SUBSET_STEPS steps under torch.use_deterministic_algorithms, each
+# rank its own --output_dir under SUBSET_DIR (the left-out rank's must stay
+# empty); one process's cli.train of the same flags runs beside the ranks
+# (this script's --worker subset-one, a process of its own for cuBLAS's
+# deterministic workspace), its losses and grad norms the reference.
+SUBSET_BATCH, SUBSET_STEPS = 3, 2
+# (f) A tensor-parallel (model 2) train-mode forward of the same model at
+# dropout DROPOUT_P, deterministic=False, no grad, on a synthetic batch of
+# DROPOUT_BATCH at 256px after torch.manual_seed(DROPOUT_SEED), on (b)'s
+# two ranks after (e), against --worker subset-one's one-process forward of
+# the same seed: the ranks' reconstructions bit-identical, every dropout
+# mask equal to one process's (sha256 of its bytes), the L1 distance to the
+# input within PARALLEL_LOSS_RTOL of one process's. DROPOUT_TIMED: the
+# shape at which ops.layers.dropout (its seed broadcast over the two ranks'
+# group) and F.dropout are timed (stage 2's tokens at b2).
+DROPOUT_P, DROPOUT_BATCH, DROPOUT_SEED = 0.1, 2, 5
+DROPOUT_TIMED = (2, 4096, 384)
 PARALLEL_LOSS_RTOL = 1e-3
 PARALLEL_GRAD_NORM_RTOL = 1e-2
 # A scan-layout twin (fsdp_scan, tensor_scan) against its unrolled run on
@@ -743,6 +783,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CARD = ""
 # Phase parallel's files: the (a) FileStore, the (b) ranks' results.
 PARALLEL_DIR = os.path.join(ROOT, "outputs", "chip_smoke_parallel_ipc")
+SUBSET_DIR = os.path.join(ROOT, "outputs", "chip_smoke_subset")  # phase parallel (e)
 # Phase parallel's paths -> launches by kernel name in that path's run.
 PARALLEL_PATHS: dict = {}
 # Path label -> group_norm_silu's launches by (kernel, H*W, C) in that
@@ -5016,6 +5057,8 @@ def dp_worker(gan_cut: bool = False) -> None:
     torch.cuda.empty_cache()
     if not gan_cut:
         _scan_cli_run(rank)
+        torch.cuda.empty_cache()
+        _subset_and_dropout_run(rank)
     dist.destroy_process_group()
 
 
@@ -5045,6 +5088,162 @@ def _scan_cli_run(rank: int) -> None:
     row = {"s": time.time() - t0, "launches": launches_by_name(),
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     with open(os.path.join(PARALLEL_DIR, f"scan_cli_rank{rank}.json"), "w") as f:
+        json.dump(row, f)
+
+
+def _subset_cli(out_dir: str) -> dict:
+    """cli.train --batch_size SUBSET_BATCH (phase parallel (e)) to
+    ``out_dir`` in this process, large f16d32 cut to PARALLEL_STEP_DEPTHS
+    (cli.train's get_config wrapped), under torch.use_deterministic_algorithms
+    (warn_only): on a gloo group already joined the subset mesh's rank or
+    a rank left out, else one process. Its seconds, launches and peak."""
+    import torch
+
+    from deepl_project_tpu_torch import get_config
+    from deepl_project_tpu_torch.cli import train as train_cli
+
+    train_cli.get_config = lambda *a, **kw: get_config(*a, **{**kw,
+                                                             "depths": PARALLEL_STEP_DEPTHS})
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        train_cli.main(["--variant", "large", "--data", "synthetic",
+                        "--batch_size", str(SUBSET_BATCH), "--num_epochs", "1",
+                        "--steps_per_epoch", str(SUBSET_STEPS), "--log_every", "1",
+                        "--warmup_steps", "2", "--save_every_epochs", "1",
+                        "--gradient_checkpointing", "--seed", "0", "--device", "cuda:0",
+                        "--output_dir", out_dir])
+    finally:
+        torch.use_deterministic_algorithms(was)
+        train_cli.get_config = get_config
+    torch.cuda.synchronize()
+    return {"s": time.time() - t0, "launches": launches_by_name(),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "files": sorted(os.path.relpath(os.path.join(d, f), out_dir)
+                            for d, _, fs in os.walk(out_dir) for f in fs)}
+
+
+def _dropout_forward(model_size: int | None) -> dict:
+    """Phase parallel (f)'s train-mode forward: large f16d32 at
+    PARALLEL_STEP_DEPTHS with dropout DROPOUT_P, bf16 weights from seed 0,
+    placed 'tensor' over model_size ranks (None: one process), on a
+    synthetic b DROPOUT_BATCH after torch.manual_seed(DROPOUT_SEED). The
+    reconstruction's sha256, its L1 distance to the input, each mask's
+    sha256 and dropped share, launches, routes, ms and the reconstruction
+    itself (fp32, on the host)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from deepl_project_tpu_torch import get_config
+    from deepl_project_tpu_torch.data import make_dataset
+    from deepl_project_tpu_torch.models.transvae import TransVAE, init_weights
+    from deepl_project_tpu_torch.ops import attention
+    from deepl_project_tpu_torch.ops.layers import record_dropout_masks
+    from deepl_project_tpu_torch.parallel import create_mesh, shard_params
+
+    cfg = get_config("large", 16, 32, norm_latents=True, attention_impl="auto_train",
+                     dtype="bfloat16", depths=PARALLEL_STEP_DEPTHS, dropout=DROPOUT_P)
+    with torch.device("meta"):
+        model = TransVAE(cfg)
+    model = model.to_empty(device="cuda")
+    init_weights(model, torch.Generator(device="cuda").manual_seed(0))
+    if model_size:
+        shard_params(create_mesh(model=model_size), model, "tensor")
+    x = torch.as_tensor(np.stack(list(make_dataset(
+        "synthetic", resolution=256, num_samples=DROPOUT_BATCH, seed=11)))).to("cuda")
+    x = x.permute(0, 3, 1, 2)  # NCHW, channels_last in memory
+    torch.cuda.synchronize()
+    reset_launches()
+    attention.reset_route_counts()
+    torch.manual_seed(DROPOUT_SEED)
+    t0 = time.perf_counter()
+    with torch.no_grad(), record_dropout_masks() as masks:
+        recon, _, _ = model(x.to(cfg.compute_dtype), deterministic=False)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches, routes = launches_by_name(), attention.route_counts()
+    l1 = float((torch.sigmoid(recon.float()) - x).abs().mean())
+
+    def sha(t):  # of the bytes (bf16 or bool)
+        return hashlib.sha256(t.contiguous().cpu().view(torch.uint8).numpy().tobytes()).hexdigest()
+
+    out = {"recon_sha": sha(recon), "l1": l1, "masks": [sha(m) for m in masks],
+           "dropped": [1.0 - m.float().mean().item() for m in masks],
+           "shapes": [list(m.shape) for m in masks], "launches": launches, "routes": routes,
+           "ms": ms, "recon": recon.float().cpu()}
+    del model, recon, masks
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dropout_timed(group) -> dict:
+    """ops.layers.dropout over ``group`` (None: alone) and F.dropout at
+    DROPOUT_TIMED in bf16, each the median of host-clocked calls with a
+    device sync (the group's seed broadcast is a host collective)."""
+    import statistics
+
+    import torch
+    import torch.nn.functional as F
+
+    from deepl_project_tpu_torch.ops.layers import dropout
+
+    x = torch.randn(*DROPOUT_TIMED, device="cuda", dtype=torch.bfloat16)
+    out = {}
+    for name, fn in (("layers.dropout", lambda: dropout(x, DROPOUT_P, group)),
+                     ("F.dropout", lambda: F.dropout(x, DROPOUT_P))):
+        times = []
+        for _ in range(12):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(times[2:])
+    return out
+
+
+def _subset_and_dropout_run(rank: int) -> None:
+    """Phase parallel (e) and (f) on this rank of dp_worker's gloo group:
+    cli.train on the subset mesh (rank 0 trains, rank 1 is left out; each
+    its own output directory), then the tensor-parallel dropout forward.
+    Writes PARALLEL_DIR/subset_rank<r>.json (rank 0 also the
+    reconstruction, subset_recon.pt)."""
+    import torch
+    import torch.distributed as dist
+
+    from deepl_project_tpu_torch.parallel import create_mesh
+
+    row = {"subset": _subset_cli(os.path.join(SUBSET_DIR, f"rank{rank}"))}
+    fwd = _dropout_forward(2)
+    recon = fwd.pop("recon")
+    if rank == 0:
+        torch.save(recon, os.path.join(PARALLEL_DIR, "subset_recon.pt"))
+    row["dropout"] = fwd
+    row["dropout_timed"] = _dropout_timed(create_mesh(model=2).get_group("model"))
+    with open(os.path.join(PARALLEL_DIR, f"subset_rank{rank}.json"), "w") as f:
+        json.dump(row, f)
+    dist.barrier()
+
+
+def subset_one_worker() -> None:
+    """Phase parallel (e) and (f)'s one process (no process group): cli.train
+    at SUBSET_BATCH to SUBSET_DIR/one and the dropout forward at
+    DROPOUT_SEED. Writes PARALLEL_DIR/subset_one.json and the
+    reconstruction, subset_one_recon.pt."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+
+    row = {"subset": _subset_cli(os.path.join(SUBSET_DIR, "one"))}
+    fwd = _dropout_forward(None)
+    torch.save(fwd.pop("recon"), os.path.join(PARALLEL_DIR, "subset_one_recon.pt"))
+    row["dropout"] = fwd
+    row["dropout_timed"] = _dropout_timed(None)
+    with open(os.path.join(PARALLEL_DIR, "subset_one.json"), "w") as f:
         json.dump(row, f)
 
 
@@ -5353,21 +5552,36 @@ def phase_parallel(train_rows: list) -> None:
     # (d); its checkpoint is then resumed by a single process.
     run_dir = os.path.join(ROOT, "outputs", "chip_smoke_torchrun")
     shutil.rmtree(run_dir, ignore_errors=True)
+    # (e) and (f)'s one process (--worker subset-one) starts beside (a)'s
+    # cli.train; the ranks run theirs after (d).
+    shutil.rmtree(SUBSET_DIR, ignore_errors=True)
+    for name in ("subset_one.json", "subset_one_recon.pt", "subset_recon.pt",
+                 *(f"subset_rank{r}.json" for r in range(2))):
+        if os.path.exists(os.path.join(PARALLEL_DIR, name)):
+            os.remove(os.path.join(PARALLEL_DIR, name))
     t0 = time.time()
     with contextlib.ExitStack() as stack:
-        def start_cli() -> Beside:
-            return stack.enter_context(Beside(_torchrun_cmd(1, [
+        def start_cli() -> tuple[Beside, Beside]:
+            cli = stack.enter_context(Beside(_torchrun_cmd(1, [
                 "-m", "deepl_project_tpu_torch.cli.train", "--variant", "large",
                 "--data", "synthetic", "--batch_size", str(PARALLEL_CLI_BATCH),
                 "--accum_steps", "2", "--num_epochs", "1",
                 "--steps_per_epoch", str(PARALLEL_CLI_STEPS), "--log_every", "1",
                 "--warmup_steps", "2", "--save_every_epochs", "1", "--output_dir", run_dir]),
                 os.path.join(PARALLEL_DIR, "cli_train.log")))
+            one = stack.enter_context(Beside(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--worker", "subset-one"],
+                os.path.join(PARALLEL_DIR, "subset_one.log")))
+            return cli, one
 
-        ref, ranks, cli = _dp_compare(start=start_cli)
+        ref, ranks, (cli, one) = _dp_compare(start=start_cli)
         rc, text = cli.wait(timeout=600)
+        one_rc, one_text = one.wait(timeout=600)
     if rc != 0:
         fail(f"parallel (a): torchrun cli.train exited {rc}:\n{text[-4000:]}")
+    if one_rc != 0:
+        fail(f"parallel (e): the one process (--worker subset-one) exited {one_rc}:\n"
+             f"{one_text[-4000:]}")
     ckpt = os.path.join(run_dir, "checkpoints")
     run_rows = _history(run_dir)
     steps = list(range(1, PARALLEL_CLI_STEPS + 1))
@@ -5516,6 +5730,7 @@ def phase_parallel(train_rows: list) -> None:
     del saved
     shutil.rmtree(SCAN_TP_DIR, ignore_errors=True)
     shutil.rmtree(os.path.join(ROOT, "outputs", "chip_smoke_parallel_b"), ignore_errors=True)
+    _subset_and_dropout_check(one.s)
 
     # (c) The tensor-parallel attention sublayer at stage 2 (C=384, 6 heads),
     # its two head shards of model=2 in one process, against the whole one.
@@ -5591,6 +5806,95 @@ def phase_parallel(train_rows: list) -> None:
                 f"plain {plain[i]:.4f} ms, SDPA {library[i]:.4f} ms, bound {bounds[i]:.4f} ms "
                 f"[{CARD}]")
         del q, k, v, do, o, lse, hq, out
+
+
+def _subset_and_dropout_check(one_s: float) -> None:
+    """Phase parallel (e) and (f), from the files of (b)'s ranks and of the
+    one process (--worker subset-one, which ran ``one_s`` seconds beside
+    them)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    with open(os.path.join(PARALLEL_DIR, "subset_one.json")) as f:
+        one = json.load(f)
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(PARALLEL_DIR, f"subset_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    with open(os.path.join(PARALLEL_DIR, "ranks.log")) as f:
+        said = "[trainer] rank 1 is outside the subset mesh" in f.read()
+
+    # (e) cli.train on the subset mesh against one process's.
+    want_rows, got_rows = _history(os.path.join(SUBSET_DIR, "one")), _history(
+        os.path.join(SUBSET_DIR, "rank0"))
+    steps = list(range(1, SUBSET_STEPS + 1))
+    if [r["step"] for r in got_rows] != steps or [r["step"] for r in want_rows] != steps:
+        fail(f"parallel (e): subset rows {got_rows}, one process's {want_rows}")
+    bit = all(a[k] == b[k] for a, b in zip(want_rows, got_rows) for k in ("total", "grad_norm"))
+    rel = [(abs(b["total"] - a["total"]) / abs(a["total"]),
+            abs(b["grad_norm"] - a["grad_norm"]) / a["grad_norm"])
+           for a, b in zip(want_rows, got_rows)]
+    left, mesh_rank = ranks[1]["subset"], ranks[0]["subset"]
+    bwd = "flash_attention_bwd_det"
+    want = {"flash_attention_fwd": 2 * 2 * PARALLEL_STEP_DEPTHS[2] * SUBSET_STEPS,
+            bwd: 2 * PARALLEL_STEP_DEPTHS[2] * SUBSET_STEPS}
+    flash = {k: v for k, v in mesh_rank["launches"].items() if k.startswith("flash")}
+    log(f"parallel (e): cli.train --batch_size {SUBSET_BATCH} on 2 ranks (subset mesh: data "
+        f"gcd({SUBSET_BATCH}, 2) = 1, rank 0), depths {list(PARALLEL_STEP_DEPTHS)}, remat, "
+        f"deterministic, {SUBSET_STEPS} steps: losses {[r['total'] for r in got_rows]} vs one "
+        f"process {[r['total'] for r in want_rows]}, grad norms "
+        f"{[r['grad_norm'] for r in got_rows]} vs {[r['grad_norm'] for r in want_rows]} "
+        f"(rel {[f'{a:.2e}/{b:.2e}' for a, b in rel]}; bit-equal {bit}; bounds "
+        f"{PARALLEL_LOSS_RTOL} / {PARALLEL_GRAD_NORM_RTOL}); rank 0 {mesh_rank['s']:.1f}s, "
+        f"peak {mesh_rank['peak_gib']:.2f} GiB, launches {mesh_rank['launches']}, wrote "
+        f"{len(mesh_rank['files'])} files; rank 1 left out (said so: {said}), "
+        f"{left['s']:.1f}s, wrote {left['files']}, launches {left['launches']}; one process "
+        f"{one['subset']['s']:.1f}s of its {one_s:.1f}s [{CARD}]")
+    if any(a > PARALLEL_LOSS_RTOL or b > PARALLEL_GRAD_NORM_RTOL for a, b in rel):
+        fail("parallel (e): the subset mesh's losses or grad norms are off one process's")
+    if left["files"] or any(left["launches"].values()) or not said:
+        fail("parallel (e): the rank left out of the subset mesh wrote files, launched "
+             "kernels or did not say so")
+    if flash != want or one["subset"]["launches"] != mesh_rank["launches"]:
+        fail(f"parallel (e): flash launches {flash} (want {want}), one process's "
+             f"{one['subset']['launches']}")
+    PARALLEL_PATHS["parallel_subset_cli_rank0"] = {
+        k.removesuffix("_det"): v for k, v in mesh_rank["launches"].items()}
+
+    # (f) The tensor-parallel dropout forward against one process's.
+    a, b = (ranks[r]["dropout"] for r in range(2))
+    o = one["dropout"]
+    got = torch.load(os.path.join(PARALLEL_DIR, "subset_recon.pt"))
+    ref = torch.load(os.path.join(PARALLEL_DIR, "subset_one_recon.pt"))
+    rel_l2 = float((got - ref).norm() / ref.norm())
+    l1_rel = abs(a["l1"] - o["l1"]) / o["l1"]
+    same_masks = a["masks"] == b["masks"] == o["masks"]
+    dropped = np.array(a["dropped"])
+    sizes = np.array([np.prod(s) for s in a["shapes"]])
+    share = float((dropped * sizes).sum() / sizes.sum())
+    log(f"parallel (f): tensor-parallel (model 2) train-mode forward at dropout {DROPOUT_P}, "
+        f"b{DROPOUT_BATCH}, seed {DROPOUT_SEED}: {len(a['masks'])} masks, every one equal on "
+        f"both ranks and to one process's {same_masks}, dropped share {share:.5f} (per mask "
+        f"{dropped.min():.4f}-{dropped.max():.4f}); the ranks' reconstructions bit-identical "
+        f"{a['recon_sha'] == b['recon_sha']}; L1 to the input {a['l1']:.6f} vs one process "
+        f"{o['l1']:.6f} (rel {l1_rel:.2e}, bound {PARALLEL_LOSS_RTOL}), reconstruction rel L2 "
+        f"{rel_l2:.3e}; routes {a['routes']} (one process {o['routes']}); forward "
+        f"{a['ms']:.1f} ms a rank (one process {o['ms']:.1f}), launches {a['launches']}; at "
+        f"{DROPOUT_TIMED} bf16: layers.dropout {ranks[0]['dropout_timed']['layers.dropout']:.3f} "
+        f"ms over the two ranks' group, {one['dropout_timed']['layers.dropout']:.3f} ms alone, "
+        f"F.dropout {one['dropout_timed']['F.dropout']:.3f} ms (host clock, with a sync) "
+        f"[{CARD}]")
+    if not same_masks or a["recon_sha"] != b["recon_sha"] or l1_rel > PARALLEL_LOSS_RTOL:
+        fail("parallel (f): the ranks' masks or outputs differ, or they are off one "
+             "process's")
+    if abs(share - DROPOUT_P) > 0.01 or a["routes"].get("sublayer") or not a["routes"].get(
+            "local_heads"):
+        fail(f"parallel (f): dropped share {share} (p {DROPOUT_P}), routes {a['routes']}")
+    for r in range(2):
+        PARALLEL_PATHS[f"parallel_tp_dropout_rank{r}"] = ranks[r]["dropout"]["launches"]
+    shutil.rmtree(SUBSET_DIR, ignore_errors=True)
 
 
 def phase_gan_cut() -> None:
@@ -6987,7 +7291,8 @@ def main():
                     default="build,kernels,grad,fold_thin,train,data,dit,gan,recipe,remat,serve,"
                             "serve_mesh,time,eval,quant,scan,context,pipeline,parallel")
     ap.add_argument("--worker", choices=["dp", "dp-gan-cut", "context", "serve-nccl",
-                                         "refusal-nccl", "refusal-gloo", "refusal-gloo-p2p"]
+                                         "refusal-nccl", "refusal-gloo", "refusal-gloo-p2p",
+                                         "subset-one"]
                     + [f"serve-mesh-{i}" for i in range(len(SERVE_MESH_GROUPS))]
                     + [f"pipeline-{n}" for n in PIPE_RUNS],
                     help="run as a rank of phase parallel, context, pipeline or serve_mesh "
@@ -7009,6 +7314,8 @@ def main():
             serve_nccl_worker()
         elif args.worker == "refusal-gloo-p2p":
             p2p_probe_worker()
+        elif args.worker == "subset-one":
+            subset_one_worker()
         elif args.worker.startswith("pipeline-"):
             pipeline_worker(args.worker.split("-", 1)[1])
         else:

@@ -30,7 +30,10 @@ a rank (NCCL between CUDA devices, gloo with ``--device cpu``): the ranks
 form a (data, 1, --mesh_model) mesh and --param_sharding places the
 parameters (replicate | fsdp | tensor), as in the JAX CLI; --batch_size is
 the global batch, and each rank decodes only its rows of it (hf:
-sources read their ``ds.shard`` of the data coordinate instead):
+sources read their ``ds.shard`` of the data coordinate instead). A batch
+that does not split over world / --mesh_model data ranks trains on the JAX
+trainer's subset mesh, the first gcd(batch, world / mesh_model) x
+mesh_model ranks; the others wait for them and exit 0:
 
   python -m torch.distributed.run --nproc_per_node 4 \
       -m deepl_project_tpu_torch.cli.train --variant huge --mesh_model 2 \
@@ -259,6 +262,9 @@ def main(argv=None):
     # weights are on this machine, else the deterministic stub.
     teacher_fn = make_vf_teacher(args.dino_model, device=device) if args.vf_weight > 0 else None
     trainer = Trainer(model_cfg, train_cfg, teacher_fn=teacher_fn, device=device)
+    if trainer.outside:  # left out of a subset mesh: wait for its ranks, then exit 0
+        trainer.fit(iter(()))
+        return
 
     val_batches = None
     if args.eval_every_steps > 0:

@@ -290,11 +290,13 @@ class DiT(nn.Module):
 
     def forward(self, z: torch.Tensor, t: torch.Tensor, labels: torch.Tensor,
                 deterministic: bool = True, generator: torch.Generator | None = None,
-                label_rows: tuple[int, int] | None = None) -> torch.Tensor:
+                rows: tuple[int, int] | None = None) -> torch.Tensor:
         """``generator`` draws the label dropout of a call with
-        ``deterministic=False``; ``label_rows`` = (first, total): these labels
-        are rows of a batch of ``total``, whose draws are made whole and
-        sliced (a data rank's share of the one-process draws)."""
+        ``deterministic=False``; ``rows`` = (first, total): these inputs are
+        rows of a batch of ``total`` (a data rank's), whose label draws are
+        made whole and sliced (the rank's share of the one-process draws) and
+        whose pipeline microbatches are the whole batch's
+        (``parallel.pipeline.microbatch_rows``)."""
         cfg = self.config
         dt = cfg.compute_dtype
         b, h, w, c = z.shape
@@ -310,7 +312,7 @@ class DiT(nn.Module):
             x = x + self.pos_embed.to(dt)[None]
 
         cond = self.t_embed(t, dt) + self.y_embed(labels, deterministic, generator,
-                                                  label_rows).to(dt)
+                                                  rows).to(dt)
         if not cfg.stacked:
             for block in self.unrolled_blocks():
                 x = block(x, cond, (gh, gw))
@@ -319,7 +321,7 @@ class DiT(nn.Module):
 
             run = functools.partial(_block_slice, self.blocks.template, (gh, gw))
             x = pipeline_apply(run, self.blocks.stacks(), x, cond, group=pipe.group,
-                               num_microbatches=cfg.pipeline_microbatches)
+                               num_microbatches=cfg.pipeline_microbatches, rows=rows)
         else:
             x = self.blocks(x, cond, (gh, gw))
 

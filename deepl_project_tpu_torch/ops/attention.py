@@ -37,7 +37,9 @@ Sublayer dispatch (``AttentionRoPE``), as in the JAX module:
   ``local_sublayer``), elsewhere (stage 2, N=4096) ``ln_qkv_rope`` ->
   :func:`core_attention` -> the partial projection on ``proj_bias_gemm``
   (route ``local_ln_qkv_rope``); otherwise (training, other widths,
-  float32) the composable path on the local heads (route ``local_heads``);
+  float32, dropout) the composable path on the local heads (route
+  ``local_heads``); dropout acts on the reduced output, where JAX applies
+  it, every rank of the model group drawing one mask (``layers.dropout``);
 - under an ambient context group (``parallel.context``: the map's rows
   split over it), whatever ``impl``: the composable path with the RoPE rows
   of this rank's offset and the exact ring
@@ -75,7 +77,7 @@ from .hopper.small_attention import small_attention
 from ..parallel import context as cp
 from ..parallel.collectives import copy_to_group, reduce_from_group
 from ..parallel.ring_attention import context_parallel_attention
-from .layers import CachedOperands, Linear, matmul_f32
+from .layers import CachedOperands, Linear, dropout, matmul_f32
 from .norms import LayerNorm
 from .rope import apply_rope2d
 
@@ -200,8 +202,9 @@ class AttentionRoPE(CachedOperands, nn.Module):
         self.to_v = Linear(dim, dim, bias=False, **kw)
         self.proj = Linear(dim, dim, bias=True, **kw)
         # The model group of tensor parallelism (parallel.shard_params):
-        # to_q/to_k/to_v and proj then hold this rank's heads.
-        self.model_group = None
+        # to_q/to_k/to_v and proj then hold this rank's heads. The group
+        # whose ranks draw one dropout mask (any placement's model group).
+        self.model_group = self.dropout_group = None
 
     def _qkv_args(self):
         ln = tuple((m.weight, m.bias) for m in (self.norm_q, self.norm_k, self.norm_v))
@@ -237,7 +240,7 @@ class AttentionRoPE(CachedOperands, nn.Module):
                    and (self.dropout == 0.0 or deterministic)
                    and cp.context_axis_size() == 1)
         if self.model_group is not None:
-            out = self._local_heads(xf, h, w, deterministic, kernels)
+            out = self._local_heads(xf, h, w, kernels)
         elif kernels and sublayer_supported(n, c, hd, x.dtype):
             _ROUTES["sublayer"] += 1
             ln, wq, wk, wv = self._qkv_args()
@@ -260,8 +263,10 @@ class AttentionRoPE(CachedOperands, nn.Module):
                 q, k = self._rope(q, k, h, w)
             out = self._core(q, k, v)
             out = self.proj(out.reshape(b, n, c))
-            if self.dropout > 0.0 and not deterministic:
-                out = F.dropout(out, self.dropout)
+        if self.dropout > 0.0 and not deterministic:
+            # On the whole (under tensor parallelism: reduced) output, one
+            # mask over the model group.
+            out = dropout(out, self.dropout, self.dropout_group)
         return out.reshape(b, h, w, c).permute(0, 3, 1, 2)
 
     def _qkv(self, xf: torch.Tensor, group=None) -> tuple:
@@ -370,9 +375,7 @@ class AttentionRoPE(CachedOperands, nn.Module):
                               hd, self.use_rope, packed=self._packed_qkv() if cuda else None,
                               packed_proj=self._packed_proj() if cuda else None, core=core)
 
-    def _local_heads(self, xf, h, w, deterministic, kernels):
-        if self.dropout > 0.0 and not deterministic:
-            raise NotImplementedError("dropout under tensor parallelism is not ported")
+    def _local_heads(self, xf, h, w, kernels):
         width = self.to_q.weight.shape[0]
         # The local kernels have no backward: a forward that builds a graph
         # takes the composable route.

@@ -18,7 +18,9 @@ once. Off, the literal reference op order runs. The parameters are the
 reference's either way.
 
 ``dropout`` acts on the FFN's output (StandardFFN: also after its GELU) in
-a call with ``deterministic=False``, as in the JAX modules.
+a call with ``deterministic=False``, as in the JAX modules, through
+``layers.dropout``: under tensor parallelism on the reduced output, every
+rank of the model group drawing one mask (``dropout_group``).
 
 ``quant='int8'`` (full conv type) builds the int8 serving form of the folded
 op order (``_int8_forward``): int8 buffers instead of parameters, from
@@ -41,7 +43,7 @@ from torch import nn
 
 from ..parallel.collectives import (copy_to_group, gather_from_group, reduce_from_group,
                                     scatter_to_group)
-from .layers import GELU, CachedOperands, Conv2d, Linear, matmul_f32
+from .layers import GELU, CachedOperands, Conv2d, Linear, dropout, matmul_f32
 from .quant import QConv2d, QLinear, qmatmul, record_amax
 
 
@@ -57,7 +59,9 @@ class ConvFFN(CachedOperands, nn.Module):
         ch = int(dim * mlp_ratio)
         self.fold_output, self.calibrate, self.amax = fold_output, calibrate, {}
         self.dropout = dropout
-        self.model_group = None  # tensor parallelism (module docstring)
+        # Tensor parallelism (module docstring); the group whose ranks draw
+        # one dropout mask (any placement's model group).
+        self.model_group = self.dropout_group = None
         self.quant = quant if conv_type == "full" else None
         self.act = GELU()
         if self.quant == "int8":
@@ -89,24 +93,26 @@ class ConvFFN(CachedOperands, nn.Module):
     def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
         if self.quant == "int8":
             return self._int8_forward(x)
-        if self.model_group is not None:
-            if self.dropout > 0.0 and not deterministic:
-                raise NotImplementedError("dropout under tensor parallelism is not ported")
-            return self._tensor_forward(x)
+        out = self._tensor_forward(x) if self.model_group is not None else self._local(x)
+        if self.dropout > 0.0 and not deterministic:
+            # On the whole (under tensor parallelism: reduced) [B, C, H, W]
+            # output, one mask over the model group.
+            out = dropout(out, self.dropout, self.dropout_group)
+        return out
+
+    def _local(self, x: torch.Tensor) -> torch.Tensor:
+        """The FFN on one rank's whole weights: the folded or the literal op
+        order."""
         full = isinstance(self.conv, nn.Sequential)
         xt = x.permute(0, 2, 3, 1)  # [B, H, W, C]
         if self.calibrate and full:
             record_amax(self, "amax_in", xt)
         y = self.act(self.proj_in(xt))  # [B, H, W, hidden]
         if full and self.fold_output:
-            out = self._fold_forward(y)
-        else:
-            y = y.permute(0, 3, 1, 2)  # NCHW view, channels-last in memory
-            y = y + self.conv(y)  # residual around the conv branch
-            out = self.proj_out(y.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-        if self.dropout > 0.0 and not deterministic:
-            out = F.dropout(out, self.dropout)
-        return out
+            return self._fold_forward(y)
+        y = y.permute(0, 3, 1, 2)  # NCHW view, channels-last in memory
+        y = y + self.conv(y)  # residual around the conv branch
+        return self.proj_out(y.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
     def _tensor_forward(self, x: torch.Tensor) -> torch.Tensor:
         """The unfolded op order on this rank's channels (module docstring).
@@ -201,6 +207,7 @@ class StandardFFN(nn.Module):
         hidden = int(dim * mlp_ratio)
         kw = dict(device=device, dtype=param_dtype)
         self.dropout = dropout
+        self.dropout_group = None  # replicated under every placement
         self.fc1 = Linear(dim, hidden, **kw)
         self.act = GELU()
         self.fc2 = Linear(hidden, dim, **kw)
@@ -209,8 +216,8 @@ class StandardFFN(nn.Module):
         drop = self.dropout > 0.0 and not deterministic
         y = self.act(self.fc1(x.permute(0, 2, 3, 1)))
         if drop:
-            y = F.dropout(y, self.dropout)
+            y = dropout(y, self.dropout, self.dropout_group)
         y = self.fc2(y)
         if drop:
-            y = F.dropout(y, self.dropout)
+            y = dropout(y, self.dropout, self.dropout_group)
         return y.permute(0, 3, 1, 2)

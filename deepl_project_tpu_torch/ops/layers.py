@@ -15,6 +15,7 @@ import math
 import threading
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -48,6 +49,54 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.is_cuda and a.dtype != torch.float32 and not tracked:
         return (torch.bmm if a.dim() == 3 else torch.mm)(a, b, out_dtype=torch.float32)
     return torch.matmul(a.float(), b.float())
+
+
+# The keep masks dropout() drew since record_dropout_masks() began; None
+# outside such a block.
+_MASKS: list | None = None
+
+
+@contextlib.contextmanager
+def record_dropout_masks():
+    """Collect the keep mask (bool, the input's shape) of every
+    :func:`dropout` call in the block, in call order, into the list it
+    yields."""
+    global _MASKS
+    saved, _MASKS = _MASKS, []
+    try:
+        yield _MASKS
+    finally:
+        _MASKS = saved
+
+
+def dropout(x: torch.Tensor, p: float, group=None) -> torch.Tensor:
+    """Inverted dropout, the modules' one draw: each entry of ``x`` kept with
+    probability 1 - p and scaled by 1 / (1 - p), else 0 (``F.dropout`` in
+    training, the JAX package's ``nn.Dropout``).
+
+    The mask is ``torch.rand`` over x's shape from a ``torch.Generator`` on
+    x's device, seeded by one int64 drawn from the global CPU generator
+    (which ``torch.utils.checkpoint`` restores for a recompute, so a
+    recomputed block draws its mask again). ``group``: the model group of a
+    placement whose ranks hold x replicated (``parallel.shard_params`` sets
+    it on the modules): group rank 0's seed is broadcast over it, 8 bytes a
+    call (under NCCL through the device, and read back: one host sync), so
+    every rank draws the same mask, the one a single process draws at the
+    same global seed and shape."""
+    if p <= 0.0:
+        return x
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    seed = torch.randint(1 << 62, (1,))
+    if group is not None and dist.get_world_size(group) > 1:
+        if dist.get_backend(group) == "nccl":
+            seed = seed.to(x.device)
+        dist.broadcast(seed, dist.get_global_rank(group, 0), group=group)
+    gen = torch.Generator(device=x.device).manual_seed(int(seed))
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
+    if _MASKS is not None:
+        _MASKS.append(keep)
+    return x * keep.to(x.dtype) * (1.0 / (1.0 - p))
 
 
 # The depth slice that a stage stack's iteration runs (ops.stack), per

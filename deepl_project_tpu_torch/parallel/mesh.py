@@ -54,20 +54,28 @@ class Shard:
     dim: int
 
 
-def create_mesh(data: int | None = None, model: int = 1, context: int = 1) -> DeviceMesh:
-    """A ``DeviceMesh`` of dims (data, context, model) over every rank of the
-    default process group; ``data`` defaults to world / (model * context).
-    The mesh's device type is 'cuda' under NCCL and 'cpu' otherwise (a gloo
-    group carries CUDA tensors too: two ranks on one card, which NCCL
-    refuses)."""
+def create_mesh(data: int | None = None, model: int = 1, context: int = 1,
+                ranks: int | None = None) -> DeviceMesh:
+    """A ``DeviceMesh`` of dims (data, context, model) over the first
+    ``ranks`` ranks of the default process group (default: every rank);
+    ``data`` defaults to ranks / (model * context). A mesh of fewer ranks
+    than the world is the JAX trainer's subset mesh
+    (``jax.devices()[: data * model]``): every rank of the world must call
+    this (it makes the mesh's groups), and a rank left out has no
+    coordinate (``get_coordinate()`` is None). The mesh's device type is
+    'cuda' under NCCL and 'cpu' otherwise (a gloo group carries CUDA
+    tensors too: two ranks on one card, which NCCL refuses)."""
     world = dist.get_world_size()
+    ranks = world if ranks is None else ranks
+    if not 0 < ranks <= world:
+        raise ValueError(f"a mesh of {ranks} ranks in a world of {world}")
     if data is None:
-        if world % (model * context):
-            raise ValueError(f"world size {world} does not split into model {model} x "
+        if ranks % (model * context):
+            raise ValueError(f"{ranks} ranks do not split into model {model} x "
                              f"context {context}")
-        data = world // (model * context)
-    if data * context * model != world:
-        raise ValueError(f"mesh {data}x{context}x{model} != {world} ranks")
+        data = ranks // (model * context)
+    if data * context * model != ranks:
+        raise ValueError(f"mesh {data}x{context}x{model} != {ranks} ranks")
     return _mesh((data, context, model), AXES)
 
 
@@ -139,20 +147,13 @@ def data_coordinate(mesh: DeviceMesh) -> int:
 
 def data_axis_size(batch_size: int, world: int, model: int = 1) -> int:
     """The data axis of a global batch over ``world`` ranks with ``model``
-    ranks a model group: world / model. The JAX trainer drops to a subset
-    mesh of gcd(batch, devices / model) devices when the batch does not
-    divide; the port refuses instead, naming the divisor (a rank left out
-    of every group would still have been started by torchrun)."""
+    ranks a model group: world / model where the batch splits over that
+    many, else gcd(batch, world / model), the JAX trainer's subset mesh
+    (it takes the first data x model devices "rather than crashing on small
+    debug batches"; the trainer leaves the other ranks idle)."""
     if world % model:
         raise ValueError(f"world size {world} is not a multiple of mesh_model {model}")
-    data = world // model
-    if batch_size % data:
-        raise ValueError(
-            f"the global batch {batch_size} does not split over the data axis of "
-            f"{data} ranks (world {world} / mesh_model {model}): use a batch that is "
-            f"a multiple of {data}, or launch {math.gcd(batch_size, data) * model} "
-            f"ranks (the JAX trainer's subset mesh, gcd(batch, world / model) x model)")
-    return data
+    return math.gcd(batch_size, world // model)
 
 
 def replicated(mesh: DeviceMesh) -> tuple:

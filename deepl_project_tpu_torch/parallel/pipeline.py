@@ -16,8 +16,10 @@ each stage is a process and the schedule is written out both ways
   only those slices of the DiT's stacks, so a stage allocates only its
   own), and runs them in order in each tick (JAX's ``_stage_apply``).
 - The batch splits into M contiguous microbatches (``x.reshape(m, b // m,
-  ...)``). At tick t stage s runs microbatch t - s with *that microbatch's*
-  conditioning, and its output goes to stage s + 1 by
+  ...)``; a data rank's rows: :func:`microbatch_rows`, its own rows in M
+  where M divides them, else its part of JAX's microbatches of the global
+  batch, of unequal sizes). At tick t stage s runs microbatch t - s with
+  *that microbatch's* conditioning, and its output goes to stage s + 1 by
   ``collectives.send_recv`` (one batch of transfers a tick; a gloo group
   stages CUDA tensors through host memory). The bubble's work is skipped:
   a stage runs only the ticks that hold a microbatch, where JAX computes
@@ -118,11 +120,37 @@ def _slices(stacked) -> list:
             for j in range(len(parts[0]))]
 
 
-class _Schedule:
-    """One pipeline call's stacks, group and shapes."""
+def microbatch_rows(local_rows: int, num_microbatches: int,
+                    rows: tuple[int, int] | None = None) -> list[int]:
+    """The sizes of this rank's microbatches, in order, of a pipeline call
+    on ``local_rows`` rows that are rows [first, first + local_rows) of a
+    global batch of ``total`` (``rows`` = (first, total); default the whole
+    batch). The JAX schedule splits the global batch into M contiguous
+    microbatches, rows [i B/M, (i + 1) B/M), and GSPMD splits each over the
+    data ranks. Where M divides the local rows each rank splits its own
+    rows evenly (M microbatches a rank, the smallest bubble); else the
+    microbatches are JAX's, each rank's part of them, and a part a rank
+    holds no row of is left out (a rank may run fewer microbatches than
+    another). Every block is row by row, so either split computes the
+    same rows: only the ranks of one pipe group must agree, and they hold
+    the same rows."""
+    first, total = (0, local_rows) if rows is None else rows
+    m = num_microbatches
+    if total % m:
+        raise ValueError(f"batch {total} not divisible by num_microbatches {m}")
+    if local_rows % m == 0:
+        return [local_rows // m] * m
+    size = total // m
+    sizes = [min(first + local_rows, (i + 1) * size) - max(first, i * size) for i in range(m)]
+    return [n for n in sizes if n > 0]
 
-    def __init__(self, block_fn: BlockFn, stacked, group, m: int):
-        self.block_fn, self.stacked, self.group, self.m = block_fn, stacked, group, m
+
+class _Schedule:
+    """One pipeline call's stacks, group and microbatch sizes."""
+
+    def __init__(self, block_fn: BlockFn, stacked, group, sizes: list[int]):
+        self.block_fn, self.stacked, self.group, self.sizes = block_fn, stacked, group, sizes
+        self.m = len(sizes)
         self.size, self.stage = dist.get_world_size(group), dist.get_rank(group)
 
     def peer(self, stage: int) -> int:
@@ -137,7 +165,7 @@ class _Schedule:
         """The forward ticks; y (whole on every rank). With ``graphs``, each
         microbatch's (input leaf, cond leaf, output) is appended to it."""
         m, p, s = self.m, self.size, self.stage
-        xs, cs = x.reshape(m, -1, *x.shape[1:]), cond.reshape(m, -1, *cond.shape[1:])
+        xs, cs = x.split(self.sizes), cond.split(self.sizes)
         cur, outs = None, []
         for t in range(m + p - 1):
             k, out = t - s, None
@@ -157,7 +185,8 @@ class _Schedule:
                     outs.append(out)
             recvs = []
             if s > 0 and 0 <= t + 1 - s < m:
-                cur = torch.empty(xs.shape[1:], dtype=x.dtype, device=x.device)
+                cur = torch.empty((self.sizes[t + 1 - s], *x.shape[1:]), dtype=x.dtype,
+                                  device=x.device)
                 recvs = [(cur, s - 1)]
             send_recv([(out, s + 1)] if out is not None and s < p - 1 else [], recvs,
                       self.group)
@@ -181,7 +210,7 @@ class _Pipeline(torch.autograd.Function):
         m, p, s = sched.m, sched.size, sched.stage
         params = _leaves(sched.stacked)
         need_x, need_c = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
-        dys = dy.reshape(m, -1, *dy.shape[1:])
+        dys = dy.split(sched.sizes)
         dxs = [None] * m
         dconds = [None] * m
         dparams = [None] * len(params)
@@ -204,7 +233,8 @@ class _Pipeline(torch.autograd.Function):
                     dxs[k] = d_in
             recvs = []
             if s < p - 1 and 0 <= t - 1 - s < m:
-                cur = torch.empty(dys.shape[1:], dtype=dy.dtype, device=dy.device)
+                cur = torch.empty((sched.sizes[t - 1 - s], *dy.shape[1:]), dtype=dy.dtype,
+                                  device=dy.device)
                 recvs = [(cur, s + 1)]
             send_recv([(d_in, s - 1)] if d_in is not None and s > 0 else [], recvs,
                       sched.group)
@@ -217,7 +247,8 @@ class _Pipeline(torch.autograd.Function):
                 dist.broadcast(dx, sched.peer(0), group=sched.group)
         if need_c:
             ref = next(g for g in dconds if g is not None)
-            dcond = torch.cat([torch.zeros_like(ref) if g is None else g for g in dconds])
+            dcond = torch.cat([ref.new_zeros((n, *ref.shape[1:])) if g is None else g
+                               for g, n in zip(dconds, sched.sizes)])
             dcond = dcond.float() if p == 1 else all_reduce_sum(dcond.float(), sched.group)
             dcond = dcond.to(ref.dtype)
         dparams = [torch.zeros_like(w) if g is None else g for g, w in zip(dparams, params)]
@@ -225,7 +256,8 @@ class _Pipeline(torch.autograd.Function):
 
 
 def pipeline_apply(block_fn: BlockFn, stacked, x: torch.Tensor, cond: torch.Tensor, *,
-                   group, num_microbatches: int = 8) -> torch.Tensor:
+                   group, num_microbatches: int = 8,
+                   rows: tuple[int, int] | None = None) -> torch.Tensor:
     """Run a stack of identical blocks as a P-stage pipeline over ``group``
     (P its size, stage s this rank's place in it).
 
@@ -234,13 +266,14 @@ def pipeline_apply(block_fn: BlockFn, stacked, x: torch.Tensor, cond: torch.Tens
     (dict or list) of tensors whose leading axis holds its slices
     :func:`stage_range` (what ``PipelinePlacement.shard`` leaves a model,
     and what JAX's ``shard_map`` hands each stage). ``x`` [B, N, D] and
-    ``cond`` [B, D] are the same on every rank of the group; B %
-    num_microbatches == 0. Returns [B, N, D], the same on every rank;
+    ``cond`` [B, D] are the same on every rank of the group: the whole
+    batch, or with ``rows`` = (first, total) rows [first, first + B) of a
+    global batch of ``total`` (a data rank's); the global batch %
+    num_microbatches == 0, and the microbatches are
+    :func:`microbatch_rows`'. Returns [B, N, D], the same on every rank;
     differentiable in x, cond and the stage's stacks."""
-    if x.shape[0] % num_microbatches:
-        raise ValueError(f"batch {x.shape[0]} not divisible by "
-                         f"num_microbatches {num_microbatches}")
-    sched = _Schedule(block_fn, stacked, group, num_microbatches)
+    sizes = microbatch_rows(x.shape[0], num_microbatches, rows)
+    sched = _Schedule(block_fn, stacked, group, sizes)
     params = _leaves(stacked)
     if not torch.is_grad_enabled() or not (x.requires_grad or cond.requires_grad or params):
         with torch.no_grad():
@@ -421,7 +454,10 @@ class PipelinePlacement:
 
     # -- the step's interface ---------------------------------------------
     def rows(self, local_rows: int) -> tuple[int, int]:
-        """(first, total) of this rank's rows in the global batch."""
+        """(first, total) of this rank's rows in the global batch: every
+        data rank holds as many (``shard_batch`` splits the batch evenly,
+        as JAX's P('data')), so the mean over the data ranks of each rank's
+        mean is the global batch's, each rank weighed by its rows."""
         return self.data_rank * local_rows, local_rows * self.data_size
 
     @torch.no_grad()

@@ -312,7 +312,9 @@ def shard_params(mesh, model: nn.Module, mode: str = "replicate",
     rank's slice and gather it once a forward; 'tensor' replaces each split
     parameter by this rank's slice and hands the model group to the modules
     that own them (a stack's template modules too: each slice is then this
-    rank's part of one block)."""
+    rank's part of one block). Under every mode a model axis of more than
+    one rank hands its group to each module with dropout
+    (``dropout_group``)."""
     model_size = axis_size(mesh, MODEL_AXIS)
     specs = param_specs(model, mode, model_size, fsdp_min_size, prefix)
     if placement is None:
@@ -339,15 +341,22 @@ def shard_params(mesh, model: nn.Module, mode: str = "replicate",
             full = getattr(owner, attr)
             setattr(owner, attr, nn.Parameter(rank_slice(full.detach(), spec.dim, group),
                                               requires_grad=full.requires_grad))
+    from ..ops.attention import AttentionRoPE
+    from ..ops.ffn import ConvFFN, StandardFFN
+
+    if model_size > 1:
+        # The ranks of a model group see the same rows and hold each
+        # dropout's input whole: they draw one mask (ops.layers.dropout).
+        for m in model.modules():
+            if isinstance(m, (AttentionRoPE, ConvFFN, StandardFFN)):
+                m.dropout_group = group
     if mode == "tensor":
-        from ..ops.attention import AttentionRoPE
         from ..ops.blocks import ResBlock
-        from ..ops.ffn import ConvFFN
 
         for name, m in model.named_modules():
             if isinstance(m, (AttentionRoPE, ConvFFN, ResBlock)):
                 probe = {AttentionRoPE: "to_q.weight", ConvFFN: "proj_in.weight",
                          ResBlock: "conv1.weight"}[type(m)]
-                if isinstance(specs.get(f"{prefix}{name}.{probe}"), Shard):
+                if isinstance(specs.get(f"{prefix}{name + '.' if name else ''}{probe}"), Shard):
                     m.model_group = group
     return placement

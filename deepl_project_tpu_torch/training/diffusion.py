@@ -29,10 +29,15 @@ dropout for the whole batch and keeps this rank's rows (so it computes
 what one process computes on the global batch), averages each gradient
 over the ranks that hold its parameter, takes the global grad norm with
 each parameter counted once, and lets the optimizer skip a non-finite step
-on every rank together. The port pipelines each data rank's own rows, so
-it needs the local rows to be a multiple of ``pipeline_microbatches``
-where JAX needs only the global batch to be one; it refuses otherwise and
-names the divisor.
+on every rank together. It takes every global batch the JAX step takes:
+a multiple of ``pipeline_microbatches`` that splits over the data ranks.
+Each data rank pipelines its own rows, in ``pipeline_microbatches`` of
+them where they divide, else its part of JAX's microbatches of the global
+batch (``parallel.pipeline.microbatch_rows``). The DiT computes each row
+alone (attention within an image; the Switch FFN's capacity is each
+image's, ``ops/moe.py``), so the split does not change a result. Every
+data rank holds as many rows, so the mean over data of each rank's mean
+loss and gradient is the global batch's.
 """
 
 from __future__ import annotations
@@ -108,7 +113,7 @@ def rectified_flow_loss(model, z0: torch.Tensor, labels: torch.Tensor,
     tb = t[:, None, None, None]
     z_t = (1.0 - tb) * z0 + tb * noise
     target = noise - z0
-    v = model(z_t, t, labels, deterministic=False, generator=generator, label_rows=rows)
+    v = model(z_t, t, labels, deterministic=False, generator=generator, rows=rows)
     loss = (v.float() - target).square().mean()
     metrics = {"loss": loss, "v_norm": v.square().mean().sqrt()}
     # The stacked layout (scan_blocks or pipeline_axis) keeps no router
@@ -119,20 +124,6 @@ def rectified_flow_loss(model, z0: torch.Tensor, labels: torch.Tensor,
         loss = loss + model.config.moe_aux_weight * aux
         metrics["total"] = loss
     return loss, metrics
-
-
-def _check_rows(model, placement, rows: int) -> None:
-    """The port pipelines each data rank's own rows: refuse local rows that
-    the microbatches do not divide, naming the divisor of the global batch."""
-    cfg = model.config
-    m = cfg.pipeline_microbatches
-    if (cfg.pipeline_axis and placement.pipe_size > 1 and placement.data_size > 1
-            and rows % m):
-        raise ValueError(
-            f"the port pipelines each data rank's own rows: {rows} rows a rank (global "
-            f"batch {rows * placement.data_size}) do not split into pipeline_microbatches "
-            f"{m}; use a global batch that is a multiple of {m * placement.data_size} (the "
-            f"JAX package needs only a multiple of {m})")
 
 
 def make_dit_train_step(model, time_sampling: str = "logit_normal",
@@ -153,7 +144,6 @@ def make_dit_train_step(model, time_sampling: str = "logit_normal",
         names = [n for n, _ in named]
         rows = None
         if placement is not None:
-            _check_rows(model, placement, z0.shape[0])
             rows = placement.rows(z0.shape[0])
         with use_axes(None if placement is None else placement.mesh):
             loss, metrics = rectified_flow_loss(model, z0, labels, gen, time_sampling,

@@ -30,8 +30,12 @@ the steps average gradients and metrics over the data group, validation
 splits each batch over data, and checkpoints hold whole tensors (gathered
 on save, which rank 0 writes; sliced on restore), so a checkpoint crosses
 placements and process counts both ways. A global batch that does not
-divide over data is refused with its divisor (the JAX trainer drops to a
-subset mesh). Without a process group nothing of this runs: one process,
+split over world / mesh_model data ranks trains, as in the JAX trainer, on
+a subset mesh of the first gcd(batch, world / mesh_model) x mesh_model
+ranks; each rank left out says so, takes no step, writes nothing and
+returns from ``fit`` when the mesh's ranks finish it (a barrier over the
+world), so a torchrun job of such a batch exits 0. Without a process group
+nothing of this runs: one process,
 one device, ``mesh_model`` 1 (``param_sharding`` then places nothing, as
 in the JAX rules at a model axis of 1).
 """
@@ -39,6 +43,7 @@ in the JAX rules at a model axis of 1).
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 import signal
 from typing import Any, Iterator
@@ -62,6 +67,11 @@ from .optim import make_optimizer
 from .schedule import warmup_cosine
 from .train_step import (TrainState, init_ema, make_gan_train_step, make_train_step,
                          make_vf_proj_params, named_trainables)
+
+# How long a rank left out of a subset mesh waits for the mesh's ranks to
+# finish fit(): the whole run, so far longer than the process group's
+# timeout.
+RELEASE_TIMEOUT = datetime.timedelta(days=365)
 
 
 @dataclasses.dataclass
@@ -118,17 +128,39 @@ class Trainer:
         if cfg.param_sharding not in MODES:
             raise ValueError(f"param_sharding must be one of {MODES}, got "
                              f"{cfg.param_sharding!r}")
+        if cfg.lr_schedule not in ("constant", "cosine"):
+            raise ValueError(f"lr_schedule must be constant|cosine, got {cfg.lr_schedule!r}")
         self.mesh = self.placement = self.disc_placement = None
+        # A subset mesh (data_axis_size): the barrier group of its ranks
+        # (save) and the world's group that holds the ranks left out until
+        # the mesh's ranks finish (fit); whether this rank is left out.
+        self._mesh_group = self._release_group = None
+        self.outside = False
         if dist.is_initialized():
-            data = data_axis_size(cfg.batch_size, dist.get_world_size(), cfg.mesh_model)
-            self.mesh = create_mesh(data=data, model=cfg.mesh_model)
+            world, rank = dist.get_world_size(), dist.get_rank()
+            data = data_axis_size(cfg.batch_size, world, cfg.mesh_model)
+            ranks = data * cfg.mesh_model
+            # Every rank of the world enters each group's creation, in order.
+            mesh = create_mesh(data=data, model=cfg.mesh_model, ranks=ranks)
+            if ranks < world:
+                self._mesh_group = dist.new_group(list(range(ranks)))
+                self._release_group = dist.new_group(backend="gloo", timeout=RELEASE_TIMEOUT)
+                if rank == 0:
+                    print(f"[trainer] subset mesh: data {data} x model {cfg.mesh_model} on ranks "
+                          f"0-{ranks - 1} of {world} (global batch {cfg.batch_size}: "
+                          f"gcd(batch, {world} / mesh_model {cfg.mesh_model}) data ranks)")
+            if mesh.get_coordinate() is None:
+                self.outside = True
+                self.model_config, self.cfg = model_config, cfg
+                print(f"[trainer] rank {rank} is outside the subset mesh of ranks 0-{ranks - 1}: "
+                      "it takes no step and writes nothing; fit() waits for the mesh's ranks")
+                return
+            self.mesh = mesh
             self.placement = Placement(self.mesh, cfg.param_sharding)
             self.disc_placement = Placement(self.mesh)  # replicated
         elif cfg.mesh_model > 1:
             raise ValueError(f"mesh_model={cfg.mesh_model} needs that many ranks a model "
                              "group: launch under torchrun (python -m torch.distributed.run)")
-        if cfg.lr_schedule not in ("constant", "cosine"):
-            raise ValueError(f"lr_schedule must be constant|cosine, got {cfg.lr_schedule!r}")
         self.model_config = model_config
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -398,6 +430,9 @@ class Trainer:
         """Run the loop over ``data_iter`` ([B, H, W, 3] batches in [0, 1],
         numpy or tensors). SIGTERM/SIGINT finish the step, checkpoint and
         return; a second signal falls through to the previous handler."""
+        if self.outside:
+            dist.barrier(group=self._release_group)
+            return state
         stop_signal: list[int | None] = [None]
         prev_handlers: dict[int, Any] = {}
 
@@ -432,8 +467,11 @@ class Trainer:
                 for _ in range(state.step):
                     if next(data_iter, None) is None:
                         break
-            return self._fit_loop(state, data_iter, val_batches, writer, history,
-                                  start_epoch, stop_signal)
+            state = self._fit_loop(state, data_iter, val_batches, writer, history,
+                                   start_epoch, stop_signal)
+            if self._release_group is not None:  # the ranks left out may go
+                dist.barrier(group=self._release_group)
+            return state
         finally:
             for sig, prev in prev_handlers.items():
                 signal.signal(sig, prev)
@@ -544,7 +582,7 @@ class Trainer:
             save_checkpoint(ckpt_dir, state.step, payload, epoch=epoch, config=saved_cfg,
                             max_to_keep=1 if best else 3, metrics=val if best else None)
         if self.mesh is not None:
-            dist.barrier()
+            dist.barrier(group=self._mesh_group)
         tag = " (new best)" if best else ""
         print(f"[trainer] saved checkpoint at step {state.step}{tag}")
 

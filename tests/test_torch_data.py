@@ -220,6 +220,42 @@ def test_hf_stream_matches_jax(monkeypatch):
     _same(pds.make_dataset("hf:d", num_workers=3, **kw), serial)
 
 
+def _tree_bytes(root) -> dict:
+    return {os.path.relpath(os.path.join(d, f), root): open(os.path.join(d, f), "rb").read()
+            for d, _, fs in os.walk(root) for f in fs}
+
+
+@pytest.mark.parametrize("max_images", [None, 3])
+def test_download_cli_writes_the_jax_tree(monkeypatch, tmp_path, capsys, max_images):
+    """cli.download of both packages on the same stand-in ``datasets``
+    stream (RGB and grayscale images under 'image' or 'img', one example
+    without an image, labels 0-2 and one without a label): the same
+    class-folder tree of JPEGs, byte for byte, and the same output."""
+    from deepl_project_tpu.cli import download as jax_download
+    from deepl_project_tpu_torch.cli import download
+
+    rng = np.random.RandomState(2)
+    examples = []
+    for i in range(6):
+        img = Image.fromarray((rng.rand(10 + i, 14, 3) * 255).astype(np.uint8))
+        examples.append({"image" if i % 2 else "img": img.convert("L") if i == 4 else img,
+                         "label": i % 3})
+    examples.insert(2, {"label": 1})  # no image: skipped
+    examples.append({"image": Image.fromarray(np.zeros((8, 8, 3), np.uint8))})  # label 0
+    calls, _ = _fake_datasets(monkeypatch, examples)
+    trees, printed = [], []
+    for i, cli in enumerate((download, jax_download)):
+        out = tmp_path / str(i)
+        argv = ["--dataset", "org/images", "--split", "validation", "--out", str(out)]
+        cli.main(argv + ([] if max_images is None else ["--max_images", str(max_images)]))
+        assert calls == {"name": "org/images", "split": "validation", "streaming": True}
+        trees.append(_tree_bytes(out))
+        printed.append(capsys.readouterr().out.replace(str(out), "OUT"))
+    assert trees[0] == trees[1] and printed[0] == printed[1]
+    assert len(trees[0]) == (7 if max_images is None else max_images)
+    assert all(k.endswith(".jpg") and k.startswith("class_000") for k in trees[0])
+
+
 def test_batches_carry_labels(tree):
     items = list(pds.image_folder_dataset(tree, RES, with_labels=True))
     ours = list(batch_iterator(iter(items), 4, drop_last=False))

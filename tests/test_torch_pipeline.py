@@ -22,8 +22,9 @@ tests/torch_pipeline_jobs.py, one pool of rank processes for the file).
   first moment over 1 - b1); each stage ran its 4 microbatches both ways.
 - ``create_dit`` under a placement allocates only its stage's blocks (and
   experts) with the whole model's values, and a whole checkpoint round
-  trips through ``full_state`` / ``load_full``; the port's own deviation,
-  local rows % M, is refused with the divisor named.
+  trips through ``full_state`` / ``load_full``; a global batch of 4 at data
+  2 and M = 4 (local rows that M does not divide) runs JAX's microbatches
+  and matches JAX's step and the sequential port's.
 
 The JAX results are module fixtures: the pipelined step's trace and
 compile take seconds on a CPU host.
@@ -155,12 +156,15 @@ def test_torch_pipelined_dit_forward_matches_jax(pool, tmp_path, jax_dit_forward
     np.testing.assert_allclose(outs[0].numpy(), want, rtol=2e-4, atol=2e-4)
 
 
-@pytest.fixture(scope="module")
-def jax_dp_pp_step():
+def _jax_dp_pp(batch: int):
+    """JAX's make_dit_train_step at data 2 x pipe 2, M = 4, with optax's
+    adamw(1e-3), on a global batch of ``batch`` latents: the config, the
+    weights, the inputs, JAX's own t and noise, its metrics, updated
+    parameters and gradients (as port state_dicts)."""
     cfg = phase5_cfg(pipeline_axis="pipe", pipeline_microbatches=4)
     model = JaxDiT(cfg)
     params = random_params(model, PJ.GRID, seed=2)
-    z0, _, labels = PJ.dit_inputs(seed=3)
+    z0, _, labels = PJ.dit_inputs(b=batch, seed=3)
     rng = jax.random.PRNGKey(3)
     tx = optax.adamw(1e-3)
     mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "pipe"))
@@ -176,6 +180,16 @@ def jax_dp_pp_step():
     grads = {k: v / 0.1 for k, v in as_np(state.opt_state[0].mu).items()}
     return (cfg, dit_params_to_torch_state_dict(params), z0, labels, t, noise,
             {k: float(v) for k, v in m.items()}, as_np(state.params), grads)
+
+
+@pytest.fixture(scope="module")
+def jax_dp_pp_step():
+    return _jax_dp_pp(8)
+
+
+@pytest.fixture(scope="module")
+def jax_dp_pp_step_b4():
+    return _jax_dp_pp(4)
 
 
 def test_torch_dp_pp_dit_step_matches_jax(pool, tmp_path, jax_dp_pp_step):
@@ -215,11 +229,26 @@ def test_torch_staged_dit_init_and_whole_checkpoint(pool, tmp_path, mesh):
                for r in got)
 
 
-def test_torch_local_rows_refusal(pool, tmp_path, jax_dp_pp_step):
-    cfg, sd, z0, labels = jax_dp_pp_step[:4]
-    # Global batch 4 at data 2: 2 rows a rank, 4 microbatches.
-    got = pool.run(PJ.rows_refusal, 4, tmp_path, _port_kw(cfg), sd, z0[:4], labels[:4])
-    assert got[0]["world"] == 4
+def test_torch_local_rows_refusal(pool, tmp_path, jax_dp_pp_step_b4):
+    """Global batch 4 at data 2 x pipe 2 and 4 microbatches (2 rows a rank,
+    which M does not divide; the port refused it before): the step runs
+    JAX's microbatches, global rows [i, i + 1), each rank its two, and
+    matches JAX's data x pipe step (jax_dp_pp_step's, at batch 4) and the
+    sequential port (one process, no pipe group) on the same draws, at
+    test_torch_dp_pp_dit_step_matches_jax's bars."""
+    cfg, sd, z0, labels, t, noise, want_m, want_p, want_g = jax_dp_pp_step_b4
+    args = (_port_kw(cfg), sd, z0, labels, np.array(t), np.array(noise))
+    seq = PJ.dit_step(*args, None, PJ.ADAMW)
+    got = pool.run(PJ.dit_step, 4, tmp_path, *args, (2, 2, 1), PJ.ADAMW)
+    assert [r["world"] for r in got] == [4] * 4
+    for ref in (want_m, seq["metrics"]):
+        for r in got:
+            np.testing.assert_allclose(r["metrics"]["loss"], ref["loss"], rtol=1e-4)
+            np.testing.assert_allclose(r["metrics"]["grad_norm"], ref["grad_norm"], rtol=1e-4)
     for r in got:
-        assert r["step"] == 0
-        assert "multiple of 8" in r["error"] and "pipeline_microbatches 4" in r["error"]
+        assert r["runs"] == {"forward": 2, "backward": 2}  # rows 2d, 2d + 1: 2 of the 4
+        PJ.check_updated(r["params"], want_p, want_g)
+        for grads in (want_g, {k: v.numpy() for k, v in seq["grads"].items()}):
+            for k, g in grads.items():
+                np.testing.assert_allclose(r["grads"][k].numpy(), g, rtol=1e-4,
+                                           atol=1e-5 * np.abs(g).max(), err_msg=k)

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import importlib
 import itertools
+import json
 import os
 import queue
 import time
@@ -455,6 +456,89 @@ def fit(mode, model_size, out_dir, data, resume_only=False) -> dict:
     return {"params": _whole(trainer.placement, named_trainables(state.model)),
             "step": state.step, "optimizer": state.optimizer.state_dict(),
             "ema": _whole(trainer.placement, state.ema.items())}
+
+
+def subset_fit(out_dir: str, data: list, params: dict | None = None) -> dict:
+    """Trainer.fit of the micro model (noise pinned: logvar_clip (-80, 20)),
+    one step a batch of ``data``, at the global batch of data[0]'s rows,
+    its weights ``params`` (a JAX tree, loaded through
+    ``utils.convert.load_jax_params``) or the seed's; under a process group
+    each rank writes under out_dir/rank<r> (none: out_dir/single). This
+    rank's place (left out or not, the data axis), its history rows and
+    every file it wrote."""
+    from deepl_project_tpu_torch.training import Trainer, TrainerConfig
+    from deepl_project_tpu_torch.utils.convert import load_jax_params
+
+    own = os.path.join(out_dir, f"rank{dist.get_rank()}" if dist.is_initialized() else "single")
+    tc = TrainerConfig(batch_size=data[0].shape[0], warmup_steps=1, num_epochs=1,
+                       steps_per_epoch=len(data), log_every=1, resolution=RES, output_dir=own,
+                       weights=_weights(), save_every_epochs=1, seed=SEED)
+    trainer = Trainer(micro_config(logvar_clip=(-80.0, 20.0)), tc, device="cpu")
+    state = None
+    if not trainer.outside:
+        state = trainer.create_state()
+        if params is not None:
+            load_jax_params(state.model, params)
+    state = trainer.fit(iter(data), state=state)
+    history = os.path.join(own, "history.jsonl")
+    rows = [json.loads(line) for line in open(history)] if os.path.exists(history) else []
+    files = sorted(os.path.relpath(os.path.join(d, f), own)
+                   for d, _, fs in os.walk(own) for f in fs)
+    return {"outside": trainer.outside, "step": None if state is None else state.step,
+            "data": None if trainer.placement is None else trainer.placement.data_size,
+            "rows": rows, "files": files}
+
+
+def dropout_module(kind: str, sd: dict, x: np.ndarray, p: float, seed: int,
+                   model_size: int | None) -> dict:
+    """The port's AttentionRoPE(32, 16) or ConvFFN(32) (``kind`` 'attention'
+    / 'conv_ffn') at dropout ``p`` on the state_dict ``sd`` (numpy), placed
+    'tensor' over a model group of ``model_size`` (None: one process): its
+    train-mode output on NHWC ``x`` after ``torch.manual_seed(seed)``, the
+    dropout masks that forward drew, its deterministic output (both in the
+    masks' layout, and the latter NHWC), and whether the module holds a head
+    / channel shard."""
+    from deepl_project_tpu_torch.ops.attention import AttentionRoPE
+    from deepl_project_tpu_torch.ops.ffn import ConvFFN
+    from deepl_project_tpu_torch.ops.layers import record_dropout_masks
+    from deepl_project_tpu_torch.parallel import create_mesh, shard_params
+    from deepl_project_tpu_torch.utils.convert import load_state_dict
+
+    m = (AttentionRoPE(32, 16, impl="auto_train", dropout=p) if kind == "attention"
+         else ConvFFN(32, dropout=p))
+    load_state_dict(m, {k: torch.from_numpy(v) for k, v in sd.items()})
+    if model_size:
+        shard_params(create_mesh(model=model_size), m, "tensor")
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    torch.manual_seed(seed)
+    with torch.no_grad(), record_dropout_masks() as masks:
+        out = m(xt, deterministic=False)
+        det = m(xt)
+
+    def as_mask(t):  # attention draws on [B, N, C] tokens, the FFN on NCHW
+        return t if t.shape == masks[0].shape else t.permute(0, 2, 3, 1).reshape(masks[0].shape)
+
+    return {"out": as_mask(out), "det": as_mask(det), "det_nhwc": det.permute(0, 2, 3, 1),
+            "masks": masks, "split": m.model_group is not None}
+
+
+def dropout_model(model_size: int | None, data: list, p: float, seed: int) -> dict:
+    """The micro model at dropout ``p`` (the seed's weights), placed 'tensor'
+    over a model group of ``model_size`` (None: one process): the
+    reconstruction and mean of a train-mode forward of data[0] after
+    ``torch.manual_seed(seed)``, the masks it drew, and its local-heads
+    route count (the sublayer kernels stay out while dropout is live)."""
+    from deepl_project_tpu_torch.ops import attention
+    from deepl_project_tpu_torch.ops.layers import record_dropout_masks
+
+    model = build_model(dropout=p)
+    _place(model, "tensor" if model_size else None, model_size)
+    x = torch.as_tensor(data[0]).permute(0, 3, 1, 2)
+    attention.reset_route_counts()
+    torch.manual_seed(seed)
+    with torch.no_grad(), record_dropout_masks() as masks:
+        recon, mu, _ = model(x, deterministic=False)
+    return {"recon": recon, "mu": mu, "masks": masks, "routes": attention.route_counts()}
 
 
 def train_cli(argv: list, world: int) -> bool:

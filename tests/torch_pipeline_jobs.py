@@ -228,28 +228,6 @@ def dryrun_phase5(data: int, pipe: int, expert: int) -> dict:
     return {"world": _world(), **dit_phase(data, pipe, expert, torch.device("cpu"))}
 
 
-def rows_refusal(cfg_kw: dict, sd: dict, z0, labels) -> dict:
-    """A (2, 2, 1) step whose local rows the microbatches do not divide."""
-    from deepl_project_tpu_torch.parallel import shard_batch
-    from deepl_project_tpu_torch.training import TrainState, make_dit_train_step, make_optimizer
-    from deepl_project_tpu_torch.training.train_step import named_trainables
-
-    pl = _placement(2, 2, 1)
-    model = _dit(cfg_kw, sd, pl)
-    state = TrainState(0, model, make_optimizer(named_trainables(model), placement=pl))
-    error = None
-    try:
-        make_dit_train_step(model, placement=pl)(
-            state, torch.as_tensor(shard_batch(pl.mesh, z0)),
-            torch.as_tensor(shard_batch(pl.mesh, labels)).long())
-    except ValueError as e:
-        error = str(e)
-    # The refusal comes before any collective: no rank leaves the group
-    # while another still sets up the placement's groups.
-    dist.barrier()
-    return {"world": _world(), "error": error, "step": state.step}
-
-
 def bf16_forward(cfg_kw: dict, sd: dict, z, t, y, mesh: tuple) -> dict:
     """The bf16 DiT's no-grad forward under a (data, pipe, expert) mesh, the
     whole batch on every rank (gloo's bf16 transfers, broadcast and
