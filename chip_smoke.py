@@ -338,7 +338,13 @@ Phases (any failure exits non-zero and prints no result):
    reconstruction's mean abs error against one process's fp32 forward
    within CONTEXT_MEAN_RATIO of one process's int8 forward's, 24 flash
    forwards a rank and no other kernel. The flash kernels are also held
-   and timed at (d)'s local ring shapes (CONTEXT_GAN_RING_SHAPES).
+   and timed at (d)'s local ring shapes (CONTEXT_GAN_RING_SHAPES); (g) the
+   same model at CONTEXT_G_RES (720px), whose maps the two ranks split
+   unevenly from stage 4 on (23 / 22 of 45 rows): the b1 forward against
+   one process's fp32 / bf16 (CONTEXT_MEAN_RATIO) and the b2 step against
+   one process's (PARALLEL_LOSS_RTOL / PARALLEL_GRAD_NORM_RTOL), every
+   ring partial a flash launch at the ragged local token counts
+   (CONTEXT_G_TOKENS); the kernels held and timed at CONTEXT_G_RING first.
 16. pipeline (run after context, before parallel): GPipe and Switch-MoE
    expert parallelism of the latent DiT-L/2 (full width, depth cut to
    PIPE_DEPTH, every parameter random). The flash kernels at a pipeline stage's microbatch
@@ -395,7 +401,12 @@ Phases (any failure exits non-zero and prints no result):
    reconstruct, held to the same rule, the same
    launches and routes as (a) (the sublayer kernels on a rank's heads
    inside the stacks), bit-equality with (a)'s responses logged; the
-   card's memory back after the ranks.
+   card's memory back after the ranks; (f) beside them, four ranks
+   (--worker tensor4): large at TENSOR4_DEPTHS placed 'tensor' at model 4,
+   where stage 2's 6 heads are cut as the JAX rule cuts them (route
+   gathered_heads), a b4 no-grad forward within TENSOR4_MEAN_RATIO of
+   rank 0's one-process bf16 error against fp32, stage 2's q/k/v/proj
+   bytes a rank a quarter of the whole.
 18. scan (run after quant, with phase serve's weights): the scan layout
    (scan_blocks: each stage's blocks one BlockStack of stacked parameters).
    (a) The weights stacked by ops.stack.to_scanned_params (no second init);
@@ -605,6 +616,8 @@ WGMMA_KERNELS = ("ln_qkv_rope", "proj_bias_gemm", "small_attention", "flash_atte
 # The flash backward of checkouts from before its single pass: two
 # launchers, built by --baseline from such a DIR with these signatures.
 PAIR_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# Launcher name -> its source file's name, where they differ.
+SOURCE_OF_FLASH = {"flash_attention_bwd_det": "flash_attention_bwd"}
 
 # Phase parallel: (b)'s global batch (2 ranks x 4 rows under remat 'none'
 # against one process at 8); its bars, loss within PARALLEL_LOSS_RTOL and
@@ -745,6 +758,35 @@ CONTEXT_GAN_RUNS = (("gan", "bfloat16", CONTEXT_GAN_BATCH, CONTEXT_GAN_RES),
 # calibrates.
 CONTEXT_INT8_SCOPE = "all"
 CONTEXT_AMAX_RTOL = 1e-3
+# Phase context (g): the same model at CONTEXT_G_RES on the same two ranks, a
+# height whose maps the context size does not all divide (720 % 32 = 16):
+# each rank holds 360, 180, 90 and 45 rows of stages 0-3 and 23 / 22 of
+# stage 4's 45 (GSPMD's uneven split, parallel.context.row_split). The b1
+# no-grad forward against one process's fp32 and bf16 forwards ((b)'s bar)
+# and the b2 stage-1 step against one process's ((c)'s bars); every ring
+# partial on the flash kernels (launches = ring steps), at ragged local
+# token counts. CONTEXT_G_RING: rank 0's (B, N_local, heads) at b1 with the
+# key chunks of its two ring steps (its own, the other rank's), held to the
+# plain versions and timed in phase context's kernel rows.
+CONTEXT_G_RES = 720
+CONTEXT_G_RING = (((1, 16200, 6), (16200, 16200)), ((1, 4050, 12), (4050, 4050)),
+                  ((1, 1035, 24), (1035, 990)))
+# The ragged local token counts each rank's ring partials must launch at, by
+# heads: rank 0 holds 23 of stage 4's 45 rows, rank 1 22.
+CONTEXT_G_TOKENS = ({6: 16200, 12: 4050, 24: 1035}, {6: 16200, 12: 4050, 24: 990})
+# Phase serve_mesh (f): large f16d32 at TENSOR4_DEPTHS, bf16, attention
+# 'auto', placed 'tensor' on a model axis of 4 (four ranks on the card over
+# gloo, --worker tensor4): stage 2's 6 heads do not split over 4, so
+# to_q/k/v hold 96 of its 384 columns and proj 96 input rows, as the JAX
+# rule places them; q, k and v are gathered for the core (route
+# gathered_heads). The no-grad forward of TENSOR4_BATCH images at 256px
+# against one process's fp32 forward: its mean error within
+# TENSOR4_MEAN_RATIO of one process's bf16 forward's.
+TENSOR4_DEPTHS = (1, 1, 2, 2, 2)
+TENSOR4_BATCH = 4
+TENSOR4_MEAN_RATIO = 1.1
+TENSOR4_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs",
+                           "chip_smoke_tensor4")
 
 # Phase pipeline: the latent DiT-L/2 (hidden 1024, 16 heads of 64), full
 # width, depth cut from 24 to PIPE_DEPTH (12 in PRs 18-19, 4 since PR 20;
@@ -1897,12 +1939,20 @@ def phase_baseline(dirs):
                 fail(f"baseline: a launch failed ({fn.__name__})")
         return run
 
-    def same_launcher(name, shape, args, outs, refs, flops):
+    def same_launcher(name, shape, args, outs, refs, flops, unbounded=None):
+        """``unbounded``: (argtypes, args) of a DIR whose flash launcher
+        takes one length N (before the length bounds: no ``int Nk``)."""
         for d, (csrc, names) in srcs.items():
-            if name in names:
-                turns(name, shape, d, {"baseline": launch(build.launcher(name, csrc), *args),
-                                       "change": launch(build.launcher(name), *args)},
-                      outs, refs, flops)
+            if name not in names:
+                continue
+            old = False
+            if unbounded is not None:
+                with open(os.path.join(csrc, f"{SOURCE_OF_FLASH.get(name, name)}.cu")) as f:
+                    old = not re.search(r"\bint Nk\b", f.read())
+            base = (launch(build.launcher(name, csrc, unbounded[0]), *unbounded[1]) if old
+                    else launch(build.launcher(name, csrc), *args))
+            turns(name, shape, d, {"baseline": base, "change": launch(build.launcher(name), *args)},
+                  outs, refs, flops)
 
     for n, c, _, _, b in kernel_shapes()[1:]:
         o = torch.randn(b * n, c, generator=gen, device="cuda").to(bf)
@@ -1974,11 +2024,13 @@ def phase_baseline(dirs):
         q, k, v = ((1.5 * torch.randn(b, n, h, 64, generator=gen, device="cuda")).to(bf)
                    for _ in range(3))
         o, lse = torch.empty_like(q), torch.empty(b, h, n, device="cuda")
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, n, h,
-                c, c, c, c, scale, stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr())
+        args = ptrs + (b, n, n, h, c, c, c, c, scale, stream)
         same_launcher("flash_attention_fwd", (b, n, h), args, [o, lse],
                       list(fla.flash_forward_reference(q, k, v, scale)),
-                      flash_bound("flash_attention_fwd", b, n, h)[0])
+                      flash_bound("flash_attention_fwd", b, n, h)[0],
+                      ([P] * 5 + [I] * 7 + [ctypes.c_float, P],
+                       ptrs + (b, n, h, c, c, c, c, scale, stream)))
         del q, k, v, o, lse
         torch.cuda.empty_cache()
     for n, c, _, _, b in kernel_shapes()[1:]:
@@ -2002,10 +2054,12 @@ def phase_baseline(dirs):
     delta = torch.empty(b, h, n, device="cuda")
     acc = torch.empty(b, h, n, 64, device="cuda")
     flops = flash_bound("flash_attention_bwd", b, n, h)[0]
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), acc.data_ptr(), *(t.data_ptr() for t in outs),
-            b, n, h, c, c, c, c, c, c, scale, stream)
-    same_launcher("flash_attention_bwd", FLASH_TRAIN, args, outs, refs, flops)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), acc.data_ptr(), *(t.data_ptr() for t in outs))
+    args = ptrs + (b, n, n, h, c, c, c, c, c, c, scale, stream)
+    same_launcher("flash_attention_bwd", FLASH_TRAIN, args, outs, refs, flops,
+                  ([P] * 11 + [I] * 9 + [ctypes.c_float, P],
+                   ptrs + (b, n, h, c, c, c, c, c, c, scale, stream)))
     for d, (csrc, names) in srcs.items():
         if not set(PAIR_KERNELS) <= set(names):
             continue
@@ -2958,6 +3012,13 @@ def _data_tail(model, images, items, decoder, ckpt, out_dir, lm, from_pretrained
     torch.cuda.empty_cache()
 
 
+def flash_by_shape() -> dict:
+    """The flash kernels' launches since the last reset by "name N heads"."""
+    from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
+
+    return {f"{k} {n} {h}": c for (k, n, h), c in fla.launch_counts_by_shape().items()}
+
+
 def launches_by_name() -> dict:
     """Every kernel's launches by name since the last reset."""
     from deepl_project_tpu_torch.ops.hopper import flash_attention as fla
@@ -3587,6 +3648,109 @@ def serve_mesh_worker(group: int) -> None:
     dist.destroy_process_group()
 
 
+def tensor4_worker() -> None:
+    """Run (f) of phase serve_mesh, started by torchrun on four processes on
+    the card over gloo: large f16d32 at TENSOR4_DEPTHS from seed 0 (bf16,
+    attention 'auto'), rank 0's one-process fp32 and bf16 forwards of
+    TENSOR4_BATCH seeded images first, then every rank places the model
+    'tensor' on a model axis of 4 and runs the no-grad forward with the
+    launch and route counts set to 0 just before. Writes
+    TENSOR4_DIR/rank<r>.json (counts, stage 2's q/k/v/proj bytes held and
+    whole) and rank 0's reconstructions; any failure exits non-zero."""
+    import torch
+    import torch.distributed as dist
+
+    from deepl_project_tpu_torch import create_transvae
+    from deepl_project_tpu_torch.ops import attention as attn_mod
+    from deepl_project_tpu_torch.parallel import (create_mesh, initialize_multihost,
+                                                  shard_params)
+
+    initialize_multihost(backend="gloo", device="cuda:0")
+    rank = dist.get_rank()
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    x = torch.rand(TENSOR4_BATCH, 3, 256, 256, generator=gen, device="cuda")
+
+    def build(dtype):
+        return create_transvae("large", 16, 32, device="cuda", seed=0, dtype=dtype,
+                               depths=TENSOR4_DEPTHS, attention_impl="auto").eval()
+
+    stage2 = ("encoder.stages.2.0.attn.", ("to_q", "to_k", "to_v", "proj"))
+    model = build("bfloat16")
+    names = [n for n, _ in model.named_parameters()
+             if n.startswith(stage2[0]) and n.split(".")[-2] in stage2[1]]
+    whole_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                      if n in names)
+    if rank == 0:
+        recon = {}
+        for dtype in ("float32", "bfloat16"):
+            m = build(dtype) if dtype == "float32" else model
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = dtype == "bfloat16"
+            with torch.no_grad():
+                recon[dtype] = torch.sigmoid(m(x.to(getattr(torch, dtype)))[0].float()).cpu()
+            torch.backends.cudnn.allow_tf32 = tf32
+            del m
+        torch.save(recon, os.path.join(TENSOR4_DIR, "one.pt"))
+        torch.cuda.empty_cache()
+    mesh = create_mesh(model=4)
+    shard_params(mesh, model, "tensor")
+    held = dict(model.named_parameters())
+    held_bytes = sum(held[n].numel() * held[n].element_size() for n in names)
+    dist.barrier()
+    torch.cuda.synchronize()
+    reset_launches()
+    attn_mod.reset_route_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        got = torch.sigmoid(model(x.to(torch.bfloat16))[0].float())
+    torch.cuda.synchronize()
+    report = {"ms": (time.perf_counter() - t0) * 1e3, "launches": launches_by_name(),
+              "routes": attn_mod.route_counts(), "held_bytes": held_bytes,
+              "whole_bytes": whole_bytes, "stage2": names,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if rank == 0:
+        torch.save(got.cpu(), os.path.join(TENSOR4_DIR, "tensor4.pt"))
+    with open(os.path.join(TENSOR4_DIR, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+
+
+def _tensor4_check(run: "Beside") -> None:
+    """Phase serve_mesh (f): the model-4 ranks' forward against one
+    process's fp32 and bf16 forwards, and what each rank held and ran."""
+    import torch
+
+    rc, text = run.wait(timeout=600)
+    if rc != 0:
+        fail(f"serve_mesh (f): the four ranks exited {rc}:\n{text[-6000:]}")
+    one = torch.load(os.path.join(TENSOR4_DIR, "one.pt"))
+    got = torch.load(os.path.join(TENSOR4_DIR, "tensor4.pt"))
+    e_tp = (got - one["float32"]).abs()
+    e_one = (one["bfloat16"] - one["float32"]).abs()
+    log(f"serve_mesh (f): model-4 tensor forward (large at {TENSOR4_DEPTHS}, b{TENSOR4_BATCH} "
+        f"@256px) vs one process's fp32: mean_abs {e_tp.mean():.4e} max_abs {e_tp.max():.4e}; "
+        f"one process's bf16: mean_abs {e_one.mean():.4e} max_abs {e_one.max():.4e} (ratio "
+        f"{e_tp.mean() / e_one.mean():.3f}, bound {TENSOR4_MEAN_RATIO}); {run.s:.1f} s with "
+        f"the set-up")
+    if not (torch.isfinite(got).all() and e_tp.mean() <= TENSOR4_MEAN_RATIO * e_one.mean()):
+        fail("serve_mesh (f): the model-4 tensor forward is less accurate than one process's "
+             "bf16 forward")
+    for r in range(4):
+        with open(os.path.join(TENSOR4_DIR, f"rank{r}.json")) as f:
+            g = json.load(f)
+        log(f"serve_mesh (f) rank {r}: stage 2's q/k/v/proj {g['held_bytes']} of "
+            f"{g['whole_bytes']} bytes held ({g['held_bytes'] / g['whole_bytes']:.4f}), "
+            f"{g['ms']:.1f} ms (four ranks on one card over gloo: not a speed), peak "
+            f"{g['peak_gib']:.2f} GiB, routes {g['routes']}, launches {g['launches']} [{CARD}]")
+        # The weights are 4 x [384, 384] and a 384 bias: the bias stays whole.
+        if g["held_bytes"] * 4 > g["whole_bytes"] + 3 * 384 * 4 or not g["routes"].get(
+                "gathered_heads") or not g["launches"].get("flash_attention_fwd"):
+            fail(f"serve_mesh (f) rank {r}: held {g['held_bytes']} of {g['whole_bytes']} "
+                 f"bytes, routes {g['routes']}, launches {g['launches']}; want a quarter, the "
+                 f"gathered heads and the flash core")
+        SERVE_MESH_PATHS[f"serve_mesh_tensor4_rank{r}"] = g["launches"]
+
+
 def serve_nccl_worker() -> None:
     """Run (d) of phase serve_mesh, started by torchrun as one process:
     cli.serve's own join_mesh (NCCL on the card) and serve on the (1, 1, 1)
@@ -3673,6 +3837,10 @@ def phase_serve_mesh(model) -> None:
             for i in range(len(SERVE_MESH_GROUPS))]
         nccl_run = stack.enter_context(_beside_torchrun(
             1, "serve-nccl", os.path.join(SERVE_MESH_DIR, "nccl.log")))
+        shutil.rmtree(TENSOR4_DIR, ignore_errors=True)
+        os.makedirs(TENSOR4_DIR)
+        tensor4_run = stack.enter_context(_beside_torchrun(
+            4, "tensor4", os.path.join(TENSOR4_DIR, "ranks.log")))
         # Run (e)'s checkpoint, the same weights in the scan layout, written
         # while runs (a)-(c) go on (the ranks wait for the file).
         t1 = time.time()
@@ -3716,6 +3884,8 @@ def phase_serve_mesh(model) -> None:
                      f"{out[-6000:]}")
             text += out
         nccl_rc, nccl_out = nccl_run.wait(timeout=300)
+        _tensor4_check(tensor4_run)
+        shutil.rmtree(TENSOR4_DIR, ignore_errors=True)
     if nccl_rc != 0:
         fail(f"serve_mesh (nccl): the process exited {nccl_rc}:\n{nccl_out[-6000:]}")
     nccl_s, ranks_s = nccl_run.s, [run.s for run in groups_run]
@@ -5928,11 +6098,11 @@ def phase_gan_cut() -> None:
 
 
 # -- phase context -------------------------------------------------------------
-def _context_inputs(what: str, shape=CONTEXT_RING):
+def _context_inputs(what: str, shape=CONTEXT_RING, res: int = CONTEXT_RES):
     """Phase context's inputs, made from seeds on the card identically in
     every process: 'ring' q, k, v, dO at ``shape`` (B, N, heads); 'images' the forward's
     CONTEXT_FWD_BATCH images and 'batch' the step's CONTEXT_STEP_BATCH ([B, H,
-    W, 3] in [0, 1], shapes at CONTEXT_RES); 'noise' the step's global latent
+    W, 3] in [0, 1], shapes at ``res``); 'noise' the step's global latent
     noise [B, 32, H/16, W/16]; 'lpips' the random VGG."""
     import numpy as np
     import torch
@@ -5947,10 +6117,10 @@ def _context_inputs(what: str, shape=CONTEXT_RING):
     if what == "lpips":
         return init_lpips_params(gen, "cuda")
     if what == "noise":
-        side = CONTEXT_RES // 16
+        side = res // 16
         return torch.randn(CONTEXT_STEP_BATCH, 32, side, side, generator=gen, device="cuda")
     n = CONTEXT_FWD_BATCH if what == "images" else CONTEXT_STEP_BATCH
-    return np.stack(list(make_dataset("shapes", resolution=CONTEXT_RES, num_samples=n,
+    return np.stack(list(make_dataset("shapes", resolution=res, num_samples=n,
                                       seed=31 if what == "images" else 32)))
 
 
@@ -5965,7 +6135,8 @@ def _context_model(**kw):
                               "depths": CONTEXT_DEPTHS, **kw})
 
 
-def _context_step(model, batch, placement=None, update: bool = True) -> dict:
+def _context_step(model, batch, placement=None, update: bool = True,
+                  res: int = CONTEXT_RES) -> dict:
     """Phase context (c)'s step on ``model``: compute_grads of ``batch`` (L1 +
     KL + LPIPS on the random VGG, the handed-in noise), the grad norm and,
     with ``update``, an AdamW update; loss, grad norm, ms, peak and
@@ -5984,7 +6155,7 @@ def _context_step(model, batch, placement=None, update: bool = True) -> dict:
     opt = (make_optimizer(named, learning_rate=1e-4, warmup_steps=0, placement=placement)
            if update else None)
     weights = LossWeights(l1=1.0, lpips=1.0, kl=1e-8, vf=0.0, gan=0.0)
-    lpips, noise = _context_inputs("lpips"), _context_inputs("noise")
+    lpips, noise = _context_inputs("lpips"), _context_inputs("noise", res=res)
     model.train()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -6010,30 +6181,35 @@ def _context_step(model, batch, placement=None, update: bool = True) -> dict:
 
 @contextlib.contextmanager
 def _planted_zero_halo():
-    """For the block, every halo exchange of the model (convs, the fused
-    upsample, the int8 convs) replaces the rows it adds by zeros: each
-    convolution then sees its neighbour's edge as the image's (the planted
-    fault)."""
+    """For the block, every row fetch of the model (the convs' halos, the
+    fused upsample, the int8 convs) replaces the rows it takes from other
+    ranks by zeros: each convolution then sees its neighbour's edge as the
+    image's (the planted fault)."""
     import torch
 
-    from deepl_project_tpu_torch.ops import quant as quant_mod
+    import torch.distributed as dist
+
     from deepl_project_tpu_torch.ops import resample as resample_mod
     from deepl_project_tpu_torch.parallel import halo as halo_mod
 
-    exchange = halo_mod.exchange_rows
+    # Every row exchange (halo.exchange_rows, which the int8 conv calls, the
+    # convs' and the pool's fetches, the literal down DC path's) goes
+    # through fetch_rows: the rows it takes from other ranks become zeros.
+    fetch = halo_mod.fetch_rows
 
-    def zeroed(x, top, bottom, group_):
-        xp = exchange(x, top, bottom, group_)
-        keep = torch.ones(xp.shape[2], 1, dtype=xp.dtype, device=xp.device)
-        keep[:top] = 0
-        keep[xp.shape[2] - bottom:] = 0
+    def zeroed(x, held, need, group_):
+        xp = fetch(x, held, need, group_)
+        rank = dist.get_rank(group_)
+        (lo, hi), (a, b) = held[rank], need[rank]
+        keep = torch.zeros(b - a, 1, dtype=xp.dtype, device=xp.device)
+        keep[max(lo, a) - a:max(min(hi, b) - a, 0)] = 1
         return xp * keep
 
-    halo_mod.exchange_rows = resample_mod.exchange_rows = quant_mod.exchange_rows = zeroed
+    halo_mod.fetch_rows = resample_mod.fetch_rows = zeroed
     try:
         yield
     finally:
-        halo_mod.exchange_rows = resample_mod.exchange_rows = quant_mod.exchange_rows = exchange
+        halo_mod.fetch_rows = resample_mod.fetch_rows = fetch
 
 
 def _halo_convs(mesh) -> dict:
@@ -6414,6 +6590,39 @@ def context_worker() -> None:
     del model, batch, placement
     torch.cuda.empty_cache()
 
+    # (g) At CONTEXT_G_RES, whose maps split unevenly from stage 4 on: the b1
+    # forward and the b2 step, from the seed's weights.
+    model = _context_model(context_axis="context", attention_impl="auto_train")
+    x = torch.as_tensor(shard_rows(mesh, _context_inputs("images", res=CONTEXT_G_RES)))
+    x = x.to("cuda").permute(0, 3, 1, 2).to(torch.bfloat16)
+    dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    attn_mod.reset_route_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad(), context_parallel(mesh):
+        recon = model.eval()(x)[0]
+    torch.cuda.synchronize()
+    out["g_forward"] = {"ms": (time.perf_counter() - t0) * 1e3, **counts(),
+                        "routes": attn_mod.route_counts(), "by_shape": flash_by_shape(),
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                        "rows": int(x.shape[2])}
+    whole = col.all_gather_cat(torch.sigmoid(recon.float()), 2, group)
+    if rank == 0:
+        torch.save(whole.cpu(), os.path.join(CONTEXT_DIR, "recon_g_context.pt"))
+    del recon, whole, x
+    placement = shard_params(mesh, model, "replicate")
+    batch = torch.as_tensor(shard_rows(mesh, _context_inputs("batch", res=CONTEXT_G_RES)))
+    dist.barrier()
+    row = _context_step(model, batch.to("cuda"), placement, res=CONTEXT_G_RES)
+    row["by_shape"] = flash_by_shape()
+    fp = row.pop("fingerprint")
+    row["params_bit_identical"], row["params_checked"] = _same_on_every_rank(fp)
+    out["g_step"] = row
+    del model, batch, placement
+    torch.cuda.empty_cache()
+
     # (d) One GAN step: bf16 at CONTEXT_GAN_RES b2, its fp32 twin.
     for key, dtype, b, res in CONTEXT_GAN_RUNS:
         dist.barrier()
@@ -6444,10 +6653,11 @@ def context_worker() -> None:
     dist.destroy_process_group()
 
 
-def _ring_partials_check(shape, gen, backward: bool) -> dict:
+def _ring_partials_check(shape, gen, backward: bool, keys=None) -> dict:
     """The flash kernels as one rank's two-step ring runs them, in one
     process at the local ``shape`` (B, N_local, heads): the local queries
-    against two chunks of N_local keys. Each step's partial (o, lse) from
+    against two chunks of ``keys`` keys (default N_local each; an uneven
+    split's chunks differ). Each step's partial (o, lse) from
     the forward kernel and from its plain version on the same inputs; with
     ``backward``, the merged o and lse (of the kernels' partials) handed to
     the backward kernel and to its plain version at each step, as the ring's
@@ -6459,8 +6669,11 @@ def _ring_partials_check(shape, gen, backward: bool) -> dict:
     from deepl_project_tpu_torch.parallel.ring_attention import _merge
 
     scale, errs = 64 ** -0.5, {}
-    q, do, *kv = (torch.randn(*shape, 64, generator=gen, device="cuda").to(torch.bfloat16)
-                  for _ in range(6))
+    b, n, h = shape
+    q, do = (torch.randn(*shape, 64, generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    kv = [torch.randn(b, nk, h, 64, generator=gen, device="cuda").to(torch.bfloat16)
+          for nk in (keys or (n, n)) for _ in range(2)]
 
     def hold(name, got, want):
         e = (got.float() - want.float()).abs().max().item()
@@ -6489,7 +6702,9 @@ def _ring_partials_check(shape, gen, backward: bool) -> dict:
 
 def _ring_kernel_rows() -> dict:
     """The flash kernels at the ring's local shapes (each step: the local
-    queries against one visiting chunk of as many keys; (c)'s and (d)'s):
+    queries against one visiting chunk of as many keys; (c)'s, (d)'s and
+    (g)'s, whose token counts are no multiple of 64 and whose last chunks
+    differ in length, CONTEXT_G_RING):
     held against their plain versions as the ring runs them
     (:func:`_ring_partials_check`; the forward also at the b1 forward's
     shapes, which (e) runs too), failing beyond KERNEL_RTOL of
@@ -6502,8 +6717,10 @@ def _ring_kernel_rows() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     scale, rows = 64 ** -0.5, {}
-    for shape in CONTEXT_RING_SHAPES + CONTEXT_GAN_RING_SHAPES:
-        checks = [(shape, _ring_partials_check(shape, gen, backward=True))]
+    ragged = dict(CONTEXT_G_RING)
+    for shape in CONTEXT_RING_SHAPES + CONTEXT_GAN_RING_SHAPES + tuple(ragged):
+        checks = [(shape, _ring_partials_check(shape, gen, backward=True,
+                                               keys=ragged.get(shape)))]
         if CONTEXT_FWD_BATCH != shape[0] and shape in CONTEXT_RING_SHAPES:
             b1 = (CONTEXT_FWD_BATCH,) + shape[1:]
             checks.append((b1, _ring_partials_check(b1, gen, backward=False)))
@@ -6596,6 +6813,26 @@ def _context_one_process() -> dict:
     log(f"context (c): one process's step at {CONTEXT_RES}px b{CONTEXT_STEP_BATCH}: loss "
         f"{one['total']:.6f}, grad norm {one['grad_norm']:.6f}, {one['ms']:.1f} ms, peak "
         f"{one['peak_gib']:.2f} GiB, launches {one['launches']} [{CARD}]")
+    # (g): the forward in fp32 and bf16 and the b2 step at CONTEXT_G_RES.
+    g_images = torch.as_tensor(_context_inputs("images", res=CONTEXT_G_RES)).to("cuda")
+    g_recon = {}
+    for dtype in ("float32", "bfloat16"):
+        model = _context_model(dtype=dtype).eval()
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = dtype == "bfloat16"
+        with torch.no_grad():
+            g_recon[dtype] = torch.sigmoid(
+                model(g_images.permute(0, 3, 1, 2).to(getattr(torch, dtype)))[0].float()).cpu()
+        torch.backends.cudnn.allow_tf32 = tf32
+        del model
+    model = _context_model(attention_impl="auto_train")
+    batch = torch.as_tensor(_context_inputs("batch", res=CONTEXT_G_RES)).to("cuda")
+    g_one = _context_step(model, batch, res=CONTEXT_G_RES)
+    del model, batch, g_images
+    torch.cuda.empty_cache()
+    log(f"context (g): one process's step at {CONTEXT_G_RES}px b{CONTEXT_STEP_BATCH}: loss "
+        f"{g_one['total']:.6f}, grad norm {g_one['grad_norm']:.6f}, {g_one['ms']:.1f} ms, peak "
+        f"{g_one['peak_gib']:.2f} GiB, launches {g_one['launches']} [{CARD}]")
     one_gan = {}
     for key, dtype, b, res in CONTEXT_GAN_RUNS:
         t1 = time.time()
@@ -6607,7 +6844,8 @@ def _context_one_process() -> dict:
             f"peak {o['peak_gib']:.2f} GiB, launches {o['launches']}; "
             f"{time.time() - t1:.1f} s with the set-up [{CARD}]")
     return {"recon": recon, "int8": one_int8, "int8_recon": one_int8_recon, "amax": one_amax,
-            "step": one, "gan": one_gan, "s": time.time() - t0}
+            "step": one, "gan": one_gan, "g_recon": g_recon, "g_step": g_one,
+            "s": time.time() - t0}
 
 
 def phase_context() -> None:
@@ -6661,7 +6899,7 @@ def phase_context() -> None:
         f"{one['s']:.1f}s beside them")
     recon, one_int8, one_int8_recon, one_amax, one_gan = (
         one["recon"], one["int8"], one["int8_recon"], one["amax"], one["gan"])
-    one = one["step"]
+    g_recon, g_one, one = one["g_recon"], one["g_step"], one["step"]
 
     # (a) The ring.
     steps_want = {"forward": 2, "backward": 2}
@@ -6754,6 +6992,55 @@ def phase_context() -> None:
             fail(f"context (c) rank {r}: launches {b['launches']}, ring steps "
                  f"{b['ring_steps']}; want {want} and as many ring steps")
         CONTEXT_PATHS[f"context_step_rank{r}"] = b["launches"]
+
+    # (g) The uneven split at CONTEXT_G_RES: the forward, then the step.
+    got = torch.load(os.path.join(CONTEXT_DIR, "recon_g_context.pt"))
+    e_ctx = (got - g_recon["float32"]).abs()
+    e_one = (g_recon["bfloat16"] - g_recon["float32"]).abs()
+    log(f"context (g): gathered 2-rank bf16 reconstruction at {CONTEXT_G_RES}px vs one "
+        f"process's fp32: mean_abs {e_ctx.mean():.4e} max_abs {e_ctx.max():.4e}; one process's "
+        f"bf16: mean_abs {e_one.mean():.4e} max_abs {e_one.max():.4e} (ratio "
+        f"{e_ctx.mean() / e_one.mean():.3f}, bound {CONTEXT_MEAN_RATIO})")
+    if not (np.isfinite(got.numpy()).all() and e_ctx.mean() <= CONTEXT_MEAN_RATIO * e_one.mean()):
+        fail(f"context (g): the {CONTEXT_G_RES}px context forward is less accurate than one "
+             f"process's bf16 forward")
+    for r, g in enumerate(ranks):
+        f_, b = g["g_forward"], g["g_step"]
+        ragged = {h: f"flash_attention_fwd {n} {h}" for h, n in CONTEXT_G_TOKENS[r].items()}
+        log(f"context (g) rank {r}: {f_['rows']} rows of {CONTEXT_G_RES}, {f_['ms']:.1f} ms, peak "
+            f"{f_['peak_gib']:.2f} GiB, routes {f_['routes']}, launches {f_['launches']} by "
+            f"shape {f_['by_shape']}, ring steps {f_['ring_steps']}, staged {f_['staged']} "
+            f"[{CARD}]")
+        if (f_["routes"] != {"ring": CONTEXT_SUBLAYERS}
+                or f_["launches"] != {"flash_attention_fwd": per_fwd}
+                or f_["ring_steps"] != {"forward": per_fwd}
+                or not all(f_["by_shape"].get(k) for k in ragged.values())):
+            fail(f"context (g) rank {r}: routes {f_['routes']}, launches {f_['launches']} "
+                 f"({f_['by_shape']}); want {CONTEXT_SUBLAYERS} ring routes, {per_fwd} flash "
+                 f"forwards, one a ring step, at {sorted(ragged.values())}")
+        CONTEXT_PATHS[f"context_g_forward_rank{r}"] = f_["launches"]
+        lr = abs(b["total"] - g_one["total"]) / abs(g_one["total"])
+        gr = abs(b["grad_norm"] - g_one["grad_norm"]) / g_one["grad_norm"]
+        log(f"context (g) rank {r}: step at {CONTEXT_G_RES}px b{CONTEXT_STEP_BATCH}: loss "
+            f"{b['total']:.6f} vs one process {g_one['total']:.6f} (rel {lr:.2e}, bound "
+            f"{PARALLEL_LOSS_RTOL}), grad norm {b['grad_norm']:.6f} vs {g_one['grad_norm']:.6f} "
+            f"(rel {gr:.2e}, bound {PARALLEL_GRAD_NORM_RTOL}), parameters bit-identical across "
+            f"ranks {b['params_bit_identical']}, peak {b['peak_gib']:.2f} GiB (one process "
+            f"{g_one['peak_gib']:.2f}), {b['ms']:.1f} ms (one process {g_one['ms']:.1f}; not a "
+            f"speed), launches {b['launches']} by shape {b['by_shape']}, ring steps "
+            f"{b['ring_steps']}, staged {b['staged']} [{CARD}]")
+        if lr > PARALLEL_LOSS_RTOL or gr > PARALLEL_GRAD_NORM_RTOL or not b["applied"]:
+            fail(f"context (g) rank {r}: loss or grad norm off the one process's (or skipped)")
+        if not b["params_bit_identical"]:
+            fail("context (g): the ranks' parameters differ after the update")
+        want = {"flash_attention_fwd": 2 * per_fwd, "flash_attention_bwd": per_fwd}
+        bwd = {h: f"flash_attention_bwd {n} {h}" for h, n in CONTEXT_G_TOKENS[r].items()}
+        if (b["launches"] != want
+                or b["ring_steps"] != {"forward": 2 * per_fwd, "backward": per_fwd}
+                or not all(b["by_shape"].get(k) for k in bwd.values())):
+            fail(f"context (g) rank {r}: launches {b['launches']} ({b['by_shape']}), ring steps "
+                 f"{b['ring_steps']}; want {want}, one a ring step, at {sorted(bwd.values())}")
+        CONTEXT_PATHS[f"context_g_step_rank{r}"] = b["launches"]
 
     # The halo convs, and the planted fault, which must fail their bars.
     for r, g in enumerate(ranks):
@@ -7290,7 +7577,7 @@ def main():
     ap.add_argument("--phases",
                     default="build,kernels,grad,fold_thin,train,data,dit,gan,recipe,remat,serve,"
                             "serve_mesh,time,eval,quant,scan,context,pipeline,parallel")
-    ap.add_argument("--worker", choices=["dp", "dp-gan-cut", "context", "serve-nccl",
+    ap.add_argument("--worker", choices=["dp", "dp-gan-cut", "context", "serve-nccl", "tensor4",
                                          "refusal-nccl", "refusal-gloo", "refusal-gloo-p2p",
                                          "subset-one"]
                     + [f"serve-mesh-{i}" for i in range(len(SERVE_MESH_GROUPS))]
@@ -7312,6 +7599,8 @@ def main():
             serve_mesh_worker(int(args.worker.rsplit("-", 1)[1]))
         elif args.worker == "serve-nccl":
             serve_nccl_worker()
+        elif args.worker == "tensor4":
+            tensor4_worker()
         elif args.worker == "refusal-gloo-p2p":
             p2p_probe_worker()
         elif args.worker == "subset-one":

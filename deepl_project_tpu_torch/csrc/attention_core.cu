@@ -29,6 +29,6 @@ extern "C" int attention_core_launch(const void* q, const void* k,
                                      const void* v, void* o, int B, int N,
                                      int H, int ld, int ld_o, float scale,
                                      void* stream) {
-  return flash::fwd_launch<false>(q, k, v, o, nullptr, B, N, H, ld, ld, ld,
+  return flash::fwd_launch<false>(q, k, v, o, nullptr, B, N, N, H, ld, ld, ld,
                                   ld_o, scale, stream);
 }

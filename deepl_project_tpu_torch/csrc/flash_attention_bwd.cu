@@ -59,13 +59,20 @@
 // key order before it rounds. The buffer grows as N^2 (1.5 GiB at the
 // training shape) and costs its write and read in device memory.
 //
-// q, k, v, o, dO: [B, N] rows, each with its own row stride (elements),
-// head h at columns h*64..; lse: [B, H, N] fp32; scratch delta [B, H, N] and
-// dq_acc [B, H, N, 64] fp32 ([B, H, ceil(N/128), N, 64] deterministic); dq,
-// dk, dv: [B*N, ld_out] bf16. N % 64 == 0.
-// Maps are 3D (columns, N, B): a tile never reads another image's rows. A
-// final tile of 64 keys leaves the second consumer on zero-filled keys; its
-// P and dS are set to zero and the TMA store clips its dK/dV rows.
+// q, o, dO: [B, Nq] rows and k, v: [B, Nk] rows (a ring step's queries and
+// the visiting key chunk; any lengths >= 1), each with its own row stride
+// (elements), head h at columns h*64..; lse: [B, H, Lq] fp32 with
+// Lq = Nq rounded up to 64 (entries past Nq unread); scratch delta
+// [B, H, Lq] and dq_acc [B, H, Lq, 64] fp32 ([B, H, ceil(Nk/128), Lq, 64]
+// deterministic); dq: [B*Nq, ld_out], dk, dv: [B*Nk, ld_out] bf16.
+// Maps are 3D (columns, rows, B) over Nq or Nk rows: a tile never reads
+// another image's rows, and rows past a length read zeros. The length
+// bounds: where Nq or Nk is no multiple of 64 (the kernel's kMask form), in
+// a CTA whose keys pass Nk, or a query tile that passes Nq, P and dS are
+// set to zero at every key >= Nk and every query >= Nq, so padded keys get
+// zero dK and dV and padded queries add nothing; the TMA
+// stores clip dK/dV rows past Nk and the rounding kernel writes dq rows
+// below Nq only.
 #include <type_traits>
 
 #include "hopper_tma_wgmma.cuh"
@@ -97,14 +104,17 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // kDet: each CTA's partial dq goes to its own slot (a TMA store) instead of
-// a reduce-add into the shared sum.
-template <bool kDet>
+// a reduce-add into the shared sum. kMask: Nq or Nk is no multiple of 64,
+// so the tail tiles mask P and dS element by element; without it (every
+// length a multiple of 64) only the empty half of a final 64-key tile is
+// masked, a warpgroup at a time, and the pass is the unbounded one.
+template <bool kDet, bool kMask>
 __global__ __launch_bounds__(kThreads, 1) void flash_bwd_kernel(
     __grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUtensorMap tm_k,
     __grid_constant__ const CUtensorMap tm_v, __grid_constant__ const CUtensorMap tm_g,
     __grid_constant__ const CUtensorMap tm_dk, __grid_constant__ const CUtensorMap tm_dv,
     __grid_constant__ const CUtensorMap tm_dq, const float* __restrict__ lse,
-    const float* __restrict__ delta, int N, float scale) {
+    const float* __restrict__ delta, int Nq, int Nk, int Lq, float scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   unsigned char* sk = smem;            // K: keys 0..63 (consumer 0), 64..127 (consumer 1)
@@ -119,7 +129,7 @@ __global__ __launch_bounds__(kThreads, 1) void flash_bwd_kernel(
 
   const int k0 = blockIdx.x * kBK, head = blockIdx.y, img = blockIdx.z;
   const size_t bh = (size_t)img * gridDim.y + head;
-  const int T = N / kBQ;  // query tiles
+  const int T = (Nq + kBQ - 1) / kBQ;  // query tiles
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -151,8 +161,8 @@ __global__ __launch_bounds__(kThreads, 1) void flash_bwd_kernel(
         mbar_arrive_expect_tx(&full[s], 2 * kTile + 2 * kRow);
         tma_load_3d(st, &tm_q, &full[s], head * kHD, t * kBQ, img);
         tma_load_3d(st + kTile, &tm_g, &full[s], head * kHD, t * kBQ, img);
-        bulk_load(rs, lse + bh * N + t * kBQ, kRow, &full[s]);
-        bulk_load(rs + kBQ, delta + bh * N + t * kBQ, kRow, &full[s]);
+        bulk_load(rs, lse + bh * Lq + t * kBQ, kRow, &full[s]);
+        bulk_load(rs + kBQ, delta + bh * Lq + t * kBQ, kRow, &full[s]);
         if (++s == kStages) {
           s = 0;
           ph ^= 1;
@@ -168,7 +178,9 @@ __global__ __launch_bounds__(kThreads, 1) void flash_bwd_kernel(
   setmaxnreg_inc<232>();
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int gid = lane / 4, tig = lane % 4;
-  const bool live = k0 + wg * 64 < N;  // false: the empty half of a final 64-key tile
+  const bool live = k0 + wg * 64 < Nk;  // false: the empty half of a final 64-key tile
+  const bool key_tail = k0 + kBK > Nk;  // this CTA holds keys at or past Nk
+  const int key_row = k0 + wg * 64 + warp * 16 + gid;  // the key of st[4j], st[4j+1]
   const float scale_log2 = scale * kLog2e;
   const uint64_t ka = desc_kmajor(sk + wg * kTile);  // A of S^T: this warpgroup's keys
   const uint64_t va = desc_kmajor(sv + wg * kTile);  // A of dP^T
@@ -203,9 +215,9 @@ __global__ __launch_bounds__(kThreads, 1) void flash_bwd_kernel(
     named_bar_sync(2 + wg, 128);
     if (tid == 0) {
       if constexpr (kDet)
-        tma_store_2d(&tm_dq, stg, wg * 32, (int)((bh * gridDim.x + blockIdx.x) * N + t * kBQ));
+        tma_store_2d(&tm_dq, stg, wg * 32, (int)((bh * gridDim.x + blockIdx.x) * Lq + t * kBQ));
       else
-        tma_reduce_add_2d(&tm_dq, stg, wg * 32, (int)(bh * N + t * kBQ));
+        tma_reduce_add_2d(&tm_dq, stg, wg * 32, (int)(bh * Lq + t * kBQ));
       bulk_commit();
     }
   };
@@ -263,15 +275,32 @@ __global__ __launch_bounds__(kThreads, 1) void flash_bwd_kernel(
       fence_regs(pa[kc]);
       fence_regs(da[kc]);
     }
-    // dS^T = P^T * (dP^T - delta) * scale; both zero on keys past N.
+    // dS^T = P^T * (dP^T - delta) * scale; both zero at keys >= Nk and
+    // queries >= Nq (selected, so the unread lse and delta past Nq never
+    // reach them).
+    if (kMask && (key_tail || (t + 1) * kBQ > Nq)) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 dl = *reinterpret_cast<const float2*>(sdelta + 8 * j + 2 * tig);
+      for (int j = 0; j < 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(sdelta + 8 * j + 2 * tig);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = live ? st[4 * j + i] : 0.f;
-        dpt[4 * j + i] = p * (dpt[4 * j + i] - ((i & 1) ? dl.y : dl.x)) * scale;
-        st[4 * j + i] = p;
+        for (int i = 0; i < 4; ++i) {
+          const bool in = key_row + ((i & 2) ? 8 : 0) < Nk &&
+                          t * kBQ + 8 * j + 2 * tig + (i & 1) < Nq;
+          const float p = in ? st[4 * j + i] : 0.f;
+          dpt[4 * j + i] = in ? p * (dpt[4 * j + i] - ((i & 1) ? dl.y : dl.x)) * scale : 0.f;
+          st[4 * j + i] = p;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(sdelta + 8 * j + 2 * tig);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = (kMask || live) ? st[4 * j + i] : 0.f;
+          dpt[4 * j + i] = p * (dpt[4 * j + i] - ((i & 1) ? dl.y : dl.x)) * scale;
+          st[4 * j + i] = p;
+        }
       }
     }
     // A operands of k slice kc (queries 16kc..16kc+15), rounded to bf16.
@@ -349,7 +378,7 @@ __global__ __launch_bounds__(kThreads, 1) void flash_bwd_kernel(
 
   // Epilogue: dK and dV of this warpgroup's 64 keys through a swizzled
   // staging tile each (the dS^T tiles, once both consumers are done with
-  // them) and TMA stores, which clip rows past N.
+  // them) and TMA stores, which clip rows past Nk.
   named_bar_sync(1, 128 * kConsumers);
   unsigned char* stg = sds + wg * kDS;  // dK tile, then dV tile
 #pragma unroll
@@ -374,33 +403,39 @@ __global__ __launch_bounds__(kThreads, 1) void flash_bwd_kernel(
 
 // Before the pass: delta[b, h, n] = sum of dO * o over the row (fp32
 // products and sum, as XLA computes it beside the TPU kernels) and, if
-// kZero, dq_acc[b, h, n, :] = 0; eight threads a row, 8 values each.
+// kZero, dq_acc[b, h, n, :] = 0, for n < N (row stride L); eight threads a
+// row, 8 values each.
 template <bool kZero>
 __global__ void dq_prepare_kernel(const bf16* __restrict__ o, const bf16* __restrict__ g,
                                   float* __restrict__ delta, float* __restrict__ dq_acc,
-                                  int N, int H, int ld_o, int ld_g, size_t groups) {
+                                  int N, int L, int H, int ld_o, int ld_g, size_t groups) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= groups) return;  // groups % 32 == 0: whole warps return
+  // Every lane of a warp reaches the shuffles (groups % 8 == 0, but not
+  // always % 32); a lane past the end loads and stores nothing.
+  const bool in = i < groups;
   const int c8 = (int)(i % 8);
   const size_t row = i / 8;  // (b, n, h), the inputs' order
   const int h = (int)(row % H);
   const int n = (int)(row / H % N);
   const size_t b = row / H / N;
-  const uint4 ov = *reinterpret_cast<const uint4*>(o + (b * N + n) * ld_o + h * kHD + c8 * 8);
-  const uint4 gv = *reinterpret_cast<const uint4*>(g + (b * N + n) * ld_g + h * kHD + c8 * 8);
-  const bf162* op = reinterpret_cast<const bf162*>(&ov);
-  const bf162* gp = reinterpret_cast<const bf162*>(&gv);
   float sum = 0.f;
+  if (in) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + (b * N + n) * ld_o + h * kHD + c8 * 8);
+    const uint4 gv = *reinterpret_cast<const uint4*>(g + (b * N + n) * ld_g + h * kHD + c8 * 8);
+    const bf162* op = reinterpret_cast<const bf162*>(&ov);
+    const bf162* gp = reinterpret_cast<const bf162*>(&gv);
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 a = __bfloat1622float2(op[e]), c = __bfloat1622float2(gp[e]);
-    sum = fmaf(a.x, c.x, sum);
-    sum = fmaf(a.y, c.y, sum);
+    for (int e = 0; e < 4; ++e) {
+      const float2 a = __bfloat1622float2(op[e]), c = __bfloat1622float2(gp[e]);
+      sum = fmaf(a.x, c.x, sum);
+      sum = fmaf(a.y, c.y, sum);
+    }
   }
   sum += __shfl_xor_sync(0xffffffffu, sum, 1);
   sum += __shfl_xor_sync(0xffffffffu, sum, 2);
   sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-  const size_t out = (b * H + h) * N + n;
+  if (!in) return;
+  const size_t out = (b * H + h) * L + n;
   if (c8 == 0) delta[out] = sum;
   if constexpr (kZero) {
     float4* z = reinterpret_cast<float4*>(dq_acc + out * kHD + c8 * 8);
@@ -411,9 +446,9 @@ __global__ void dq_prepare_kernel(const bf16* __restrict__ o, const bf16* __rest
 
 // After it: dq[b, n, h, :] = bf16 of dq_acc[b, h, n, :] (slots = 1), or of
 // the sum of dq_acc[b, h, x, n, :] over the slots x in ascending order (the
-// deterministic form); one thread per 8 values.
+// deterministic form), for n < N (row stride L); one thread per 8 values.
 __global__ void dq_convert_kernel(const float* __restrict__ acc, bf16* __restrict__ dq, int N,
-                                  int H, int slots, int ld_out, size_t groups) {
+                                  int L, int H, int slots, int ld_out, size_t groups) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= groups) return;
   const int c8 = (int)(i % 8);
@@ -422,8 +457,8 @@ __global__ void dq_convert_kernel(const float* __restrict__ acc, bf16* __restric
   const int h = (int)(row / N % H);
   const size_t b = row / N / H;
   const size_t bh = row / N;
-  const float4* src = reinterpret_cast<const float4*>(acc + (bh * slots * N + n) * kHD + c8 * 8);
-  const size_t step = (size_t)N * kHD / 4;  // one slot on, in float4
+  const float4* src = reinterpret_cast<const float4*>(acc + (bh * slots * L + n) * kHD + c8 * 8);
+  const size_t step = (size_t)L * kHD / 4;  // one slot on, in float4
   float4 a = src[0], c = src[1];
   for (int x = 1; x < slots; ++x) {
     const float4 a2 = src[x * step], c2 = src[x * step + 1];
@@ -444,47 +479,53 @@ __global__ void dq_convert_kernel(const float* __restrict__ acc, bf16* __restric
 template <bool kDet>
 static int bwd_launch(const void* q, const void* k, const void* v, const void* o,
                       const void* g, const void* lse, void* delta, void* dq_acc, void* dq,
-                      void* dk, void* dv, int B, int N, int H, int ld_q, int ld_k, int ld_v,
-                      int ld_o, int ld_g, int ld_out, float scale, void* stream) {
-  static bool smem_ok = false;
-  if (!smem_ok) {
-    cudaError_t e = cudaFuncSetAttribute(flash_bwd_kernel<kDet>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kSmemBytes);
+                      void* dk, void* dv, int B, int Nq, int Nk, int H, int ld_q, int ld_k,
+                      int ld_v, int ld_o, int ld_g, int ld_out, float scale, void* stream) {
+  if (Nq < 1 || Nk < 1) return (int)cudaErrorInvalidValue;
+  const int Lq = (Nq + kBQ - 1) / kBQ * kBQ;  // row stride of lse, delta and dq_acc
+  const bool mask = Nq % kBQ != 0 || Nk % 64 != 0;
+  static bool smem_ok[2] = {false, false};
+  if (!smem_ok[mask]) {
+    cudaError_t e = cudaFuncSetAttribute(
+        mask ? flash_bwd_kernel<kDet, true> : flash_bwd_kernel<kDet, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (e != cudaSuccess) return (int)e;
-    smem_ok = true;
+    smem_ok[mask] = true;
   }
-  // (columns, N, B) maps, one per operand and call (the addresses change).
+  // (columns, rows, B) maps, one per operand and call (the addresses
+  // change): q and dO over Nq rows, k, v, dk and dv over Nk rows.
   CUtensorMap maps[6];
   const void* bases[6] = {q, k, v, g, dk, dv};
   const int lds[6] = {ld_q, ld_k, ld_v, ld_g, ld_out, ld_out};
-  const cuuint64_t dims[3] = {(cuuint64_t)H * 64, (cuuint64_t)N, (cuuint64_t)B};
+  const int ns[6] = {Nq, Nk, Nk, Nq, Nk, Nk};
   for (int i = 0; i < 6; ++i) {
+    const cuuint64_t dims[3] = {(cuuint64_t)H * 64, (cuuint64_t)ns[i], (cuuint64_t)B};
     const int e = hopper::make_map_bf16(&maps[i], bases[i], 3, dims, (uint64_t)lds[i] * 2,
-                                        (uint64_t)lds[i] * 2 * N, 64);
+                                        (uint64_t)lds[i] * 2 * ns[i], 64);
     if (e != 0) return e;
   }
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t groups = (size_t)B * H * N * 8;
+  const size_t groups = (size_t)B * H * Nq * 8;
   const unsigned blocks = (unsigned)((groups + 255) / 256);
   dq_prepare_kernel<!kDet><<<blocks, 256, 0, st>>>((const bf16*)o, (const bf16*)g,
-                                                   (float*)delta, (float*)dq_acc, N, H, ld_o,
-                                                   ld_g, groups);
+                                                   (float*)delta, (float*)dq_acc, Nq, Lq, H,
+                                                   ld_o, ld_g, groups);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((N + kBK - 1) / kBK, H, B);
-  // dq_acc as [B*H*slots*N, 64] fp32 rows (one slot, or one a key tile),
+  dim3 grid((Nk + kBK - 1) / kBK, H, B);
+  // dq_acc as [B*H*slots*Lq, 64] fp32 rows (one slot, or one a key tile),
   // reduced into or stored to by 32-column boxes.
   const int slots = kDet ? (int)grid.x : 1;
   CUtensorMap tm_dq;
-  int me = hopper::make_map_f32_2d(&tm_dq, dq_acc, 64, (uint64_t)B * H * slots * N, 32, 64);
+  int me = hopper::make_map_f32_2d(&tm_dq, dq_acc, 64, (uint64_t)B * H * slots * Lq, 32, 64);
   if (me != 0) return me;
-  flash_bwd_kernel<kDet><<<grid, kThreads, kSmemBytes, st>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], tm_dq, (const float*)lse,
-      (const float*)delta, N, scale);
+  (mask ? flash_bwd_kernel<kDet, true> : flash_bwd_kernel<kDet, false>)
+      <<<grid, kThreads, kSmemBytes, st>>>(maps[0], maps[1], maps[2], maps[3], maps[4],
+                                           maps[5], tm_dq, (const float*)lse,
+                                           (const float*)delta, Nq, Nk, Lq, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dq_convert_kernel<<<blocks, 256, 0, st>>>((const float*)dq_acc, (bf16*)dq, N, H, slots,
+  dq_convert_kernel<<<blocks, 256, 0, st>>>((const float*)dq_acc, (bf16*)dq, Nq, Lq, H, slots,
                                             ld_out, groups);
   return (int)cudaGetLastError();
 }
@@ -493,19 +534,19 @@ static int bwd_launch(const void* q, const void* k, const void* v, const void* o
 
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o, const void* g,
-    const void* lse, void* delta, void* dq_acc, void* dq, void* dk, void* dv, int B, int N,
-    int H, int ld_q, int ld_k, int ld_v, int ld_o, int ld_g, int ld_out, float scale,
+    const void* lse, void* delta, void* dq_acc, void* dq, void* dk, void* dv, int B, int Nq,
+    int Nk, int H, int ld_q, int ld_k, int ld_v, int ld_o, int ld_g, int ld_out, float scale,
     void* stream) {
-  return fbwd::bwd_launch<false>(q, k, v, o, g, lse, delta, dq_acc, dq, dk, dv, B, N, H, ld_q,
-                                 ld_k, ld_v, ld_o, ld_g, ld_out, scale, stream);
+  return fbwd::bwd_launch<false>(q, k, v, o, g, lse, delta, dq_acc, dq, dk, dv, B, Nq, Nk, H,
+                                 ld_q, ld_k, ld_v, ld_o, ld_g, ld_out, scale, stream);
 }
 
-// The same arguments; dq_acc is the fp32 [B, H, ceil(N/128), N, 64] slot buffer.
+// The same arguments; dq_acc is the fp32 [B, H, ceil(Nk/128), Lq, 64] slot buffer.
 extern "C" int flash_attention_bwd_det_launch(
     const void* q, const void* k, const void* v, const void* o, const void* g,
-    const void* lse, void* delta, void* dq_acc, void* dq, void* dk, void* dv, int B, int N,
-    int H, int ld_q, int ld_k, int ld_v, int ld_o, int ld_g, int ld_out, float scale,
+    const void* lse, void* delta, void* dq_acc, void* dq, void* dk, void* dv, int B, int Nq,
+    int Nk, int H, int ld_q, int ld_k, int ld_v, int ld_o, int ld_g, int ld_out, float scale,
     void* stream) {
-  return fbwd::bwd_launch<true>(q, k, v, o, g, lse, delta, dq_acc, dq, dk, dv, B, N, H, ld_q,
-                                ld_k, ld_v, ld_o, ld_g, ld_out, scale, stream);
+  return fbwd::bwd_launch<true>(q, k, v, o, g, lse, delta, dq_acc, dq, dk, dv, B, Nq, Nk, H,
+                                ld_q, ld_k, ld_v, ld_o, ld_g, ld_out, scale, stream);
 }

@@ -10,7 +10,10 @@
 // q, k, v: [B*N, ld_*] rows, each tensor with its own row stride (training
 // feeds three separate tensors; serving, column slices of one [B*N, 3C]
 // buffer), head h at columns h*64..; read in place by TMA, with no
-// fold/transpose copies. o: [B*N, ld_o]; lse: [B, H, N]. N % 64 == 0.
+// fold/transpose copies. q: [B*Nq] rows, k and v: [B*Nk] rows (a ring step's
+// queries and the visiting key chunk; any lengths >= 1: keys at or past Nk
+// take no weight, the maps' zero fill past Nq is clipped by the store).
+// o: [B*Nq, ld_o]; lse: [B, H, Nq].
 //
 // Bound on an H100: at the training shape (8 images, 6 heads, N=4096) it does
 // 4*BH*N^2*64 = 206 GFLOP against 0.1 GB moved, so the tensor cores bound it
@@ -21,9 +24,9 @@
 
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
                                           const void* v, void* o, void* lse,
-                                          int B, int N, int H, int ld_q,
-                                          int ld_k, int ld_v, int ld_o,
-                                          float scale, void* stream) {
-  return flash::fwd_launch<true>(q, k, v, o, (float*)lse, B, N, H, ld_q, ld_k,
-                                 ld_v, ld_o, scale, stream);
+                                          int B, int Nq, int Nk, int H,
+                                          int ld_q, int ld_k, int ld_v,
+                                          int ld_o, float scale, void* stream) {
+  return flash::fwd_launch<true>(q, k, v, o, (float*)lse, B, Nq, Nk, H, ld_q,
+                                 ld_k, ld_v, ld_o, scale, stream);
 }

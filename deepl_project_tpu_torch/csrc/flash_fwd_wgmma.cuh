@@ -7,8 +7,10 @@
 // row sum; the unnormalised p = exp(s - m) rounded to bf16 for P.V with fp32
 // accumulation; one division by the row sum at the end; lse = m + log(l).
 //
-// q, k, v: [B, N] rows, each tensor with its own row stride (elements), head
-// h at columns h*64..; o: [B*N, ld_o]; lse: [B, H, N] fp32. N % 64 == 0.
+// q: [B, Nq] rows and k, v: [B, Nk] rows, each tensor with its own row
+// stride (elements), head h at columns h*64..; o: [B*Nq, ld_o]; lse:
+// [B, H, Nq] fp32. Any Nq, Nk >= 1 (the ring's chunks of an uneven row
+// split); attention_core passes Nq = Nk = N.
 //
 // Bound on an H100: 4 * B*H * N^2 * 64 operations against 4 * B*H*N*64 * 2
 // bytes, so the tensor cores bound every shape the port runs. At head_dim 64
@@ -43,10 +45,14 @@
 // to eight key tiles), one consumer a CTA and two CTAs an SM, so one CTA's
 // prologue, epilogue and softmax run under the other's products.
 //
-// Tails: with 128-key tiles and N % 128 == 64 the last tile's upper 64 keys
-// are TMA zero fill, whose scores would be 0 rather than -inf: they are set
-// to -inf before the row max. A last query tile past N computes on zero rows
-// and its rows are clipped by the store (lse is written only for rows < N).
+// Tails (the length bounds): the maps' row counts are Nq and Nk, so a tile
+// past either reads TMA zero fill. The last key tile's keys at or past Nk
+// would score 0 rather than -inf: when Nk % kBKV != 0 that tile's scores of
+// keys >= Nk are set to -inf before the row max, so they take no weight
+// (key by key in the kMask form, which runs where Nk % 64 != 0; the upper
+// 64 keys of the tile in the unbounded one).
+// A last query tile past Nq computes on zero rows and its rows are clipped
+// by the store (lse is written only for rows < Nq).
 #pragma once
 
 #include <type_traits>
@@ -119,11 +125,14 @@ __device__ __forceinline__ void s_product(float (&d)[N], uint64_t da, uint64_t d
     wgmma_m64n64k16_ss(d, da, db, scale_d);
 }
 
-template <class C, bool kLSE>
+// kMask: Nk is no multiple of 64, so the last key tile's scores are masked
+// key by key against the length; without it (the unbounded tile) only the
+// zero-filled upper half of a last 128-key tile is, at fixed registers.
+template <class C, bool kLSE, bool kMask>
 __global__ __launch_bounds__(C::kThreads, C::kCTAs) void fwd_kernel(
     __grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUtensorMap tm_k,
     __grid_constant__ const CUtensorMap tm_v, __grid_constant__ const CUtensorMap tm_o,
-    float* __restrict__ lse, int N, float scale_log2) {
+    float* __restrict__ lse, int Nq, int Nk, float scale_log2) {
   constexpr int kConsumers = C::kConsumers, kBKV = C::kBKV, kStages = C::kStages;
   constexpr int kTileQ = C::kTileQ, kTileKV = C::kTileKV, kS = C::kS, kKC = C::kKC;
   extern __shared__ unsigned char smem_raw[];
@@ -135,7 +144,7 @@ __global__ __launch_bounds__(C::kThreads, C::kCTAs) void fwd_kernel(
   uint64_t* qbar = empty + kStages;
 
   const int q0 = blockIdx.x * C::kBQ, head = blockIdx.y, img = blockIdx.z;
-  const int T = (N + kBKV - 1) / kBKV;  // key tiles
+  const int T = (Nk + kBKV - 1) / kBKV;  // key tiles
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -181,7 +190,8 @@ __global__ __launch_bounds__(C::kThreads, C::kCTAs) void fwd_kernel(
   const int gid = lane / 4, tig = lane % 4;
   unsigned char* sqw = sq + wg * kTileQ;
   const uint64_t qd = desc_kmajor(sqw);
-  const bool partial = kBKV > 64 && N % kBKV != 0;  // the last tile is half zero fill
+  const bool partial = Nk % kBKV != 0;        // the last tile holds keys past Nk
+  const int tail = Nk - (T - 1) * kBKV;        // its keys below Nk
   float oacc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) oacc[i] = 0.f;
@@ -211,9 +221,15 @@ __global__ __launch_bounds__(C::kThreads, C::kCTAs) void fwd_kernel(
   // (c = scale * log2 e > 0, so the max of s c is c times the max of s).
   // Returns the factors that rescale the older o and l.
   auto softmax = [&](auto masked) -> float2 {
-    if constexpr (decltype(masked)::value) {
+    if constexpr (decltype(masked)::value && kMask) {
+      // Key 8j + 2tig (+1) of the tile: scores sc[4j], sc[4j+2] (and
+      // sc[4j+1], sc[4j+3]).
 #pragma unroll
-      for (int i = kS / 2; i < kS; ++i) sc[i] = -INFINITY;  // keys 64.. lie past N
+      for (int i = 0; i < kS; ++i)
+        if (8 * (i / 4) + 2 * tig + (i & 1) >= tail) sc[i] = -INFINITY;
+    } else if constexpr (decltype(masked)::value) {
+#pragma unroll
+      for (int i = kS / 2; i < kS; ++i) sc[i] = -INFINITY;  // keys 64.. lie past Nk
     }
     float mx0 = m0, mx1 = m1;
 #pragma unroll
@@ -328,55 +344,62 @@ __global__ __launch_bounds__(C::kThreads, C::kCTAs) void fwd_kernel(
   if constexpr (kLSE) {
     // m is a raw score: lse = (m c + log2 l) * ln 2 = m * scale + log l.
     const int r0 = q0 + wg * 64 + warp * 16 + gid;
-    float* row = lse + ((size_t)img * gridDim.y + head) * N;
-    if (tig == 0 && r0 < N) row[r0] = (m0 * scale_log2 + log2f(l0)) * kLn2;
-    if (tig == 0 && r0 + 8 < N) row[r0 + 8] = (m1 * scale_log2 + log2f(l1)) * kLn2;
+    float* row = lse + ((size_t)img * gridDim.y + head) * Nq;
+    if (tig == 0 && r0 < Nq) row[r0] = (m0 * scale_log2 + log2f(l0)) * kLn2;
+    if (tig == 0 && r0 + 8 < Nq) row[r0 + 8] = (m1 * scale_log2 + log2f(l1)) * kLn2;
   }
   if (tid == 0) bulk_wait<0>();  // the store is done before the CTA exits
 }
 
-// Launch fwd_kernel<C, kLSE> on a (ceil(N / kBQ), H, B) grid; 0 or a CUDA
+// Launch fwd_kernel<C, kLSE, kMask> on a (ceil(Nq / kBQ), H, B) grid; 0 or a CUDA
 // error. Internal linkage: the static flag of an inline function would be one
 // symbol shared by every library loaded in the process (a build of another
 // checkout, timed beside this one, would skip its own attribute).
-template <class C, bool kLSE>
-static int tile_launch(const CUtensorMap (&maps)[4], float* lse, int B, int N, int H,
-                       float scale, cudaStream_t stream) {
+template <class C, bool kLSE, bool kMask>
+static int tile_launch(const CUtensorMap (&maps)[4], float* lse, int B, int Nq, int Nk,
+                       int H, float scale, cudaStream_t stream) {
   static bool smem_ok = false;
   if (!smem_ok) {
-    cudaError_t e = cudaFuncSetAttribute(fwd_kernel<C, kLSE>,
+    cudaError_t e = cudaFuncSetAttribute(fwd_kernel<C, kLSE, kMask>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          C::kSmemBytes);
     if (e != cudaSuccess) return (int)e;
     smem_ok = true;
   }
-  dim3 grid((N + C::kBQ - 1) / C::kBQ, H, B);
-  fwd_kernel<C, kLSE><<<grid, C::kThreads, C::kSmemBytes, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], lse, N, scale * kLog2e);
+  dim3 grid((Nq + C::kBQ - 1) / C::kBQ, H, B);
+  fwd_kernel<C, kLSE, kMask><<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, Nq, Nk, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 template <bool kLSE>
 static int fwd_launch(const void* q, const void* k, const void* v, void* o, float* lse,
-                      int B, int N, int H, int ld_q, int ld_k, int ld_v, int ld_o,
+                      int B, int Nq, int Nk, int H, int ld_q, int ld_k, int ld_v, int ld_o,
                       float scale, void* stream) {
-  const bool short_n = N <= kShortN;
+  if (Nq < 1 || Nk < 1) return (int)cudaErrorInvalidValue;
+  const bool short_n = Nk <= kShortN;  // the loop's length picks the tile
   const uint32_t bkv = short_n ? ShortTile::kBKV : LongTile::kBKV;
-  // (columns, N, B) maps, one per operand and call (the addresses change):
-  // q and o in 64-row boxes, k and v in kBKV-row boxes.
+  // (columns, rows, B) maps, one per operand and call (the addresses
+  // change): q and o over Nq rows in 64-row boxes, k and v over Nk rows in
+  // kBKV-row boxes.
   CUtensorMap maps[4];
   const void* bases[4] = {q, k, v, o};
   const int lds[4] = {ld_q, ld_k, ld_v, ld_o};
+  const int ns[4] = {Nq, Nk, Nk, Nq};
   const uint32_t rows[4] = {64, bkv, bkv, 64};
-  const cuuint64_t dims[3] = {(cuuint64_t)H * kHD, (cuuint64_t)N, (cuuint64_t)B};
   for (int i = 0; i < 4; ++i) {
+    const cuuint64_t dims[3] = {(cuuint64_t)H * kHD, (cuuint64_t)ns[i], (cuuint64_t)B};
     const int e = make_map_bf16(&maps[i], bases[i], 3, dims, (uint64_t)lds[i] * 2,
-                                (uint64_t)lds[i] * 2 * N, rows[i]);
+                                (uint64_t)lds[i] * 2 * ns[i], rows[i]);
     if (e != 0) return e;
   }
   cudaStream_t st = (cudaStream_t)stream;
-  return short_n ? tile_launch<ShortTile, kLSE>(maps, lse, B, N, H, scale, st)
-                 : tile_launch<LongTile, kLSE>(maps, lse, B, N, H, scale, st);
+  // attention_core (no lse) takes N % 64 == 0 only: no masked form.
+  if (kLSE && Nk % 64 != 0)
+    return short_n ? tile_launch<ShortTile, kLSE, kLSE>(maps, lse, B, Nq, Nk, H, scale, st)
+                   : tile_launch<LongTile, kLSE, kLSE>(maps, lse, B, Nq, Nk, H, scale, st);
+  return short_n ? tile_launch<ShortTile, kLSE, false>(maps, lse, B, Nq, Nk, H, scale, st)
+                 : tile_launch<LongTile, kLSE, false>(maps, lse, B, Nq, Nk, H, scale, st);
 }
 
 }  // namespace flash

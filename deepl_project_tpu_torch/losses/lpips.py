@@ -14,10 +14,12 @@ weights (:func:`init_lpips_params`), so training runs end to end; quality
 parity needs the real weights (``WEIGHTS.md``).
 
 Under an ambient context group (``parallel.context``; x and y are this
-rank's rows of each image) the VGG convs exchange halo rows
-(``parallel.halo``), the 2x2 max-pools are row-local (the local row count
-must be a multiple of 16, even at all four pools), and each image's
-distance is its equal-count local spatial means averaged over the group
+rank's rows of each image) the VGG convs fetch their halo rows
+(``parallel.halo``), the 2x2 max-pools pair global rows (floor at an odd
+height, as on one device; each pooled map split by its own height, so a
+rank may hold few rows or none), and each image's distance is its local
+spatial means weighted by the rank's share of the rows
+(``context.row_mean``) averaged over the group
 (``collectives.global_mean``: every rank holds the image's distance, and
 its gradient reaches this rank's rows unscaled, as the step's gradient
 average over the group expects).
@@ -34,7 +36,7 @@ import torch.nn.functional as F
 
 from ..parallel import context as cp
 from ..parallel.collectives import global_mean
-from ..parallel.halo import conv2d_rows
+from ..parallel.halo import conv2d_rows, pool2x2_rows
 from ..utils.convert import lpips_params_from_jax
 
 # VGG16 convolutional config: channel widths per conv layer, 'M' = 2x2 maxpool.
@@ -103,21 +105,31 @@ def get_lpips_params(path: str = DEFAULT_WEIGHTS_PATH, device=None,
     return p if p is not None else init_lpips_params(generator, device)
 
 
-def _vgg_features(params: dict, x: torch.Tensor) -> list[torch.Tensor]:
-    """The VGG16 trunk's five tap activations; x NCHW in [-1, 1]."""
+def _vgg_features(params: dict, x: torch.Tensor, rows: int | None = None
+                  ) -> list[torch.Tensor]:
+    """The VGG16 trunk's five tap activations; x NCHW in [-1, 1]. Under an
+    ambient context group ``x`` is this rank's rows of a map of ``rows``
+    global rows (default: from the group): the convs fetch their halo rows
+    and the 2x2 pools pair global rows (``parallel.halo``), each map split
+    by its own height; tap i has rows >> i global rows."""
     shift = torch.tensor(_SHIFT, device=x.device).view(1, 3, 1, 1)
     scale = torch.tensor(_SCALE, device=x.device).view(1, 3, 1, 1)
     h = (x - shift) / scale
     taps = []
     idx = 0
     state = cp.current()
+    if state is not None and rows is None:
+        rows = state.map_rows(x)
     for c in _VGG16_CFG:
         if c == "M":
-            h = F.max_pool2d(h, 2, 2)
+            if state is None:
+                h = F.max_pool2d(h, 2, 2)
+            else:
+                h, rows = pool2x2_rows(h, state, rows), rows // 2
             continue
         w, b = params["conv"][f"w{idx}"], params["conv"][f"b{idx}"]
         h = F.relu(F.conv2d(h, w, b, padding=1) if state is None
-                   else conv2d_rows(h, w, b, 1, (1, 1), 1, state))
+                   else conv2d_rows(h, w, b, 1, (1, 1), 1, state, rows))
         if idx in _TAP_AFTER_CONV:
             taps.append(h)
         idx += 1
@@ -129,16 +141,16 @@ def _unit_normalize(x: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
 
 
 def lpips(params: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """LPIPS distance per image: x, y NCHW in [-1, 1] -> [B] (fp32)."""
+    """LPIPS distance per image: x, y NCHW in [-1, 1] -> [B] (fp32). Under
+    an ambient context group each tap's spatial mean is this rank's rows'
+    weighted by its share (``context.row_mean``), averaged over the group."""
     state = cp.current()
-    if state is not None and x.shape[2] % 16:
-        raise ValueError(f"LPIPS under context parallelism needs a multiple of 16 rows a "
-                         f"rank (its four 2x2 pools), got {x.shape[2]}")
-    fx = _vgg_features(params, x.float())
-    fy = _vgg_features(params, y.float())
+    rows = None if state is None else state.map_rows(x)
+    fx = _vgg_features(params, x.float(), rows)
+    fy = _vgg_features(params, y.float(), rows)
     total = 0.0
     for i, (a, b) in enumerate(zip(fx, fy)):
         d = (_unit_normalize(a) - _unit_normalize(b)).square()
-        d = (d * params["lin"][f"w{i}"].view(1, -1, 1, 1)).sum(dim=1)  # [B, H, W]
-        total = total + d.mean(dim=(1, 2))
+        d = (d * params["lin"][f"w{i}"].view(1, -1, 1, 1)).sum(dim=1, keepdim=True)
+        total = total + cp.row_mean(d, (1, 2, 3), None if rows is None else rows >> i)
     return total if state is None else global_mean(total, state.group)

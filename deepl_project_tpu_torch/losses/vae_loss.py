@@ -10,10 +10,12 @@
 - :func:`make_self_perceptual`: the perceptual term from a trained model's
   own frozen encoder, in the LPIPS slot.
 - Under an ambient context group (``parallel.context``: every tensor is
-  this rank's rows of each image) the L1 and KL terms are means over the
-  rank's rows, LPIPS and the self-perceptual distance each image's local
-  mean averaged over the group, and the VF and GAN terms read each image's
-  gathered rows (``context.whole_rows``).
+  this rank's rows of each image, the ranks' shares equal or not) the L1
+  and KL terms are this rank's row means weighted by its share of the
+  global rows (``context.row_mean``; the steps' average over the group is
+  the global mean), LPIPS and the self-perceptual distance each image's
+  weighted row mean averaged over the group, and the VF and GAN terms read
+  each image's gathered rows (``context.whole_rows``).
 """
 
 from __future__ import annotations
@@ -44,15 +46,16 @@ class LossWeights:
 
 
 def l1_loss(recon_img: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return (recon_img.float() - target.float()).abs().mean()
+    """Mean |recon - target| in fp32 (under context: ``row_mean``)."""
+    return cp.row_mean((recon_img.float() - target.float()).abs(), (0, 1, 2, 3))
 
 
 def kl_divergence(mu: torch.Tensor, logvar: torch.Tensor,
                   clip: tuple = (-30.0, 20.0)) -> torch.Tensor:
-    """Mean KL(q(z|x) || N(0, 1)) in fp32."""
+    """Mean KL(q(z|x) || N(0, 1)) in fp32 (under context: ``row_mean``)."""
     mu32 = mu.float()
     logvar32 = logvar.float().clamp(clip[0], clip[1])
-    return (-0.5 * (1.0 + logvar32 - mu32.square() - logvar32.exp())).mean()
+    return cp.row_mean(-0.5 * (1.0 + logvar32 - mu32.square() - logvar32.exp()), (0, 1, 2, 3))
 
 
 def vf_loss(latent: torch.Tensor, dino_features: torch.Tensor,
@@ -118,7 +121,8 @@ def make_self_perceptual(model: torch.nn.Module, frozen_state: dict | None = Non
     Under an ambient context group the encoder runs context-parallel on the
     rank's rows (``model`` must be built with ``context_axis``; otherwise
     it raises), the recompute under the same group, and each image's
-    distance is its local-row mean averaged over the group (as LPIPS).
+    distance is its weighted row mean (``context.row_mean``) averaged over
+    the group (as LPIPS).
 
     Returns fn(recon [B, 3, H, W] in [0, 1], target) -> [B] distances."""
     if frozen_state is not None:
@@ -141,7 +145,7 @@ def make_self_perceptual(model: torch.nn.Module, frozen_state: dict | None = Non
             fr = feats(recon_img)
         with torch.no_grad():
             ft = feats(target)
-        d = (fr - ft).square().mean(dim=(1, 2, 3))
+        d = cp.row_mean((fr - ft).square(), (1, 2, 3))
         return d if state is None else global_mean(d, state.group)
 
     return fn

@@ -20,7 +20,12 @@ which the training steps never make (as in the JAX package).
 (``parallel.context.context_parallel(mesh)``) the model takes each image's
 rows of this rank (``parallel.shard_rows``) and computes its rows of the
 whole image's result, as the JAX model does under a mesh that shards rows
-over that axis; with no ambient group the field changes nothing. A model
+over that axis; with no ambient group the field changes nothing. It takes
+every height the JAX package takes: any multiple of the context size and
+the downsample factor. A map deeper in is split by its own height
+(``parallel.context.row_split``), unevenly where the context size does not
+divide it (720 px over 2 ranks: 23 / 22 rows of stage 4's 45), as GSPMD
+pads it. A model
 without the field refuses to run under an ambient group. An int8 model
 (``quant='int8'``) runs under the group as the float one does: its convs
 exchange halo rows of their float input before they quantize.
@@ -73,10 +78,13 @@ class TransVAE(nn.Module):
         self.latent_norm = (GroupNorm(gn_groups(final), final, **pkw)
                             if cfg.norm_latents else None)
 
-    def _context(self, rows: int | None = None):
-        """The ambient context state for this model (None without one);
-        raises where the model cannot run under it. ``rows``: the local row
-        count of an input image, which the downsample factor must divide."""
+    def _context(self, x: torch.Tensor | None = None, image: bool = False):
+        """The ambient context state for this model (None without one),
+        with the global height of the map ``x`` (this rank's rows) entered
+        (``ContextState.for_map``; kept where a call of this model already
+        entered its input); raises where the model cannot run under it.
+        ``image``: ``x`` is the input, whose height JAX's placement refuses
+        unless the context size and the downsample factor divide it."""
         state = cp.current()
         if state is None:
             return None
@@ -85,26 +93,37 @@ class TransVAE(nn.Module):
             raise ValueError("an ambient context group shards the rows, but this model's "
                              "config leaves context_axis unset: build it with "
                              "context_axis='context'")
+        if state.height is not None or x is None:
+            return state
         f = 2 ** (cfg.num_stages - 1)
-        if rows is not None and rows % f:
+
+        def refuse(rows):
             raise ValueError(
-                f"an image of {rows * state.size} rows does not split over the context "
-                f"axis of {state.size} ranks and the downsample factor {f}: use a height "
-                f"that is a multiple of {state.size * f} (the JAX package pads instead)")
+                f"an image of {rows} rows does not split over the context axis of "
+                f"{state.size} ranks or the downsample factor {f}: use a height that is a "
+                f"multiple of both (the JAX package refuses it too)")
+
+        # The input splits evenly (JAX's placement): its height is this
+        # rank's rows times C, which the downsample factor must divide.
+        if image and (x.shape[2] * state.size) % f:
+            refuse(x.shape[2] * state.size)
+        state = state.for_map(x)
+        if image and state.height % state.size:
+            refuse(state.height)
         return state
 
     def encode(self, x: torch.Tensor, deterministic: bool = True):
         """x [B, C, H, W] -> (mu, logvar), each [B, D, H/f, W/f], unclamped."""
-        self._context(x.shape[2])
-        h = self.encoder(x, deterministic)
-        if self.latent_norm is not None:
-            h = self.latent_norm(h)
-        return self.conv_mu(h), self.conv_logvar(h)
+        with cp.use(self._context(x, image=True)):
+            h = self.encoder(x, deterministic)
+            if self.latent_norm is not None:
+                h = self.latent_norm(h)
+            return self.conv_mu(h), self.conv_logvar(h)
 
     def decode(self, z: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
         """z [B, D, h, w] -> logits [B, C, h*f, w*f]."""
-        self._context()
-        return self.decoder(z, deterministic)
+        with cp.use(self._context(z)):
+            return self.decoder(z, deterministic)
 
     def reparameterize(self, mu: torch.Tensor, logvar: torch.Tensor,
                        generator: torch.Generator | None = None,
@@ -124,10 +143,11 @@ class TransVAE(nn.Module):
         lo, hi = self.config.logvar_clip
         mu32 = mu.float()
         std = torch.exp(0.5 * logvar.float().clamp(lo, hi))
-        state = self._context()
+        state = self._context(mu)
         b, d, h, w = std.shape
         total, first = (b, 0) if noise_rows is None else (noise_rows[1], noise_rows[0])
-        height, row = (h, 0) if state is None else state.rows(h)
+        height = h if state is None else state.map_rows(mu)
+        row = 0 if state is None else state.row_range(height)[0]
         if eps is None:
             eps = torch.randn((total, d, height, w), generator=generator, device=std.device,
                               dtype=torch.float32)
@@ -143,12 +163,13 @@ class TransVAE(nn.Module):
         :meth:`reparameterize`). ``deterministic=False`` turns the config's
         dropout on."""
         cfg = self.config
-        mu, logvar = self.encode(x, deterministic)
-        mu = mu.clamp(-cfg.mu_clip, cfg.mu_clip)
-        logvar = logvar.clamp(*cfg.logvar_clip)
-        z = (self.reparameterize(mu, logvar, generator, eps, noise_rows)
-             if sample else mu)
-        return self.decode(z, deterministic), mu, logvar
+        with cp.use(self._context(x, image=True)):
+            mu, logvar = self.encode(x, deterministic)
+            mu = mu.clamp(-cfg.mu_clip, cfg.mu_clip)
+            logvar = logvar.clamp(*cfg.logvar_clip)
+            z = (self.reparameterize(mu, logvar, generator, eps, noise_rows)
+                 if sample else mu)
+            return self.decode(z, deterministic), mu, logvar
 
 
 def _unrolled_modules(module: nn.Module):

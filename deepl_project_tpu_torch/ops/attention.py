@@ -28,9 +28,13 @@ Sublayer dispatch (``AttentionRoPE``), as in the JAX module:
   folds the norms' affines in (``diag(g_i) W_i``, bias ``b_i W_i``; the
   same parameters), and both kernel routes are off, as in the JAX module;
 - under tensor parallelism (``model_group`` set by
-  ``parallel.shard_params``): this rank's heads (``to_q/to_k/to_v`` C ->
+  ``parallel.shard_params``): this rank's columns (``to_q/to_k/to_v`` C ->
   W = C/m, the projection W -> C with its partial products summed over the
-  group, then its bias once). With ``impl='auto'`` and no gradient
+  group, then its bias once), the JAX package's placement; where W cuts a
+  head (heads % m != 0) q, k and v are gathered over the group for the
+  core and each rank keeps its columns of the core's output (route
+  ``gathered_heads``, :meth:`AttentionRoPE.partial_heads`). With
+  ``impl='auto'`` and no gradient
   (serving) where the kernels' gates hold at width W: where
   ``sublayer_supported(..., W)`` holds (N <= 1024) the whole local sublayer
   on the kernels (``hopper.fused_attention_block.local_sublayer``: route
@@ -50,7 +54,7 @@ Sublayer dispatch (``AttentionRoPE``), as in the JAX module:
 
 :func:`route_counts` counts each forward's route by name ('sublayer',
 ``'ln_qkv_rope'``, ``'composable'``, ``'local_sublayer'``,
-``'local_ln_qkv_rope'``, ``'local_heads'``, ``'ring'``).
+``'local_ln_qkv_rope'``, ``'local_heads'``, ``'gathered_heads'``, ``'ring'``).
 
 :func:`core_attention` picks the core by token count as ``core_attention``
 in the JAX package does, with the flash kernels
@@ -75,7 +79,8 @@ from .hopper.fused_attention_block import (fused_attention_sublayer,
                                            sublayer_supported)
 from .hopper.small_attention import small_attention
 from ..parallel import context as cp
-from ..parallel.collectives import copy_to_group, reduce_from_group
+from ..parallel.collectives import (copy_to_group, gather_from_group, reduce_from_group,
+                                    scatter_to_group)
 from ..parallel.ring_attention import context_parallel_attention
 from .layers import CachedOperands, Linear, dropout, matmul_f32
 from .norms import LayerNorm
@@ -239,8 +244,9 @@ class AttentionRoPE(CachedOperands, nn.Module):
         kernels = (self.impl in ("auto", "fused") and not self.fuse_qkv
                    and (self.dropout == 0.0 or deterministic)
                    and cp.context_axis_size() == 1)
+        grid = self._grid(h, w, x.device)
         if self.model_group is not None:
-            out = self._local_heads(xf, h, w, kernels)
+            out = self._local_heads(xf, h, w, kernels, grid)
         elif kernels and sublayer_supported(n, c, hd, x.dtype):
             _ROUTES["sublayer"] += 1
             ln, wq, wk, wv = self._qkv_args()
@@ -260,8 +266,8 @@ class AttentionRoPE(CachedOperands, nn.Module):
             else:
                 _ROUTES["composable" if cp.context_axis_size() == 1 else "ring"] += 1
                 q, k, v = (t.reshape(b, n, nh, hd) for t in self._qkv(xf))
-                q, k = self._rope(q, k, h, w)
-            out = self._core(q, k, v)
+                q, k = self._rope(q, k, h, w, grid)
+            out = self._core(q, k, v, grid)
             out = self.proj(out.reshape(b, n, c))
         if self.dropout > 0.0 and not deterministic:
             # On the whole (under tensor parallelism: reduced) output, one
@@ -291,7 +297,7 @@ class AttentionRoPE(CachedOperands, nn.Module):
             xhat = copy_to_group(xhat, group)
         weight, bias = self._folded_qkv(xf.dtype, group)
         qkv = (matmul_f32(xhat.reshape(b * n, c), weight.t()) + bias).to(xf.dtype)
-        return qkv.reshape(b, n, -1).chunk(3, dim=-1)
+        return qkv.reshape(b, n, qkv.shape[-1]).chunk(3, dim=-1)
 
     def _folded_qkv(self, dtype: torch.dtype, group=None):
         """The folded QKV operands of the current parameters: the [3W, C]
@@ -316,39 +322,69 @@ class AttentionRoPE(CachedOperands, nn.Module):
 
         return self._cached(f"fused_qkv_{dtype}", params, fold, differentiable=True)
 
-    def _rope(self, q, k, h, w):
-        """RoPE on q and k of an (h, w) map: under context, this rank's rows
-        of the global map's table."""
+    @staticmethod
+    def _grid(h: int, w: int, device):
+        """Under an ambient context group, (global rows, this rank's first
+        row, every rank's token count) of the (h, w) map this rank holds
+        rows of (the split of ``parallel.context``); None without one."""
+        state = cp.current()
+        if state is None:
+            return None
+        rows = state.rows_of(h, w, device)
+        split = state.split(rows)
+        return rows, split[state.rank][0], [(hi - lo) * w for lo, hi in split]
+
+    def _rope(self, q, k, h, w, grid=None):
+        """RoPE on q and k of an (h, w) map: under context (``grid``), this
+        rank's rows of the global map's table."""
         if not self.use_rope:
             return q, k
-        state = cp.current()
-        height, first = (h, 0) if state is None else state.rows(h)
+        height, first = (h, 0) if grid is None else grid[:2]
         return (apply_rope2d(q, height, w, self.rope_pairing, first),
                 apply_rope2d(k, height, w, self.rope_pairing, first))
 
-    def _core(self, q, k, v):
-        """:func:`core_attention`, or under context the ring."""
-        if cp.context_axis_size() > 1:
-            return context_parallel_attention(q, k, v, self.head_dim ** -0.5)
+    def _core(self, q, k, v, grid=None):
+        """:func:`core_attention`, or under context (``grid``) the ring over
+        every rank's token chunk."""
+        if grid is not None:
+            return context_parallel_attention(q, k, v, self.head_dim ** -0.5, sizes=grid[2])
         return core_attention(q, k, v, self.head_dim ** -0.5, self.impl)
 
-    def partial_heads(self, xf: torch.Tensor, h: int, w: int) -> torch.Tensor:
-        """This rank's heads of the sublayer on tokens ``xf`` [B, N, C]:
-        LayerNorms, the local q/k/v (C -> C/m; with ``fuse_qkv`` the fold of
-        this rank's rows of each W_i, exact since the fold is row by row),
-        RoPE, the core on the local heads and the local projection (C/m ->
-        C, no bias); summed over the model group this is the sublayer's
-        output less the projection's bias. The composable route (the core
-        takes its kernels by token count; under context, the ring on the
-        local heads)."""
+    def partial_heads(self, xf: torch.Tensor, h: int, w: int, grid=None) -> torch.Tensor:
+        """This rank's part of the sublayer on tokens ``xf`` [B, N, C]:
+        LayerNorms, the local q/k/v (C -> W = C/m columns; with ``fuse_qkv``
+        the fold of this rank's rows of each W_i, exact since the fold is
+        row by row), RoPE, the core and the local projection (W -> C, no
+        bias); summed over the model group this is the sublayer's output
+        less the projection's bias. The composable route (the core takes its
+        kernels by token count; under context, ``grid``, the ring).
+
+        Where W holds whole heads (heads % m == 0) the core runs on this
+        rank's heads (route ``local_heads``). Where the JAX rule's column
+        split cuts a head (route ``gathered_heads``), q, k and v are
+        gathered over the model group, every rank runs the core on every
+        head, and keeps its W columns of the core's output for its rows of
+        ``proj``. The gather's backward keeps this rank's columns of the
+        core's gradient (every rank computes it whole, so it is counted
+        once) and the column take's backward gathers the output gradient
+        from every rank's projection."""
         b, n, c = xf.shape
         hd, group = self.head_dim, self.model_group
         width = self.to_q.weight.shape[0]
-        _ROUTES["local_heads"] += 1
-        q, k, v = (t.reshape(b, n, width // hd, hd) for t in self._qkv(xf, group))
-        q, k = self._rope(q, k, h, w)
-        out = self._core(q, k, v)
-        return F.linear(out.reshape(b, n, width), self.proj.weight.to(xf.dtype))
+        q, k, v = self._qkv(xf, group)
+        if width % hd == 0:
+            _ROUTES["local_heads"] += 1
+            heads = width // hd
+        else:
+            _ROUTES["gathered_heads"] += 1
+            q, k, v = (gather_from_group(t, 2, group) for t in (q, k, v))
+            heads = q.shape[2] // hd
+        q, k, v = (t.reshape(b, n, heads, hd) for t in (q, k, v))
+        q, k = self._rope(q, k, h, w, grid)
+        out = self._core(q, k, v, grid).reshape(b, n, heads * hd)
+        if width % hd:
+            out = scatter_to_group(out, 2, group)
+        return F.linear(out, self.proj.weight.to(xf.dtype))
 
     def local_kernel_heads(self, xf: torch.Tensor, h: int, w: int) -> torch.Tensor:
         """This rank's heads on the sublayer kernels (no gradient): the
@@ -375,14 +411,15 @@ class AttentionRoPE(CachedOperands, nn.Module):
                               hd, self.use_rope, packed=self._packed_qkv() if cuda else None,
                               packed_proj=self._packed_proj() if cuda else None, core=core)
 
-    def _local_heads(self, xf, h, w, kernels):
+    def _local_heads(self, xf, h, w, kernels, grid=None):
         width = self.to_q.weight.shape[0]
         # The local kernels have no backward: a forward that builds a graph
-        # takes the composable route.
+        # takes the composable route; so does a split that cuts a head (the
+        # kernels' gate refuses its width).
         if (kernels and not torch.is_grad_enabled()
                 and kernel_supported(xf.shape[1], xf.shape[2], self.head_dim, xf.dtype, width)):
             part = self.local_kernel_heads(xf, h, w)
         else:
-            part = self.partial_heads(xf, h, w)
+            part = self.partial_heads(xf, h, w, grid)
         out = reduce_from_group(part, self.model_group)
         return out + self.proj.bias.to(xf.dtype)

@@ -179,7 +179,7 @@ class ConvFFN(CachedOperands, nn.Module):
             out = out + yw[:, ch:] + b_fold
         else:
             out = out.add_(yw[:, ch:]).add_(b_fold)
-        return out.to(dt).view(b, h, w, -1).permute(0, 3, 1, 2)
+        return out.to(dt).view(b, h, w, out.shape[-1]).permute(0, 3, 1, 2)
 
     def _int8_forward(self, x: torch.Tensor) -> torch.Tensor:
         """The folded op order in int8: [W0 | Wout] and W2 Wout quantized per
@@ -195,7 +195,7 @@ class ConvFFN(CachedOperands, nn.Module):
         out = qmatmul(z.permute(0, 2, 3, 1), self.w_fold_q, self.w_fold_scale,
                       self.act_scale_z2, out_dtype=torch.float32)
         out = out.view(-1, out.shape[-1]).add_(yw[:, ch:]).add_(self.b_fold)
-        return out.to(dt).view(b, h, w, -1).permute(0, 3, 1, 2)
+        return out.to(dt).view(b, h, w, out.shape[-1]).permute(0, 3, 1, 2)
 
 
 class StandardFFN(nn.Module):

@@ -35,9 +35,9 @@ SIGNATURES = {
     "ln_qkv_rope": [_P] * 9 + [_I] * 5 + [_P],
     "attention_core": [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P],
     "proj_bias_gemm": [_P] * 4 + [_I] * 3 + [_P],
-    "flash_attention_fwd": [_P] * 5 + [_I] * 7 + [ctypes.c_float, _P],
-    "flash_attention_bwd": [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P],
-    "flash_attention_bwd_det": [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P],
+    "flash_attention_fwd": [_P] * 5 + [_I] * 8 + [ctypes.c_float, _P],
+    "flash_attention_bwd": [_P] * 11 + [_I] * 10 + [ctypes.c_float, _P],
+    "flash_attention_bwd_det": [_P] * 11 + [_I] * 10 + [ctypes.c_float, _P],
     "small_attention": [_P] * 4 + [_I] * 7 + [ctypes.c_float, _P],
     "group_norm_stats": [_P] * 2 + [_I] * 5 + [_P],
     "group_norm_apply": [_P, _P, _I, _P, _P, _P] + [_I] * 6 + [ctypes.c_float, _I, _P],
@@ -126,8 +126,25 @@ def launcher(name: str, csrc: Path = CSRC, argtypes=None):
     return fn
 
 
+# Threads whose CUDA context is known to be current (see launch()).
+_bound = threading.local()
+
+
 def launch(name: str, *args) -> None:
-    """Call ``<name>_launch(*args)``; raise if the launch was refused."""
+    """Call ``<name>_launch(*args)``; raise if the launch was refused.
+
+    Each launcher library links its own CUDA runtime, which launches into
+    the context current on the calling thread. PyTorch makes the device's
+    primary context current on a thread only when it calls the runtime
+    there, and a thread that has taken its tensors from the caching
+    allocator (autograd's device threads, a Python thread) may never have:
+    the launch then fails with 201 (invalid context). So the first launch
+    on each thread has PyTorch's runtime touch its current stream first."""
+    if not getattr(_bound, "ok", False):
+        import torch
+
+        torch.cuda.current_stream().query()
+        _bound.ok = True
     err = launcher(name)(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

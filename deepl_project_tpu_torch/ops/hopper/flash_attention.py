@@ -30,9 +30,19 @@ function launches its two. q, k and v are read in place (each with its own
 row stride; heads must be adjacent 64-column groups), so neither direction
 folds or transposes them.
 
+Lengths: the kernels take a query length and a key length of their own,
+any N >= 1 (a ring step's queries against the visiting chunk of an uneven
+row split): the maps' rows end at each length, and keys at or past the key
+length take no weight (score -inf in the forward; zero P and dS in the
+backward, so padded keys get zero dk and dv and padded queries add
+nothing). :func:`flash_forward` and :func:`flash_backward` also take the
+bounds ``q_len`` / ``k_len`` within longer (padded) tensors: rows past them
+are not read, and come back zero (o, dq, dk, dv) or -inf (lse: no weight in
+a merge).
+
 For CPU tensors every function runs its plain PyTorch version
-(:func:`flash_forward_reference`, :func:`flash_backward_reference`); for a
-CUDA tensor it launches the kernels or raises.
+(:func:`flash_forward_reference`, :func:`flash_backward_reference`, which
+take the same bounds); for a CUDA tensor it launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -44,7 +54,7 @@ import torch
 from . import build
 
 HEAD_DIM = 64
-BLOCK = 64  # tokens per kernel tile: N must be a multiple
+BLOCK = 64  # tokens per kernel tile (lse and the backward's scratch rows pad to it)
 KEY_BLOCK = 128  # keys a CTA of the backward pass: one dq slot each when deterministic
 
 # (kernel name, tokens per image, heads) -> launches since the last reset.
@@ -70,9 +80,9 @@ def launch_counts_by_shape() -> dict[tuple, int]:
 
 def flash_supported(q: torch.Tensor) -> bool:
     """The kernels' own limits (the port's ``pallas_ok``): a CUDA bf16
-    [B, N, heads, 64] tensor with N % 64 == 0."""
+    [B, N, heads, 64] tensor, N >= 1."""
     return (q.is_cuda and q.dtype == torch.bfloat16 and q.dim() == 4
-            and q.shape[-1] == HEAD_DIM and q.shape[1] % BLOCK == 0)
+            and q.shape[-1] == HEAD_DIM and q.shape[1] >= 1)
 
 
 # -- plain versions ---------------------------------------------------------
@@ -81,11 +91,34 @@ def _heads(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 2, 1, 3).float()
 
 
-def flash_forward_reference(q, k, v, scale, chunk: int = 1024):
-    """Plain forward: (o [B, N, h, d] in q's dtype, lse [B, h, N] fp32).
+def _bounds(q, k, q_len, k_len) -> tuple[int, int]:
+    nq = q.shape[1] if q_len is None else int(q_len)
+    nk = k.shape[1] if k_len is None else int(k_len)
+    if not (1 <= nq <= q.shape[1] and 1 <= nk <= k.shape[1]):
+        raise ValueError(f"flash_attention: bounds ({nq}, {nk}) outside the tensors' "
+                         f"({q.shape[1]}, {k.shape[1]}) rows")
+    return nq, nk
+
+
+def _pad_rows(t: torch.Tensor, n: int, dim: int, value: float = 0.0) -> torch.Tensor:
+    """``t`` padded along ``dim`` to ``n`` with ``value``."""
+    if t.shape[dim] == n:
+        return t
+    shape = list(t.shape)
+    shape[dim] = n - t.shape[dim]
+    return torch.cat([t, t.new_full(shape, value)], dim)
+
+
+def flash_forward_reference(q, k, v, scale, chunk: int = 1024, q_len=None, k_len=None):
+    """Plain forward: (o [B, Nq, h, d] in q's dtype, lse [B, h, Nq] fp32).
     fp32 scores, unnormalised p rounded to q's dtype for P.V, division by
     the row sum at the end, lse = m + log(l) (the math of ``_flash_kernel``
-    over whole rows); query-chunked to bound the fp32 scores."""
+    over whole rows); query-chunked to bound the fp32 scores. ``q_len`` /
+    ``k_len``: the kernels' length bounds: keys from ``k_len`` on take no
+    weight, queries from ``q_len`` on give o = 0 and lse = -inf."""
+    nq, nk = _bounds(q, k, q_len, k_len)
+    rows_q = q.shape[1]
+    q, k, v = q[:, :nq], k[:, :nk], v[:, :nk]
     b, n, h, d = q.shape
     qh, kh, vh = _heads(q), _heads(k), _heads(v)
     kt = kh.transpose(-1, -2)
@@ -100,14 +133,22 @@ def flash_forward_reference(q, k, v, scale, chunk: int = 1024):
         l = p.sum(dim=-1, keepdim=True)
         o[:, :, rows] = (p.to(q.dtype).float() @ vh) / l
         lse[:, :, rows] = (m + torch.log(l)).squeeze(-1)
-    return o.to(q.dtype).permute(0, 2, 1, 3).contiguous(), lse
+    o = o.to(q.dtype).permute(0, 2, 1, 3).contiguous()
+    return _pad_rows(o, rows_q, 1), _pad_rows(lse, rows_q, 2, float("-inf"))
 
 
-def flash_backward_reference(q, k, v, o, lse, do, scale, chunk: int = 1024):
+def flash_backward_reference(q, k, v, o, lse, do, scale, chunk: int = 1024, q_len=None,
+                             k_len=None):
     """Plain backward: (dq, dk, dv) in q's dtype from the forward's o and
     lse. p = exp(s - lse) in fp32, delta = rowsum(dO * o) in fp32,
     dv = bf16(p)^T dO, ds = p (dO v^T - delta) scale, dq = bf16(ds) k,
-    dk = bf16(ds)^T q (the math of ``_flash_backward``); query-chunked."""
+    dk = bf16(ds)^T q (the math of ``_flash_backward``); query-chunked.
+    ``q_len`` / ``k_len``: the kernels' length bounds: rows past them read
+    nothing and get zero gradients."""
+    nq, nk = _bounds(q, k, q_len, k_len)
+    rows_q, rows_k = q.shape[1], k.shape[1]
+    q, o, do, lse = q[:, :nq], o[:, :nq], do[:, :nq], lse[:, :, :nq]
+    k, v = k[:, :nk], v[:, :nk]
     dt = q.dtype
     qh, kh, vh, gh = _heads(q), _heads(k), _heads(v), _heads(do)
     delta = (gh * _heads(o)).sum(dim=-1)
@@ -124,7 +165,8 @@ def flash_backward_reference(q, k, v, o, lse, do, scale, chunk: int = 1024):
         ds = ds.to(dt).float()
         dq[:, :, rows] = ds @ kh
         dk += ds.transpose(-1, -2) @ qh[:, :, rows]
-    return tuple(t.to(dt).permute(0, 2, 1, 3).contiguous() for t in (dq, dk, dv))
+    dq, dk, dv = (t.to(dt).permute(0, 2, 1, 3).contiguous() for t in (dq, dk, dv))
+    return _pad_rows(dq, rows_q, 1), _pad_rows(dk, rows_k, 1), _pad_rows(dv, rows_k, 1)
 
 
 # -- kernels ----------------------------------------------------------------
@@ -134,8 +176,8 @@ def _stream() -> int:
 
 def _rows(name: str, t: torch.Tensor, shape) -> torch.Tensor:
     """t as [B, N, h, 64] with adjacent heads and one row stride (a copy
-    only when its layout is another); raises on what the kernels do not
-    take."""
+    only when its layout is another: a bounded view of a longer tensor is
+    copied); raises on what the kernels do not take."""
     if not t.is_cuda or t.dtype != torch.bfloat16:
         raise ValueError(f"flash_attention {name}: expected a CUDA bf16 tensor, "
                          f"got {t.dtype} on {t.device}")
@@ -149,25 +191,35 @@ def _rows(name: str, t: torch.Tensor, shape) -> torch.Tensor:
     return t
 
 
-def _check_shape(q: torch.Tensor) -> None:
-    if q.dim() != 4 or q.shape[-1] != HEAD_DIM or q.shape[1] % BLOCK:
-        raise ValueError(f"flash_attention: unsupported shape {tuple(q.shape)} "
-                         f"(want [B, N, heads, {HEAD_DIM}] with N % {BLOCK} == 0)")
+def _check_shape(q: torch.Tensor, k: torch.Tensor) -> None:
+    if (q.dim() != 4 or q.shape[-1] != HEAD_DIM or q.shape[1] < 1 or k.dim() != 4
+            or k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:] or k.shape[1] < 1):
+        raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)} (want [B, Nq, heads, {HEAD_DIM}] and "
+                         f"[B, Nk, heads, {HEAD_DIM}], Nq, Nk >= 1)")
 
 
-def flash_forward(q, k, v, scale):
-    """(o, lse) of attention on [B, N, h, 64] tensors: the
-    ``flash_attention_fwd`` kernel on the card, the plain forward on the
-    CPU. o [B, N, h, 64] contiguous; lse [B, h, N] fp32."""
+def flash_forward(q, k, v, scale, q_len=None, k_len=None):
+    """(o, lse) of attention of [B, Nq, h, 64] queries over [B, Nk, h, 64]
+    keys and values: the ``flash_attention_fwd`` kernel on the card, the
+    plain forward on the CPU. o [B, Nq, h, 64] contiguous; lse [B, h, Nq]
+    fp32. ``q_len`` / ``k_len``: length bounds within the tensors (module
+    docstring)."""
     if q.device.type == "cpu":
-        return flash_forward_reference(q, k, v, scale)
-    _check_shape(q)
+        return flash_forward_reference(q, k, v, scale, q_len=q_len, k_len=k_len)
+    if q_len is not None or k_len is not None:
+        nq, nk = _bounds(q, k, q_len, k_len)
+        o, lse = flash_forward(q[:, :nq], k[:, :nk], v[:, :nk], scale)
+        return _pad_rows(o, q.shape[1], 1), _pad_rows(lse, q.shape[1], 2, float("-inf"))
+    _check_shape(q, k)
     b, n, h, d = q.shape
-    q, k, v = (_rows(nm, t, q.shape) for nm, t in (("q", q), ("k", k), ("v", v)))
+    nk = k.shape[1]
+    q = _rows("q", q, q.shape)
+    k, v = (_rows(nm, t, k.shape) for nm, t in (("k", k), ("v", v)))
     o = torch.empty(b, n, h, d, device=q.device, dtype=q.dtype)
     lse = torch.empty(b, h, n, device=q.device, dtype=torch.float32)
     build.launch("flash_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 o.data_ptr(), lse.data_ptr(), b, n, h, q.stride(1), k.stride(1),
+                 o.data_ptr(), lse.data_ptr(), b, n, nk, h, q.stride(1), k.stride(1),
                  v.stride(1), h * d, float(scale), _stream())
     _LAUNCHES[("flash_attention_fwd", n, h)] += 1
     return o, lse
@@ -181,43 +233,55 @@ def _check_lse(name, t, b, h, n):
 
 def flash_backward_kernel(q, k, v, o, do, lse, scale):
     """(dq, dk, dv) from the ``flash_attention_bwd`` launcher (CUDA tensors
-    only): delta = rowsum(dO * o) and a zeroed fp32 [B, h, N, 64] dq buffer,
-    the pass, dq rounded to bf16. Under
+    only; [B, Nq, h, 64] queries, [B, Nk, h, 64] keys): delta =
+    rowsum(dO * o) and a zeroed fp32 [B, h, Lq, 64] dq buffer (Lq: Nq
+    rounded up to 64; lse padded to it), the pass, dq rounded to bf16. Under
     ``torch.are_deterministic_algorithms_enabled()``, its deterministic entry
     ``flash_attention_bwd_det`` with one dq slot per 128-key tile."""
-    _check_shape(q)
+    _check_shape(q, k)
     b, n, h, d = q.shape
-    q, k, v, o, do = (_rows(nm, t, q.shape) for nm, t in
-                      (("q", q), ("k", k), ("v", v), ("o", o), ("dO", do)))
+    nk = k.shape[1]
+    q, o, do = (_rows(nm, t, q.shape) for nm, t in (("q", q), ("o", o), ("dO", do)))
+    k, v = (_rows(nm, t, k.shape) for nm, t in (("k", k), ("v", v)))
     _check_lse("lse", lse, b, h, n)
+    lq = -(-n // BLOCK) * BLOCK
+    lse = _pad_rows(lse, lq, 2).contiguous()
     det = torch.are_deterministic_algorithms_enabled()
     name = "flash_attention_bwd_det" if det else "flash_attention_bwd"
-    slots = (b, h, -(-n // KEY_BLOCK)) if det else (b, h)
-    delta = torch.empty(b, h, n, device=q.device, dtype=torch.float32)
+    slots = (b, h, -(-nk // KEY_BLOCK)) if det else (b, h)
+    delta = torch.empty(b, h, lq, device=q.device, dtype=torch.float32)
     # The pass writes every element of dq_acc: PyTorch's deterministic mode
     # would otherwise fill it (1.5 GiB at the training shape) with NaN first.
     fill = torch.utils.deterministic.fill_uninitialized_memory
     torch.utils.deterministic.fill_uninitialized_memory = False
     try:
-        dq_acc = torch.empty(*slots, n, d, device=q.device, dtype=torch.float32)
+        dq_acc = torch.empty(*slots, lq, d, device=q.device, dtype=torch.float32)
     finally:
         torch.utils.deterministic.fill_uninitialized_memory = fill
-    dq, dk, dv = (torch.empty(b, n, h, d, device=q.device, dtype=q.dtype) for _ in range(3))
+    dq = torch.empty(b, n, h, d, device=q.device, dtype=q.dtype)
+    dk, dv = (torch.empty(b, nk, h, d, device=q.device, dtype=q.dtype) for _ in range(2))
     build.launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                 dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, h,
+                 dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, nk, h,
                  q.stride(1), k.stride(1), v.stride(1), o.stride(1), do.stride(1), h * d,
                  float(scale), _stream())
     _LAUNCHES[(name, n, h)] += 1
     return dq, dk, dv
 
 
-def flash_backward(q, k, v, o, lse, do, scale):
+def flash_backward(q, k, v, o, lse, do, scale, q_len=None, k_len=None):
     """(dq, dk, dv) from the forward's o and lse and the output gradient:
     the ``flash_attention_bwd`` kernels on the card, the plain backward on
-    the CPU."""
+    the CPU. ``q_len`` / ``k_len``: length bounds within the tensors
+    (module docstring)."""
     if q.device.type == "cpu":
-        return flash_backward_reference(q, k, v, o, lse, do, scale)
+        return flash_backward_reference(q, k, v, o, lse, do, scale, q_len=q_len, k_len=k_len)
+    if q_len is not None or k_len is not None:
+        nq, nk = _bounds(q, k, q_len, k_len)
+        dq, dk, dv = flash_backward_kernel(q[:, :nq], k[:, :nk], v[:, :nk], o[:, :nq],
+                                           do[:, :nq], lse[:, :, :nq].contiguous(), scale)
+        return (_pad_rows(dq, q.shape[1], 1), _pad_rows(dk, k.shape[1], 1),
+                _pad_rows(dv, k.shape[1], 1))
     return flash_backward_kernel(q, k, v, o, do, lse, scale)
 
 

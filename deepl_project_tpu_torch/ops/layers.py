@@ -4,8 +4,9 @@ initializers of its modules.
 Parameters stay in their own dtype (float32 by default) and are cast to the
 compute dtype of the input at each call, as flax's ``dtype``/``param_dtype``
 do; the cast is free when the two agree. Under an ambient context group
-(``parallel.context``) a Conv2d whose kernel is taller than one row
-exchanges halo rows with its neighbours first (``parallel.halo``).
+(``parallel.context``) a Conv2d whose kernel is taller than one row, or
+whose stride is more than one, fetches the rows its outputs read from the
+ranks that hold them first (``parallel.halo``).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ class Linear(nn.Linear):
 class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         state = cp.current()
-        if state is not None and self.kernel_size[0] > 1:
+        if state is not None:
             return context_conv2d(self, x, state)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)

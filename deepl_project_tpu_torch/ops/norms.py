@@ -67,7 +67,8 @@ class GroupNorm(nn.Module):
     computes them. Under an ambient context group (each rank holds its rows
     of the map) the sums of x and x^2 are summed over the group, one fp32
     all-reduce of [B, G, 2] (``collectives.sum_over_group``: its backward
-    sums every rank's gradient), over equal counts a rank.
+    sums every rank's gradient), and divided by the global map's count
+    (``ContextState.map_rows``: the ranks' shares may differ, or be none).
     """
 
     def __init__(self, num_groups: int, dim: int, eps: float = 1e-5, *,
@@ -90,7 +91,8 @@ class GroupNorm(nn.Module):
             m2 = x32.square().mean(dim=(1, 3), keepdim=True)
         else:
             sums = torch.stack([x32.sum(dim=(1, 3)), x32.square().sum(dim=(1, 3))], -1)
-            moments = sum_over_group(sums, state.group) / (h * w * (c // g) * state.size)
+            count = state.map_rows(x) * w * (c // g)
+            moments = sum_over_group(sums, state.group) / count
             m1, m2 = (moments[..., i].reshape(b, 1, g, 1) for i in range(2))
         var = torch.clamp(m2 - m1.square(), min=0.0)
         y = ((x32 - m1) * torch.rsqrt(var + self.eps)).reshape(b, h, w, c)

@@ -26,11 +26,13 @@ maximum of |x| at each quantization site (:func:`record_amax`, the
 counterpart of ``sow_amax``) in their ``amax`` dict.
 
 Under an ambient context group (``parallel.context``: each map is this
-rank's rows) a :class:`QConv2d` taller than one row exchanges halo rows of
-its float input with its neighbours before it quantizes (exact: the
-quantization is elementwise and 0 quantizes to 0) and convolves with no
-padding along H; :func:`record_amax` takes each site's maximum over the
-group, so calibration returns what the whole images give.
+rank's rows, split by ``context.row_split`` on the map's own height, so a
+rank may hold fewer rows than the halo, or none) a :class:`QConv2d` taller
+than one row fetches the halo rows of its float input from the ranks that
+hold them before it quantizes (exact: the quantization is elementwise and
+0 quantizes to 0) and convolves with no padding along H;
+:func:`record_amax` takes each site's maximum over the group (a rank with
+no rows adds 0), so calibration returns what the whole images give.
 """
 
 from __future__ import annotations
@@ -174,8 +176,12 @@ class QConv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         state, half, rows = cp.current(), self.kernel_q.shape[1] // 2, None
+        local = x.shape[2]
         if state is not None and half:
-            x, rows = exchange_rows(x, half, half, state.group), 0
+            x, rows = exchange_rows(x, half, half, state.group, state.map_rows(x)), 0
+        if not local:  # a rank past the end of an uneven split (serving: no graph)
+            b, _, _, w = x.shape
+            return x.new_zeros(b, 0, w, self.kernel_q.shape[0]).permute(0, 3, 1, 2)
         y = qconv(x.permute(0, 2, 3, 1), self.kernel_q, self.kernel_scale, self.act_scale,
                   self.bias, out_dtype=x.dtype, row_padding=rows)
         return y.permute(0, 3, 1, 2)
@@ -185,7 +191,7 @@ def record_amax(module: nn.Module, name: str, x: torch.Tensor) -> None:
     """Fold max|x| (fp32) into ``module.amax[name]``: the running maximum of
     a quantization site over the calibration batches (under an ambient
     context group, over every rank's rows)."""
-    v = x.detach().float().abs().amax()
+    v = torch.cat([x.detach().float().abs().flatten(), x.new_zeros(1, dtype=torch.float32)]).max()
     state = cp.current()
     if state is not None:
         dist.all_reduce(v, op=dist.ReduceOp.MAX, group=state.group)

@@ -26,13 +26,17 @@ With a flag off the literal op order runs (torch's pixel_(un)shuffle, whose
 channel order JAX's space_to_depth/depth_to_space reproduce).
 
 Under an ambient context group (``parallel.context``: each rank holds its
-rows of the map) the 3x3 convs exchange halo rows (``ops.layers.Conv2d``);
-the DC convs, pixel_(un)shuffle and the nearest upsample are row-local for
-even local row counts and offsets; the fused up-conv reads one input row
-of halo a side and keeps the local 2 x rows (transposed-conv padding 3
-along H: output rows 3 .. 2h + 2 of the padded input's, the crop). The module
-tree (main_path.{0,2} / main_path.{1,3}, dc_conv) and its parameters are the
-reference's either way.
+rows of the map, split by ``row_split`` on the map's own height) the 3x3
+and stride-2 convs fetch the rows their outputs read
+(``ops.layers.Conv2d``, ``parallel.halo``): the fused down DC conv as a
+2x2 stride-2 conv, the literal one by fetching the row pairs before
+pixel_unshuffle. The up paths make global rows [2 lo, 2 hi) of the doubled
+map from a rank's [lo, hi) (the fused up-conv reads one input row of halo a
+side: transposed-conv padding 3 along H, output rows 3 .. 2h + 2 of the
+padded input's, the crop) and move them onto the doubled height's split
+(``halo.resplit_rows``: a no-op where 2 lo .. 2 hi is that split). The
+module tree (main_path.{0,2} / main_path.{1,3}, dc_conv) and its parameters
+are the reference's either way.
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import context as cp
-from ..parallel.halo import exchange_rows
+from ..parallel.collectives import fetch_rows
+from ..parallel.halo import conv2d_rows, exchange_rows, on_rows, resplit_rows
 from .layers import CachedOperands, Conv2d
 
 # Taps of the 3x3 kernel that each of the fused up-conv's 4 rows (columns) sums.
@@ -68,10 +73,20 @@ class Downsample(nn.Module):
         y = self.main_path(x)
         if self.dc_conv is None:
             return y
+        state = cp.current()
         if self.fuse_dc:
             w, b = self.dc_conv.weight, self.dc_conv.bias
             w = w.to(x.dtype).reshape(w.shape[0], w.shape[1] // 4, 2, 2)
+            if state is not None:
+                return y + conv2d_rows(x, w, b.to(x.dtype), 2, (0, 0), 1, state)
             return y + F.conv2d(x, w, b.to(x.dtype), stride=2)
+        if state is not None:
+            # The output's rows pair global rows 2o, 2o + 1 of the input.
+            rows = state.map_rows(x)
+            need = [(2 * o0, 2 * o1) for o0, o1 in state.split(rows // 2)]
+            x = fetch_rows(x, state.split(rows), need, state.group)
+            # (pixel_unshuffle's backward refuses a map of no rows.)
+            return y + on_rows(lambda t: self.dc_conv(F.pixel_unshuffle(t, 2)), x, 2)
         return y + self.dc_conv(F.pixel_unshuffle(x, 2))
 
 
@@ -114,24 +129,55 @@ class Upsample(CachedOperands, nn.Module):
         return self._cached(("up", dt), (weight,), make, differentiable=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        state = cp.current()
+        if state is not None:
+            return self._context_forward(x, state)
         if self.fuse_main:
             conv = self.main_path[1]
-            state = cp.current()
-            xp, pad = (x, 1) if state is None else (exchange_rows(x, 1, 1, state.group), (3, 1))
-            y = F.conv_transpose2d(xp, self._up_kernel(x.dtype), conv.bias.to(x.dtype),
-                                   stride=2, padding=pad)
+            y = F.conv_transpose2d(x, self._up_kernel(x.dtype), conv.bias.to(x.dtype),
+                                   stride=2, padding=1)
             y = self.main_path[3](F.silu(y))
         else:
             y = self.main_path(x)
         if self.dc_conv is None:
             return y
+        return y + self._dc(x)
+
+    def _dc(self, x: torch.Tensor) -> torch.Tensor:
+        """The DC path on rows ``x``: 2x their rows (row-local)."""
         if not self.fuse_dc:
-            return y + F.pixel_shuffle(self.dc_conv(x), 2)
+            # (pixel_shuffle's backward refuses a map of no rows.)
+            return on_rows(lambda t: F.pixel_shuffle(self.dc_conv(t), 2), x, 1)
         w, b = self.dc_conv.weight, self.dc_conv.bias  # [4 Co, Ci, 1, 1], [4 Co]
         co = w.shape[0] // 4
         k = w.to(x.dtype).reshape(co, 2, 2, w.shape[1]).permute(3, 0, 1, 2)
-        dc = F.conv_transpose2d(x, k, stride=2).permute(0, 2, 3, 1)  # [B, 2H, 2W, Co]
+        dc = on_rows(lambda t: F.conv_transpose2d(t, k, stride=2), x, 1)
+        dc = dc.permute(0, 2, 3, 1)  # [B, 2H, 2W, Co]
         bsz, h2, w2, _ = dc.shape
         btile = b.to(x.dtype).reshape(co, 2, 2).permute(1, 2, 0)  # [i, j, Co]
         dc = dc.reshape(bsz, h2 // 2, 2, w2 // 2, 2, co) + btile[:, None]
-        return y + dc.reshape(bsz, h2, w2, co).permute(0, 3, 1, 2)
+        return dc.reshape(bsz, h2, w2, co).permute(0, 3, 1, 2)
+
+    def _context_forward(self, x: torch.Tensor, state) -> torch.Tensor:
+        """This rank's rows of the output: the up-conv (fused: this rank's
+        rows and one halo row a side, transposed-conv padding 3 along H, so
+        output rows 3 .. 2h + 2 of the padded input's; literal: the nearest
+        upsample) gives global rows [2 lo, 2 hi), which move onto the split
+        of the output's height before the next 3x3 conv reads them; the DC
+        path's likewise."""
+        rows = state.map_rows(x)
+        doubled = [(2 * lo, 2 * hi) for lo, hi in state.split(rows)]
+        if self.fuse_main:
+            conv = self.main_path[1]
+            xp = exchange_rows(x, 1, 1, state.group, rows)
+            k, bias = self._up_kernel(x.dtype), conv.bias.to(x.dtype)
+            up = lambda t: F.conv_transpose2d(t, k, bias, stride=2, padding=(3, 1))  # noqa: E731
+            y = up(xp) if x.shape[2] else up(F.pad(xp, (0, 0, 0, 1)))[:, :, :0]
+            y = resplit_rows(y, state, doubled, 2 * rows)
+            y = self.main_path[3](F.silu(y))
+        else:
+            y = on_rows(self.main_path[0], x, 1)
+            y = self.main_path[1:](resplit_rows(y, state, doubled, 2 * rows))
+        if self.dc_conv is None:
+            return y
+        return y + resplit_rows(self._dc(x), state, doubled, 2 * rows)

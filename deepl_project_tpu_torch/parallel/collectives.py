@@ -27,7 +27,14 @@ every peer:
   VF hinge);
 - :func:`sum_over_group`: all-reduce (sum) forward and backward -- a sum
   that every rank then uses on rows of its own (context parallelism's
-  GroupNorm moments), whose gradient is the sum of every rank's.
+  GroupNorm moments), whose gradient is the sum of every rank's;
+- :func:`gather_rows`: :func:`gather_from_group` over parts of unequal
+  sizes (context parallelism's uneven row split): each part padded to the
+  largest for the all-gather and trimmed after;
+- :func:`fetch_rows`: global rows [a, b) of a map split over the group,
+  from whichever ranks hold them, zeros outside the map; its backward sends
+  each row's gradient home and adds it there (the halo rows of a
+  convolution, the row pairs of a pool, a change of split).
 
 :func:`send_recv` is the point-to-point exchange of context parallelism
 (the halo rows, the ring's K/V chunks): one batch of sends and receives
@@ -203,6 +210,143 @@ def global_mean(x: torch.Tensor, group) -> torch.Tensor:
 
 def sum_over_group(x: torch.Tensor, group) -> torch.Tensor:
     return _SumOverGroup.apply(x, group)
+
+
+def _narrow_pad(x: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """``x`` padded with zeros along ``dim`` to ``size``."""
+    if x.shape[dim] == size:
+        return x.contiguous()
+    shape = list(x.shape)
+    shape[dim] = size - x.shape[dim]
+    return torch.cat([x, x.new_zeros(shape)], dim).contiguous()
+
+
+def part_sizes(n: int, group, device) -> list[int]:
+    """Every rank's ``n`` over ``group`` (one all-gather)."""
+    t = torch.tensor([n], dtype=torch.int64, device=device)
+    parts = [torch.empty_like(t) for _ in range(_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return [int(p.item()) for p in parts]
+
+
+def all_gather_uneven(x: torch.Tensor, dim: int, group, sizes: list[int]) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` concatenated along ``dim``, rank c's
+    part ``sizes[c]`` long: padded to the longest for the all-gather,
+    trimmed after."""
+    top = max(sizes)
+    if min(sizes) == top:
+        return all_gather_cat(x, dim, group)
+    whole = all_gather_cat(_narrow_pad(x, dim, top), dim, group)
+    return torch.cat([whole.narrow(dim, c * top, n) for c, n in enumerate(sizes)], dim)
+
+
+def _reduce_scatter_uneven(g: torch.Tensor, dim: int, group, sizes: list[int]) -> torch.Tensor:
+    top = max(sizes)
+    if min(sizes) == top:
+        return _reduce_scatter(g, dim, group)
+    parts = [_narrow_pad(p, dim, top) for p in g.split(sizes, dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    return out.narrow(dim, 0, sizes[dist.get_rank(group)])
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, reduce_grad, sizes):
+        ctx.dim, ctx.group, ctx.reduce_grad, ctx.sizes = dim, group, reduce_grad, sizes
+        return all_gather_uneven(x, dim, group, sizes)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.reduce_grad:
+            part = _reduce_scatter_uneven(g, ctx.dim, ctx.group, ctx.sizes)
+        else:
+            rank = dist.get_rank(ctx.group)
+            part = g.narrow(ctx.dim, sum(ctx.sizes[:rank]), ctx.sizes[rank]).contiguous()
+        return part, None, None, None, None
+
+
+def gather_rows(x: torch.Tensor, dim: int, group, reduce_grad: bool = False,
+                sizes: list[int] | None = None) -> torch.Tensor:
+    """:func:`gather_from_group` of parts that may differ in length along
+    ``dim`` (``sizes``: every rank's, by default all-gathered first)."""
+    if sizes is None:
+        sizes = part_sizes(x.shape[dim], group, x.device)
+    return _GatherRows.apply(x, dim, group, reduce_grad, list(sizes))
+
+
+def _overlap(a: tuple[int, int], b: tuple[int, int]) -> tuple[int, int] | None:
+    lo, hi = max(a[0], b[0]), min(a[1], b[1])
+    return (lo, hi) if lo < hi else None
+
+
+class _FetchRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, held, need, group):
+        ctx.held, ctx.need, ctx.group = held, need, group
+        rank = dist.get_rank(group)
+        (lo, _), (a, b) = held[rank], need[rank]
+        fmt = (torch.channels_last if x.dim() == 4 and x.is_contiguous(
+            memory_format=torch.channels_last) and not x.is_contiguous()
+            else torch.contiguous_format)
+        ctx.fmt = fmt
+        shape = list(x.shape)
+        shape[2] = b - a
+        out = torch.empty(shape, dtype=x.dtype, device=x.device, memory_format=fmt).zero_()
+        own = _overlap(held[rank], need[rank])
+        if own is not None:
+            out[:, :, own[0] - a:own[1] - a] = x[:, :, own[0] - lo:own[1] - lo]
+        sends, recvs = [], []
+        for peer in range(len(held)):
+            if peer == rank:
+                continue
+            give = _overlap(held[rank], need[peer])
+            if give is not None:
+                sends.append((x[:, :, give[0] - lo:give[1] - lo], peer))
+            take = _overlap(held[peer], need[rank])
+            if take is not None:
+                recvs.append((out[:, :, take[0] - a:take[1] - a], peer))
+        send_recv(sends, recvs, group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        held, need, group = ctx.held, ctx.need, ctx.group
+        rank = dist.get_rank(group)
+        (lo, hi), (a, _) = held[rank], need[rank]
+        shape = list(g.shape)
+        shape[2] = hi - lo
+        gx = torch.empty(shape, dtype=g.dtype, device=g.device, memory_format=ctx.fmt).zero_()
+        own = _overlap(held[rank], need[rank])
+        if own is not None:
+            gx[:, :, own[0] - lo:own[1] - lo] += g[:, :, own[0] - a:own[1] - a]
+        # The rows this rank took from a peer send their gradient back; the
+        # rows it gave come back as gradients to add into its own.
+        sends, recvs = [], []
+        for peer in range(len(held)):
+            if peer == rank:
+                continue
+            take = _overlap(held[peer], need[rank])
+            if take is not None:
+                sends.append((g[:, :, take[0] - a:take[1] - a], peer))
+            give = _overlap(held[rank], need[peer])
+            if give is not None:
+                recvs.append((g.new_empty(g.shape[:2] + (give[1] - give[0],) + g.shape[3:]),
+                              peer, give))
+        send_recv(sends, [(buf, peer) for buf, peer, _ in recvs], group)
+        for buf, _, (r0, r1) in recvs:
+            gx[:, :, r0 - lo:r1 - lo] += buf
+        return gx, None, None, None
+
+
+def fetch_rows(x: torch.Tensor, held, need, group) -> torch.Tensor:
+    """Global rows [a, b) = ``need[rank]`` of a map split over ``group`` along
+    dim 2, rank c holding rows ``held[c]`` (``x``: this rank's), from
+    whichever ranks hold them; rows outside the map are zeros. ``held`` and
+    ``need`` list every rank's [lo, hi), so each rank knows what to send
+    whom. x's memory format is kept; differentiable (the backward sends each
+    row's gradient to the rank that holds it and adds it there)."""
+    return _FetchRows.apply(x, tuple(map(tuple, held)), tuple(map(tuple, need)), group)
 
 
 # 'batches' / 'bytes' -> host-staged point-to-point exchanges, 'collectives'

@@ -1,13 +1,26 @@
-"""Halo exchange of row-sharded maps under context parallelism (no JAX
+"""Row exchanges of row-sharded maps under context parallelism (no JAX
 counterpart: there GSPMD halo-exchanges every convolution whose input is
-sharded over the ``context`` axis).
+sharded over the ``context`` axis, and pads the maps it splits unevenly).
 
-:func:`exchange_rows` pads this rank's rows of an NCHW map with its
-neighbours' edge rows (zeros above the first rank and below the last, the
-global map's zero padding); its backward sends the halo rows' gradients
-back and adds them into the neighbours' edge rows. :func:`context_conv2d`
-runs a convolution on the padded rows with no padding along H, so each rank
-computes exactly its rows of the whole map's convolution.
+Every map is split by ``context.row_split`` on its own global height, so a
+rank may hold fewer rows than a halo, or none, and a stride-2 output row's
+inputs need not start on a rank's first row. Each operation here takes the
+global rows its outputs read with ``collectives.fetch_rows`` (from
+whichever ranks hold them; zeros beyond the global map's edges, its zero
+padding) and computes this rank's rows of the whole map's result:
+
+- :func:`exchange_rows`: this rank's rows with ``top`` rows above and
+  ``bottom`` below;
+- :func:`conv2d_rows` / :func:`context_conv2d`: a convolution of any kernel
+  height, stride and padding (its output rows by the split of the output's
+  height, its inputs read from the global row parity);
+- :func:`pool2x2_rows`: a 2x2 stride-2 max pool (floor at an odd height);
+- :func:`resplit_rows`: a map whose ranks hold other rows than the split
+  gives them (an upsample's 2 lo .. 2 hi) moved onto the split.
+
+:func:`on_rows` runs a spatial operation on a rank that holds no rows (torch
+refuses maps of zero rows): on zero rows appended, cut back to none, so the
+graph and every collective of the backward stay the same on every rank.
 """
 
 from __future__ import annotations
@@ -16,119 +29,87 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from .collectives import send_recv
+from .collectives import fetch_rows
+from .context import row_split
 
 
-def _rows(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
-    return x[:, :, lo:hi]
+def on_rows(fn, x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``fn(x)``; where ``x`` holds no rows, ``fn`` of ``rows`` zero rows cut
+    to none (``rows``: enough for ``fn`` to make one)."""
+    if x.shape[2]:
+        return fn(x)
+    pad = x.new_zeros(x.shape[:2] + (rows,) + x.shape[3:])
+    return fn(torch.cat([x, pad], 2))[:, :, :0]
 
 
-def _format(x: torch.Tensor) -> torch.memory_format:
-    return (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
-            and not x.is_contiguous() else torch.contiguous_format)
+def _size(group) -> int:
+    return dist.get_world_size(group)
 
 
-class _ExchangeRows(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, top, bottom, group):
-        ctx.top, ctx.bottom, ctx.group = top, bottom, group
-        rank, size = dist.get_rank(group), dist.get_world_size(group)
-        b, c, h, w = x.shape
-        if h < max(top, bottom):
-            raise ValueError(f"a halo of {max(top, bottom)} rows is deeper than this rank's "
-                             f"{h} rows")
-        fmt = _format(x)
-        # This rank's last `top` rows are the next rank's upper halo; its
-        # first `bottom` rows the previous rank's lower halo.
-        above, below = (torch.empty((b, c, n, w), dtype=x.dtype, device=x.device,
-                                    memory_format=fmt).zero_() for n in (top, bottom))
-        sends, recvs = [], []
-        if top and rank < size - 1:
-            sends.append((_rows(x, h - top, h), rank + 1))
-        if top and rank > 0:
-            recvs.append((above, rank - 1))
-        if bottom and rank > 0:
-            sends.append((_rows(x, 0, bottom), rank - 1))
-        if bottom and rank < size - 1:
-            recvs.append((below, rank + 1))
-        send_recv(sends, recvs, group)
-        return torch.cat([above, x, below], 2).contiguous(memory_format=fmt)
-
-    @staticmethod
-    def backward(ctx, g):
-        top, bottom, group = ctx.top, ctx.bottom, ctx.group
-        rank, size = dist.get_rank(group), dist.get_world_size(group)
-        h = g.shape[2] - top - bottom
-        gx = _rows(g, top, top + h).clone()
-        b, c, _, w = g.shape
-        from_next = g.new_zeros(b, c, top, w)
-        from_prev = g.new_zeros(b, c, bottom, w)
-        sends, recvs = [], []
-        # The upper halo's gradient belongs to the previous rank's last rows,
-        # the lower halo's to the next rank's first rows.
-        if top and rank > 0:
-            sends.append((_rows(g, 0, top), rank - 1))
-        if top and rank < size - 1:
-            recvs.append((from_next, rank + 1))
-        if bottom and rank < size - 1:
-            sends.append((_rows(g, top + h, top + h + bottom), rank + 1))
-        if bottom and rank > 0:
-            recvs.append((from_prev, rank - 1))
-        send_recv(sends, recvs, group)
-        if top:
-            gx[:, :, h - top:] += from_next
-        if bottom:
-            gx[:, :, :bottom] += from_prev
-        return gx, None, None, None
-
-
-def exchange_rows(x: torch.Tensor, top: int, bottom: int, group) -> torch.Tensor:
-    """x [B, C, h, W] (this rank's rows) -> [B, C, top + h + bottom, W]: the
-    previous rank's last ``top`` rows above, the next rank's first
-    ``bottom`` rows below, zeros beyond the global map's edges. x's memory
-    format is kept."""
+def exchange_rows(x: torch.Tensor, top: int, bottom: int, group,
+                  rows: int | None = None) -> torch.Tensor:
+    """x [B, C, h, W] (this rank's rows of a map of ``rows`` global rows,
+    split by ``row_split``; default h times the group's size, an even
+    split) -> [B, C, top + h + bottom, W]: the ``top`` global rows above
+    this rank's first and the ``bottom`` below its last, from whichever
+    ranks hold them, zeros beyond the global map's edges. x's memory format
+    is kept."""
     if top == 0 and bottom == 0:
         return x
-    return _ExchangeRows.apply(x, top, bottom, group)
-
-
-def conv_halo(kernel: int, stride: int, padding: int) -> tuple[int, int]:
-    """(top, bottom) halo rows of a convolution along H on row-sharded input
-    whose local row count and first row are multiples of ``stride``: output
-    row o reads input rows stride o - padding .. + kernel - 1, so the
-    first local output reads ``padding`` rows above and the last one
-    kernel - stride - padding rows below."""
-    bottom = kernel - stride - padding
-    if bottom < 0 or padding < 0:
-        raise ValueError(f"conv (kernel {kernel}, stride {stride}, padding {padding}) "
-                         "has no row-local form under context parallelism")
-    return padding, bottom
+    held = row_split(x.shape[2] * _size(group) if rows is None else rows, _size(group))
+    return fetch_rows(x, held, [(lo - top, hi + bottom) for lo, hi in held], group)
 
 
 def conv2d_rows(x: torch.Tensor, weight: torch.Tensor, bias, stride: int, padding: tuple,
-                groups: int, state) -> torch.Tensor:
+                groups: int, state, rows: int | None = None) -> torch.Tensor:
     """``F.conv2d(x, weight, bias, stride, padding, groups=groups)`` of the
-    whole map, on this rank's rows ``x`` under the context ``state``: the
-    halo exchange, then the convolution with no padding along H and its own
-    along W. The local row count and the first row must be multiples of the
-    stride."""
-    h = x.shape[2]
-    if h % stride or (state.rank * h) % stride:
-        raise ValueError(f"{h} rows a rank do not split at stride {stride}")
-    top, bottom = conv_halo(weight.shape[2], stride, padding[0])
-    xp = exchange_rows(x, top, bottom, state.group)
-    return F.conv2d(xp, weight, bias, stride, (0, padding[1]), groups=groups)
+    whole map, on this rank's rows ``x`` under the context ``state``
+    (``rows``: the map's global rows, default ``state.map_rows(x)``): this
+    rank's rows of the output, split by the output's global height. Output
+    row o reads input rows stride o - padding .. + kernel - 1, fetched from
+    whichever ranks hold them; the convolution then runs with no padding
+    along H and its own along W."""
+    rows = state.map_rows(x) if rows is None else rows
+    k, pad = weight.shape[2], padding[0]
+    out = state.split((rows + 2 * pad - k) // stride + 1)
+    need = [(o0 * stride - pad, (o1 - 1) * stride - pad + k) if o1 > o0
+            else (o0 * stride - pad, o0 * stride - pad) for o0, o1 in out]
+    xp = fetch_rows(x, state.split(rows), need, state.group)
+    return on_rows(lambda t: F.conv2d(t, weight, bias, stride, (0, padding[1]), groups=groups),
+                   xp, k)
 
 
 def context_conv2d(conv, x: torch.Tensor, state) -> torch.Tensor:
     """``conv`` (an ``nn.Conv2d``: zero padding, no dilation, the same
     stride along both axes) on this rank's rows ``x`` under the context
-    ``state``, with the weights cast to x's dtype. Stride 1 (halo
-    kernel // 2 rows a side) and stride 2 with padding 1 (one row above)
-    are the model's."""
+    ``state``, with the weights cast to x's dtype: :func:`conv2d_rows`, or
+    for a 1x1 kernel at stride 1 the convolution of the rows as they are."""
     if (conv.dilation != (1, 1) or conv.padding_mode != "zeros"
             or conv.stride[0] != conv.stride[1]):
         raise NotImplementedError(f"{conv} under context parallelism")
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    return conv2d_rows(x, conv.weight.to(x.dtype), bias, conv.stride[0], conv.padding,
-                       conv.groups, state)
+    weight = conv.weight.to(x.dtype)
+    if conv.kernel_size[0] == 1 and conv.stride[0] == 1 and conv.padding[0] == 0:
+        return on_rows(lambda t: conv._conv_forward(t, weight, bias), x, 1)
+    return conv2d_rows(x, weight, bias, conv.stride[0], conv.padding, conv.groups, state)
+
+
+def pool2x2_rows(x: torch.Tensor, state, rows: int) -> torch.Tensor:
+    """``F.max_pool2d(x, 2, 2)`` of the whole map of ``rows`` global rows on
+    this rank's rows ``x``: output row o pairs global rows 2o and 2o + 1
+    (an odd height's last row is dropped, as on one device), this rank's
+    outputs split by the output's height."""
+    out = state.split(rows // 2)
+    xp = fetch_rows(x, state.split(rows), [(2 * o0, 2 * o1) for o0, o1 in out], state.group)
+    return on_rows(lambda t: F.max_pool2d(t, 2, 2), xp, 2)
+
+
+def resplit_rows(y: torch.Tensor, state, held: list[tuple[int, int]], rows: int
+                 ) -> torch.Tensor:
+    """A map of ``rows`` global rows whose rank c holds ``held[c]`` (``y``:
+    this rank's), moved onto ``row_split``'s split; ``y`` itself where the
+    two agree."""
+    split = state.split(rows)
+    if list(map(tuple, held)) == split:
+        return y
+    return fetch_rows(y, held, split, state.group)

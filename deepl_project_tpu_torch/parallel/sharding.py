@@ -25,13 +25,14 @@ the port's own copy).
 
 The rules read the JAX layout of each parameter ([in, out] dense kernels,
 HWIO convs; :func:`~deepl_project_tpu_torch.training.optim.jax_layout`) and
-the placement is mapped back to the port's ([out, in], OIHW). One
-deviation: attention heads are never split, so an attention module whose
-head count the model axis does not divide keeps all four projections
-replicated (the JAX rule splits ``to_q/to_k/to_v`` whenever the width
-divides, which can cut a head in two; GSPMD copes, local-head attention
-cannot), and a ConvFFN is split whole or not at all. The results are the
-same; only the placement differs.
+the placement is mapped back to the port's ([out, in], OIHW): every
+parameter is placed as the JAX rule places it. Where the head count is not
+a multiple of the model axis, ``to_q/to_k/to_v`` still hold width/m output
+columns each and ``proj`` width/m input rows, which cuts a head; the
+attention module then gathers q, k and v over the group for its core
+(``ops.attention.AttentionRoPE.partial_heads``), as GSPMD does. No config
+splits a ConvFFN's parameters in part (every width is a multiple of 128);
+a module built so is refused by :func:`shard_params`.
 
 :class:`Placement` carries the mesh's groups and the parameters'
 placements by name, for the steps (the gradient all-reduce over the
@@ -115,36 +116,14 @@ def _fsdp_axis(jax_shape: tuple, model_size: int, min_size: int) -> int | None:
     return None
 
 
-def _unsplit_modules(module: nn.Module, model_size: int) -> list[str]:
-    """Name prefixes of the modules the port keeps replicated under
-    'tensor': attention whose heads the axis does not divide, and a ConvFFN
-    whose split parameters it does not all divide."""
-    from ..ops.attention import AttentionRoPE
-    from ..ops.ffn import ConvFFN
-
-    out = []
-    for name, m in module.named_modules():
-        if isinstance(m, AttentionRoPE) and (m.dim // m.head_dim) % model_size:
-            out.append(name + ".")
-        elif isinstance(m, ConvFFN):
-            dims = [m.proj_in.out_features, m.proj_out.in_features]
-            if isinstance(m.conv, nn.Sequential):
-                dims.append(m.conv[0].out_channels)
-            if any(d % model_size for d in dims):
-                out.append(name + ".")
-    return out
-
-
 def param_specs(module: nn.Module, mode: str = "replicate", model_size: int = 1,
                 fsdp_min_size: int | None = None, prefix: str = "") -> dict:
     """The placement of each parameter of ``module`` by its state_dict key
     (``prefix`` + name): ``Replicate()`` or ``Shard(dim)`` in the port's
-    layout, by the JAX package's ``param_specs`` rules (see the module
-    docstring for the one deviation)."""
+    layout, by the JAX package's ``param_specs`` rules."""
     if mode not in MODES:
         raise ValueError(f"Unknown sharding mode: {mode!r}")
     min_size = FSDP_MIN_SIZE if fsdp_min_size is None else fsdp_min_size
-    unsplit = _unsplit_modules(module, model_size) if mode == "tensor" else []
     specs = {}
     for name, p in module.named_parameters():
         key = prefix + name
@@ -154,7 +133,7 @@ def param_specs(module: nn.Module, mode: str = "replicate", model_size: int = 1,
             jax_shape = tuple(p.shape[a] for a in axes)
             if mode == "fsdp":
                 axis = _fsdp_axis(jax_shape, model_size, min_size)
-            elif not any(name.startswith(u) for u in unsplit):
+            else:
                 axis = _tensor_axis(key, jax_shape, model_size)
             axis = None if axis is None else axes[axis]
         specs[key] = Replicate() if axis is None else Shard(axis)
@@ -355,8 +334,18 @@ def shard_params(mesh, model: nn.Module, mode: str = "replicate",
 
         for name, m in model.named_modules():
             if isinstance(m, (AttentionRoPE, ConvFFN, ResBlock)):
+                head = f"{prefix}{name + '.' if name else ''}"
+                split = {n: isinstance(specs.get(head + n), Shard) for n, _ in
+                         m.named_parameters() if n.endswith("weight")}
                 probe = {AttentionRoPE: "to_q.weight", ConvFFN: "proj_in.weight",
                          ResBlock: "conv1.weight"}[type(m)]
-                if isinstance(specs.get(f"{prefix}{name + '.' if name else ''}{probe}"), Shard):
+                if isinstance(m, ConvFFN) and len({split[n] for n in split if n in (
+                        "proj_in.weight", "proj_out.weight", "conv.0.weight",
+                        "conv.4.weight")}) > 1:
+                    raise NotImplementedError(
+                        f"{head[:-1]}: the model axis of {model_size} splits this ConvFFN's "
+                        "widths in part; no config of the package does (all widths are "
+                        "multiples of 128)")
+                if split.get(probe):
                     m.model_group = group
     return placement

@@ -39,14 +39,15 @@
 - Under a placement whose mesh has a context axis of more than one rank
   (context parallelism), the batch is this rank's rows of each image as
   well (``parallel.shard_rows``), the step runs under that context group
-  (``parallel.context_parallel``), the L1 and KL terms are means over this
-  rank's rows and LPIPS and the self-perceptual term each image's distance
-  (``losses/lpips.py``, ``losses/vae_loss.py``). The VF teacher, the VF
-  term and the discriminator read each image's rows gathered from the group
-  (``context.whole_rows``), so every context rank computes them whole; the
+  (``parallel.context_parallel``), the L1 and KL terms are this rank's row
+  means weighted by its share of the rows and LPIPS and the self-perceptual
+  term each image's distance (``losses/lpips.py``, ``losses/vae_loss.py``,
+  ``context.row_mean``). The VF teacher, the VF term and the discriminator
+  read each image's rows gathered from the group (``context.whole_rows``,
+  shares equal or not), so every context rank computes them whole; the
   gather's backward reduce-scatters. The gradients and metrics are averaged
-  over the parameter peers (data x context): over equal shards, the
-  gradient of the global loss. The GAN step's last-layer gradients and both
+  over the parameter peers (data x context): with the row means so
+  weighted, the gradient of the global loss at every split. The GAN step's last-layer gradients and both
   updates' gradients are averaged over the peers too; its discriminator
   update runs on the gathered real and fresh images, and the fresh
   reconstruction under the context group. The latent noise is the global
@@ -190,7 +191,9 @@ def loss_and_metrics(model, images_nhwc: torch.Tensor, weights: LossWeights,
                            data_group=None if placement is None else placement.data_group)
     metrics = dict(losses)
     metrics["recon_finite_frac"] = torch.isfinite(recon).float().mean()
-    metrics["mu_absmax"] = mu.detach().abs().max().float()
+    # A context rank past the end of an uneven latent split holds no rows.
+    metrics["mu_absmax"] = torch.cat([mu.detach().abs().flatten().float(),
+                                      mu.new_zeros(1, dtype=torch.float32)]).max()
     return losses["total"], metrics
 
 

@@ -17,10 +17,12 @@ one pool of rank processes for the file).
   against the single-process port (gradients and parameters 1e-5 of the
   largest).
 - What it accepts and refuses: the VF term, the self-perceptual term, the
-  GAN step and an int8 model run (tests/test_torch_context_terms.py holds
-  them to the JAX package); a height the context size times the downsample
-  factor does not divide, a model without ``context_axis`` under an
-  ambient context group and LPIPS on fewer than 16 rows a rank raise.
+  GAN step, an int8 model run (tests/test_torch_context_terms.py holds
+  them to the JAX package), a height whose maps split unevenly and LPIPS on
+  8 rows a rank (tests/test_torch_context_heights.py holds such heights to
+  the JAX package); a height the downsample factor or the context size
+  does not divide (JAX's refusals) and a model without ``context_axis``
+  under an ambient context group raise.
 - ``python -m deepl_project_tpu_torch.parallel.dryrun``'s phases on 4 ranks.
 
 The JAX results are module fixtures, computed once: the JAX step's trace
@@ -169,10 +171,11 @@ def test_remat_none_under_context_matches_single_process(pool, tmp_path):
 
 def test_what_context_parallelism_refuses(pool, tmp_path):
     for r in pool.run(C.refusals, 2, tmp_path, DATA):
-        for accepted in ("vf", "perceptual", "gan", "int8"):
+        for accepted in ("vf", "perceptual", "gan", "int8", "height", "lpips"):
             assert r[accepted] == "accepted", r
-        assert "multiple of 16" in r["height"], r
-        assert "context_axis unset" in r["unset"] and "multiple of 16" in r["lpips"], r
+        assert "downsample factor 8" in r["height_f"], r
+        assert "context axis of 2 ranks" in r["height_c"], r
+        assert "context_axis unset" in r["unset"], r
 
 
 def test_dryrun_phases_on_four_ranks(pool, tmp_path):

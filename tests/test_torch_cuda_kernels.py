@@ -221,7 +221,9 @@ def _flash_inputs(gen, b, n, h, packed):
 @pytest.mark.parametrize("b,n,h,packed", [(2, 256, 2, False), (1, 1024, 3, True),
                                           (2, 4096, 6, False), (1, 320, 2, False),
                                           (2, 192, 3, True), (1, 1088, 2, True),
-                                          (1, 65536, 1, False)])
+                                          (1, 65536, 1, False), (2, 100, 2, False),
+                                          (1, 1035, 3, True), (2, 4050, 2, False),
+                                          (1, 30, 1, False)])
 def test_flash_kernels_match_plain(gen, b, n, h, packed):
     # Forward (o, lse) and the backward (dq, dk, dv) against the plain
     # versions on the same inputs; ``packed`` feeds q/k/v as column slices of
@@ -229,7 +231,9 @@ def test_flash_kernels_match_plain(gen, b, n, h, packed):
     # up to 1024, 192 above): N = 320, 192 and 1088 end on a 64-key half tile
     # of the 128-key tiles of both directions and on a partial query tile of
     # the forward, one case for each shape; N = 65536 is the 1024px stage-2
-    # loop length.
+    # loop length. N = 100, 1035, 4050 and 30 are no multiple of 64 (an
+    # uneven row split's ring chunks): the length bound masks the last key
+    # tile and the last query tile runs past N.
     q, k, v, do = _flash_inputs(gen, b, n, h, packed)
     fla.reset_launch_counts()
     o, lse = fla.flash_forward(q, k, v, 0.125)
@@ -299,8 +303,46 @@ def test_flash_attention_autograd(gen):
     want = fla.flash_backward_reference(q.detach(), k.detach(), v.detach(), o, lse, do, 0.125)
     for g, r in zip(got, want):
         _close(g, r)
-    with pytest.raises(ValueError):
-        fla.flash_forward(q[:, :100].detach(), k[:, :100].detach(), v[:, :100].detach(), 0.125)
+    # Any N: a bounded view of the leaves (N = 100) takes the kernels too.
+    o, lse = fla.flash_forward(q[:, :100].detach(), k[:, :100].detach(), v[:, :100].detach(),
+                               0.125)
+    o_ref, lse_ref = fla.flash_forward_reference(q[:, :100].detach(), k[:, :100].detach(),
+                                                 v[:, :100].detach(), 0.125)
+    _close(o, o_ref)
+    _close(lse, lse_ref)
+
+
+@pytest.mark.parametrize("nq,nk,h", [(1035, 990, 3), (77, 300, 2), (300, 77, 2),
+                                     (4096, 4000, 1), (64, 5, 2)])
+def test_flash_kernels_take_unequal_lengths(gen, nq, nk, h):
+    # A ring step of an uneven split: the local queries against a visiting
+    # key chunk of another length; forward and backward against the plain
+    # versions, and dk / dv of keys a bound masks are zero.
+    q, do = ((2 * torch.randn(2, nq, h, 64, generator=gen, device="cuda")).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = ((2 * torch.randn(2, nk, h, 64, generator=gen, device="cuda")).to(torch.bfloat16)
+            for _ in range(2))
+    fla.reset_launch_counts()
+    o, lse = fla.flash_forward(q, k, v, 0.125)
+    o_ref, lse_ref = fla.flash_forward_reference(q, k, v, 0.125)
+    _close(o, o_ref)
+    _close(lse, lse_ref)
+    grads = fla.flash_backward(q, k, v, o, lse, do, 0.125)
+    for g, r in zip(grads, fla.flash_backward_reference(q, k, v, o, lse, do, 0.125)):
+        assert g.shape == r.shape
+        _close(g, r)
+    assert fla.launch_counts() == {"flash_attention_fwd": 1, "flash_attention_bwd": 1}
+    # The bounds within padded tensors: the valid rows as above, the rest zero.
+    pad = lambda t: torch.cat([t, torch.randn_like(t[:, :37])], 1)  # noqa: E731
+    qp, kp, vp, dop = pad(q), pad(k), pad(v), pad(do)
+    ob, lseb = fla.flash_forward(qp, kp, vp, 0.125, q_len=nq, k_len=nk)
+    _close(ob[:, :nq], o_ref)
+    assert not ob[:, nq:].any() and bool(torch.isneginf(lseb[:, :, nq:]).all())
+    gb = fla.flash_backward(qp, kp, vp, ob, lseb, dop, 0.125, q_len=nq, k_len=nk)
+    for g, r, n in zip(gb, fla.flash_backward_reference(q, k, v, o, lse, do, 0.125),
+                       (nq, nk, nk)):
+        _close(g[:, :n], r)
+        assert not g[:, n:].any()
 
 
 @pytest.mark.parametrize("b,n,c", [(1, 64, 128), (3, 128, 128), (3, 100, 1536),
@@ -445,12 +487,14 @@ def test_rewrites_on_card(gen, name):
 
 
 def test_ring_partials_take_the_flash_kernels_or_raise(gen):
-    """The ring's per-step partials on CUDA bf16 are the flash kernels; a
-    local shape they refuse raises instead of running the plain partial."""
+    """The ring's per-step partials on CUDA bf16 are the flash kernels at any
+    local token count (an uneven split's); a head width they refuse raises
+    instead of running the plain partial."""
     from deepl_project_tpu_torch.parallel.ring_attention import _partials
 
     q = torch.randn(1, 128, 2, 64, generator=gen, device="cuda").to(torch.bfloat16)
     assert _partials(q, False) == (fla.flash_forward, fla.flash_backward)
     assert _partials(q, True) == (fla.flash_forward_reference, fla.flash_backward_reference)
+    assert _partials(q[:, :100].contiguous(), False) == (fla.flash_forward, fla.flash_backward)
     with pytest.raises(ValueError, match="refuse"):
-        _partials(q[:, :100].contiguous(), False)
+        _partials(q[..., :32].contiguous(), False)

@@ -137,3 +137,42 @@ def test_dispatch_bands():
     assert tattn._PALLAS_MIN_TOKENS_TRAIN == 4096 and tattn._XLA_FULL_SOFTMAX_MAX_TOKENS == 2048
     assert set(tattn.IMPLS) >= {"auto", "auto_train", "fused", "xla", "pallas"}
     assert tattn.AttentionRoPE(64, impl="fused").impl == "fused"
+
+
+@pytest.mark.parametrize("nq,nk", [(200, 137), (256, 256), (77, 250), (1, 1)])
+def test_plain_bounds_equal_the_unbounded_rows(nq, nk):
+    # The kernels' length bounds in their plain versions: within [B, 256, h,
+    # d] tensors, queries from q_len on and keys from k_len on are padding.
+    # The valid rows equal the call on the unpadded tensors bit for bit;
+    # padded keys take no weight (rewriting them changes nothing) and get
+    # zero dk and dv; padded queries give o = 0, lse = -inf and dq = 0.
+    q, k, v, g = (torch.from_numpy(a) for a in _inputs(4, "float32"))
+    o, lse = fla.flash_forward(q, k, v, SCALE, q_len=nq, k_len=nk)
+    o0, lse0 = fla.flash_forward(q[:, :nq], k[:, :nk], v[:, :nk], SCALE)
+    assert torch.equal(o[:, :nq], o0) and torch.equal(lse[:, :, :nq], lse0)
+    assert not o[:, nq:].any() and bool(torch.isneginf(lse[:, :, nq:]).all())
+    k2, v2 = k.clone(), v.clone()
+    k2[:, nk:], v2[:, nk:] = 1e3, -1e3
+    o2, _ = fla.flash_forward(q, k2, v2, SCALE, q_len=nq, k_len=nk)
+    assert torch.equal(o2, o)
+    got = fla.flash_backward(q, k2, v2, o, lse, g, SCALE, q_len=nq, k_len=nk)
+    want = fla.flash_backward(q[:, :nq], k[:, :nk], v[:, :nk], o0, lse0, g[:, :nq], SCALE)
+    for t, w, n in zip(got, want, (nq, nk, nk)):
+        assert t.shape == q.shape and torch.equal(t[:, :n], w) and not t[:, n:].any()
+
+
+def test_plain_versions_take_unequal_lengths():
+    # A ring step of an uneven split (queries against a key chunk of another
+    # length): the plain forward and backward against the JAX package's
+    # plain attention and its VJP on the same numpy inputs (fp32, 1e-4).
+    from deepl_project_tpu.ops.attention import xla_attention
+
+    rng = np.random.default_rng(5)
+    q, g = (rng.standard_normal((B, 90, H, D)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((B, 45, H, D)).astype(np.float32) for _ in range(2))
+    want, vjp = jax.vjp(lambda a, b, c: xla_attention(a, b, c, SCALE), q, k, v)
+    tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+    o, lse = fla.flash_forward(tq, tk, tv, SCALE)
+    _close(o, want, "float32")
+    for got, w in zip(fla.flash_backward(tq, tk, tv, o, lse, tg, SCALE), vjp(g)):
+        _close(got, w, "float32")

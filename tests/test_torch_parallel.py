@@ -2,12 +2,10 @@
 on the CPU, with no JAX compile and no process group:
 
 - ``param_specs`` against the JAX ``param_specs`` on the micro model for
-  each mode at model sizes 2 and 4, through the converter's key map (each
-  JAX leaf encoded by the index along its sharded axis, converted to the
-  port's layout, the axis read back): equal but for the port's one
-  deviation, attention whose heads the model axis does not divide (2 heads
-  at C=32 at size 4), which the port keeps replicated where JAX splits
-  ``to_q/to_k/to_v`` and ``proj``;
+  each mode at model sizes 2, 4 and 8, through the converter's key map
+  (each JAX leaf encoded by the index along its sharded axis, converted to
+  the port's layout, the axis read back): equal for every parameter, also
+  where the tensor rule cuts a head (2 heads at C=32 at sizes 4 and 8);
 - ``batch_rows`` / ``shard_batch`` against the rows ``batch_sharding``
   places on each device, microbatch by microbatch (the JAX step splits the
   batch into ``accum_steps`` microbatches, then shards each over data);
@@ -63,7 +61,7 @@ def _axis(arr: np.ndarray) -> int | None:
     return varying[0] if varying else None
 
 
-@pytest.mark.parametrize("size", [2, 4])
+@pytest.mark.parametrize("size", [2, 4, 8])
 @pytest.mark.parametrize("mode", ["replicate", "fsdp", "tensor"])
 def test_param_specs_match_jax(jax_shapes, mode, size):
     specs = jax_param_specs(jax_shapes, mode, size, fsdp_min_size=J.FSDP_MIN)
@@ -74,15 +72,13 @@ def test_param_specs_match_jax(jax_shapes, mode, size):
     got = {k: s.dim if isinstance(s, Shard) else None
            for k, s in param_specs(model, mode, size, J.FSDP_MIN).items()}
     assert set(got) == set(want)
-    split_heads = {f"{n}.{p}." for n, m in model.named_modules()
-                   if isinstance(m, AttentionRoPE) and (m.dim // m.head_dim) % size
-                   for p in ("to_q", "to_k", "to_v", "proj")}
-    deviations = {k for k in got if mode == "tensor" and k.endswith(".weight")
-                  and any(k.startswith(h) for h in split_heads)}
-    assert {k for k in got if got[k] != want[k]} == deviations
-    for k in deviations:  # JAX splits them; the port keeps them whole
-        assert want[k] is not None and got[k] is None
-    assert bool(deviations) == (mode == "tensor" and size == 4)
+    assert {k for k in got if got[k] != want[k]} == set()
+    # At size 4 and 8 the tensor rule cuts heads (2 heads at C=32), as JAX's does.
+    cut = {f"{n}.to_q.weight" for n, m in model.named_modules()
+           if isinstance(m, AttentionRoPE) and (m.dim // m.head_dim) % size}
+    assert bool(cut) == (size > 2)
+    if mode == "tensor":
+        assert all(got[k] is not None for k in cut)
     if mode != "replicate":
         assert any(v is not None for v in got.values())
 

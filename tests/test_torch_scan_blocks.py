@@ -478,7 +478,8 @@ def test_placements_and_context_of_the_scan_layout(monkeypatch):
     (tests/test_torch_scan_parallel.py holds them to JAX's and runs them);
     a stack's depth axis is never split under 'tensor'. An ambient context
     group is accepted, and refused only for what it refuses in an unrolled
-    model (here the height the context size does not split)."""
+    model (here a height the downsample factor does not divide: JAX's
+    refusal)."""
     from deepl_project_tpu_torch.models import transvae
     from deepl_project_tpu_torch.parallel.context import ContextState
     from deepl_project_tpu_torch.parallel.mesh import Replicate, Shard
@@ -497,5 +498,5 @@ def test_placements_and_context_of_the_scan_layout(monkeypatch):
         if mode == "tensor":
             assert all(s.dim != 0 for s in stacked.values() if isinstance(s, Shard))
     monkeypatch.setattr(transvae.cp, "current", lambda: ContextState(None, 0, 2))
-    with pytest.raises(ValueError, match="multiple of 8"):  # 2 ranks x downsample 4
-        scan.encode(torch.zeros(1, 3, 18, 16, device="meta"))
+    with pytest.raises(ValueError, match="downsample factor 4"):  # 2 ranks x 17 rows
+        scan.encode(torch.zeros(1, 3, 17, 16, device="meta"))

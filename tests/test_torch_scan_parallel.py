@@ -10,9 +10,9 @@ The micro model of tests/torch_parallel_jobs.py with two blocks a stage
 
 - ``param_specs`` of the scan model under 'fsdp' and 'tensor' at model 2
   and 4 against JAX's ``param_specs`` on its scan tree, through the
-  converter's key map (tests/test_torch_parallel.py's encoding): equal, but
-  for the port's one deviation (attention whose heads the axis does not
-  divide stays whole), and a stack's depth axis is never split under
+  converter's key map (tests/test_torch_parallel.py's encoding): equal for
+  every parameter (attention whose heads the axis does not divide is split
+  as JAX splits it), and a stack's depth axis is never split under
   'tensor'.
 - The stage-1 loss and grad norm (the latent's mean) at model 2 and data 2
   x model 2 under each mode against JAX's on its (2, 2) mesh: 1e-5
@@ -58,7 +58,6 @@ from deepl_project_tpu.parallel import shard_params as jax_shard_params
 from deepl_project_tpu.training import init_train_state, make_train_step
 from deepl_project_tpu.utils.convert import torch_state_dict_to_params
 from deepl_project_tpu_torch.models import TransVAE
-from deepl_project_tpu_torch.ops.attention import AttentionRoPE
 from deepl_project_tpu_torch.ops.stack import from_scanned_params
 from deepl_project_tpu_torch.parallel import Shard, param_specs
 from deepl_project_tpu_torch.training.checkpoint import restore_model_params
@@ -111,12 +110,8 @@ def test_scan_param_specs_match_jax(mode, size):
     got = {k: s.dim if isinstance(s, Shard) else None
            for k, s in param_specs(model, mode, size, J.FSDP_MIN).items()}
     assert set(got) == set(want) and any(".scan.block." in k for k in got)
-    split_heads = {f"{n}.{p}." for n, m in model.named_modules()
-                   if isinstance(m, AttentionRoPE) and (m.dim // m.head_dim) % size
-                   for p in ("to_q", "to_k", "to_v", "proj")}
-    deviations = {k for k in got if mode == "tensor" and k.endswith(".weight")
-                  and any(k.startswith(h) for h in split_heads)}
-    assert {k for k in got if got[k] != want[k]} == deviations
+    # Every parameter as JAX places it, also where the tensor rule cuts a head.
+    assert {k for k in got if got[k] != want[k]} == set()
     assert any(v is not None for k, v in got.items() if ".scan.block." in k)
     if mode == "tensor":  # the depth axis is never split
         assert all(v != 0 for k, v in got.items() if ".scan.block." in k)

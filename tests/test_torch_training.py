@@ -313,11 +313,33 @@ def test_input_pipeline_batches_and_errors():
         list(make_dataset("/data/imagenet"))
 
 
-def test_train_cli_on_an_image_folder(tmp_path, monkeypatch):
+@pytest.fixture(params=["native", "pil"])
+def decoder(request, monkeypatch):
+    """Force one decoder in both packages (tests/test_torch_data.py's
+    fixture): the two decoders differ by a step of 1/255, so a byte-equal
+    comparison needs the same one on both sides. A worker that lost the
+    JAX package's unlocked native build at collection has its loader's
+    ``_tried`` reset, so it loads the library the winner built."""
+    import deepl_project_tpu.data.native_loader as jnative
+    import deepl_project_tpu_torch.data.native_loader as pnative
+
+    if request.param == "pil":
+        monkeypatch.setattr(jnative, "native_available", lambda: False)
+        monkeypatch.setattr(pnative, "native_available", lambda: False)
+    else:
+        if jnative._lib is None:
+            monkeypatch.setattr(jnative, "_tried", False)
+        assert jnative.native_available(), "the JAX package's native decoder did not load"
+        assert pnative.native_available(), pnative.build_error()
+    return request.param
+
+
+def test_train_cli_on_an_image_folder(tmp_path, monkeypatch, decoder):
     """cli.train --data <folder>: the first training batch is the first batch
     of the source the JAX CLI builds for the same flags (repeat, min(cpu, 16)
     decode threads, seed 42), and the validation batches are that same
-    source's first batches, as in the JAX CLI."""
+    source's first batches, as in the JAX CLI; with each decoder forced in
+    both packages (``decoder``)."""
     from PIL import Image
 
     from deepl_project_tpu.data import make_dataset as jax_make_dataset

@@ -27,10 +27,24 @@ def _chunk(x: np.ndarray, dim: int, group) -> torch.Tensor:
     return split_rows(torch.as_tensor(x), dist.get_rank(group), dist.get_world_size(group), dim)
 
 
-def _cat(t: torch.Tensor, dim: int, group) -> torch.Tensor:
-    from deepl_project_tpu_torch.parallel.collectives import all_gather_cat
+def _maxabs(t: torch.Tensor) -> float:
+    """max |t|, 0 for a rank that holds no rows."""
+    return float(t.detach().abs().max()) if t.numel() else 0.0
 
-    return all_gather_cat(t.detach(), dim, group)
+
+def _split(rows: int, group) -> list[tuple[int, int]]:
+    from deepl_project_tpu_torch.parallel.context import row_split
+
+    return row_split(rows, dist.get_world_size(group))
+
+
+def _cat(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``t`` along ``dim``, the ranks' parts equal or not (an
+    uneven row split)."""
+    from deepl_project_tpu_torch.parallel.collectives import all_gather_uneven, part_sizes
+
+    t = t.detach()
+    return all_gather_uneven(t, dim, group, part_sizes(t.shape[dim], group, t.device))
 
 
 def whole_rows(mesh, t: torch.Tensor, dim: int = 2) -> torch.Tensor:
@@ -52,10 +66,11 @@ def ring(q, k, v, do, scale: float, dtype: str) -> dict:
     group = dist.group.WORLD
     dt = getattr(torch, dtype)
     local = [_chunk(t, 1, group).to(dt).requires_grad_(True) for t in (q, k, v)]
+    sizes = [hi - lo for lo, hi in _split(q.shape[1], group)]
     reset_step_counts()
-    out = ring_attention(*local, scale, group)
+    out = ring_attention(*local, scale, group, sizes=sizes)
     grads = torch.autograd.grad(out, local, _chunk(do, 1, group).to(dt))
-    ref = ring_attention_reference(*[t.detach() for t in local], scale, group)
+    ref = ring_attention_reference(*[t.detach() for t in local], scale, group, sizes=sizes)
     return {"out": _cat(out, 1, group), "ref": _cat(ref, 1, group),
             "grads": [_cat(g, 1, group) for g in grads], "steps": step_counts()}
 
@@ -68,17 +83,19 @@ def sequence_parallel(q, k, v, scale: float) -> torch.Tensor:
     return sequence_parallel_attention(create_mesh(), *map(torch.as_tensor, (q, k, v)), scale)
 
 
-def halo_adjoint(x, g, top: int, bottom: int) -> tuple[float, float]:
+def halo_adjoint(x, top: int, bottom: int, seed: int) -> tuple[float, float]:
     """<halo(x), g> and <x, halo^T(g)> summed over the ranks, x [B, C, H, W]
-    and g [B, C, H + size (top + bottom), W] split by rows (g: each rank its
-    padded block)."""
+    split by rows (evenly or not) and g each rank's own draw of its padded
+    block's shape."""
     from deepl_project_tpu_torch.parallel import exchange_rows
     from deepl_project_tpu_torch.parallel.collectives import all_reduce_sum
 
     group = dist.group.WORLD
     xl = _chunk(x, 2, group).double().requires_grad_(True)
-    gl = _chunk(g, 2, group).double()
-    y = exchange_rows(xl, top, bottom, group)
+    b, c, h, w = xl.shape
+    gen = torch.Generator().manual_seed(seed + dist.get_rank(group))
+    gl = torch.randn(b, c, top + h + bottom, w, generator=gen, dtype=torch.float64)
+    y = exchange_rows(xl, top, bottom, group, x.shape[2])
     (gx,) = torch.autograd.grad(y, xl, gl)
     sums = torch.stack([(y * gl).sum(), (xl * gx).sum()]).detach()
     lhs, rhs = all_reduce_sum(sums, group).tolist()
@@ -92,9 +109,10 @@ def convs(x, up_x, seed: int) -> dict:
     (and the literal up path it must equal), the depthwise ConvFFN conv, and
     their input gradients."""
     from deepl_project_tpu_torch.ops.layers import Conv2d, init_conv_
-    from deepl_project_tpu_torch.ops.resample import Upsample
+    from deepl_project_tpu_torch.ops.resample import Downsample, Upsample
     from deepl_project_tpu_torch.parallel import context_parallel, create_mesh
-    from deepl_project_tpu_torch.parallel.context import split_rows
+    from deepl_project_tpu_torch.parallel.context import current, split_rows
+    from deepl_project_tpu_torch.parallel.halo import pool2x2_rows
 
     mesh = create_mesh(data=1, context=dist.get_world_size())
     rank, size = dist.get_rank(), dist.get_world_size()
@@ -106,15 +124,25 @@ def convs(x, up_x, seed: int) -> dict:
     for m in mods.values():
         init_conv_(m, gen)
     up = Upsample(up_x.shape[1], 8)
-    for m in up.modules():
+    down = Downsample(c, 8)
+    for m in (*up.modules(), *down.modules()):
         if isinstance(m, torch.nn.Conv2d):
             init_conv_(m, gen)
+
+    def pool(t):
+        state = current()
+        return (torch.nn.functional.max_pool2d(t, 2, 2) if state is None
+                else pool2x2_rows(t, state, x.shape[2]))
+
     out = {}
     cases = [(name, m, x) for name, m in mods.items()]
-    cases += [("up_fused", up, up_x), ("up_literal", up, up_x)]
+    cases += [("up_fused", up, up_x), ("up_literal", up, up_x), ("down_fused", down, x),
+              ("down_literal", down, x), ("pool", pool, x)]
     for name, m, inp in cases:
         if m is up:
-            up.fuse_main = name == "up_fused"
+            up.fuse_main = up.fuse_dc = name == "up_fused"
+        if m is down:
+            down.fuse_dc = name == "down_fused"
         whole = torch.as_tensor(inp).requires_grad_(True)
         want = m(whole)
         (gw,) = torch.autograd.grad(want.square().sum(), whole)
@@ -122,9 +150,9 @@ def convs(x, up_x, seed: int) -> dict:
         with context_parallel(mesh):
             got = m(local)
         (gl,) = torch.autograd.grad(got.square().sum(), local)
-        err = (got - split_rows(want.detach(), rank, size, 2)).abs().max()
-        gerr = (gl - split_rows(gw, rank, size, 2)).abs().max()
-        out[name] = [float(err), float(want.abs().max()), float(gerr), float(gw.abs().max())]
+        err = _maxabs(got - split_rows(want.detach(), rank, size, 2))
+        gerr = _maxabs(gl - split_rows(gw, rank, size, 2))
+        out[name] = [err, float(want.abs().max()), gerr, float(gw.abs().max())]
     return out
 
 
@@ -155,11 +183,13 @@ def norm_and_rope(x, q) -> dict:
     height, width = x.shape[2], n // x.shape[2]
     rq = apply_rope2d(torch.as_tensor(q), height, width)
     mine = split_rows(torch.as_tensor(q).reshape(b, height, width, h, d), rank, size, 1)
-    lq = apply_rope2d(mine.reshape(b, -1, h, d), height, width, first_row=rank * height // size)
-    want_q = split_rows(rq.reshape(b, height, width, h, d), rank, size, 1).reshape(b, -1, h, d)
-    return {"norm": float((got - split_rows(want.detach(), rank, size, 2)).abs().max()),
-            "norm_grad": float((gl - split_rows(gw, rank, size, 2)).abs().max()),
-            "rope": float((lq - want_q).abs().max())}
+    first = _split(height, dist.group.WORLD)[rank][0]
+    lq = apply_rope2d(mine.reshape(b, mine.shape[1] * width, h, d), height, width,
+                      first_row=first)
+    want_q = split_rows(rq.reshape(b, height, width, h, d), rank, size, 1).reshape(lq.shape)
+    return {"norm": _maxabs(got - split_rows(want.detach(), rank, size, 2)),
+            "norm_grad": _maxabs(gl - split_rows(gw, rank, size, 2)),
+            "rope": _maxabs(lq - want_q)}
 
 
 def _context_model(model_kw: dict, state: dict | None):
@@ -197,7 +227,8 @@ def step(data: int, context: int, model_size: int, accum: int, batch, noise: lis
     ``compute_grads`` then an SGD update p - lr g (the JAX test's
     ``optax.sgd``). The loss, the gradients and the updated parameters, whole."""
     from deepl_project_tpu_torch.parallel import shard_params, shard_rows
-    from deepl_project_tpu_torch.training.train_step import compute_grads, named_trainables
+    from deepl_project_tpu_torch.training.train_step import (compute_grads, global_norm,
+                                                             named_trainables)
 
     model = _context_model(model_kw, state)
     mesh = placement = None
@@ -211,6 +242,7 @@ def step(data: int, context: int, model_size: int, accum: int, batch, noise: lis
     grads, metrics = compute_grads(model, local, J._weights(**weights), lp, accum_steps=accum,
                                    noise=[torch.as_tensor(e) for e in noise],
                                    placement=placement)
+    grad_norm = float(global_norm(grads, placement, [n for n, _ in named]))
     with torch.no_grad():
         for (_, p), g in zip(named, grads):
             p.sub_(lr * g)
@@ -218,7 +250,8 @@ def step(data: int, context: int, model_size: int, accum: int, batch, noise: lis
     whole = (lambda pairs: {n: t.detach().clone() for n, t in pairs}) if placement is None \
         else placement.full_state
     return {"loss": float(metrics["total"]), "grads": whole(zip(names, grads)),
-            "params": whole(named), "mu_absmax": float(metrics["mu_absmax"])}
+            "params": whole(named), "mu_absmax": float(metrics["mu_absmax"]),
+            "grad_norm": grad_norm}
 
 
 def step_reference(*args, **kw) -> dict:
@@ -228,9 +261,12 @@ def step_reference(*args, **kw) -> dict:
 def refusals(batch) -> dict:
     """What context parallelism accepts and refuses on a context axis of
     every rank, by the message each raises ('accepted' where it runs): the
-    VF term, the self-perceptual term, the GAN step and an int8 model run;
-    a height the downsample factor does not split, a model without
-    ``context_axis`` and LPIPS on fewer than 16 rows a rank raise."""
+    VF term, the self-perceptual term, the GAN step, an int8 model run, a
+    height whose maps split unevenly (24 rows at f = 8 over 2 ranks: 3 latent
+    rows) and LPIPS on 8 rows a rank run; a height the downsample factor
+    does not divide, a height the context size does not divide
+    (``shard_rows``, JAX's ``device_put``) and a model without
+    ``context_axis`` raise."""
     from deepl_project_tpu_torch.losses import LossWeights, make_self_perceptual
     from deepl_project_tpu_torch.losses.lpips import init_lpips_params, lpips
     from deepl_project_tpu_torch.models.discriminator import PatchDiscriminator
@@ -266,9 +302,11 @@ def refusals(batch) -> dict:
     with context_parallel(mesh):
         message("int8", lambda: J.build_model(context_axis="context", quant="int8")(x))
         message("height", lambda: model(x[:, :, : x.shape[2] - 4]))
+        message("height_f", lambda: model(x[:, :, : x.shape[2] - 2]))
         message("unset", lambda: J.build_model()(x))
         message("lpips", lambda: lpips(init_lpips_params(torch.Generator().manual_seed(0)),
                                        x[:, :, :8], x[:, :, :8]))
+    message("height_c", lambda: shard_rows(mesh, batch[:, 1:]))
     return out
 
 
